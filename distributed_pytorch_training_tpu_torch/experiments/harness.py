@@ -9,25 +9,14 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..runtime import DeviceLike, not_ported, resolve_device
-
-
-def is_lm_model(model_name: str) -> bool:
-    """One source of truth for the image-vs-LM dispatch."""
-    return model_name.startswith(("gpt2", "bert"))
-
-
-def lm_vocab(model_name: str) -> int:
-    return 30522 if model_name.startswith("bert") else 50257
+from ..runtime import DeviceLike, resolve_device
 
 
 def build_serving_engine(model_name: str,
                          buckets: Sequence[int] = (16, 32), rows: int = 8,
                          max_new_tokens: int = 8, serve_dtype: str = "fp32",
                          model_overrides: Optional[dict] = None,
-                         seed: int = 0, device: DeviceLike = None,
-                         ckpt_dir: Optional[str] = None,
-                         mesh_spec: Optional[str] = None):
+                         seed: int = 0, device: DeviceLike = None):
     """An `InferenceEngine` for a serving config on one device, with
     random-init weights drawn from ``seed`` (a smoke of the serving path,
     not a served model). The weights are drawn on the CPU and then copied
@@ -39,14 +28,6 @@ def build_serving_engine(model_name: str,
     from ..models import get_model
     from ..serving.engine import InferenceEngine, ServeConfig
 
-    if ckpt_dir:
-        raise not_ported("serving from a checkpoint (--ckpt-dir)",
-                         "the data-parallel training slice (checkpoints)")
-    if mesh_spec:
-        raise not_ported("multi-device serving (--mesh)",
-                         "the transformer training slice (tensor parallel)")
-    if not is_lm_model(model_name):
-        raise not_ported(f"serving {model_name!r}", "a later serving slice")
     dev = resolve_device(device)
     cfg = ServeConfig(buckets=tuple(buckets), rows=rows,
                       max_new_tokens=max_new_tokens, serve_dtype=serve_dtype)

@@ -58,25 +58,11 @@ def dot_product_attention(
     return torch.einsum("bhst,bthd->bshd", weights, v)
 
 
-def decode_dot_product_attention(
-    q: torch.Tensor,  # (B, S, H, D) — S=1 decode, S=K+1 verify window
-    k: torch.Tensor,  # (B, T, H, D) — the KV cache
-    v: torch.Tensor,  # (B, T, H, D)
-    mask: Optional[torch.Tensor] = None,  # (B, 1, S, T), True=attend
-    dtype: torch.dtype = torch.float32,
-) -> torch.Tensor:
-    """`dot_product_attention` over the KV cache, with the weights x V
-    contraction as a batched (B, H) matrix product, the formulation the
-    JAX package's decode step uses. Every op is row-independent over the
-    query axis."""
-    d = q.shape[-1]
-    logits = torch.einsum("bshd,bthd->bhst", q, k).float()
-    logits = logits / math.sqrt(d)
-    if mask is not None:
-        logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
-    weights = torch.softmax(logits, dim=-1).to(dtype)   # (B, H, S, T)
-    out = torch.matmul(weights, v.transpose(1, 2))       # (B, H, S, D)
-    return out.transpose(1, 2)
+# Attention over the KV cache in a decode step. The JAX package keeps a
+# separate formulation there so that decode rows stay bitwise equal to the
+# full forward's; the port pins logits within a tolerance instead, so both
+# steps share one function.
+decode_dot_product_attention = dot_product_attention
 
 
 class DenseGeneral(nn.Module):

@@ -19,17 +19,15 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("quantize_int8_rows",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}   # guarded-by: _lock
-build_logs: Dict[str, str] = {}        # nvcc's output (ptxas register use)
 
 
 def find_nvcc() -> str:
@@ -58,36 +56,25 @@ def nvcc_command(name: str, out: Path, nvcc: str = "nvcc") -> List[str]:
     return [nvcc, *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
-def build_all(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
-    """Compile every named kernel that is not built yet, one ``nvcc`` per
-    source, all started together; returns {name: library path}. Raises
-    with nvcc's output when a build fails."""
+def build(name: str) -> Path:
+    """Compile kernel ``name`` unless it is built already; returns the
+    library's path. Raises with nvcc's output when the build fails."""
+    out = library_path(name)
+    if out.exists():
+        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = None
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        nvcc = nvcc or find_nvcc()
-        # build to a private name, then rename: a concurrent process never
-        # loads a half-written library
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        procs[name] = (tmp, out, subprocess.Popen(
-            nvcc_command(name, tmp, nvcc), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, out, proc) in procs.items():
-        log, _ = proc.communicate()
-        build_logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name} (nvcc rc={proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
-    return {name: library_path(name) for name in names}
+    # build to a private name, then rename: a concurrent process never
+    # loads a half-written library
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(nvcc_command(name, tmp, find_nvcc()),
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"CUDA kernel build failed: {name} (nvcc "
+                           f"rc={proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -95,7 +82,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all((name,))[name]))
+            lib = ctypes.CDLL(str(build(name)))
             lib.dpt_cuda_error_string.argtypes = [ctypes.c_int]
             lib.dpt_cuda_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib

@@ -104,7 +104,7 @@ class SmokeReport:
 def smoke(args) -> SmokeReport:
     """Build the engine and serve the smoke prompts through the request
     queue and a worker thread: the production wiring in miniature."""
-    from ..experiments.harness import build_serving_engine, lm_vocab
+    from ..experiments.harness import build_serving_engine
     from ..utils.config import parse_model_overrides
     from ..utils.logging import log_main
     from .batching import RequestQueue, drain, serve_forever
@@ -125,9 +125,9 @@ def smoke(args) -> SmokeReport:
                               np.int32)]
     else:
         rng = np.random.RandomState(args.seed)
-        # the model's own vocab when overridden: an id past the table is
-        # an error here, where JAX's lookup would clamp it quietly
-        vocab = (overrides or {}).get("vocab_size", lm_vocab(args.model))
+        # the model's own vocab: an id past the table is an error here,
+        # where JAX's lookup would clamp it quietly
+        vocab = engine.model.vocab_size
         prompts = [rng.randint(0, vocab, n).astype(np.int32)
                    for n in (args.prompt_len, max(args.prompt_len // 2, 1),
                              min(args.prompt_len * 2, max(buckets)))]
