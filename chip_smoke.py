@@ -1,12 +1,14 @@
 """Drive the PyTorch port on one NVIDIA GPU: build its kernels, hold each
-against its plain PyTorch version, and serve GPT-2 124M at full width.
+against its plain PyTorch version, serve GPT-2 124M and train it at full
+width.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase's error is swallowed):
 
 1. print the card's name and power limit (nvidia-smi); TF32 off;
-2. build every CUDA kernel from csrc/ with nvcc for sm_90a;
+2. build every CUDA kernel from csrc/ with nvcc for sm_90a, one nvcc per
+   source, all started together;
 3. hold the int8 row quantizer against its plain version on the card,
    BITWISE (codes and scale bits), at the main path's shapes and at edge
    shapes, timing both beside the memory bound;
@@ -19,7 +21,22 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    BITWISE equal to the card's, and the prefill logits within ATOL;
 5. serve the same model in fp32 on the card and on the CPU and compare
    the prefill logits within ATOL;
-6. print the ``{"kernels": [...]}`` line, then the last line
+6. hold the flash-attention kernels (forward, dK/dV, dQ) against their
+   plain versions at the training path's shape (fp32 and bf16) and at
+   edge shapes, within FLASH_REL, timing each beside its bound and beside
+   torch's scaled_dot_product_attention;
+7. train through the port's own entry (``train.main``: GPT-2 124M at full
+   width, seq 1024, flash attention, AdamW, 2 epochs of 8 steps on 64
+   synthetic sequences, batch 8), with the launch counts set to 0 just
+   before and read just after: the forward must have launched 240 times
+   (12 blocks x (8 train + 2 eval batches) x 2 epochs), each backward
+   kernel 192 times; the losses must be finite and epoch 2's train loss
+   below epoch 1's;
+8. one loss-and-backward on a fixed batch from the same initial weights
+   on the card (the kernels) and on the CPU (the plain versions): the
+   loss within LOSS_ATOL, each gradient within GRAD_REL of its leaf's
+   max |g|;
+9. print the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Details go to chiprun_out/chip_smoke.json. Without a CUDA device, or run
@@ -29,7 +46,9 @@ any result.
 
 from __future__ import annotations
 
+import importlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -48,11 +67,47 @@ VOCAB = 50257
 # GELU, dequantization or scale broadcast) moves logits by > 1e-2.
 ATOL = 1e-4
 
-# NVIDIA's data sheet for the H100 SXM (80 GB HBM3): memory rate and
-# float32 rate outside the tensor cores, at the full 700 W.
+# NVIDIA's data sheet for the H100 SXM (80 GB HBM3): memory rate, float32
+# rate outside the tensor cores and bf16 dense tensor-core rate, at the
+# full 700 W.
 H100_SXM = "H100 80GB HBM3"
 BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+
+# flash kernels against their plain versions, as max|diff| / max|plain|
+# per output. float32: both sum in float32 in different orders (tiles vs
+# full rows), some 1e-6 of the output's scale at these sizes; a wrong
+# mask, scale or index moves whole rows by O(1). bfloat16: both round
+# their float32 results to bfloat16 (8 bits of mantissa), so an element
+# may differ by one bfloat16 step, 2**-8 of its magnitude.
+FLASH_REL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+# (name, B, Sq, Sk, H, D, causal, kv_valid, dtype): the training path's
+# shape first, then the edges
+FLASH_CASES = [
+    ("main fp32", 8, 1024, 1024, 12, 64, True, False, "float32"),
+    ("main bf16", 8, 1024, 1024, 12, 64, True, False, "bfloat16"),
+    ("non-causal", 8, 1024, 1024, 12, 64, False, False, "float32"),
+    ("kv_valid, all-masked rows", 4, 512, 512, 12, 64, True, True,
+     "float32"),
+    ("Sq=Sk=1000", 8, 1000, 1000, 12, 64, True, False, "float32"),
+    ("Sq=256 Sk=512", 8, 256, 512, 12, 64, True, False, "float32"),
+    ("D=128", 8, 1024, 1024, 6, 128, True, False, "float32"),
+]
+TRAIN_STEPS = 8            # 64 sequences / batch 8
+EVAL_STEPS = 2             # 64 // 5 = 12 sequences, 2 padded batches of 8
+EPOCHS = 2
+DEPTH = 12
+
+# card vs CPU, one loss-and-backward from the same weights (TF32 off): the
+# two sides differ by float32 reassociation over 12 blocks (cuBLAS vs the
+# CPU's GEMMs, tiled vs full-row softmax), a few 1e-6 of a leaf's largest
+# gradient; a wrong mask, scale or index in a backward kernel moves whole
+# rows by O(1) of it.
+LOSS_ATOL = 1e-4
+GRAD_REL = 1e-3
+CPU_BATCH, CPU_SEQ = 2, 256
 
 
 def log(msg: str) -> None:
@@ -67,11 +122,11 @@ def nvidia_smi() -> str:
     return out.strip().splitlines()[0]
 
 
-def timed_ms(torch, fn, x, flush, reps: int = 10) -> float:
-    """Mean device time of ``fn(x)`` over ``reps`` launches, each started
+def timed_ms(torch, fn, flush, reps: int = 10) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls, each started
     with a cold L2 (``flush`` is rewritten in between, outside the
     timed window), after one warm-up call."""
-    fn(x)
+    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -79,7 +134,7 @@ def timed_ms(torch, fn, x, flush, reps: int = 10) -> float:
     for _ in range(reps):
         flush.zero_()
         start.record()
-        fn(x)
+        fn()
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
@@ -147,8 +202,9 @@ def check_quantizer(torch, dev):
         row = {
             "shape": name, "main_path_launches": count, "bitwise": same,
             "max_abs_err": err,
-            "ms": timed_ms(torch, quantize_int8_rows, x, flush),
-            "plain_ms": timed_ms(torch, quantize_int8_rows_ref, x, flush),
+            "ms": timed_ms(torch, lambda: quantize_int8_rows(x), flush),
+            "plain_ms": timed_ms(torch, lambda: quantize_int8_rows_ref(x),
+                                 flush),
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
             "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
                          else "operations"),
@@ -172,6 +228,296 @@ def logits_vs_cpu(report, cpu_engine) -> float:
         ref = cpu_engine.serve_tokens([prm], max_new_tokens=1)[0]
         err = max(err, float(abs(res.last_logits - ref.last_logits).max()))
     return err
+
+
+def flash_module():
+    """The port's ops/flash_attention.py (the ops package re-exports its
+    function ``flash_attention`` under the module's name)."""
+    return importlib.import_module(f"{PACKAGE}.ops.flash_attention")
+
+
+def rel_err(torch, got, want) -> float:
+    """max|got - want| / max|want|; a non-finite result fails."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise RuntimeError("a flash kernel wrote a non-finite value")
+    return ((got - want).abs().max()
+            / want.abs().max().clamp(min=1e-30)).item()
+
+
+def flash_bounds(torch, case, kv) -> dict:
+    """{kernel: (bound ms, "bytes" or "operations")} of one launch: the
+    larger of the bytes it must move (each input read once, each output
+    written once) over the memory rate and the flops of this input's live
+    (query, key) pairs (4, 8 and 6 x D each, the JAX module's cost counts)
+    over the peak rate of the input type."""
+    _, b, sq, sk, h, d, causal, _, dtype = case
+    keep = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        keep = keep.tril()
+    if kv is None:
+        pairs = b * int(keep.sum())
+    else:
+        pairs = int((keep[None] & (kv.cpu()[:, None, :] > 0)).sum())
+    pairs *= h
+    item = 4 if dtype == "float32" else 2
+    rate = FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
+    nq, nk = b * sq * h * d * item, b * sk * h * d * item
+    rows = b * h * sq * 4                       # lse or delta, float32
+    mask = 0 if kv is None else b * sk * 4
+    work = {
+        "flash_attention_fwd_lse": (2 * nq + 2 * nk + rows + mask, 4),
+        "flash_attention_bwd_dkv": (2 * nq + 4 * nk + 2 * rows + mask, 8),
+        "flash_attention_bwd_dq": (3 * nq + 2 * nk + 2 * rows + mask, 6),
+    }
+    out = {}
+    for name, (nbytes, per_pair) in work.items():
+        t_bytes = nbytes / BYTES_PER_S * 1e3
+        t_ops = per_pair * d * pairs / rate * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def check_flash(torch, dev, flush):
+    """Each FLASH_CASES shape: the three kernels against their plain
+    versions, then kernel, plain and library times beside the bounds."""
+    import torch.nn.functional as F
+
+    fa = flash_module()
+    rows = []
+    for case in FLASH_CASES:
+        name, b, sq, sk, h, d, causal, masked, dtype_name = case
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device=dev).manual_seed(1)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+        q, k, v, do = rnd(b, sq, h, d), rnd(b, sk, h, d), rnd(b, sk, h, d), \
+            rnd(b, sq, h, d)
+        kv = None
+        keep = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+        if causal:
+            keep = keep.tril()
+        live = keep.any(-1).expand(b, sq)
+        if masked:
+            kv = (torch.rand((b, sk), generator=g, device=dev) > 0.3).float()
+            kv[0] = 0.0                         # every key of row 0 masked
+            kv[1, : sk // 2] = 0.0              # early rows of row 1 too
+            live = (keep[None] & (kv[:, None, :] > 0)).any(-1)
+        # a row with no live key emits a tile-dependent mean(V) under
+        # causal: the loss gives it no weight, so neither does dO
+        do = do * live[:, :, None, None].to(dtype)
+        args = (causal, None, kv)
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, *args)
+        out_r, lse_r = fa.flash_attention_fwd_lse_ref(q, k, v, *args)
+        delta = fa._delta(out, do)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, *args)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, *args)
+        dk_r, dv_r = fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                    *args)
+        dq_r = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, *args)
+        torch.cuda.synchronize()
+        lse_rows = lse.reshape(b, h, sq).transpose(1, 2)[live]
+        lse_rows_r = lse_r.reshape(b, h, sq).transpose(1, 2)[live]
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"flash {name}: non-finite output")
+        errs = {
+            "out": rel_err(torch, out[live], out_r[live]),
+            "lse": rel_err(torch, lse_rows, lse_rows_r),
+            "dq": rel_err(torch, dq, dq_r),
+            "dk": rel_err(torch, dk, dk_r),
+            "dv": rel_err(torch, dv, dv_r),
+        }
+        abs_err = {
+            "flash_attention_fwd_lse": max(
+                (out[live].float() - out_r[live].float()).abs().max().item(),
+                (lse_rows - lse_rows_r).abs().max().item()),
+            "flash_attention_bwd_dkv": max(
+                (dk.float() - dk_r.float()).abs().max().item(),
+                (dv.float() - dv_r.float()).abs().max().item()),
+            "flash_attention_bwd_dq":
+                (dq.float() - dq_r.float()).abs().max().item(),
+        }
+        tol = FLASH_REL[dtype_name]
+        # lse is float32 on both sides whatever the inputs' type
+        bad = {o: e for o, e in errs.items()
+               if e > (FLASH_REL["float32"] if o == "lse" else tol)}
+        ms = {
+            "flash_attention_fwd_lse": timed_ms(
+                torch, lambda: fa.flash_attention_fwd_lse(q, k, v, *args),
+                flush),
+            "flash_attention_bwd_dkv": timed_ms(
+                torch, lambda: fa.flash_attention_bwd_dkv(
+                    q, k, v, do, lse, delta, *args), flush),
+            "flash_attention_bwd_dq": timed_ms(
+                torch, lambda: fa.flash_attention_bwd_dq(
+                    q, k, v, do, lse, delta, *args), flush),
+        }
+        plain_ms = {
+            "flash_attention_fwd_lse": timed_ms(
+                torch, lambda: fa.flash_attention_fwd_lse_ref(q, k, v, *args),
+                flush),
+            "flash_attention_bwd_dkv": timed_ms(
+                torch, lambda: fa.flash_attention_bwd_dkv_ref(
+                    q, k, v, do, lse, delta, *args), flush),
+            "flash_attention_bwd_dq": timed_ms(
+                torch, lambda: fa.flash_attention_bwd_dq_ref(
+                    q, k, v, do, lse, delta, *args), flush),
+        }
+        library = {"sdpa_fwd_ms": None, "sdpa_bwd_ms": None}
+        if kv is None:
+            # the yardstick: one torch call for the same function, (B, H,
+            # S, D) views; its causal mask is top-left aligned as ours
+            lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            ldo = do.transpose(1, 2)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(lq, lk, lv,
+                                                      is_causal=causal)
+
+            lout = sdpa()
+            library["sdpa_fwd_ms"] = timed_ms(torch, sdpa, flush)
+            library["sdpa_bwd_ms"] = timed_ms(
+                torch, lambda: torch.autograd.grad(
+                    lout, (lq, lk, lv), ldo, retain_graph=True), flush)
+            del lout
+        bounds = flash_bounds(torch, case, kv)
+        row = {"shape": name, "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
+               "causal": causal, "kv_valid": masked, "dtype": dtype_name,
+               "rel_err": errs, "tolerance": tol, "max_abs_err": abs_err,
+               "ms": ms, "plain_ms": plain_ms, **library,
+               "bound_ms": {n: t for n, (t, _) in bounds.items()},
+               "bound_by": {n: by for n, (_, by) in bounds.items()}}
+        rows.append(row)
+        log(f"flash {name}: rel err "
+            + ", ".join(f"{o} {e:.2e}" for o, e in errs.items())
+            + f" (tolerance {tol}); kernel ms "
+            + ", ".join(f"{n.rsplit('_', 1)[-1]} {t:.4f}"
+                        for n, t in ms.items())
+            + "; plain ms "
+            + ", ".join(f"{n.rsplit('_', 1)[-1]} {t:.4f}"
+                        for n, t in plain_ms.items())
+            + f"; sdpa fwd {library['sdpa_fwd_ms']} bwd "
+              f"{library['sdpa_bwd_ms']} ms; bound ms "
+            + ", ".join(f"{n.rsplit('_', 1)[-1]} {t:.4f} ({by})"
+                        for n, (t, by) in bounds.items()))
+        if bad:
+            raise RuntimeError(f"flash {name}: kernels differ from their "
+                               f"plain versions: {bad} > {tol}")
+        del q, k, v, do, out, out_r, dq, dk, dv, dq_r, dk_r, dv_r
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_on_card(torch, fa):
+    """Phase 7: the port's training entry at full width, in-process.
+    Returns ({kernel: launches}, [(train_loss, val_loss) per epoch])."""
+    from distributed_pytorch_training_tpu_torch import train
+
+    out_dir = ROOT / "chiprun_out" / "train_smoke"
+    csv = out_dir / "metrics_rank0.csv"
+    csv.unlink(missing_ok=True)                 # the CSV appends
+    kernels = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_bwd_dq)
+    for fn in kernels:
+        fn.launches = 0
+    train.main(["--model", MODEL, "--attention", "flash", "--optimizer",
+                "adamw", "--lr", "6e-4", "--synthetic", "--synthetic-size",
+                "64", "--batch-size", "8", "--epochs", str(EPOCHS),
+                "--print-freq", "4", "--output-dir", str(out_dir)])
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    torch.cuda.synchronize()
+    want = {"flash_attention_fwd_lse":
+            DEPTH * (TRAIN_STEPS + EVAL_STEPS) * EPOCHS,
+            "flash_attention_bwd_dkv": DEPTH * TRAIN_STEPS * EPOCHS,
+            "flash_attention_bwd_dq": DEPTH * TRAIN_STEPS * EPOCHS}
+    if launches != want:
+        raise RuntimeError(f"training launched {launches}, expected {want}")
+    lines = csv.read_text().splitlines()[1:]
+    losses = [(float(ln.split(",")[1]), float(ln.split(",")[3]))
+              for ln in lines]
+    if len(losses) != EPOCHS or not all(
+            math.isfinite(x) for pair in losses for x in pair):
+        raise RuntimeError(f"training CSV rows {lines}: expected {EPOCHS} "
+                           "finite (train, val) losses")
+    if not losses[1][0] < losses[0][0]:
+        raise RuntimeError(f"epoch 2's train loss {losses[1][0]} is not "
+                           f"below epoch 1's {losses[0][0]}")
+    return launches, losses
+
+
+def grads_card_vs_cpu(torch, dev):
+    """Phase 8: (loss |diff|, max over leaves of max|g diff| / max|g|,
+    the leaf that gives it) for one loss-and-backward on a fixed batch."""
+    import numpy as np
+
+    from distributed_pytorch_training_tpu_torch.models import get_model
+    from distributed_pytorch_training_tpu_torch.ops import (
+        make_flash_attention_fn,
+    )
+    from distributed_pytorch_training_tpu_torch.training.tasks import (
+        LanguageModelingTask,
+    )
+
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, VOCAB, (CPU_BATCH, CPU_SEQ)).astype(np.int32))
+    task = LanguageModelingTask()
+    results = []
+    for device in (dev, torch.device("cpu")):
+        model = get_model(MODEL, attention_fn=make_flash_attention_fn(True))
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.to(device)
+        loss, _ = task.loss_and_metrics(model, {
+            "input_ids": ids.to(device),
+            "weight": torch.ones(CPU_BATCH, device=device)}, train=True)
+        loss.backward()
+        results.append((loss.item(), {
+            n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
+        del model
+    (loss_c, g_c), (loss_h, g_h) = results
+    worst, worst_leaf = 0.0, ""
+    for name, ref in g_h.items():
+        err = ((g_c[name] - ref).abs().max()
+               / ref.abs().max().clamp(min=1e-30)).item()
+        if not math.isfinite(err) or err > worst:
+            worst, worst_leaf = err, name
+    return abs(loss_c - loss_h), worst, worst_leaf, loss_c, loss_h
+
+
+def flash_kernel_rows(flash_rows, launches) -> list:
+    """The kernels line's rows of K3, K4 and K5: times and bounds of the
+    training path's shape (main fp32) summed over its launches; errors
+    over every shape checked."""
+    main = flash_rows[0]
+    replaces = {
+        "flash_attention_fwd_lse": 199,   # _flash_fwd_lse (_fwd_kernel)
+        "flash_attention_bwd_dkv": 360,   # _flash_bwd (_bwd_dkv_kernel)
+        "flash_attention_bwd_dq": 360,    # _flash_bwd (_bwd_dq_kernel)
+    }
+    rows = []
+    for name, line in replaces.items():
+        n = launches[name]
+        lib = main["sdpa_fwd_ms"] if name.endswith("fwd_lse") \
+            else main["sdpa_bwd_ms"]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"{PACKAGE}/csrc/flash_attention.cu",
+            "replaces": "distributed_pytorch_training_tpu/ops/"
+                        f"flash_attention.py:{line}",
+            "launches": n,
+            "max_abs_err": max(r["max_abs_err"][name] for r in flash_rows),
+            "ms": main["ms"][name] * n,
+            "plain_ms": main["plain_ms"][name] * n,
+            "bound_ms": main["bound_ms"][name] * n,
+            "bound_by": main["bound_by"][name],
+            # scaled_dot_product_attention's forward for K3; its backward
+            # (dq, dk and dv together) for K4 and K5 alike
+            "library_ms": lib * n,
+        })
+    return rows
 
 
 def main() -> int:
@@ -216,10 +562,12 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {kind} x "
         f"{count}")
 
-    # phase 2: build every kernel
+    # phase 2: build every kernel, one nvcc per source, all at once
+    fa = flash_module()
     t0 = time.perf_counter()
-    lib = build.build("quantize_int8_rows")
-    log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    libs = build.build_all(["quantize_int8_rows", fa.LIBRARY])
+    log(f"built {', '.join(p.name for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # phase 3: the quantizer against its plain version
     t0 = time.perf_counter()
@@ -279,7 +627,36 @@ def main() -> int:
     if not fp32_err <= ATOL:
         raise RuntimeError(f"fp32 logits differ from the CPU by {fp32_err}")
 
-    # phase 6: the kernels line (times summed over the main path's launches)
+    # phase 6: the flash kernels against their plain versions
+    t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flash_rows = check_flash(torch, dev, flush)
+    del flush
+    log(f"phase 6 done in {time.perf_counter() - t0:.1f} s")
+
+    # phase 7: the training path through the port's own entry
+    t0 = time.perf_counter()
+    flash_launches, losses = train_on_card(torch, fa)
+    log(f"phase 7 done in {time.perf_counter() - t0:.1f} s: launches "
+        f"{flash_launches}; (train, val) loss per epoch {losses}")
+
+    # phase 8: one loss-and-backward, card (kernels) against CPU (plain)
+    t0 = time.perf_counter()
+    before = fa.flash_attention_bwd_dq.launches
+    loss_err, grad_err, grad_leaf, loss_card, loss_cpu = grads_card_vs_cpu(
+        torch, dev)
+    if fa.flash_attention_bwd_dq.launches != before + DEPTH:
+        raise RuntimeError("the card's backward did not run the kernels")
+    log(f"phase 8 done in {time.perf_counter() - t0:.1f} s: {CPU_BATCH}x"
+        f"{CPU_SEQ} loss card {loss_card!r} cpu {loss_cpu!r} (|diff| "
+        f"{loss_err!r}, tolerance {LOSS_ATOL}); worst gradient "
+        f"max|diff|/max|g| {grad_err!r} in {grad_leaf} (tolerance "
+        f"{GRAD_REL})")
+    if not (loss_err <= LOSS_ATOL and grad_err <= GRAD_REL):
+        raise RuntimeError(f"card vs CPU: loss |diff| {loss_err}, gradient "
+                           f"{grad_err} in {grad_leaf}")
+
+    # phase 9: the kernels line (times summed over the main path's launches)
     main_rows = [r for r in rows if r["main_path_launches"]]
     kernel = {
         "name": "quantize_int8_rows", "route": "cuda",
@@ -305,10 +682,16 @@ def main() -> int:
         "fp32_card_vs_cpu_max_abs": fp32_err,
         "int8_card_vs_cpu_max_abs": int8_err,
         "tokens_int8": [r.tokens.tolist() for r in report.results],
+        "flash_per_shape": flash_rows, "flash_launches": flash_launches,
+        "train_val_loss_per_epoch": losses,
+        "card_vs_cpu": {"loss_card": loss_card, "loss_cpu": loss_cpu,
+                        "loss_abs_diff": loss_err, "grad_rel": grad_err,
+                        "grad_rel_leaf": grad_leaf},
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    kernels = [kernel, *flash_kernel_rows(flash_rows, flash_launches)]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

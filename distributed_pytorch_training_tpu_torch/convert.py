@@ -1,10 +1,12 @@
-"""Convert the JAX package's parameters into the port's.
+"""Convert parameters between the JAX package and the port.
 
 The input is the flax parameter tree as nested dicts of numpy arrays
 (``jax.device_get(variables["params"])``; no flax import is needed here).
 The port keeps flax's layouts and leaf names, so the conversion is a
 rename: the path ``block3/attn/qkv/kernel`` becomes the PyTorch parameter
 name ``blocks.3.attn.qkv.kernel``, and the array is copied unchanged.
+``torch_to_flax`` goes back, so that a trained port model can be compared
+with a flax parameter tree leaf by leaf.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from torch import nn
 
 _FLAX_BLOCK = re.compile(r"^block(\d+)$")
+_TORCH_BLOCK = re.compile(r"^blocks\.(\d+)\.")
 
 
 def flax_path_to_name(path: Tuple[str, ...]) -> str:
@@ -62,3 +65,21 @@ def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
                 raise ValueError(f"{name}: flax shape {tuple(tensor.shape)} "
                                  f"!= port shape {tuple(own[name].shape)}")
             own[name].copy_(tensor)
+
+
+def name_to_flax_path(name: str) -> Tuple[str, ...]:
+    """'blocks.3.attn.qkv.kernel' -> ('block3', 'attn', 'qkv', 'kernel')."""
+    return tuple(_TORCH_BLOCK.sub(r"block\1.", name).split("."))
+
+
+def torch_to_flax(model: nn.Module) -> Dict[str, Any]:
+    """The flax parameter tree (nested dicts of float32 numpy arrays) of
+    ``model``'s parameters: the inverse of `load_flax_params`."""
+    tree: Dict[str, Any] = {}
+    for name, p in model.named_parameters():
+        *parents, leaf = name_to_flax_path(name)
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = p.detach().float().cpu().numpy()
+    return tree

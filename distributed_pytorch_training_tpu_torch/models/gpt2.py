@@ -5,8 +5,9 @@ blocks (GELU MLP of 4x width), final LN, LM head tied to the token
 embedding. Parameters keep the flax layout and flax's names, with the
 blocks in ``blocks.<i>`` where flax has ``block<i>`` (``convert.py``).
 
-Not ported yet, and refused: tensor parallelism, remat, dropout, kernel
-attention, bf16 and the paged KV pool.
+A kernel ``attention_fn`` (flash) owns the causal structure: the blocks
+then get only the padding mask. Not ported yet, and refused: tensor
+parallelism, remat, dropout, bf16 and the paged KV pool.
 """
 
 from __future__ import annotations
@@ -41,14 +42,14 @@ class GPT2LMHead(nn.Module):
                  device=None):
         super().__init__()
         if dtype != torch.float32:
-            raise not_ported(f"{dtype} compute", "the transformer "
-                             "training slice (bf16 autocast)")
+            raise not_ported(f"{dtype} compute", "the bf16 (--amp) slice")
         if remat:
-            raise not_ported("remat", "the transformer training slice")
+            raise not_ported("remat", "the remat slice")
         self.vocab_size, self.hidden_dim = vocab_size, hidden_dim
         self.depth, self.num_heads = depth, num_heads
         self.max_position, self.dtype = max_position, dtype
         self.pad_vocab_to_multiple_of = pad_vocab_to_multiple_of
+        self.uses_kernel = attention_fn is not dot_product_attention
         head_dim = hidden_dim // num_heads
         self.wte = Embed(self.padded_vocab, hidden_dim, 0.02, device)
         self.wpe = Embed(max_position, hidden_dim, 0.01, device)
@@ -108,6 +109,10 @@ class GPT2LMHead(nn.Module):
             win = cache_positions[:, None] + torch.arange(s, device=dev)[None]
             mask = (torch.arange(t, device=dev)[None, None, :]
                     <= win[:, :, None])[:, None, :, :]
+        elif self.uses_kernel:
+            # the kernel owns causality: only the padding mask, or none
+            mask = (attention_mask[:, None, None, :].bool()
+                    if attention_mask is not None else None)
         else:
             mask = causal_mask(s, dev)
             if attention_mask is not None:

@@ -15,8 +15,10 @@ row over the trailing axis of these shapes (``serving/engine.py``), and a
 
 The semantics carried over exactly: GELU is the tanh approximation (flax's
 ``nn.gelu``); masked attention logits are the float32 minimum and the
-softmax runs in float32. Tensor parallelism, kernel attention functions and
-the paged KV substrate are not ported yet and raise ``NotImplementedError``.
+softmax runs in float32. A kernel ``attention_fn`` (flash,
+``ops/flash_attention.py``) serves the no-cache forward; the cache paths
+refuse it, as in the JAX package. Tensor parallelism, dropout and the paged
+KV substrate are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -172,13 +174,11 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         if tp_size > 1:
             raise not_ported("explicit tensor parallelism",
-                             "the transformer training slice")
-        if attention_fn is not dot_product_attention:
-            raise not_ported("kernel attention (flash, ring)",
-                             "the transformer training slice")
+                             "the tensor-parallel slice")
         if dropout_rate:
-            raise not_ported("attention dropout",
-                             "the transformer training slice")
+            raise not_ported("attention dropout (jax.random's dropout bits "
+                             "cannot be reproduced)", "a later slice")
+        self.attention_fn = attention_fn
         self.dtype = dtype
         self.qkv = DenseGeneral(features, (3, num_heads, head_dim), use_bias,
                                 device)
@@ -191,6 +191,11 @@ class MultiHeadAttention(nn.Module):
         new_cache = None
         y = None
         if cache is not None:
+            if self.attention_fn is not dot_product_attention:
+                raise ValueError(
+                    "KV-cache decoding needs the einsum attention path: the "
+                    "kernel attention_fns own their causal structure and "
+                    "take no cache (serve with --attention xla)")
             ck, cv = cache
             if cache_positions is None:
                 s = k.shape[1]
@@ -207,7 +212,7 @@ class MultiHeadAttention(nn.Module):
                 y = decode_dot_product_attention(q, ck, cv, mask=mask,
                                                  dtype=self.dtype)
         if y is None:
-            y = dot_product_attention(q, k, v, mask=mask, dtype=self.dtype)
+            y = self.attention_fn(q, k, v, mask=mask, dtype=self.dtype)
         out = self.out(y)
         return out if cache is None else (out, new_cache)
 
@@ -221,9 +226,9 @@ class MlpBlock(nn.Module):
         super().__init__()
         if tp_size > 1:
             raise not_ported("explicit tensor parallelism",
-                             "the transformer training slice")
+                             "the tensor-parallel slice")
         if dropout_rate:
-            raise not_ported("MLP dropout", "the transformer training slice")
+            raise not_ported("MLP dropout", "a later slice")
         self.fc1 = Dense(features, hidden_dim, device=device)
         self.fc2 = Dense(hidden_dim, features, device=device)
 

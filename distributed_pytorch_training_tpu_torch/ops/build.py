@@ -7,7 +7,8 @@ and a stale library is never loaded. Nothing builds at import time: the
 CPU tests import every module on a machine with no ``nvcc``.
 
 No fast math and no flush-to-zero: the int8 quantizer must reproduce IEEE
-division and denormals to stay bitwise equal to its reference.
+division and denormals to stay bitwise equal to its reference, and the
+flash-attention kernels use the accurate ``expf``/``logf``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -56,25 +57,40 @@ def nvcc_command(name: str, out: Path, nvcc: str = "nvcc") -> List[str]:
     return [nvcc, *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
-def build(name: str) -> Path:
-    """Compile kernel ``name`` unless it is built already; returns the
-    library's path. Raises with nvcc's output when the build fails."""
-    out = library_path(name)
-    if out.exists():
-        return out
+def build_all(names: Sequence[str]) -> Dict[str, Path]:
+    """Compile every kernel of ``names`` that is not built yet, one
+    ``nvcc`` each, all started together; returns {name: library path}.
+    Raises with nvcc's output when a build fails."""
+    outs = {name: library_path(name) for name in names}
+    todo = [name for name, out in outs.items() if not out.exists()]
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
     # build to a private name, then rename: a concurrent process never
     # loads a half-written library
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(nvcc_command(name, tmp, find_nvcc()),
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"CUDA kernel build failed: {name} (nvcc "
-                           f"rc={proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
-    return out
+    tmps = {name: outs[name].with_name(f"{outs[name].name}.{os.getpid()}.tmp")
+            for name in todo}
+    procs = {name: subprocess.Popen(
+        nvcc_command(name, tmps[name], nvcc), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for name in todo}
+    failed = []
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmps[name].unlink(missing_ok=True)
+            failed.append(f"{name} (nvcc rc={proc.returncode}):\n{log}")
+        else:
+            os.replace(tmps[name], outs[name])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return outs
+
+
+def build(name: str) -> Path:
+    """Compile kernel ``name`` unless it is built already; returns the
+    library's path."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,4 +1,5 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and the process runtime
+(``runtime/dist.py``)."""
 
 from __future__ import annotations
 
@@ -33,3 +34,13 @@ def not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet; it comes with {where} "
         "(ROADMAP.md, queue 1)")
+
+
+from .dist import (  # noqa: E402  (dist imports not_ported from here)
+    DistContext,
+    barrier,
+    cleanup_distributed,
+    per_process_seed,
+    set_seed,
+    setup_distributed,
+)

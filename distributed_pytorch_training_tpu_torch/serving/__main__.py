@@ -34,8 +34,8 @@ _LATER = {
     "serve": "the continuous-serving slice",
     "fleet": "the continuous-serving slice",
     "--ckpt-dir": "the data-parallel training slice (checkpoints)",
-    "--mesh": "the transformer training slice (tensor parallel)",
-    "bf16": "the transformer training slice (bf16 autocast)",
+    "--mesh": "the tensor-parallel slice",
+    "bf16": "the bf16 (--amp) slice",
 }
 
 

@@ -26,6 +26,9 @@ from distributed_pytorch_training_tpu_torch.convert import (
     load_flax_params,
 )
 from distributed_pytorch_training_tpu_torch.models import GPT2LMHead, get_model
+from distributed_pytorch_training_tpu_torch.ops.flash_attention import (
+    make_flash_attention_fn,
+)
 
 ATOL = RTOL = 1e-5
 TINY = dict(vocab_size=97, hidden_dim=32, depth=2, num_heads=2,
@@ -158,9 +161,17 @@ def test_registry_builds_published_widths():
 @pytest.mark.parametrize("kw", [dict(tp_size=2), dict(remat=True),
                                 dict(dropout_rate=0.1),
                                 dict(dtype=torch.bfloat16),
-                                dict(attention_fn=lambda *a, **k: None)],
+                                dict(attention_fn=make_flash_attention_fn(
+                                    causal=True))],
                          ids=["tp", "remat", "dropout", "bf16",
                               "kernel-attention"])
 def test_unported_features_refuse(kw):
+    if "attention_fn" in kw:
+        # kernel attention serves the no-cache forward; the KV-cache paths
+        # refuse it, as the JAX module does
+        m = GPT2LMHead(**TINY, **kw)
+        with pytest.raises(ValueError, match="KV-cache decoding"):
+            m(torch.zeros((1, 4), dtype=torch.long), cache=m.init_cache(1, 8))
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         GPT2LMHead(**TINY, **kw)

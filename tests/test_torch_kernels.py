@@ -108,3 +108,131 @@ def test_int8_engine_quantizes_through_the_kernel(cuda_device):
         assert torch.equal(leaf.q.cpu().reshape(q_ref.shape), q_ref)
         assert torch.equal(leaf.scale.cpu().reshape(-1).view(torch.int32),
                            s_ref.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# flash attention: K3 (forward), K4 (dK, dV), K5 (dQ)
+# ---------------------------------------------------------------------------
+
+# Kernel against plain version, as max|diff| / max|plain| per output.
+# float32: both sum in float32 in different orders (tiles vs full rows);
+# 1e-4 of the output's scale is ~100x what the order accounts for at these
+# sizes, and a wrong mask or index moves whole rows by O(1). bfloat16:
+# both round their float32 results to bfloat16 (8 bits of mantissa), so an
+# element may differ by one bfloat16 step, 2**-8 of its magnitude.
+FLASH_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+# (B, Sq, Sk, H, D, causal, masked): the main path's heads at short length,
+# ragged tails, Sq != Sk both ways, D of 128, 48 and 8
+FLASH_CASES = [
+    (2, 128, 128, 3, 64, True, False),
+    (2, 128, 128, 3, 64, False, False),
+    (2, 100, 100, 2, 64, True, False),
+    (2, 70, 130, 2, 32, False, True),
+    (2, 96, 96, 2, 64, True, True),
+    (1, 64, 200, 2, 128, True, False),
+    (1, 200, 64, 2, 48, True, False),
+    (3, 33, 17, 1, 8, False, True),
+]
+
+
+def flash_inputs(b, sq, sk, h, d, masked, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    q, k, v, do = rnd(b, sq, h, d), rnd(b, sk, h, d), rnd(b, sk, h, d), \
+        rnd(b, sq, h, d)
+    kv = None
+    if masked:
+        kv = (torch.rand((b, sk), generator=g, device=device) > 0.3).float()
+        kv[0] = 0.0        # batch row 0: every key masked
+    return q, k, v, do, kv
+
+
+def live_rows(sq, sk, causal, kv, b, device):
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        keep = keep.tril()
+    if kv is None:
+        return keep.any(-1).expand(b, sq)
+    return (keep[None] & (kv[:, None, :] > 0)).any(-1)
+
+
+def rel_err(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)
+            ).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernels_match_plain_versions(cuda_device, case, dtype):
+    import importlib
+
+    fa = importlib.import_module(
+        "distributed_pytorch_training_tpu_torch.ops.flash_attention")
+    b, sq, sk, h, d, causal, masked = case
+    q, k, v, do, kv = flash_inputs(b, sq, sk, h, d, masked, dtype,
+                                   cuda_device)
+    live = live_rows(sq, sk, causal, kv, b, cuda_device)     # (B, Sq)
+    do = do * live[:, :, None, None].to(dtype)   # dead rows: zero weight
+    before = (fa.flash_attention_fwd_lse.launches,
+              fa.flash_attention_bwd_dkv.launches,
+              fa.flash_attention_bwd_dq.launches)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal, None, kv)
+    out_r, lse_r = fa.flash_attention_fwd_lse_ref(q, k, v, causal, None, kv)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, causal,
+                                        None, kv)
+    dq_r, dk_r, dv_r = fa.flash_attention_bwd_ref(q, k, v, out_r, lse_r, do,
+                                                  causal, None, kv)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd_lse.launches,
+            fa.flash_attention_bwd_dkv.launches,
+            fa.flash_attention_bwd_dq.launches) == tuple(
+                n + 1 for n in before)
+    assert out.dtype == dtype and dq.dtype == dtype
+    tol = FLASH_REL[dtype]
+    assert rel_err(out[live], out_r[live]) <= tol
+    lse_rows = lse.reshape(b, h, sq).transpose(1, 2)[live]
+    lse_rows_r = lse_r.reshape(b, h, sq).transpose(1, 2)[live]
+    assert rel_err(lse_rows, lse_rows_r) <= FLASH_REL[torch.float32]
+    for got, want in ((dq[live], dq_r[live]), (dk, dk_r), (dv, dv_r)):
+        assert rel_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+def test_flash_all_masked_rows_emit_mean_v(cuda_device):
+    """NEG_INF masking on the card: without causal an all-masked row is
+    mean(V) over the real keys only (the ragged tail is not averaged in)."""
+    from distributed_pytorch_training_tpu_torch.ops import (
+        flash_attention_fwd_lse,
+    )
+
+    q, k, v, _, kv = flash_inputs(2, 40, 100, 2, 64, True, torch.float32,
+                                  cuda_device)
+    out, lse = flash_attention_fwd_lse(q, k, v, False, None, kv)
+    torch.cuda.synchronize()
+    want = v[0].mean(0).expand(40, 2, 64)
+    assert (out[0] - want).abs().max().item() <= 1e-5
+    assert (lse[:2] == torch.finfo(torch.float32).min).all()
+
+
+@pytest.mark.cuda
+def test_flash_reads_strided_qkv_views(cuda_device):
+    """q, k, v as views of one fused (B, S, 3, H, D) tensor, as the model
+    passes them: no copy, same result as contiguous inputs."""
+    from distributed_pytorch_training_tpu_torch.ops import flash_attention
+
+    qkv = torch.randn((2, 96, 3, 4, 64), device=cuda_device)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v, True)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -1,0 +1,451 @@
+"""The port's training path against the JAX package's.
+
+The same numpy-seeded inputs go to both packages: the CLI defaults, the
+sampler's index and weight plans, the synthetic tokens, the metrics CSV,
+the optimizers' learning-rate schedules, and a 3-step trajectory of the
+port's Trainer against the JAX Trainer from the same (converted) flax
+weights. Then the port's entry point runs end to end on the CPU at a tiny
+size.
+
+Tolerances:
+* plans, tokens and CSV bytes are compared bitwise;
+* LOSS_RTOL = 1e-5 on the per-step losses: both sides compute in float32
+  and differ only by reassociation (measured below 1e-6);
+* the final parameters within PARAM_ATOL = 1e-5 + PARAM_RTOL = 1e-4
+  (measured below 3e-7), with one exception under AdamW: the attention
+  KEY bias. Its exact gradient is zero (adding one vector to every key
+  shifts each softmax row by a constant), so both sides see only float32
+  rounding noise there, and AdamW, which divides each gradient by its own
+  running RMS, turns that noise into steps of up to lr either way. Those
+  entries are held to 2 * lr * steps, the most such steps can move them.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from distributed_pytorch_training_tpu.data.sampler import (
+    ShardedSampler as JaxSampler,
+)
+from distributed_pytorch_training_tpu.data.text import (
+    get_token_dataset as jax_get_token_dataset,
+    synthetic_token_dataset as jax_synthetic_tokens,
+)
+from distributed_pytorch_training_tpu import native as jax_native
+from distributed_pytorch_training_tpu.models import get_model as jax_get_model
+from distributed_pytorch_training_tpu.ops.flash_attention import (
+    make_flash_attention_fn as jax_flash_fn,
+)
+from distributed_pytorch_training_tpu.parallel import shard_batch
+from distributed_pytorch_training_tpu.training import (
+    TrainConfig as JaxTrainConfig,
+    Trainer as JaxTrainer,
+    make_optimizer as jax_make_optimizer,
+    make_schedule as jax_make_schedule,
+)
+from distributed_pytorch_training_tpu.training.loop import (
+    split_microbatches as jax_split_microbatches,
+)
+from distributed_pytorch_training_tpu.training.tasks import (
+    LanguageModelingTask as JaxLMTask,
+)
+from distributed_pytorch_training_tpu.utils.config import (
+    parse_args as jax_parse_args,
+)
+from distributed_pytorch_training_tpu.utils.metrics import (
+    MetricsCSV as JaxMetricsCSV,
+)
+from distributed_pytorch_training_tpu_torch import native, train
+from distributed_pytorch_training_tpu_torch.convert import (
+    iter_flax_leaves,
+    load_flax_params,
+    torch_to_flax,
+)
+from distributed_pytorch_training_tpu_torch.data.sampler import ShardedSampler
+from distributed_pytorch_training_tpu_torch.data.text import (
+    TokenLoader,
+    get_token_dataset,
+    synthetic_token_dataset,
+)
+from distributed_pytorch_training_tpu_torch.models import get_model
+from distributed_pytorch_training_tpu_torch.ops.flash_attention import (
+    make_flash_attention_fn,
+)
+from distributed_pytorch_training_tpu_torch.runtime import (
+    per_process_seed,
+    setup_distributed,
+)
+from distributed_pytorch_training_tpu_torch.training import (
+    TrainConfig,
+    Trainer,
+    make_optimizer,
+    make_schedule,
+)
+from distributed_pytorch_training_tpu_torch.training.loop import (
+    split_microbatches,
+)
+from distributed_pytorch_training_tpu_torch.training.tasks import (
+    LanguageModelingTask,
+)
+from distributed_pytorch_training_tpu_torch.utils import MetricsCSV, parse_args
+
+LOSS_RTOL = 1e-5
+PARAM_ATOL = 1e-5
+PARAM_RTOL = 1e-4
+
+SEQ = 16
+TINY = dict(vocab_size=97, hidden_dim=32, depth=2, num_heads=2,
+            max_position=SEQ)
+
+
+# ---------------------------------------------------------------------------
+# config, runtime, data
+# ---------------------------------------------------------------------------
+
+
+def test_parse_args_defaults_equal_the_jax_package():
+    ours = vars(parse_args([]))
+    assert ours.pop("device") is None
+    assert ours == vars(jax_parse_args([]))
+
+
+def test_parse_args_same_values_for_a_command_line():
+    argv = ["--model", "gpt2_124m", "--attention", "flash", "--seq-len",
+            "64", "--grad-accum", "2", "--optimizer", "adamw", "--lr",
+            "3e-4", "--schedule", "cosine", "--warmup-steps", "5",
+            "--synthetic", "--no-telemetry", "--drop-last"]
+    ours = vars(parse_args(argv))
+    ours.pop("device")
+    assert ours == vars(jax_parse_args(argv))
+
+
+@pytest.mark.parametrize("seed,n", [(0, 1), (42, 2), (7, 33), (2 ** 40 + 3,
+                                                               1000)])
+def test_permutation_bitwise(seed, n):
+    got = native.permutation(seed, n)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, jax_native.permutation(seed, n))
+    np.testing.assert_array_equal(got, jax_native._permutation_py(seed, n))
+
+
+def test_gather_rows_checks_bounds():
+    src = np.arange(12, dtype=np.int32).reshape(4, 3)
+    np.testing.assert_array_equal(native.gather_rows(src, [3, 0, 3]),
+                                  src[[3, 0, 3]])
+    with pytest.raises(IndexError):
+        native.gather_rows(src, [-1])
+
+
+@pytest.mark.parametrize("n,batch,shuffle,drop_last", [
+    (37, 8, True, False), (37, 8, False, False), (37, 8, True, True),
+    (32, 8, True, False), (5, 8, True, False)],
+    ids=["shuffle", "no-shuffle", "drop-last", "exact", "one-short-batch"])
+def test_sampler_plans_bitwise(n, batch, shuffle, drop_last):
+    for epoch in range(3):
+        ours = ShardedSampler(n=n, global_batch=batch, shuffle=shuffle,
+                              seed=42, drop_last=drop_last)
+        ref = JaxSampler(n=n, global_batch=batch, shuffle=shuffle, seed=42,
+                         drop_last=drop_last)
+        assert ours.steps_per_epoch() == ref.steps_per_epoch()
+        (idx, w), (idx_r, w_r) = (ours.epoch_indices(epoch),
+                                  ref.epoch_indices(epoch))
+        assert idx.dtype == idx_r.dtype and w.dtype == w_r.dtype
+        np.testing.assert_array_equal(idx, idx_r)
+        np.testing.assert_array_equal(w, w_r)
+        steps = list(ours.iter_epoch(epoch, start_step=1))
+        assert len(steps) == ours.steps_per_epoch() - 1
+
+
+def test_synthetic_tokens_bitwise():
+    ours = synthetic_token_dataset(16, 24, 50257, seed=3)
+    ref = jax_synthetic_tokens(16, 24, 50257, seed=3)
+    assert ours.tokens.dtype == ref.tokens.dtype == np.int32
+    np.testing.assert_array_equal(ours.tokens, ref.tokens)
+    for is_train in (True, False):
+        a = get_token_dataset("gpt2", 32, "/nonexistent", train=is_train,
+                              synthetic_size=8, seed=42)
+        b = jax_get_token_dataset("gpt2", 32, "/nonexistent",
+                                  train=is_train, synthetic_size=8, seed=42)
+        assert (a.name, a.vocab_size, a.synthetic) == (b.name, b.vocab_size,
+                                                       b.synthetic)
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def test_token_file_loads_like_the_jax_package(tmp_path):
+    flat = np.random.RandomState(0).randint(0, 50257, 1000).astype(np.int64)
+    np.save(tmp_path / "gpt2_train.npy", flat)
+    a = get_token_dataset("gpt2", 64, str(tmp_path), train=True)
+    b = jax_get_token_dataset("gpt2", 64, str(tmp_path), train=True)
+    assert not a.synthetic and a.tokens.shape == (15, 64)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def test_token_loader_batches_follow_the_sampler():
+    ds = synthetic_token_dataset(10, 8, 97, seed=1)
+    loader = TokenLoader(ds, 4, shuffle=True, seed=5, device="cpu")
+    plan = ShardedSampler(n=10, global_batch=4, shuffle=True, seed=5)
+    batches = list(loader.epoch(2))
+    assert len(batches) == len(loader) == 3
+    for batch, (idx, w) in zip(batches, plan.iter_epoch(2)):
+        assert batch["input_ids"].dtype == torch.int32
+        np.testing.assert_array_equal(batch["input_ids"].numpy(),
+                                      ds.tokens[idx])
+        np.testing.assert_array_equal(batch["weight"].numpy(), w)
+    assert batches[-1]["weight"].tolist() == [1.0, 1.0, 0.0, 0.0]
+
+
+def test_metrics_csv_bytes_identical(tmp_path):
+    rows = [(0, 10.123456, 1.23456, 9.87654, 2.5, 12.3456789),
+            (1, 8.5, 3.0, 8.25, 4.125, 11.0)]
+    ours, ref = MetricsCSV(tmp_path / "a"), JaxMetricsCSV(tmp_path / "b")
+    for r in rows:
+        ours.append(*r)
+        ref.append(*r)
+    assert ours.path.read_bytes() == ref.path.read_bytes()
+    assert ours.path.read_text().startswith(MetricsCSV.HEADER)
+
+
+def test_single_process_runtime(monkeypatch):
+    assert per_process_seed(42, 3) == 45
+    assert setup_distributed().process_count == 1
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="data-parallel"):
+        setup_distributed()
+
+
+# ---------------------------------------------------------------------------
+# optimizer schedules and microbatches
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,warmup", [("constant", 0),
+                                         ("linear_warmup", 3),
+                                         ("cosine", 2)])
+def test_schedules_match_optax(name, warmup):
+    ours = make_schedule(name, 0.1, total_steps=10, warmup_steps=warmup)
+    ref = jax_make_schedule(name, 0.1, total_steps=10, warmup_steps=warmup)
+    for count in range(12):
+        np.testing.assert_allclose(ours(count), float(ref(count)),
+                                   rtol=1e-6, atol=1e-9)
+
+
+def test_lr_follows_optax_update_count():
+    """optax reads the schedule at the count BEFORE it increments, so
+    linear_warmup's first update has lr 0: the port's first step must not
+    move a parameter."""
+    p = torch.nn.Parameter(torch.ones(3))
+    tx = make_optimizer("sgd", make_schedule("linear_warmup", 0.5,
+                                             warmup_steps=2),
+                        momentum=0.0, weight_decay=0.0)
+    opt = tx.init([p])
+    lrs = []
+    for count in range(3):
+        p.grad = torch.ones(3)
+        tx.apply(opt, count)
+        lrs.append(opt.param_groups[0]["lr"])
+        if count == 0:
+            assert torch.equal(p.detach(), torch.ones(3))
+    assert lrs == [0.0, 0.25, 0.5]
+
+
+def test_split_microbatches_interleaves_like_jax():
+    ids = np.arange(24, dtype=np.int32).reshape(6, 4)
+    w = np.arange(6, dtype=np.float32)
+    ours = split_microbatches({"input_ids": torch.from_numpy(ids),
+                               "weight": torch.from_numpy(w)}, 3)
+    ref = jax_split_microbatches({"input_ids": jnp.asarray(ids),
+                                  "weight": jnp.asarray(w)}, 3)
+    for name in ("input_ids", "weight"):
+        np.testing.assert_array_equal(ours[name].numpy(),
+                                      np.asarray(ref[name]))
+    np.testing.assert_array_equal(ours["weight"][1].numpy(), w[1::3])
+    with pytest.raises(ValueError, match="not divisible"):
+        split_microbatches({"weight": torch.zeros(5)}, 2)
+
+
+# ---------------------------------------------------------------------------
+# the trajectory: port Trainer against the JAX Trainer
+# ---------------------------------------------------------------------------
+
+
+def _batches(n_steps, batch=16, seed=0):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n_steps):
+        w = np.ones(batch, np.float32)
+        w[-3:] = 0.0            # padding rows: weighted out of the loss
+        out.append({"input_ids": rng.randint(0, TINY["vocab_size"],
+                                              (batch, SEQ)).astype(np.int32),
+                    "weight": w})
+    return out
+
+
+# (attention, optimizer, schedule, grad_accum): every attention, optimizer
+# and accumulation depth appears, and linear_warmup pins the lr-0 first step
+TRAJECTORIES = [
+    pytest.param("xla", "sgd", "constant", 1, id="xla-sgd"),
+    pytest.param("xla", "adamw", "linear_warmup", 2,
+                 id="xla-adamw-warmup-accum2"),
+    pytest.param("flash", "sgd", "constant", 2, id="flash-sgd-accum2"),
+    pytest.param("flash", "adamw", "constant", 1, id="flash-adamw"),
+]
+
+
+@pytest.mark.parametrize("attention,opt,schedule,accum", TRAJECTORIES)
+def test_trainer_trajectory_matches_jax(mesh8, attention, opt, schedule,
+                                        accum):
+    steps, lr = 3, (0.05 if opt == "sgd" else 3e-3)
+    batches = _batches(steps)
+
+    # the JAX Trainer on its 8-device test mesh, global batch 16
+    jax_kw = dict(TINY)
+    if attention == "flash":
+        jax_kw["attention_fn"] = jax_flash_fn(causal=True)
+    jm = jax_get_model("gpt2_124m", **jax_kw)
+    jt = JaxTrainer(JaxLMTask(), mesh8,
+                    JaxTrainConfig(seed=0, print_freq=1000,
+                                   grad_accum=accum))
+    jtx = jax_make_optimizer(opt, jax_make_schedule(schedule, lr,
+                                                    warmup_steps=2))
+    jstate = jt.init_state(jm, np.zeros((1, SEQ), np.int32), jtx,
+                           jax.random.PRNGKey(0))
+    params0 = jax.device_get(jstate.params)
+
+    # the port in one process, from the same weights
+    kw = dict(TINY)
+    if attention == "flash":
+        kw["attention_fn"] = make_flash_attention_fn(causal=True)
+    model = get_model("gpt2_124m", **kw)
+    load_flax_params(model, params0)
+    trainer = Trainer(LanguageModelingTask(),
+                      TrainConfig(seed=0, print_freq=1000, grad_accum=accum),
+                      device="cpu")
+    state = trainer.init_state(model, make_optimizer(
+        opt, make_schedule(schedule, lr, warmup_steps=2)))
+
+    key = jax.random.PRNGKey(0)
+    for batch in batches:
+        jstate, jm_metrics = jt._train_step(jstate, shard_batch(batch, mesh8),
+                                            key)
+        metrics = trainer.train_step(state, {
+            name: torch.from_numpy(x) for name, x in batch.items()})
+        assert float(metrics["weight"]) == float(jm_metrics["weight"]) \
+            == 13 * (SEQ - 1)
+        np.testing.assert_allclose(
+            float(metrics["loss_sum"]) / float(metrics["weight"]),
+            float(jm_metrics["loss_sum"]) / float(jm_metrics["weight"]),
+            rtol=LOSS_RTOL)
+    assert state.step == int(jstate.step) == steps
+
+    ours = dict(iter_flax_leaves(torch_to_flax(state.model)))
+    ref = dict(iter_flax_leaves(jax.device_get(jstate.params)))
+    assert ours.keys() == ref.keys()
+    moved = 0.0
+    for path, want in ref.items():
+        got, want = ours[path], np.asarray(want)
+        moved = max(moved, float(np.abs(want - leaf_of(params0, path))
+                                 .max()))
+        if opt == "adamw" and path[-2:] == ("qkv", "bias"):
+            # the key bias, (3, H, D)[1]: held apart (module docstring)
+            assert np.abs(got[1] - want[1]).max() <= 2 * lr * steps
+            got, want = got[[0, 2]], want[[0, 2]]
+        np.testing.assert_allclose(got, want, atol=PARAM_ATOL,
+                                   rtol=PARAM_RTOL, err_msg=str(path))
+    assert moved > 10 * PARAM_ATOL      # the steps did move the weights
+
+
+def leaf_of(tree, path):
+    for key in path:
+        tree = tree[key]
+    return np.asarray(tree)
+
+
+# ---------------------------------------------------------------------------
+# the entry point
+# ---------------------------------------------------------------------------
+
+# vocab 50257: the synthetic corpus carries GPT-2's ids, and the entry
+# refuses a model vocab below them, as the JAX entry does
+TINY_CLI = ["--device", "cpu", "--model", "gpt2_124m", "--model-overrides",
+            "vocab_size=50257,hidden_dim=32,depth=2,num_heads=2,"
+            "max_position=32", "--seq-len", "32", "--synthetic",
+            "--synthetic-size", "32", "--epochs", "2", "--optimizer",
+            "adamw", "--lr", "1e-3", "--batch-size", "4", "--print-freq",
+            "2"]
+
+
+def test_entry_point_trains_on_cpu(tmp_path, capsys):
+    train.main(TINY_CLI + ["--output-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "NOTE: using synthetic data (gpt2-synthetic, n=32)" in out
+    assert "NOTE: the PyTorch port writes no telemetry stream" in out
+    # the JAX entry's banner counts the flax model's parameters
+    shapes = jax.eval_shape(
+        lambda: jax_get_model("gpt2_124m", vocab_size=50257, hidden_dim=32,
+                              depth=2, num_heads=2, max_position=32).init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 32), jnp.int32),
+            train=False))
+    n_params = sum(int(np.prod(x.shape))
+                   for x in jax.tree_util.tree_leaves(shapes["params"]))
+    assert f"Model gpt2_124m: {n_params:,} params\n" in out
+    assert "Epoch [1] Step [8/8] Loss: " in out
+    assert "[Epoch 2/2] Train: loss=" in out and "| Val: loss=" in out
+    lines = (tmp_path / "metrics_rank0.csv").read_text().splitlines()
+    assert lines[0] == MetricsCSV.HEADER.strip()
+    assert [ln.split(",")[0] for ln in lines[1:]] == ["1", "2"]
+    train_losses = [float(ln.split(",")[1]) for ln in lines[1:]]
+    assert all(np.isfinite(train_losses))
+    assert train_losses[1] < train_losses[0]
+
+
+def test_entry_point_runs_as_a_module(tmp_path):
+    import subprocess
+    import sys
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_pytorch_training_tpu_torch.train",
+         *TINY_CLI, "--epochs", "1", "--no-telemetry", "--output-dir",
+         str(tmp_path)], capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "telemetry" not in proc.stdout
+    assert len((tmp_path / "metrics_rank0.csv").read_text()
+               .splitlines()) == 2
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--model", "resnet18"], "ResNet-18"),
+    (["--amp"], "--amp"),
+    (["--remat"], "remat"),
+    (["--mesh", "data=2"], "--mesh"),
+    (["--slices", "2"], "--slices"),
+    (["--zero1"], "--zero1"),
+    (["--fsdp-explicit"], "--fsdp-explicit"),
+    (["--bucket-cap-mb", "25"], "--bucket-cap-mb"),
+    (["--wire-dtype", "int8"], "--wire-dtype"),
+    (["--fused-quantize", "on"], "--fused-quantize"),
+    (["--checkpoint-dir", "ckpt"], "--checkpoint-dir"),
+    (["--resume"], "--resume"),
+    (["--max-restarts", "1"], "--max-restarts"),
+    (["--chaos", "crash@3"], "--chaos"),
+    (["--profile-dir", "prof"], "--profile-dir"),
+    (["--metrics-port", "9000"], "--metrics-port"),
+    (["--telemetry-all-ranks"], "--telemetry-all-ranks"),
+    (["--autopilot"], "--autopilot"),
+    (["--download"], "--download"),
+    (["--attention", "ring"], "ring"),
+    (["--attention", "ulysses"], "ulysses"),
+], ids=lambda x: x if isinstance(x, str) else "_".join(x))
+def test_unported_flags_raise(tmp_path, flags, match):
+    # argparse keeps the last value of a repeated flag
+    with pytest.raises(NotImplementedError, match=match):
+        train.main(TINY_CLI + flags + ["--output-dir", str(tmp_path)])
+    assert not (tmp_path / "metrics_rank0.csv").exists()
+
+
+def test_attention_auto_resolves_by_device():
+    assert train.resolve_attention("auto", "cuda", 1024) == "flash"
+    assert train.resolve_attention("auto", "cpu", 1024) == "xla"
+    assert train.resolve_attention("flash", "cpu", 1024) == "flash"
