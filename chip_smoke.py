@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU: build its kernels, hold each
-against its plain PyTorch version, serve GPT-2 124M and train it at full
-width.
+against its plain PyTorch version, serve GPT-2 124M, train it at full
+width, and train ResNet-18 at full width on one rank and data-parallel on
+two ranks that share the card.
 
     python3 chip_smoke.py
 
@@ -10,8 +11,8 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 2. build every CUDA kernel from csrc/ with nvcc for sm_90a, one nvcc per
    source, all started together;
 3. hold the int8 row quantizer against its plain version on the card,
-   BITWISE (codes and scale bits), at the main path's shapes and at edge
-   shapes, timing both beside the memory bound;
+   BITWISE (codes and scale bits), at the serving path's shapes and at
+   edge shapes, timing both beside the memory bound;
 4. serve through the port's own entry (``serving smoke --model gpt2_124m
    --serve-dtype int8`` at the CLI defaults: 3 prompts, 8 new tokens
    each), with the launch counts set to 0 just before and read just
@@ -36,8 +37,33 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    on the card (the kernels) and on the CPU (the plain versions): the
    loss within LOSS_ATOL, each gradient within GRAD_REL of its leaf's
    max |g|;
-9. print the ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+9. hold the int8 wire's codec against its plain versions, BITWISE, at
+   every shape the reducer gives it on ResNet-18's 11,181,642-element
+   gradient over 2 ranks (K1 on one row per bucket, or on 2 rows and one
+   row for int8_multihop; K2, the dequant-sum, on 2 rows), and K2 at edge
+   shapes (1, 3 and 8 rows, width 1, a width not a multiple of 4, zero
+   scales), timing each beside its bound, its plain version and, for K2,
+   the composite ``scales @ q.float()``;
+10. run ``reduce_flat`` on 2 gloo ranks (spawned processes, both on the
+    card) for each DP_RUNS wire on a seeded full-size gradient and
+    residual, twice, on the card (the kernels) and on the CPU (the plain
+    versions): sums and residuals must be BITWISE equal, the ranks' sums
+    the same, the launch counts the wire's; then time the collectives
+    alone;
+11. train ResNet-18 at full width on one rank through ``train.main``
+    (synthetic CIFAR-10 32x32, batch 128, SGD lr 0.1 momentum 0.9, 2
+    epochs of 20 steps): the train loss must fall; then time the loader
+    alone;
+12. train the same model on 2 ranks sharing the card (gloo) through
+    ``torchrun`` of this script's ``--dp-worker`` mode, which calls
+    ``train.main`` with the counts set to 0 just before and read just
+    after, once per DP_RUNS wire (batch 128 a rank, 2 epochs of 12 steps):
+    each rank's K1 and K2 launches must be steps x the wire's count per
+    step, both ranks must end with bitwise-equal parameters and BatchNorm
+    statistics, and the loss must fall;
+13. print the ``{"kernels": [...]}`` line (K1 and K2 over their launches
+    on the phase 12 path, K3-K5 over phase 7's), then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Details go to chiprun_out/chip_smoke.json. Without a CUDA device, or run
 from a directory that lacks the port's package, it fails before printing
@@ -49,6 +75,8 @@ from __future__ import annotations
 import importlib
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -108,6 +136,25 @@ DEPTH = 12
 LOSS_ATOL = 1e-4
 GRAD_REL = 1e-3
 CPU_BATCH, CPU_SEQ = 2, 256
+
+# ResNet-18 at the reference's 10 classes (the ImageNet stem): the length
+# of its flat gradient, and the explicit reducer's configurations that the
+# smoke drives on 2 ranks sharing the one card over gloo:
+# (name, --wire-dtype, --bucket-cap-mb)
+RESNET18_PARAMS = 11_181_642
+DP_RANKS = 2
+DP_RUNS = [("int8 one bucket", "int8", 0.0),
+           ("int8 cap 25", "int8", 25.0),
+           ("int8_multihop one bucket", "int8_multihop", 0.0)]
+# synthetic CIFAR-10, batch 128 per rank: 2 epochs of 12 steps on 2 ranks;
+# 2 epochs of 20 steps on 1 rank
+DP_SYNTHETIC, ONE_RANK_SYNTHETIC, IMAGE_BATCH, IMAGE_EPOCHS = \
+    3072, 2560, 128, 2
+IMAGE_FLAGS = ["--model", "resnet18", "--dataset", "cifar10", "--synthetic",
+               "--batch-size", str(IMAGE_BATCH), "--epochs",
+               str(IMAGE_EPOCHS), "--optimizer", "sgd", "--lr", "0.1",
+               "--momentum", "0.9", "--print-freq", "6"]
+QUANTIZE, DEQUANT = "quantize_int8_rows", "dequant_sum_rows"
 
 
 def log(msg: str) -> None:
@@ -470,7 +517,7 @@ def grads_card_vs_cpu(torch, dev):
         model = get_model(MODEL, attention_fn=make_flash_attention_fn(True))
         model.reset_parameters(torch.Generator().manual_seed(0))
         model.to(device)
-        loss, _ = task.loss_and_metrics(model, {
+        loss, _, _ = task.loss_and_metrics(model, {
             "input_ids": ids.to(device),
             "weight": torch.ones(CPU_BATCH, device=device)}, train=True)
         loss.backward()
@@ -520,6 +567,406 @@ def flash_kernel_rows(flash_rows, launches) -> list:
     return rows
 
 
+def wire_launches(torch, wire: str, cap: float, n: int = DP_RANKS) -> dict:
+    """{(kernel, (rows, width)): launches} of one reducer step on
+    ResNet-18's flat gradient: per bucket of S elements, ``int8`` runs K1
+    on (1, S) and K2 on (n, S); ``int8_multihop`` K1 on (n, S/n) and
+    (1, S/n) and K2 on (n, S/n), S padded to a multiple of n."""
+    from distributed_pytorch_training_tpu_torch.parallel.grad_sync import (
+        build_bucket_plan,
+    )
+
+    plan = build_bucket_plan([torch.empty(RESNET18_PARAMS, device="meta")],
+                             cap)
+    counts: dict = {}
+    for size in plan.bucket_sizes():
+        if wire == "int8":
+            keys = [(QUANTIZE, (1, size)), (DEQUANT, (n, size))]
+        else:
+            chunk = -(-size // n)
+            keys = [(QUANTIZE, (n, chunk)), (QUANTIZE, (1, chunk)),
+                    (DEQUANT, (n, chunk))]
+        for key in keys:
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def codec_rows(torch, dev, shape, seed: int):
+    """(n, s) float32 rows of spread magnitudes on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, _ = shape
+    return torch.randn(shape, generator=g, device=dev) * (
+        torch.rand((n, 1), generator=g, device=dev) * 10 + 0.01)
+
+
+def bound_of(nbytes: float, ops: float):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the float32 operations over the float32 rate."""
+    t_bytes = nbytes / BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def check_wire_codec(torch, dev, flush):
+    """Phase 9: K1 and K2 at every shape the reducer gives them on 2 ranks
+    (DP_RUNS), then K2 at edge shapes: each BITWISE against its plain
+    version, timed beside its bound, the plain version and, for K2, the
+    composite ``scales @ q.float()`` (a cast and a GEMV; no single PyTorch
+    call takes int8 codes). Returns ({(kernel, shape): row}, edge rows)."""
+    from distributed_pytorch_training_tpu_torch.ops.quantize import (
+        dequant_sum_rows,
+        dequant_sum_rows_ref,
+        quantize_int8_rows,
+        quantize_int8_rows_ref,
+    )
+
+    keys = sorted({key for _, wire, cap in DP_RUNS
+                   for key in wire_launches(torch, wire, cap)})
+    main_rows, edges = {}, []
+
+    def dequant_row(label, q, s):
+        out = dequant_sum_rows(q, s)
+        ref = dequant_sum_rows_ref(q, s)
+        torch.cuda.synchronize()
+        same = torch.equal(out.view(torch.int32), ref.view(torch.int32))
+        n, w = q.shape
+        bound, by = bound_of(n * w + 4 * n + 4 * w, 2 * n * w)
+        row = {"kernel": DEQUANT, "shape": label, "bitwise": same,
+               "max_abs_err": (out - ref).abs().max().item(),
+               "ms": timed_ms(torch, lambda: dequant_sum_rows(q, s), flush),
+               "plain_ms": timed_ms(
+                   torch, lambda: dequant_sum_rows_ref(q, s), flush),
+               "composite_ms": timed_ms(torch, lambda: s @ q.float(), flush),
+               "bound_ms": bound, "bound_by": by}
+        log(f"{DEQUANT} {label}: bitwise={same} kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, composite scales @ q.float() "
+            f"{row['composite_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
+        if not same:
+            raise RuntimeError(f"{DEQUANT} {label}: kernel differs from its "
+                               f"plain version (max err {row['max_abs_err']})")
+        return row
+
+    for seed, (kernel, shape) in enumerate(keys):
+        label = f"{shape[0]}x{shape[1]}"
+        x = codec_rows(torch, dev, shape, seed)
+        if kernel == DEQUANT:
+            main_rows[(kernel, shape)] = dequant_row(
+                label, *quantize_int8_rows_ref(x))
+            continue
+        q, s = quantize_int8_rows(x)
+        qr, sr = quantize_int8_rows_ref(x)
+        torch.cuda.synchronize()
+        same = (torch.equal(q, qr)
+                and torch.equal(s.view(torch.int32), sr.view(torch.int32)))
+        n, w = shape
+        bound, by = bound_of(5 * n * w + 4 * n, 5 * n * w)
+        row = {"kernel": QUANTIZE, "shape": label, "bitwise": same,
+               "max_abs_err": max((q.int() - qr.int()).abs().max().item(),
+                                  (s - sr).abs().max().item()),
+               "ms": timed_ms(torch, lambda: quantize_int8_rows(x), flush),
+               "plain_ms": timed_ms(
+                   torch, lambda: quantize_int8_rows_ref(x), flush),
+               "bound_ms": bound, "bound_by": by}
+        main_rows[(kernel, shape)] = row
+        log(f"{QUANTIZE} {label} (wire): bitwise={same} kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{bound:.4f} ms ({by})")
+        if not same:
+            raise RuntimeError(f"{QUANTIZE} {label}: kernel differs from "
+                               "its plain version")
+        del x, q, s, qr, sr
+
+    for label, shape in [("1x4097", (1, 4097)), ("3x100003", (3, 100_003)),
+                         ("8x65536", (8, 65_536)), ("2x1", (2, 1)),
+                         ("2x4099", (2, 4099))]:
+        edges.append(dequant_row(label, *quantize_int8_rows_ref(
+            codec_rows(torch, dev, shape, 7))))
+    q, _ = quantize_int8_rows_ref(codec_rows(torch, dev, (2, 1000), 8))
+    edges.append(dequant_row("2x1000 zero scales", q,
+                             torch.zeros(2, device=dev)))
+    return main_rows, edges
+
+
+def reducer_rank(rank: int, store: str, out_dir: str) -> None:
+    """Phase 10, one of DP_RANKS processes (gloo, both on cuda:0): for each
+    DP_RUNS configuration, two ``reduce_flat`` calls on a seeded
+    11,181,642-float contribution and residual, on the card and on the
+    CPU; writes the launches, whether the card's sums and residuals are
+    bitwise the CPU's, the sums' digest and the card's wall time."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from distributed_pytorch_training_tpu_torch.ops.quantize import (
+        dequant_sum_rows,
+        quantize_int8_rows,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.collectives import (
+        all_gather,
+        all_to_all,
+        psum,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel import (
+        grad_sync as gs,
+    )
+
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=DP_RANKS)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    g = torch.Generator().manual_seed(1000 + rank)
+    flat = torch.randn(RESNET18_PARAMS, generator=g) * (1 + rank)
+    report = {}
+    for name, wire, cap in DP_RUNS:
+        plan = gs.build_bucket_plan([flat], cap)
+        ef0 = gs.ef_state_bucketed([flat], DP_RANKS, cap, wire)["ef"]
+        ef0 = torch.randn(ef0.shape, generator=g) * 0.01
+        results = {}
+        for device in (dev, torch.device("cpu")):
+            before = (quantize_int8_rows.launches, dequant_sum_rows.launches)
+            x, ef, sums, efs = flat.to(device), ef0.to(device), [], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                out, ef = gs.reduce_flat(x, plan, DP_RANKS, wire, ef)
+                sums.append(out)
+                efs.append(ef)
+            torch.cuda.synchronize()
+            results[device.type] = (
+                [t.cpu() for t in sums], [t.cpu() for t in efs],
+                (time.perf_counter() - t0) / 2,
+                (quantize_int8_rows.launches - before[0],
+                 dequant_sum_rows.launches - before[1]))
+        (sc, ec, sec, (k1, k2)), (sh, eh, _, _) = results["cuda"], \
+            results["cpu"]
+        report[name] = {
+            "buckets": plan.n_buckets,
+            "launches": {QUANTIZE: k1, DEQUANT: k2},
+            "bitwise": all(torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32))
+                           for a, b in zip(sc + ec, sh + eh)),
+            "sum_sha256": hashlib.sha256(sc[-1].numpy().tobytes()
+                                         ).hexdigest(),
+            "card_ms_per_call": sec * 1e3,
+        }
+    def host_ms(fn, reps: int = 3) -> float:
+        """Mean host-clock ms of ``fn()`` between synchronizations, after
+        one warm-up call (both ranks call it together)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    # the collectives alone at the one-bucket sizes (gloo stages CUDA
+    # tensors through host memory), then one int8 one-bucket call step by
+    # step, as _compressed_psum runs it
+    codes = torch.zeros(RESNET18_PARAMS, dtype=torch.int8, device=dev)
+    floats = torch.zeros(RESNET18_PARAMS, device=dev)
+    report["collectives_ms"] = {
+        "all_gather int8": host_ms(lambda: all_gather(codes)),
+        "all_to_all int8": host_ms(lambda: all_to_all(codes)),
+        "all_reduce fp32": host_ms(lambda: psum(floats))}
+    carried = flat.to(dev)
+    q, scale = gs._quantize_int8(carried)
+    gathered, scales = all_gather(q), all_gather(scale.reshape(1))
+    report["int8_call_steps_ms"] = {
+        "quantize (K1)": host_ms(lambda: gs._quantize_int8(carried)),
+        "all_gather codes": host_ms(lambda: all_gather(q)),
+        "all_gather scale": host_ms(lambda: all_gather(scale.reshape(1))),
+        "dequant-sum (K2)": host_ms(lambda: gs._dequant_sum_rows(
+            gathered.reshape(DP_RANKS, -1), scales)),
+        "residual": host_ms(lambda: gs._residual(carried, q, scale))}
+    dist.destroy_process_group()
+    (Path(out_dir) / f"reducer_rank{rank}.json").write_text(
+        json.dumps(report, indent=1))
+
+
+def reducer_card_vs_cpu(torch) -> dict:
+    """Phase 10: DP_RANKS reducer processes on the one card; checks that
+    every rank's card sums and residuals are bitwise its CPU's, that the
+    ranks hold the same sums, and the launch counts."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    out_dir = ROOT / "chiprun_out" / "reducer"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(reducer_rank, args=(f"{tmp}/store", str(out_dir)),
+                           nprocs=DP_RANKS, start_method="spawn")
+    ranks = [json.loads((out_dir / f"reducer_rank{r}.json").read_text())
+             for r in range(DP_RANKS)]
+    for name, wire, cap in DP_RUNS:
+        per_call = {QUANTIZE: 0, DEQUANT: 0}
+        for (kernel, _), count in wire_launches(torch, wire, cap).items():
+            per_call[kernel] += count
+        want = {k: 2 * v for k, v in per_call.items()}
+        for r, rep in enumerate(ranks):
+            got = rep[name]
+            if got["launches"] != want or not got["bitwise"]:
+                raise RuntimeError(
+                    f"reducer {name} rank {r}: launches {got['launches']} "
+                    f"(expected {want}), card bitwise the CPU's: "
+                    f"{got['bitwise']}")
+        if len({rep[name]["sum_sha256"] for rep in ranks}) != 1:
+            raise RuntimeError(f"reducer {name}: the ranks' sums differ")
+    return ranks[0]
+
+
+def image_csv_losses(out_dir: Path) -> list:
+    """(train_loss, val_loss, epoch_time) per epoch of a run's CSV; fails
+    unless there are IMAGE_EPOCHS finite rows and the train loss fell."""
+    lines = (out_dir / "metrics_rank0.csv").read_text().splitlines()[1:]
+    rows = [(float(c[1]), float(c[3]), float(c[5]))
+            for c in (ln.split(",") for ln in lines)]
+    if len(rows) != IMAGE_EPOCHS or not all(
+            math.isfinite(x) for row in rows for x in row):
+        raise RuntimeError(f"{out_dir.name}: CSV rows {lines}, expected "
+                           f"{IMAGE_EPOCHS} finite ones")
+    if not rows[-1][0] < rows[0][0]:
+        raise RuntimeError(f"{out_dir.name}: the train loss did not fall "
+                           f"({rows})")
+    return rows
+
+
+def resnet_one_rank(torch) -> dict:
+    """Phase 11: ResNet-18 at full width on one rank through
+    ``train.main``: no Pallas kernel on this path, so no launch count."""
+    from distributed_pytorch_training_tpu_torch import train
+    from distributed_pytorch_training_tpu_torch.data.datasets import (
+        get_dataset,
+    )
+    from distributed_pytorch_training_tpu_torch.data.loader import (
+        ShardedLoader,
+    )
+
+    out_dir = ROOT / "chiprun_out" / "resnet_1rank"
+    (out_dir / "metrics_rank0.csv").unlink(missing_ok=True)
+    state = train.main(IMAGE_FLAGS + [
+        "--synthetic-size", str(ONE_RANK_SYNTHETIC), "--output-dir",
+        str(out_dir)])
+    torch.cuda.synchronize()
+    if state.param_count() != RESNET18_PARAMS:
+        raise RuntimeError(f"ResNet-18 has {state.param_count()} params")
+    rows = image_csv_losses(out_dir)
+    # the loader alone: one epoch's host gathers and pinned copies
+    loader = ShardedLoader(get_dataset(
+        "cifar10", train=True, synthetic=True,
+        synthetic_size=ONE_RANK_SYNTHETIC, seed=42), IMAGE_BATCH,
+        shuffle=True, device=torch.device("cuda", 0))
+    t0 = time.perf_counter()
+    for batch in loader.epoch(0):
+        pass
+    torch.cuda.synchronize()
+    return {"losses": rows, "steps": state.step,
+            "samples_per_s_epoch2": ONE_RANK_SYNTHETIC / rows[-1][2],
+            "loader_ms_per_batch": (time.perf_counter() - t0) / len(loader)
+            * 1e3}
+
+
+def dp_worker(argv) -> int:
+    """One torchrun rank of phase 12: ``train.main`` with the launch counts
+    set to 0 just before and read just after; writes them, the step count
+    and the final parameters and BatchNorm statistics."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from distributed_pytorch_training_tpu_torch import train
+    from distributed_pytorch_training_tpu_torch.ops.quantize import (
+        dequant_sum_rows,
+        quantize_int8_rows,
+    )
+
+    out_dir, train_argv = Path(argv[0]), argv[1:]
+    rank = int(os.environ["RANK"])
+    quantize_int8_rows.launches = dequant_sum_rows.launches = 0
+    state = train.main(train_argv + ["--output-dir", str(out_dir)])
+    launches = {QUANTIZE: quantize_int8_rows.launches,
+                DEQUANT: dequant_sum_rows.launches}
+    torch.save({k: v.detach().cpu() for k, v in
+                state.model.state_dict().items()}, out_dir / f"rank{rank}.pt")
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(
+        {"launches": launches, "steps": state.step}))
+    return 0
+
+
+def run_torchrun(args, timeout: float) -> str:
+    """``torchrun --standalone --nproc-per-node DP_RANKS chip_smoke.py
+    --dp-worker ...`` in a session of its own, killed whole on a timeout;
+    returns its output and fails unless it exited 0."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(DP_RANKS), str(Path(__file__).resolve()),
+           "--dp-worker", *args]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=ROOT,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"torchrun timed out after {timeout} s: {cmd}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun exited {proc.returncode}:\n{out}")
+    return out
+
+
+def resnet_two_ranks(torch) -> dict:
+    """Phase 12: ResNet-18 at full width on DP_RANKS ranks sharing the
+    card (gloo) through the port's entry, once per DP_RUNS configuration.
+    Checks every rank's K1 and K2 launches against steps x the wire's
+    per-step count, that the ranks end with bitwise-equal parameters and
+    BatchNorm statistics, and that the loss fell."""
+    steps = IMAGE_EPOCHS * -(-DP_SYNTHETIC // (IMAGE_BATCH * DP_RANKS))
+    report = {}
+    for name, wire, cap in DP_RUNS:
+        out_dir = ROOT / "chiprun_out" / ("dp_" + name.replace(" ", "_"))
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "metrics_rank0.csv").unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        out = run_torchrun([str(out_dir), *IMAGE_FLAGS, "--synthetic-size",
+                            str(DP_SYNTHETIC), "--wire-dtype", wire,
+                            "--bucket-cap-mb", str(cap)], timeout=600)
+        seconds = time.perf_counter() - t0
+        (out_dir / "stdout.txt").write_text(out)
+        want = {QUANTIZE: 0, DEQUANT: 0}
+        for (kernel, _), count in wire_launches(torch, wire, cap).items():
+            want[kernel] += count * steps
+        ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+                 for r in range(DP_RANKS)]
+        for r, rep in enumerate(ranks):
+            if rep["launches"] != want or rep["steps"] != steps:
+                raise RuntimeError(
+                    f"{name} rank {r}: {rep['steps']} steps, launches "
+                    f"{rep['launches']} (expected {steps}, {want})")
+        states = []
+        for r in range(DP_RANKS):
+            states.append(torch.load(out_dir / f"rank{r}.pt"))
+            (out_dir / f"rank{r}.pt").unlink()     # 45 MB each
+        for key, value in states[0].items():
+            if not all(torch.equal(value, s[key]) for s in states[1:]):
+                raise RuntimeError(f"{name}: {key} differs across ranks")
+        losses = image_csv_losses(out_dir)
+        rates = [float(ln.split("Throughput: ")[1].split()[0])
+                 for ln in out.splitlines() if "Throughput: " in ln]
+        report[name] = {"wire": wire, "bucket_cap_mb": cap, "steps": steps,
+                        "launches_per_rank": want, "losses": losses,
+                        "step_line_samples_per_s": rates,
+                        "wall_seconds": seconds}
+        log(f"phase 12 {name}: {steps} steps on {DP_RANKS} ranks, launches "
+            f"per rank {want}; parameters and BatchNorm statistics bitwise "
+            f"equal across ranks; (train, val, epoch s) per epoch {losses}; "
+            f"step-line samples/s {rates} (2 ranks share one card over "
+            "gloo: not a scaling number)")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -565,7 +1012,7 @@ def main() -> int:
     # phase 2: build every kernel, one nvcc per source, all at once
     fa = flash_module()
     t0 = time.perf_counter()
-    libs = build.build_all(["quantize_int8_rows", fa.LIBRARY])
+    libs = build.build_all([QUANTIZE, DEQUANT, fa.LIBRARY])
     log(f"built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -656,29 +1103,93 @@ def main() -> int:
         raise RuntimeError(f"card vs CPU: loss |diff| {loss_err}, gradient "
                            f"{grad_err} in {grad_leaf}")
 
-    # phase 9: the kernels line (times summed over the main path's launches)
-    main_rows = [r for r in rows if r["main_path_launches"]]
-    kernel = {
-        "name": "quantize_int8_rows", "route": "cuda",
-        "source": f"{PACKAGE}/csrc/quantize_int8_rows.cu",
-        "replaces": "distributed_pytorch_training_tpu/ops/quantize.py:147",
+    # phase 9: K1 and K2 at the int8 wires' shapes, and K2's edges
+    t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    codec, dequant_edges = check_wire_codec(torch, dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    log(f"phase 9 done in {time.perf_counter() - t0:.1f} s")
+
+    # phase 10: the reducer on 2 ranks, card (kernels) against CPU (plain)
+    t0 = time.perf_counter()
+    reducer = reducer_card_vs_cpu(torch)
+    log(f"phase 10 done in {time.perf_counter() - t0:.1f} s: reduce_flat on "
+        f"{DP_RANKS} gloo ranks at {RESNET18_PARAMS:,} floats, card sums "
+        "and residuals bitwise equal to the CPU's for "
+        + "; ".join(f"{name} ({reducer[name]['card_ms_per_call']:.1f} ms a "
+                    "call on the card)" for name, _, _ in DP_RUNS)
+        + f"; collectives alone, ms: {reducer['collectives_ms']}; an int8 "
+        f"one-bucket call step by step, ms: {reducer['int8_call_steps_ms']}")
+
+    # phase 11: ResNet-18 on one rank through the port's entry
+    t0 = time.perf_counter()
+    one_rank = resnet_one_rank(torch)
+    log(f"phase 11 done in {time.perf_counter() - t0:.1f} s: "
+        f"{one_rank['steps']} steps; (train, val, epoch s) per epoch "
+        f"{one_rank['losses']}; epoch 2 "
+        f"{one_rank['samples_per_s_epoch2']:.1f} samples/s; the loader "
+        f"alone {one_rank['loader_ms_per_batch']:.2f} ms a batch")
+    torch.cuda.empty_cache()
+
+    # phase 12: ResNet-18 on 2 ranks through torchrun, the main path of
+    # K1 and K2 (the counts are set to 0 and read inside each rank)
+    t0 = time.perf_counter()
+    two_ranks = resnet_two_ranks(torch)
+    log(f"phase 12 done in {time.perf_counter() - t0:.1f} s")
+
+    # phase 13: the kernels line; K1 and K2 summed over their launches on
+    # the data-parallel path (rank 0 of every phase 12 run), the serving
+    # path's K1 launches (phase 4) kept in chip_smoke.json
+    codec_kernels = []
+    for kernel, line, source in ((QUANTIZE, 147, "quantize_int8_rows.cu"),
+                                 (DEQUANT, 191, "dequant_sum_rows.cu")):
+        shares = []
+        for name, wire, cap in DP_RUNS:
+            steps = two_ranks[name]["steps"]
+            for (k, shape), count in wire_launches(torch, wire, cap).items():
+                if k == kernel:
+                    shares.append((codec[(k, shape)], count * steps))
+        checked = [r for r in codec.values() if r["kernel"] == kernel]
+        if kernel == DEQUANT:
+            checked += dequant_edges
+        else:
+            checked += rows
+        codec_kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": f"{PACKAGE}/csrc/{source}",
+            "replaces": f"distributed_pytorch_training_tpu/ops/quantize.py:"
+                        f"{line}",
+            "launches": sum(n for _, n in shares),
+            "bitwise": all(r["bitwise"] for r in checked),
+            "max_abs_err": max(r["max_abs_err"] for r in checked),
+            "ms": sum(r["ms"] * n for r, n in shares),
+            "plain_ms": sum(r["plain_ms"] * n for r, n in shares),
+            "bound_ms": sum(r["bound_ms"] * n for r, n in shares),
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                        for r, _ in shares)
+                         else "operations"),
+            # no single PyTorch call quantizes or takes int8 codes; K2's
+            # nearest composite, scales @ q.float(), a cast and a GEMV
+            "library_ms": None,
+            **({"composite_ms": sum(r["composite_ms"] * n
+                                    for r, n in shares)}
+               if kernel == DEQUANT else {}),
+        })
+    serving_k1 = {
         "launches": launches,
-        "bitwise": all(r["bitwise"] for r in rows),
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(r["ms"] * r["main_path_launches"] for r in main_rows),
+        "ms": sum(r["ms"] * r["main_path_launches"] for r in rows),
         "plain_ms": sum(r["plain_ms"] * r["main_path_launches"]
-                        for r in main_rows),
+                        for r in rows),
         "bound_ms": sum(r["bound_ms"] * r["main_path_launches"]
-                        for r in main_rows),
-        "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
-                                    for r in main_rows) else "operations"),
-        "library_ms": None,
+                        for r in rows),
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "kind": kind, "torch": torch.__version__,
-        "cuda": torch.version.cuda, "kernel": kernel, "per_shape": rows,
+        "cuda": torch.version.cuda, "serving_quantize": serving_k1,
+        "per_shape": rows,
         "fp32_card_vs_cpu_max_abs": fp32_err,
         "int8_card_vs_cpu_max_abs": int8_err,
         "tokens_int8": [r.tokens.tolist() for r in report.results],
@@ -687,10 +1198,14 @@ def main() -> int:
         "card_vs_cpu": {"loss_card": loss_card, "loss_cpu": loss_cpu,
                         "loss_abs_diff": loss_err, "grad_rel": grad_err,
                         "grad_rel_leaf": grad_leaf},
+        "wire_codec_per_shape": list(codec.values()),
+        "dequant_edges": dequant_edges, "reducer_card_vs_cpu": reducer,
+        "resnet_one_rank": one_rank, "resnet_two_ranks": two_ranks,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    kernels = [kernel, *flash_kernel_rows(flash_rows, flash_launches)]
+    kernels = [*codec_kernels,
+               *flash_kernel_rows(flash_rows, flash_launches)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -698,4 +1213,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2:]))
     sys.exit(main())

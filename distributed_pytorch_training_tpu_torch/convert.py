@@ -1,18 +1,25 @@
-"""Convert parameters between the JAX package and the port.
+"""Convert parameters and BatchNorm statistics between the JAX package and
+the port.
 
-The input is the flax parameter tree as nested dicts of numpy arrays
-(``jax.device_get(variables["params"])``; no flax import is needed here).
-The port keeps flax's layouts and leaf names, so the conversion is a
-rename: the path ``block3/attn/qkv/kernel`` becomes the PyTorch parameter
-name ``blocks.3.attn.qkv.kernel``, and the array is copied unchanged.
-``torch_to_flax`` goes back, so that a trained port model can be compared
-with a flax parameter tree leaf by leaf.
+The input is a flax collection as nested dicts of numpy arrays
+(``jax.device_get(variables["params"])``, ``variables["batch_stats"]``; no
+flax import is needed here). The port keeps flax's layouts and leaf names,
+so the conversion is a rename: the path ``block3/attn/qkv/kernel`` becomes
+the PyTorch parameter name ``blocks.3.attn.qkv.kernel``, and the array is
+copied unchanged. ``batch_stats`` leaves become the model's (persistent)
+buffers: ``stem_bn/mean`` is the buffer ``stem_bn.mean``. ``torch_to_flax``
+and ``batch_stats_to_flax`` go back, so that a trained port model can be
+compared with a flax tree leaf by leaf.
+
+``flax_ordered`` lists a model's parameters in flax ``tree_leaves`` order
+(sorted keys at every level), the order of the JAX package's flat gradient.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import (Any, Dict, Iterable, Iterator, List, Mapping,
+                    Optional, Tuple)
 
 import numpy as np
 import torch
@@ -49,14 +56,12 @@ def flax_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             for path, leaf in iter_flax_leaves(params)}
 
 
-def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
-    """Copy a flax parameter tree into ``model`` (every parameter, shapes
-    checked; a missing or extra leaf raises)."""
-    converted = flax_to_torch(params)
-    own = dict(model.named_parameters())
+def _copy_into(own: Dict[str, torch.Tensor], tree: Mapping[str, Any],
+               what: str) -> None:
+    converted = flax_to_torch(tree)
     if set(converted) != set(own):
         raise ValueError(
-            "flax tree and model disagree: missing "
+            f"flax {what} and model disagree: missing "
             f"{sorted(set(own) - set(converted))}, extra "
             f"{sorted(set(converted) - set(own))}")
     with torch.no_grad():
@@ -67,19 +72,47 @@ def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
             own[name].copy_(tensor)
 
 
+def load_flax_params(model: nn.Module, params: Mapping[str, Any],
+                     batch_stats: Optional[Mapping[str, Any]] = None
+                     ) -> None:
+    """Copy a flax parameter tree, and its ``batch_stats`` tree when given,
+    into ``model`` (shapes checked; a missing or extra leaf raises)."""
+    _copy_into(dict(model.named_parameters()), params, "params")
+    if batch_stats is not None:
+        _copy_into(dict(model.named_buffers()), batch_stats, "batch_stats")
+
+
+def flax_ordered(named: Iterable[Tuple[str, torch.Tensor]]
+                 ) -> List[Tuple[str, torch.Tensor]]:
+    """``(name, tensor)`` pairs sorted by their flax path: the JAX package's
+    ``tree_leaves`` order (tuple order is nested sorted-key order)."""
+    return sorted(named, key=lambda item: name_to_flax_path(item[0]))
+
+
 def name_to_flax_path(name: str) -> Tuple[str, ...]:
     """'blocks.3.attn.qkv.kernel' -> ('block3', 'attn', 'qkv', 'kernel')."""
     return tuple(_TORCH_BLOCK.sub(r"block\1.", name).split("."))
 
 
-def torch_to_flax(model: nn.Module) -> Dict[str, Any]:
-    """The flax parameter tree (nested dicts of float32 numpy arrays) of
-    ``model``'s parameters: the inverse of `load_flax_params`."""
+def _to_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
-    for name, p in model.named_parameters():
+    for name, t in named:
         *parents, leaf = name_to_flax_path(name)
         node = tree
         for key in parents:
             node = node.setdefault(key, {})
-        node[leaf] = p.detach().float().cpu().numpy()
+        # a copy: a CPU float32 tensor's numpy() shares its memory
+        node[leaf] = t.detach().float().cpu().numpy().copy()
     return tree
+
+
+def torch_to_flax(model: nn.Module) -> Dict[str, Any]:
+    """The flax parameter tree (nested dicts of float32 numpy arrays) of
+    ``model``'s parameters: the inverse of `load_flax_params`."""
+    return _to_tree(model.named_parameters())
+
+
+def batch_stats_to_flax(model: nn.Module) -> Dict[str, Any]:
+    """The flax ``batch_stats`` tree of ``model``'s buffers ({} for a model
+    without BatchNorm)."""
+    return _to_tree(model.named_buffers())

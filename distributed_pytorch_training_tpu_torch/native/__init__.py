@@ -1,11 +1,12 @@
 """Host-side data helpers: numpy mirrors of the JAX package's native/
-runtime, as far as the LM data path uses it.
+runtime, as far as the LM and image data paths use it.
 
 ``permutation`` is the splitmix64 Fisher-Yates shuffle of the JAX package's
 ``native/__init__.py`` (its C++ ``dpt_permutation`` and the Python mirror
 ``_permutation_py``): the same seed gives the same permutation, bit for
 bit, so both packages walk a dataset in the same order. ``gather_rows`` is
-numpy row indexing with the native path's bounds check.
+numpy row indexing with the native path's bounds check; ``chw_to_hwc_u8``
+decodes planar CIFAR records into NHWC images.
 """
 
 from __future__ import annotations
@@ -60,3 +61,11 @@ def gather_rows(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
             f"gather_rows indices out of range [0, {len(src)}): "
             f"min={idx.min()}, max={idx.max()}")
     return np.ascontiguousarray(src)[idx]
+
+
+def chw_to_hwc_u8(records: np.ndarray, c: int, h: int, w: int) -> np.ndarray:
+    """(N, c*h*w) planar uint8 records -> (N, h, w, c) interleaved
+    images (the CIFAR-10 pickle's record layout)."""
+    records = np.ascontiguousarray(records, np.uint8)
+    n = records.shape[0]
+    return records.reshape(n, c, h, w).transpose(0, 2, 3, 1).copy()

@@ -1,21 +1,30 @@
-"""Row-wise int8 quantization: the hand-written Hopper kernel and its plain
-PyTorch version.
+"""The int8 codec: two hand-written Hopper kernels and their plain PyTorch
+versions.
 
-``quantize_int8_rows`` replaces the Pallas TPU kernel
-``distributed_pytorch_training_tpu/ops/quantize.py::quantize_int8_rows_fused``
-(body ``_quantize_kernel``). It is the one quantization grid of the system:
-int8 served weights (``serving/engine.py::quantize_params``) use it today,
-and the int8 gradient wire and int8 KV pages will.
+* ``quantize_int8_rows`` (K1) replaces the Pallas TPU kernel
+  ``distributed_pytorch_training_tpu/ops/quantize.py::quantize_int8_rows_fused``
+  (body ``_quantize_kernel``). It is the one quantization grid of the
+  system: int8 served weights (``serving/engine.py::quantize_params``) and
+  the int8 gradient wires (``parallel/grad_sync.py``) use it.
+* ``dequant_sum_rows`` (K2) replaces ``dequant_sum_rows_fused`` (body
+  ``_dequant_sum_kernel``): the column sum of dequantized rows, the
+  receive-side accumulate of the int8 gradient wires.
 
-* A tensor on the CPU takes the plain version, ``quantize_int8_rows_ref``.
-* A tensor on a CUDA device launches the kernel
-  (``csrc/quantize_int8_rows.cu``, built by ``ops/build.py``) or raises.
-  There is no fallback from one to the other.
+For both:
 
-The kernel's design note and bound (memory: 4 B read and 1 B written per
-element, 4 B written per row) sit in the CUDA source. Both versions are
-bitwise equal to ``parallel/grad_sync.py::_quantize_int8_rows`` of the JAX
-package with ``fused=False``, codes and scale bits.
+* a tensor on the CPU takes the plain version (``*_ref``);
+* a tensor on a CUDA device launches the kernel (``csrc/<name>.cu``, built
+  by ``ops/build.py``) or raises. There is no fallback from one to the
+  other.
+
+The kernels' design notes and bounds (memory, both) sit in the CUDA
+sources. K1 and its plain version are bitwise equal to
+``parallel/grad_sync.py::_quantize_int8_rows`` of the JAX package with
+``fused=False``, codes and scale bits. K2 and its plain version are bitwise
+equal to each other and to ``_dequant_sum_rows(fused=False)`` as the JAX
+package runs it, inside a compiled step: there XLA turns the multiply and
+the row sum into one chain of fused multiply-adds, rows 0..n-1 in order
+(``fma_f32`` reproduces each step exactly on any device).
 """
 
 from __future__ import annotations
@@ -30,6 +39,9 @@ from . import build
 
 QMAX = 127.0
 KERNEL = "quantize_int8_rows"
+DEQUANT_KERNEL = "dequant_sum_rows"
+# K2 stages the n scales in 48 KB of static-sized shared memory
+MAX_DEQUANT_ROWS = 12288
 
 
 def quantize_int8_rows_ref(rows: torch.Tensor
@@ -91,3 +103,98 @@ def quantize_int8_rows(rows: torch.Tensor
 
 
 quantize_int8_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: column sums of dequantized rows
+# ---------------------------------------------------------------------------
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """``a * b + c`` in float32 with ONE rounding (IEEE ``fmaf``), for
+    operands whose product is exact in float64 (an int8 code times a
+    float32 scale: 8 + 24 bits). The sum is taken in float64, rounded to
+    odd (TwoSum gives its rounding error; an inexact even result steps to
+    its odd neighbour toward the exact value), then rounded once to
+    float32: a float64 rounded to odd, with 29 bits to spare, rounds to
+    float32 exactly as the exact value does."""
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.full_like(s, float("inf")).copysign(err)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward),
+                       s).float()
+
+
+def dequant_sum_rows_ref(q: torch.Tensor, scales: torch.Tensor
+                         ) -> torch.Tensor:
+    """The plain version: ``acc = 0``, then ``acc = fmaf(q[i], scales[i],
+    acc)`` for rows i = 0..n-1 in order (the kernel's order, and XLA's)."""
+    acc = torch.zeros(q.shape[1], dtype=torch.float32, device=q.device)
+    for i in range(q.shape[0]):
+        acc = fma_f32(q[i], scales[i], acc)
+    return acc
+
+
+@functools.lru_cache(maxsize=None)
+def _dequant_launcher():
+    """(library, C launcher) of K2, built and bound once."""
+    lib = build.load(DEQUANT_KERNEL)
+    fn = lib.dpt_dequant_sum_rows
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check_dequant(q: torch.Tensor, scales: torch.Tensor) -> None:
+    name = DEQUANT_KERNEL
+    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"{name} takes int8 codes and float32 scales, got "
+                        f"{q.dtype} and {scales.dtype}")
+    if q.dim() != 2 or scales.shape != (q.shape[0],):
+        raise ValueError(f"{name} takes (n, s) codes and (n,) scales, got "
+                         f"{tuple(q.shape)} and {tuple(scales.shape)}")
+    if not (q.is_contiguous() and scales.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous tensors")
+    if q.device != scales.device:
+        raise ValueError(f"{name}: codes on {q.device}, scales on "
+                         f"{scales.device}")
+    if q.shape[0] > MAX_DEQUANT_ROWS:
+        raise ValueError(f"{name} takes at most {MAX_DEQUANT_ROWS} rows, "
+                         f"got {q.shape[0]}")
+
+
+def dequant_sum_rows(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(n, s) int8 codes x (n,) float32 scales -> (s,) float32 column sums
+    of the dequantized rows.
+
+    ``dequant_sum_rows.launches`` counts the kernel's launches; a CPU call
+    runs the plain version and does not count."""
+    _check_dequant(q, scales)
+    if q.device.type == "cpu":
+        return dequant_sum_rows_ref(q, scales)
+    if q.device.type != "cuda":
+        raise ValueError(f"{DEQUANT_KERNEL}: no kernel for device "
+                         f"{q.device}")
+    n, s = q.shape
+    if n == 0 or s == 0:
+        return torch.zeros((s,), dtype=torch.float32, device=q.device)
+    out = torch.empty((s,), dtype=torch.float32, device=q.device)
+    lib, fn = _dequant_launcher()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        code = fn(q.data_ptr(), scales.data_ptr(), out.data_ptr(), n, s, sms,
+                  stream)
+    build.check_launch(lib, DEQUANT_KERNEL, code)
+    dequant_sum_rows.launches += 1
+    return out
+
+
+dequant_sum_rows.launches = 0

@@ -1,0 +1,82 @@
+"""Collectives over ``torch.distributed`` (the JAX package's
+parallel/collectives.py): the same tiled semantics, on the process group
+instead of mesh axis names.
+
+Every function is the identity in one process (no process group, or a
+group of one), the reference's single-process passthrough. They use the
+list form of ``all_gather`` and ``all_to_all_single``, which gloo also
+runs on CUDA tensors (its list-form ``all_to_all`` refuses them), and
+never modify their input.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+import torch.distributed as dist
+
+Group = Optional[dist.ProcessGroup]
+
+
+def world_size(group: Group = None) -> int:
+    """Ranks in ``group`` (the default group when None); 1 without one."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return dist.get_world_size(group)
+
+
+def psum(x: torch.Tensor, group: Group = None) -> torch.Tensor:
+    """SUM all-reduce; a new tensor."""
+    if world_size(group) == 1:
+        return x
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def all_gather(x: torch.Tensor, group: Group = None) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along axis 0, in rank order (the
+    tiled ``lax.all_gather``)."""
+    n = world_size(group)
+    if n == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def all_to_all(x: torch.Tensor, group: Group = None) -> torch.Tensor:
+    """Tiled all-to-all along axis 0: chunk j of every rank goes to rank j,
+    which concatenates what it receives in sender order. The leading
+    dimension must divide by the world size."""
+    n = world_size(group)
+    if n == 1:
+        return x
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all: leading dim {x.shape[0]} not "
+                         f"divisible by {n} ranks")
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+def reduce_scalar(x: Union[float, int, torch.Tensor], op: str = "sum",
+                  group: Group = None) -> float:
+    """Host-level scalar reduction across ranks (the reference's
+    ``reduce_tensor``): the identity in one process."""
+    val = float(x)
+    n = world_size(group)
+    if n == 1:
+        return val
+    # NCCL moves CUDA tensors only
+    dev = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+    gathered = all_gather(torch.tensor([val], dtype=torch.float64,
+                                       device=dev), group)
+    if op == "sum":
+        return float(gathered.sum())
+    if op == "max":
+        return float(gathered.max())
+    if op == "mean":
+        return float(gathered.mean())
+    raise ValueError(f"unknown op {op!r}")

@@ -36,9 +36,10 @@ def not_ported(what: str, where: str) -> NotImplementedError:
         "(ROADMAP.md, queue 1)")
 
 
-from .dist import (  # noqa: E402  (dist imports not_ported from here)
+from .dist import (  # noqa: E402
     DistContext,
     barrier,
+    choose_backend,
     cleanup_distributed,
     per_process_seed,
     set_seed,

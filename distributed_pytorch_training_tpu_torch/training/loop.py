@@ -1,12 +1,31 @@
 """Trainer: train and eval steps and the epoch loops (the JAX package's
-training/loop.py), single device.
+training/loop.py).
 
-Only the JAX Trainer's replicated single-shard path is ported: the plain
-step, gradient accumulation, ``train_epoch`` and ``evaluate``. Every other
-update mode (ZeRO-1, FSDP, the explicit bucketed reducer and its wires,
-bf16) raises, naming the slice that brings it. As in the JAX package, the
-metrics are weighted sums that stay on the device; the host fetches them
-only at print boundaries and at the end of an epoch.
+Two update paths are ported:
+
+* the replicated single-shard step: the plain step and gradient
+  accumulation, with BatchNorm's running statistics updated once per step
+  (under accumulation, the weight-averaged per-microbatch EMAs, which is
+  ONE EMA update from the weighted-mean batch statistics; a fully padded
+  batch keeps the old statistics);
+* ``_grad_sync_step``, the explicit bucketed reducer over the ranks of a
+  ``torch.distributed`` group (``parallel/grad_sync.py``): each rank
+  computes its local weight-scaled gradient sum, flattens it in the JAX
+  package's layout and reduces it bucket by bucket at the wire dtype; the
+  global weight comes from one 3-scalar all-reduce and every rank applies
+  the same mean gradient. BatchNorm statistics become
+  ``all_reduce(w * stats) / W``. Each rank normalizes by its own batch
+  (torch DDP's per-GPU BN, as the JAX reducer does per shard).
+
+The engagement rules are the JAX Trainer's: the reducer runs when
+``bucket_cap_mb > 0`` or the wire is not fp32, on more than one rank; on
+one rank such a request is an identity passthrough (logged). More than one
+rank on the implicit path (the fp32 wire without a bucket cap) is the JAX
+package's global-batch BatchNorm (SyncBN semantics) and raises, as do
+ZeRO-1, explicit FSDP, bf16 and the ``bf16`` and ``int8_hier`` wires, each
+naming its slice. As in the JAX package, the metrics are weighted sums
+that stay on the device; the host fetches them only at print boundaries
+and at the end of an epoch.
 """
 
 from __future__ import annotations
@@ -15,8 +34,15 @@ import dataclasses
 import time
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from ..parallel.collectives import Group, psum, world_size
+from ..parallel.grad_sync import (
+    EF_WIRE_DTYPES, WIRE_DTYPES, BucketPlan, build_bucket_plan,
+    ef_state_bucketed, flatten_tree, padded_total_size, reduce_flat,
+    refuse_unported_wire, unflatten_tree,
+)
 from ..runtime import DeviceLike, not_ported, resolve_device
 from ..utils.logging import log_main
 from ..utils.metrics import ThroughputMeter
@@ -24,11 +50,12 @@ from .tasks import Metrics, Task, add_metrics, summarize, zero_metrics
 from .train_state import TrainState
 from .optim import GradientTransformation
 
+METRIC_NAMES = ("loss_sum", "correct", "weight")
+
 
 @dataclasses.dataclass
 class TrainConfig:
-    """Loop knobs, the JAX package's fields and defaults. The port takes
-    the single-shard values only; the others raise in `Trainer`."""
+    """Loop knobs, the JAX package's fields and defaults."""
 
     per_device_batch: int = 128
     print_freq: int = 50
@@ -42,6 +69,9 @@ class TrainConfig:
     slice_axis: str = "slice"
     fsdp_explicit: bool = False
     overlap_grad_sync: bool = True
+    # the int8 codec kernels: None (auto) and True run them on CUDA (the
+    # plain versions on the CPU); False, the composed codec, exists only
+    # on the CPU here and raises on CUDA
     fused_quantize: Optional[bool] = None
 
 
@@ -70,80 +100,223 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _psum_metrics(m: Metrics, group: Group) -> Metrics:
+    """The three weighted sums summed over ranks: one all-reduce."""
+    summed = psum(torch.stack([m[k] for k in METRIC_NAMES]), group)
+    return dict(zip(METRIC_NAMES, summed.unbind(0)))
+
+
 class Trainer:
-    """Owns the train and eval steps for one task on one device."""
+    """Owns the train and eval steps for one task on this rank's device;
+    ``group`` is the data-parallel process group (the default group when
+    None; one process without one)."""
 
     def __init__(self, task: Task, config: TrainConfig,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, group: Group = None):
+        if config.wire_dtype not in WIRE_DTYPES:
+            raise ValueError(f"wire_dtype {config.wire_dtype!r} is not one "
+                             f"of {WIRE_DTYPES}")
+        if config.bucket_cap_mb < 0:
+            raise ValueError(f"bucket_cap_mb must be >= 0, got "
+                             f"{config.bucket_cap_mb}")
+        if config.grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got "
+                             f"{config.grad_accum}")
         if config.bf16:
             raise not_ported("bf16 compute (--amp)", "the bf16 (--amp) slice")
         if config.zero1 or config.fsdp_explicit:
             raise not_ported("ZeRO-1 / explicit FSDP",
-                             "the data-parallel slice")
-        if config.bucket_cap_mb > 0 or config.wire_dtype != "fp32":
-            raise not_ported("the explicit gradient reducer and its wires",
-                             "the data-parallel slice")
-        if config.fused_quantize:
-            raise not_ported("the fused int8 wire codec",
-                             "the data-parallel slice")
-        if config.grad_accum < 1:
-            raise ValueError(f"grad_accum must be >= 1, got "
-                             f"{config.grad_accum}")
+                             "the sharded-update (ZeRO-1/FSDP) slice")
         self.task = task
         self.config = config
         self.device = resolve_device(device)
+        self.group = group
+        self.n_shards = world_size(group)
+        self.rank = (torch.distributed.get_rank(group)
+                     if self.n_shards > 1 else 0)
+        explicit_sync = (config.bucket_cap_mb > 0
+                         or config.wire_dtype != "fp32")
+        if explicit_sync:
+            refuse_unported_wire(config.wire_dtype)
+        if config.fused_quantize is False and self.device.type == "cuda":
+            raise ValueError(
+                "--fused-quantize off selects the composed int8 codec, "
+                "which the port has only as the plain versions on the CPU; "
+                "on CUDA the codec is the kernels (auto or on)")
+        self._grad_sync = explicit_sync and self.n_shards > 1
+        self._wire = config.wire_dtype
+        self._plan: Optional[BucketPlan] = None
+        if self.n_shards > 1 and not explicit_sync:
+            raise not_ported(
+                f"{self.n_shards} ranks on the implicit path (the fp32 wire "
+                "without --bucket-cap-mb: the JAX package's global-batch "
+                "BatchNorm, SyncBN semantics)",
+                "the implicit multi-rank slice")
+        if explicit_sync and not self._grad_sync:
+            log_main("NOTE: explicit gradient sync requested on a single "
+                     "batch shard — nothing to synchronize; running the "
+                     "implicit path (identity passthrough, like "
+                     "single-process DDP)")
 
     def init_state(self, model: torch.nn.Module,
                    tx: GradientTransformation) -> TrainState:
-        """Move ``model`` (initialized by the caller) to the device and
-        build its optimizer."""
-        return TrainState.create(model.to(self.device), tx)
+        """Move ``model`` (initialized by the caller, the same on every
+        rank) to the device, build its optimizer and, for an int8 wire,
+        this rank's zero error-feedback residual."""
+        state = TrainState.create(model.to(self.device), tx)
+        if self._grad_sync:
+            self._plan = build_bucket_plan(state.params,
+                                           self.config.bucket_cap_mb)
+            if self._wire in EF_WIRE_DTYPES:
+                state.grad_sync = ef_state_bucketed(
+                    state.params, self.n_shards, self.config.bucket_cap_mb,
+                    self._wire, self.device)
+        return state
+
+    def _generator(self, step: int, micro: int) -> torch.Generator:
+        """The step's CPU generator for augmentation draws, seeded by
+        (seed, step, rank, microbatch)."""
+        seed = np.random.SeedSequence(
+            [self.config.seed, step, self.rank, micro]).generate_state(1)[0]
+        return torch.Generator().manual_seed(int(seed))
 
     # -- steps --------------------------------------------------------------
 
     def train_step(self, state: TrainState,
                    batch: Dict[str, torch.Tensor]) -> Metrics:
-        """One optimizer step on ``batch``; returns its weighted-sum
-        metrics (on the device)."""
-        model = state.model
-        model.train()
-        params = list(model.parameters())
+        """One optimizer step on ``batch`` (this rank's rows); returns its
+        weighted-sum metrics, summed over ranks (on the device)."""
+        state.model.train()
+        if self._grad_sync:
+            return self._grad_sync_step(state, batch)
+        params = state.params
         accum = self.config.grad_accum
         if accum <= 1:
             for p in params:
                 p.grad = None
-            loss, metrics = self.task.loss_and_metrics(model, batch,
-                                                       train=True)
+            loss, metrics, new_stats = self.task.loss_and_metrics(
+                state.model, batch, True, self._generator(state.step, 0))
             loss.backward()
             state.apply_gradients()
+            state.set_batch_stats(new_stats)
             return metrics
 
         # The task loss is the weighted MEAN over its microbatch, so the
         # global-batch gradient is sum_i (w_i / W) d(mean_i): accumulate
-        # w_i-scaled microbatch gradients and divide by W once.
+        # w_i-scaled microbatch gradients and divide by W once; BatchNorm
+        # statistics likewise.
         micro = split_microbatches(batch, accum)
         g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        s_sum: Dict[str, torch.Tensor] = {}
         metrics = zero_metrics(self.device)
         for i in range(accum):
-            mb = {name: x[i] for name, x in micro.items()}
-            loss, m = self.task.loss_and_metrics(model, mb, train=True)
+            mb = {name: x[i].contiguous() for name, x in micro.items()}
+            loss, m, stats = self.task.loss_and_metrics(
+                state.model, mb, True, self._generator(state.step, i))
             grads = torch.autograd.grad(loss, params)
             w = m["weight"]
             for acc, g in zip(g_sum, grads):
                 acc.add_(w * g.float())
+            for name, s in stats.items():
+                s_sum[name] = s_sum.get(name, 0.0) + w * s
             metrics = add_metrics(metrics, m)
         total_w = torch.clamp(metrics["weight"], min=1.0)
         for p, acc in zip(params, g_sum):
             p.grad = (acc / total_w).to(p.dtype)
         state.apply_gradients()
+        self._write_stats(state, s_sum, metrics["weight"], total_w)
+        return metrics
+
+    @staticmethod
+    def _write_stats(state: TrainState, s_sum: Dict[str, torch.Tensor],
+                     weight: torch.Tensor, total_w: torch.Tensor) -> None:
+        """New running statistics ``s_sum / W``; a fully padded batch
+        (W = 0) keeps the old ones."""
+        old = state.batch_stats
+        state.set_batch_stats({
+            name: torch.where(weight > 0, s / total_w, old[name])
+            for name, s in s_sum.items()})
+
+    def _grad_sync_step(self, state: TrainState,
+                        batch: Dict[str, torch.Tensor]) -> Metrics:
+        """The explicit bucketed reducer (JAX ``_grad_sync_step``). With
+        grad accumulation the local batch splits interleaved; overlap on
+        reduces each microbatch's buckets as soon as they exist, off
+        reduces the accumulated sum once (here both run in sequence: real
+        overlap with the backward is later work)."""
+        cfg, n, group = self.config, self.n_shards, self.group
+        wire, plan = self._wire, self._plan
+        model, params = state.model, state.params
+        use_ef = wire in EF_WIRE_DTYPES
+        ef = state.grad_sync.get("ef") if use_ef else None
+        if use_ef:
+            if ef is None:
+                raise ValueError(
+                    f"wire_dtype={wire!r} needs error-feedback buffers — "
+                    "build the state via Trainer.init_state")
+            expect = (padded_total_size(plan, n) if wire == "int8_multihop"
+                      else plan.total_size)
+            if ef.shape[-1] != expect:
+                raise ValueError(
+                    f"error-feedback residual length {ef.shape[-1]} does "
+                    f"not match the {wire!r} wire's layout for "
+                    f"bucket_cap_mb={cfg.bucket_cap_mb} ({expect} "
+                    "elements)")
+
+        def local_flat(mb, micro_index):
+            loss, m, stats = self.task.loss_and_metrics(
+                model, mb, True, self._generator(state.step, micro_index))
+            grads = torch.autograd.grad(loss, params)
+            w = m["weight"]
+            return flatten_tree([w * g.float() for g in grads]), m, \
+                {name: w * s for name, s in stats.items()}
+
+        if cfg.grad_accum <= 1:
+            flat, m_local, s_sum = local_flat(batch, 0)
+            flat, ef = reduce_flat(flat, plan, n, wire, ef, group)
+        else:
+            micro = split_microbatches(batch, cfg.grad_accum,
+                                       scope="per-shard batch")
+            flat = torch.zeros(plan.total_size, dtype=torch.float32,
+                               device=self.device)
+            s_sum: Dict[str, torch.Tensor] = {}
+            m_local = zero_metrics(self.device)
+            for i in range(cfg.grad_accum):
+                f_i, m, s = local_flat(
+                    {k: x[i].contiguous() for k, x in micro.items()}, i)
+                if cfg.overlap_grad_sync:
+                    f_i, ef = reduce_flat(f_i, plan, n, wire, ef, group)
+                flat = flat + f_i
+                for name, v in s.items():
+                    s_sum[name] = s_sum.get(name, 0.0) + v
+                m_local = add_metrics(m_local, m)
+            if not cfg.overlap_grad_sync:
+                flat, ef = reduce_flat(flat, plan, n, wire, ef, group)
+
+        metrics = _psum_metrics(m_local, group)
+        total_w = torch.clamp(metrics["weight"], min=1.0)
+        for p, g in zip(params, unflatten_tree(flat / total_w, params)):
+            p.grad = g
+        state.apply_gradients()
+        if s_sum:
+            names = list(s_sum)
+            summed = psum(torch.cat([s_sum[k].reshape(-1) for k in names]),
+                          group)
+            sizes = [s_sum[k].numel() for k in names]
+            self._write_stats(state, dict(zip(names, summed.split(sizes))),
+                              metrics["weight"], total_w)
+        if use_ef:
+            state.grad_sync = {"ef": ef}
         return metrics
 
     @torch.no_grad()
     def eval_step(self, state: TrainState,
                   batch: Dict[str, torch.Tensor]) -> Metrics:
+        """This rank's weighted-sum metrics of ``batch`` (not summed over
+        ranks: `evaluate` sums the totals once)."""
         state.model.eval()
-        _, metrics = self.task.loss_and_metrics(state.model, batch,
-                                                train=False)
+        _, metrics, _ = self.task.loss_and_metrics(state.model, batch,
+                                                   train=False)
         return metrics
 
     # -- epoch loops ----------------------------------------------------------
@@ -155,7 +328,8 @@ class Trainer:
         """One epoch. Returns (state, mean loss, top-1 %, epoch wall
         seconds, steps executed). Prints the running loss, accuracy and
         samples/s every ``print_freq`` steps, the only host fetches inside
-        the epoch."""
+        the epoch. The metrics are global: every step sums them over
+        ranks."""
         cfg = self.config
         epoch_metrics = zero_metrics(self.device)
         t_epoch = time.perf_counter()
@@ -185,8 +359,9 @@ class Trainer:
 
     def evaluate(self, state: TrainState,
                  batches: Iterable) -> Tuple[float, float]:
-        """Validation: (mean loss, top-1 %)."""
+        """Sharded validation: each rank its rows, the totals summed over
+        ranks once. (mean loss, top-1 %)."""
         totals = zero_metrics(self.device)
         for batch in batches:
             totals = add_metrics(totals, self.eval_step(state, batch))
-        return summarize(totals)
+        return summarize(_psum_metrics(totals, self.group))

@@ -14,13 +14,15 @@ from typing import Optional, Sequence
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
-        description="Distributed training, PyTorch port (GPT-2 causal LM on "
-                    "one CUDA device so far)")
+        description="Distributed training, PyTorch port (ResNet image "
+                    "classification, data-parallel under torchrun; GPT-2 "
+                    "causal LM on one device)")
     add = parser.add_argument
 
     # the reference's flags (same names and defaults)
     add("--data-dir", default="./data", type=str,
-        help="directory holding <family>_{train,val}.npy token files")
+        help="directory holding the CIFAR-10 pickles or "
+             "<family>_{train,val}.npy token files")
     add("--epochs", default=10, type=int, help="number of total epochs")
     add("--batch-size", default=128, type=int,
         help="mini-batch size per device")
@@ -39,18 +41,20 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
     # the JAX package's extensions
     add("--model", default="resnet18", type=str,
-        help="model name (gpt2_124m/gpt2_355m are ported)")
+        help="model name (resnet18/resnet50 and gpt2_124m/gpt2_355m are "
+             "ported)")
     add("--model-overrides", default="", type=str,
         help="comma-separated field=value constructor overrides, e.g. "
              "'depth=2,hidden_dim=64'")
     add("--dataset", default="cifar10", type=str,
         help="image dataset name (image models only)")
-    add("--download", action="store_true", help="fetch the dataset")
+    add("--download", action="store_true",
+        help="fetch the dataset (refused: the port fetches nothing)")
     add("--synthetic", action="store_true", help="force synthetic data")
     add("--synthetic-size", default=None, type=int,
         help="synthetic dataset size override")
     add("--mesh", default="data=-1", type=str,
-        help="mesh spec; the port runs one data shard")
+        help="mesh spec; the port's mesh is one data axis over the ranks")
     add("--slices", default=1, type=int, help="topology slices")
     add("--slice-axis", default="slice", type=str,
         help="mesh axis int8_hier treats as the slow tier")
@@ -67,13 +71,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     add("--grad-accum", default=1, type=int,
         help="gradient accumulation: microbatches per optimizer step")
     add("--bucket-cap-mb", default=0.0, type=float,
-        help="explicit bucketed gradient sync (not ported)")
+        help="explicit bucketed gradient sync: bucket cap in MB (0: one "
+             "bucket when a compressed wire engages the reducer)")
     add("--wire-dtype", default="fp32", type=str,
         choices=["fp32", "bf16", "int8", "int8_multihop", "int8_hier"],
-        help="gradient wire dtype (only fp32 is ported)")
+        help="gradient wire dtype (fp32, int8 and int8_multihop are "
+             "ported)")
     add("--fused-quantize", default="auto", type=str,
         choices=["auto", "on", "off"],
-        help="fused int8 codec kernels for the int8 wires")
+        help="int8 codec kernels for the int8 wires: auto and on run "
+             "them on CUDA; off (the composed codec) is CPU-only here")
     add("--no-overlap-grad-sync", action="store_true",
         help="reduce buckets after the microbatch loop")
     add("--fsdp-explicit", action="store_true",

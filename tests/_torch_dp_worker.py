@@ -1,0 +1,172 @@
+"""One rank of the port's data-parallel tests: runs a list of jobs over a
+gloo process group and writes what each produced. Imports no JAX, as a
+rank of the port would not.
+
+    python tests/_torch_dp_worker.py RANK WORLD STORE JOBS OUT
+
+(``run_ranks`` starts one such process per rank and collects them.)
+
+``STORE`` is a ``file://`` rendezvous path (under the test's tmp_path, so
+parallel test workers never race for a port); ``JOBS`` a pickle the test
+wrote; ``OUT`` the pickle this rank writes. Jobs:
+
+* ``("reduce", spec)``: ``reduce_flat`` over this rank's row of
+  ``spec["contribs"]`` for ``spec["calls"]`` calls, feeding the residual
+  back; returns the sums, the residuals, and every K1 call's input and
+  output (codes and scales on the wire);
+* ``("train", spec)``: the port's Trainer from the given flax weights over
+  ``spec["batches"]`` (this rank's rows of each global batch); returns the
+  per-step metrics and the final flax params, batch_stats and residual;
+* ``("refuse", spec)``: build a Trainer with ``spec["config"]`` and return
+  the message of the ``NotImplementedError`` it raises (None if none);
+* ``("scalars", spec)``: ``reduce_scalar`` of ``rank + 1`` by each op.
+"""
+
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from distributed_pytorch_training_tpu_torch.convert import (  # noqa: E402
+    batch_stats_to_flax, load_flax_params, torch_to_flax,
+)
+from distributed_pytorch_training_tpu_torch.models import get_model  # noqa
+from distributed_pytorch_training_tpu_torch.parallel import (  # noqa: E402
+    grad_sync,
+)
+from distributed_pytorch_training_tpu_torch.parallel.collectives import (  # noqa
+    reduce_scalar,
+)
+from distributed_pytorch_training_tpu_torch.runtime import (  # noqa: E402
+    cleanup_distributed, setup_distributed,
+)
+from distributed_pytorch_training_tpu_torch.training import (  # noqa: E402
+    TrainConfig, Trainer, make_optimizer,
+)
+from distributed_pytorch_training_tpu_torch.training.tasks import (  # noqa
+    ImageClassificationTask,
+)
+
+
+def run_reduce(spec, rank, world):
+    plan = grad_sync.BucketPlan(spec["total"], tuple(spec["bounds"]))
+    flat = torch.from_numpy(spec["contribs"][rank])
+    residual = (torch.from_numpy(spec["residual"][rank])
+                if spec["residual"] is not None else None)
+    k1 = []
+    real = grad_sync.quantize_int8_rows
+
+    def recording(rows):
+        q, s = real(rows)
+        k1.append((rows.numpy().copy(), q.numpy().copy(), s.numpy().copy()))
+        return q, s
+
+    grad_sync.quantize_int8_rows = recording
+    try:
+        sums, residuals = [], []
+        for _ in range(spec["calls"]):
+            out, residual = grad_sync.reduce_flat(flat, plan, world,
+                                                  spec["wire"], residual)
+            sums.append(out.numpy().copy())
+            residuals.append(None if residual is None
+                             else residual.numpy().copy())
+    finally:
+        grad_sync.quantize_int8_rows = real
+    return {"sums": sums, "residuals": residuals, "k1": k1}
+
+
+def run_train(spec, rank, world):
+    model = get_model("resnet18", **spec["model_kwargs"])
+    load_flax_params(model, spec["params"], spec["batch_stats"])
+    trainer = Trainer(
+        ImageClassificationTask(spec["mean"], spec["std"], augment=False),
+        TrainConfig(seed=0, print_freq=1000, **spec["config"]),
+        device="cpu")
+    state = trainer.init_state(model, make_optimizer(
+        "sgd", spec["lr"], momentum=0.9, weight_decay=5e-4))
+    metrics = []
+    for batch in spec["batches"]:
+        local = {k: torch.from_numpy(np.ascontiguousarray(
+            np.split(v, world)[rank])) for k, v in batch.items()}
+        m = trainer.train_step(state, local)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "step": state.step, **snapshot(state)}
+
+
+def snapshot(state):
+    """Flax params, batch_stats and the residual of a TrainState."""
+    return {"params": torch_to_flax(state.model),
+            "batch_stats": batch_stats_to_flax(state.model),
+            "ef": {k: v.numpy().copy() for k, v in state.grad_sync.items()}}
+
+
+def run_refuse(spec, rank, world):
+    try:
+        Trainer(ImageClassificationTask((0.5,) * 3, (0.5,) * 3),
+                TrainConfig(**spec["config"]), device="cpu")
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def run_scalars(spec, rank, world):
+    return {op: reduce_scalar(rank + 1, op) for op in ("sum", "max", "mean")}
+
+
+def run_ranks(tmp_path: Path, world: int, jobs: dict, timeout=240) -> list:
+    """Run ``jobs`` on ``world`` gloo ranks (one worker process each);
+    returns every rank's results."""
+    jobs_path = tmp_path / "jobs.pkl"
+    with open(jobs_path, "wb") as f:
+        pickle.dump(jobs, f)
+    store = tmp_path / "store"
+    outs = [tmp_path / f"rank{r}.pkl" for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), str(r), str(world),
+         str(store), str(jobs_path), str(outs[r])], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} failed:\n{logs[r]}"
+    results = []
+    for out in outs:
+        with open(out, "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+RUNNERS = {"reduce": run_reduce, "train": run_train, "refuse": run_refuse,
+           "scalars": run_scalars}
+
+
+def main():
+    rank, world = int(sys.argv[1]), int(sys.argv[2])
+    store, jobs_path, out_path = sys.argv[3:6]
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    torch.set_num_threads(1)
+    setup_distributed(torch.device("cpu"), init_method=f"file://{store}")
+    with open(jobs_path, "rb") as f:
+        jobs = pickle.load(f)
+    results = {}
+    for name, (kind, spec) in jobs.items():
+        results[name] = RUNNERS[kind](spec, rank, world)
+    cleanup_distributed()
+    with open(out_path, "wb") as f:
+        pickle.dump(results, f)
+
+
+if __name__ == "__main__":
+    main()

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from distributed_pytorch_training_tpu_torch.ops.quantize import (
+    dequant_sum_rows,
+    dequant_sum_rows_ref,
     quantize_int8_rows,
     quantize_int8_rows_ref,
 )
@@ -108,6 +110,57 @@ def test_int8_engine_quantizes_through_the_kernel(cuda_device):
         assert torch.equal(leaf.q.cpu().reshape(q_ref.shape), q_ref)
         assert torch.equal(leaf.scale.cpu().reshape(-1).view(torch.int32),
                            s_ref.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K2: dequant-sum of int8 rows
+# ---------------------------------------------------------------------------
+
+# the int8 wires' shapes at a short width (2 ranks; 3 and 8 rows), s = 1,
+# s not a multiple of 4, and one row
+DEQUANT_SHAPES = [(2, 100_000), (2, 100_001), (3, 4099), (8, 777), (1, 5),
+                  (2, 1), (2, 3)]
+
+
+def codes_on(shape, device, seed=0):
+    """Codes and scales as the wire makes them: K1 on normal rows."""
+    return quantize_int8_rows(rows_on(shape, device, seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DEQUANT_SHAPES, ids=str)
+def test_dequant_kernel_bitwise_equals_plain_version(cuda_device, shape):
+    q, s = codes_on(shape, cuda_device)
+    before = dequant_sum_rows.launches
+    got = dequant_sum_rows(q, s)
+    torch.cuda.synchronize()
+    assert dequant_sum_rows.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (shape[1],)
+    want = dequant_sum_rows_ref(q, s)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # and the card's plain version is the CPU's, bit for bit
+    cpu = dequant_sum_rows(q.cpu(), s.cpu())
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_dequant_kernel_zero_scales_and_unaligned_rows(cuda_device):
+    q, _ = codes_on((3, 1001), cuda_device)
+    got = dequant_sum_rows(q, torch.zeros(3, device=cuda_device))
+    torch.cuda.synchronize()
+    # 0 + (-k * 0) is +0.0 everywhere: every bit zero
+    assert torch.equal(got.view(torch.int32),
+                       torch.zeros(1001, dtype=torch.int32,
+                                   device=cuda_device))
+    # rows that start off a 4-byte boundary (a view past one byte) take
+    # the scalar path and agree all the same
+    big, s = codes_on((2, 1025), cuda_device, seed=1)
+    view = big.reshape(-1)[1:2049].reshape(2, 1024)
+    assert view.data_ptr() % 4
+    got = dequant_sum_rows(view, s)
+    want = dequant_sum_rows_ref(view, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -75,6 +75,7 @@ from distributed_pytorch_training_tpu_torch.ops.flash_attention import (
     make_flash_attention_fn,
 )
 from distributed_pytorch_training_tpu_torch.runtime import (
+    choose_backend,
     per_process_seed,
     setup_distributed,
 )
@@ -208,12 +209,20 @@ def test_metrics_csv_bytes_identical(tmp_path):
     assert ours.path.read_text().startswith(MetricsCSV.HEADER)
 
 
-def test_single_process_runtime(monkeypatch):
+def test_single_process_runtime(monkeypatch, tmp_path):
     assert per_process_seed(42, 3) == 45
     assert setup_distributed().process_count == 1
+    # more ranks join a process group (test_torch_dp_training.py runs
+    # them): NCCL when every local rank has a card, else gloo
+    assert choose_backend("cuda", 1, 1) == choose_backend("cuda", 4, 4) \
+        == "nccl"
+    assert choose_backend("cuda", 2, 1) == choose_backend("cpu", 2, 0) \
+        == "gloo"
+    # data-parallel GPT-2 is still refused
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="data-parallel"):
-        setup_distributed()
+        train.main(["--device", "cpu", "--model", "gpt2_124m",
+                    "--synthetic", "--output-dir", str(tmp_path)])
 
 
 # ---------------------------------------------------------------------------
@@ -416,16 +425,12 @@ def test_entry_point_runs_as_a_module(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--model", "resnet18"], "ResNet-18"),
     (["--amp"], "--amp"),
     (["--remat"], "remat"),
     (["--mesh", "data=2"], "--mesh"),
     (["--slices", "2"], "--slices"),
     (["--zero1"], "--zero1"),
     (["--fsdp-explicit"], "--fsdp-explicit"),
-    (["--bucket-cap-mb", "25"], "--bucket-cap-mb"),
-    (["--wire-dtype", "int8"], "--wire-dtype"),
-    (["--fused-quantize", "on"], "--fused-quantize"),
     (["--checkpoint-dir", "ckpt"], "--checkpoint-dir"),
     (["--resume"], "--resume"),
     (["--max-restarts", "1"], "--max-restarts"),
@@ -449,3 +454,18 @@ def test_attention_auto_resolves_by_device():
     assert train.resolve_attention("auto", "cuda", 1024) == "flash"
     assert train.resolve_attention("auto", "cpu", 1024) == "xla"
     assert train.resolve_attention("flash", "cpu", 1024) == "flash"
+
+
+@pytest.mark.parametrize("flags", [
+    ["--bucket-cap-mb", "25"], ["--wire-dtype", "int8"],
+    ["--wire-dtype", "int8_multihop", "--fused-quantize", "on"],
+], ids="_".join)
+def test_reducer_flags_on_one_rank_are_a_passthrough(tmp_path, capsys,
+                                                     flags):
+    """The JAX entry's rule: on one batch shard the explicit reducer has
+    nothing to synchronize, says so and trains on the implicit path."""
+    state = train.main(TINY_CLI + flags + ["--epochs", "1", "--output-dir",
+                                           str(tmp_path)])
+    assert "NOTE: explicit gradient sync requested on a single batch " \
+           "shard" in capsys.readouterr().out
+    assert state.step == 8 and state.grad_sync == {}
