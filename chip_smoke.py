@@ -24,8 +24,11 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    the prefill logits within ATOL;
 6. hold the flash-attention kernels (forward, dK/dV, dQ) against their
    plain versions at the training path's shape (fp32 and bf16) and at
-   edge shapes, within FLASH_REL, timing each beside its bound and beside
-   torch's scaled_dot_product_attention;
+   edge shapes, within FLASH_REL, timing each beside its bound (float32
+   products at a third of the TF32 tensor-core rate: the backward kernels
+   run them as three TF32 products) and beside torch's
+   scaled_dot_product_attention; the backward pair (dK/dV + dQ) is logged
+   as one ratio to that call's backward, which computes both at once;
 7. train through the port's own entry (``train.main``: GPT-2 124M at full
    width, seq 1024, flash attention, AdamW, 2 epochs of 8 steps on 64
    synthetic sequences, batch 8), with the launch counts set to 0 just
@@ -96,17 +99,23 @@ VOCAB = 50257
 ATOL = 1e-4
 
 # NVIDIA's data sheet for the H100 SXM (80 GB HBM3): memory rate, float32
-# rate outside the tensor cores and bf16 dense tensor-core rate, at the
-# full 700 W.
+# rate outside the tensor cores, and the dense tensor-core rates of TF32
+# and bf16, at the full 700 W.
 H100_SXM = "H100 80GB HBM3"
 BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
+# float32-accurate products on the tensor cores: three TF32 products each
+# (3xTF32), the least time any float32 flash kernel could take
+FLASH_FP32_OPS_PER_S = TF32_OPS_PER_S / 3
 
 # flash kernels against their plain versions, as max|diff| / max|plain|
 # per output. float32: both sum in float32 in different orders (tiles vs
-# full rows), some 1e-6 of the output's scale at these sizes; a wrong
-# mask, scale or index moves whole rows by O(1). bfloat16: both round
+# full rows), and the backward kernels form each product as three TF32
+# products (3xTF32), some 1e-6 of the output's scale at these sizes (one
+# TF32 product would be ~5e-4); a wrong mask, scale or index moves whole
+# rows by O(1). bfloat16: both round
 # their float32 results to bfloat16 (8 bits of mantissa), so an element
 # may differ by one bfloat16 step, 2**-8 of its magnitude.
 FLASH_REL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -297,7 +306,8 @@ def flash_bounds(torch, case, kv) -> dict:
     larger of the bytes it must move (each input read once, each output
     written once) over the memory rate and the flops of this input's live
     (query, key) pairs (4, 8 and 6 x D each, the JAX module's cost counts)
-    over the peak rate of the input type."""
+    over the peak rate of the input type: bf16 on the tensor cores, float32
+    as three TF32 products (FLASH_FP32_OPS_PER_S)."""
     _, b, sq, sk, h, d, causal, _, dtype = case
     keep = torch.ones((sq, sk), dtype=torch.bool)
     if causal:
@@ -308,7 +318,7 @@ def flash_bounds(torch, case, kv) -> dict:
         pairs = int((keep[None] & (kv.cpu()[:, None, :] > 0)).sum())
     pairs *= h
     item = 4 if dtype == "float32" else 2
-    rate = FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
+    rate = FLASH_FP32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
     nq, nk = b * sq * h * d * item, b * sk * h * d * item
     rows = b * h * sq * 4                       # lse or delta, float32
     mask = 0 if kv is None else b * sk * 4
@@ -432,10 +442,15 @@ def check_flash(torch, dev, flush):
                     lout, (lq, lk, lv), ldo, retain_graph=True), flush)
             del lout
         bounds = flash_bounds(torch, case, kv)
+        # the unit SDPA's backward is compared with: both kernels together
+        pair_ms = ms["flash_attention_bwd_dkv"] + ms["flash_attention_bwd_dq"]
+        pair_ratio = (None if library["sdpa_bwd_ms"] is None
+                      else pair_ms / library["sdpa_bwd_ms"])
         row = {"shape": name, "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
                "causal": causal, "kv_valid": masked, "dtype": dtype_name,
                "rel_err": errs, "tolerance": tol, "max_abs_err": abs_err,
                "ms": ms, "plain_ms": plain_ms, **library,
+               "bwd_pair_ms": pair_ms, "bwd_pair_over_sdpa_bwd": pair_ratio,
                "bound_ms": {n: t for n, (t, _) in bounds.items()},
                "bound_by": {n: by for n, (_, by) in bounds.items()}}
         rows.append(row)
@@ -448,7 +463,8 @@ def check_flash(torch, dev, flush):
             + ", ".join(f"{n.rsplit('_', 1)[-1]} {t:.4f}"
                         for n, t in plain_ms.items())
             + f"; sdpa fwd {library['sdpa_fwd_ms']} bwd "
-              f"{library['sdpa_bwd_ms']} ms; bound ms "
+              f"{library['sdpa_bwd_ms']} ms; dkv + dq {pair_ms:.4f} ms, "
+              f"{pair_ratio} x sdpa bwd; bound ms "
             + ", ".join(f"{n.rsplit('_', 1)[-1]} {t:.4f} ({by})"
                         for n, (t, by) in bounds.items()))
         if bad:
@@ -561,7 +577,9 @@ def flash_kernel_rows(flash_rows, launches) -> list:
             "bound_ms": main["bound_ms"][name] * n,
             "bound_by": main["bound_by"][name],
             # scaled_dot_product_attention's forward for K3; its backward
-            # (dq, dk and dv together) for K4 and K5 alike
+            # (dq, dk and dv together) for K4 and K5 alike: it computes
+            # both kernels' function at once, so the unit compared with it
+            # is the pair K4 + K5, not either row alone
             "library_ms": lib * n,
         })
     return rows

@@ -29,20 +29,46 @@
 // Bound on the card: operations. At GPT-2 124M's shape (B 8, S 1024, H 12,
 // D 64, causal) the forward does 4*D flops per live (q, k) pair, dK/dV 8*D
 // and dQ 6*D (the JAX module's _cost counts), about 12.9, 25.8 and 19.4
-// GFLOP, against some 100 MB of traffic each: compute-bound, 0.19, 0.38 and
-// 0.29 ms at the H100's 67 TFLOP/s of float32 outside the tensor cores.
+// GFLOP, against some 100 MB of traffic each. Float32-accurate products on
+// the tensor cores cost three TF32 products, so the least time is at 495 / 3
+// = 165 TFLOP/s (the H100 SXM's dense TF32 rate, NVIDIA's data sheet):
+// 0.078, 0.156 and 0.117 ms.
 //
-// Design, simple and correct first (tensor cores, wgmma and TMA are later
-// work): 256 threads as a 16 x 16 grid. A block owns one 64-row tile (q
-// tile for the forward and dQ, k tile for dK/dV) of one (batch, head) and
-// loops over the other side's 64-row tiles, staged in shared memory as
-// float32 with rows padded to D + 1 floats (no bank conflicts on column
+// Forward (K3), simple and correct first (tensor cores are the next PR's):
+// 256 threads as a 16 x 16 grid. A block owns one 64-row q tile of one
+// (batch, head) and loops over the 64-row k tiles, staged in shared memory
+// as float32 with rows padded to D + 1 floats (no bank conflicts on column
 // reads). Each thread computes a 4 x 4 patch of the 64 x 64 score tile,
 // rows ty + 16 i and columns tx + 16 j; row statistics reduce over the 16
-// lanes of a half-warp with shuffles. The accumulators (out, dK and dV, or
-// dQ) live in registers: each thread keeps 4 rows by ceil(D / 16) columns.
-// Causal blocks skip the tiles past the diagonal, and the heaviest causal
-// q tiles are scheduled first.
+// lanes of a half-warp with shuffles; out lives in registers, 4 rows by
+// ceil(D / 16) columns a thread. The heaviest causal q tiles go first.
+//
+// Backward (K4 dK/dV, K5 dQ): every product on the tensor cores through
+// mma.sync.m16n8k8 TF32 with float32 accumulation, as a 3xTF32 split: x =
+// big + small, big = x rounded to TF32 (cvt.rna.tf32.f32's rounding), small
+// = (x - big) rounded to TF32, and a b = big big + big small + small big
+// (small small dropped). One TF32 pass is not enough: emulated on the CPU
+// at D 64, causal, against float32 plain arithmetic, max error over max
+// |plain| of (dq, dk, dv) is (7.0e-4, 7.2e-4, 3.0e-4) at S 128 and (3.5e-4,
+// 5.6e-4, 3.4e-4) at S 1024 with one pass, past the port's float32
+// tolerance of 1e-4; with three, (6.4e-7, 5.3e-7, 4.9e-7) and (3.4e-7,
+// 1.0e-6, 1.0e-6). bfloat16 inputs are exact in TF32, so their small parts
+// are zero and those terms are skipped; P and dS still split.
+// What the tiling does about the limits of a SIMT design:
+//   * products: a warp owns 16 rows of its block's 64-row tile and computes
+//     16 x 64 score tiles with mma.sync; P and dS go from the accumulators
+//     straight into the next product's A operand, with the depth order of
+//     the B operand permuted to match (no shuffle, no shared-memory trip);
+//     fragment reads are free of bank conflicts (row stride D + 16 bytes);
+//   * loads: the streamed side (Q and dO for K4, K and V for K5) is
+//     double-buffered with 16-byte cp.async, so the next tile's copy runs
+//     under this tile's products; a row that is not 16-byte aligned is
+//     staged element by element instead;
+//   * masks: a tile wholly below the causal diagonal, inside both lengths
+//     and without kv_valid, takes p = exp(scale s - lse) with no mask test;
+//   * occupancy: 128 threads and six tiles of shared memory a block (105 KB
+//     at D 64 in float32, so two blocks an SM); D is zero-padded to 16, 32,
+//     64 or 128 columns, which is exact.
 
 #include <cfloat>
 #include <cmath>
@@ -240,237 +266,499 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 }
 
 // --------------------------------------------------------------------------
-// backward: p and dS of one (q tile, k tile) pair, shared by both kernels
+// backward: tensor-core helpers (TF32 mma.sync, 3xTF32)
 // --------------------------------------------------------------------------
 
-// Scores from sQ x sK and dP from sdO x sV, then p = exp(s - lse) and
-// dS = p * (dP - delta) * scale into sP (when non-null) and sdS, rows q,
-// columns k. Rows past Sq get p = 0.
-__device__ __forceinline__ void bwd_scores(
-    const float* sQ, const float* sK, const float* sdO, const float* sV,
-    const float* sLse, const float* sDelta, float* sP, float* sdS, int ld,
-    int D, int q0, int k0, int Sq, int Sk, bool causal, const float* kvm,
-    float scale, int ty, int tx) {
-  float s[4][4] = {};
-  float dp[4][4] = {};
-  dot_4x4(s, sQ, sK, ld, D, ty, tx);
-  dot_4x4(dp, sdO, sV, ld, D, ty, tx);
+constexpr int kBwdThreads = 128;  // 4 warps, 16 rows of the block's tile each
+
+// A float split for 3xTF32: x = hi + lo, each a TF32 value (the low 13 bits
+// zero). The rounding is cvt.rna.tf32.f32's (to nearest, ties away from
+// zero), written as integer operations on the bits so that the low bits
+// are zero by construction; the CPU test reproduces it bit for bit.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+template <int N>
+struct Frag {  // N registers of one mma operand, big and small parts
+  uint32_t hi[N], lo[N];
+};
+
+template <int N>
+__device__ __forceinline__ void split(Frag<N>& f, const float (&x)[N]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int row = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      float p = 0.0f;
-      if (row < Sq) {
-        p = expf(masked(scale * s[i][j], row, k0 + c, Sk, causal, kvm) -
-                 sLse[r]);
+  for (int i = 0; i < N; ++i) {
+    f.hi[i] = tf32_rna(x[i]);
+    f.lo[i] = tf32_rna(x[i] - __uint_as_float(f.hi[i]));
+  }
+}
+
+// c += a b on the tensor cores: a 16 x 8 (row), b 8 x 8 (col), c 16 x 8
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32: c += a.hi b.lo + a.lo b.hi + a.hi b.hi (small terms first; the
+// a.lo b.lo term, 2^-22 of the product, is dropped). An operand that is
+// exact in TF32 (a bfloat16 input) has a zero small part: its term is
+// skipped.
+template <bool kExactA, bool kExactB>
+__device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a,
+                                     const Frag<2>& b) {
+  if (!kExactB) mma_tf32(c, a.hi, b.lo);
+  if (!kExactA) mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// The m16n8k8 fragments (PTX ISA, mma.m16n8k8 .tf32), lane = 4 g + t:
+//   A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+//   B (8 x 8):  b0 (t, g), b1 (t + 4, g)            as (k, n)
+//   C (16 x 8): c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+
+// A from a row-major tile: rows r0.., depth columns k0..k0 + 7
+template <typename T, int LD>
+__device__ __forceinline__ void load_a(Frag<4>& f, const T* s, int r0, int k0,
+                                       int g, int t) {
+  const T* p = s + (r0 + g) * LD + k0 + t;
+  const float x[4] = {load_f(p), load_f(p + 8 * LD), load_f(p + 4),
+                      load_f(p + 8 * LD + 4)};
+  split(f, x);
+}
+
+// B = X^T for a product against the rows of X: n = rows n0.., k = depth
+// columns k0..k0 + 7
+template <typename T, int LD>
+__device__ __forceinline__ void load_bt(Frag<2>& f, const T* s, int n0,
+                                        int k0, int g, int t) {
+  const T* p = s + (n0 + g) * LD + k0 + t;
+  const float x[2] = {load_f(p), load_f(p + 4)};
+  split(f, x);
+}
+
+// B = X for a product over X's rows, with the depth order permuted to match
+// an accumulator re-used as A (see acc_as_a): k = t <-> row r0 + 2t,
+// k = t + 4 <-> row r0 + 2t + 1; n = columns n0..n0 + 7
+template <typename T, int LD>
+__device__ __forceinline__ void load_b(Frag<2>& f, const T* s, int r0,
+                                       int n0, int g, int t) {
+  const T* p = s + (r0 + 2 * t) * LD + n0 + g;
+  const float x[2] = {load_f(p), load_f(p + LD)};
+  split(f, x);
+}
+
+// An accumulator tile (16 x 8, columns = the next product's depth) as that
+// product's A operand, with no data movement: the thread's c0..c3 hold
+// columns 2t and 2t + 1, which the permuted depth order of load_b names
+// t and t + 4.
+__device__ __forceinline__ void acc_as_a(Frag<4>& f, const float (&c)[4]) {
+  const float x[4] = {c[0], c[2], c[1], c[3]};
+  split(f, x);
+}
+
+// --------------------------------------------------------------------------
+// backward: asynchronous staging into shared memory
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared-memory tile of DP (D zero-padded to a multiple of 8) columns: the
+// row stride LD = DP + 16 bytes makes every fragment read above free of
+// bank conflicts (LD = 4 mod 32 words for float32) and keeps rows 16-byte
+// aligned for cp.async.
+template <typename T, int DP>
+struct Tile {
+  static constexpr int kLd = DP + 16 / static_cast<int>(sizeof(T));
+  static constexpr int kElems = kTile * kLd;
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // per 16 B
+  static constexpr int kChunks = DP / kVec;                      // per row
+};
+
+// Rows [row0, row0 + kTile) of one (batch, head) slice (`src` at its row 0,
+// `s_stride` apart) into a tile; rows at or past `n_rows` and columns at or
+// past D are zero. `vec`: every row is 16-byte aligned and D * sizeof(T) a
+// multiple of 16, so 16-byte cp.async copies (zero-filled where invalid);
+// else a scalar path that loads and stores synchronously.
+template <typename T, int DP>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src,
+                                           long long s_stride, int row0,
+                                           int n_rows, int D, bool vec) {
+  using L = Tile<T, DP>;
+  if (vec) {
+    const int c = threadIdx.x % L::kChunks;
+    const int col = c * L::kVec;
+    for (int r = threadIdx.x / L::kChunks; r < kTile;
+         r += kBwdThreads / L::kChunks) {
+      const int row = row0 + r;
+      const bool ok = row < n_rows && col < D;
+      cp_async16(dst + r * L::kLd + col,
+                 src + (ok ? row * s_stride + col : 0), ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * DP; i += kBwdThreads) {
+      const int r = i / DP;
+      const int col = i % DP;
+      const int row = row0 + r;
+      if (row < n_rows && col < D) {
+        dst[r * L::kLd + col] = src[row * s_stride + col];
+      } else {
+        store_f(dst + r * L::kLd + col, 0.0f);
       }
-      if (sP != nullptr) sP[r * kLdp + c] = p;
-      sdS[r * kLdp + c] = p * (dp[i][j] - sDelta[r]) * scale;
     }
   }
 }
 
-// lse and delta of rows [q0, q0 + kTile) into shared memory (0 past Sq)
-__device__ __forceinline__ void load_rows(float* sLse, float* sDelta,
-                                          const float* lse,
-                                          const float* delta, long long base,
-                                          int q0, int Sq) {
-  if (threadIdx.x < kTile) {
-    const int row = q0 + threadIdx.x;
-    sLse[threadIdx.x] = row < Sq ? lse[base + row] : 0.0f;
-    sDelta[threadIdx.x] = row < Sq ? delta[base + row] : 0.0f;
+// p of one (q row, key) element after the JAX kernels' masks (JAX
+// :294/:305, :341/:350): p = exp(scale * s - lse). Rows past Sq get 0.
+__device__ __forceinline__ float masked_p(float s, int row, int col, int Sq,
+                                          int Sk, bool causal,
+                                          const float* kvm, float lse) {
+  return row < Sq ? expf(masked(s, row, col, Sk, causal, kvm) - lse) : 0.0f;
+}
+
+// Whether the tile pair (q rows q0.., keys k0..) needs any mask: a tile
+// wholly below the causal diagonal, inside both lengths and without
+// kv_valid, takes p = exp(scale * s - lse) directly.
+__device__ __forceinline__ bool needs_mask(int q0, int k0, int Sq, int Sk,
+                                           bool causal, bool has_kvm) {
+  return has_kvm || q0 + kTile > Sq || k0 + kTile > Sk ||
+         (causal && k0 + kTile - 1 > q0);
+}
+
+// Two 16 x kTile accumulators of one warp, x = scale * x1 -> p, y -> dS =
+// p * (y - delta) * scale (JAX :305/:308, :350/:352), in place. Element
+// (j, c) lies at local row rl(c) and column 8 j + 2 t + (c & 1); `p_of`
+// returns p for (row, column, scaled logit).
+template <typename POf, typename DeltaOf>
+__device__ __forceinline__ void p_and_ds(float (&x)[kTile / 8][4],
+                                         float (&y)[kTile / 8][4], float scale,
+                                         POf p_of, DeltaOf delta_of, int g,
+                                         int t) {
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = g + 8 * (c >> 1);
+      const int col = 8 * j + 2 * t + (c & 1);
+      const float p = p_of(r, col, scale * x[j][c]);
+      x[j][c] = p;
+      y[j][c] = p * (y[j][c] - delta_of(r, col)) * scale;
+    }
+  }
+}
+
+// Write a warp's 16 x DP accumulator (rows r0.., columns 8 n + 2 t + (c & 1))
+// to rows below n_rows and columns below D of `out` (row_stride apart).
+template <typename T, int DP>
+__device__ __forceinline__ void store_acc(T* out, long long row_stride,
+                                          const float (&acc)[DP / 8][4],
+                                          int r0, int n_rows, int D, int g,
+                                          int t) {
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int row = r0 + g + 8 * (c >> 1);
+      const int col = 8 * n + 2 * t + (c & 1);
+      if (row < n_rows && col < D) store_f(out + row * row_stride + col,
+                                           acc[n][c]);
+    }
+  }
+}
+
+// acc += X Y over one tile pair: X is a warp's 16 x kTile accumulator
+// (split once into A operands), Y the kTile rows of a shared-memory tile.
+// Each 16 x 8 output tile sums this tile's products in a fresh accumulator
+// and is then added to `acc` in IEEE float32 arithmetic, so the running
+// sum over the whole loop never passes through the tensor cores'
+// accumulation.
+template <typename T, int DP, bool kExactB>
+__device__ __forceinline__ void add_product(float (&acc)[DP / 8][4],
+                                            const float (&x)[kTile / 8][4],
+                                            const T* y, int g, int t) {
+  Frag<4> a[kTile / 8];
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) acc_as_a(a[j], x[j]);
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    float part[4] = {};
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+      Frag<2> b;
+      load_b<T, Tile<T, DP>::kLd>(b, y, 8 * j, 8 * n, g, t);
+      mma3<false, kExactB>(part, a[j], b);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] += part[c];
   }
 }
 
 // --------------------------------------------------------------------------
-// backward: dK and dV
+// backward: dK and dV (K4)
 // --------------------------------------------------------------------------
 
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
+// One block per (batch * head, 64-key tile); warp w owns keys 16 w..16 w +
+// 15 of the tile. K and V stay in shared memory; the block walks the live
+// q tiles with Q, dO, lse and delta double-buffered by cp.async. Per q
+// tile a warp forms S^T = K Q^T and dP^T = V dO^T (16 x 64), turns them
+// into P^T and dS^T in registers and feeds those straight to dV += P^T dO
+// and dK += dS^T Q, accumulated in registers over the whole loop.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ kv_valid, T* __restrict__ dk,
     T* __restrict__ dv, int H, int Sq, int Sk, int D, Strides qs,
-    Strides ks, Strides vs, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* sK = smem;
-  float* sV = sK + kTile * ld;
-  float* sQ = sV + kTile * ld;
-  float* sdO = sQ + kTile * ld;
-  float* sP = sdO + kTile * ld;
-  float* sdS = sP + kTile * kLdp;
-  float* sLse = sdS + kTile * kLdp;
-  float* sDelta = sLse + kTile;
+    Strides ks, Strides vs, float scale, int causal, int vec) {
+  using L = Tile<T, DP>;
+  constexpr int LD = L::kLd;
+  constexpr bool kExact = sizeof(T) == 2;  // bfloat16 inputs are TF32-exact
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sK + L::kElems;
+  T* sQ = sV + L::kElems;        // [2] buffers
+  T* sdO = sQ + 2 * L::kElems;   // [2]
+  float* sRows = reinterpret_cast<float*>(sdO + 2 * L::kElems);  // [2][2][64]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int k0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const float* kvm = kv_valid ? kv_valid + (long long)b * Sk : nullptr;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int kr0 = 16 * warp;
   const long long row_stride = (long long)H * D;  // dout, dk, dv
+  const T* qb = q + b * qs.b + h * qs.h;
   const T* dob = dout + (long long)b * Sq * row_stride + (long long)h * D;
-
-  load_tile(sK, ld, k + b * ks.b + h * ks.h, ks.s, k0, Sk, D, 1.0f);
-  load_tile(sV, ld, v + b * vs.b + h * vs.h, vs.s, k0, Sk, D, 1.0f);
-
-  float dk_acc[4][DPT], dv_acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      dk_acc[i][c] = 0.0f;
-      dv_acc[i][c] = 0.0f;
-    }
-  }
+  const long long lse_base = (long long)bh * Sq;
+  const float* kvm = kv_valid ? kv_valid + (long long)b * Sk : nullptr;
 
   const int n_qt = (Sq + kTile - 1) / kTile;
   // causal: q tiles whose last row is before this tile's first key are dead
   const int qt0 = causal ? k0 / kTile : 0;
-  for (int qt = qt0; qt < n_qt; ++qt) {
+  auto stage_q = [&](int buf, int qt) {
     const int q0 = qt * kTile;
-    __syncthreads();  // sK, sV are loaded; the last tile's readers are done
-    load_tile(sQ, ld, q + b * qs.b + h * qs.h, qs.s, q0, Sq, D, 1.0f);
-    load_tile(sdO, ld, dob, row_stride, q0, Sq, D, 1.0f);
-    load_rows(sLse, sDelta, lse, delta, (long long)bh * Sq, q0, Sq);
-    __syncthreads();
-    bwd_scores(sQ, sK, sdO, sV, sLse, sDelta, sP, sdS, ld, D, q0, k0, Sq,
-               Sk, causal, kvm, scale, ty, tx);
-    __syncthreads();
+    stage_tile<T, DP>(sQ + buf * L::kElems, qb, qs.s, q0, Sq, D, vec);
+    stage_tile<T, DP>(sdO + buf * L::kElems, dob, row_stride, q0, Sq, D,
+                      vec);
+    const int i = threadIdx.x;  // 128 threads: 64 lse, then 64 delta
+    const int row = q0 + (i & (kTile - 1));
+    const bool ok = row < Sq;
+    cp_async4(sRows + buf * 2 * kTile + i,
+              (i < kTile ? lse : delta) + lse_base + (ok ? row : 0), ok);
+  };
 
-    // dV += P^T dO, dK += dS^T Q: this thread's k rows are ty + 16 i
-    const int n_q = min(kTile, Sq - q0);
-    for (int r = 0; r < n_q; ++r) {
-      float dov[DPT], qv[DPT];
+  stage_tile<T, DP>(sK, k + b * ks.b + h * ks.h, ks.s, k0, Sk, D, vec);
+  stage_tile<T, DP>(sV, v + b * vs.b + h * vs.h, vs.s, k0, Sk, D, vec);
+  if (qt0 < n_qt) stage_q(0, qt0);
+  cp_async_commit();
+
+  float dk_acc[DP / 8][4] = {};
+  float dv_acc[DP / 8][4] = {};
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int buf = (qt - qt0) & 1;
+    if (qt + 1 < n_qt) {
+      stage_q(buf ^ 1, qt + 1);  // overlaps this tile's products
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* cQ = sQ + buf * L::kElems;
+    const T* cdO = sdO + buf * L::kElems;
+    const float* cLse = sRows + buf * 2 * kTile;
+    const float* cDelta = cLse + kTile;
+    const int q0 = qt * kTile;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 q rows per warp
+    float st[kTile / 8][4] = {};
+    float dpt[kTile / 8][4] = {};
 #pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        const int col = tx + 16 * c;
-        dov[c] = col < D ? sdO[r * ld + col] : 0.0f;
-        qv[c] = col < D ? sQ[r * ld + col] : 0.0f;
-      }
+    for (int kk = 0; kk < DP; kk += 8) {
+      Frag<4> ka, va;
+      load_a<T, LD>(ka, sK, kr0, kk, g, t);
+      load_a<T, LD>(va, sV, kr0, kk, g, t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = sP[r * kLdp + ty + 16 * i];
-        const float ds = sdS[r * kLdp + ty + 16 * i];
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) {
-          dv_acc[i][c] = fmaf(p, dov[c], dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(ds, qv[c], dk_acc[i][c]);
-        }
+      for (int j = 0; j < kTile / 8; ++j) {
+        Frag<2> qf, of;
+        load_bt<T, LD>(qf, cQ, 8 * j, kk, g, t);
+        load_bt<T, LD>(of, cdO, 8 * j, kk, g, t);
+        mma3<kExact, kExact>(st[j], ka, qf);
+        mma3<kExact, kExact>(dpt[j], va, of);
       }
     }
-  }
 
-  T* dkb = dk + (long long)b * Sk * row_stride + (long long)h * D;
-  T* dvb = dv + (long long)b * Sk * row_stride + (long long)h * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row < Sk) {
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        const int col = tx + 16 * c;
-        if (col < D) {
-          store_f(dkb + row * row_stride + col, dk_acc[i][c]);
-          store_f(dvb + row * row_stride + col, dv_acc[i][c]);
-        }
-      }
+    // P^T and dS^T: rows are keys, columns q rows
+    auto delta_of = [&](int, int col) { return cDelta[col]; };
+    if (needs_mask(q0, k0, Sq, Sk, causal, kvm != nullptr)) {
+      p_and_ds(st, dpt, scale,
+               [&](int r, int col, float s) {
+                 return masked_p(s, q0 + col, k0 + kr0 + r, Sq, Sk, causal,
+                                 kvm, cLse[col]);
+               },
+               delta_of, g, t);
+    } else {
+      p_and_ds(st, dpt, scale,
+               [&](int, int col, float s) { return expf(s - cLse[col]); },
+               delta_of, g, t);
     }
+
+    // dV += P^T dO and dK += dS^T Q, depth = the tile's 64 q rows
+    add_product<T, DP, kExact>(dv_acc, st, cdO, g, t);
+    add_product<T, DP, kExact>(dk_acc, dpt, cQ, g, t);
+    __syncthreads();  // this buffer is refilled two tiles on
   }
+  cp_async_wait<0>();  // no live q tile: K and V were staged for nothing
+
+  const long long out_base = (long long)b * Sk * row_stride + (long long)h * D;
+  store_acc<T, DP>(dk + out_base, row_stride, dk_acc, k0 + kr0, Sk, D, g, t);
+  store_acc<T, DP>(dv + out_base, row_stride, dv_acc, k0 + kr0, Sk, D, g, t);
 }
 
 // --------------------------------------------------------------------------
-// backward: dQ
+// backward: dQ (K5)
 // --------------------------------------------------------------------------
 
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
+// One block per (batch * head, 64-row q tile), heaviest causal tiles first;
+// warp w owns q rows 16 w..16 w + 15. Q, dO, lse and delta stay resident;
+// the block walks the live k tiles with K and V double-buffered by
+// cp.async. Per k tile a warp forms S = Q K^T and dP = dO V^T (16 x 64),
+// turns them into dS in registers and feeds it straight to dQ += dS K,
+// accumulated in registers over the whole loop.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ kv_valid, T* __restrict__ dq, int H, int Sq,
     int Sk, int D, Strides qs, Strides ks, Strides vs, float scale,
-    int causal) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* sQ = smem;
-  float* sdO = sQ + kTile * ld;
-  float* sK = sdO + kTile * ld;
-  float* sV = sK + kTile * ld;
-  float* sdS = sV + kTile * ld;
-  float* sLse = sdS + kTile * kLdp;
-  float* sDelta = sLse + kTile;
+    int causal, int vec) {
+  using L = Tile<T, DP>;
+  constexpr int LD = L::kLd;
+  constexpr bool kExact = sizeof(T) == 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sdO = sQ + L::kElems;
+  T* sK = sdO + L::kElems;       // [2] buffers
+  T* sV = sK + 2 * L::kElems;    // [2]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const float* kvm = kv_valid ? kv_valid + (long long)b * Sk : nullptr;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int qr0 = 16 * warp;
   const long long row_stride = (long long)H * D;  // dout, dq
-  const T* dob = dout + (long long)b * Sq * row_stride + (long long)h * D;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+  const float* kvm = kv_valid ? kv_valid + (long long)b * Sk : nullptr;
 
-  load_tile(sQ, ld, q + b * qs.b + h * qs.h, qs.s, q0, Sq, D, 1.0f);
-  load_tile(sdO, ld, dob, row_stride, q0, Sq, D, 1.0f);
-  load_rows(sLse, sDelta, lse, delta, (long long)bh * Sq, q0, Sq);
-
-  float dq_acc[4][DPT];
+  // this thread's two q rows (local g and g + 8)
+  float row_lse[2], row_delta[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) dq_acc[i][c] = 0.0f;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + qr0 + g + 8 * i;
+    row_lse[i] = row < Sq ? lse[(long long)bh * Sq + row] : 0.0f;
+    row_delta[i] = row < Sq ? delta[(long long)bh * Sq + row] : 0.0f;
   }
 
   int n_kt = (Sk + kTile - 1) / kTile;
   if (causal) n_kt = min(n_kt, (q0 + kTile - 1) / kTile + 1);
+  stage_tile<T, DP>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq, D, vec);
+  stage_tile<T, DP>(sdO, dout + (long long)b * Sq * row_stride +
+                             (long long)h * D,
+                    row_stride, q0, Sq, D, vec);
+  stage_tile<T, DP>(sK, kb, ks.s, 0, Sk, D, vec);
+  stage_tile<T, DP>(sV, vb, vs.s, 0, Sk, D, vec);
+  cp_async_commit();
+
+  float dq_acc[DP / 8][4] = {};
   for (int kt = 0; kt < n_kt; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_kt) {
+      const int next = (kt + 1) * kTile;
+      stage_tile<T, DP>(sK + (buf ^ 1) * L::kElems, kb, ks.s, next, Sk, D,
+                        vec);
+      stage_tile<T, DP>(sV + (buf ^ 1) * L::kElems, vb, vs.s, next, Sk, D,
+                        vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* cK = sK + buf * L::kElems;
+    const T* cV = sV + buf * L::kElems;
     const int k0 = kt * kTile;
-    __syncthreads();  // sQ, sdO, rows loaded; the last tile's readers done
-    load_tile(sK, ld, k + b * ks.b + h * ks.h, ks.s, k0, Sk, D, 1.0f);
-    load_tile(sV, ld, v + b * vs.b + h * vs.h, vs.s, k0, Sk, D, 1.0f);
-    __syncthreads();
-    bwd_scores(sQ, sK, sdO, sV, sLse, sDelta, nullptr, sdS, ld, D, q0, k0,
-               Sq, Sk, causal, kvm, scale, ty, tx);
-    __syncthreads();
 
-    // dQ += dS K: this thread's q rows are ty + 16 i
-    const int n_k = min(kTile, Sk - k0);
-    for (int j = 0; j < n_k; ++j) {
-      float kv[DPT];
+    // S = Q K^T and dP = dO V^T: 16 q rows x 64 keys per warp
+    float s[kTile / 8][4] = {};
+    float dp[kTile / 8][4] = {};
 #pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        const int col = tx + 16 * c;
-        kv[c] = col < D ? sK[j * ld + col] : 0.0f;
-      }
+    for (int kk = 0; kk < DP; kk += 8) {
+      Frag<4> qa, oa;
+      load_a<T, LD>(qa, sQ, qr0, kk, g, t);
+      load_a<T, LD>(oa, sdO, qr0, kk, g, t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = sdS[(ty + 16 * i) * kLdp + j];
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) dq_acc[i][c] = fmaf(ds, kv[c], dq_acc[i][c]);
+      for (int j = 0; j < kTile / 8; ++j) {
+        Frag<2> kf, vf;
+        load_bt<T, LD>(kf, cK, 8 * j, kk, g, t);
+        load_bt<T, LD>(vf, cV, 8 * j, kk, g, t);
+        mma3<kExact, kExact>(s[j], qa, kf);
+        mma3<kExact, kExact>(dp[j], oa, vf);
       }
     }
+
+    auto delta_of = [&](int r, int) { return row_delta[r >> 3]; };
+    if (needs_mask(q0, k0, Sq, Sk, causal, kvm != nullptr)) {
+      p_and_ds(s, dp, scale,
+               [&](int r, int col, float x) {
+                 return masked_p(x, q0 + qr0 + r, k0 + col, Sq, Sk, causal,
+                                 kvm, row_lse[r >> 3]);
+               },
+               delta_of, g, t);
+    } else {
+      p_and_ds(s, dp, scale,
+               [&](int r, int, float x) { return expf(x - row_lse[r >> 3]); },
+               delta_of, g, t);
+    }
+
+    // dQ += dS K, depth = the tile's 64 keys
+    add_product<T, DP, kExact>(dq_acc, dp, cK, g, t);
+    __syncthreads();  // this buffer is refilled two tiles on
   }
 
-  T* dqb = dq + (long long)b * Sq * row_stride + (long long)h * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row < Sq) {
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        const int col = tx + 16 * c;
-        if (col < D) store_f(dqb + row * row_stride + col, dq_acc[i][c]);
-      }
-    }
-  }
+  store_acc<T, DP>(dq + (long long)b * Sq * row_stride + (long long)h * D,
+                   row_stride, dq_acc, q0 + qr0, Sq, D, g, t);
 }
 
 // --------------------------------------------------------------------------
@@ -480,11 +768,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 size_t fwd_smem(int D) {
   return sizeof(float) * (3 * kTile * (D + 1) + kTile * kLdp);
 }
-size_t dkv_smem(int D) {
-  return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kLdp + 2 * kTile);
+
+// K4 and K5 both hold six tiles (two resident, two double-buffered); K4
+// adds lse and delta for its two q buffers
+template <typename T, int DP>
+size_t dkv_smem() {
+  return 6 * Tile<T, DP>::kElems * sizeof(T) + 4 * kTile * sizeof(float);
 }
-size_t dq_smem(int D) {
-  return sizeof(float) * (4 * kTile * (D + 1) + kTile * kLdp + 2 * kTile);
+template <typename T, int DP>
+size_t dq_smem() {
+  return 6 * Tile<T, DP>::kElems * sizeof(T);
 }
 
 struct Problem {
@@ -523,39 +816,59 @@ int fwd_t(const Problem& p, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DPT>
+// Every row of a (B, S, H, D) tensor at `x` with these strides (and of the
+// contiguous dO) starts on a 16-byte boundary and D fills whole 16-byte
+// chunks: the backward kernels stage with cp.async, else element by element.
+template <typename T>
+bool rows_aligned(const Problem& p, const void* q, const void* k,
+                  const void* v, const void* dout) {
+  const long long e = sizeof(T);
+  auto ok = [&](const void* x, const Strides& s) {
+    return reinterpret_cast<uintptr_t>(x) % 16 == 0 && s.b * e % 16 == 0 &&
+           s.s * e % 16 == 0 && s.h * e % 16 == 0;
+  };
+  return p.D * e % 16 == 0 && ok(q, p.qs) && ok(k, p.ks) && ok(v, p.vs) &&
+         reinterpret_cast<uintptr_t>(dout) % 16 == 0;
+}
+
+template <typename T, int DP>
 int dkv_t(const Problem& p, const void* q, const void* k, const void* v,
           const void* dout, const float* lse, const float* delta,
           const float* kv_valid, void* dk, void* dv) {
-  const size_t smem = dkv_smem(p.D);
-  auto kernel = flash_bwd_dkv_kernel<T, DPT>;
+  const size_t smem = dkv_smem<T, DP>();
+  auto kernel = flash_bwd_dkv_kernel<T, DP>;
   if (int err = allow_smem(kernel, smem)) return err;
-  kernel<<<grid_of(p, p.Sk), kThreads, smem, p.stream>>>(
+  kernel<<<grid_of(p, p.Sk), kBwdThreads, smem, p.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       kv_valid, static_cast<T*>(dk), static_cast<T*>(dv), p.H, p.Sq, p.Sk,
-      p.D, p.qs, p.ks, p.vs, p.scale, p.causal);
+      p.D, p.qs, p.ks, p.vs, p.scale, p.causal,
+      rows_aligned<T>(p, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DPT>
+template <typename T, int DP>
 int dq_t(const Problem& p, const void* q, const void* k, const void* v,
          const void* dout, const float* lse, const float* delta,
          const float* kv_valid, void* dq) {
-  const size_t smem = dq_smem(p.D);
-  auto kernel = flash_bwd_dq_kernel<T, DPT>;
+  const size_t smem = dq_smem<T, DP>();
+  auto kernel = flash_bwd_dq_kernel<T, DP>;
   if (int err = allow_smem(kernel, smem)) return err;
-  kernel<<<grid_of(p, p.Sq), kThreads, smem, p.stream>>>(
+  kernel<<<grid_of(p, p.Sq), kBwdThreads, smem, p.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       kv_valid, static_cast<T*>(dq), p.H, p.Sq, p.Sk, p.D, p.qs, p.ks, p.vs,
-      p.scale, p.causal);
+      p.scale, p.causal, rows_aligned<T>(p, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Columns per thread: ceil(D / 16) rounded up to 2, 4 or 8.
+// Forward: columns per thread, ceil(D / 16) rounded up to 2, 4 or 8.
 #define DPT_DISPATCH(D, CALL)              \
   ((D) <= 32 ? CALL(2) : (D) <= 64 ? CALL(4) : CALL(8))
+// Backward: D zero-padded to 16, 32, 64 or 128 columns.
+#define DP_DISPATCH(D, CALL) \
+  ((D) <= 16 ? CALL(16)      \
+             : (D) <= 32 ? CALL(32) : (D) <= 64 ? CALL(64) : CALL(128))
 
 Problem make_problem(int B, int H, int Sq, int Sk, int D, long long qsb,
                      long long qss, long long qsh, long long ksb,
@@ -609,7 +922,7 @@ int dpt_flash_bwd_dkv(const void* q, const void* k, const void* v,
 #define DKV_F32(N) dkv_t<float, N>(p, q, k, v, dout, lse, delta, kv_valid, dk, dv)
 #define DKV_BF16(N) \
   dkv_t<__nv_bfloat16, N>(p, q, k, v, dout, lse, delta, kv_valid, dk, dv)
-  return bf16 ? DPT_DISPATCH(D, DKV_BF16) : DPT_DISPATCH(D, DKV_F32);
+  return bf16 ? DP_DISPATCH(D, DKV_BF16) : DP_DISPATCH(D, DKV_F32);
 #undef DKV_F32
 #undef DKV_BF16
 }
@@ -627,7 +940,7 @@ int dpt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  ksh, vsb, vss, vsh, scale, causal, stream);
 #define DQ_F32(N) dq_t<float, N>(p, q, k, v, dout, lse, delta, kv_valid, dq)
 #define DQ_BF16(N) dq_t<__nv_bfloat16, N>(p, q, k, v, dout, lse, delta, kv_valid, dq)
-  return bf16 ? DPT_DISPATCH(D, DQ_BF16) : DPT_DISPATCH(D, DQ_F32);
+  return bf16 ? DP_DISPATCH(D, DQ_BF16) : DP_DISPATCH(D, DQ_F32);
 #undef DQ_F32
 #undef DQ_BF16
 }

@@ -1,7 +1,8 @@
 """The PyTorch port's CUDA kernels on the card (marker ``cuda``).
 
 Each leg builds the kernel from csrc/, launches it on a CUDA tensor and
-holds it BITWISE against its plain PyTorch version on the same inputs.
+holds it against its plain PyTorch version on the same inputs: BITWISE for
+the int8 codec, within FLASH_REL for flash attention.
 Without a CUDA device every leg skips. This file imports no JAX, so it
 runs on a GPU machine that has none:
 
@@ -168,15 +169,18 @@ def test_dequant_kernel_zero_scales_and_unaligned_rows(cuda_device):
 # ---------------------------------------------------------------------------
 
 # Kernel against plain version, as max|diff| / max|plain| per output.
-# float32: both sum in float32 in different orders (tiles vs full rows);
-# 1e-4 of the output's scale is ~100x what the order accounts for at these
-# sizes, and a wrong mask or index moves whole rows by O(1). bfloat16:
+# float32: both sum in float32 in different orders (tiles vs full rows),
+# and the backward kernels form each product as three TF32 products
+# (3xTF32); 1e-4 of the output's scale is ~100x what either accounts for
+# at these sizes, and a wrong mask or index moves whole rows by O(1). bfloat16:
 # both round their float32 results to bfloat16 (8 bits of mantissa), so an
 # element may differ by one bfloat16 step, 2**-8 of its magnitude.
 FLASH_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 # (B, Sq, Sk, H, D, causal, masked): the main path's heads at short length,
-# ragged tails, Sq != Sk both ways, D of 128, 48 and 8
+# ragged tails, Sq != Sk both ways, D of 128, 48, 8 and 20 (not a multiple
+# of 8; in bfloat16 its rows are not whole 16-byte chunks), and a causal
+# length whose tiles lie below the diagonal as well as on it
 FLASH_CASES = [
     (2, 128, 128, 3, 64, True, False),
     (2, 128, 128, 3, 64, False, False),
@@ -186,6 +190,8 @@ FLASH_CASES = [
     (1, 64, 200, 2, 128, True, False),
     (1, 200, 64, 2, 48, True, False),
     (3, 33, 17, 1, 8, False, True),
+    (2, 100, 100, 2, 20, True, False),
+    (1, 384, 384, 2, 64, True, False),
 ]
 
 
@@ -289,3 +295,29 @@ def test_flash_reads_strided_qkv_views(cuda_device):
                            True)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_flash_backward_reads_strided_qkv_views(cuda_device, offset):
+    """The backward through q, k, v as views of one fused (B, S, 3, H, D)
+    tensor, as the model passes them, within FLASH_REL of contiguous
+    inputs; ``offset`` 1 starts every row off a 16-byte boundary, which
+    the kernels stage element by element."""
+    from distributed_pytorch_training_tpu_torch.ops import flash_attention
+
+    b, s, h, d = 2, 160, 4, 64
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    flat = torch.randn(b * s * 3 * h * d + offset, generator=g,
+                       device=cuda_device)
+    qkv = flat[offset:].view(b, s, 3, h, d)
+    do = torch.randn((b, s, h, d), generator=g, device=cuda_device)
+    views = [qkv[:, :, i].detach().requires_grad_(True) for i in range(3)]
+    assert not views[0].is_contiguous()
+    assert (views[0].data_ptr() % 16 != 0) == bool(offset)
+    flash_attention(*views, True).backward(do)
+    dense = [t.detach().contiguous().requires_grad_(True) for t in views]
+    flash_attention(*dense, True).backward(do)
+    torch.cuda.synchronize()
+    for got, want in zip(views, dense):
+        assert rel_err(got.grad, want.grad) <= FLASH_REL[torch.float32]

@@ -1,0 +1,122 @@
+"""Why the flash-attention backward kernels split every product in three.
+
+The backward kernels (K4 dK/dV, K5 dQ in ``csrc/flash_attention.cu``) run
+their products on the tensor cores in TF32, which keeps 10 bits of
+mantissa. Each float32 operand x is split as x = big + small, big = x
+rounded to TF32 and small = (x - big) rounded to TF32, and a product is
+big*big + big*small + small*big (3xTF32; small*small is dropped).
+
+This test emulates that arithmetic on the CPU. TF32 rounding is
+``cvt.rna.tf32.f32``'s, to nearest with ties away from zero: add 0x1000 to
+the float's bits and clear the low 13. It runs the backward of the plain
+version with each of its five products (S = Q K^T, dP = dO V^T,
+dV = P^T dO, dK = dS^T Q, dQ = dS K) formed that way, with exact float64
+sums of the rounded terms, and holds dq, dk and dv against the float32
+plain version:
+
+* the three-product split lands within FLASH_REL / 10 of it;
+* one TF32 product does not land within FLASH_REL, which is why the
+  kernels pay for three.
+
+FLASH_REL = 1e-4 is the port's float32 tolerance for the flash kernels
+against their plain versions (``chip_smoke.py``,
+``tests/test_torch_kernels.py``). Inputs are seeded numpy arrays.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+fa = importlib.import_module(
+    "distributed_pytorch_training_tpu_torch.ops.flash_attention")
+
+FLASH_REL = 1e-4
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as cvt.rna.tf32.f32 rounds it."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def product(passes: int):
+    """An einsum of two float32 operands as the tensor cores form it: one
+    TF32 product, or three (3xTF32). Terms summed exactly in float64."""
+
+    def mm(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        a_big, b_big = tf32(a), tf32(b)
+        terms = [(a_big, b_big)]
+        if passes == 3:
+            a_small, b_small = tf32(a - a_big), tf32(b - b_big)
+            terms += [(a_big, b_small), (a_small, b_big)]
+        return sum(torch.einsum(eq, x.double(), y.double())
+                   for x, y in terms).float()
+
+    return mm
+
+
+def backward_with(mm, q, k, v, g, lse, delta, causal, kv_valid):
+    """(dq, dk, dv) of the plain version's formulas with products ``mm``."""
+    b, sq, h, d = q.shape
+    scale = 1.0 / np.sqrt(d)
+    s = scale * mm("bshd,bthd->bhst", q, k)
+    s = fa._masked_scores(s, causal, kv_valid)
+    p = torch.exp(s - lse.reshape(b, h, sq, 1))
+    dp = mm("bshd,bthd->bhst", g, v)
+    ds = p * (dp - delta.reshape(b, h, sq, 1)) * scale
+    return (mm("bhst,bthd->bshd", ds, k), mm("bhst,bshd->bthd", ds, q),
+            mm("bhst,bshd->bthd", p, g))
+
+
+def rel_err(got, want) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+# (B, S, H, D, causal, masked): the main path's head width, causal alone
+# and with key padding, and key padding alone
+CASES = [(2, 128, 2, 64, True, False), (2, 128, 2, 64, True, True),
+         (2, 96, 2, 64, False, True)]
+
+
+def errors(case, passes: int):
+    """max over dq, dk, dv of max|emulated - plain| / max|plain|."""
+    b, s, h, d, causal, masked = case
+    rng = np.random.RandomState(0)
+    q, k, v, g = (torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+                  for _ in range(4))
+    kv = None
+    if masked:
+        kv = torch.from_numpy((rng.rand(b, s) > 0.3).astype(np.float32))
+    keep = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        keep = keep.tril()
+    live = keep.any(-1).expand(b, s) if kv is None else \
+        (keep[None] & (kv[:, None, :] > 0)).any(-1)
+    g = g * live[:, :, None, None]             # dead rows: zero weight
+    out, lse = fa.flash_attention_fwd_lse_ref(q, k, v, causal, None, kv)
+    delta = fa._delta(out, g)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, g, causal, None, kv)
+    got = backward_with(product(passes), q, k, v, g, lse, delta, causal, kv)
+    return [rel_err(x, y) for x, y in zip(got, want)]
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0],
+                     dtype=torch.float32)
+    want = [1.0 + 2.0 ** -10, 1.0 + 2 * 2.0 ** -10, -(1.0 + 2.0 ** -10),
+            1.0, 3.0]
+    assert tf32(x).tolist() == want
+    assert (tf32(x).view(torch.int32) & 0x1FFF).eq(0).all()
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_three_tf32_products_match_float32(case):
+    assert max(errors(case, passes=3)) <= FLASH_REL / 10
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_one_tf32_product_misses_float32_tolerance(case):
+    assert max(errors(case, passes=1)) > FLASH_REL
