@@ -25,10 +25,11 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 6. hold the flash-attention kernels (forward, dK/dV, dQ) against their
    plain versions at the training path's shape (fp32 and bf16) and at
    edge shapes, within FLASH_REL, timing each beside its bound (float32
-   products at a third of the TF32 tensor-core rate: the backward kernels
+   products at a third of the TF32 tensor-core rate: all three kernels
    run them as three TF32 products) and beside torch's
-   scaled_dot_product_attention; the backward pair (dK/dV + dQ) is logged
-   as one ratio to that call's backward, which computes both at once;
+   scaled_dot_product_attention; the forward is logged as its ratio to
+   that call's forward (``fwd_over_sdpa_fwd``), the backward pair (dK/dV +
+   dQ) as one ratio to its backward, which computes both at once;
 7. train through the port's own entry (``train.main``: GPT-2 124M at full
    width, seq 1024, flash attention, AdamW, 2 epochs of 8 steps on 64
    synthetic sequences, batch 8), with the launch counts set to 0 just
@@ -43,10 +44,12 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 9. hold the int8 wire's codec against its plain versions, BITWISE, at
    every shape the reducer gives it on ResNet-18's 11,181,642-element
    gradient over 2 ranks (K1 on one row per bucket, or on 2 rows and one
-   row for int8_multihop; K2, the dequant-sum, on 2 rows), and K2 at edge
-   shapes (1, 3 and 8 rows, width 1, a width not a multiple of 4, zero
-   scales), timing each beside its bound, its plain version and, for K2,
-   the composite ``scales @ q.float()``;
+   row for int8_multihop, each row split over many blocks; K2, the
+   dequant-sum, on 2 rows), K1 at long edge rows (a width not a multiple
+   of 4, an all-zero row) and K2 at edge shapes (1, 3 and 8 rows, width 1,
+   a width not a multiple of 4, zero scales), timing each beside its
+   bound, its plain version and, for K2, the composite
+   ``scales @ q.float()``;
 10. run ``reduce_flat`` on 2 gloo ranks (spawned processes, both on the
     card) for each DP_RUNS wire on a seeded full-size gradient and
     residual, twice, on the card (the kernels) and on the CPU (the plain
@@ -112,10 +115,10 @@ FLASH_FP32_OPS_PER_S = TF32_OPS_PER_S / 3
 
 # flash kernels against their plain versions, as max|diff| / max|plain|
 # per output. float32: both sum in float32 in different orders (tiles vs
-# full rows), and the backward kernels form each product as three TF32
-# products (3xTF32), some 1e-6 of the output's scale at these sizes (one
-# TF32 product would be ~5e-4); a wrong mask, scale or index moves whole
-# rows by O(1). bfloat16: both round
+# full rows), and the kernels form each product as three TF32 products
+# (3xTF32), some 1e-6 of the output's scale at these sizes (one TF32
+# product would be ~5e-4); a wrong mask, scale or index moves whole rows
+# by O(1). bfloat16: both round
 # their float32 results to bfloat16 (8 bits of mantissa), so an element
 # may differ by one bfloat16 step, 2**-8 of its magnitude.
 FLASH_REL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -446,10 +449,14 @@ def check_flash(torch, dev, flush):
         pair_ms = ms["flash_attention_bwd_dkv"] + ms["flash_attention_bwd_dq"]
         pair_ratio = (None if library["sdpa_bwd_ms"] is None
                       else pair_ms / library["sdpa_bwd_ms"])
+        fwd_ratio = (None if library["sdpa_fwd_ms"] is None
+                     else ms["flash_attention_fwd_lse"]
+                     / library["sdpa_fwd_ms"])
         row = {"shape": name, "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
                "causal": causal, "kv_valid": masked, "dtype": dtype_name,
                "rel_err": errs, "tolerance": tol, "max_abs_err": abs_err,
                "ms": ms, "plain_ms": plain_ms, **library,
+               "fwd_over_sdpa_fwd": fwd_ratio,
                "bwd_pair_ms": pair_ms, "bwd_pair_over_sdpa_bwd": pair_ratio,
                "bound_ms": {n: t for n, (t, _) in bounds.items()},
                "bound_by": {n: by for n, (_, by) in bounds.items()}}
@@ -463,8 +470,8 @@ def check_flash(torch, dev, flush):
             + ", ".join(f"{n.rsplit('_', 1)[-1]} {t:.4f}"
                         for n, t in plain_ms.items())
             + f"; sdpa fwd {library['sdpa_fwd_ms']} bwd "
-              f"{library['sdpa_bwd_ms']} ms; dkv + dq {pair_ms:.4f} ms, "
-              f"{pair_ratio} x sdpa bwd; bound ms "
+              f"{library['sdpa_bwd_ms']} ms; fwd {fwd_ratio} x sdpa fwd; "
+              f"dkv + dq {pair_ms:.4f} ms, {pair_ratio} x sdpa bwd; bound ms "
             + ", ".join(f"{n.rsplit('_', 1)[-1]} {t:.4f} ({by})"
                         for n, (t, by) in bounds.items()))
         if bad:
@@ -628,10 +635,11 @@ def bound_of(nbytes: float, ops: float):
 
 def check_wire_codec(torch, dev, flush):
     """Phase 9: K1 and K2 at every shape the reducer gives them on 2 ranks
-    (DP_RUNS), then K2 at edge shapes: each BITWISE against its plain
-    version, timed beside its bound, the plain version and, for K2, the
-    composite ``scales @ q.float()`` (a cast and a GEMV; no single PyTorch
-    call takes int8 codes). Returns ({(kernel, shape): row}, edge rows)."""
+    (DP_RUNS), then K1 and K2 at edge shapes: each BITWISE against its
+    plain version, timed beside its bound, the plain version and, for K2,
+    the composite ``scales @ q.float()`` (a cast and a GEMV; no single
+    PyTorch call takes int8 codes). Returns ({(kernel, shape): row}, K1
+    edge rows, K2 edge rows)."""
     from distributed_pytorch_training_tpu_torch.ops.quantize import (
         dequant_sum_rows,
         dequant_sum_rows_ref,
@@ -665,19 +673,13 @@ def check_wire_codec(torch, dev, flush):
                                f"plain version (max err {row['max_abs_err']})")
         return row
 
-    for seed, (kernel, shape) in enumerate(keys):
-        label = f"{shape[0]}x{shape[1]}"
-        x = codec_rows(torch, dev, shape, seed)
-        if kernel == DEQUANT:
-            main_rows[(kernel, shape)] = dequant_row(
-                label, *quantize_int8_rows_ref(x))
-            continue
+    def quantize_row(label, x):
         q, s = quantize_int8_rows(x)
         qr, sr = quantize_int8_rows_ref(x)
         torch.cuda.synchronize()
         same = (torch.equal(q, qr)
                 and torch.equal(s.view(torch.int32), sr.view(torch.int32)))
-        n, w = shape
+        n, w = x.shape
         bound, by = bound_of(5 * n * w + 4 * n, 5 * n * w)
         row = {"kernel": QUANTIZE, "shape": label, "bitwise": same,
                "max_abs_err": max((q.int() - qr.int()).abs().max().item(),
@@ -686,15 +688,29 @@ def check_wire_codec(torch, dev, flush):
                "plain_ms": timed_ms(
                    torch, lambda: quantize_int8_rows_ref(x), flush),
                "bound_ms": bound, "bound_by": by}
-        main_rows[(kernel, shape)] = row
-        log(f"{QUANTIZE} {label} (wire): bitwise={same} kernel "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-            f"{bound:.4f} ms ({by})")
+        log(f"{QUANTIZE} {label}: bitwise={same} kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
         if not same:
             raise RuntimeError(f"{QUANTIZE} {label}: kernel differs from "
                                "its plain version")
-        del x, q, s, qr, sr
+        return row
 
+    for seed, (kernel, shape) in enumerate(keys):
+        label = f"{shape[0]}x{shape[1]}"
+        x = codec_rows(torch, dev, shape, seed)
+        if kernel == DEQUANT:
+            main_rows[(kernel, shape)] = dequant_row(
+                label, *quantize_int8_rows_ref(x))
+        else:
+            main_rows[(kernel, shape)] = quantize_row(f"{label} (wire)", x)
+        del x
+
+    # K1 on a long row split over many blocks: a width that leaves a scalar
+    # tail, and an all-zero row (the scale floor)
+    quantize_edges = [
+        quantize_row("1x4000037", codec_rows(torch, dev, (1, 4_000_037), 9)),
+        quantize_row("1x4000037 zero row",
+                     torch.zeros((1, 4_000_037), device=dev))]
     for label, shape in [("1x4097", (1, 4097)), ("3x100003", (3, 100_003)),
                          ("8x65536", (8, 65_536)), ("2x1", (2, 1)),
                          ("2x4099", (2, 4099))]:
@@ -703,7 +719,7 @@ def check_wire_codec(torch, dev, flush):
     q, _ = quantize_int8_rows_ref(codec_rows(torch, dev, (2, 1000), 8))
     edges.append(dequant_row("2x1000 zero scales", q,
                              torch.zeros(2, device=dev)))
-    return main_rows, edges
+    return main_rows, quantize_edges, edges
 
 
 def reducer_rank(rank: int, store: str, out_dir: str) -> None:
@@ -1124,7 +1140,8 @@ def main() -> int:
     # phase 9: K1 and K2 at the int8 wires' shapes, and K2's edges
     t0 = time.perf_counter()
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    codec, dequant_edges = check_wire_codec(torch, dev, flush)
+    codec, quantize_edges, dequant_edges = check_wire_codec(torch, dev,
+                                                            flush)
     del flush
     torch.cuda.empty_cache()
     log(f"phase 9 done in {time.perf_counter() - t0:.1f} s")
@@ -1172,7 +1189,7 @@ def main() -> int:
         if kernel == DEQUANT:
             checked += dequant_edges
         else:
-            checked += rows
+            checked += rows + quantize_edges
         codec_kernels.append({
             "name": kernel, "route": "cuda",
             "source": f"{PACKAGE}/csrc/{source}",
@@ -1217,7 +1234,8 @@ def main() -> int:
                         "loss_abs_diff": loss_err, "grad_rel": grad_err,
                         "grad_rel_leaf": grad_leaf},
         "wire_codec_per_shape": list(codec.values()),
-        "dequant_edges": dequant_edges, "reducer_card_vs_cpu": reducer,
+        "quantize_edges": quantize_edges, "dequant_edges": dequant_edges,
+        "reducer_card_vs_cpu": reducer,
         "resnet_one_rank": one_rank, "resnet_two_ranks": two_ranks,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))

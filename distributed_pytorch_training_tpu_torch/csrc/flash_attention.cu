@@ -34,41 +34,58 @@
 // = 165 TFLOP/s (the H100 SXM's dense TF32 rate, NVIDIA's data sheet):
 // 0.078, 0.156 and 0.117 ms.
 //
-// Forward (K3), simple and correct first (tensor cores are the next PR's):
-// 256 threads as a 16 x 16 grid. A block owns one 64-row q tile of one
-// (batch, head) and loops over the 64-row k tiles, staged in shared memory
-// as float32 with rows padded to D + 1 floats (no bank conflicts on column
-// reads). Each thread computes a 4 x 4 patch of the 64 x 64 score tile,
-// rows ty + 16 i and columns tx + 16 j; row statistics reduce over the 16
-// lanes of a half-warp with shuffles; out lives in registers, 4 rows by
-// ceil(D / 16) columns a thread. The heaviest causal q tiles go first.
-//
-// Backward (K4 dK/dV, K5 dQ): every product on the tensor cores through
+// All three kernels run every product on the tensor cores through
 // mma.sync.m16n8k8 TF32 with float32 accumulation, as a 3xTF32 split: x =
 // big + small, big = x rounded to TF32 (cvt.rna.tf32.f32's rounding), small
 // = (x - big) rounded to TF32, and a b = big big + big small + small big
-// (small small dropped). One TF32 pass is not enough: emulated on the CPU
-// at D 64, causal, against float32 plain arithmetic, max error over max
-// |plain| of (dq, dk, dv) is (7.0e-4, 7.2e-4, 3.0e-4) at S 128 and (3.5e-4,
-// 5.6e-4, 3.4e-4) at S 1024 with one pass, past the port's float32
-// tolerance of 1e-4; with three, (6.4e-7, 5.3e-7, 4.9e-7) and (3.4e-7,
-// 1.0e-6, 1.0e-6). bfloat16 inputs are exact in TF32, so their small parts
-// are zero and those terms are skipped; P and dS still split.
+// (small small dropped). One TF32 pass is not enough. Emulated on the CPU
+// (tests/test_torch_tf32_split.py) at D 64 against float32 plain
+// arithmetic, max error over max |plain|, past the port's float32
+// tolerance of 1e-4 with one pass and far inside it with three:
+//   forward (out, lse), one pass: 3.1e-4, 7.2e-5 (B 2, S 128, causal);
+//     4.7e-4, 1.0e-4 (causal + kv_valid); 5.6e-4, 4.9e-5 (S 96, kv_valid);
+//     3.4e-4, 5.9e-5 (B 1, S 1024, causal); three passes: 2.8e-7, 8.5e-8;
+//     1.8e-7, 9.0e-8; 8.1e-7, 8.9e-8; 2.5e-7, 1.2e-7;
+//   backward (dq, dk, dv), one pass: (7.0e-4, 7.2e-4, 3.0e-4) at S 128 and
+//     (3.5e-4, 5.6e-4, 3.4e-4) at S 1024, causal; three passes: (6.4e-7,
+//     5.3e-7, 4.9e-7) and (3.4e-7, 1.0e-6, 1.0e-6).
+// bfloat16 inputs are exact in TF32, so their small parts are zero and
+// those terms are skipped; scale * Q (the forward), P and dS are not exact
+// and always split.
 // What the tiling does about the limits of a SIMT design:
 //   * products: a warp owns 16 rows of its block's 64-row tile and computes
 //     16 x 64 score tiles with mma.sync; P and dS go from the accumulators
 //     straight into the next product's A operand, with the depth order of
 //     the B operand permuted to match (no shuffle, no shared-memory trip);
 //     fragment reads are free of bank conflicts (row stride D + 16 bytes);
-//   * loads: the streamed side (Q and dO for K4, K and V for K5) is
+//   * loads: the streamed side (K and V for K3 and K5, Q and dO for K4) is
 //     double-buffered with 16-byte cp.async, so the next tile's copy runs
 //     under this tile's products; a row that is not 16-byte aligned is
 //     staged element by element instead;
 //   * masks: a tile wholly below the causal diagonal, inside both lengths
-//     and without kv_valid, takes p = exp(scale s - lse) with no mask test;
-//   * occupancy: 128 threads and six tiles of shared memory a block (105 KB
-//     at D 64 in float32, so two blocks an SM); D is zero-padded to 16, 32,
-//     64 or 128 columns, which is exact.
+//     and without kv_valid, takes no mask test;
+//   * occupancy: 128 threads a block; D is zero-padded to 16, 32, 64 or 128
+//     columns, which is exact.
+//
+// Forward (K3): one block per (batch * head, 64-row q tile), heaviest
+// causal tiles first; warp w owns q rows 16 w..16 w + 15. Q stays resident
+// (five tiles of shared memory with K and V's two buffers each: 85 KB at D
+// 64 in float32, 165 KB at D 128; up to D 64 also as split A fragments in
+// registers, 233 registers a thread at D 64). Per k tile a warp forms S =
+// (scale Q) K^T (q scaled in float32 as each element enters its A
+// fragment, before the split, as the JAX kernel scales q before the dot),
+// masks it where needs_mask says a mask bites, and keeps the online
+// softmax in registers:
+// a thread holds rows g and g + 8 of its warp's 16 x 64 S tile, the row max
+// and row sum reduce over the 4 lanes of a quad, m and l stay float32, and
+// alpha = exp(m_old - m_new) rescales the O accumulator in float32. P goes
+// from the S accumulators straight into P V (no shared-memory P); each
+// tile's P V sums in a fresh accumulator per 16 x 8 output tile, the D / 8
+// tiles' mma chains side by side, and is added to alpha O in IEEE float32,
+// so the running O never passes through the tensor cores' accumulation.
+//
+// Backward (K4 dK/dV, K5 dQ): six tiles of shared memory a block (105 KB at
+// D 64 in float32, so two blocks an SM).
 
 #include <cfloat>
 #include <cmath>
@@ -79,8 +96,7 @@
 namespace {
 
 constexpr int kTile = 64;            // rows of a q tile and of a k tile
-constexpr int kThreads = 256;        // a 16 x 16 grid of threads
-constexpr int kLdp = kTile + 1;      // padded row stride of score tiles
+constexpr int kThreads = 128;        // 4 warps of 16 tile rows each
 constexpr float kNegInf = -FLT_MAX;  // NEG_INF of the JAX module
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -97,57 +113,6 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// max / sum over the 16 lanes that hold one row (a half-warp)
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    v = fmaxf(v, __shfl_xor_sync(kFullMask, v, off));
-  }
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(kFullMask, v, off);
-  }
-  return v;
-}
-
-// Rows [row0, row0 + kTile) of one (batch, head) slice -- `src` points at
-// its row 0, `s_stride` apart -- into a (kTile, ld) float tile, times `mul`.
-// Rows at or past `n_rows` are zero.
-template <typename T>
-__device__ void load_tile(float* dst, int ld, const T* src,
-                          long long s_stride, int row0, int n_rows, int D,
-                          float mul) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i - r * D;
-    const int row = row0 + r;
-    dst[r * ld + c] =
-        row < n_rows ? load_f(src + row * s_stride + c) * mul : 0.0f;
-  }
-}
-
-// acc[i][j] += sum_d a[ty + 16 i][d] * b[tx + 16 j][d] over two tiles
-__device__ __forceinline__ void dot_4x4(float (&acc)[4][4], const float* a,
-                                        const float* b, int ld, int D,
-                                        int ty, int tx) {
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * ld + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * ld + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-}
-
 // The logit after the JAX kernels' masks. `kvm` is this batch row of
 // kv_valid, or null.
 __device__ __forceinline__ float masked(float s, int row, int col, int Sk,
@@ -159,117 +124,8 @@ __device__ __forceinline__ float masked(float s, int row, int col, int Sk,
 }
 
 // --------------------------------------------------------------------------
-// forward: out and lse
+// tensor-core helpers (TF32 mma.sync, 3xTF32)
 // --------------------------------------------------------------------------
-
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ kv_valid,
-    T* __restrict__ out, float* __restrict__ lse, int H, int Sq, int Sk,
-    int D, Strides qs, Strides ks, Strides vs, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* sQ = smem;
-  float* sK = sQ + kTile * ld;
-  float* sV = sK + kTile * ld;
-  float* sP = sV + kTile * ld;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const float* kvm = kv_valid ? kv_valid + (long long)b * Sk : nullptr;
-
-  // the forward scales q before the dot (_fwd_kernel :167)
-  load_tile(sQ, ld, q + b * qs.b + h * qs.h, qs.s, q0, Sq, D, scale);
-
-  float m[4], l[4], acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.0f;
-  }
-
-  int n_kt = (Sk + kTile - 1) / kTile;
-  if (causal) n_kt = min(n_kt, (q0 + kTile - 1) / kTile + 1);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // sQ is loaded; the last tile's sK, sV, sP are read
-    load_tile(sK, ld, k + b * ks.b + h * ks.h, ks.s, k0, Sk, D, 1.0f);
-    load_tile(sV, ld, v + b * vs.b + h * vs.h, vs.s, k0, Sk, D, 1.0f);
-    __syncthreads();
-
-    float s[4][4] = {};
-    dot_4x4(s, sQ, sK, ld, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = masked(s[i][j], row, k0 + tx + 16 * j, Sk, causal, kvm);
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sP[(ty + 16 * i) * kLdp + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + row_sum16(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    const int n_k = min(kTile, Sk - k0);
-    for (int j = 0; j < n_k; ++j) {
-      float vv[DPT];
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        const int col = tx + 16 * c;
-        vv[c] = col < D ? sV[j * ld + col] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = sP[(ty + 16 * i) * kLdp + j];
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
-  }
-
-  const long long row_stride = (long long)H * D;
-  T* ob = out + (long long)b * Sq * row_stride + (long long)h * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row < Sq) {
-      const float li = fmaxf(l[i], 1e-30f);
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        const int col = tx + 16 * c;
-        if (col < D) store_f(ob + row * row_stride + col, acc[i][c] / li);
-      }
-      if (tx == 0) lse[(long long)bh * Sq + row] = m[i] + logf(li);
-    }
-  }
-}
-
-// --------------------------------------------------------------------------
-// backward: tensor-core helpers (TF32 mma.sync, 3xTF32)
-// --------------------------------------------------------------------------
-
-constexpr int kBwdThreads = 128;  // 4 warps, 16 rows of the block's tile each
 
 // A float split for 3xTF32: x = hi + lo, each a TF32 value (the low 13 bits
 // zero). The rounding is cvt.rna.tf32.f32's (to nearest, ties away from
@@ -319,13 +175,14 @@ __device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a,
 //   B (8 x 8):  b0 (t, g), b1 (t + 4, g)            as (k, n)
 //   C (16 x 8): c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
 
-// A from a row-major tile: rows r0.., depth columns k0..k0 + 7
+// A from a row-major tile: rows r0.., depth columns k0..k0 + 7, each
+// element times `mul` in float32 before the split
 template <typename T, int LD>
 __device__ __forceinline__ void load_a(Frag<4>& f, const T* s, int r0, int k0,
-                                       int g, int t) {
+                                       int g, int t, float mul = 1.0f) {
   const T* p = s + (r0 + g) * LD + k0 + t;
-  const float x[4] = {load_f(p), load_f(p + 8 * LD), load_f(p + 4),
-                      load_f(p + 8 * LD + 4)};
+  const float x[4] = {load_f(p) * mul, load_f(p + 8 * LD) * mul,
+                      load_f(p + 4) * mul, load_f(p + 8 * LD + 4) * mul};
   split(f, x);
 }
 
@@ -360,7 +217,7 @@ __device__ __forceinline__ void acc_as_a(Frag<4>& f, const float (&c)[4]) {
 }
 
 // --------------------------------------------------------------------------
-// backward: asynchronous staging into shared memory
+// asynchronous staging into shared memory
 // --------------------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -412,14 +269,14 @@ __device__ __forceinline__ void stage_tile(T* dst, const T* src,
     const int c = threadIdx.x % L::kChunks;
     const int col = c * L::kVec;
     for (int r = threadIdx.x / L::kChunks; r < kTile;
-         r += kBwdThreads / L::kChunks) {
+         r += kThreads / L::kChunks) {
       const int row = row0 + r;
       const bool ok = row < n_rows && col < D;
       cp_async16(dst + r * L::kLd + col,
                  src + (ok ? row * s_stride + col : 0), ok);
     }
   } else {
-    for (int i = threadIdx.x; i < kTile * DP; i += kBwdThreads) {
+    for (int i = threadIdx.x; i < kTile * DP; i += kThreads) {
       const int r = i / DP;
       const int col = i % DP;
       const int row = row0 + r;
@@ -518,6 +375,196 @@ __device__ __forceinline__ void add_product(float (&acc)[DP / 8][4],
 }
 
 // --------------------------------------------------------------------------
+// forward: out and lse (K3)
+// --------------------------------------------------------------------------
+
+// max / sum over the 4 lanes of a quad, which hold one row of an
+// accumulator tile
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(kFullMask, v, 1));
+  return fmaxf(v, __shfl_xor_sync(kFullMask, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFullMask, v, 1);
+  return v + __shfl_xor_sync(kFullMask, v, 2);
+}
+
+// One block per (batch * head, 64-row q tile), heaviest causal tiles first;
+// warp w owns q rows 16 w..16 w + 15. Q stays resident; the block walks the
+// live k tiles with K and V double-buffered by cp.async. Per k tile a warp
+// forms S = (scale Q) K^T (16 x 64), masks it where a mask bites, updates
+// the online softmax (m, l) of its rows in registers and feeds P straight
+// to O = alpha O + P V, accumulated in registers over the whole loop.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ kv_valid,
+    T* __restrict__ out, float* __restrict__ lse, int H, int Sq, int Sk,
+    int D, Strides qs, Strides ks, Strides vs, float scale, int causal,
+    int vec) {
+  using L = Tile<T, DP>;
+  constexpr int LD = L::kLd;
+  constexpr bool kExact = sizeof(T) == 2;  // bfloat16 K and V are TF32-exact
+  // up to D 64, Q's A fragments are scaled and split once and stay in
+  // registers; at D 128 they would spill, and are read from sQ per tile
+  constexpr bool kQInRegs = DP <= 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sK = sQ + L::kElems;        // [2] buffers
+  T* sV = sK + 2 * L::kElems;    // [2]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int qr0 = 16 * warp;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+  const float* kvm = kv_valid ? kv_valid + (long long)b * Sk : nullptr;
+
+  int n_kt = (Sk + kTile - 1) / kTile;
+  if (causal) n_kt = min(n_kt, (q0 + kTile - 1) / kTile + 1);
+  stage_tile<T, DP>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq, D, vec);
+  stage_tile<T, DP>(sK, kb, ks.s, 0, Sk, D, vec);
+  stage_tile<T, DP>(sV, vb, vs.s, 0, Sk, D, vec);
+  cp_async_commit();
+
+  // rows g and g + 8 of the warp's 16: running max (from NEG_INF, as the
+  // JAX kernel's m) and sum, and the output accumulator
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+  float o_acc[DP / 8][4] = {};
+  Frag<4> q_frags[kQInRegs ? DP / 8 : 1];
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_kt) {
+      const int next = (kt + 1) * kTile;
+      stage_tile<T, DP>(sK + (buf ^ 1) * L::kElems, kb, ks.s, next, Sk, D,
+                        vec);
+      stage_tile<T, DP>(sV + (buf ^ 1) * L::kElems, vb, vs.s, next, Sk, D,
+                        vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* cK = sK + buf * L::kElems;
+    const T* cV = sV + buf * L::kElems;
+    const int k0 = kt * kTile;
+
+    // S = (scale Q) K^T: 16 q rows x 64 keys per warp (scale * q is not
+    // TF32-exact even for bfloat16 inputs, so A always splits)
+    if constexpr (kQInRegs) {
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < DP; kk += 8) {
+          load_a<T, LD>(q_frags[kk / 8], sQ, qr0, kk, g, t, scale);
+        }
+      }
+    }
+    float s[kTile / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 8) {
+      Frag<4> qa;
+      if constexpr (kQInRegs) {
+        qa = q_frags[kk / 8];
+      } else {
+        load_a<T, LD>(qa, sQ, qr0, kk, g, t, scale);
+      }
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+        Frag<2> kf;
+        load_bt<T, LD>(kf, cK, 8 * j, kk, g, t);
+        mma3<false, kExact>(s[j], qa, kf);
+      }
+    }
+    if (needs_mask(q0, k0, Sq, Sk, causal, kvm != nullptr)) {
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[j][c] = masked(s[j][c], q0 + qr0 + g + 8 * (c >> 1),
+                           k0 + 8 * j + 2 * t + (c & 1), Sk, causal, kvm);
+        }
+      }
+    }
+
+    // online softmax (JAX :183-:190): element (j, c) is row c >> 1
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      alpha[i] = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[j][c] = expf(s[j][c] - m[c >> 1]);
+        sum[c >> 1] += s[j][c];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
+
+    // O = alpha O + P V (JAX :189), depth = the tile's 64 keys: each 16 x 8
+    // output tile sums this tile's products in a fresh accumulator, as
+    // add_product does, with the DP / 8 tiles' mma chains side by side
+    float part[DP / 8][4] = {};
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+      Frag<4> pa;
+      acc_as_a(pa, s[j]);
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        Frag<2> vf;
+        load_b<T, LD>(vf, cV, 8 * j, 8 * n, g, t);
+        mma3<false, kExact>(part[n], pa, vf);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        o_acc[n][c] = o_acc[n][c] * alpha[c >> 1] + part[n][c];
+      }
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
+  }
+
+  // out = O / l and lse = m + log l, l floored at 1e-30 (JAX :194-:196)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = fmaxf(l[i], 1e-30f);
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o_acc[n][c] /= l[c >> 1];
+  }
+  const long long row_stride = (long long)H * D;
+  store_acc<T, DP>(out + (long long)b * Sq * row_stride + (long long)h * D,
+                   row_stride, o_acc, q0 + qr0, Sq, D, g, t);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + qr0 + g + 8 * i;
+      if (row < Sq) lse[(long long)bh * Sq + row] = m[i] + logf(l[i]);
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
 // backward: dK and dV (K4)
 // --------------------------------------------------------------------------
 
@@ -528,7 +575,7 @@ __device__ __forceinline__ void add_product(float (&acc)[DP / 8][4],
 // into P^T and dS^T in registers and feeds those straight to dV += P^T dO
 // and dK += dS^T Q, accumulated in registers over the whole loop.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkv_kernel(
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -653,7 +700,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkv_kernel(
 // turns them into dS in registers and feeds it straight to dQ += dS K,
 // accumulated in registers over the whole loop.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -765,8 +812,10 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(
 // launchers
 // --------------------------------------------------------------------------
 
-size_t fwd_smem(int D) {
-  return sizeof(float) * (3 * kTile * (D + 1) + kTile * kLdp);
+// K3 holds five tiles (Q resident, K and V double-buffered)
+template <typename T, int DP>
+size_t fwd_smem() {
+  return 5 * Tile<T, DP>::kElems * sizeof(T);
 }
 
 // K4 and K5 both hold six tiles (two resident, two double-buffered); K4
@@ -803,25 +852,12 @@ int allow_smem(Kernel kernel, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
-template <typename T, int DPT>
-int fwd_t(const Problem& p, const void* q, const void* k, const void* v,
-          const float* kv_valid, void* out, float* lse) {
-  const size_t smem = fwd_smem(p.D);
-  auto kernel = flash_fwd_kernel<T, DPT>;
-  if (int err = allow_smem(kernel, smem)) return err;
-  kernel<<<grid_of(p, p.Sq), kThreads, smem, p.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_valid, static_cast<T*>(out), lse, p.H,
-      p.Sq, p.Sk, p.D, p.qs, p.ks, p.vs, p.scale, p.causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Every row of a (B, S, H, D) tensor at `x` with these strides (and of the
-// contiguous dO) starts on a 16-byte boundary and D fills whole 16-byte
-// chunks: the backward kernels stage with cp.async, else element by element.
+// contiguous dO, when given) starts on a 16-byte boundary and D fills whole
+// 16-byte chunks: the kernels stage with cp.async, else element by element.
 template <typename T>
 bool rows_aligned(const Problem& p, const void* q, const void* k,
-                  const void* v, const void* dout) {
+                  const void* v, const void* dout = nullptr) {
   const long long e = sizeof(T);
   auto ok = [&](const void* x, const Strides& s) {
     return reinterpret_cast<uintptr_t>(x) % 16 == 0 && s.b * e % 16 == 0 &&
@@ -832,13 +868,27 @@ bool rows_aligned(const Problem& p, const void* q, const void* k,
 }
 
 template <typename T, int DP>
+int fwd_t(const Problem& p, const void* q, const void* k, const void* v,
+          const float* kv_valid, void* out, float* lse) {
+  const size_t smem = fwd_smem<T, DP>();
+  auto kernel = flash_fwd_kernel<T, DP>;
+  if (int err = allow_smem(kernel, smem)) return err;
+  kernel<<<grid_of(p, p.Sq), kThreads, smem, p.stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), kv_valid, static_cast<T*>(out), lse, p.H,
+      p.Sq, p.Sk, p.D, p.qs, p.ks, p.vs, p.scale, p.causal,
+      rows_aligned<T>(p, q, k, v));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DP>
 int dkv_t(const Problem& p, const void* q, const void* k, const void* v,
           const void* dout, const float* lse, const float* delta,
           const float* kv_valid, void* dk, void* dv) {
   const size_t smem = dkv_smem<T, DP>();
   auto kernel = flash_bwd_dkv_kernel<T, DP>;
   if (int err = allow_smem(kernel, smem)) return err;
-  kernel<<<grid_of(p, p.Sk), kBwdThreads, smem, p.stream>>>(
+  kernel<<<grid_of(p, p.Sk), kThreads, smem, p.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       kv_valid, static_cast<T*>(dk), static_cast<T*>(dv), p.H, p.Sq, p.Sk,
@@ -854,7 +904,7 @@ int dq_t(const Problem& p, const void* q, const void* k, const void* v,
   const size_t smem = dq_smem<T, DP>();
   auto kernel = flash_bwd_dq_kernel<T, DP>;
   if (int err = allow_smem(kernel, smem)) return err;
-  kernel<<<grid_of(p, p.Sq), kBwdThreads, smem, p.stream>>>(
+  kernel<<<grid_of(p, p.Sq), kThreads, smem, p.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       kv_valid, static_cast<T*>(dq), p.H, p.Sq, p.Sk, p.D, p.qs, p.ks, p.vs,
@@ -862,10 +912,7 @@ int dq_t(const Problem& p, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Forward: columns per thread, ceil(D / 16) rounded up to 2, 4 or 8.
-#define DPT_DISPATCH(D, CALL)              \
-  ((D) <= 32 ? CALL(2) : (D) <= 64 ? CALL(4) : CALL(8))
-// Backward: D zero-padded to 16, 32, 64 or 128 columns.
+// D zero-padded to 16, 32, 64 or 128 columns.
 #define DP_DISPATCH(D, CALL) \
   ((D) <= 16 ? CALL(16)      \
              : (D) <= 32 ? CALL(32) : (D) <= 64 ? CALL(64) : CALL(128))
@@ -903,7 +950,7 @@ int dpt_flash_fwd(const void* q, const void* k, const void* v,
                                  ksh, vsb, vss, vsh, scale, causal, stream);
 #define FWD_F32(N) fwd_t<float, N>(p, q, k, v, kv_valid, out, lse)
 #define FWD_BF16(N) fwd_t<__nv_bfloat16, N>(p, q, k, v, kv_valid, out, lse)
-  return bf16 ? DPT_DISPATCH(D, FWD_BF16) : DPT_DISPATCH(D, FWD_F32);
+  return bf16 ? DP_DISPATCH(D, FWD_BF16) : DP_DISPATCH(D, FWD_F32);
 #undef FWD_F32
 #undef FWD_BF16
 }

@@ -42,6 +42,10 @@ KERNEL = "quantize_int8_rows"
 DEQUANT_KERNEL = "dequant_sum_rows"
 # K2 stages the n scales in 48 KB of static-sized shared memory
 MAX_DEQUANT_ROWS = 12288
+# K1 splits a row over blocks until the card holds this many blocks an SM,
+# each taking at least MIN_CHUNK columns
+BLOCKS_PER_SM = 4
+MIN_CHUNK = 4096
 
 
 def quantize_int8_rows_ref(rows: torch.Tensor
@@ -52,13 +56,31 @@ def quantize_int8_rows_ref(rows: torch.Tensor
     return q, scales
 
 
+def chunks_per_row(n: int, s: int, sms: int) -> int:
+    """K1's tiling: the number of blocks each of n rows of s columns is
+    split over on a card of ``sms`` SMs. 1 (one warp or block a row, one
+    launch) when the rows alone fill the card; else enough chunks of at least
+    MIN_CHUNK columns for BLOCKS_PER_SM blocks an SM (two launches). Every
+    tiling gives the same bits."""
+    want = -(-BLOCKS_PER_SM * sms // n)
+    return max(1, min(want, s // MIN_CHUNK))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device, asked once (K1 runs per int8 leaf at
+    engine build, where the wrapper's own host time shows)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     """(library, C launcher) of the kernel, built and bound once."""
     lib = build.load(KERNEL)
     fn = lib.dpt_quantize_int8_rows
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -80,8 +102,9 @@ def quantize_int8_rows(rows: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(n, s) float32 -> ((n, s) int8 codes, (n,) float32 scales).
 
-    ``quantize_int8_rows.launches`` counts the kernel's launches; a CPU
-    call runs the plain version and does not count."""
+    ``quantize_int8_rows.launches`` counts the kernel's calls, one a call
+    however many CUDA launches its tiling takes (``chunks_per_row``); a
+    CPU call runs the plain version and does not count."""
     _check(rows)
     if rows.device.type == "cpu":
         return quantize_int8_rows_ref(rows)
@@ -93,10 +116,16 @@ def quantize_int8_rows(rows: torch.Tensor
     if n == 0:
         return q, scales
     lib, fn = _launcher()
+    chunks = chunks_per_row(n, s, _sm_count(rows.device))
+    # per-block partial maxima of a split row (no zeroing: every slot is
+    # written before it is read)
+    partials = (torch.empty((n * chunks,), dtype=torch.float32,
+                            device=rows.device) if chunks > 1 else None)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
-        code = fn(rows.data_ptr(), q.data_ptr(), scales.data_ptr(), n, s,
-                  stream)
+        code = fn(rows.data_ptr(), q.data_ptr(), scales.data_ptr(),
+                  None if partials is None else partials.data_ptr(), n, s,
+                  chunks, stream)
     build.check_launch(lib, KERNEL, code)
     quantize_int8_rows.launches += 1
     return q, scales

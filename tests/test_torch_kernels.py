@@ -22,9 +22,12 @@ from distributed_pytorch_training_tpu_torch.ops.quantize import (
 )
 
 # GPT-2 124M's int8 leaves as (rows, row width), the one-row int8 wire
-# shape, and small edge shapes
+# shape, and small edge shapes; then long rows split over many blocks: a
+# width not a multiple of 4, the multihop hop-1 shape (row 1 starts 4 bytes
+# past a 16-byte boundary) and three rows
 SHAPES = [(50257, 768), (512, 768), (27648, 64), (768, 768), (768, 3072),
-          (3072, 768), (1, 1_000_003), (3, 5), (37, 33), (1, 1)]
+          (3072, 768), (1, 1_000_003), (3, 5), (37, 33), (1, 1),
+          (1, 4_000_037), (2, 5_590_821), (3, 1_000_003)]
 
 
 @pytest.fixture
@@ -67,6 +70,43 @@ def test_quantize_kernel_bitwise_equals_plain_version(cuda_device, shape):
     got = quantize_int8_rows(x)
     torch.cuda.synchronize()
     assert quantize_int8_rows.launches == before + 1
+    assert_bitwise(got, quantize_int8_rows_ref(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4_000_037, 11_181_642], ids=str)
+def test_quantize_kernel_long_row_max_in_its_last_elements(cuda_device,
+                                                           width):
+    """The row's only maximum sits in the scalar tail or the last chunk's
+    last float4: the split row must still find it."""
+    x = torch.rand((1, width), device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(5))
+    x[0, -2] = -40.0
+    got = quantize_int8_rows(x)
+    torch.cuda.synchronize()
+    assert got[1].item() == pytest.approx(40.0 / 127.0)
+    assert got[0][0, -2].item() == -127
+    assert_bitwise(got, quantize_int8_rows_ref(x))
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_long_zero_row_takes_the_floor_scale(cuda_device):
+    x = torch.zeros((1, 4_000_037), device=cuda_device)
+    got = quantize_int8_rows(x)
+    torch.cuda.synchronize()
+    assert not got[0].any()
+    assert_bitwise(got, quantize_int8_rows_ref(x))
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_unaligned_view_of_long_rows(cuda_device):
+    """A contiguous view that starts one float past a 16-byte boundary:
+    every row's head, body and code stores shift."""
+    flat = rows_on((1, 2 * 2_000_003 + 1), cuda_device, seed=2).reshape(-1)
+    x = flat[1:].view(2, 2_000_003)
+    assert x.data_ptr() % 16 == 4
+    got = quantize_int8_rows(x)
+    torch.cuda.synchronize()
     assert_bitwise(got, quantize_int8_rows_ref(x))
 
 
@@ -170,8 +210,8 @@ def test_dequant_kernel_zero_scales_and_unaligned_rows(cuda_device):
 
 # Kernel against plain version, as max|diff| / max|plain| per output.
 # float32: both sum in float32 in different orders (tiles vs full rows),
-# and the backward kernels form each product as three TF32 products
-# (3xTF32); 1e-4 of the output's scale is ~100x what either accounts for
+# and the kernels form each product as three TF32 products (3xTF32);
+# 1e-4 of the output's scale is ~100x what either accounts for
 # at these sizes, and a wrong mask or index moves whole rows by O(1). bfloat16:
 # both round their float32 results to bfloat16 (8 bits of mantissa), so an
 # element may differ by one bfloat16 step, 2**-8 of its magnitude.
@@ -179,8 +219,9 @@ FLASH_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 # (B, Sq, Sk, H, D, causal, masked): the main path's heads at short length,
 # ragged tails, Sq != Sk both ways, D of 128, 48, 8 and 20 (not a multiple
-# of 8; in bfloat16 its rows are not whole 16-byte chunks), and a causal
-# length whose tiles lie below the diagonal as well as on it
+# of 8; in bfloat16 its rows are not whole 16-byte chunks), alone, with key
+# padding and with Sq > Sk, and causal lengths of 384 whose tiles lie below
+# the diagonal as well as on it, square and with key padding and Sq < Sk
 FLASH_CASES = [
     (2, 128, 128, 3, 64, True, False),
     (2, 128, 128, 3, 64, False, False),
@@ -192,6 +233,9 @@ FLASH_CASES = [
     (3, 33, 17, 1, 8, False, True),
     (2, 100, 100, 2, 20, True, False),
     (1, 384, 384, 2, 64, True, False),
+    (2, 100, 100, 2, 20, False, True),
+    (2, 130, 70, 2, 20, True, False),
+    (2, 320, 384, 3, 64, True, True),
 ]
 
 
@@ -290,6 +334,25 @@ def test_flash_reads_strided_qkv_views(cuda_device):
     qkv = torch.randn((2, 96, 3, 4, 64), device=cuda_device)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     assert not q.is_contiguous()
+    got = flash_attention(q, k, v, True)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_reads_unaligned_qkv_views(cuda_device):
+    """The unaligned twin of the test above: every row of the fused qkv
+    starts one float off a 16-byte boundary, which the forward stages
+    element by element; same result as contiguous inputs."""
+    from distributed_pytorch_training_tpu_torch.ops import flash_attention
+
+    b, s, h, d = 2, 96, 4, 64
+    flat = torch.randn(b * s * 3 * h * d + 1, device=cuda_device)
+    qkv = flat[1:].view(b, s, 3, h, d)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert q.data_ptr() % 16 != 0
     got = flash_attention(q, k, v, True)
     want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            True)

@@ -5,6 +5,9 @@
   ``fused=False``, over seeded shapes with zero rows and exact half-codes.
 * The wrapper takes the plain version for a CPU tensor, counts only kernel
   launches, and refuses what the kernel does not take.
+* The kernel's tiling (``chunks_per_row``) spreads the int8 wires' long
+  rows over every SM of an H100 and keeps one block a row where the rows
+  alone fill it.
 * The kernel legs live in test_torch_kernels.py (no JAX there: the card's
   machine has none).
 
@@ -21,6 +24,9 @@ from distributed_pytorch_training_tpu.parallel.grad_sync import (
 )
 from distributed_pytorch_training_tpu_torch.ops import build
 from distributed_pytorch_training_tpu_torch.ops.quantize import (
+    BLOCKS_PER_SM,
+    MIN_CHUNK,
+    chunks_per_row,
     quantize_int8_rows,
     quantize_int8_rows_ref,
 )
@@ -117,3 +123,31 @@ def test_build_targets_hopper_without_fast_math():
     assert not any("fast_math" in c or "ftz" in c for c in cmd)
     assert cmd[-1].endswith("csrc/quantize_int8_rows.cu")
     assert build.library_path("quantize_int8_rows").parent == build.BUILD_DIR
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 11_181_642), (2, 5_590_821), (1, 5_590_821), (1, 6_553_600),
+    (1, 4_628_042), (3, 1_000_003), (1, 4_000_037),
+], ids=str)
+def test_tiling_spreads_long_rows_over_the_card(shape):
+    """The int8 wires' rows (one bucket, its multihop halves, DDP's 25 MB
+    buckets) and long edge rows: every SM gets blocks, none of them a
+    sliver."""
+    n, s = shape
+    chunks = chunks_per_row(n, s, H100_SMS)
+    assert n * chunks >= H100_SMS
+    assert n * chunks <= BLOCKS_PER_SM * H100_SMS + n
+    assert s // chunks >= MIN_CHUNK
+
+
+@pytest.mark.parametrize("shape", [
+    (50257, 768), (512, 768), (27648, 64), (768, 3072), (3072, 768),
+    (3, 5), (1, 1), (1, MIN_CHUNK + 1),
+], ids=str)
+def test_tiling_keeps_one_block_a_row_for_short_or_many_rows(shape):
+    """The serving path's weight matrices fill the card with rows alone,
+    and a row shorter than two chunks is not split: one launch."""
+    assert chunks_per_row(*shape, H100_SMS) == 1

@@ -1,22 +1,30 @@
-"""Why the flash-attention backward kernels split every product in three.
+"""Why the flash-attention kernels split every product in three.
 
-The backward kernels (K4 dK/dV, K5 dQ in ``csrc/flash_attention.cu``) run
-their products on the tensor cores in TF32, which keeps 10 bits of
-mantissa. Each float32 operand x is split as x = big + small, big = x
-rounded to TF32 and small = (x - big) rounded to TF32, and a product is
-big*big + big*small + small*big (3xTF32; small*small is dropped).
+The flash kernels (K3 forward, K4 dK/dV, K5 dQ in
+``csrc/flash_attention.cu``) run their products on the tensor cores in
+TF32, which keeps 10 bits of mantissa. Each float32 operand x is split as
+x = big + small, big = x rounded to TF32 and small = (x - big) rounded to
+TF32, and a product is big*big + big*small + small*big (3xTF32;
+small*small is dropped).
 
 This test emulates that arithmetic on the CPU. TF32 rounding is
 ``cvt.rna.tf32.f32``'s, to nearest with ties away from zero: add 0x1000 to
-the float's bits and clear the low 13. It runs the backward of the plain
-version with each of its five products (S = Q K^T, dP = dO V^T,
-dV = P^T dO, dK = dS^T Q, dQ = dS K) formed that way, with exact float64
-sums of the rounded terms, and holds dq, dk and dv against the float32
-plain version:
+the float's bits and clear the low 13. It runs the plain version's
+formulas with each product formed that way, with exact float64 sums of
+the rounded terms:
 
-* the three-product split lands within FLASH_REL / 10 of it;
-* one TF32 product does not land within FLASH_REL, which is why the
-  kernels pay for three.
+* the forward's two products, S = (scale Q) K^T (q scaled in float32
+  before the split, as the kernel and the JAX kernel scale it) and
+  O = P V, held as out and lse against the float32 plain forward;
+* the backward's five (S = Q K^T, dP = dO V^T, dV = P^T dO, dK = dS^T Q,
+  dQ = dS K), held as dq, dk and dv against the float32 plain backward.
+
+For each:
+
+* the three-product split lands within FLASH_REL / 10 of the plain
+  version;
+* one TF32 product does not land within FLASH_REL (for the forward, on
+  ``out``), which is why the kernels pay for three.
 
 FLASH_REL = 1e-4 is the port's float32 tolerance for the flash kernels
 against their plain versions (``chip_smoke.py``,
@@ -70,6 +78,18 @@ def backward_with(mm, q, k, v, g, lse, delta, causal, kv_valid):
             mm("bhst,bshd->bthd", p, g))
 
 
+def forward_with(mm, q, k, v, causal, kv_valid):
+    """(out, lse) of the plain forward's formulas with products ``mm``."""
+    b, sq, h, d = q.shape
+    s = mm("bshd,bthd->bhst", q * np.float32(1.0 / np.sqrt(d)), k)
+    s = fa._masked_scores(s, causal, kv_valid)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp(min=1e-30)
+    out = mm("bhst,bthd->bshd", p, v) / l.permute(0, 2, 1, 3)
+    return out, (m + torch.log(l)).reshape(b * h, 1, sq)
+
+
 def rel_err(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
@@ -80,8 +100,13 @@ CASES = [(2, 128, 2, 64, True, False), (2, 128, 2, 64, True, True),
          (2, 96, 2, 64, False, True)]
 
 
-def errors(case, passes: int):
-    """max over dq, dk, dv of max|emulated - plain| / max|plain|."""
+# the forward also at the training path's length
+FWD_CASES = CASES + [(1, 1024, 2, 64, True, False)]
+
+
+def inputs(case):
+    """q, k, v, dO and kv_valid of a case from seeded numpy arrays, and the
+    (B, S) rows that have a live key."""
     b, s, h, d, causal, masked = case
     rng = np.random.RandomState(0)
     q, k, v, g = (torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
@@ -94,6 +119,25 @@ def errors(case, passes: int):
         keep = keep.tril()
     live = keep.any(-1).expand(b, s) if kv is None else \
         (keep[None] & (kv[:, None, :] > 0)).any(-1)
+    return q, k, v, g, kv, live
+
+
+def fwd_errors(case, passes: int):
+    """[out, lse] max|emulated - plain| / max|plain| over the live rows."""
+    b, s, h, _, causal, _ = case
+    q, k, v, _, kv, live = inputs(case)
+    want = fa.flash_attention_fwd_lse_ref(q, k, v, causal, None, kv)
+    got = forward_with(product(passes), q, k, v, causal, kv)
+    rows = [got[0][live], want[0][live]]
+    for lse in (got[1], want[1]):
+        rows.append(lse.reshape(b, h, s).transpose(1, 2)[live])
+    return [rel_err(rows[0], rows[1]), rel_err(rows[2], rows[3])]
+
+
+def errors(case, passes: int):
+    """max over dq, dk, dv of max|emulated - plain| / max|plain|."""
+    _, _, _, _, causal, _ = case
+    q, k, v, g, kv, live = inputs(case)
     g = g * live[:, :, None, None]             # dead rows: zero weight
     out, lse = fa.flash_attention_fwd_lse_ref(q, k, v, causal, None, kv)
     delta = fa._delta(out, g)
@@ -120,3 +164,13 @@ def test_three_tf32_products_match_float32(case):
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_one_tf32_product_misses_float32_tolerance(case):
     assert max(errors(case, passes=1)) > FLASH_REL
+
+
+@pytest.mark.parametrize("case", FWD_CASES, ids=str)
+def test_forward_three_tf32_products_match_float32(case):
+    assert max(fwd_errors(case, passes=3)) <= FLASH_REL / 10
+
+
+@pytest.mark.parametrize("case", FWD_CASES, ids=str)
+def test_forward_one_tf32_product_misses_float32_tolerance(case):
+    assert fwd_errors(case, passes=1)[0] > FLASH_REL
