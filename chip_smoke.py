@@ -1,7 +1,9 @@
 """Drive the PyTorch port on one NVIDIA GPU: build its kernels, hold each
-against its plain PyTorch version, serve GPT-2 124M, train it at full
-width, and train ResNet-18 at full width on one rank and data-parallel on
-two ranks that share the card.
+against its plain PyTorch version, serve GPT-2 124M in int8, fp32 and
+bf16, train it at full width in fp32 and bf16 (``--amp``) and on two
+ranks, and train ResNet-18 at full width on one rank and data-parallel on
+two ranks that share the card, through the explicit reducer and through
+the reference's own command (fp32 and ``--amp``).
 
     python3 chip_smoke.py
 
@@ -67,9 +69,25 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     each rank's K1 and K2 launches must be steps x the wire's count per
     step, both ranks must end with bitwise-equal parameters and BatchNorm
     statistics, and the loss must fall;
-13. print the ``{"kernels": [...]}`` line (K1 and K2 over their launches
-    on the phase 12 path, K3-K5 over phase 7's), then the last line
-    ``{"ok": true, "device": {...}}``.
+13. (A) the reference's own command: the same model on 2 ranks through
+    ``torchrun`` with the default ``--wire-dtype fp32 --bucket-cap-mb 0``
+    (the implicit path: global-batch BatchNorm, one fp32 all-reduce; no
+    kernel of the port), batch 128 a rank, 2 epochs of 12 steps, then the
+    same with ``--amp``: the loss must fall, and the ranks must end with
+    bitwise-equal parameters and BatchNorm statistics;
+14. (B) phase 7 again with ``--amp`` (bf16 compute, float32 parameters;
+    K3-K5 in bf16): 240 / 192 / 192 launches, finite losses, epoch 2's
+    train loss below epoch 1's; then phase 8 at bf16, within
+    BF16_LOSS_ATOL and BF16_GRAD_REL;
+15. (C) GPT-2 124M on 2 ranks sharing the card (implicit fp32 path,
+    ``torchrun``), batch 4 a rank, one epoch of 4 steps: each rank's K3,
+    K4 and K5 launches exact, parameters bitwise equal across ranks;
+16. (D) ``serving smoke --serve-dtype bf16`` on the card, and the same
+    engine on the CPU: prefill logits within BF16_ATOL;
+17. print the ``{"kernels": [...]}`` line (K1 and K2 over their launches
+    on the phase 12 path, K3-K5 over phase 7's, with their bf16 fields
+    over phase 14's launches at phase 6's main bf16 shape), then the last
+    line ``{"ok": true, "device": {...}}``.
 
 Details go to chiprun_out/chip_smoke.json. Without a CUDA device, or run
 from a directory that lacks the port's package, it fails before printing
@@ -167,6 +185,31 @@ IMAGE_FLAGS = ["--model", "resnet18", "--dataset", "cifar10", "--synthetic",
                str(IMAGE_EPOCHS), "--optimizer", "sgd", "--lr", "0.1",
                "--momentum", "0.9", "--print-freq", "6"]
 QUANTIZE, DEQUANT = "quantize_int8_rows", "dequant_sum_rows"
+FLASH = ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
+         "flash_attention_bwd_dq")
+
+# bf16 (--amp) card vs CPU. Both sides round every product, LayerNorm and
+# GELU output to bf16 (8 significand bits, 2**-8 of a value), but sum in
+# other orders (cuBLAS and the flash kernels vs the CPU's GEMMs and the
+# plain attention), so now and then a value rounds to the neighbouring
+# bf16 number and the next layers carry that on. A prefill logit may then
+# differ by a few bf16 steps of its size (one step of a logit of 8 is
+# 0.03; measured 0.027 on an H100); the loss, a float32 mean over 510
+# tokens, by a fraction of one step of its size (0.04 at 10.9; measured
+# 1.6e-4); a gradient by a few bf16 steps of its leaf's largest (measured
+# 1.7e-2 of it). A wrong mask, scale or index moves them by O(1) of those
+# sizes. (That the model computes in bf16 at all is checked on the model:
+# its dtype, and float32 parameters.)
+BF16_ATOL = 0.1
+BF16_LOSS_ATOL = 1e-2
+BF16_GRAD_REL = 5e-2
+
+# GPT-2 on 2 ranks sharing the card (phase 15): batch 4 a rank, one epoch
+# of 4 steps over 32 synthetic sequences; 32 // 5 = 6 validation
+# sequences, one padded global batch of 8
+LM_DP_BATCH, LM_DP_SYNTHETIC, LM_DP_STEPS, LM_DP_EVAL = 4, 32, 4, 1
+LM_FLAGS = ["--model", MODEL, "--attention", "flash", "--optimizer",
+            "adamw", "--lr", "6e-4", "--synthetic"]
 
 
 def log(msg: str) -> None:
@@ -482,23 +525,38 @@ def check_flash(torch, dev, flush):
     return rows
 
 
-def train_on_card(torch, fa):
-    """Phase 7: the port's training entry at full width, in-process.
-    Returns ({kernel: launches}, [(train_loss, val_loss) per epoch])."""
+def train_on_card(torch, fa, amp: bool = False):
+    """Phase 7 (phase 14 with ``amp``): the port's training entry at full
+    width, in-process. Returns ({kernel: launches}, [(train_loss,
+    val_loss) per epoch], the step lines' samples/s)."""
+    import contextlib
+    import io
+
     from distributed_pytorch_training_tpu_torch import train
 
-    out_dir = ROOT / "chiprun_out" / "train_smoke"
+    out_dir = ROOT / "chiprun_out" / ("train_smoke_amp" if amp
+                                      else "train_smoke")
     csv = out_dir / "metrics_rank0.csv"
     csv.unlink(missing_ok=True)                 # the CSV appends
     kernels = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dkv,
                fa.flash_attention_bwd_dq)
     for fn in kernels:
         fn.launches = 0
-    train.main(["--model", MODEL, "--attention", "flash", "--optimizer",
-                "adamw", "--lr", "6e-4", "--synthetic", "--synthetic-size",
-                "64", "--batch-size", "8", "--epochs", str(EPOCHS),
-                "--print-freq", "4", "--output-dir", str(out_dir)])
+    stdout = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(stdout):
+            state = train.main(LM_FLAGS + [
+                "--synthetic-size", "64", "--batch-size", "8", "--epochs",
+                str(EPOCHS), "--print-freq", "4", "--output-dir",
+                str(out_dir)] + (["--amp"] if amp else []))
+    finally:
+        print(stdout.getvalue(), end="", flush=True)
     launches = {fn.__name__: fn.launches for fn in kernels}
+    if amp and (state.model.dtype != torch.bfloat16 or any(
+            p.dtype != torch.float32 for p in state.params)):
+        raise RuntimeError("--amp did not build a bf16 model with float32 "
+                           "parameters")
+    del state
     torch.cuda.synchronize()
     want = {"flash_attention_fwd_lse":
             DEPTH * (TRAIN_STEPS + EVAL_STEPS) * EPOCHS,
@@ -516,12 +574,16 @@ def train_on_card(torch, fa):
     if not losses[1][0] < losses[0][0]:
         raise RuntimeError(f"epoch 2's train loss {losses[1][0]} is not "
                            f"below epoch 1's {losses[0][0]}")
-    return launches, losses
+    rates = [float(ln.split("Throughput: ")[1].split()[0])
+             for ln in stdout.getvalue().splitlines()
+             if "Throughput: " in ln]
+    return launches, losses, rates
 
 
-def grads_card_vs_cpu(torch, dev):
-    """Phase 8: (loss |diff|, max over leaves of max|g diff| / max|g|,
-    the leaf that gives it) for one loss-and-backward on a fixed batch."""
+def grads_card_vs_cpu(torch, dev, dtype=None):
+    """Phase 8 (phase 14 at ``dtype`` bf16): (loss |diff|, max over leaves
+    of max|g diff| / max|g|, the leaf that gives it) for one
+    loss-and-backward on a fixed batch."""
     import numpy as np
 
     from distributed_pytorch_training_tpu_torch.models import get_model
@@ -534,10 +596,12 @@ def grads_card_vs_cpu(torch, dev):
 
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, VOCAB, (CPU_BATCH, CPU_SEQ)).astype(np.int32))
-    task = LanguageModelingTask()
+    dtype = dtype or torch.float32
+    task = LanguageModelingTask(compute_dtype=dtype)
     results = []
     for device in (dev, torch.device("cpu")):
-        model = get_model(MODEL, attention_fn=make_flash_attention_fn(True))
+        model = get_model(MODEL, attention_fn=make_flash_attention_fn(True),
+                          dtype=dtype)
         model.reset_parameters(torch.Generator().manual_seed(0))
         model.to(device)
         loss, _, _ = task.loss_and_metrics(model, {
@@ -557,11 +621,14 @@ def grads_card_vs_cpu(torch, dev):
     return abs(loss_c - loss_h), worst, worst_leaf, loss_c, loss_h
 
 
-def flash_kernel_rows(flash_rows, launches) -> list:
+def flash_kernel_rows(flash_rows, launches, bf16_launches) -> list:
     """The kernels line's rows of K3, K4 and K5: times and bounds of the
     training path's shape (main fp32) summed over its launches; errors
-    over every shape checked."""
-    main = flash_rows[0]
+    over every float32 shape checked; the ``bf16_`` fields the same at
+    the main bf16 shape over the ``--amp`` run's launches."""
+    main, main_bf16 = flash_rows[0], flash_rows[1]
+    if (main["dtype"], main_bf16["dtype"]) != ("float32", "bfloat16"):
+        raise RuntimeError("FLASH_CASES must start with main fp32, bf16")
     replaces = {
         "flash_attention_fwd_lse": 199,   # _flash_fwd_lse (_fwd_kernel)
         "flash_attention_bwd_dkv": 360,   # _flash_bwd (_bwd_dkv_kernel)
@@ -569,16 +636,17 @@ def flash_kernel_rows(flash_rows, launches) -> list:
     }
     rows = []
     for name, line in replaces.items():
-        n = launches[name]
-        lib = main["sdpa_fwd_ms"] if name.endswith("fwd_lse") \
-            else main["sdpa_bwd_ms"]
+        n, n16 = launches[name], bf16_launches[name]
+        lib, lib16 = ((row["sdpa_fwd_ms"] if name.endswith("fwd_lse")
+                       else row["sdpa_bwd_ms"]) for row in (main, main_bf16))
         rows.append({
             "name": name, "route": "cuda",
             "source": f"{PACKAGE}/csrc/flash_attention.cu",
             "replaces": "distributed_pytorch_training_tpu/ops/"
                         f"flash_attention.py:{line}",
             "launches": n,
-            "max_abs_err": max(r["max_abs_err"][name] for r in flash_rows),
+            "max_abs_err": max(r["max_abs_err"][name] for r in flash_rows
+                               if r["dtype"] == "float32"),
             "ms": main["ms"][name] * n,
             "plain_ms": main["plain_ms"][name] * n,
             "bound_ms": main["bound_ms"][name] * n,
@@ -588,6 +656,13 @@ def flash_kernel_rows(flash_rows, launches) -> list:
             # both kernels' function at once, so the unit compared with it
             # is the pair K4 + K5, not either row alone
             "library_ms": lib * n,
+            "bf16_launches": n16,
+            "bf16_max_abs_err": main_bf16["max_abs_err"][name],
+            "bf16_ms": main_bf16["ms"][name] * n16,
+            "bf16_plain_ms": main_bf16["plain_ms"][name] * n16,
+            "bf16_bound_ms": main_bf16["bound_ms"][name] * n16,
+            "bf16_bound_by": main_bf16["bound_by"][name],
+            "bf16_library_ms": lib16 * n16,
         })
     return rows
 
@@ -802,10 +877,15 @@ def reducer_rank(rank: int, store: str, out_dir: str) -> None:
     # step, as _compressed_psum runs it
     codes = torch.zeros(RESNET18_PARAMS, dtype=torch.int8, device=dev)
     floats = torch.zeros(RESNET18_PARAMS, device=dev)
+    moments = torch.zeros((2, 512), device=dev)
     report["collectives_ms"] = {
         "all_gather int8": host_ms(lambda: all_gather(codes)),
         "all_to_all int8": host_ms(lambda: all_to_all(codes)),
-        "all_reduce fp32": host_ms(lambda: psum(floats))}
+        "all_reduce fp32": host_ms(lambda: psum(floats)),
+        # one global-batch BatchNorm's moments (ResNet-18's widest), the
+        # all-reduce the implicit path makes 20 times forward and 20
+        # times backward in every step
+        "all_reduce fp32 2x512": host_ms(lambda: psum(moments), reps=20)}
     carried = flat.to(dev)
     q, scale = gs._quantize_int8(carried)
     gathered, scales = all_gather(q), all_gather(scale.reshape(1))
@@ -905,9 +985,12 @@ def resnet_one_rank(torch) -> dict:
 
 
 def dp_worker(argv) -> int:
-    """One torchrun rank of phase 12: ``train.main`` with the launch counts
-    set to 0 just before and read just after; writes them, the step count
-    and the final parameters and BatchNorm statistics."""
+    """One torchrun rank of phases 12, 13 and 15: ``train.main`` with the
+    launch counts set to 0 just before and read just after; writes them,
+    the step count and a sha256 of each parameter and BatchNorm statistic
+    (the ranks' states are bitwise equal iff every digest is)."""
+    import hashlib
+
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -917,17 +1000,30 @@ def dp_worker(argv) -> int:
         quantize_int8_rows,
     )
 
+    fa = flash_module()
+    kernels = {QUANTIZE: quantize_int8_rows, DEQUANT: dequant_sum_rows,
+               **{name: getattr(fa, name) for name in FLASH}}
     out_dir, train_argv = Path(argv[0]), argv[1:]
     rank = int(os.environ["RANK"])
-    quantize_int8_rows.launches = dequant_sum_rows.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     state = train.main(train_argv + ["--output-dir", str(out_dir)])
-    launches = {QUANTIZE: quantize_int8_rows.launches,
-                DEQUANT: dequant_sum_rows.launches}
-    torch.save({k: v.detach().cpu() for k, v in
-                state.model.state_dict().items()}, out_dir / f"rank{rank}.pt")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    digests = {k: hashlib.sha256(v.detach().cpu().contiguous().view(-1)
+                                 .view(torch.uint8).numpy().tobytes()
+                                 ).hexdigest()
+               for k, v in state.model.state_dict().items()}
     (out_dir / f"rank{rank}.json").write_text(json.dumps(
-        {"launches": launches, "steps": state.step}))
+        {"launches": launches, "steps": state.step, "digests": digests}))
     return 0
+
+
+def same_across_ranks(name: str, ranks: list) -> None:
+    """Fail unless every rank's parameters and statistics have rank 0's
+    digests."""
+    for key, digest in ranks[0]["digests"].items():
+        if any(r["digests"][key] != digest for r in ranks[1:]):
+            raise RuntimeError(f"{name}: {key} differs across ranks")
 
 
 def run_torchrun(args, timeout: float) -> str:
@@ -975,17 +1071,12 @@ def resnet_two_ranks(torch) -> dict:
         ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
                  for r in range(DP_RANKS)]
         for r, rep in enumerate(ranks):
-            if rep["launches"] != want or rep["steps"] != steps:
+            got = {k: rep["launches"][k] for k in want}
+            if got != want or rep["steps"] != steps:
                 raise RuntimeError(
                     f"{name} rank {r}: {rep['steps']} steps, launches "
-                    f"{rep['launches']} (expected {steps}, {want})")
-        states = []
-        for r in range(DP_RANKS):
-            states.append(torch.load(out_dir / f"rank{r}.pt"))
-            (out_dir / f"rank{r}.pt").unlink()     # 45 MB each
-        for key, value in states[0].items():
-            if not all(torch.equal(value, s[key]) for s in states[1:]):
-                raise RuntimeError(f"{name}: {key} differs across ranks")
+                    f"{got} (expected {steps}, {want})")
+        same_across_ranks(name, ranks)
         losses = image_csv_losses(out_dir)
         rates = [float(ln.split("Throughput: ")[1].split()[0])
                  for ln in out.splitlines() if "Throughput: " in ln]
@@ -999,6 +1090,87 @@ def resnet_two_ranks(torch) -> dict:
             f"step-line samples/s {rates} (2 ranks share one card over "
             "gloo: not a scaling number)")
     return report
+
+
+def resnet_reference_command(torch) -> dict:
+    """Phase 13 (A): ResNet-18 at full width on DP_RANKS ranks sharing the
+    card through ``torchrun`` with the reference's default flags (the
+    implicit path: global-batch BatchNorm, one fp32 all-reduce), in fp32
+    and with ``--amp``. No kernel of the port runs on this path (K1 and K2
+    must not launch); the ranks must end bitwise equal and the loss must
+    fall."""
+    steps = IMAGE_EPOCHS * -(-DP_SYNTHETIC // (IMAGE_BATCH * DP_RANKS))
+    report = {}
+    for name, extra in (("implicit fp32", []), ("implicit amp", ["--amp"])):
+        out_dir = ROOT / "chiprun_out" / ("dp_" + name.replace(" ", "_"))
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "metrics_rank0.csv").unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        out = run_torchrun([str(out_dir), *IMAGE_FLAGS, "--synthetic-size",
+                            str(DP_SYNTHETIC), *extra], timeout=600)
+        seconds = time.perf_counter() - t0
+        (out_dir / "stdout.txt").write_text(out)
+        banner = (f"world_size={DP_RANKS}, amp={bool(extra)}, "
+                  "backend=gloo")
+        if banner not in out or "Gradient sync" in out:
+            raise RuntimeError(f"{name}: expected the implicit path's "
+                               f"banner ({banner}), got:\n{out}")
+        ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+                 for r in range(DP_RANKS)]
+        for r, rep in enumerate(ranks):
+            if rep["steps"] != steps or any(rep["launches"].values()):
+                raise RuntimeError(f"{name} rank {r}: {rep['steps']} steps "
+                                   f"(expected {steps}), launches "
+                                   f"{rep['launches']} (expected none)")
+        same_across_ranks(name, ranks)
+        losses = image_csv_losses(out_dir)
+        rates = [float(ln.split("Throughput: ")[1].split()[0])
+                 for ln in out.splitlines() if "Throughput: " in ln]
+        report[name] = {"steps": steps, "losses": losses,
+                        "step_line_samples_per_s": rates,
+                        "wall_seconds": seconds}
+        log(f"phase 13 {name}: {steps} steps on {DP_RANKS} ranks, no "
+            "kernel launched; parameters and BatchNorm statistics bitwise "
+            f"equal across ranks; (train, val, epoch s) per epoch {losses}; "
+            f"step-line samples/s {rates} (2 ranks share one card over "
+            "gloo: not a scaling number)")
+    return report
+
+
+def gpt2_two_ranks(torch) -> dict:
+    """Phase 15 (C): GPT-2 124M at full width on DP_RANKS ranks sharing
+    the card through ``torchrun`` (implicit fp32 path, flash attention):
+    every rank's K3-K5 launches exact, the ranks bitwise equal."""
+    out_dir = ROOT / "chiprun_out" / "dp_gpt2"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "metrics_rank0.csv").unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    out = run_torchrun([str(out_dir), *LM_FLAGS, "--synthetic-size",
+                        str(LM_DP_SYNTHETIC), "--batch-size",
+                        str(LM_DP_BATCH), "--epochs", "1", "--print-freq",
+                        "2"], timeout=600)
+    seconds = time.perf_counter() - t0
+    (out_dir / "stdout.txt").write_text(out)
+    want = {FLASH[0]: DEPTH * (LM_DP_STEPS + LM_DP_EVAL),
+            FLASH[1]: DEPTH * LM_DP_STEPS, FLASH[2]: DEPTH * LM_DP_STEPS}
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(DP_RANKS)]
+    for r, rep in enumerate(ranks):
+        got = {k: rep["launches"][k] for k in FLASH}
+        if got != want or rep["steps"] != LM_DP_STEPS:
+            raise RuntimeError(f"GPT-2 rank {r}: {rep['steps']} steps, "
+                               f"launches {got} (expected {LM_DP_STEPS}, "
+                               f"{want})")
+    same_across_ranks("GPT-2 on 2 ranks", ranks)
+    lines = (out_dir / "metrics_rank0.csv").read_text().splitlines()[1:]
+    losses = [(float(c[1]), float(c[3])) for c in
+              (ln.split(",") for ln in lines)]
+    if len(losses) != 1 or not all(math.isfinite(x) for x in losses[0]):
+        raise RuntimeError(f"GPT-2 on 2 ranks: CSV rows {lines}")
+    rates = [float(ln.split("Throughput: ")[1].split()[0])
+             for ln in out.splitlines() if "Throughput: " in ln]
+    return {"launches_per_rank": want, "losses": losses,
+            "step_line_samples_per_s": rates, "wall_seconds": seconds}
 
 
 def main() -> int:
@@ -1117,9 +1289,10 @@ def main() -> int:
 
     # phase 7: the training path through the port's own entry
     t0 = time.perf_counter()
-    flash_launches, losses = train_on_card(torch, fa)
+    flash_launches, losses, lm_rates = train_on_card(torch, fa)
     log(f"phase 7 done in {time.perf_counter() - t0:.1f} s: launches "
-        f"{flash_launches}; (train, val) loss per epoch {losses}")
+        f"{flash_launches}; (train, val) loss per epoch {losses}; "
+        f"step-line samples/s {lm_rates}")
 
     # phase 8: one loss-and-backward, card (kernels) against CPU (plain)
     t0 = time.perf_counter()
@@ -1173,7 +1346,63 @@ def main() -> int:
     two_ranks = resnet_two_ranks(torch)
     log(f"phase 12 done in {time.perf_counter() - t0:.1f} s")
 
-    # phase 13: the kernels line; K1 and K2 summed over their launches on
+    # phase 13 (A): the reference's own command on 2 ranks, fp32 and amp
+    t0 = time.perf_counter()
+    reference = resnet_reference_command(torch)
+    log(f"phase 13 done in {time.perf_counter() - t0:.1f} s")
+
+    # phase 14 (B): GPT-2 with --amp, the main path of K3-K5 in bf16
+    t0 = time.perf_counter()
+    bf16_launches, bf16_losses, bf16_rates = train_on_card(torch, fa,
+                                                           amp=True)
+    want = {FLASH[0]: DEPTH * (TRAIN_STEPS + EVAL_STEPS) * EPOCHS,
+            FLASH[1]: DEPTH * TRAIN_STEPS * EPOCHS,
+            FLASH[2]: DEPTH * TRAIN_STEPS * EPOCHS}
+    if bf16_launches != want:
+        raise RuntimeError(f"--amp training launched {bf16_launches}, "
+                           f"expected {want}")
+    log(f"phase 14 --amp training: launches {bf16_launches}; (train, val) "
+        f"loss per epoch {bf16_losses}; step-line samples/s {bf16_rates}")
+    torch.cuda.empty_cache()
+    before = fa.flash_attention_bwd_dq.launches
+    b_loss_err, b_grad_err, b_grad_leaf, b_loss_card, b_loss_cpu = \
+        grads_card_vs_cpu(torch, dev, torch.bfloat16)
+    if fa.flash_attention_bwd_dq.launches != before + DEPTH:
+        raise RuntimeError("the card's bf16 backward did not run the "
+                           "kernels")
+    log(f"phase 14 done in {time.perf_counter() - t0:.1f} s: bf16 "
+        f"{CPU_BATCH}x{CPU_SEQ} loss card {b_loss_card!r} cpu "
+        f"{b_loss_cpu!r} (|diff| {b_loss_err!r}, tolerance "
+        f"{BF16_LOSS_ATOL}); worst gradient max|diff|/max|g| "
+        f"{b_grad_err!r} in {b_grad_leaf} (tolerance {BF16_GRAD_REL})")
+    if not (b_loss_err <= BF16_LOSS_ATOL and b_grad_err <= BF16_GRAD_REL):
+        raise RuntimeError(f"bf16 card vs CPU: loss |diff| {b_loss_err}, "
+                           f"gradient {b_grad_err} in {b_grad_leaf}")
+    torch.cuda.empty_cache()
+
+    # phase 15 (C): GPT-2 on 2 ranks sharing the card
+    t0 = time.perf_counter()
+    lm_two_ranks = gpt2_two_ranks(torch)
+    log(f"phase 15 done in {time.perf_counter() - t0:.1f} s: launches per "
+        f"rank {lm_two_ranks['launches_per_rank']}; parameters bitwise "
+        f"equal across ranks; (train, val) loss {lm_two_ranks['losses']}; "
+        f"step-line samples/s {lm_two_ranks['step_line_samples_per_s']}")
+
+    # phase 16 (D): bf16 serving on the card against the CPU
+    t0 = time.perf_counter()
+    gpu16 = run(["smoke", "--model", MODEL, "--serve-dtype", "bf16"])
+    if gpu16.engine.model.dtype != torch.bfloat16:
+        raise RuntimeError("bf16 serving did not build a bf16 model")
+    bf16_err = logits_vs_cpu(gpu16, build_serving_engine(
+        MODEL, max_new_tokens=MAX_NEW_TOKENS, serve_dtype="bf16",
+        device="cpu"))
+    log(f"phase 16 done in {time.perf_counter() - t0:.1f} s: bf16 prefill "
+        f"last_logits card vs CPU max |diff| {bf16_err!r} (tolerance "
+        f"{BF16_ATOL})")
+    if not bf16_err <= BF16_ATOL:
+        raise RuntimeError(f"bf16 logits differ from the CPU by {bf16_err}")
+
+    # phase 17: the kernels line; K1 and K2 summed over their launches on
     # the data-parallel path (rank 0 of every phase 12 run), the serving
     # path's K1 launches (phase 4) kept in chip_smoke.json
     codec_kernels = []
@@ -1230,6 +1459,18 @@ def main() -> int:
         "tokens_int8": [r.tokens.tolist() for r in report.results],
         "flash_per_shape": flash_rows, "flash_launches": flash_launches,
         "train_val_loss_per_epoch": losses,
+        "train_step_line_samples_per_s": lm_rates,
+        "amp_flash_launches": bf16_launches,
+        "amp_train_val_loss_per_epoch": bf16_losses,
+        "amp_train_step_line_samples_per_s": bf16_rates,
+        "amp_card_vs_cpu": {"loss_card": b_loss_card,
+                            "loss_cpu": b_loss_cpu,
+                            "loss_abs_diff": b_loss_err,
+                            "grad_rel": b_grad_err,
+                            "grad_rel_leaf": b_grad_leaf},
+        "resnet_reference_command": reference,
+        "gpt2_two_ranks": lm_two_ranks,
+        "bf16_card_vs_cpu_max_abs": bf16_err,
         "card_vs_cpu": {"loss_card": loss_card, "loss_cpu": loss_cpu,
                         "loss_abs_diff": loss_err, "grad_rel": grad_err,
                         "grad_rel_leaf": grad_leaf},
@@ -1241,7 +1482,8 @@ def main() -> int:
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [*codec_kernels,
-               *flash_kernel_rows(flash_rows, flash_launches)]
+               *flash_kernel_rows(flash_rows, flash_launches,
+                                  bf16_launches)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -6,7 +6,10 @@ flip bits are inputs: ``draw_crop_flip`` draws them from a
 ``torch.Generator`` (on the CPU, so one seed gives the same draws whatever
 the device), and ``random_crop_flip`` applies them with a gather. The JAX
 module's one-hot einsums are a TPU layout device, not a kernel; the
-gather selects the same pixels.
+gather selects the same pixels. Under bf16 compute the JAX module selects
+8-bit pixels through a bf16 product, which is exact (0..255 fit in bf16's
+8 significand bits, and each output sums one nonzero term), so the
+gather's uint8 values are its values at every compute dtype.
 """
 
 from __future__ import annotations
@@ -18,13 +21,14 @@ import torch.nn.functional as F
 
 
 def normalize_images(images: torch.Tensor, mean: Sequence[float],
-                     std: Sequence[float]) -> torch.Tensor:
-    """uint8 NHWC -> float32 ``(x / 255 - mean) / std`` (ToTensor +
-    Normalize)."""
+                     std: Sequence[float],
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 NHWC -> ``(x / 255 - mean) / std`` (ToTensor + Normalize),
+    computed in float32 and cast to ``dtype``, the compute dtype."""
     x = images.float() / 255.0
     m = torch.tensor(mean, dtype=torch.float32, device=images.device)
     s = torch.tensor(std, dtype=torch.float32, device=images.device)
-    return (x - m) / s
+    return ((x - m) / s).to(dtype)
 
 
 def draw_crop_flip(n: int, generator: torch.Generator, padding: int = 4,

@@ -89,21 +89,25 @@ def get_token_dataset(name: str, seq_len: int, data_dir: str = "./data",
 
 
 class TokenLoader:
-    """LM batches {"input_ids": (B, S) int32, "weight": (B,) float32} on
-    ``device``, with the sampler's padding and weights. On a CUDA device
-    each batch is copied from pinned host memory with ``non_blocking``;
-    the caching host allocator keeps the pinned block until its copy has
-    run."""
+    """This rank's LM batches {"input_ids": (B, S) int32, "weight": (B,)
+    float32} on ``device``, ``per_device_batch`` rows each: its contiguous
+    slice of every global batch of ``per_device_batch * process_count``
+    rows, with the sampler's padding and weights (``data/loader.py``'s
+    sharding). On a CUDA device each batch is copied from pinned host
+    memory with ``non_blocking``; the caching host allocator keeps the
+    pinned block until its copy has run."""
 
     def __init__(self, dataset: TokenDataset, per_device_batch: int,
                  shuffle: bool, seed: int = 42, drop_last: bool = False,
+                 process_index: int = 0, process_count: int = 1,
                  device: torch.device = torch.device("cpu")):
         self.dataset = dataset
         self.device = torch.device(device)
-        self.global_batch = per_device_batch
+        self.global_batch = per_device_batch * process_count
         self.sampler = ShardedSampler(
             n=len(dataset), global_batch=self.global_batch, shuffle=shuffle,
-            seed=seed, drop_last=drop_last)
+            seed=seed, drop_last=drop_last, process_index=process_index,
+            process_count=process_count)
 
     def __len__(self) -> int:
         return self.sampler.steps_per_epoch()

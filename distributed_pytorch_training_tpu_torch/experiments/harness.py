@@ -23,8 +23,9 @@ def build_serving_engine(model_name: str,
     to ``device``, so one seed gives the same weights on every device.
 
     The model's position table holds ``max(512, top bucket +
-    max_new_tokens)`` rows unless ``model_overrides`` sets it, as in the
-    JAX package."""
+    max_new_tokens)`` rows unless ``model_overrides`` sets it, and
+    ``serve_dtype`` bf16 builds it to compute in bf16, as in the JAX
+    package."""
     from ..models import get_model
     from ..serving.engine import InferenceEngine, ServeConfig
 
@@ -34,6 +35,8 @@ def build_serving_engine(model_name: str,
     kwargs = dict(model_overrides or {})
     need = max(cfg.buckets) + cfg.max_new_tokens
     kwargs.setdefault("max_position", max(512, need))
+    kwargs.setdefault("dtype", torch.bfloat16 if serve_dtype == "bf16"
+                      else torch.float32)
     model = get_model(model_name, **kwargs)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     params = {name: p.detach() for name, p in model.named_parameters()}

@@ -6,8 +6,10 @@ embedding. Parameters keep the flax layout and flax's names, with the
 blocks in ``blocks.<i>`` where flax has ``block<i>`` (``convert.py``).
 
 A kernel ``attention_fn`` (flash) owns the causal structure: the blocks
-then get only the padding mask. Not ported yet, and refused: tensor
-parallelism, remat, dropout, bf16 and the paged KV pool.
+then get only the padding mask. ``dtype`` is the compute dtype beside
+float32 parameters (``models/layers.py`` says where it rounds); the logits
+are float32. Not ported yet, and refused: tensor parallelism, remat,
+dropout and the paged KV pool.
 """
 
 from __future__ import annotations
@@ -41,8 +43,6 @@ class GPT2LMHead(nn.Module):
                  pad_vocab_to_multiple_of: int = 0, tp_size: int = 1,
                  device=None):
         super().__init__()
-        if dtype != torch.float32:
-            raise not_ported(f"{dtype} compute", "the bf16 (--amp) slice")
         if remat:
             raise not_ported("remat", "the remat slice")
         self.vocab_size, self.hidden_dim = vocab_size, hidden_dim
@@ -51,14 +51,14 @@ class GPT2LMHead(nn.Module):
         self.pad_vocab_to_multiple_of = pad_vocab_to_multiple_of
         self.uses_kernel = attention_fn is not dot_product_attention
         head_dim = hidden_dim // num_heads
-        self.wte = Embed(self.padded_vocab, hidden_dim, 0.02, device)
-        self.wpe = Embed(max_position, hidden_dim, 0.01, device)
+        self.wte = Embed(self.padded_vocab, hidden_dim, 0.02, device, dtype)
+        self.wpe = Embed(max_position, hidden_dim, 0.01, device, dtype)
         self.blocks = nn.ModuleList(
             TransformerBlock(hidden_dim, num_heads, head_dim, 4 * hidden_dim,
                              dropout_rate, layernorm_epsilon, attention_fn,
                              tp_size, dtype, device)
             for _ in range(depth))
-        self.ln_f = LayerNorm(hidden_dim, layernorm_epsilon, device)
+        self.ln_f = LayerNorm(hidden_dim, layernorm_epsilon, device, dtype)
 
     @property
     def padded_vocab(self) -> int:

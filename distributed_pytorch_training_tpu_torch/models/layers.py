@@ -15,7 +15,16 @@ row over the trailing axis of these shapes (``serving/engine.py``), and a
 
 The semantics carried over exactly: GELU is the tanh approximation (flax's
 ``nn.gelu``); masked attention logits are the float32 minimum and the
-softmax runs in float32. A kernel ``attention_fn`` (flash,
+softmax runs in float32.
+
+Compute dtype (bf16 under ``--amp``) is flax's ``dtype`` beside float32
+parameters: a dense layer or embedding casts its input and parameters to
+``dtype`` before the product (or the lookup), so products, biases, GELU
+and the residual stream are in ``dtype``; LayerNorm takes its statistics
+and normalizes in float32 and casts the result to ``dtype``; attention's
+softmax runs in float32 and its weights are cast back to ``dtype``. Not
+``torch.autocast``, whose per-op lists round elsewhere (its layer_norm
+and softmax return float32). A kernel ``attention_fn`` (flash,
 ``ops/flash_attention.py``) serves the no-cache forward; the cache paths
 refuse it, as in the JAX package. Tensor parallelism, dropout and the paged
 KV substrate are not ported yet and raise ``NotImplementedError``.
@@ -37,6 +46,22 @@ Shape = Union[int, Sequence[int]]
 # flax's lecun_normal: a normal truncated at +-2 std, rescaled so the
 # truncated distribution keeps variance 1 / fan_in
 _TRUNC_STD = 0.87962566103423978
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU, tanh approximation. Below float32 it is jax.nn.gelu's formula
+    op by op, its constants in ``x.dtype`` and each op rounded to it, as
+    XLA computes it on the CPU: bitwise the JAX package's on bf16 inputs
+    (torch's fused GELU, rounded once, differs in ~40% of them)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+
+    def const(v: float) -> torch.Tensor:
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    inner = const(_SQRT_2_OVER_PI) * (x + const(0.044715) * x ** 3)
+    return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
 
 
 def _shape(s: Shape) -> Tuple[int, ...]:
@@ -73,8 +98,10 @@ class DenseGeneral(nn.Module):
     and adds a bias of shape ``out_shape``. ``Dense`` is the 1-D case."""
 
     def __init__(self, in_shape: Shape, out_shape: Shape,
-                 use_bias: bool = True, device=None):
+                 use_bias: bool = True, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.in_shape, self.out_shape = _shape(in_shape), _shape(out_shape)
         self.kernel = nn.Parameter(
             torch.empty(self.in_shape + self.out_shape, device=device))
@@ -84,9 +111,10 @@ class DenseGeneral(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:x.dim() - len(self.in_shape)]
         fan_in, fan_out = math.prod(self.in_shape), math.prod(self.out_shape)
-        y = x.reshape(*lead, fan_in) @ self.kernel.reshape(fan_in, fan_out)
+        y = (x.to(self.dtype).reshape(*lead, fan_in)
+             @ self.kernel.to(self.dtype).reshape(fan_in, fan_out))
         if self.bias is not None:
-            y = y + self.bias.reshape(fan_out)
+            y = y + self.bias.to(self.dtype).reshape(fan_out)
         return y.reshape(*lead, *self.out_shape)
 
     @torch.no_grad()
@@ -101,8 +129,8 @@ class DenseGeneral(nn.Module):
 
 
 def Dense(in_features: int, out_features: int, use_bias: bool = True,
-          device=None) -> DenseGeneral:
-    return DenseGeneral(in_features, out_features, use_bias, device)
+          device=None, dtype: torch.dtype = torch.float32) -> DenseGeneral:
+    return DenseGeneral(in_features, out_features, use_bias, device, dtype)
 
 
 class Embed(nn.Module):
@@ -110,17 +138,19 @@ class Embed(nn.Module):
     tied output head ``x @ embedding.T``."""
 
     def __init__(self, num_embeddings: int, features: int,
-                 init_std: float = 0.02, device=None):
+                 init_std: float = 0.02, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.init_std = init_std
+        self.dtype = dtype
         self.embedding = nn.Parameter(
             torch.empty(num_embeddings, features, device=device))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.embedding)
+        return F.embedding(ids, self.embedding.to(self.dtype))
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.embedding.T
+        return x.to(self.dtype) @ self.embedding.to(self.dtype).T
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -130,17 +160,20 @@ class Embed(nn.Module):
 class LayerNorm(nn.Module):
     """flax's ``nn.LayerNorm`` parameters (``scale``, ``bias``). flax takes
     the variance as E[x^2] - E[x]^2 and PyTorch in two passes; the two
-    agree to float32 rounding."""
+    agree to float32 rounding. Computed in float32, the result cast to
+    ``dtype``."""
 
-    def __init__(self, features: int, epsilon: float = 1e-5, device=None):
+    def __init__(self, features: int, epsilon: float = 1e-5, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.epsilon = epsilon
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.empty(features, device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, self.scale.shape, self.scale, self.bias,
-                            self.epsilon)
+        return F.layer_norm(x.float(), self.scale.shape, self.scale,
+                            self.bias, self.epsilon).to(self.dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -181,9 +214,9 @@ class MultiHeadAttention(nn.Module):
         self.attention_fn = attention_fn
         self.dtype = dtype
         self.qkv = DenseGeneral(features, (3, num_heads, head_dim), use_bias,
-                                device)
+                                device, dtype)
         self.out = DenseGeneral((num_heads, head_dim), features, use_bias,
-                                device)
+                                device, dtype)
 
     def forward(self, x, mask=None, cache=None, cache_positions=None):
         qkv = self.qkv(x)
@@ -222,18 +255,19 @@ class MlpBlock(nn.Module):
     ``nn.gelu``), fc2."""
 
     def __init__(self, features: int, hidden_dim: int,
-                 dropout_rate: float = 0.0, tp_size: int = 1, device=None):
+                 dropout_rate: float = 0.0, tp_size: int = 1, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if tp_size > 1:
             raise not_ported("explicit tensor parallelism",
                              "the tensor-parallel slice")
         if dropout_rate:
             raise not_ported("MLP dropout", "a later slice")
-        self.fc1 = Dense(features, hidden_dim, device=device)
-        self.fc2 = Dense(hidden_dim, features, device=device)
+        self.fc1 = Dense(features, hidden_dim, device=device, dtype=dtype)
+        self.fc2 = Dense(hidden_dim, features, device=device, dtype=dtype)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        return self.fc2(gelu(self.fc1(x)))
 
 
 class TransformerBlock(nn.Module):
@@ -246,13 +280,14 @@ class TransformerBlock(nn.Module):
                  tp_size: int = 1, dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__()
-        self.ln1 = LayerNorm(features, layernorm_epsilon, device)
+        self.ln1 = LayerNorm(features, layernorm_epsilon, device, dtype)
         self.attn = MultiHeadAttention(
             features, num_heads, head_dim, dropout_rate,
             attention_fn=attention_fn, tp_size=tp_size, dtype=dtype,
             device=device)
-        self.ln2 = LayerNorm(features, layernorm_epsilon, device)
-        self.mlp = MlpBlock(features, mlp_dim, dropout_rate, tp_size, device)
+        self.ln2 = LayerNorm(features, layernorm_epsilon, device, dtype)
+        self.mlp = MlpBlock(features, mlp_dim, dropout_rate, tp_size, device,
+                            dtype)
 
     def forward(self, x, mask=None, cache=None, cache_positions=None):
         y = self.attn(self.ln1(x), mask=mask, cache=cache,

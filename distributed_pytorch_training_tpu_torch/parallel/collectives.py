@@ -6,7 +6,9 @@ Every function is the identity in one process (no process group, or a
 group of one), the reference's single-process passthrough. They use the
 list form of ``all_gather`` and ``all_to_all_single``, which gloo also
 runs on CUDA tensors (its list-form ``all_to_all`` refuses them), and
-never modify their input.
+never modify their input. ``all_sum`` is the one differentiable
+collective: the sum over ranks that XLA inserts when a jitted step reads
+a data-sharded batch (global-batch BatchNorm).
 """
 
 from __future__ import annotations
@@ -33,6 +35,33 @@ def psum(x: torch.Tensor, group: Group = None) -> torch.Tensor:
     out = x.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
+
+
+class _AllSum(torch.autograd.Function):
+    """SUM all-reduce whose backward all-reduces the incoming gradient:
+    every rank's output is the same sum, so the gradient of a rank's
+    input is the sum of every rank's gradient of that output."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: Group) -> torch.Tensor:
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        out = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.group)
+        return out, None
+
+
+def all_sum(x: torch.Tensor, group: Group = None) -> torch.Tensor:
+    """Differentiable SUM over ranks (the psum of a jitted step over a
+    data-sharded batch); the identity on one rank, with no collective."""
+    if world_size(group) == 1:
+        return x
+    return _AllSum.apply(x, group)
 
 
 def all_gather(x: torch.Tensor, group: Group = None) -> torch.Tensor:

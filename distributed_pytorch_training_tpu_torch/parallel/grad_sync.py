@@ -6,6 +6,8 @@ vector, cuts it into size-capped buckets (``bucket_cap_mb``, DDP's knob)
 and reduces bucket by bucket at the chosen wire dtype:
 
 * ``fp32``: one SUM all-reduce per bucket;
+* ``bf16``: one SUM all-reduce of a bf16 copy of each bucket (the wire
+  and the sum in bf16, half the bytes), cast back to float32; no state;
 * ``int8``: per-bucket max-abs scale plus error feedback (the residual of
   this rank's quantization is added back at its next reduction); the s8
   codes and the scales are all-gathered, and every rank sums the
@@ -22,7 +24,7 @@ HWIO). So bucket bounds, per-row scales, multihop destination chunks and
 the error-feedback residual cover the same elements as the reference's.
 ``Trainer`` passes the parameters in that order (``flax_ordered``).
 
-The ``bf16`` and ``int8_hier`` wires raise, naming their slices.
+The ``int8_hier`` wire raises, naming its slice.
 """
 
 from __future__ import annotations
@@ -44,9 +46,8 @@ WIRE_DTYPES = ("fp32", "bf16", "int8", "int8_multihop", "int8_hier")
 EF_WIRE_DTYPES = ("int8", "int8_multihop", "int8_hier")
 
 # the wires this port reduces; the others raise in reduce_flat
-PORTED_WIRES = ("fp32", "int8", "int8_multihop")
-_WIRE_SLICE = {"bf16": "the bf16 (--amp) slice",
-               "int8_hier": "the multi-slice (--slices) slice"}
+PORTED_WIRES = ("fp32", "bf16", "int8", "int8_multihop")
+_WIRE_SLICE = {"int8_hier": "the multi-slice (--slices) slice"}
 
 
 def refuse_unported_wire(wire_dtype: str) -> None:
@@ -268,13 +269,15 @@ def _int8_multihop_sum(v: torch.Tensor, residual: torch.Tensor,
 def _compressed_psum(v: torch.Tensor, n_shards: int, wire_dtype: str,
                      residual: Optional[torch.Tensor], group: Group = None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One bucket's SUM at the ``fp32`` or ``int8`` wire: (the float32
-    global sum, the new residual; None unless int8)."""
+    """One bucket's SUM at the ``fp32``, ``bf16`` or ``int8`` wire: (the
+    float32 global sum, the new residual; None unless int8)."""
     if wire_dtype == "fp32":
         return psum(v, group), residual
+    if wire_dtype == "bf16":
+        return psum(v.to(torch.bfloat16), group).float(), residual
     if wire_dtype != "int8":
-        raise ValueError(f"_compressed_psum reduces the fp32 and int8 "
-                         f"wires, not {wire_dtype!r}")
+        raise ValueError(f"_compressed_psum reduces the fp32, bf16 and "
+                         f"int8 wires, not {wire_dtype!r}")
     if residual is None:
         raise ValueError("int8 wire needs an error-feedback residual "
                          "(Trainer.init_state builds it)")

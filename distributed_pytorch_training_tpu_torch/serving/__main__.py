@@ -2,7 +2,7 @@
 batched inference engine on the GPU.
 
 Commands:
-  smoke [--prompt 12,7,99 | --prompt-len N] [--serve-dtype fp32|int8]
+  smoke [--prompt 12,7,99 | --prompt-len N] [--serve-dtype fp32|bf16|int8]
       Build the engine with random-init weights from --seed (a smoke of the
       serving PATH, never of a served model), serve a handful of synthetic
       prompts through the request queue and its worker thread, and print
@@ -10,8 +10,8 @@ Commands:
 
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch versions of the
 kernels on the CPU and is meant for the tests. ``bench``, ``serve``,
-``fleet``, ``--ckpt-dir``, ``--mesh`` and ``--serve-dtype bf16`` exist in
-the JAX package and are refused here until the slice that ports them.
+``fleet``, ``--ckpt-dir`` and ``--mesh`` exist in the JAX package and are
+refused here until the slice that ports them.
 """
 
 from __future__ import annotations
@@ -35,7 +35,6 @@ _LATER = {
     "fleet": "the continuous-serving slice",
     "--ckpt-dir": "the data-parallel training slice (checkpoints)",
     "--mesh": "the tensor-parallel slice",
-    "bf16": "the bf16 (--amp) slice",
 }
 
 
@@ -60,7 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported yet (refused)")
     p.add_argument("--serve-dtype", default="fp32",
                    choices=["fp32", "bf16", "int8"],
-                   help="bf16 is not ported yet (refused)")
+                   help="bf16 computes in bf16 beside float32 weights")
     p.add_argument("--mesh", default=None, help="not ported yet (refused)")
     p.add_argument("--buckets", default="16,32",
                    help="prompt-length bucket ladder, e.g. '32,64,128'")
@@ -85,7 +84,6 @@ def refusal(args) -> Optional[str]:
     """The message refusing what this port does not run yet, else None."""
     for key, given in (("--ckpt-dir", args.ckpt_dir),
                        ("--mesh", args.mesh),
-                       ("bf16", args.serve_dtype == "bf16"),
                        (args.command, args.command != "smoke")):
         if given:
             return f"serving: {not_ported(key, _LATER[key])}"

@@ -48,7 +48,9 @@ class ServeConfig:
     # Greedy-decode budget per request; the KV cache is sized
     # bucket + max_new_tokens.
     max_new_tokens: int = 16
-    # fp32, or int8 weights at rest dequantized at every call.
+    # fp32; bf16, the model's compute dtype (build the model with
+    # dtype=bf16, the --amp convention; the weights stay float32); or int8
+    # weights at rest dequantized at every call.
     serve_dtype: str = "fp32"
     pad_id: int = 0
     # int8: only quantize leaves with >= this many elements (biases and
@@ -59,9 +61,6 @@ class ServeConfig:
         if self.serve_dtype not in SERVE_DTYPES:
             raise ValueError(f"serve_dtype {self.serve_dtype!r} is not one "
                              f"of {SERVE_DTYPES}")
-        if self.serve_dtype == "bf16":
-            raise not_ported("bf16 serving", "the transformer training "
-                             "slice (bf16 autocast)")
         if not self.buckets:
             raise ValueError("at least one bucket is required")
         self.buckets = tuple(sorted(int(b) for b in self.buckets))

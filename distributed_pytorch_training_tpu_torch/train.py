@@ -6,15 +6,25 @@ the image-classification path (ResNet) of the JAX package's ``train.py``.
 
     torchrun --standalone --nproc-per-node 2 \\
         -m distributed_pytorch_training_tpu_torch.train --model resnet18 \\
+        --synthetic [--amp]
+
+    torchrun --standalone --nproc-per-node 2 \\
+        -m distributed_pytorch_training_tpu_torch.train --model resnet18 \\
         --synthetic --wire-dtype int8 --bucket-cap-mb 25
 
 Same flags, stdout lines and ``metrics_rank0.csv`` (rank 0) as the JAX
 entry. Under torchrun every rank trains its shard of each global batch of
-``--batch-size x WORLD_SIZE`` rows through the explicit bucketed reducer
-(``--bucket-cap-mb``, ``--wire-dtype fp32|int8|int8_multihop``); the
-process group's backend follows ``runtime/dist.py``'s rule and is printed
-in the banner. Every flag value this port does not implement raises
-``NotImplementedError`` naming the slice that brings it. ``--device cpu``
+``--batch-size x WORLD_SIZE`` rows, ResNet and GPT-2 alike: with the
+defaults (``--wire-dtype fp32 --bucket-cap-mb 0``) on the implicit path
+(global-batch BatchNorm, one fp32 all-reduce of the gradient, as the JAX
+package's data-sharded jit), otherwise through the explicit bucketed
+reducer (``--bucket-cap-mb``, ``--wire-dtype fp32|bf16|int8|
+int8_multihop``, per-rank BatchNorm). ``--amp`` computes in bf16 beside
+float32 parameters and optimizer state (flax's ``dtype``, no loss
+scaling). The process group's backend follows ``runtime/dist.py``'s rule
+and is printed in the banner. Every flag value this port does not
+implement raises ``NotImplementedError`` naming the slice that brings
+it. ``--device cpu``
 runs the kernels' plain PyTorch versions on the CPU and is for tests;
 without it the run needs a CUDA device. The initial weights are drawn from
 a ``torch.Generator`` seeded by ``--seed``, the same on every rank (not
@@ -61,7 +71,6 @@ SHARDED_UPDATE = "the sharded-update (ZeRO-1/FSDP) slice"
 
 # flag -> (is the value unsupported?, the slice that brings it)
 _UNPORTED = {
-    "--amp": (lambda a: a.amp, "the bf16 (--amp) slice"),
     "--remat": (lambda a: a.remat, "the remat slice"),
     "--slices": (lambda a: a.slices > 1, "the multi-slice (--slices) slice"),
     "--zero1": (lambda a: a.zero1, SHARDED_UPDATE),
@@ -120,9 +129,6 @@ def refuse_unported(args: argparse.Namespace, world: int = 1) -> None:
         if unsupported(args):
             raise not_ported(flag, where)
     refuse_unported_wire(args.wire_dtype)
-    if world > 1 and args.model in LM_MODELS:
-        raise not_ported(f"data-parallel {args.model} training "
-                         f"(WORLD_SIZE={world})", "a later slice")
 
 
 def resolve_attention(requested: str, device_type: str,
@@ -150,7 +156,8 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     refuse_unported(args, world)
     dev = resolve_device(args.device)
     if dev.type == "cuda":
-        # float32 means float32: cuDNN convolutions default to TF32
+        # float32 means float32: cuDNN convolutions default to TF32 (under
+        # --amp the products are bf16 by the model's casts, not by TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     Path(args.output_dir).mkdir(parents=True, exist_ok=True)
@@ -166,6 +173,7 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
         log_main("NOTE: the PyTorch port writes no telemetry stream yet "
                  "(it comes with the telemetry slice)")
 
+    compute_dtype = torch.bfloat16 if args.amp else torch.float32
     is_lm = args.model in LM_MODELS
     seq_len = args.seq_len or 1024
     if is_lm:
@@ -204,30 +212,32 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
                  f"n={len(train_ds)})")
 
     overrides = parse_model_overrides(args.model_overrides)
+    loader_kw = dict(process_index=ctx.process_index, process_count=n,
+                     device=dev)
     if is_lm:
         model, task = _lm_model_and_task(args, overrides, dev, seq_len,
-                                         train_ds, val_ds)
+                                         train_ds, val_ds, compute_dtype)
         train_loader = TokenLoader(train_ds, args.batch_size, shuffle=True,
                                    seed=args.seed, drop_last=args.drop_last,
-                                   device=dev)
+                                   **loader_kw)
         val_loader = TokenLoader(val_ds, args.batch_size, shuffle=False,
-                                 seed=args.seed, device=dev)
+                                 seed=args.seed, **loader_kw)
     else:
-        loader_kw = dict(process_index=ctx.process_index, process_count=n,
-                         device=dev)
         train_loader = ShardedLoader(train_ds, args.batch_size, shuffle=True,
                                      seed=args.seed, drop_last=args.drop_last,
                                      **loader_kw)
         val_loader = ShardedLoader(val_ds, args.batch_size, shuffle=False,
                                    seed=args.seed, **loader_kw)
-        model_kwargs = dict(num_classes=train_ds.num_classes)
+        model_kwargs = dict(num_classes=train_ds.num_classes,
+                            dtype=compute_dtype)
         model_kwargs.update(overrides)
         # an explicit --model-overrides wins over the dedicated flag
         model_kwargs.setdefault("cifar_stem", args.cifar_stem)
         model = get_model(args.model, **model_kwargs)
         mean, std = IMAGE_STATS[args.dataset.lower()]
         task = ImageClassificationTask(mean=mean, std=std,
-                                       augment=not args.no_augment)
+                                       augment=not args.no_augment,
+                                       compute_dtype=compute_dtype)
 
     steps_per_epoch = len(train_loader)
     schedule = make_schedule(args.schedule, args.lr,
@@ -277,9 +287,12 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     return state
 
 
-def _lm_model_and_task(args, overrides, dev, seq_len, train_ds, val_ds):
-    """The GPT-2 model (flash attention on CUDA) and the causal LM task."""
-    lm_kwargs = dict(overrides)
+def _lm_model_and_task(args, overrides, dev, seq_len, train_ds, val_ds,
+                       compute_dtype):
+    """The GPT-2 model (flash attention on CUDA) and the causal LM task,
+    computing in ``compute_dtype``."""
+    lm_kwargs = dict(dtype=compute_dtype)
+    lm_kwargs.update(overrides)
     if resolve_attention(args.attention, dev.type, seq_len) == "flash":
         lm_kwargs["attention_fn"] = make_flash_attention_fn(causal=True)
     model = get_model(args.model, **lm_kwargs)
@@ -294,7 +307,7 @@ def _lm_model_and_task(args, overrides, dev, seq_len, train_ds, val_ds):
                     f"{max_id}, which exceeds the model's vocab_size "
                     f"({model.vocab_size}); align --model-overrides "
                     "vocab_size with the data")
-    return model, LanguageModelingTask()
+    return model, LanguageModelingTask(compute_dtype=compute_dtype)
 
 
 if __name__ == "__main__":

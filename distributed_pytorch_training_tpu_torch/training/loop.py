@@ -1,13 +1,19 @@
 """Trainer: train and eval steps and the epoch loops (the JAX package's
 training/loop.py).
 
-Two update paths are ported:
+Three update paths are ported:
 
-* the replicated single-shard step: the plain step and gradient
-  accumulation, with BatchNorm's running statistics updated once per step
-  (under accumulation, the weight-averaged per-microbatch EMAs, which is
-  ONE EMA update from the weighted-mean batch statistics; a fully padded
-  batch keeps the old statistics);
+* ``_implicit_step``, the replicated step with and without gradient
+  accumulation, on one rank or several: what the JAX package's jit does
+  with a data-sharded global batch. BatchNorm's running statistics update
+  once per step (under accumulation, the weight-averaged per-microbatch
+  EMAs, which is ONE EMA update from the weighted-mean batch statistics;
+  a fully padded batch keeps the old statistics). Over ranks, BatchNorm
+  normalizes by the global batch (its statistics are all-reduced inside
+  the forward, SyncBN semantics, ``models/resnet.py``), each rank
+  differentiates its share of the global mean loss, and the gradient is
+  summed over ranks in float32 in one bucket. Not DDP: it weights ranks
+  equally, where a padded last batch weights them by their rows;
 * ``_grad_sync_step``, the explicit bucketed reducer over the ranks of a
   ``torch.distributed`` group (``parallel/grad_sync.py``): each rank
   computes its local weight-scaled gradient sum, flattens it in the JAX
@@ -19,13 +25,12 @@ Two update paths are ported:
 
 The engagement rules are the JAX Trainer's: the reducer runs when
 ``bucket_cap_mb > 0`` or the wire is not fp32, on more than one rank; on
-one rank such a request is an identity passthrough (logged). More than one
-rank on the implicit path (the fp32 wire without a bucket cap) is the JAX
-package's global-batch BatchNorm (SyncBN semantics) and raises, as do
-ZeRO-1, explicit FSDP, bf16 and the ``bf16`` and ``int8_hier`` wires, each
-naming its slice. As in the JAX package, the metrics are weighted sums
-that stay on the device; the host fetches them only at print boundaries
-and at the end of an epoch.
+one rank such a request is an identity passthrough (logged). ZeRO-1,
+explicit FSDP and the ``int8_hier`` wire raise, naming their slices.
+``bf16`` (``--amp``) is the model's compute dtype, chosen where the model
+is built; the step is the same. As in the JAX package, the metrics are
+weighted sums that stay on the device; the host fetches them only at
+print boundaries and at the end of an epoch.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..parallel.collectives import Group, psum, world_size
 from ..parallel.grad_sync import (
@@ -122,8 +128,6 @@ class Trainer:
         if config.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got "
                              f"{config.grad_accum}")
-        if config.bf16:
-            raise not_ported("bf16 compute (--amp)", "the bf16 (--amp) slice")
         if config.zero1 or config.fsdp_explicit:
             raise not_ported("ZeRO-1 / explicit FSDP",
                              "the sharded-update (ZeRO-1/FSDP) slice")
@@ -144,14 +148,9 @@ class Trainer:
                 "which the port has only as the plain versions on the CPU; "
                 "on CUDA the codec is the kernels (auto or on)")
         self._grad_sync = explicit_sync and self.n_shards > 1
+        self._implicit_dp = not explicit_sync and self.n_shards > 1
         self._wire = config.wire_dtype
         self._plan: Optional[BucketPlan] = None
-        if self.n_shards > 1 and not explicit_sync:
-            raise not_ported(
-                f"{self.n_shards} ranks on the implicit path (the fp32 wire "
-                "without --bucket-cap-mb: the JAX package's global-batch "
-                "BatchNorm, SyncBN semantics)",
-                "the implicit multi-rank slice")
         if explicit_sync and not self._grad_sync:
             log_main("NOTE: explicit gradient sync requested on a single "
                      "batch shard — nothing to synchronize; running the "
@@ -162,8 +161,16 @@ class Trainer:
                    tx: GradientTransformation) -> TrainState:
         """Move ``model`` (initialized by the caller, the same on every
         rank) to the device, build its optimizer and, for an int8 wire,
-        this rank's zero error-feedback residual."""
+        this rank's zero error-feedback residual. On the implicit path over
+        several ranks, the model's BatchNorms normalize by the global
+        batch."""
         state = TrainState.create(model.to(self.device), tx)
+        if self._implicit_dp:
+            self._plan = build_bucket_plan(state.params, 0.0)
+            set_stats_group = getattr(model, "set_stats_group", None)
+            if set_stats_group is not None:
+                set_stats_group(self.group if self.group is not None
+                                else dist.group.WORLD)
         if self._grad_sync:
             self._plan = build_bucket_plan(state.params,
                                            self.config.bucket_cap_mb)
@@ -189,43 +196,7 @@ class Trainer:
         state.model.train()
         if self._grad_sync:
             return self._grad_sync_step(state, batch)
-        params = state.params
-        accum = self.config.grad_accum
-        if accum <= 1:
-            for p in params:
-                p.grad = None
-            loss, metrics, new_stats = self.task.loss_and_metrics(
-                state.model, batch, True, self._generator(state.step, 0))
-            loss.backward()
-            state.apply_gradients()
-            state.set_batch_stats(new_stats)
-            return metrics
-
-        # The task loss is the weighted MEAN over its microbatch, so the
-        # global-batch gradient is sum_i (w_i / W) d(mean_i): accumulate
-        # w_i-scaled microbatch gradients and divide by W once; BatchNorm
-        # statistics likewise.
-        micro = split_microbatches(batch, accum)
-        g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-        s_sum: Dict[str, torch.Tensor] = {}
-        metrics = zero_metrics(self.device)
-        for i in range(accum):
-            mb = {name: x[i].contiguous() for name, x in micro.items()}
-            loss, m, stats = self.task.loss_and_metrics(
-                state.model, mb, True, self._generator(state.step, i))
-            grads = torch.autograd.grad(loss, params)
-            w = m["weight"]
-            for acc, g in zip(g_sum, grads):
-                acc.add_(w * g.float())
-            for name, s in stats.items():
-                s_sum[name] = s_sum.get(name, 0.0) + w * s
-            metrics = add_metrics(metrics, m)
-        total_w = torch.clamp(metrics["weight"], min=1.0)
-        for p, acc in zip(params, g_sum):
-            p.grad = (acc / total_w).to(p.dtype)
-        state.apply_gradients()
-        self._write_stats(state, s_sum, metrics["weight"], total_w)
-        return metrics
+        return self._implicit_step(state, batch)
 
     @staticmethod
     def _write_stats(state: TrainState, s_sum: Dict[str, torch.Tensor],
@@ -236,6 +207,70 @@ class Trainer:
         state.set_batch_stats({
             name: torch.where(weight > 0, s / total_w, old[name])
             for name, s in s_sum.items()})
+
+    def _implicit_step(self, state: TrainState,
+                       batch: Dict[str, torch.Tensor]) -> Metrics:
+        """The replicated step, on one rank or several (JAX: the jitted
+        step on a data-sharded global batch). The task loss is the
+        weighted MEAN over its (micro)batch, so the global gradient is
+        sum_i (W_i / W) d(mean_i), W_i microbatch i's global weight: each
+        microbatch's three metric sums are summed over ranks right after
+        its forward (one small all-reduce), and each rank differentiates
+        its loss x w / W_i, its part of the global mean. The scale comes
+        before the backward, since global-batch BatchNorm's all-reduced
+        statistics carry every rank's loss gradient to every rank's
+        activations. On one rank w / W_i is exactly 1 (or 0 for a fully
+        padded batch). Under accumulation the rank's batch splits
+        interleaved; as the global batch is rank-major and each rank's
+        rows divide by ``grad_accum``, microbatch i is rows i::accum of
+        the GLOBAL batch, as JAX splits it, and its BatchNorm is global.
+        The flat float32 gradient is summed over ranks in one bucket. The
+        statistics, the same on every rank, are written directly: under
+        accumulation the W_i-weighted mean of the microbatches' EMAs,
+        which is ONE EMA update from the weighted-mean batch statistics
+        (a fully padded batch keeps the old statistics)."""
+        accum, group = self.config.grad_accum, self.group
+        model, params = state.model, state.params
+        if accum <= 1:
+            micro = [batch]
+        else:
+            split = split_microbatches(batch, accum, scope="per-rank batch")
+            micro = [{k: x[i].contiguous() for k, x in split.items()}
+                     for i in range(accum)]
+        g_sum: Optional[list] = None
+        s_sum: Dict[str, torch.Tensor] = {}
+        metrics = zero_metrics(self.device)
+        for i, mb in enumerate(micro):
+            loss, m, stats = self.task.loss_and_metrics(
+                model, mb, True, self._generator(state.step, i))
+            m_global = _psum_metrics(m, group)
+            w = m_global["weight"]
+            grads = torch.autograd.grad(
+                loss * (m["weight"] / torch.clamp(w, min=1.0)), params)
+            if accum <= 1:
+                g_sum, s_sum = list(grads), stats
+            else:
+                if g_sum is None:
+                    g_sum = [torch.zeros_like(p, dtype=torch.float32)
+                             for p in params]
+                for acc, g in zip(g_sum, grads):
+                    acc.add_(w * g.float())
+                for name, s in stats.items():
+                    s_sum[name] = s_sum.get(name, 0.0) + w * s
+            metrics = add_metrics(metrics, m_global)
+        if self.n_shards > 1:
+            flat, _ = reduce_flat(flatten_tree(g_sum), self._plan,
+                                  self.n_shards, "fp32", group=group)
+            g_sum = unflatten_tree(flat, params)
+        total_w = torch.clamp(metrics["weight"], min=1.0)
+        for p, g in zip(params, g_sum):
+            p.grad = g if accum <= 1 else (g / total_w).to(p.dtype)
+        state.apply_gradients()
+        if accum <= 1:
+            state.set_batch_stats(s_sum)
+        else:
+            self._write_stats(state, s_sum, metrics["weight"], total_w)
+        return metrics
 
     def _grad_sync_step(self, state: TrainState,
                         batch: Dict[str, torch.Tensor]) -> Metrics:

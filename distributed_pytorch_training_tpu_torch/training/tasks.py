@@ -54,13 +54,15 @@ def _weighted(per_sample: torch.Tensor, predicted: torch.Tensor,
 class ImageClassificationTask(Task):
     """CIFAR/ImageNet classification. Batch: {"image": uint8 (B, H, W, C),
     "label": int (B,), "weight": (B,)}. In training, RandomCrop(padding) +
-    flip (drawn from ``generator``) then normalization; in eval,
-    normalization only. Cross-entropy in float32; "correct" is top-1."""
+    flip (drawn from ``generator``) then normalization into
+    ``compute_dtype``; in eval, normalization only. Cross-entropy in
+    float32; "correct" is top-1."""
 
     mean: Sequence[float]
     std: Sequence[float]
     augment: bool = True
     crop_padding: int = 4
+    compute_dtype: torch.dtype = torch.float32
 
     def loss_and_metrics(self, model, batch, train, generator=None):
         images = batch["image"]
@@ -71,7 +73,8 @@ class ImageClassificationTask(Task):
                                    self.crop_padding)
             images = random_crop_flip(images, *draws,
                                       padding=self.crop_padding)
-        x = normalize_images(images, self.mean, self.std)
+        x = normalize_images(images, self.mean, self.std,
+                             self.compute_dtype)
         if train:
             logits, new_stats = model(x, train=True)
         else:
@@ -89,15 +92,14 @@ class LanguageModelingTask(Task):
     """Causal next-token prediction. Batch: {"input_ids": (B, S) int,
     "weight": (B,)}. Loss = cross-entropy of token t+1 from the logits at
     t, in float32, averaged over the weighted positions (the row weight
-    broadcasts over tokens); "correct" is next-token top-1."""
+    broadcasts over tokens); "correct" is next-token top-1. The model
+    computes in its own dtype and the logits are cast to float32 here, as
+    in the JAX task, whose ``compute_dtype`` field this keeps."""
 
     compute_dtype: torch.dtype = torch.float32
     aux_loss_weight: float = 0.0
 
     def __post_init__(self):
-        if self.compute_dtype != torch.float32:
-            raise not_ported(f"{self.compute_dtype} compute",
-                             "the bf16 (--amp) slice")
         if self.aux_loss_weight:
             raise not_ported("auxiliary (MoE) losses", "a later slice")
 

@@ -15,10 +15,14 @@ wrote; ``OUT`` the pickle this rank writes. Jobs:
   back; returns the sums, the residuals, and every K1 call's input and
   output (codes and scales on the wire);
 * ``("train", spec)``: the port's Trainer from the given flax weights over
-  ``spec["batches"]`` (this rank's rows of each global batch); returns the
-  per-step metrics and the final flax params, batch_stats and residual;
-* ``("refuse", spec)``: build a Trainer with ``spec["config"]`` and return
-  the message of the ``NotImplementedError`` it raises (None if none);
+  ``spec["batches"]`` (this rank's rows of each global batch): a ResNet
+  with the image task, or with ``spec["lm"]`` a GPT-2 with the causal LM
+  task; returns the per-step metrics and the final flax params,
+  batch_stats and residual;
+* ``("bn", spec)``: one BatchNorm over the ranks (``sync_group``), train
+  mode, on this rank's rows of ``spec["x"]``, backward from its rows of
+  ``spec["dy"]``; returns the output, the new statistics and the
+  gradients of x, scale and bias;
 * ``("scalars", spec)``: ``reduce_scalar`` of ``rank + 1`` by each op.
 """
 
@@ -32,11 +36,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from distributed_pytorch_training_tpu_torch.convert import (  # noqa: E402
     batch_stats_to_flax, load_flax_params, torch_to_flax,
 )
 from distributed_pytorch_training_tpu_torch.models import get_model  # noqa
+from distributed_pytorch_training_tpu_torch.models.resnet import (  # noqa
+    BatchNorm,
+)
 from distributed_pytorch_training_tpu_torch.parallel import (  # noqa: E402
     grad_sync,
 )
@@ -50,7 +58,7 @@ from distributed_pytorch_training_tpu_torch.training import (  # noqa: E402
     TrainConfig, Trainer, make_optimizer,
 )
 from distributed_pytorch_training_tpu_torch.training.tasks import (  # noqa
-    ImageClassificationTask,
+    ImageClassificationTask, LanguageModelingTask,
 )
 
 
@@ -82,12 +90,16 @@ def run_reduce(spec, rank, world):
 
 
 def run_train(spec, rank, world):
-    model = get_model("resnet18", **spec["model_kwargs"])
-    load_flax_params(model, spec["params"], spec["batch_stats"])
-    trainer = Trainer(
-        ImageClassificationTask(spec["mean"], spec["std"], augment=False),
-        TrainConfig(seed=0, print_freq=1000, **spec["config"]),
-        device="cpu")
+    if spec.get("lm"):
+        model = get_model("gpt2_124m", **spec["model_kwargs"])
+        task = LanguageModelingTask()
+    else:
+        model = get_model("resnet18", **spec["model_kwargs"])
+        task = ImageClassificationTask(spec["mean"], spec["std"],
+                                       augment=False)
+    load_flax_params(model, spec["params"], spec.get("batch_stats"))
+    trainer = Trainer(task, TrainConfig(seed=0, print_freq=1000,
+                                        **spec["config"]), device="cpu")
     state = trainer.init_state(model, make_optimizer(
         "sgd", spec["lr"], momentum=0.9, weight_decay=5e-4))
     metrics = []
@@ -106,13 +118,21 @@ def snapshot(state):
             "ef": {k: v.numpy().copy() for k, v in state.grad_sync.items()}}
 
 
-def run_refuse(spec, rank, world):
-    try:
-        Trainer(ImageClassificationTask((0.5,) * 3, (0.5,) * 3),
-                TrainConfig(**spec["config"]), device="cpu")
-    except NotImplementedError as e:
-        return str(e)
-    return None
+def run_bn(spec, rank, world):
+    bn = BatchNorm(spec["x"].shape[1])
+    bn.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        bn.scale.copy_(torch.from_numpy(spec["scale"]))
+        bn.bias.copy_(torch.from_numpy(spec["bias"]))
+    bn.sync_group = dist.group.WORLD
+    x = torch.from_numpy(np.split(spec["x"], world)[rank]).requires_grad_()
+    dy = torch.from_numpy(np.split(spec["dy"], world)[rank])
+    new_stats = {}
+    y = bn(x, new_stats)
+    (y * dy).sum().backward()
+    return {"y": y.detach().numpy(), "dx": x.grad.numpy(),
+            "dscale": bn.scale.grad.numpy(), "dbias": bn.bias.grad.numpy(),
+            **{k: v.numpy() for k, v in new_stats.items()}}
 
 
 def run_scalars(spec, rank, world):
@@ -147,7 +167,7 @@ def run_ranks(tmp_path: Path, world: int, jobs: dict, timeout=240) -> list:
     return results
 
 
-RUNNERS = {"reduce": run_reduce, "train": run_train, "refuse": run_refuse,
+RUNNERS = {"reduce": run_reduce, "train": run_train, "bn": run_bn,
            "scalars": run_scalars}
 
 

@@ -25,7 +25,9 @@ Tolerances:
 * reduce_flat on 2 ranks, and on 3 (the padded multihop layout):
   bitwise, sums, codes, scales and residuals: the codec is bitwise the
   reference's compiled one, K2's FMA chain included, and gloo moves bytes
-  unchanged.
+  unchanged. The bf16 wire too: on 2 ranks each element's sum is one
+  rounding of a + b to bf16, which does not depend on the order, and
+  gloo and XLA both add in float32 and round once.
 """
 
 import numpy as np
@@ -198,8 +200,8 @@ def test_flat_layout_bitwise_equals_jax_flatten_tree():
 
 S = 1001                       # odd: the multihop layout pads per bucket
 CAP = 400 * 4 / 1024 ** 2      # 400-element buckets: 400, 400, 201
-REDUCE_CASES = [("fp32", CAP), ("int8", 0.0), ("int8", CAP),
-                ("int8_multihop", 0.0), ("int8_multihop", CAP)]
+REDUCE_CASES = [("fp32", CAP), ("bf16", 0.0), ("bf16", CAP), ("int8", 0.0),
+                ("int8", CAP), ("int8_multihop", 0.0), ("int8_multihop", CAP)]
 
 
 def reduce_inputs(wire, cap, n, seed=0):
@@ -207,7 +209,7 @@ def reduce_inputs(wire, cap, n, seed=0):
     rng = np.random.RandomState(seed)
     contribs = (rng.randn(n, S) * rng.rand(n, 1) * 3).astype(np.float32)
     residual = None
-    if wire != "fp32":
+    if wire in gs.EF_WIRE_DTYPES:
         size = (jgs.padded_total_size(plan, n) if wire == "int8_multihop"
                 else S)
         residual = (rng.randn(n, size) * 0.01).astype(np.float32)
@@ -301,9 +303,19 @@ def test_reduce_flat_2_ranks_bitwise_equals_jax(ranks2, wire, cap):
                 np.testing.assert_array_equal(
                     bits(res["residuals"][call]),
                     bits(residuals[call][rank]))
-        if wire != "fp32":
+        if residual is not None:
             check_k1_calls(res, wire, plan, 2, contribs[rank],
                            residual[rank])
+        else:
+            assert res["k1"] == []
+    if wire == "bf16":
+        # the wire's sum is the bf16 sum of the bf16 contributions, a
+        # rounding of the float32 sum: within one bf16 step of it
+        exact = contribs.sum(0)
+        assert sums[0].dtype == np.float32
+        assert np.all(np.abs(sums[0][0] - exact) <= 2.0 ** -7 * (
+            np.abs(contribs).sum(0)))
+        assert not np.array_equal(sums[0][0], exact)
     if wire == "int8":
         # error feedback: what the wire dropped is carried, not lost
         sent = contribs.sum(0) * 2 + residual.sum(0)[:S]
@@ -344,8 +356,6 @@ def test_reduce_scalar_over_gloo_ranks(ranks2, ranks3):
 
 def test_reduce_flat_refuses_unported_wires():
     plan = gs.build_bucket_plan([torch.zeros(10)], 0.0)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        gs.reduce_flat(torch.zeros(10), plan, 2, "bf16")
     with pytest.raises(NotImplementedError, match="--slices"):
         gs.reduce_flat(torch.zeros(10), plan, 2, "int8_hier",
                        torch.zeros(10))
@@ -363,6 +373,8 @@ def test_single_process_reduce_is_identity_and_ef_layout():
     plan = gs.build_bucket_plan([x], CAP)
     out, _ = gs.reduce_flat(x, plan, 1, "fp32")
     assert torch.equal(out, x)
+    out, new = gs.reduce_flat(x, plan, 1, "bf16")
+    assert new is None and torch.equal(out, x.bfloat16().float())
     ef = gs.ef_state_bucketed([x], 1, CAP, "int8")["ef"]
     out, new = gs.reduce_flat(x, plan, 1, "int8", ef)
     # x = dequantized codes + residual, up to the residual's rounding
