@@ -25,13 +25,15 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
 5. serve the same model in fp32 on the card and on the CPU and compare
    the prefill logits within ATOL;
 6. hold the flash-attention kernels (forward, dK/dV, dQ) against their
-   plain versions at the training path's shape (fp32 and bf16) and at
-   edge shapes, within FLASH_REL, timing each beside its bound (float32
-   products at a third of the TF32 tensor-core rate: all three kernels
-   run them as three TF32 products) and beside torch's
-   scaled_dot_product_attention; the forward is logged as its ratio to
-   that call's forward (``fwd_over_sdpa_fwd``), the backward pair (dK/dV +
-   dQ) as one ratio to its backward, which computes both at once;
+   plain versions at the training path's shape and at edge shapes, each
+   in fp32 and bf16, within FLASH_REL, timing each beside its bound
+   (float32 products at a third of the TF32 tensor-core rate: the float32
+   kernels run them as three TF32 products; bf16 at the bf16 rate) and
+   beside torch's scaled_dot_product_attention; the forward is logged as
+   its ratio to that call's forward (``fwd_over_sdpa_fwd``), the backward
+   pair (dK/dV + dQ) as one ratio to its backward, which computes both at
+   once; then read each kernel's registers, spills, shared memory and
+   blocks an SM at D 64 and 128;
 7. train through the port's own entry (``train.main``: GPT-2 124M at full
    width, seq 1024, flash attention, AdamW, 2 epochs of 8 steps on 64
    synthetic sequences, batch 8), with the launch counts set to 0 just
@@ -131,6 +133,13 @@ BF16_OPS_PER_S = 989e12
 # (3xTF32), the least time any float32 flash kernel could take
 FLASH_FP32_OPS_PER_S = TF32_OPS_PER_S / 3
 
+# card clock cycles timed_ms waits between the L2 flush and the start
+# event, ~1 ms at the H100's clock: longer than the host takes to queue a
+# wrapper's launch or an autograd backward (without it, SDPA's bf16
+# backward at the main bf16 shape read 0.23-0.29 ms on an H100, with it
+# 0.17)
+GUARD_CYCLES = 2_000_000
+
 # flash kernels against their plain versions, as max|diff| / max|plain|
 # per output. float32: both sum in float32 in different orders (tiles vs
 # full rows), and the kernels form each product as three TF32 products
@@ -138,7 +147,9 @@ FLASH_FP32_OPS_PER_S = TF32_OPS_PER_S / 3
 # product would be ~5e-4); a wrong mask, scale or index moves whole rows
 # by O(1). bfloat16: both round
 # their float32 results to bfloat16 (8 bits of mantissa), so an element
-# may differ by one bfloat16 step, 2**-8 of its magnitude.
+# may differ by one bfloat16 step, 2**-8 to 2**-7 of its magnitude; the
+# bf16 forward and dK/dV also round P and dS to bf16 before their second
+# product, ~2e-3 of the output's scale (tests/test_torch_bf16_mma.py).
 FLASH_REL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 # (name, B, Sq, Sk, H, D, causal, kv_valid, dtype): the training path's
@@ -152,7 +163,15 @@ FLASH_CASES = [
     ("Sq=Sk=1000", 8, 1000, 1000, 12, 64, True, False, "float32"),
     ("Sq=256 Sk=512", 8, 256, 512, 12, 64, True, False, "float32"),
     ("D=128", 8, 1024, 1024, 6, 128, True, False, "float32"),
+    ("kv_valid, all-masked rows bf16", 4, 512, 512, 12, 64, True, True,
+     "bfloat16"),
+    ("Sq=Sk=1000 bf16", 8, 1000, 1000, 12, 64, True, False, "bfloat16"),
+    ("Sq=256 Sk=512 bf16", 8, 256, 512, 12, 64, True, False, "bfloat16"),
+    ("D=128 bf16", 8, 1024, 1024, 6, 128, True, False, "bfloat16"),
 ]
+# the flash kernels' registers, spills, shared memory and blocks an SM are
+# read for these head dims in both dtypes
+RESOURCE_DIMS = (64, 128)
 TRAIN_STEPS = 8            # 64 sequences / batch 8
 EVAL_STEPS = 2             # 64 // 5 = 12 sequences, 2 padded batches of 8
 EPOCHS = 2
@@ -227,7 +246,10 @@ def nvidia_smi() -> str:
 def timed_ms(torch, fn, flush, reps: int = 10) -> float:
     """Mean device time of ``fn()`` over ``reps`` calls, each started
     with a cold L2 (``flush`` is rewritten in between, outside the
-    timed window), after one warm-up call."""
+    timed window), after one warm-up call. A sleep of GUARD_CYCLES on the
+    card follows the flush, so the start event fires after the host has
+    queued all of ``fn()``'s launches: the host's own time (a wrapper's
+    checks, autograd's engine) is not counted as the card's."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -235,6 +257,7 @@ def timed_ms(torch, fn, flush, reps: int = 10) -> float:
     total = 0.0
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(GUARD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -380,6 +403,25 @@ def flash_bounds(torch, case, kv) -> dict:
         out[name] = (max(t_bytes, t_ops),
                      "bytes" if t_bytes >= t_ops else "operations")
     return out
+
+
+def flash_resources(torch, fa) -> list:
+    """[{kernel, dtype, D, regs, local_bytes, smem_bytes, blocks_per_sm}]
+    of K3-K5 as built, at RESOURCE_DIMS in float32 and bfloat16 (blocks of
+    4 warps)."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in RESOURCE_DIMS:
+            for kernel in ("fwd", "dkv", "dq"):
+                rows.append({"kernel": kernel, "dtype": str(dtype)[6:],
+                             "D": d, **fa.kernel_resources(kernel, d,
+                                                           dtype)})
+    for r in rows:
+        log(f"flash {r['kernel']} {r['dtype']} D {r['D']}: {r['regs']} "
+            f"registers, {r['local_bytes']} B local, {r['smem_bytes']} B "
+            f"shared, {r['blocks_per_sm']} blocks an SM "
+            f"({4 * r['blocks_per_sm']} warps)")
+    return rows
 
 
 def check_flash(torch, dev, flush):
@@ -1285,6 +1327,7 @@ def main() -> int:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     flash_rows = check_flash(torch, dev, flush)
     del flush
+    flash_res = flash_resources(torch, fa)
     log(f"phase 6 done in {time.perf_counter() - t0:.1f} s")
 
     # phase 7: the training path through the port's own entry
@@ -1458,6 +1501,7 @@ def main() -> int:
         "int8_card_vs_cpu_max_abs": int8_err,
         "tokens_int8": [r.tokens.tolist() for r in report.results],
         "flash_per_shape": flash_rows, "flash_launches": flash_launches,
+        "flash_resources": flash_res,
         "train_val_loss_per_epoch": losses,
         "train_step_line_samples_per_s": lm_rates,
         "amp_flash_launches": bf16_launches,

@@ -1,4 +1,5 @@
-// FlashAttention-2 forward and backward for Hopper: three kernels.
+// FlashAttention-2 forward and backward for Hopper: three kernels, and
+// bfloat16 versions of the first two.
 //
 // Replace the Pallas TPU kernels of
 //   distributed_pytorch_training_tpu/ops/flash_attention.py
@@ -6,6 +7,9 @@
 //   flash_fwd_kernel     <- _flash_fwd_lse (:199), body _fwd_kernel (:146)
 //   flash_bwd_dkv_kernel <- _flash_bwd (:360), body _bwd_dkv_kernel (:269)
 //   flash_bwd_dq_kernel  <- _flash_bwd (:360), body _bwd_dq_kernel (:317)
+// For bfloat16 inputs the forward and dK/dV launch flash_fwd_bf16_kernel
+// and flash_bwd_dkv_bf16_kernel (below K5); dQ takes flash_bwd_dq_kernel
+// in both dtypes.
 //
 // Semantics carried over from the JAX kernels:
 //   * masked logits are the float32 minimum (NEG_INF), not -inf: a row
@@ -17,14 +21,18 @@
 //     also when Sq != Sk; a causal k tile is live when its first key is at
 //     or before the q tile's last row (the JAX `live` test);
 //   * the forward scales q before the dot (:167); the backward scales the
-//     dot (:294, :341) and dS (:308, :352);
+//     dot (:294, :341) and dS (:308, :352). The bf16 forward multiplies
+//     the bf16 inputs as they are and scales the float32 dot: the two
+//     differ by float32 rounding only, and not at all at D 64 (scale 1/8);
 //   * the backward re-masks (causal and kv_valid), so no gradient reaches a
 //     masked key through a normal row.
 // Inputs are (B, S, H, D) in float32 or bfloat16, read through their batch,
 // sequence and head strides (the last axis is contiguous), so q, k and v can
-// be views of one fused qkv tensor. Arithmetic is float32 throughout; out,
-// dq, dk and dv are written contiguous in the input dtype, lse as (B*H, Sq)
-// float32. kv_valid, when given, is (B, Sk) float32: a key attends iff > 0.
+// be views of one fused qkv tensor. Arithmetic is float32 throughout,
+// except that the bf16 kernels round P (P^T and dS^T in dK/dV) once to
+// bf16 as the next product's operand; out, dq, dk and dv are written
+// contiguous in the input dtype, lse as (B*H, Sq) float32. kv_valid, when
+// given, is (B, Sk) float32: a key attends iff > 0.
 //
 // Bound on the card: operations. At GPT-2 124M's shape (B 8, S 1024, H 12,
 // D 64, causal) the forward does 4*D flops per live (q, k) pair, dK/dV 8*D
@@ -50,8 +58,9 @@
 //     (3.5e-4, 5.6e-4, 3.4e-4) at S 1024, causal; three passes: (6.4e-7,
 //     5.3e-7, 4.9e-7) and (3.4e-7, 1.0e-6, 1.0e-6).
 // bfloat16 inputs are exact in TF32, so their small parts are zero and
-// those terms are skipped; scale * Q (the forward), P and dS are not exact
-// and always split.
+// those terms are skipped; P and dS are not exact and always split. Only
+// dQ still runs bfloat16 inputs this way (K3 and K4 have bf16 kernels,
+// below), so the forward and dK/dV are instantiated for float alone.
 // What the tiling does about the limits of a SIMT design:
 //   * products: a warp owns 16 rows of its block's 64-row tile and computes
 //     16 x 64 score tiles with mma.sync; P and dS go from the accumulators
@@ -86,12 +95,37 @@
 //
 // Backward (K4 dK/dV, K5 dQ): six tiles of shared memory a block (105 KB at
 // D 64 in float32, so two blocks an SM).
+//
+// bfloat16 (K3 and K4): the tiling, masks and staging above, with every
+// product one mma.sync m16n8k16 bf16 x bf16 -> float32 per 16 of depth
+// (989 TFLOP/s dense, twice TF32's rate, against the four TF32 products
+// a split operand costs) and fragments read by ldmatrix (16 bytes a lane,
+// conflict-free at the row stride of D + 16 bytes), non-transposed along
+// D and transposed along the sequence. S (S^T, dP^T) multiplies the bf16
+// inputs as they are: a product of two bf16 values is exact in float32.
+// P (P^T, dS^T) is formed in float32, l summed over the float32 P, and
+// rounded once to bf16 (to nearest even) into the next product's A
+// operand: m16n8k16's C layout of two neighbouring 8-column tiles is its A
+// layout, so a thread packs its own registers. m, l, alpha, O, dK and dV
+// stay float32 in registers, and O, dK and dV accumulate on the tensor
+// cores. Emulated on the CPU (tests/test_torch_bf16_mma.py) against the
+// float32 plain versions on the same bf16 inputs, max error over max
+// |plain| before the outputs' own rounding to bf16: out <= 1.4e-3, dk and
+// dv <= 2.3e-3, lse <= 1.3e-7, so no operand needs a second bf16 term.
+// Bound on the card at GPT-2 124M's shape: 12.9 and 25.8 GFLOP at 989
+// TFLOP/s, 0.013 and 0.026 ms, against 0.015 and 0.023 ms of bytes (K3
+// bound by bytes, K4 by operations). Each
+// warp owns 16 rows (keys in K4) and 4 blocks an SM fit at D 64: 128
+// registers a thread, Q's fragments resident in K3, dK/dV's S^T and dP^T
+// formed 16 q rows at a time. One barrier a tile: a tile's copy is issued
+// right after it, into the buffer every warp has finished with.
 
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
@@ -306,21 +340,21 @@ __device__ __forceinline__ bool needs_mask(int q0, int k0, int Sq, int Sk,
          (causal && k0 + kTile - 1 > q0);
 }
 
-// Two 16 x kTile accumulators of one warp, x = scale * x1 -> p, y -> dS =
+// Two 16 x 8 N accumulators of one warp, x = scale * x1 -> p, y -> dS =
 // p * (y - delta) * scale (JAX :305/:308, :350/:352), in place. Element
-// (j, c) lies at local row rl(c) and column 8 j + 2 t + (c & 1); `p_of`
-// returns p for (row, column, scaled logit).
-template <typename POf, typename DeltaOf>
-__device__ __forceinline__ void p_and_ds(float (&x)[kTile / 8][4],
-                                         float (&y)[kTile / 8][4], float scale,
-                                         POf p_of, DeltaOf delta_of, int g,
-                                         int t) {
+// (j, c) lies at local row rl(c) and column col0 + 8 j + 2 t + (c & 1);
+// `p_of` returns p for (row, column, scaled logit).
+template <int N, typename POf, typename DeltaOf>
+__device__ __forceinline__ void p_and_ds(float (&x)[N][4], float (&y)[N][4],
+                                         float scale, POf p_of,
+                                         DeltaOf delta_of, int g, int t,
+                                         int col0 = 0) {
 #pragma unroll
-  for (int j = 0; j < kTile / 8; ++j) {
+  for (int j = 0; j < N; ++j) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int r = g + 8 * (c >> 1);
-      const int col = 8 * j + 2 * t + (c & 1);
+      const int col = col0 + 8 * j + 2 * t + (c & 1);
       const float p = p_of(r, col, scale * x[j][c]);
       x[j][c] = p;
       y[j][c] = p * (y[j][c] - delta_of(r, col)) * scale;
@@ -809,6 +843,440 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 }
 
 // --------------------------------------------------------------------------
+// bfloat16 tensor-core helpers (mma.sync m16n8k16, ldmatrix)
+// --------------------------------------------------------------------------
+
+using bf16_t = __nv_bfloat16;
+
+// c += a b on the tensor cores: a 16 x 16 (row), b 16 x 8 (col), bf16
+// operands with float32 accumulation. The m16n8k16 fragments (PTX ISA,
+// mma.m16n8k16 .bf16), lane = 4 g + t, two bf16 a register, the lower
+// column (A) or depth (B) in the low half:
+//   A (16 x 16): a0 (g, 2t..2t + 1), a1 (g + 8, 2t..), a2 (g, 2t + 8..),
+//                a3 (g + 8, 2t + 8..)
+//   B (16 x 8):  b0 (2t..2t + 1, g), b1 (2t + 8..2t + 9, g)   as (k, n)
+//   C (16 x 8):  as m16n8k8's
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory into fragments: lane l gives
+// the address of row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned);
+// register i receives matrix i's (row g, columns 2t, 2t + 1), or with
+// .trans its (rows 2t, 2t + 1, column g).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16_t* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16_t* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// A of rows r0..r0 + 15 of a row-major tile, depth columns k0..k0 + 15
+template <int LD>
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const bf16_t* s,
+                                       int r0, int k0, int lane) {
+  ldsm_x4(a, s + (r0 + (lane & 15)) * LD + k0 + 8 * (lane >> 4));
+}
+
+// B = X^T for a product against the rows of X: two 8-column output tiles,
+// n = rows n0..n0 + 15, depth = columns k0..k0 + 15; b[0], b[1] are tile
+// n0's, b[2], b[3] tile n0 + 8's
+template <int LD>
+__device__ __forceinline__ void ldsm_bt(uint32_t (&b)[4], const bf16_t* s,
+                                        int n0, int k0, int lane) {
+  ldsm_x4(b, s + (n0 + (lane & 7) + 8 * (lane >> 4)) * LD + k0 +
+                 8 * ((lane >> 3) & 1));
+}
+
+// B = X for a product over the rows of X: depth = rows k0..k0 + 15, two
+// 8-column output tiles of columns n0..n0 + 15 (read transposed)
+template <int LD>
+__device__ __forceinline__ void ldsm_b(uint32_t (&b)[4], const bf16_t* s,
+                                       int k0, int n0, int lane) {
+  ldsm_x4_trans(b, s + (k0 + (lane & 15)) * LD + n0 + 8 * (lane >> 4));
+}
+
+// two floats rounded to nearest even into one bf16 pair, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __float22bfloat162_rn(make_float2(lo, hi));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two neighbouring 16 x 8 accumulator tiles (columns 0..15 of the next
+// product's depth) as that product's A operand: m16n8k16's C layout of the
+// pair is its A layout, so the thread packs its own registers.
+__device__ __forceinline__ void acc_pair_as_a(uint32_t (&a)[4],
+                                              const float (&c0)[4],
+                                              const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// acc (16 x DP) += A (16 x 16, depth rows k0.. of tile y) y, on every
+// pair of output tiles
+template <int DP>
+__device__ __forceinline__ void add_product_bf16(float (&acc)[DP / 8][4],
+                                                 const uint32_t (&a)[4],
+                                                 const bf16_t* y, int k0,
+                                                 int lane) {
+#pragma unroll
+  for (int nn = 0; nn < DP / 16; ++nn) {
+    uint32_t b[4];
+    ldsm_b<Tile<bf16_t, DP>::kLd>(b, y, k0, 16 * nn, lane);
+    mma_bf16(acc[2 * nn], a, b[0], b[1]);
+    mma_bf16(acc[2 * nn + 1], a, b[2], b[3]);
+  }
+}
+
+// exp(x) for the bf16 kernels as exp2f(x log2 e): ex2.approx without
+// flush-to-zero and without expf's extra-precise range reduction. P is
+// rounded to bf16 after it; l and lse move by ~1e-7 of themselves.
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float exp_bf16(float x) {
+  return exp2f(x * kLog2e);
+}
+
+// Blocks an SM the bf16 kernels are built for: 16 warps at D <= 64 (128
+// registers a thread), 8 at D 128 (shared memory allows no more)
+template <int DP>
+constexpr int bf16_blocks_per_sm() {
+  return DP <= 64 ? 4 : 2;
+}
+
+// --------------------------------------------------------------------------
+// bfloat16 forward (K3)
+// --------------------------------------------------------------------------
+
+// flash_fwd_kernel's tiling and online softmax, on the bf16 tensor cores.
+// S = Q K^T from the bf16 inputs (exact products, float32 sums), times
+// scale in float32; P rounded once to bf16 and packed from the S
+// registers into P V's A operand; m, l (over the float32 P) and O = alpha
+// O + P V in float32. Q's A fragments stay in registers (4 a thread per 16
+// of D); K and V fragments come by ldmatrix, V's transposed. One barrier
+// a tile: the next tile's copy is issued after it, into the buffer every
+// warp has just finished with.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, bf16_blocks_per_sm<DP>())
+    flash_fwd_bf16_kernel(const bf16_t* __restrict__ q,
+                          const bf16_t* __restrict__ k,
+                          const bf16_t* __restrict__ v,
+                          const float* __restrict__ kv_valid,
+                          bf16_t* __restrict__ out, float* __restrict__ lse,
+                          int H, int Sq, int Sk, int D, Strides qs,
+                          Strides ks, Strides vs, float scale, int causal,
+                          int vec) {
+  using L = Tile<bf16_t, DP>;
+  constexpr int LD = L::kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16_t* sQ = reinterpret_cast<bf16_t*>(smem_raw);
+  bf16_t* sK = sQ + L::kElems;        // [2] buffers
+  bf16_t* sV = sK + 2 * L::kElems;    // [2]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int qr0 = 16 * warp;
+  const bf16_t* kb = k + b * ks.b + h * ks.h;
+  const bf16_t* vb = v + b * vs.b + h * vs.h;
+  const float* kvm = kv_valid ? kv_valid + (long long)b * Sk : nullptr;
+
+  int n_kt = (Sk + kTile - 1) / kTile;
+  if (causal) n_kt = min(n_kt, (q0 + kTile - 1) / kTile + 1);
+  stage_tile<bf16_t, DP>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq, D, vec);
+  stage_tile<bf16_t, DP>(sK, kb, ks.s, 0, Sk, D, vec);
+  stage_tile<bf16_t, DP>(sV, vb, vs.s, 0, Sk, D, vec);
+  cp_async_commit();
+
+  // rows g and g + 8 of the warp's 16: running max (from NEG_INF, as the
+  // JAX kernel's m) and sum, and the output accumulator
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+  float o_acc[DP / 8][4] = {};
+  uint32_t qa[DP / 16][4];
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int buf = kt & 1;
+    // this tile has landed, and every warp is done with the other buffer
+    cp_async_wait<0>();
+    __syncthreads();
+    if (kt + 1 < n_kt) {
+      const int next = (kt + 1) * kTile;
+      stage_tile<bf16_t, DP>(sK + (buf ^ 1) * L::kElems, kb, ks.s, next, Sk,
+                             D, vec);
+      stage_tile<bf16_t, DP>(sV + (buf ^ 1) * L::kElems, vb, vs.s, next, Sk,
+                             D, vec);
+      cp_async_commit();
+    }
+    const bf16_t* cK = sK + buf * L::kElems;
+    const bf16_t* cV = sV + buf * L::kElems;
+    const int k0 = kt * kTile;
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        ldsm_a<LD>(qa[kk], sQ, qr0, 16 * kk, lane);
+      }
+    }
+
+    // S = Q K^T (16 q rows x 64 keys per warp), then scale in float32
+    float s[kTile / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+      for (int jj = 0; jj < kTile / 16; ++jj) {
+        uint32_t kf[4];
+        ldsm_bt<LD>(kf, cK, 16 * jj, 16 * kk, lane);
+        mma_bf16(s[2 * jj], qa[kk], kf[0], kf[1]);
+        mma_bf16(s[2 * jj + 1], qa[kk], kf[2], kf[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] *= scale;
+    }
+    if (needs_mask(q0, k0, Sq, Sk, causal, kvm != nullptr)) {
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[j][c] = masked(s[j][c], q0 + qr0 + g + 8 * (c >> 1),
+                           k0 + 8 * j + 2 * t + (c & 1), Sk, causal, kvm);
+        }
+      }
+    }
+
+    // online softmax (JAX :183-:190), as flash_fwd_kernel's
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      alpha[i] = exp_bf16(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[j][c] = exp_bf16(s[j][c] - m[c >> 1]);
+        sum[c >> 1] += s[j][c];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
+
+    // O = alpha O + P V (JAX :189), depth = the tile's 64 keys
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o_acc[n][c] *= alpha[c >> 1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t pa[4];
+      acc_pair_as_a(pa, s[2 * kk], s[2 * kk + 1]);
+      add_product_bf16<DP>(o_acc, pa, cV, 16 * kk, lane);
+    }
+  }
+
+  // out = O / l (as O times 1 / l, within a float32 rounding of it, before
+  // the bf16 one) and lse = m + log l, l floored at 1e-30 (JAX :194-:196)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = fmaxf(l[i], 1e-30f);
+  const float inv[2] = {1.0f / l[0], 1.0f / l[1]};
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o_acc[n][c] *= inv[c >> 1];
+  }
+  const long long row_stride = (long long)H * D;
+  store_acc<bf16_t, DP>(out + (long long)b * Sq * row_stride + (long long)h * D,
+                        row_stride, o_acc, q0 + qr0, Sq, D, g, t);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + qr0 + g + 8 * i;
+      if (row < Sq) lse[(long long)bh * Sq + row] = m[i] + logf(l[i]);
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// bfloat16 backward: dK and dV (K4)
+// --------------------------------------------------------------------------
+
+// q rows of a staged q tile that one pass of the bf16 dK/dV kernel holds
+// as S^T and dP^T accumulators (16 keys x 16 q rows each): with dK and dV
+// (64 registers at D 64) they fit 128 registers a thread without spilling
+constexpr int kDkvCols = 16;
+
+// flash_bwd_dkv_kernel's tiling, on the bf16 tensor cores. For each
+// 16-row slice of a staged q tile a warp forms S^T = K Q^T and dP^T = V
+// dO^T from the bf16 inputs (K and V fragments by ldmatrix, Q and dO as
+// B), turns them into P^T and dS^T in float32, rounds each once to bf16
+// into the A operand of dV += P^T dO and dK += dS^T Q (dO and Q read
+// transposed), accumulated in float32 registers over the whole loop. One
+// barrier a q tile, as the forward's.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, bf16_blocks_per_sm<DP>())
+    flash_bwd_dkv_bf16_kernel(
+        const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
+        const bf16_t* __restrict__ v, const bf16_t* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        const float* __restrict__ kv_valid, bf16_t* __restrict__ dk,
+        bf16_t* __restrict__ dv, int H, int Sq, int Sk, int D, Strides qs,
+        Strides ks, Strides vs, float scale, int causal, int vec) {
+  using L = Tile<bf16_t, DP>;
+  constexpr int LD = L::kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16_t* sK = reinterpret_cast<bf16_t*>(smem_raw);
+  bf16_t* sV = sK + L::kElems;
+  bf16_t* sQ = sV + L::kElems;        // [2] buffers
+  bf16_t* sdO = sQ + 2 * L::kElems;   // [2]
+  float* sRows = reinterpret_cast<float*>(sdO + 2 * L::kElems);  // [2][2][64]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int kr0 = 16 * warp;
+  const long long row_stride = (long long)H * D;  // dout, dk, dv
+  const bf16_t* qb = q + b * qs.b + h * qs.h;
+  const bf16_t* dob = dout + (long long)b * Sq * row_stride + (long long)h * D;
+  const long long lse_base = (long long)bh * Sq;
+  const float* kvm = kv_valid ? kv_valid + (long long)b * Sk : nullptr;
+
+  const int n_qt = (Sq + kTile - 1) / kTile;
+  // causal: q tiles whose last row is before this tile's first key are dead
+  const int qt0 = causal ? k0 / kTile : 0;
+  auto stage_q = [&](int buf, int qt) {
+    const int q0 = qt * kTile;
+    stage_tile<bf16_t, DP>(sQ + buf * L::kElems, qb, qs.s, q0, Sq, D, vec);
+    stage_tile<bf16_t, DP>(sdO + buf * L::kElems, dob, row_stride, q0, Sq, D,
+                           vec);
+    const int i = threadIdx.x;  // 128 threads: 64 lse, then 64 delta
+    const int row = q0 + (i & (kTile - 1));
+    const bool ok = row < Sq;
+    cp_async4(sRows + buf * 2 * kTile + i,
+              (i < kTile ? lse : delta) + lse_base + (ok ? row : 0), ok);
+  };
+
+  stage_tile<bf16_t, DP>(sK, k + b * ks.b + h * ks.h, ks.s, k0, Sk, D, vec);
+  stage_tile<bf16_t, DP>(sV, v + b * vs.b + h * vs.h, vs.s, k0, Sk, D, vec);
+  if (qt0 < n_qt) stage_q(0, qt0);
+  cp_async_commit();
+
+  float dk_acc[DP / 8][4] = {};
+  float dv_acc[DP / 8][4] = {};
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int buf = (qt - qt0) & 1;
+    // this tile has landed, and every warp is done with the other buffer
+    cp_async_wait<0>();
+    __syncthreads();
+    if (qt + 1 < n_qt) {
+      stage_q(buf ^ 1, qt + 1);  // overlaps this tile's products
+      cp_async_commit();
+    }
+    const bf16_t* cQ = sQ + buf * L::kElems;
+    const bf16_t* cdO = sdO + buf * L::kElems;
+    const float* cLse = sRows + buf * 2 * kTile;
+    const float* cDelta = cLse + kTile;
+    const int q0 = qt * kTile;
+    const bool mask = needs_mask(q0, k0, Sq, Sk, causal, kvm != nullptr);
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += kDkvCols) {
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x kDkvCols q rows per warp
+      float st[kDkvCols / 8][4] = {};
+      float dpt[kDkvCols / 8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        uint32_t ka[4], va[4];
+        ldsm_a<LD>(ka, sK, kr0, 16 * kk, lane);
+        ldsm_a<LD>(va, sV, kr0, 16 * kk, lane);
+#pragma unroll
+        for (int jj = 0; jj < kDkvCols / 16; ++jj) {
+          uint32_t f[4];
+          ldsm_bt<LD>(f, cQ, c0 + 16 * jj, 16 * kk, lane);
+          mma_bf16(st[2 * jj], ka, f[0], f[1]);
+          mma_bf16(st[2 * jj + 1], ka, f[2], f[3]);
+          ldsm_bt<LD>(f, cdO, c0 + 16 * jj, 16 * kk, lane);
+          mma_bf16(dpt[2 * jj], va, f[0], f[1]);
+          mma_bf16(dpt[2 * jj + 1], va, f[2], f[3]);
+        }
+      }
+
+      // P^T and dS^T in float32: rows are keys, columns q rows
+      auto delta_of = [&](int, int col) { return cDelta[col]; };
+      if (mask) {
+        p_and_ds(st, dpt, scale,
+                 [&](int r, int col, float s) {
+                   return q0 + col < Sq
+                              ? exp_bf16(masked(s, q0 + col, k0 + kr0 + r, Sk,
+                                                causal, kvm) -
+                                         cLse[col])
+                              : 0.0f;
+                 },
+                 delta_of, g, t, c0);
+      } else {
+        p_and_ds(st, dpt, scale,
+                 [&](int, int col, float s) {
+                   return exp_bf16(s - cLse[col]);
+                 },
+                 delta_of, g, t, c0);
+      }
+
+      // dV += P^T dO and dK += dS^T Q, depth = these kDkvCols q rows
+#pragma unroll
+      for (int kk = 0; kk < kDkvCols / 16; ++kk) {
+        uint32_t a[4];
+        acc_pair_as_a(a, st[2 * kk], st[2 * kk + 1]);
+        add_product_bf16<DP>(dv_acc, a, cdO, c0 + 16 * kk, lane);
+        acc_pair_as_a(a, dpt[2 * kk], dpt[2 * kk + 1]);
+        add_product_bf16<DP>(dk_acc, a, cQ, c0 + 16 * kk, lane);
+      }
+    }
+  }
+  cp_async_wait<0>();  // no live q tile: K and V were staged for nothing
+
+  const long long out_base = (long long)b * Sk * row_stride + (long long)h * D;
+  store_acc<bf16_t, DP>(dk + out_base, row_stride, dk_acc, k0 + kr0, Sk, D, g,
+                        t);
+  store_acc<bf16_t, DP>(dv + out_base, row_stride, dv_acc, k0 + kr0, Sk, D, g,
+                        t);
+}
+
+// --------------------------------------------------------------------------
 // launchers
 // --------------------------------------------------------------------------
 
@@ -844,12 +1312,43 @@ dim3 grid_of(const Problem& p, int n) {
 }
 
 // Raise the kernel's dynamic shared-memory limit (above 48 KB it must be
-// asked for) and return the error, 0 when accepted.
+// asked for) and return the error, 0 when accepted. `max_carveout`: ask
+// for the SM's largest shared-memory share too, which the bf16 kernels'
+// four blocks an SM at D 64 need.
 template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
+int allow_smem(Kernel kernel, size_t bytes, bool max_carveout = false) {
+  cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
+      static_cast<int>(bytes));
+  if (err == cudaSuccess && max_carveout) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  }
+  return static_cast<int>(err);
+}
+
+// K3 and K4 take their own kernels for bfloat16 inputs (the bf16 tensor
+// cores); K5 and every float32 kernel are the 3xTF32 ones
+template <typename T>
+constexpr bool kBf16 = std::is_same<T, bf16_t>::value;
+
+template <typename T, int DP>
+auto fwd_kernel() {
+  if constexpr (kBf16<T>) {
+    return flash_fwd_bf16_kernel<DP>;
+  } else {
+    return flash_fwd_kernel<T, DP>;
+  }
+}
+
+template <typename T, int DP>
+auto dkv_kernel() {
+  if constexpr (kBf16<T>) {
+    return flash_bwd_dkv_bf16_kernel<DP>;
+  } else {
+    return flash_bwd_dkv_kernel<T, DP>;
+  }
 }
 
 // Every row of a (B, S, H, D) tensor at `x` with these strides (and of the
@@ -871,8 +1370,8 @@ template <typename T, int DP>
 int fwd_t(const Problem& p, const void* q, const void* k, const void* v,
           const float* kv_valid, void* out, float* lse) {
   const size_t smem = fwd_smem<T, DP>();
-  auto kernel = flash_fwd_kernel<T, DP>;
-  if (int err = allow_smem(kernel, smem)) return err;
+  auto kernel = fwd_kernel<T, DP>();
+  if (int err = allow_smem(kernel, smem, kBf16<T>)) return err;
   kernel<<<grid_of(p, p.Sq), kThreads, smem, p.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_valid, static_cast<T*>(out), lse, p.H,
@@ -886,8 +1385,8 @@ int dkv_t(const Problem& p, const void* q, const void* k, const void* v,
           const void* dout, const float* lse, const float* delta,
           const float* kv_valid, void* dk, void* dv) {
   const size_t smem = dkv_smem<T, DP>();
-  auto kernel = flash_bwd_dkv_kernel<T, DP>;
-  if (int err = allow_smem(kernel, smem)) return err;
+  auto kernel = dkv_kernel<T, DP>();
+  if (int err = allow_smem(kernel, smem, kBf16<T>)) return err;
   kernel<<<grid_of(p, p.Sk), kThreads, smem, p.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
@@ -929,6 +1428,41 @@ Problem make_problem(int B, int H, int Sq, int Sk, int D, long long qsb,
 
 bool bad_shape(int B, int H, int Sq, int Sk, int D) {
   return B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || D <= 0 || D > 128;
+}
+
+// info[0..3] of a kernel: registers a thread, local memory a thread
+// (bytes: register spills), dynamic shared memory a block (bytes), blocks
+// of 128 threads resident an SM
+template <typename Kernel>
+int kernel_info(Kernel kernel, size_t smem, bool max_carveout, int* info) {
+  if (int err = allow_smem(kernel, smem, max_carveout)) return err;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        kThreads, smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = static_cast<int>(smem);
+  info[3] = blocks;
+  return 0;
+}
+
+template <typename T, int DP>
+int info_t(int which, int* info) {
+  if (which == 0) {
+    return kernel_info(fwd_kernel<T, DP>(), fwd_smem<T, DP>(), kBf16<T>,
+                       info);
+  }
+  if (which == 1) {
+    return kernel_info(dkv_kernel<T, DP>(), dkv_smem<T, DP>(), kBf16<T>,
+                       info);
+  }
+  return kernel_info(flash_bwd_dq_kernel<T, DP>, dq_smem<T, DP>(), false,
+                     info);
 }
 
 }  // namespace
@@ -990,6 +1524,23 @@ int dpt_flash_bwd_dq(const void* q, const void* k, const void* v,
   return bf16 ? DP_DISPATCH(D, DQ_BF16) : DP_DISPATCH(D, DQ_F32);
 #undef DQ_F32
 #undef DQ_BF16
+}
+
+// The resources of one kernel as the launchers build it for head dim D
+// and dtype (`which`: 0 the forward K3, 1 dK/dV K4, 2 dQ K5) on the current
+// device, into info[0..3]: registers a thread, local memory a thread in
+// bytes, dynamic shared memory a block in bytes, blocks of 128 threads
+// resident an SM.
+// Returns the CUDA error, 0 on success.
+int dpt_flash_kernel_info(int which, int D, int bf16, int* info) {
+  if (D <= 0 || D > 128 || which < 0 || which > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#define INFO_F32(N) info_t<float, N>(which, info)
+#define INFO_BF16(N) info_t<__nv_bfloat16, N>(which, info)
+  return bf16 ? DP_DISPATCH(D, INFO_BF16) : DP_DISPATCH(D, INFO_F32);
+#undef INFO_F32
+#undef INFO_BF16
 }
 
 const char* dpt_cuda_error_string(int code) {

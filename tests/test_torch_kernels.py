@@ -214,7 +214,9 @@ def test_dequant_kernel_zero_scales_and_unaligned_rows(cuda_device):
 # 1e-4 of the output's scale is ~100x what either accounts for
 # at these sizes, and a wrong mask or index moves whole rows by O(1). bfloat16:
 # both round their float32 results to bfloat16 (8 bits of mantissa), so an
-# element may differ by one bfloat16 step, 2**-8 of its magnitude.
+# element may differ by one bfloat16 step, 2**-8 to 2**-7 of its magnitude;
+# the bf16 forward and dK/dV also round P and dS to bf16 before their
+# second product, ~2e-3 of the output's scale (test_torch_bf16_mma.py).
 FLASH_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 # (B, Sq, Sk, H, D, causal, masked): the main path's heads at short length,
@@ -308,30 +310,42 @@ def test_flash_kernels_match_plain_versions(cuda_device, case, dtype):
         assert rel_err(got, want) <= tol
 
 
+# An all-masked row against mean(V) over its real keys, absolute. float32:
+# the kernel's sum of P V in float32, ~1e-7 of the mean's O(0.1) size.
+# bfloat16: the mean of the bf16 values, written in bf16, is half a bf16
+# step of it away from the float32 mean (2**-9 of a value below 1); a
+# wrong mask moves it by O(0.1).
+MEAN_V_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
 @pytest.mark.cuda
-def test_flash_all_masked_rows_emit_mean_v(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_flash_all_masked_rows_emit_mean_v(cuda_device, dtype):
     """NEG_INF masking on the card: without causal an all-masked row is
     mean(V) over the real keys only (the ragged tail is not averaged in)."""
     from distributed_pytorch_training_tpu_torch.ops import (
         flash_attention_fwd_lse,
     )
 
-    q, k, v, _, kv = flash_inputs(2, 40, 100, 2, 64, True, torch.float32,
+    q, k, v, _, kv = flash_inputs(2, 40, 100, 2, 64, True, dtype,
                                   cuda_device)
     out, lse = flash_attention_fwd_lse(q, k, v, False, None, kv)
     torch.cuda.synchronize()
-    want = v[0].mean(0).expand(40, 2, 64)
-    assert (out[0] - want).abs().max().item() <= 1e-5
+    want = v[0].float().mean(0).expand(40, 2, 64)
+    assert (out[0].float() - want).abs().max().item() <= MEAN_V_ATOL[dtype]
     assert (lse[:2] == torch.finfo(torch.float32).min).all()
 
 
 @pytest.mark.cuda
-def test_flash_reads_strided_qkv_views(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_flash_reads_strided_qkv_views(cuda_device, dtype):
     """q, k, v as views of one fused (B, S, 3, H, D) tensor, as the model
     passes them: no copy, same result as contiguous inputs."""
     from distributed_pytorch_training_tpu_torch.ops import flash_attention
 
-    qkv = torch.randn((2, 96, 3, 4, 64), device=cuda_device)
+    qkv = torch.randn((2, 96, 3, 4, 64), device=cuda_device).to(dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     assert not q.is_contiguous()
     got = flash_attention(q, k, v, True)
@@ -342,14 +356,16 @@ def test_flash_reads_strided_qkv_views(cuda_device):
 
 
 @pytest.mark.cuda
-def test_flash_reads_unaligned_qkv_views(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_flash_reads_unaligned_qkv_views(cuda_device, dtype):
     """The unaligned twin of the test above: every row of the fused qkv
-    starts one float off a 16-byte boundary, which the forward stages
+    starts one element off a 16-byte boundary, which the forward stages
     element by element; same result as contiguous inputs."""
     from distributed_pytorch_training_tpu_torch.ops import flash_attention
 
     b, s, h, d = 2, 96, 4, 64
-    flat = torch.randn(b * s * 3 * h * d + 1, device=cuda_device)
+    flat = torch.randn(b * s * 3 * h * d + 1, device=cuda_device).to(dtype)
     qkv = flat[1:].view(b, s, 3, h, d)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     assert q.data_ptr() % 16 != 0
@@ -361,8 +377,10 @@ def test_flash_reads_unaligned_qkv_views(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
-def test_flash_backward_reads_strided_qkv_views(cuda_device, offset):
+def test_flash_backward_reads_strided_qkv_views(cuda_device, offset, dtype):
     """The backward through q, k, v as views of one fused (B, S, 3, H, D)
     tensor, as the model passes them, within FLASH_REL of contiguous
     inputs; ``offset`` 1 starts every row off a 16-byte boundary, which
@@ -372,9 +390,10 @@ def test_flash_backward_reads_strided_qkv_views(cuda_device, offset):
     b, s, h, d = 2, 160, 4, 64
     g = torch.Generator(device=cuda_device).manual_seed(3)
     flat = torch.randn(b * s * 3 * h * d + offset, generator=g,
-                       device=cuda_device)
+                       device=cuda_device).to(dtype)
     qkv = flat[offset:].view(b, s, 3, h, d)
-    do = torch.randn((b, s, h, d), generator=g, device=cuda_device)
+    do = torch.randn((b, s, h, d), generator=g,
+                     device=cuda_device).to(dtype)
     views = [qkv[:, :, i].detach().requires_grad_(True) for i in range(3)]
     assert not views[0].is_contiguous()
     assert (views[0].data_ptr() % 16 != 0) == bool(offset)
@@ -383,4 +402,4 @@ def test_flash_backward_reads_strided_qkv_views(cuda_device, offset):
     flash_attention(*dense, True).backward(do)
     torch.cuda.synchronize()
     for got, want in zip(views, dense):
-        assert rel_err(got.grad, want.grad) <= FLASH_REL[torch.float32]
+        assert rel_err(got.grad, want.grad) <= FLASH_REL[dtype]
