@@ -430,16 +430,17 @@ __device__ __forceinline__ float quad_sum(float v) {
 // forms S = (scale Q) K^T (16 x 64), masks it where a mask bites, updates
 // the online softmax (m, l) of its rows in registers and feeds P straight
 // to O = alpha O + P V, accumulated in registers over the whole loop.
-template <typename T, int DP>
+// float32 only: bfloat16 inputs take flash_fwd_bf16_kernel.
+template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ kv_valid,
-    T* __restrict__ out, float* __restrict__ lse, int H, int Sq, int Sk,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ kv_valid,
+    float* __restrict__ out, float* __restrict__ lse, int H, int Sq, int Sk,
     int D, Strides qs, Strides ks, Strides vs, float scale, int causal,
     int vec) {
+  using T = float;
   using L = Tile<T, DP>;
   constexpr int LD = L::kLd;
-  constexpr bool kExact = sizeof(T) == 2;  // bfloat16 K and V are TF32-exact
   // up to D 64, Q's A fragments are scaled and split once and stay in
   // registers; at D 128 they would spill, and are read from sQ per tile
   constexpr bool kQInRegs = DP <= 64;
@@ -491,8 +492,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* cV = sV + buf * L::kElems;
     const int k0 = kt * kTile;
 
-    // S = (scale Q) K^T: 16 q rows x 64 keys per warp (scale * q is not
-    // TF32-exact even for bfloat16 inputs, so A always splits)
+    // S = (scale Q) K^T: 16 q rows x 64 keys per warp
     if constexpr (kQInRegs) {
       if (kt == 0) {
 #pragma unroll
@@ -514,7 +514,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       for (int j = 0; j < kTile / 8; ++j) {
         Frag<2> kf;
         load_bt<T, LD>(kf, cK, 8 * j, kk, g, t);
-        mma3<false, kExact>(s[j], qa, kf);
+        mma3<false, false>(s[j], qa, kf);
       }
     }
     if (needs_mask(q0, k0, Sq, Sk, causal, kvm != nullptr)) {
@@ -565,7 +565,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       for (int n = 0; n < DP / 8; ++n) {
         Frag<2> vf;
         load_b<T, LD>(vf, cV, 8 * j, 8 * n, g, t);
-        mma3<false, kExact>(part[n], pa, vf);
+        mma3<false, false>(part[n], pa, vf);
       }
     }
 #pragma unroll
@@ -608,17 +608,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 // tile a warp forms S^T = K Q^T and dP^T = V dO^T (16 x 64), turns them
 // into P^T and dS^T in registers and feeds those straight to dV += P^T dO
 // and dK += dS^T Q, accumulated in registers over the whole loop.
-template <typename T, int DP>
+// float32 only: bfloat16 inputs take flash_bwd_dkv_bf16_kernel.
+template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const float* __restrict__ kv_valid, T* __restrict__ dk,
-    T* __restrict__ dv, int H, int Sq, int Sk, int D, Strides qs,
+    const float* __restrict__ kv_valid, float* __restrict__ dk,
+    float* __restrict__ dv, int H, int Sq, int Sk, int D, Strides qs,
     Strides ks, Strides vs, float scale, int causal, int vec) {
+  using T = float;
   using L = Tile<T, DP>;
   constexpr int LD = L::kLd;
-  constexpr bool kExact = sizeof(T) == 2;  // bfloat16 inputs are TF32-exact
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);
   T* sV = sK + L::kElems;
@@ -691,8 +692,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
         Frag<2> qf, of;
         load_bt<T, LD>(qf, cQ, 8 * j, kk, g, t);
         load_bt<T, LD>(of, cdO, 8 * j, kk, g, t);
-        mma3<kExact, kExact>(st[j], ka, qf);
-        mma3<kExact, kExact>(dpt[j], va, of);
+        mma3<false, false>(st[j], ka, qf);
+        mma3<false, false>(dpt[j], va, of);
       }
     }
 
@@ -712,8 +713,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     }
 
     // dV += P^T dO and dK += dS^T Q, depth = the tile's 64 q rows
-    add_product<T, DP, kExact>(dv_acc, st, cdO, g, t);
-    add_product<T, DP, kExact>(dk_acc, dpt, cQ, g, t);
+    add_product<T, DP, false>(dv_acc, st, cdO, g, t);
+    add_product<T, DP, false>(dk_acc, dpt, cQ, g, t);
     __syncthreads();  // this buffer is refilled two tiles on
   }
   cp_async_wait<0>();  // no live q tile: K and V were staged for nothing
@@ -1338,7 +1339,7 @@ auto fwd_kernel() {
   if constexpr (kBf16<T>) {
     return flash_fwd_bf16_kernel<DP>;
   } else {
-    return flash_fwd_kernel<T, DP>;
+    return flash_fwd_kernel<DP>;
   }
 }
 
@@ -1347,7 +1348,7 @@ auto dkv_kernel() {
   if constexpr (kBf16<T>) {
     return flash_bwd_dkv_bf16_kernel<DP>;
   } else {
-    return flash_bwd_dkv_kernel<T, DP>;
+    return flash_bwd_dkv_kernel<DP>;
   }
 }
 
@@ -1430,41 +1431,6 @@ bool bad_shape(int B, int H, int Sq, int Sk, int D) {
   return B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || D <= 0 || D > 128;
 }
 
-// info[0..3] of a kernel: registers a thread, local memory a thread
-// (bytes: register spills), dynamic shared memory a block (bytes), blocks
-// of 128 threads resident an SM
-template <typename Kernel>
-int kernel_info(Kernel kernel, size_t smem, bool max_carveout, int* info) {
-  if (int err = allow_smem(kernel, smem, max_carveout)) return err;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  int blocks = 0;
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                        kThreads, smem);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = static_cast<int>(smem);
-  info[3] = blocks;
-  return 0;
-}
-
-template <typename T, int DP>
-int info_t(int which, int* info) {
-  if (which == 0) {
-    return kernel_info(fwd_kernel<T, DP>(), fwd_smem<T, DP>(), kBf16<T>,
-                       info);
-  }
-  if (which == 1) {
-    return kernel_info(dkv_kernel<T, DP>(), dkv_smem<T, DP>(), kBf16<T>,
-                       info);
-  }
-  return kernel_info(flash_bwd_dq_kernel<T, DP>, dq_smem<T, DP>(), false,
-                     info);
-}
-
 }  // namespace
 
 extern "C" {
@@ -1524,23 +1490,6 @@ int dpt_flash_bwd_dq(const void* q, const void* k, const void* v,
   return bf16 ? DP_DISPATCH(D, DQ_BF16) : DP_DISPATCH(D, DQ_F32);
 #undef DQ_F32
 #undef DQ_BF16
-}
-
-// The resources of one kernel as the launchers build it for head dim D
-// and dtype (`which`: 0 the forward K3, 1 dK/dV K4, 2 dQ K5) on the current
-// device, into info[0..3]: registers a thread, local memory a thread in
-// bytes, dynamic shared memory a block in bytes, blocks of 128 threads
-// resident an SM.
-// Returns the CUDA error, 0 on success.
-int dpt_flash_kernel_info(int which, int D, int bf16, int* info) {
-  if (D <= 0 || D > 128 || which < 0 || which > 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-#define INFO_F32(N) info_t<float, N>(which, info)
-#define INFO_BF16(N) info_t<__nv_bfloat16, N>(which, info)
-  return bf16 ? DP_DISPATCH(D, INFO_BF16) : DP_DISPATCH(D, INFO_F32);
-#undef INFO_F32
-#undef INFO_BF16
 }
 
 const char* dpt_cuda_error_string(int code) {

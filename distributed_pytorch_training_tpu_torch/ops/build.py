@@ -3,7 +3,9 @@
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface. ``nvcc``
 compiles it for Hopper (``sm_90a``) into ``csrc/build/lib<name>-<hash>.so``
 at first use; the hash is of the source, so an edited source builds anew
-and a stale library is never loaded. Nothing builds at import time: the
+and a stale library is never loaded. nvcc's output, with ptxas's registers
+and spills of every kernel (``-Xptxas -v``), is kept beside it as
+``lib<name>-<hash>.log``. Nothing builds at import time: the
 CPU tests import every module on a machine with no ``nvcc``.
 
 No fast math and no flush-to-zero: the int8 quantizer must reproduce IEEE
@@ -25,7 +27,7 @@ from typing import Dict, List, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}   # guarded-by: _lock
@@ -81,6 +83,7 @@ def build_all(names: Sequence[str]) -> Dict[str, Path]:
             tmps[name].unlink(missing_ok=True)
             failed.append(f"{name} (nvcc rc={proc.returncode}):\n{log}")
         else:
+            outs[name].with_suffix(".log").write_text(log)
             os.replace(tmps[name], outs[name])
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))

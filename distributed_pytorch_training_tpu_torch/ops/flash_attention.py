@@ -175,29 +175,7 @@ def _launchers():
     for fn, ptrs in fns.values():
         fn.argtypes = ptrs + shape
         fn.restype = ctypes.c_int
-    lib.dpt_flash_kernel_info.argtypes = [i, i, i, p]
-    lib.dpt_flash_kernel_info.restype = ctypes.c_int
     return lib, {name: fn for name, (fn, _) in fns.items()}
-
-
-def kernel_resources(kernel: str, head_dim: int,
-                     dtype: torch.dtype) -> dict:
-    """What one kernel ("fwd" K3, "dkv" K4, "dq" K5) takes as built for
-    ``head_dim`` and ``dtype`` on the current CUDA device:
-    ``cudaFuncGetAttributes``' registers a thread and local memory a thread
-    (register spills, bytes), the dynamic shared memory a block (bytes),
-    and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``'s blocks of 128
-    threads an SM."""
-    if dtype not in _DTYPES or not 0 < head_dim <= MAX_HEAD_DIM:
-        raise ValueError(f"no flash kernel for {dtype}, head dim {head_dim}")
-    lib, _ = _launchers()
-    info = (ctypes.c_int * 4)()
-    code = lib.dpt_flash_kernel_info(("fwd", "dkv", "dq").index(kernel),
-                                     head_dim, int(dtype == torch.bfloat16),
-                                     info)
-    build.check_launch(lib, f"kernel_resources({kernel})", code)
-    return dict(zip(("regs", "local_bytes", "smem_bytes", "blocks_per_sm"),
-                    info))
 
 
 def _check(name: str, q, k, v, kv_valid) -> None:
