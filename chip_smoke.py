@@ -142,8 +142,8 @@ FLASH_FP32_OPS_PER_S = TF32_OPS_PER_S / 3
 # by O(1). bfloat16: both round
 # their float32 results to bfloat16 (8 bits of mantissa), so an element
 # may differ by one bfloat16 step, 2**-8 to 2**-7 of its magnitude; the
-# bf16 forward and dK/dV also round P and dS to bf16 before their second
-# product, ~2e-3 of the output's scale (tests/test_torch_bf16_mma.py).
+# bf16 forward, dK/dV and dQ also round P and dS to bf16 before their
+# second product, ~2e-3 of the output's scale (tests/test_torch_bf16_mma.py).
 FLASH_REL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 # (name, B, Sq, Sk, H, D, causal, kv_valid, dtype): the training path's

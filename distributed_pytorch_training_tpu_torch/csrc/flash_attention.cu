@@ -1,5 +1,5 @@
-// FlashAttention-2 forward and backward for Hopper: three kernels, and
-// bfloat16 versions of the first two.
+// FlashAttention-2 forward and backward for Hopper: three kernels, each
+// in a float32 and a bfloat16 version.
 //
 // Replace the Pallas TPU kernels of
 //   distributed_pytorch_training_tpu/ops/flash_attention.py
@@ -7,9 +7,9 @@
 //   flash_fwd_kernel     <- _flash_fwd_lse (:199), body _fwd_kernel (:146)
 //   flash_bwd_dkv_kernel <- _flash_bwd (:360), body _bwd_dkv_kernel (:269)
 //   flash_bwd_dq_kernel  <- _flash_bwd (:360), body _bwd_dq_kernel (:317)
-// For bfloat16 inputs the forward and dK/dV launch flash_fwd_bf16_kernel
-// and flash_bwd_dkv_bf16_kernel (below K5); dQ takes flash_bwd_dq_kernel
-// in both dtypes.
+// For bfloat16 inputs they launch flash_fwd_bf16_kernel,
+// flash_bwd_dkv_bf16_kernel and flash_bwd_dq_bf16_kernel (after the float32
+// kernels).
 //
 // Semantics carried over from the JAX kernels:
 //   * masked logits are the float32 minimum (NEG_INF), not -inf: a row
@@ -29,8 +29,8 @@
 // Inputs are (B, S, H, D) in float32 or bfloat16, read through their batch,
 // sequence and head strides (the last axis is contiguous), so q, k and v can
 // be views of one fused qkv tensor. Arithmetic is float32 throughout,
-// except that the bf16 kernels round P (P^T and dS^T in dK/dV) once to
-// bf16 as the next product's operand; out, dq, dk and dv are written
+// except that the bf16 kernels round P (P^T and dS^T in dK/dV, dS in dQ)
+// once to bf16 as the next product's operand; out, dq, dk and dv are written
 // contiguous in the input dtype, lse as (B*H, Sq) float32. kv_valid, when
 // given, is (B, Sk) float32: a key attends iff > 0.
 //
@@ -57,10 +57,8 @@
 //   backward (dq, dk, dv), one pass: (7.0e-4, 7.2e-4, 3.0e-4) at S 128 and
 //     (3.5e-4, 5.6e-4, 3.4e-4) at S 1024, causal; three passes: (6.4e-7,
 //     5.3e-7, 4.9e-7) and (3.4e-7, 1.0e-6, 1.0e-6).
-// bfloat16 inputs are exact in TF32, so their small parts are zero and
-// those terms are skipped; P and dS are not exact and always split. Only
-// dQ still runs bfloat16 inputs this way (K3 and K4 have bf16 kernels,
-// below), so the forward and dK/dV are instantiated for float alone.
+// These three kernels take float32 inputs alone: bfloat16 inputs have
+// kernels of their own (below).
 // What the tiling does about the limits of a SIMT design:
 //   * products: a warp owns 16 rows of its block's 64-row tile and computes
 //     16 x 64 score tiles with mma.sync; P and dS go from the accumulators
@@ -96,29 +94,31 @@
 // Backward (K4 dK/dV, K5 dQ): six tiles of shared memory a block (105 KB at
 // D 64 in float32, so two blocks an SM).
 //
-// bfloat16 (K3 and K4): the tiling, masks and staging above, with every
+// bfloat16 (K3, K4 and K5): the tiling, masks and staging above, with every
 // product one mma.sync m16n8k16 bf16 x bf16 -> float32 per 16 of depth
 // (989 TFLOP/s dense, twice TF32's rate, against the four TF32 products
 // a split operand costs) and fragments read by ldmatrix (16 bytes a lane,
 // conflict-free at the row stride of D + 16 bytes), non-transposed along
 // D and transposed along the sequence. S (S^T, dP^T) multiplies the bf16
 // inputs as they are: a product of two bf16 values is exact in float32.
-// P (P^T, dS^T) is formed in float32, l summed over the float32 P, and
-// rounded once to bf16 (to nearest even) into the next product's A
-// operand: m16n8k16's C layout of two neighbouring 8-column tiles is its A
-// layout, so a thread packs its own registers. m, l, alpha, O, dK and dV
-// stay float32 in registers, and O, dK and dV accumulate on the tensor
-// cores. Emulated on the CPU (tests/test_torch_bf16_mma.py) against the
-// float32 plain versions on the same bf16 inputs, max error over max
-// |plain| before the outputs' own rounding to bf16: out <= 1.4e-3, dk and
-// dv <= 2.3e-3, lse <= 1.3e-7, so no operand needs a second bf16 term.
-// Bound on the card at GPT-2 124M's shape: 12.9 and 25.8 GFLOP at 989
-// TFLOP/s, 0.013 and 0.026 ms, against 0.015 and 0.023 ms of bytes (K3
-// bound by bytes, K4 by operations). Each
-// warp owns 16 rows (keys in K4) and 4 blocks an SM fit at D 64: 128
-// registers a thread, Q's fragments resident in K3, dK/dV's S^T and dP^T
-// formed 16 q rows at a time. One barrier a tile: a tile's copy is issued
-// right after it, into the buffer every warp has finished with.
+// P (P^T and dS^T in K4, dS in K5) is formed in float32, l summed over the
+// float32 P, and rounded once to bf16 (to nearest even) into the next
+// product's A operand: m16n8k16's C layout of two neighbouring 8-column
+// tiles is its A layout, so a thread packs its own registers. m, l,
+// alpha, O, dQ, dK and dV stay float32 in registers, and O, dQ, dK and dV
+// accumulate on the tensor cores. Emulated on the CPU
+// (tests/test_torch_bf16_mma.py) against the float32 plain versions on the
+// same bf16 inputs, max error over max |plain| before the outputs' own
+// rounding to bf16: out <= 1.4e-3, dq, dk and dv <= 2.4e-3, lse <=
+// 1.3e-7, so no operand needs a second bf16 term. Bound on the card at
+// GPT-2 124M's shape: 12.9, 25.8 and 19.4 GFLOP at 989 TFLOP/s, 0.013,
+// 0.026 and 0.020 ms, against 0.015, 0.023 and 0.019 ms of bytes (K3
+// bound by bytes, K4 and K5 by operations). Each warp owns 16 rows (keys
+// in K4) and 4 blocks an SM fit at D 64: 128 registers a thread, Q's
+// fragments resident in K3 and Q's and dO's in K5, dK/dV's S^T and dP^T
+// formed 16 q rows at a time and dQ's S and dP 16 keys at a time. One
+// barrier a tile: a tile's copy is issued right after it, into the buffer
+// every warp has finished with.
 
 #include <cfloat>
 #include <cmath>
@@ -138,10 +138,6 @@ struct Strides {  // element strides of a (B, S, H, D) tensor; D's is 1
   long long b, s, h;
 };
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -193,14 +189,11 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // 3xTF32: c += a.hi b.lo + a.lo b.hi + a.hi b.hi (small terms first; the
-// a.lo b.lo term, 2^-22 of the product, is dropped). An operand that is
-// exact in TF32 (a bfloat16 input) has a zero small part: its term is
-// skipped.
-template <bool kExactA, bool kExactB>
+// a.lo b.lo term, 2^-22 of the product, is dropped)
 __device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a,
                                      const Frag<2>& b) {
-  if (!kExactB) mma_tf32(c, a.hi, b.lo);
-  if (!kExactA) mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.lo, b.hi);
   mma_tf32(c, a.hi, b.hi);
 }
 
@@ -211,33 +204,34 @@ __device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a,
 
 // A from a row-major tile: rows r0.., depth columns k0..k0 + 7, each
 // element times `mul` in float32 before the split
-template <typename T, int LD>
-__device__ __forceinline__ void load_a(Frag<4>& f, const T* s, int r0, int k0,
-                                       int g, int t, float mul = 1.0f) {
-  const T* p = s + (r0 + g) * LD + k0 + t;
-  const float x[4] = {load_f(p) * mul, load_f(p + 8 * LD) * mul,
-                      load_f(p + 4) * mul, load_f(p + 8 * LD + 4) * mul};
+template <int LD>
+__device__ __forceinline__ void load_a(Frag<4>& f, const float* s, int r0,
+                                       int k0, int g, int t,
+                                       float mul = 1.0f) {
+  const float* p = s + (r0 + g) * LD + k0 + t;
+  const float x[4] = {p[0] * mul, p[8 * LD] * mul, p[4] * mul,
+                      p[8 * LD + 4] * mul};
   split(f, x);
 }
 
 // B = X^T for a product against the rows of X: n = rows n0.., k = depth
 // columns k0..k0 + 7
-template <typename T, int LD>
-__device__ __forceinline__ void load_bt(Frag<2>& f, const T* s, int n0,
+template <int LD>
+__device__ __forceinline__ void load_bt(Frag<2>& f, const float* s, int n0,
                                         int k0, int g, int t) {
-  const T* p = s + (n0 + g) * LD + k0 + t;
-  const float x[2] = {load_f(p), load_f(p + 4)};
+  const float* p = s + (n0 + g) * LD + k0 + t;
+  const float x[2] = {p[0], p[4]};
   split(f, x);
 }
 
 // B = X for a product over X's rows, with the depth order permuted to match
 // an accumulator re-used as A (see acc_as_a): k = t <-> row r0 + 2t,
 // k = t + 4 <-> row r0 + 2t + 1; n = columns n0..n0 + 7
-template <typename T, int LD>
-__device__ __forceinline__ void load_b(Frag<2>& f, const T* s, int r0,
+template <int LD>
+__device__ __forceinline__ void load_b(Frag<2>& f, const float* s, int r0,
                                        int n0, int g, int t) {
-  const T* p = s + (r0 + 2 * t) * LD + n0 + g;
-  const float x[2] = {load_f(p), load_f(p + LD)};
+  const float* p = s + (r0 + 2 * t) * LD + n0 + g;
+  const float x[2] = {p[0], p[LD]};
   split(f, x);
 }
 
@@ -387,10 +381,10 @@ __device__ __forceinline__ void store_acc(T* out, long long row_stride,
 // and is then added to `acc` in IEEE float32 arithmetic, so the running
 // sum over the whole loop never passes through the tensor cores'
 // accumulation.
-template <typename T, int DP, bool kExactB>
+template <int DP>
 __device__ __forceinline__ void add_product(float (&acc)[DP / 8][4],
                                             const float (&x)[kTile / 8][4],
-                                            const T* y, int g, int t) {
+                                            const float* y, int g, int t) {
   Frag<4> a[kTile / 8];
 #pragma unroll
   for (int j = 0; j < kTile / 8; ++j) acc_as_a(a[j], x[j]);
@@ -400,8 +394,8 @@ __device__ __forceinline__ void add_product(float (&acc)[DP / 8][4],
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
       Frag<2> b;
-      load_b<T, Tile<T, DP>::kLd>(b, y, 8 * j, 8 * n, g, t);
-      mma3<false, kExactB>(part, a[j], b);
+      load_b<Tile<float, DP>::kLd>(b, y, 8 * j, 8 * n, g, t);
+      mma3(part, a[j], b);
     }
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[n][c] += part[c];
@@ -497,7 +491,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       if (kt == 0) {
 #pragma unroll
         for (int kk = 0; kk < DP; kk += 8) {
-          load_a<T, LD>(q_frags[kk / 8], sQ, qr0, kk, g, t, scale);
+          load_a<LD>(q_frags[kk / 8], sQ, qr0, kk, g, t, scale);
         }
       }
     }
@@ -508,13 +502,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       if constexpr (kQInRegs) {
         qa = q_frags[kk / 8];
       } else {
-        load_a<T, LD>(qa, sQ, qr0, kk, g, t, scale);
+        load_a<LD>(qa, sQ, qr0, kk, g, t, scale);
       }
 #pragma unroll
       for (int j = 0; j < kTile / 8; ++j) {
         Frag<2> kf;
-        load_bt<T, LD>(kf, cK, 8 * j, kk, g, t);
-        mma3<false, false>(s[j], qa, kf);
+        load_bt<LD>(kf, cK, 8 * j, kk, g, t);
+        mma3(s[j], qa, kf);
       }
     }
     if (needs_mask(q0, k0, Sq, Sk, causal, kvm != nullptr)) {
@@ -564,8 +558,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
       for (int n = 0; n < DP / 8; ++n) {
         Frag<2> vf;
-        load_b<T, LD>(vf, cV, 8 * j, 8 * n, g, t);
-        mma3<false, false>(part[n], pa, vf);
+        load_b<LD>(vf, cV, 8 * j, 8 * n, g, t);
+        mma3(part[n], pa, vf);
       }
     }
 #pragma unroll
@@ -685,15 +679,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 #pragma unroll
     for (int kk = 0; kk < DP; kk += 8) {
       Frag<4> ka, va;
-      load_a<T, LD>(ka, sK, kr0, kk, g, t);
-      load_a<T, LD>(va, sV, kr0, kk, g, t);
+      load_a<LD>(ka, sK, kr0, kk, g, t);
+      load_a<LD>(va, sV, kr0, kk, g, t);
 #pragma unroll
       for (int j = 0; j < kTile / 8; ++j) {
         Frag<2> qf, of;
-        load_bt<T, LD>(qf, cQ, 8 * j, kk, g, t);
-        load_bt<T, LD>(of, cdO, 8 * j, kk, g, t);
-        mma3<false, false>(st[j], ka, qf);
-        mma3<false, false>(dpt[j], va, of);
+        load_bt<LD>(qf, cQ, 8 * j, kk, g, t);
+        load_bt<LD>(of, cdO, 8 * j, kk, g, t);
+        mma3(st[j], ka, qf);
+        mma3(dpt[j], va, of);
       }
     }
 
@@ -713,8 +707,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     }
 
     // dV += P^T dO and dK += dS^T Q, depth = the tile's 64 q rows
-    add_product<T, DP, false>(dv_acc, st, cdO, g, t);
-    add_product<T, DP, false>(dk_acc, dpt, cQ, g, t);
+    add_product<DP>(dv_acc, st, cdO, g, t);
+    add_product<DP>(dk_acc, dpt, cQ, g, t);
     __syncthreads();  // this buffer is refilled two tiles on
   }
   cp_async_wait<0>();  // no live q tile: K and V were staged for nothing
@@ -734,17 +728,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 // cp.async. Per k tile a warp forms S = Q K^T and dP = dO V^T (16 x 64),
 // turns them into dS in registers and feeds it straight to dQ += dS K,
 // accumulated in registers over the whole loop.
-template <typename T, int DP>
+// float32 only: bfloat16 inputs take flash_bwd_dq_bf16_kernel.
+template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const float* __restrict__ kv_valid, T* __restrict__ dq, int H, int Sq,
-    int Sk, int D, Strides qs, Strides ks, Strides vs, float scale,
+    const float* __restrict__ kv_valid, float* __restrict__ dq, int H,
+    int Sq, int Sk, int D, Strides qs, Strides ks, Strides vs, float scale,
     int causal, int vec) {
+  using T = float;
   using L = Tile<T, DP>;
   constexpr int LD = L::kLd;
-  constexpr bool kExact = sizeof(T) == 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
   T* sdO = sQ + L::kElems;
@@ -808,15 +803,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
     for (int kk = 0; kk < DP; kk += 8) {
       Frag<4> qa, oa;
-      load_a<T, LD>(qa, sQ, qr0, kk, g, t);
-      load_a<T, LD>(oa, sdO, qr0, kk, g, t);
+      load_a<LD>(qa, sQ, qr0, kk, g, t);
+      load_a<LD>(oa, sdO, qr0, kk, g, t);
 #pragma unroll
       for (int j = 0; j < kTile / 8; ++j) {
         Frag<2> kf, vf;
-        load_bt<T, LD>(kf, cK, 8 * j, kk, g, t);
-        load_bt<T, LD>(vf, cV, 8 * j, kk, g, t);
-        mma3<kExact, kExact>(s[j], qa, kf);
-        mma3<kExact, kExact>(dp[j], oa, vf);
+        load_bt<LD>(kf, cK, 8 * j, kk, g, t);
+        load_bt<LD>(vf, cV, 8 * j, kk, g, t);
+        mma3(s[j], qa, kf);
+        mma3(dp[j], oa, vf);
       }
     }
 
@@ -835,7 +830,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     }
 
     // dQ += dS K, depth = the tile's 64 keys
-    add_product<T, DP, kExact>(dq_acc, dp, cK, g, t);
+    add_product<DP>(dq_acc, dp, cK, g, t);
     __syncthreads();  // this buffer is refilled two tiles on
   }
 
@@ -1278,6 +1273,155 @@ __global__ void __launch_bounds__(kThreads, bf16_blocks_per_sm<DP>())
 }
 
 // --------------------------------------------------------------------------
+// bfloat16 backward: dQ (K5)
+// --------------------------------------------------------------------------
+
+// keys of a staged k tile that one pass of the bf16 dQ kernel holds as S
+// and dP accumulators (16 q rows x kDqCols keys each): with dQ and Q's and
+// dO's resident A fragments (32 + 32 registers at D 64) they fit 128
+// registers a thread without spilling
+constexpr int kDqCols = 16;
+
+// flash_bwd_dq_kernel's tiling, on the bf16 tensor cores. Q's and dO's A
+// fragments are read once by ldmatrix and stay in registers; for each
+// kDqCols-key slice of a staged k tile a warp forms S = Q K^T and dP = dO
+// V^T from the bf16 inputs (K and V as B by ldmatrix), turns them into dS
+// in float32, rounds it once to bf16 into the A operand of dQ += dS K (K
+// read transposed), accumulated in float32 registers over the whole loop.
+// One barrier a k tile, as the forward's.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, bf16_blocks_per_sm<DP>())
+    flash_bwd_dq_bf16_kernel(
+        const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
+        const bf16_t* __restrict__ v, const bf16_t* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        const float* __restrict__ kv_valid, bf16_t* __restrict__ dq, int H,
+        int Sq, int Sk, int D, Strides qs, Strides ks, Strides vs,
+        float scale, int causal, int vec) {
+  using L = Tile<bf16_t, DP>;
+  constexpr int LD = L::kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16_t* sQ = reinterpret_cast<bf16_t*>(smem_raw);
+  bf16_t* sdO = sQ + L::kElems;
+  bf16_t* sK = sdO + L::kElems;       // [2] buffers
+  bf16_t* sV = sK + 2 * L::kElems;    // [2]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int qr0 = 16 * warp;
+  const long long row_stride = (long long)H * D;  // dout, dq
+  const bf16_t* kb = k + b * ks.b + h * ks.h;
+  const bf16_t* vb = v + b * vs.b + h * vs.h;
+  const float* kvm = kv_valid ? kv_valid + (long long)b * Sk : nullptr;
+
+  // this thread's two q rows (local g and g + 8)
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + qr0 + g + 8 * i;
+    row_lse[i] = row < Sq ? lse[(long long)bh * Sq + row] : 0.0f;
+    row_delta[i] = row < Sq ? delta[(long long)bh * Sq + row] : 0.0f;
+  }
+
+  int n_kt = (Sk + kTile - 1) / kTile;
+  if (causal) n_kt = min(n_kt, (q0 + kTile - 1) / kTile + 1);
+  stage_tile<bf16_t, DP>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq, D, vec);
+  stage_tile<bf16_t, DP>(sdO, dout + (long long)b * Sq * row_stride +
+                                  (long long)h * D,
+                         row_stride, q0, Sq, D, vec);
+  stage_tile<bf16_t, DP>(sK, kb, ks.s, 0, Sk, D, vec);
+  stage_tile<bf16_t, DP>(sV, vb, vs.s, 0, Sk, D, vec);
+  cp_async_commit();
+
+  float dq_acc[DP / 8][4] = {};
+  uint32_t qa[DP / 16][4], oa[DP / 16][4];
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int buf = kt & 1;
+    // this tile has landed, and every warp is done with the other buffer
+    cp_async_wait<0>();
+    __syncthreads();
+    if (kt + 1 < n_kt) {
+      const int next = (kt + 1) * kTile;
+      stage_tile<bf16_t, DP>(sK + (buf ^ 1) * L::kElems, kb, ks.s, next, Sk,
+                             D, vec);
+      stage_tile<bf16_t, DP>(sV + (buf ^ 1) * L::kElems, vb, vs.s, next, Sk,
+                             D, vec);
+      cp_async_commit();
+    }
+    const bf16_t* cK = sK + buf * L::kElems;
+    const bf16_t* cV = sV + buf * L::kElems;
+    const int k0 = kt * kTile;
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        ldsm_a<LD>(qa[kk], sQ, qr0, 16 * kk, lane);
+        ldsm_a<LD>(oa[kk], sdO, qr0, 16 * kk, lane);
+      }
+    }
+    const bool mask = needs_mask(q0, k0, Sq, Sk, causal, kvm != nullptr);
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += kDqCols) {
+      // S = Q K^T and dP = dO V^T: 16 q rows x kDqCols keys per warp
+      float s[kDqCols / 8][4] = {};
+      float dp[kDqCols / 8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < kDqCols / 16; ++jj) {
+          uint32_t f[4];
+          ldsm_bt<LD>(f, cK, c0 + 16 * jj, 16 * kk, lane);
+          mma_bf16(s[2 * jj], qa[kk], f[0], f[1]);
+          mma_bf16(s[2 * jj + 1], qa[kk], f[2], f[3]);
+          ldsm_bt<LD>(f, cV, c0 + 16 * jj, 16 * kk, lane);
+          mma_bf16(dp[2 * jj], oa[kk], f[0], f[1]);
+          mma_bf16(dp[2 * jj + 1], oa[kk], f[2], f[3]);
+        }
+      }
+
+      // P and dS in float32: rows are q rows, columns keys
+      auto delta_of = [&](int r, int) { return row_delta[r >> 3]; };
+      if (mask) {
+        p_and_ds(s, dp, scale,
+                 [&](int r, int col, float x) {
+                   const int row = q0 + qr0 + r;
+                   return row < Sq
+                              ? exp_bf16(masked(x, row, k0 + col, Sk, causal,
+                                                kvm) -
+                                         row_lse[r >> 3])
+                              : 0.0f;
+                 },
+                 delta_of, g, t, c0);
+      } else {
+        p_and_ds(s, dp, scale,
+                 [&](int r, int, float x) {
+                   return exp_bf16(x - row_lse[r >> 3]);
+                 },
+                 delta_of, g, t, c0);
+      }
+
+      // dQ += dS K, depth = these kDqCols keys
+#pragma unroll
+      for (int kk = 0; kk < kDqCols / 16; ++kk) {
+        uint32_t a[4];
+        acc_pair_as_a(a, dp[2 * kk], dp[2 * kk + 1]);
+        add_product_bf16<DP>(dq_acc, a, cK, c0 + 16 * kk, lane);
+      }
+    }
+  }
+
+  store_acc<bf16_t, DP>(dq + (long long)b * Sq * row_stride +
+                            (long long)h * D,
+                        row_stride, dq_acc, q0 + qr0, Sq, D, g, t);
+}
+
+// --------------------------------------------------------------------------
 // launchers
 // --------------------------------------------------------------------------
 
@@ -1329,8 +1473,8 @@ int allow_smem(Kernel kernel, size_t bytes, bool max_carveout = false) {
   return static_cast<int>(err);
 }
 
-// K3 and K4 take their own kernels for bfloat16 inputs (the bf16 tensor
-// cores); K5 and every float32 kernel are the 3xTF32 ones
+// bfloat16 inputs take the bf16 kernels (mma.sync m16n8k16 on the bf16
+// tensor cores), float32 inputs the 3xTF32 ones
 template <typename T>
 constexpr bool kBf16 = std::is_same<T, bf16_t>::value;
 
@@ -1349,6 +1493,15 @@ auto dkv_kernel() {
     return flash_bwd_dkv_bf16_kernel<DP>;
   } else {
     return flash_bwd_dkv_kernel<DP>;
+  }
+}
+
+template <typename T, int DP>
+auto dq_kernel() {
+  if constexpr (kBf16<T>) {
+    return flash_bwd_dq_bf16_kernel<DP>;
+  } else {
+    return flash_bwd_dq_kernel<DP>;
   }
 }
 
@@ -1402,8 +1555,8 @@ int dq_t(const Problem& p, const void* q, const void* k, const void* v,
          const void* dout, const float* lse, const float* delta,
          const float* kv_valid, void* dq) {
   const size_t smem = dq_smem<T, DP>();
-  auto kernel = flash_bwd_dq_kernel<T, DP>;
-  if (int err = allow_smem(kernel, smem)) return err;
+  auto kernel = dq_kernel<T, DP>();
+  if (int err = allow_smem(kernel, smem, kBf16<T>)) return err;
   kernel<<<grid_of(p, p.Sq), kThreads, smem, p.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,

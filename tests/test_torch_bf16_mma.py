@@ -1,17 +1,20 @@
 """Why the bf16 flash kernels may round P and dS to bfloat16.
 
-For bfloat16 inputs the forward (K3) and the dK/dV backward (K4) of
-``csrc/flash_attention.cu`` run their products on the tensor cores as
-``mma.sync`` m16n8k16 bf16 x bf16 with float32 accumulation:
+For bfloat16 inputs the forward (K3), the dK/dV backward (K4) and the dQ
+backward (K5) of ``csrc/flash_attention.cu`` run their products on the
+tensor cores as ``mma.sync`` m16n8k16 bf16 x bf16 with float32
+accumulation:
 
-* S = Q K^T (K4: S^T = K Q^T and dP^T = V dO^T) multiplies the bf16
-  inputs as they are; a product of two bf16 values is exact in float32 and
-  the sum is float32. ``scale`` multiplies the float32 sum afterwards (the
-  JAX kernel scales q before the dot; the two differ by float32 rounding
-  only, and not at all at D 64, where the scale is 1/8);
-* P (K4: P^T and dS^T) is formed in float32, rounded once to bf16 (round
-  to nearest even) and fed to the next product, O += P V (K4: dV += P^T
-  dO, dK += dS^T Q); the softmax row sum l is taken over the float32 P.
+* S = Q K^T (K4: S^T = K Q^T and dP^T = V dO^T; K5: S and dP = dO V^T)
+  multiplies the bf16 inputs as they are; a product of two bf16 values is
+  exact in float32 and the sum is float32. ``scale`` multiplies the
+  float32 sum afterwards (the JAX kernel scales q before the dot; the two
+  differ by float32 rounding only, and not at all at D 64, where the scale
+  is 1/8);
+* P (K4: P^T and dS^T; K5: dS) is formed in float32, rounded once to bf16
+  (round to nearest even) and fed to the next product, O += P V (K4: dV +=
+  P^T dO, dK += dS^T Q; K5: dQ += dS K); the softmax row sum l is taken
+  over the float32 P.
 
 This test emulates that arithmetic on the CPU: inputs are seeded numpy
 arrays rounded to bf16, products of bf16 values are summed exactly in
@@ -19,7 +22,7 @@ float64 and rounded to float32, and the forward walks 64-key tiles with
 the kernel's online softmax (running max m, alpha = exp(m_old - m_new),
 P = exp(s - m) rounded to bf16 per tile). Outputs are rounded to bf16 as
 the kernels write them, and held against the plain versions on the same
-bf16 inputs within FLASH_REL_BF16 = 1e-2 (out, dk, dv; the port's bf16
+bf16 inputs within FLASH_REL_BF16 = 1e-2 (out, dq, dk, dv; the port's bf16
 tolerance for the flash kernels, ``chip_smoke.py`` and
 ``tests/test_torch_kernels.py``) and FLASH_REL_F32 = 1e-4 (lse, float32
 on both sides), as max|diff| / max|plain| over the rows with a live key.
@@ -27,15 +30,16 @@ on both sides), as max|diff| / max|plain| over the rows with a live key.
 Measured (max|emulated - plain| / max|plain|; first in float32, before
 the outputs are rounded to bf16, then as written in bf16):
 
-  case (B, S, H, D, causal, kv_valid)   out               lse      dk                dv
-  (2, 128, 2, 64, causal)               6.7e-4 / 2.3e-3   8.5e-8   2.1e-3 / 3.4e-3   1.8e-3 / 4.0e-3
-  (2, 128, 2, 64, causal + kv_valid)    7.6e-4 / 2.3e-3   9.0e-8   1.9e-3 / 6.9e-3   1.9e-3 / 3.3e-3
-  (2, 96, 2, 64, kv_valid)              1.4e-3 / 4.4e-3   8.9e-8   2.0e-3 / 6.1e-3   1.5e-3 / 6.3e-3
-  (1, 1024, 2, 64, causal)              7.8e-4 / 3.2e-3   1.2e-7   2.3e-3 / 2.9e-3   1.4e-3 / 4.7e-3
+  case (B, S, H, D, causal, kv_valid)   out               lse      dq                dk                dv
+  (2, 128, 2, 64, causal)               6.7e-4 / 2.3e-3   8.5e-8   1.8e-3 / 6.7e-3   2.1e-3 / 3.4e-3   1.8e-3 / 4.0e-3
+  (2, 128, 2, 64, causal + kv_valid)    7.6e-4 / 2.3e-3   9.0e-8   1.6e-3 / 6.7e-3   1.9e-3 / 6.9e-3   1.9e-3 / 3.3e-3
+  (2, 96, 2, 64, kv_valid)              1.4e-3 / 4.4e-3   8.9e-8   2.4e-3 / 6.5e-3   2.0e-3 / 6.1e-3   1.5e-3 / 6.3e-3
+  (1, 1024, 2, 64, causal)              7.8e-4 / 3.2e-3   1.2e-7   2.1e-3 / 6.8e-3   2.3e-3 / 2.9e-3   1.4e-3 / 4.7e-3
 
 (At 12 heads, (1, 1024) and (1, 1000) causal and (2, 512) with kv_valid,
-the float32 values stay at or under 2.0e-3.) Every float32 value is under
-5e-3, so no operand needs a second (lo) bf16 term. Under one bf16 step of
+the float32 values stay at or under 2.2e-3.) Every float32 value is under
+5e-3, so no operand needs a second (lo) bf16 term: dS enters dQ += dS K
+as one bf16 term, as it enters dK += dS^T Q. Under one bf16 step of
 the largest output (2**-8 to 2**-7 of it), the written values differ from
 the plain ones by at most that one step, which stays inside 1e-2. The
 float32 values are above the float32 tolerance of 1e-4, so these kernels
@@ -105,18 +109,19 @@ def forward_bf16(q, k, v, causal, kv_valid):
 
 
 def backward_bf16(q, k, v, g, lse, delta, causal, kv_valid):
-    """(dk, dv) in float32 of the K4 bf16 kernel's arithmetic: S^T and dP^T
-    from exact products, P^T and dS^T in float32, each rounded to bf16 into
-    dV += P^T dO and dK += dS^T Q."""
+    """(dq, dk, dv) in float32 of the K4 and K5 bf16 kernels' arithmetic: S
+    and dP (K4: S^T and dP^T) from exact products, P and dS in float32,
+    each rounded to bf16 into dQ += dS K (K5), dV += P^T dO and dK += dS^T
+    Q (K4)."""
     b, sq, h, d = q.shape
     scale = np.float32(1.0 / np.sqrt(d))
     s = scale * mm("bshd,bthd->bhst", q, k)
     s = fa._masked_scores(s, causal, kv_valid)
     p = torch.exp(s - lse.reshape(b, h, sq, 1))
     dp = mm("bshd,bthd->bhst", g, v)
-    ds = p * (dp - delta.reshape(b, h, sq, 1)) * scale
-    return mm("bhst,bshd->bthd", bf16(ds), q), mm("bhst,bshd->bthd",
-                                                  bf16(p), g)
+    ds = bf16(p * (dp - delta.reshape(b, h, sq, 1)) * scale)
+    return (mm("bhst,bthd->bshd", ds, k), mm("bhst,bshd->bthd", ds, q),
+            mm("bhst,bshd->bthd", bf16(p), g))
 
 
 def rel_err(got, want) -> float:
@@ -171,20 +176,26 @@ def fwd_errors(case):
 
 
 def bwd_errors(case):
-    """{dk_f32, dv_f32, dk, dv}: the emulated dK/dV against the plain ones
-    on the same lse and delta, in float32 and as written in bf16."""
+    """{dq_f32, dk_f32, dv_f32, dq, dk, dv}: the emulated dQ, dK and dV
+    against the plain ones on the same lse and delta, in float32 and as
+    written in bf16."""
     _, _, _, _, causal, _ = case
     q, k, v, g, kv, live = inputs(case)
     g = bf16(g * live[:, :, None, None])       # dead rows: zero weight
     out, lse = fa.flash_attention_fwd_lse_ref(q, k, v, causal, None, kv)
     delta = fa._delta(bf16(out), g)
-    want = fa.flash_attention_bwd_dkv_ref(q, k, v, g, lse, delta, causal,
-                                          None, kv)
-    want16 = fa.flash_attention_bwd_dkv_ref(
-        *(t.bfloat16() for t in (q, k, v, g)), lse, delta, causal, None, kv)
+
+    def plain(*qkvg):
+        return (fa.flash_attention_bwd_dq_ref(*qkvg, lse, delta, causal,
+                                              None, kv),
+                *fa.flash_attention_bwd_dkv_ref(*qkvg, lse, delta, causal,
+                                                None, kv))
+
+    want = plain(q, k, v, g)
+    want16 = plain(*(t.bfloat16() for t in (q, k, v, g)))
     got = backward_bf16(q, k, v, g, lse, delta, causal, kv)
     errs = {}
-    for name, x, w32, w16 in zip(("dk", "dv"), got, want, want16):
+    for name, x, w32, w16 in zip(("dq", "dk", "dv"), got, want, want16):
         errs[f"{name}_f32"] = rel_err(x, w32)
         errs[name] = rel_err(x.bfloat16(), w16)
     return errs
@@ -213,7 +224,14 @@ def test_dkv_bf16_mma_within_bf16_tolerance(case):
     assert max(errs["dk"], errs["dv"]) <= FLASH_REL_BF16, errs
 
 
-@pytest.mark.parametrize("which", ["forward", "dkv"])
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_dq_bf16_mma_within_bf16_tolerance(case):
+    errs = bwd_errors(case)
+    assert errs["dq_f32"] <= SPLIT_BAR, errs
+    assert errs["dq"] <= FLASH_REL_BF16, errs
+
+
+@pytest.mark.parametrize("which", ["forward", "dkv", "dq"])
 def test_bf16_rounding_misses_float32_tolerance(which):
     """The rounding of P and dS is real: in float32 the bf16 arithmetic
     lands outside the float32 tolerance, so float32 inputs keep their
@@ -221,7 +239,9 @@ def test_bf16_rounding_misses_float32_tolerance(which):
     case = CASES[-1]
     if which == "forward":
         err = fwd_errors(case)["out_f32"]
-    else:
+    elif which == "dkv":
         errs = bwd_errors(case)
         err = max(errs["dk_f32"], errs["dv_f32"])
+    else:
+        err = bwd_errors(case)["dq_f32"]
     assert err > FLASH_REL_F32

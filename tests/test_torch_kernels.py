@@ -215,7 +215,7 @@ def test_dequant_kernel_zero_scales_and_unaligned_rows(cuda_device):
 # at these sizes, and a wrong mask or index moves whole rows by O(1). bfloat16:
 # both round their float32 results to bfloat16 (8 bits of mantissa), so an
 # element may differ by one bfloat16 step, 2**-8 to 2**-7 of its magnitude;
-# the bf16 forward and dK/dV also round P and dS to bf16 before their
+# the bf16 forward, dK/dV and dQ also round P and dS to bf16 before their
 # second product, ~2e-3 of the output's scale (test_torch_bf16_mma.py).
 FLASH_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
