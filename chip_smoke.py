@@ -1,9 +1,10 @@
 """Drive the PyTorch port on one NVIDIA GPU: build its kernels, hold each
 against its plain PyTorch version, serve GPT-2 124M in int8, fp32 and
 bf16, train it at full width in fp32 and bf16 (``--amp``) and on two
-ranks, and train ResNet-18 at full width on one rank and data-parallel on
+ranks, train ResNet-18 at full width on one rank and data-parallel on
 two ranks that share the card, through the explicit reducer and through
-the reference's own command (fp32 and ``--amp``).
+the reference's own command (fp32 and ``--amp``), and stop, resume,
+restart and serve those runs from their checkpoints.
 
     python3 chip_smoke.py
 
@@ -87,6 +88,19 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     K4 and K5 launches exact, parameters bitwise equal across ranks;
 16. (D) ``serving smoke --serve-dtype bf16`` on the card, and the same
     engine on the CPU: prefill logits within BF16_ATOL;
+18. (run before phase 17's lines) checkpoints through the port's entry
+    points: (a) phase 14's command with ``--checkpoint-dir``, preempted
+    by ``--chaos sigterm@step=4`` (one checkpoint at epoch 0 step 5, no
+    CSV row), then ``--resume``: the two runs launch K3-K5 as phase 14
+    did and end with parameters and AdamW moments bitwise phase 14's;
+    (b) phase 12's int8 one-bucket run on 2 ranks under ``--max-restarts
+    2 --chaos crash@step=15,torn_ckpt@save=1``: one restart, one torn
+    checkpoint skipped, K1 and K2 launches exact over the steps executed
+    (replays included), each rank's parameters, BatchNorm statistics and
+    residual bitwise phase 12's; (c) ``serving smoke --ckpt-dir`` on run
+    C's directory: prefill logits bitwise an engine built from run C's
+    parameters in memory. Each run logs ``save_blocked_ms``,
+    ``snapshot_ms``, the bytes written and the sha256 time;
 17. print the ``{"kernels": [...]}`` line (K1 and K2 over their launches
     on the phase 12 path, K3-K5 over phase 7's, with their bf16 fields
     over phase 14's launches at phase 6's main bf16 shape), then the last
@@ -232,6 +246,43 @@ LM_FLAGS = ["--model", MODEL, "--attention", "flash", "--optimizer",
 
 def log(msg: str) -> None:
     print(f"chip_smoke: {msg}", flush=True)
+
+
+def train_main(argv):
+    """``train.main(argv)`` in this process; its preemption guard's
+    SIGTERM handler is taken down again after it (this script's own
+    SIGTERM must still stop it)."""
+    from distributed_pytorch_training_tpu_torch import train
+    from distributed_pytorch_training_tpu_torch.training.preemption import (
+        PreemptionGuard,
+    )
+
+    try:
+        return train.main(argv)
+    finally:
+        PreemptionGuard.uninstall()
+
+
+def tensor_digest(t) -> str:
+    """sha256 of a tensor's bytes (bitwise equality of two states is
+    equality of every digest)."""
+    import hashlib
+
+    import torch
+
+    t = torch.as_tensor(t).detach().cpu().contiguous().view(-1)
+    return hashlib.sha256(t.view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def state_digests(state) -> dict:
+    """{name: sha256} of the parameters, the buffers and every optimizer
+    state tensor (AdamW's moments and count) of a TrainState."""
+    out = {f"model/{k}": tensor_digest(v)
+           for k, v in state.model.state_dict().items()}
+    for idx, slots in state.optimizer.state_dict()["state"].items():
+        out.update({f"opt/{idx}/{k}": tensor_digest(v)
+                    for k, v in slots.items()})
+    return out
 
 
 def nvidia_smi() -> str:
@@ -573,11 +624,10 @@ def check_flash(torch, dev, flush):
 def train_on_card(torch, fa, amp: bool = False):
     """Phase 7 (phase 14 with ``amp``): the port's training entry at full
     width, in-process. Returns ({kernel: launches}, [(train_loss,
-    val_loss) per epoch], the step lines' samples/s)."""
+    val_loss) per epoch], the step lines' samples/s, the final state's
+    digests, which phase 18 holds its resumed run against)."""
     import contextlib
     import io
-
-    from distributed_pytorch_training_tpu_torch import train
 
     out_dir = ROOT / "chiprun_out" / ("train_smoke_amp" if amp
                                       else "train_smoke")
@@ -590,10 +640,7 @@ def train_on_card(torch, fa, amp: bool = False):
     stdout = io.StringIO()
     try:
         with contextlib.redirect_stdout(stdout):
-            state = train.main(LM_FLAGS + [
-                "--synthetic-size", "64", "--batch-size", "8", "--epochs",
-                str(EPOCHS), "--print-freq", "4", "--output-dir",
-                str(out_dir)] + (["--amp"] if amp else []))
+            state = train_main(lm_train_flags(out_dir, amp))
     finally:
         print(stdout.getvalue(), end="", flush=True)
     launches = {fn.__name__: fn.launches for fn in kernels}
@@ -601,6 +648,7 @@ def train_on_card(torch, fa, amp: bool = False):
             p.dtype != torch.float32 for p in state.params)):
         raise RuntimeError("--amp did not build a bf16 model with float32 "
                            "parameters")
+    digests = state_digests(state) if amp else None
     del state
     torch.cuda.synchronize()
     want = {"flash_attention_fwd_lse":
@@ -622,7 +670,16 @@ def train_on_card(torch, fa, amp: bool = False):
     rates = [float(ln.split("Throughput: ")[1].split()[0])
              for ln in stdout.getvalue().splitlines()
              if "Throughput: " in ln]
-    return launches, losses, rates
+    return launches, losses, rates, digests
+
+
+def lm_train_flags(out_dir: Path, amp: bool) -> list:
+    """Phases 7 and 14's command line (phase 18 adds its checkpoint
+    flags to the --amp one)."""
+    return LM_FLAGS + ["--synthetic-size", "64", "--batch-size", "8",
+                       "--epochs", str(EPOCHS), "--print-freq", "4",
+                       "--output-dir", str(out_dir)] + (["--amp"] if amp
+                                                        else [])
 
 
 def grads_card_vs_cpu(torch, dev, dtype=None):
@@ -997,7 +1054,6 @@ def image_csv_losses(out_dir: Path) -> list:
 def resnet_one_rank(torch) -> dict:
     """Phase 11: ResNet-18 at full width on one rank through
     ``train.main``: no Pallas kernel on this path, so no launch count."""
-    from distributed_pytorch_training_tpu_torch import train
     from distributed_pytorch_training_tpu_torch.data.datasets import (
         get_dataset,
     )
@@ -1007,7 +1063,7 @@ def resnet_one_rank(torch) -> dict:
 
     out_dir = ROOT / "chiprun_out" / "resnet_1rank"
     (out_dir / "metrics_rank0.csv").unlink(missing_ok=True)
-    state = train.main(IMAGE_FLAGS + [
+    state = train_main(IMAGE_FLAGS + [
         "--synthetic-size", str(ONE_RANK_SYNTHETIC), "--output-dir",
         str(out_dir)])
     torch.cuda.synchronize()
@@ -1033,9 +1089,8 @@ def dp_worker(argv) -> int:
     """One torchrun rank of phases 12, 13 and 15: ``train.main`` with the
     launch counts set to 0 just before and read just after; writes them,
     the step count and a sha256 of each parameter and BatchNorm statistic
-    (the ranks' states are bitwise equal iff every digest is)."""
-    import hashlib
-
+    (the ranks' states are bitwise equal iff every digest is), and of its
+    error-feedback residual."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -1055,12 +1110,14 @@ def dp_worker(argv) -> int:
         fn.launches = 0
     state = train.main(train_argv + ["--output-dir", str(out_dir)])
     launches = {name: fn.launches for name, fn in kernels.items()}
-    digests = {k: hashlib.sha256(v.detach().cpu().contiguous().view(-1)
-                                 .view(torch.uint8).numpy().tobytes()
-                                 ).hexdigest()
+    digests = {k: tensor_digest(v)
                for k, v in state.model.state_dict().items()}
+    # this rank's own error-feedback residual (int8 wires; differs across
+    # ranks, so kept apart from the digests the ranks must share)
+    ef_digests = {k: tensor_digest(v) for k, v in state.grad_sync.items()}
     (out_dir / f"rank{rank}.json").write_text(json.dumps(
-        {"launches": launches, "steps": state.step, "digests": digests}))
+        {"launches": launches, "steps": state.step, "digests": digests,
+         "ef_digests": ef_digests}))
     return 0
 
 
@@ -1219,6 +1276,190 @@ def gpt2_two_ranks(torch) -> dict:
             "step_line_samples_per_s": rates, "wall_seconds": seconds}
 
 
+# phase 18: sigterm@step=4 fires at the fence before step 4, which still
+# runs, so the preempted run stops with 5 steps done (epoch 0, step 5 of
+# 8); crash@step=15 is epoch 1's step 3 of 12, after the epoch-0 save that
+# torn_ckpt@save=1 tears, so the restart skips it and starts afresh
+PREEMPT_AT, CRASH_AT = 4, 15
+
+
+def save_instruments(out: str) -> dict:
+    """The entry's ``Checkpointing:`` log line (rank 0's) as numbers."""
+    import re
+
+    m = re.search(r"Checkpointing: blocked ([\d.]+)ms total \(snapshot "
+                  r"([\d.]+)ms\) across (\d+) save\(s\); wrote (\d+) "
+                  r"bytes, sha256 ([\d.]+)ms", out)
+    if m is None:
+        raise RuntimeError("the run logged no Checkpointing line")
+    return {"save_blocked_ms": float(m[1]), "snapshot_ms": float(m[2]),
+            "saves": int(m[3]), "bytes": int(m[4]), "hash_ms": float(m[5])}
+
+
+def gpt2_preempt_resume(torch, fa, want_launches, want_digests):
+    """Phase 18 (a): phase 14's command with ``--checkpoint-dir``, run B
+    preempted by ``--chaos sigterm@step=4``, then run C with
+    ``--resume``. B must leave one checkpoint at epoch 0 step 5 and no CSV
+    row; B and C together must launch K3-K5 as phase 14 did, and C must
+    end with parameters and AdamW moments bitwise phase 14's. Returns run
+    C's state, its checkpoint directory and the report."""
+    import contextlib
+    import io
+    import shutil
+
+    out_dir = ROOT / "chiprun_out" / "ckpt_gpt2"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ckpt_dir = out_dir / "ckpt"
+    flags = lm_train_flags(out_dir, amp=True) + ["--checkpoint-dir",
+                                                 str(ckpt_dir)]
+    kernels = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_bwd_dq)
+    for fn in kernels:
+        fn.launches = 0
+    report, cut = {}, PREEMPT_AT + 1
+    state = None
+    for run, extra in (("B", ["--chaos", f"sigterm@step={PREEMPT_AT}"]),
+                       ("C", ["--resume"])):
+        del state
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(stdout):
+                state = train_main(flags + extra)
+        finally:
+            print(stdout.getvalue(), end="", flush=True)
+        out = stdout.getvalue()
+        report[run] = {"wall_seconds": time.perf_counter() - t0,
+                       "steps": state.step, **save_instruments(out)}
+        if run == "B":
+            labels = sorted(int(p.name) for p in ckpt_dir.iterdir()
+                            if p.name.isdigit())
+            manifest = json.loads(
+                (ckpt_dir / ".manifests" / f"{cut}.json").read_text())
+            rows = (out_dir / "metrics_rank0.csv").read_text().splitlines()
+            if (state.step != cut or labels != [cut]
+                    or (manifest["epoch"], manifest["step_in_epoch"])
+                    != (0, cut) or len(rows) != 1
+                    or f"Preempted: checkpointed epoch 0 step {cut}/"
+                       f"{TRAIN_STEPS}" not in out):
+                raise RuntimeError(
+                    f"run B: {state.step} steps, checkpoints {labels}, "
+                    f"manifest (epoch {manifest['epoch']}, step_in_epoch "
+                    f"{manifest['step_in_epoch']}), CSV {rows}; expected "
+                    f"{cut} steps, one checkpoint at epoch 0 step {cut}, "
+                    "the CSV header alone")
+            report["B"]["manifest"] = {k: manifest[k] for k in (
+                "label", "step", "epoch", "step_in_epoch", "tree_digest")}
+        elif f"Resumed from epoch 0 step {cut}" not in out:
+            raise RuntimeError("run C did not resume at epoch 0 step "
+                               f"{cut}")
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    if launches != want_launches:
+        raise RuntimeError(f"runs B and C launched {launches}, phase 14 "
+                           f"{want_launches}")
+    got = state_digests(state)
+    differ = sorted(k for k in want_digests if got.get(k) != want_digests[k])
+    if state.step != EPOCHS * TRAIN_STEPS or got.keys() != \
+            want_digests.keys() or differ:
+        raise RuntimeError(f"run C ({state.step} steps) differs from phase "
+                           f"14's uninterrupted run in {len(differ)} "
+                           f"tensors, e.g. {differ[:5]}")
+    rows = (out_dir / "metrics_rank0.csv").read_text().splitlines()[1:]
+    if [r.split(",")[0] for r in rows] != ["1", "2"]:
+        raise RuntimeError(f"runs B and C wrote CSV rows {rows}")
+    report["launches"] = launches
+    report["bitwise_tensors"] = len(got)
+    return state, ckpt_dir, report
+
+
+def resnet_chaos_two_ranks(torch) -> dict:
+    """Phase 18 (b): phase 12's int8 one-bucket configuration under
+    ``--max-restarts 2 --chaos crash@step=15,torn_ckpt@save=1``: one
+    restart, one torn checkpoint skipped, each rank's K1 and K2 launches
+    the steps executed (replays included) times the wire's count a step,
+    and each rank's parameters, BatchNorm statistics and residual bitwise
+    its phase 12 counterpart's."""
+    import shutil
+
+    wire, cap = "int8", 0.0
+    out_dir = ROOT / "chiprun_out" / "dp_int8_chaos"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    spe = -(-DP_SYNTHETIC // (IMAGE_BATCH * DP_RANKS))
+    executed = IMAGE_EPOCHS * spe + CRASH_AT
+    t0 = time.perf_counter()
+    out = run_torchrun([str(out_dir), *IMAGE_FLAGS, "--synthetic-size",
+                        str(DP_SYNTHETIC), "--wire-dtype", wire,
+                        "--bucket-cap-mb", str(cap), "--checkpoint-dir",
+                        str(out_dir / "ckpt"), "--max-restarts", "2",
+                        "--chaos", f"crash@step={CRASH_AT},torn_ckpt@save=1"],
+                       timeout=900)
+    seconds = time.perf_counter() - t0
+    (out_dir / "stdout.txt").write_text(out)
+    summary = (f"Supervisor: completed=True restarts=1 steps_replayed="
+               f"{CRASH_AT} torn_checkpoints_skipped=1")
+    if summary not in out or f"checkpoint {spe} is torn" not in out:
+        raise RuntimeError(f"phase 18 (b): expected '{summary}' and the "
+                           f"torn checkpoint {spe} skipped, got:\n{out}")
+    want = {QUANTIZE: 0, DEQUANT: 0}
+    for (kernel, _), count in wire_launches(torch, wire, cap).items():
+        want[kernel] += count * executed
+    clean_dir = ROOT / "chiprun_out" / "dp_int8_one_bucket"
+    for r in range(DP_RANKS):
+        rep = json.loads((out_dir / f"rank{r}.json").read_text())
+        clean = json.loads((clean_dir / f"rank{r}.json").read_text())
+        got = {k: rep["launches"][k] for k in want}
+        if got != want or rep["steps"] != IMAGE_EPOCHS * spe:
+            raise RuntimeError(f"phase 18 (b) rank {r}: {rep['steps']} "
+                               f"steps, launches {got} (expected "
+                               f"{IMAGE_EPOCHS * spe}, {want})")
+        if not rep["ef_digests"] or rep["digests"] != clean["digests"] \
+                or rep["ef_digests"] != clean["ef_digests"]:
+            raise RuntimeError(f"phase 18 (b) rank {r}: the state differs "
+                               "from phase 12's clean int8 one-bucket run")
+    return {"executed_steps": executed, "launches_per_rank": want,
+            "wall_seconds": seconds, **save_instruments(out)}
+
+
+def serve_checkpoint(torch, dev, state, ckpt_dir: Path) -> dict:
+    """Phase 18 (c): ``serving smoke --ckpt-dir`` on run C's directory;
+    the served weights must be run C's, and every prompt's prefill logits
+    bitwise those of an engine built from run C's in-memory parameters
+    (same card, fp32)."""
+    import numpy as np
+
+    from distributed_pytorch_training_tpu_torch.serving import (
+        InferenceEngine,
+    )
+    from distributed_pytorch_training_tpu_torch.serving.__main__ import run
+
+    report = run(["smoke", "--model", MODEL, "--ckpt-dir", str(ckpt_dir),
+                  "--model-overrides", "max_position=1024"])
+    engine, info = report.engine, report.engine.checkpoint_info
+    label = EPOCHS * TRAIN_STEPS
+    manifest = json.loads(
+        (ckpt_dir / ".manifests" / f"{label}.json").read_text())
+    if (info["label"], info["step"], info["verified"]) != (label, label,
+                                                           True) \
+            or info["tree_digest"] != manifest["tree_digest"]:
+        raise RuntimeError(f"served checkpoint {info}, expected label "
+                           f"{label} with digest {manifest['tree_digest']}")
+    params = {n: p.detach() for n, p in state.model.named_parameters()}
+    for name, p in params.items():
+        if not torch.equal(engine._served[name], p):
+            raise RuntimeError(f"served {name} is not run C's")
+    mem = InferenceEngine(engine.model, engine.config, params, device=dev)
+    for prm in report.prompts:
+        a = engine.serve_tokens([prm], return_prompt_logits=True)[0]
+        b = mem.serve_tokens([prm], return_prompt_logits=True)[0]
+        if not (np.array_equal(a.prompt_logits, b.prompt_logits)
+                and np.array_equal(a.tokens, b.tokens)):
+            raise RuntimeError("prefill logits from the checkpoint differ "
+                               "from run C's in-memory parameters")
+    return {"label": label, "tree_digest": info["tree_digest"],
+            "prompts": len(report.prompts)}
+
+
 def main() -> int:
     import torch
 
@@ -1338,7 +1579,7 @@ def main() -> int:
 
     # phase 7: the training path through the port's own entry
     t0 = time.perf_counter()
-    flash_launches, losses, lm_rates = train_on_card(torch, fa)
+    flash_launches, losses, lm_rates, _ = train_on_card(torch, fa)
     log(f"phase 7 done in {time.perf_counter() - t0:.1f} s: launches "
         f"{flash_launches}; (train, val) loss per epoch {losses}; "
         f"step-line samples/s {lm_rates}")
@@ -1402,8 +1643,8 @@ def main() -> int:
 
     # phase 14 (B): GPT-2 with --amp, the main path of K3-K5 in bf16
     t0 = time.perf_counter()
-    bf16_launches, bf16_losses, bf16_rates = train_on_card(torch, fa,
-                                                           amp=True)
+    bf16_launches, bf16_losses, bf16_rates, bf16_digests = train_on_card(
+        torch, fa, amp=True)
     want = {FLASH[0]: DEPTH * (TRAIN_STEPS + EVAL_STEPS) * EPOCHS,
             FLASH[1]: DEPTH * TRAIN_STEPS * EPOCHS,
             FLASH[2]: DEPTH * TRAIN_STEPS * EPOCHS}
@@ -1450,6 +1691,33 @@ def main() -> int:
         f"{BF16_ATOL})")
     if not bf16_err <= BF16_ATOL:
         raise RuntimeError(f"bf16 logits differ from the CPU by {bf16_err}")
+
+    # phase 18: checkpoints, preemption, restarts and serving from a
+    # checkpoint; the checkpoints (GPT-2's 1.5 GB each) are removed after
+    t0 = time.perf_counter()
+    try:
+        state_c, ckpt_dir, preempt = gpt2_preempt_resume(
+            torch, fa, bf16_launches, bf16_digests)
+        log(f"phase 18 (a): run B stopped at epoch 0 step {PREEMPT_AT + 1} "
+            f"and checkpointed ({preempt['B']}); run C resumed to "
+            f"{preempt['C']['steps']} steps ({preempt['C']}); B + C launched "
+            f"{preempt['launches']}; {preempt['bitwise_tensors']} parameter "
+            "and AdamW tensors bitwise phase 14's")
+        chaos = resnet_chaos_two_ranks(torch)
+        log(f"phase 18 (b): {chaos}; each rank's parameters, BatchNorm "
+            "statistics and residual bitwise phase 12's")
+        served = serve_checkpoint(torch, dev, state_c, ckpt_dir)
+        del state_c
+        log(f"phase 18 (c): served checkpoint {served['label']} "
+            f"({served['tree_digest']}); prefill logits of "
+            f"{served['prompts']} prompts bitwise run C's in memory")
+    finally:
+        import shutil
+
+        for d in ("ckpt_gpt2/ckpt", "dp_int8_chaos/ckpt"):
+            shutil.rmtree(ROOT / "chiprun_out" / d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase 18 done in {time.perf_counter() - t0:.1f} s")
 
     # phase 17: the kernels line; K1 and K2 summed over their launches on
     # the data-parallel path (rank 0 of every phase 12 run), the serving
@@ -1521,6 +1789,9 @@ def main() -> int:
         "resnet_reference_command": reference,
         "gpt2_two_ranks": lm_two_ranks,
         "bf16_card_vs_cpu_max_abs": bf16_err,
+        "checkpoints": {"gpt2_preempt_resume": preempt,
+                        "resnet_two_ranks_chaos": chaos,
+                        "served_checkpoint": served},
         "card_vs_cpu": {"loss_card": loss_card, "loss_cpu": loss_cpu,
                         "loss_abs_diff": loss_err, "grad_rel": grad_err,
                         "grad_rel_leaf": grad_leaf},

@@ -14,7 +14,7 @@ float32 (B,)}; normalization and augmentation run on the device
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -40,7 +40,11 @@ class ShardedLoader:
     def __init__(self, dataset: ArrayDataset, per_device_batch: int,
                  shuffle: bool, seed: int = 42, drop_last: bool = False,
                  process_index: int = 0, process_count: int = 1,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"),
+                 fault_hook: Optional[Callable[[int], None]] = None):
+        # the loader_stall injection point: called with the step index
+        # before that step's batch is produced (None: no chaos plan)
+        self.fault_hook = fault_hook
         self.dataset = dataset
         self.device = torch.device(device)
         self.global_batch = per_device_batch * process_count
@@ -55,7 +59,10 @@ class ShardedLoader:
     def epoch(self, epoch: int, start_step: int = 0
               ) -> Iterator[Dict[str, torch.Tensor]]:
         images, labels = self.dataset.images, self.dataset.labels
-        for idx, w in self.sampler.iter_epoch(epoch, start_step):
+        for k, (idx, w) in enumerate(self.sampler.iter_epoch(epoch,
+                                                             start_step)):
+            if self.fault_hook is not None:
+                self.fault_hook(start_step + k)
             yield {
                 "image": to_device(native.gather_rows(images, idx),
                                    self.device),

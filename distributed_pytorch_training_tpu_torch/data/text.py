@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -100,7 +100,11 @@ class TokenLoader:
     def __init__(self, dataset: TokenDataset, per_device_batch: int,
                  shuffle: bool, seed: int = 42, drop_last: bool = False,
                  process_index: int = 0, process_count: int = 1,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"),
+                 fault_hook: Optional[Callable[[int], None]] = None):
+        # the loader_stall injection point: called with the step index
+        # before that step's batch is produced (None: no chaos plan)
+        self.fault_hook = fault_hook
         self.dataset = dataset
         self.device = torch.device(device)
         self.global_batch = per_device_batch * process_count
@@ -120,7 +124,10 @@ class TokenLoader:
 
     def epoch(self, epoch: int, start_step: int = 0
               ) -> Iterator[Dict[str, torch.Tensor]]:
-        for idx, w in self.sampler.iter_epoch(epoch, start_step):
+        for k, (idx, w) in enumerate(self.sampler.iter_epoch(epoch,
+                                                             start_step)):
+            if self.fault_hook is not None:
+                self.fault_hook(start_step + k)
             yield {
                 "input_ids": self._to_device(
                     native.gather_rows(self.dataset.tokens, idx)),

@@ -1,6 +1,6 @@
 """Builders the CLIs share (the JAX package's experiments/harness.py).
 
-Only the serving builder is ported so far, without mesh or checkpoint.
+Only the serving engine's factory is ported so far, without a mesh.
 """
 
 from __future__ import annotations
@@ -16,11 +16,17 @@ def build_serving_engine(model_name: str,
                          buckets: Sequence[int] = (16, 32), rows: int = 8,
                          max_new_tokens: int = 8, serve_dtype: str = "fp32",
                          model_overrides: Optional[dict] = None,
-                         seed: int = 0, device: DeviceLike = None):
-    """An `InferenceEngine` for a serving config on one device, with
-    random-init weights drawn from ``seed`` (a smoke of the serving path,
-    not a served model). The weights are drawn on the CPU and then copied
-    to ``device``, so one seed gives the same weights on every device.
+                         seed: int = 0, device: DeviceLike = None,
+                         ckpt_dir: Optional[str] = None,
+                         optimizer: str = "auto"):
+    """An `InferenceEngine` for a serving config on one device. With
+    ``ckpt_dir`` it serves the newest manifest-verified checkpoint there
+    (``optimizer``, the training run's, rebuilds the restore template;
+    ``auto`` is adamw for the LMs, as in the JAX package); without, it
+    has random-init weights drawn from ``seed`` (a smoke of the serving
+    path, not a served model). The weights are drawn on the CPU and then
+    copied to ``device``, so one seed gives the same weights on every
+    device.
 
     The model's position table holds ``max(512, top bucket +
     max_new_tokens)`` rows unless ``model_overrides`` sets it, and
@@ -38,6 +44,13 @@ def build_serving_engine(model_name: str,
     kwargs.setdefault("dtype", torch.bfloat16 if serve_dtype == "bf16"
                       else torch.float32)
     model = get_model(model_name, **kwargs)
+    if ckpt_dir:
+        from ..training.optim import make_optimizer, make_schedule
+
+        tx = make_optimizer("adamw" if optimizer == "auto" else optimizer,
+                            make_schedule("constant", 0.1))
+        return InferenceEngine.from_checkpoint(ckpt_dir, model, cfg, tx,
+                                               device=dev)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     params = {name: p.detach() for name, p in model.named_parameters()}
     return InferenceEngine(model, cfg, params, device=dev)

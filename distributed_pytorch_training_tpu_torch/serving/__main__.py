@@ -2,16 +2,18 @@
 batched inference engine on the GPU.
 
 Commands:
-  smoke [--prompt 12,7,99 | --prompt-len N] [--serve-dtype fp32|bf16|int8]
-      Build the engine with random-init weights from --seed (a smoke of the
-      serving PATH, never of a served model), serve a handful of synthetic
-      prompts through the request queue and its worker thread, and print
-      the generated tokens.
+  smoke [--ckpt-dir D] [--prompt 12,7,99 | --prompt-len N]
+        [--serve-dtype fp32|bf16|int8]
+      Build the engine (restoring the newest manifest-verified checkpoint
+      under --ckpt-dir, and logging its label and tree digest; random-init
+      weights from --seed otherwise, a smoke of the serving PATH, never of
+      a served model), serve a handful of synthetic prompts through the
+      request queue and its worker thread, and print the generated tokens.
 
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch versions of the
 kernels on the CPU and is meant for the tests. ``bench``, ``serve``,
-``fleet``, ``--ckpt-dir`` and ``--mesh`` exist in the JAX package and are
-refused here until the slice that ports them.
+``fleet`` and ``--mesh`` exist in the JAX package and are refused here
+until the slice that ports them.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ _LATER = {
     "bench": "the continuous-serving slice (with the port's benchmark)",
     "serve": "the continuous-serving slice",
     "fleet": "the continuous-serving slice",
-    "--ckpt-dir": "the data-parallel training slice (checkpoints)",
     "--mesh": "the tensor-parallel slice",
 }
 
@@ -56,7 +57,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("command", choices=["smoke", "bench", "serve", "fleet"])
     p.add_argument("--model", default="gpt2_124m")
     p.add_argument("--ckpt-dir", default=None,
-                   help="not ported yet (refused)")
+                   help="serve the newest manifest-verified checkpoint "
+                        "from this directory (omit: random-init smoke)")
+    p.add_argument("--optimizer", default="auto",
+                   choices=["auto", "sgd", "adamw"],
+                   help="the training run's optimizer, for the restore "
+                        "template (auto: adamw, the LMs' recipe)")
     p.add_argument("--serve-dtype", default="fp32",
                    choices=["fp32", "bf16", "int8"],
                    help="bf16 computes in bf16 beside float32 weights")
@@ -82,8 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refusal(args) -> Optional[str]:
     """The message refusing what this port does not run yet, else None."""
-    for key, given in (("--ckpt-dir", args.ckpt_dir),
-                       ("--mesh", args.mesh),
+    for key, given in (("--mesh", args.mesh),
                        (args.command, args.command != "smoke")):
         if given:
             return f"serving: {not_ported(key, _LATER[key])}"
@@ -113,10 +118,17 @@ def smoke(args) -> SmokeReport:
     engine = build_serving_engine(
         args.model, buckets=buckets, rows=args.rows,
         max_new_tokens=args.max_new_tokens, serve_dtype=args.serve_dtype,
-        model_overrides=overrides, seed=args.seed, device=args.device)
-    log_main(f"serving: NOTE: random-init weights (seed {args.seed}) on "
-             f"{engine.device} — this smokes the serving path, not a "
-             "trained model")
+        model_overrides=overrides, seed=args.seed, device=args.device,
+        ckpt_dir=args.ckpt_dir, optimizer=args.optimizer)
+    if engine.checkpoint_info:
+        info = engine.checkpoint_info
+        log_main(f"serving: checkpoint label={info['label']} "
+                 f"step={info['step']} verified={info['verified']} "
+                 f"tree_digest={info['tree_digest']}")
+    else:
+        log_main(f"serving: NOTE: random-init weights (seed {args.seed}) "
+                 f"on {engine.device} — this smokes the serving path, not "
+                 "a trained model")
 
     if args.prompt:
         prompts = [np.asarray([int(t) for t in args.prompt.split(",")],

@@ -140,6 +140,9 @@ class InferenceEngine:
             raise ValueError(
                 f"largest bucket + max_new_tokens = {top} exceeds the "
                 f"model's max_position {model.max_position}")
+        # what a checkpoint-built engine serves (from_checkpoint); None
+        # for weights handed in directly
+        self.checkpoint_info: Optional[dict] = None
         on_device = {name: p.detach().to(self.device)
                      for name, p in params.items()}
         self._param_dtype = next(iter(on_device.values())).dtype
@@ -150,9 +153,41 @@ class InferenceEngine:
             self._served = on_device
 
     @classmethod
-    def from_checkpoint(cls, *args, **kwargs) -> "InferenceEngine":
-        raise not_ported("serving from a checkpoint",
-                         "the data-parallel training slice (checkpoints)")
+    def from_checkpoint(cls, ckpt_dir: str, model, config: ServeConfig,
+                        tx, device: DeviceLike = None) -> "InferenceEngine":
+        """Restore the newest manifest-verified checkpoint into ``model``
+        and build an engine serving it. ``tx`` rebuilds the training run's
+        optimizer for the restore template (its state is read and
+        dropped). Torn checkpoints are skipped as a training resume skips
+        them. ``checkpoint_info`` names what is served: the directory,
+        the label, the step and the manifest's ``tree_digest``."""
+        from ..training.checkpoint import CheckpointManager
+        from ..training.train_state import TrainState
+
+        ckpt = CheckpointManager(ckpt_dir)
+        try:
+            restored = ckpt.restore_latest(TrainState.create(model, tx))
+            if restored is None:
+                raise FileNotFoundError(
+                    f"no restorable checkpoint under {ckpt_dir} "
+                    f"(skipped as torn: {ckpt.last_skipped or 'none'})")
+            state, _epoch, _step_in_epoch = restored
+            label = ckpt.last_restored
+            manifest = ckpt.manifest(label)
+            engine = cls(model, config,
+                         {name: p.detach()
+                          for name, p in model.named_parameters()},
+                         device=device)
+            engine.checkpoint_info = {
+                "dir": str(ckpt_dir),
+                "label": label,
+                "step": int(state.step),
+                "tree_digest": (manifest or {}).get("tree_digest"),
+                "verified": manifest is not None,
+            }
+            return engine
+        finally:
+            ckpt.close()
 
     # -- steps ----------------------------------------------------------------
 

@@ -22,9 +22,13 @@ reducer (``--bucket-cap-mb``, ``--wire-dtype fp32|bf16|int8|
 int8_multihop``, per-rank BatchNorm). ``--amp`` computes in bf16 beside
 float32 parameters and optimizer state (flax's ``dtype``, no loss
 scaling). The process group's backend follows ``runtime/dist.py``'s rule
-and is printed in the banner. Every flag value this port does not
-implement raises ``NotImplementedError`` naming the slice that brings
-it. ``--device cpu``
+and is printed in the banner. Checkpoints (``--checkpoint-dir``,
+``--resume``, ``--checkpoint-every``), the restart supervisor
+(``--max-restarts``) and fault injection (``--chaos``) follow the JAX
+entry; under torchrun a SIGTERM on any rank stops every rank at the next
+``--print-freq`` boundary, with a checkpoint. Every flag value this port
+does not implement raises ``NotImplementedError`` naming the slice that
+brings it. ``--device cpu``
 runs the kernels' plain PyTorch versions on the CPU and is for tests;
 without it the run needs a CUDA device. The initial weights are drawn from
 a ``torch.Generator`` seeded by ``--seed``, the same on every rank (not
@@ -51,6 +55,8 @@ from .ops.flash_attention import (
     make_flash_attention_fn,
 )
 from .parallel.grad_sync import refuse_unported_wire
+from .resilience.faults import ELASTIC_KINDS, FaultInjector, FaultPlan
+from .resilience.supervisor import RetryPolicy, Supervisor
 from .runtime import (
     barrier,
     cleanup_distributed,
@@ -61,6 +67,9 @@ from .runtime import (
 )
 from .training import TrainConfig, Trainer, TrainState, make_optimizer, \
     make_schedule
+from .training.checkpoint import CheckpointManager, \
+    CheckpointWorldSizeMismatch
+from .training.preemption import PreemptionGuard, RankAgreedStop
 from .training.tasks import ImageClassificationTask, LanguageModelingTask
 from .utils import MetricsCSV, log_main, parse_args
 from .utils.config import parse_model_overrides
@@ -68,6 +77,7 @@ from .utils.config import parse_model_overrides
 LM_MODELS = ("gpt2_124m", "gpt2_355m")
 IMAGE_MODELS = ("resnet18", "resnet50")
 SHARDED_UPDATE = "the sharded-update (ZeRO-1/FSDP) slice"
+ELASTIC = "the elastic slice"
 
 # flag -> (is the value unsupported?, the slice that brings it)
 _UNPORTED = {
@@ -75,11 +85,6 @@ _UNPORTED = {
     "--slices": (lambda a: a.slices > 1, "the multi-slice (--slices) slice"),
     "--zero1": (lambda a: a.zero1, SHARDED_UPDATE),
     "--fsdp-explicit": (lambda a: a.fsdp_explicit, SHARDED_UPDATE),
-    "--checkpoint-dir": (lambda a: a.checkpoint_dir is not None,
-                         "the checkpoint slice"),
-    "--resume": (lambda a: a.resume, "the checkpoint slice"),
-    "--max-restarts": (lambda a: a.max_restarts != 0, "the checkpoint slice"),
-    "--chaos": (lambda a: a.chaos is not None, "the checkpoint slice"),
     "--profile-dir": (lambda a: a.profile_dir is not None,
                       "the telemetry slice"),
     "--metrics-port": (lambda a: a.metrics_port is not None,
@@ -129,6 +134,21 @@ def refuse_unported(args: argparse.Namespace, world: int = 1) -> None:
         if unsupported(args):
             raise not_ported(flag, where)
     refuse_unported_wire(args.wire_dtype)
+    for fault in FaultPlan.parse(args.chaos).faults:
+        if fault.kind in ELASTIC_KINDS:
+            raise not_ported(f"--chaos {fault.kind}", ELASTIC)
+
+
+def check_flags(args: argparse.Namespace) -> None:
+    """The JAX entry's checks of the checkpoint flags, same messages."""
+    if args.resume and not args.checkpoint_dir:
+        raise ValueError("--resume requires --checkpoint-dir")
+    if args.max_restarts > 0 and not args.checkpoint_dir:
+        raise ValueError("--max-restarts requires --checkpoint-dir (the "
+                         "supervisor restarts FROM checkpoints)")
+    if args.max_restarts < 0:
+        raise ValueError(f"--max-restarts must be >= 0, got "
+                         f"{args.max_restarts}")
 
 
 def resolve_attention(requested: str, device_type: str,
@@ -152,8 +172,31 @@ def samples_per_step_list(n: int, global_batch: int, steps: int,
 def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     """Train as the command line says; returns the final state."""
     args = parse_args(argv)
+    check_flags(args)
     world = int(os.environ.get("WORLD_SIZE", "1") or 1)
     refuse_unported(args, world)
+    # the guard first: a SIGTERM during data loading or the kernels' build
+    # also stops gracefully
+    guard = PreemptionGuard.install()
+    try:
+        return _run(args, guard)
+    finally:
+        # the hard-exit deadline must not outlive this call (an embedder
+        # that catches a failure would be killed up to the grace later)
+        guard.disarm()
+
+
+def _log_save_blocked(ckpt: CheckpointManager) -> None:
+    """How long the loop stalled on checkpoints, and what rank 0 wrote."""
+    if not ckpt.saves_started:
+        return
+    log_main(f"Checkpointing: blocked {ckpt.save_blocked_ms:.1f}ms total "
+             f"(snapshot {ckpt.snapshot_ms:.1f}ms) across "
+             f"{ckpt.saves_started} save(s); wrote {ckpt.bytes_written} "
+             f"bytes, sha256 {ckpt.hash_ms:.1f}ms on the writer")
+
+
+def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         # float32 means float32: cuDNN convolutions default to TF32 (under
@@ -161,6 +204,12 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     Path(args.output_dir).mkdir(parents=True, exist_ok=True)
+    # fault injection, armed only under --chaos (every hook is None
+    # otherwise)
+    chaos = None
+    if args.chaos:
+        chaos = FaultInjector(FaultPlan.parse(args.chaos), log=log_main)
+        log_main(f"CHAOS: fault plan armed: {args.chaos}")
     ctx = setup_distributed(dev)
     dev = ctx.device
     set_seed(args.seed, ctx.process_index)
@@ -214,18 +263,19 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     overrides = parse_model_overrides(args.model_overrides)
     loader_kw = dict(process_index=ctx.process_index, process_count=n,
                      device=dev)
+    stall = chaos.on_loader_batch if chaos else None
     if is_lm:
-        model, task = _lm_model_and_task(args, overrides, dev, seq_len,
-                                         train_ds, val_ds, compute_dtype)
+        make_model, task = _lm_model_and_task(
+            args, overrides, dev, seq_len, train_ds, val_ds, compute_dtype)
         train_loader = TokenLoader(train_ds, args.batch_size, shuffle=True,
                                    seed=args.seed, drop_last=args.drop_last,
-                                   **loader_kw)
+                                   fault_hook=stall, **loader_kw)
         val_loader = TokenLoader(val_ds, args.batch_size, shuffle=False,
                                  seed=args.seed, **loader_kw)
     else:
         train_loader = ShardedLoader(train_ds, args.batch_size, shuffle=True,
                                      seed=args.seed, drop_last=args.drop_last,
-                                     **loader_kw)
+                                     fault_hook=stall, **loader_kw)
         val_loader = ShardedLoader(val_ds, args.batch_size, shuffle=False,
                                    seed=args.seed, **loader_kw)
         model_kwargs = dict(num_classes=train_ds.num_classes,
@@ -233,7 +283,10 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
         model_kwargs.update(overrides)
         # an explicit --model-overrides wins over the dedicated flag
         model_kwargs.setdefault("cifar_stem", args.cifar_stem)
-        model = get_model(args.model, **model_kwargs)
+
+        def make_model():
+            return get_model(args.model, **model_kwargs)
+
         mean, std = IMAGE_STATS[args.dataset.lower()]
         task = ImageClassificationTask(mean=mean, std=std,
                                        augment=not args.no_augment,
@@ -258,23 +311,53 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
                  f"{args.bucket_cap_mb or 'inf (one bucket)'}, "
                  f"wire={args.wire_dtype}, overlap="
                  f"{'off' if args.no_overlap_grad_sync else 'on'}")
-    # drawn on the CPU, so one seed gives the same weights on every rank
-    model.reset_parameters(torch.Generator().manual_seed(args.seed))
-    state = trainer.init_state(model, tx)
+
+    def state_factory() -> TrainState:
+        """A fresh initial state: the weights drawn on the CPU, so one
+        seed gives the same weights on every rank."""
+        model = make_model()
+        model.reset_parameters(torch.Generator().manual_seed(args.seed))
+        return trainer.init_state(model, tx)
+
+    state = state_factory()
     log_main(f"Model {args.model}: {state.param_count():,} params")
     if trainer._grad_sync:
         plan = trainer._plan
         log_main(f"Gradient sync: {plan.n_buckets} bucket(s) over "
                  f"{plan.total_bytes / 2 ** 20:.1f} MB of fp32 gradient")
 
+    # step-granular checkpoints: labels are epoch * steps_per_epoch + step,
+    # so a mid-epoch save sorts between the epoch boundaries
+    ckpt = None
+    start_epoch = start_step = 0
+    if args.checkpoint_dir:
+        ckpt = CheckpointManager(
+            args.checkpoint_dir,
+            post_save_hook=chaos.on_save if chaos else None,
+            pre_finalize_hook=chaos.on_save_finalize if chaos else None)
+        if args.resume:
+            try:
+                restored = ckpt.restore_latest(state, template_world_size=n)
+            except CheckpointWorldSizeMismatch as e:
+                raise not_ported(
+                    f"--resume of checkpoint {e.label} (written at world "
+                    f"size {e.world_size}) at world size {n}",
+                    ELASTIC) from e
+            if restored is not None:
+                state, start_epoch, start_step = restored
+                if start_step >= steps_per_epoch:  # stale steps_per_epoch
+                    start_epoch, start_step = start_epoch + 1, 0
+                log_main(f"Resumed from epoch {start_epoch}"
+                         + (f" step {start_step}" if start_step else ""))
+
     csv = MetricsCSV(args.output_dir)
-    for epoch in range(args.epochs):
-        counts = samples_per_step_list(len(train_ds), global_batch,
-                                       steps_per_epoch, args.drop_last)
-        state, train_loss, train_acc, epoch_time, _ = trainer.train_epoch(
-            state, train_loader.epoch(epoch), epoch, steps_per_epoch,
-            samples_per_step=counts)
-        val_loss, val_acc = trainer.evaluate(state, val_loader.epoch(0))
+    # the stop flag agreed over the ranks, polled every print_freq steps
+    # on several ranks (a collective) and every step on one
+    stop = RankAgreedStop(guard)
+    poll = 1 if n == 1 else args.print_freq
+
+    def epoch_end(epoch, st, train_loss, train_acc, epoch_time):
+        val_loss, val_acc = trainer.evaluate(st, val_loader.epoch(0))
         log_main(
             f"[Epoch {epoch + 1}/{args.epochs}] "
             f"Train: loss={train_loss:.4f}, acc={train_acc:.2f}% | "
@@ -283,31 +366,122 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
         )
         csv.append(epoch, train_loss, train_acc, val_loss, val_acc,
                    epoch_time)
+
+    if args.max_restarts > 0:
+        # the restart supervisor: a checkpoint every epoch; on a step or
+        # save failure it restores the newest valid checkpoint and
+        # replays behind the step fence. It owns the save cadence
+        # (--checkpoint-every does not apply); a preemption drains as in
+        # the plain loop
+        sup = Supervisor(trainer, ckpt, state_factory, train_loader,
+                         retry=RetryPolicy(max_restarts=args.max_restarts),
+                         guard=stop, injector=chaos,
+                         trust_existing=args.resume, epoch_end_cb=epoch_end,
+                         stop_poll_every=poll)
+        state, report = sup.run(args.epochs,
+                                initial=(state, start_epoch, start_step))
+        log_main(f"Supervisor: completed={report.completed} "
+                 f"restarts={report.restarts} "
+                 f"steps_replayed={report.steps_replayed} "
+                 f"torn_checkpoints_skipped={report.checkpoints_skipped}"
+                 + (f" faults_fired={report.faults_fired}"
+                    if report.faults_fired else ""))
+        ckpt.wait()
+        _log_save_blocked(ckpt)
+        ckpt.close()
+        cleanup_distributed()
+        return state
+
+    def stop_fn():
+        count = [0]
+
+        def poll_stop() -> bool:
+            count[0] += 1
+            return count[0] % poll == 0 and stop.should_stop
+
+        return poll_stop
+
+    for epoch in range(start_epoch, args.epochs):
+        counts = samples_per_step_list(len(train_ds), global_batch,
+                                       steps_per_epoch, args.drop_last)
+        fault_hook = None
+        if chaos is not None:
+            # the absolute global step's fence for crash and sigterm
+            base = epoch * steps_per_epoch + start_step
+            fault_hook = (lambda i, _base=base: chaos.on_step(_base + i))
+        state, train_loss, train_acc, epoch_time, steps_done = \
+            trainer.train_epoch(
+                state, train_loader.epoch(epoch, start_step=start_step),
+                epoch, steps_per_epoch, samples_per_step=counts[start_step:],
+                start_step=start_step, stop_fn=stop_fn(),
+                fault_hook=fault_hook)
+        abs_step = start_step + steps_done
+        start_step = 0
+
+        if abs_step < steps_per_epoch:
+            # only the agreed stop ends an epoch early: persist (epoch,
+            # step) now, so a resume replays nothing; no CSV row for the
+            # unfinished epoch
+            if ckpt:
+                ckpt.save(epoch * steps_per_epoch + abs_step, state,
+                          wait=True, epoch=epoch, step_in_epoch=abs_step,
+                          world_size=n)
+                log_main(f"Preempted: checkpointed epoch {epoch} step "
+                         f"{abs_step}/{steps_per_epoch}; relaunch with "
+                         "--resume to continue mid-epoch")
+            else:
+                log_main("Preempted: stopping (no --checkpoint-dir, "
+                         "nothing persisted beyond the metrics CSV)")
+            break
+
+        epoch_end(epoch, state, train_loss, train_acc, epoch_time)
+        if ckpt and (epoch + 1) % args.checkpoint_every == 0:
+            ckpt.save((epoch + 1) * steps_per_epoch, state,
+                      epoch=epoch + 1, world_size=n)
+        if stop.should_stop:
+            if ckpt:
+                if (epoch + 1) % args.checkpoint_every != 0:
+                    ckpt.save((epoch + 1) * steps_per_epoch, state,
+                              epoch=epoch + 1, world_size=n)
+                ckpt.wait()
+                log_main(f"Preempted: checkpointed epoch {epoch + 1}; "
+                         "relaunch with --resume to continue")
+            else:
+                log_main("Preempted: stopping (no --checkpoint-dir, "
+                         "nothing persisted beyond the metrics CSV)")
+            break
+
+    if ckpt:
+        ckpt.wait()  # finish the async write before exit
+        _log_save_blocked(ckpt)
+        ckpt.close()
     cleanup_distributed()
     return state
 
 
 def _lm_model_and_task(args, overrides, dev, seq_len, train_ds, val_ds,
                        compute_dtype):
-    """The GPT-2 model (flash attention on CUDA) and the causal LM task,
-    computing in ``compute_dtype``."""
+    """A factory of the GPT-2 model (flash attention on CUDA), checked
+    once against the data's token ids, and the causal LM task, computing
+    in ``compute_dtype``."""
     lm_kwargs = dict(dtype=compute_dtype)
     lm_kwargs.update(overrides)
     if resolve_attention(args.attention, dev.type, seq_len) == "flash":
         lm_kwargs["attention_fn"] = make_flash_attention_fn(causal=True)
-    model = get_model(args.model, **lm_kwargs)
-    if model.vocab_size < train_ds.vocab_size:
+    vocab_size = get_model(args.model, device="meta", **lm_kwargs).vocab_size
+    if vocab_size < train_ds.vocab_size:
         # ids past the embedding would index out of range: scan the ids
         # actually present (a byte corpus under the gpt2 stamp is fine)
         for split_ds, split in ((train_ds, "train"), (val_ds, "val")):
             max_id = int(split_ds.tokens.max()) if len(split_ds) else -1
-            if max_id >= model.vocab_size:
+            if max_id >= vocab_size:
                 raise ValueError(
                     f"{split} dataset {split_ds.name} contains token id "
                     f"{max_id}, which exceeds the model's vocab_size "
-                    f"({model.vocab_size}); align --model-overrides "
+                    f"({vocab_size}); align --model-overrides "
                     "vocab_size with the data")
-    return model, LanguageModelingTask(compute_dtype=compute_dtype)
+    return (lambda: get_model(args.model, **lm_kwargs),
+            LanguageModelingTask(compute_dtype=compute_dtype))
 
 
 if __name__ == "__main__":

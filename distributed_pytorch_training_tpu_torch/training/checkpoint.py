@@ -1,0 +1,546 @@
+"""Checkpoint and resume (the JAX package's training/checkpoint.py, with
+``torch.save`` in place of orbax).
+
+Layout under the checkpoint directory, the JAX package's protocol:
+
+* ``<label>/`` holds one checkpoint: ``params.pt`` (the parameters by
+  name, in flax order), ``batch_stats.pt``, ``opt_state.pt``
+  (``optimizer.state_dict()``: SGD momentum buffers; AdamW ``exp_avg``,
+  ``exp_avg_sq`` and ``step``), ``grad_sync.pt`` (the int8 wires'
+  error-feedback residuals, one row per rank, only when non-empty) and
+  ``meta.json`` (``step``, ``epoch``, ``step_in_epoch``, the optimizer's
+  class and the parameters' shapes). It is written under a temporary name
+  and renamed into place, so a label directory is a committed write.
+  Files are read back with ``torch.load(weights_only=True)``.
+* ``.manifests/<label>.json``: ``step``, ``epoch``, ``step_in_epoch``,
+  ``world_size``, the saved shapes, and per file its ``size`` and chunked
+  ``sha256``, with a tree digest over them. ``restore_latest`` verifies
+  it before trusting a checkpoint: a torn one (truncated, corrupt) is
+  skipped with a loud log line naming it.
+* ``.manifests/<label>.pending``: written before the write starts and
+  removed after the manifest, so a writer that died between the commit
+  and the manifest leaves a checkpoint that verifies as torn.
+
+Snapshot, then write. ``save`` copies every tensor to host memory on the
+caller's thread (the optimizer updates the parameters and moments in
+place, so a writer holding references would write a later step's
+values); one background writer then writes the files, hashes them and
+writes the manifest while training goes on. The next ``save``, ``wait``,
+``close`` and every restore join it first; a failed write is raised by
+the next ``save`` or ``wait`` (logged by the others).
+
+Several ranks (``torch.distributed``): the parameters, BatchNorm
+statistics and optimizer state are the same on every rank, so rank 0
+writes them; the error-feedback residual is per rank, so ``save``
+gathers every rank's row to rank 0 (a collective). Every rank calls
+``save``, ``wait`` and the restores at the same points: ``save`` and
+``wait`` agree on a failed write (one MAX reduction, so every rank
+raises), and a restore begins with a barrier, after rank 0's writer has
+finished. Each rank restores its own residual row.
+
+Instruments: ``save_blocked_ms`` (caller-thread ms inside ``save`` and
+``wait``), ``snapshot_ms`` (of which the host copy), ``saves_started``,
+``bytes_written`` and ``hash_ms`` (the writer's sha256 time).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import threading
+import time
+from collections import OrderedDict
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from ..convert import flax_ordered
+from ..parallel.collectives import all_gather, reduce_scalar, world_size
+from ..utils.logging import log_main
+from .train_state import TrainState
+
+_MANIFEST_DIRNAME = ".manifests"
+_MANIFEST_FORMAT = 1
+_META = "meta.json"
+_TENSOR_KEYS = ("params", "batch_stats", "opt_state", "grad_sync")
+
+
+class CheckpointWorldSizeMismatch(RuntimeError):
+    """A checkpoint that carries error-feedback residuals (one row per
+    rank) restored at another world size. ``label`` and ``world_size``
+    name the checkpoint and the world it was written at; resharding it is
+    the elastic slice's work."""
+
+    label: Optional[int] = None
+    world_size: Optional[int] = None
+
+
+def _file_sha256(path: Path) -> str:
+    # chunked: a whole-file read would hold the checkpoint's size in RAM
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 22), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    """Every tensor of a nest of dicts, lists and tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def _to_host(tree):
+    """A copy of ``tree`` whose tensors live in host memory: CUDA tensors
+    into pinned buffers with non-blocking copies (the caller synchronizes
+    once), CPU tensors cloned."""
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach()
+        if t.device.type == "cpu":
+            return t.clone()
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return out.copy_(t, non_blocking=True)
+    if isinstance(tree, dict):
+        return type(tree)((k, _to_host(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+class CheckpointManager:
+    """Step-granular save and restore of the newest valid checkpoint.
+
+    ``label`` orders checkpoints (``epoch * steps_per_epoch + step``, so a
+    mid-epoch save sorts between the epoch boundaries); the restored
+    ``(epoch, step_in_epoch)`` says where to resume. Saves write on the
+    background writer; ``save(..., wait=True)`` waits for the write (the
+    preemption saves, whose process is about to exit).
+
+    ``post_save_hook(label, step_dir)`` fires after a save and its
+    manifest finalized (the ``torn_ckpt`` injection point);
+    ``pre_finalize_hook(label)`` between the commit and the manifest (the
+    ``crash_during_save`` point). Both run where the files are written,
+    on rank 0. ``last_skipped`` lists the labels the latest restore
+    rejected; ``last_restored`` is the label it restored."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 post_save_hook: Optional[Callable[[int, Path], None]]
+                 = None,
+                 pre_finalize_hook: Optional[Callable[[int], None]] = None):
+        if max_to_keep < 1:
+            raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
+        self._dir = Path(directory).resolve()
+        self._max_to_keep = max_to_keep
+        self._post_save_hook = post_save_hook
+        self._pre_finalize_hook = pre_finalize_hook
+        self._world = world_size()
+        self._rank = dist.get_rank() if self._world > 1 else 0
+        if self._rank == 0:
+            self._dir.mkdir(parents=True, exist_ok=True)
+        self.last_skipped: List[int] = []
+        self.last_restored: Optional[int] = None
+        # labels proven torn (label -> problem): a torn checkpoint stays
+        # torn, so later restores do not hash it again; cleared on re-save
+        self._known_bad: Dict[int, str] = {}
+        # the one write in flight and its failure. The writer thread sets
+        # _writer_error/_writer_label; the caller reads them only after
+        # joining it, and at most one writer exists at a time.
+        self._writer: Optional[threading.Thread] = None
+        self._writer_label: Optional[int] = None
+        self._writer_error: Optional[BaseException] = None
+        self.save_blocked_ms = 0.0
+        self.snapshot_ms = 0.0
+        self.saves_started = 0
+        self.bytes_written = 0
+        self.hash_ms = 0.0
+
+    # -- layout ---------------------------------------------------------------
+
+    def _step_dir(self, label: int) -> Path:
+        return self._dir / str(label)
+
+    def _manifest_path(self, label: int) -> Path:
+        return self._dir / _MANIFEST_DIRNAME / f"{label}.json"
+
+    def _pending_path(self, label: int) -> Path:
+        return self._dir / _MANIFEST_DIRNAME / f"{label}.pending"
+
+    def all_steps(self) -> List[int]:
+        """The committed labels, ascending."""
+        if not self._dir.is_dir():
+            return []
+        return sorted(int(p.name) for p in self._dir.iterdir()
+                      if p.is_dir() and p.name.isdigit())
+
+    # -- manifest -------------------------------------------------------------
+
+    @staticmethod
+    def _shape_summary(snapshot: dict) -> dict:
+        """Sorted shape multisets of the saved parameters, optimizer state
+        and residuals."""
+        return {key: sorted(list(t.shape) for t in _tensors(snapshot[key]))
+                for key in ("params", "opt_state", "grad_sync")
+                if key in snapshot}
+
+    def _write_manifest(self, label: int, meta: dict,
+                        shapes: dict) -> None:
+        step_dir = self._step_dir(label)
+        files = {}
+        tree = hashlib.sha256()
+        t0 = time.perf_counter()
+        for p in sorted(step_dir.rglob("*")):
+            if not p.is_file():
+                continue
+            rel = p.relative_to(step_dir).as_posix()
+            digest = _file_sha256(p)
+            size = p.stat().st_size
+            files[rel] = {"size": size, "sha256": digest}
+            tree.update(f"{rel}\0{size}\0{digest}\0".encode())
+        self.hash_ms += (time.perf_counter() - t0) * 1e3
+        manifest = {"format": _MANIFEST_FORMAT, "label": label,
+                    "step": meta["step"], "epoch": meta["epoch"],
+                    "step_in_epoch": meta["step_in_epoch"],
+                    "n_files": len(files), "tree_digest": tree.hexdigest(),
+                    "files": files, "shapes": shapes}
+        if meta.get("world_size") is not None:
+            manifest["world_size"] = meta["world_size"]
+        path = self._manifest_path(label)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        # atomic: a manifest torn by a crash must read as invalid, never
+        # as a half-truth that vouches for a half-checkpoint
+        tmp = path.with_suffix(".json.tmp")
+        tmp.write_text(json.dumps(manifest, sort_keys=True))
+        os.replace(tmp, path)
+        # manifests and pending markers of pruned checkpoints go too
+        live = {str(s) for s in self.all_steps()}
+        for stale in list(path.parent.glob("*.json")) \
+                + list(path.parent.glob("*.pending")):
+            if stale.stem not in live:
+                stale.unlink(missing_ok=True)
+
+    def verify(self, label: int) -> Optional[str]:
+        """None when intact (or legacy: no manifest and no pending
+        marker, restored unverified); otherwise what is wrong. Failures
+        are cached per label."""
+        if label in self._known_bad:
+            return self._known_bad[label]
+        problem = self._verify_uncached(label)
+        if problem is not None:
+            self._known_bad[label] = problem
+        return problem
+
+    def _verify_uncached(self, label: int) -> Optional[str]:
+        path = self._manifest_path(label)
+        if not path.exists():
+            if self._pending_path(label).exists():
+                return ("async save never finalized (pending marker "
+                        "present, no manifest: the writer died between "
+                        "the commit and the manifest)")
+            return None  # legacy checkpoint
+        try:
+            manifest = json.loads(path.read_text())
+            files = manifest["files"]
+        except Exception as e:
+            return f"unreadable manifest ({e})"
+        step_dir = self._step_dir(label)
+        for rel, info in files.items():
+            p = step_dir / rel
+            if not p.is_file():
+                return f"file {rel} missing"
+            size = p.stat().st_size
+            if size != info["size"]:
+                return (f"file {rel} truncated ({size} bytes, manifest "
+                        f"says {info['size']})")
+            if _file_sha256(p) != info["sha256"]:
+                return f"file {rel} corrupt (digest mismatch)"
+        return None
+
+    # -- the background writer ------------------------------------------------
+
+    def _join_writer(self) -> Tuple[Optional[BaseException], Optional[int]]:
+        """Join the write in flight; returns its failure and label
+        (cleared)."""
+        t = self._writer
+        if t is not None:
+            t.join()
+            self._writer = None
+        err, self._writer_error = self._writer_error, None
+        label, self._writer_label = self._writer_label, None
+        return err, label
+
+    def _join_logged(self) -> None:
+        """Join the writer for a read: a failed save is a torn or absent
+        checkpoint, which verification handles, so it is logged."""
+        err, label = self._join_writer()
+        if err is not None:
+            log_main(f"CHECKPOINT: async save of checkpoint {label} failed "
+                     f"({type(err).__name__}: {err}); it will be skipped "
+                     "by integrity verification")
+
+    def _join_agreed(self) -> None:
+        """Join the writer and raise its failure; on several ranks, every
+        rank raises when any rank's write failed (a collective)."""
+        err, _ = self._join_writer()
+        if self._world > 1:
+            failed = reduce_scalar(float(err is not None), "max") > 0
+            if failed and err is None:
+                err = RuntimeError("a checkpoint write failed on another "
+                                   "rank")
+        if err is not None:
+            raise err
+
+    def _write_job(self, label: int, snapshot: dict, meta: dict) -> None:
+        """Everything after the snapshot, on the writer thread: the files,
+        the commit, pruning, the manifest, the pending marker's removal
+        and the hooks."""
+        tmp = self._dir / f".{label}.tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir(parents=True)
+        for key in _TENSOR_KEYS:
+            if key in snapshot:
+                torch.save(snapshot[key], tmp / f"{key}.pt")
+        (tmp / _META).write_text(json.dumps(meta, sort_keys=True))
+        self.bytes_written += sum(p.stat().st_size for p in tmp.iterdir())
+        os.replace(tmp, self._step_dir(label))
+        for old in self.all_steps()[:-self._max_to_keep]:
+            shutil.rmtree(self._step_dir(old), ignore_errors=True)
+        if self._pre_finalize_hook is not None:
+            # the crash_during_save window: committed, no manifest yet
+            self._pre_finalize_hook(label)
+        self._write_manifest(label, meta, self._shape_summary(snapshot))
+        self._pending_path(label).unlink(missing_ok=True)
+        if self._post_save_hook is not None:
+            self._post_save_hook(label, self._step_dir(label))
+
+    def _writer_main(self, label: int, snapshot: dict, meta: dict) -> None:
+        try:
+            self._write_job(label, snapshot, meta)
+        except BaseException as e:  # raised at the next barrier
+            self._writer_error = e
+            self._writer_label = label
+
+    # -- save -----------------------------------------------------------------
+
+    def _snapshot(self, state: TrainState, epoch: int,
+                  step_in_epoch: int) -> dict:
+        """Host copies of what a checkpoint holds (the residual rows of
+        every rank gathered: a collective); only rank 0 copies the
+        replicated state, which only it writes."""
+        ef = state.grad_sync.get("ef")
+        gathered = all_gather(ef.detach()[None]) if ef is not None else None
+        if self._rank != 0:
+            return {}
+        model = state.model
+        snapshot = _to_host({
+            "params": OrderedDict(
+                (name, p) for name, p in
+                flax_ordered(model.named_parameters())),
+            "batch_stats": OrderedDict(state.batch_stats),
+            "opt_state": state.optimizer.state_dict(),
+            **({"grad_sync": {"ef": gathered}} if ef is not None else {}),
+        })
+        device = next(model.parameters()).device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)  # the non-blocking copies
+        snapshot["meta"] = {
+            "step": int(state.step), "epoch": int(epoch),
+            "step_in_epoch": int(step_in_epoch),
+            "optimizer": type(state.optimizer).__name__,
+            "param_shapes": {name: list(t.shape)
+                             for name, t in snapshot["params"].items()},
+        }
+        return snapshot
+
+    def save(self, label: int, state: TrainState, wait: bool = False,
+             epoch: Optional[int] = None, step_in_epoch: int = 0,
+             world_size: Optional[int] = None) -> None:
+        """Snapshot ``state`` now and write it on the background writer;
+        ``wait=True`` also waits for the write, as ``wait()`` does.
+        ``epoch`` defaults to ``label``; ``world_size`` (the ranks the
+        state is laid out for) goes into the manifest. Joins, and raises
+        the failure of, the previous write first. Re-saving a label
+        replaces it."""
+        t0 = time.perf_counter()
+        self._join_agreed()
+        self._known_bad.pop(label, None)
+        t_snap = time.perf_counter()
+        snapshot = self._snapshot(state, label if epoch is None else epoch,
+                                  step_in_epoch)
+        self.snapshot_ms += (time.perf_counter() - t_snap) * 1e3
+        self.saves_started += 1
+        if self._rank == 0:
+            meta = snapshot.pop("meta")
+            meta["world_size"] = (None if world_size is None
+                                  else int(world_size))
+            if label in self.all_steps():
+                # never mix a fresh save into a stale (maybe torn) one
+                shutil.rmtree(self._step_dir(label))
+                self._manifest_path(label).unlink(missing_ok=True)
+            pending = self._pending_path(label)
+            pending.parent.mkdir(parents=True, exist_ok=True)
+            pending.write_text(json.dumps({"label": label,
+                                           "step": meta["step"]}))
+            self._writer = threading.Thread(
+                target=self._writer_main, args=(label, snapshot, meta),
+                name=f"ckpt-writer-{label}", daemon=True)
+            self._writer.start()
+        if wait:
+            self._join_agreed()
+        self.save_blocked_ms += (time.perf_counter() - t0) * 1e3
+
+    def wait(self) -> None:
+        """Barrier: join the writer and raise a failed write (a shutdown
+        must not drop a lost save silently)."""
+        t0 = time.perf_counter()
+        try:
+            self._join_agreed()
+        finally:
+            self.save_blocked_ms += (time.perf_counter() - t0) * 1e3
+
+    def close(self) -> None:
+        self._join_logged()
+
+    # -- restore --------------------------------------------------------------
+
+    def checkpoint_world_size(self, label: Optional[int]) -> Optional[int]:
+        """The world size checkpoint ``label`` was saved for, from its
+        manifest (None when not recorded)."""
+        if label is None:
+            return None
+        manifest = self.manifest(label)
+        w = (manifest or {}).get("world_size")
+        return int(w) if w is not None else None
+
+    def _verified_labels(self, among=None):
+        """Candidate labels, newest first, that pass verification; joins
+        the writer (then, on several ranks, a barrier), records
+        ``last_skipped`` and logs every torn skip."""
+        self._join_logged()
+        if self._world > 1:
+            dist.barrier()
+        self.last_skipped = []
+        labels = sorted((label for label in self.all_steps()
+                         if among is None or label in among), reverse=True)
+        for label in labels:
+            problem = self.verify(label)
+            if problem is not None:
+                log_main(f"CHECKPOINT INTEGRITY: checkpoint {label} is "
+                         f"torn ({problem}) — skipping it and trying the "
+                         "previous one")
+                self.last_skipped.append(label)
+                continue
+            yield label
+
+    def restore_latest(self, template: TrainState, among=None,
+                       template_world_size: Optional[int] = None
+                       ) -> Optional[Tuple[TrainState, int, int]]:
+        """``(state, epoch, step_in_epoch)`` from the newest checkpoint
+        that passes verification (written into ``template``, a fresh
+        state of the same model and optimizer), or None when there is
+        none. ``among`` restricts the candidates (the supervisor of a run
+        without ``--resume`` passes the labels it wrote). A checkpoint
+        carrying residual rows restored into a template that carries a
+        residual, at another world size than it was written at, raises
+        :class:`CheckpointWorldSizeMismatch`; so does one whose manifest
+        records another world than ``template_world_size``."""
+        for label in self._verified_labels(among):
+            return self._restore(label, template, template_world_size)
+        if self.last_skipped:
+            log_main(f"CHECKPOINT INTEGRITY: every checkpoint "
+                     f"({self.last_skipped}) failed verification — "
+                     "nothing to restore")
+        return None
+
+    def _load(self, label: int, key: str):
+        return torch.load(self._step_dir(label) / f"{key}.pt",
+                          map_location="cpu", weights_only=True)
+
+    def _mismatch(self, label: int, saved: int, here: int):
+        err = CheckpointWorldSizeMismatch(
+            f"checkpoint {label} was written at world size {saved}, but "
+            f"this run has {here} ranks: its error-feedback residuals hold "
+            f"one row per rank. Resume at world size {saved} (resharding "
+            "comes with the elastic slice)")
+        err.label, err.world_size = label, saved
+        return err
+
+    @torch.no_grad()
+    def _restore(self, label: int, template: TrainState,
+                 template_world_size: Optional[int]
+                 ) -> Tuple[TrainState, int, int]:
+        meta = json.loads((self._step_dir(label) / _META).read_text())
+        has_ef = (self._step_dir(label) / "grad_sync.pt").exists()
+        recorded = meta.get("world_size")
+        if (has_ef and template_world_size is not None
+                and recorded is not None
+                and recorded != template_world_size):
+            raise self._mismatch(label, recorded, template_world_size)
+        want_opt = type(template.optimizer).__name__
+        if meta["optimizer"] != want_opt:
+            raise ValueError(
+                f"checkpoint {label} holds {meta['optimizer']} state, but "
+                f"the restore template's optimizer is {want_opt}: pass the "
+                "training run's --optimizer")
+        ef = None
+        if has_ef and "ef" in template.grad_sync:
+            rows = self._load(label, "grad_sync")["ef"]
+            if rows.shape[0] != self._world:
+                raise self._mismatch(label, rows.shape[0], self._world)
+            ef = rows[self._rank]
+        params = self._load(label, "params")
+        own = dict(template.model.named_parameters())
+        if set(params) != set(own) or any(
+                params[n].shape != own[n].shape for n in own):
+            raise ValueError(
+                f"checkpoint {label}'s parameters do not match the restore "
+                "template's model: resume with the training run's --model "
+                "and --model-overrides")
+        for name, p in own.items():
+            p.copy_(params[name])
+        template.set_batch_stats(self._load(label, "batch_stats"))
+        template.optimizer.load_state_dict(self._load(label, "opt_state"))
+        if ef is not None:
+            template.grad_sync = {"ef": ef.to(
+                template.grad_sync["ef"].device)}
+        template.step = int(meta["step"])
+        self.last_restored = label
+        return template, int(meta["epoch"]), int(meta["step_in_epoch"])
+
+    def manifest(self, label: int) -> Optional[dict]:
+        """The integrity manifest of one checkpoint (``tree_digest``, per
+        file size and sha256, the coordinates), or None without one."""
+        self._join_logged()
+        path = self._manifest_path(label)
+        if not path.exists():
+            return None
+        try:
+            return json.loads(path.read_text())
+        except Exception:
+            return None
+
+    def metadata(self, label: Optional[int] = None) -> Optional[dict]:
+        """One checkpoint's ``meta.json`` (default: the newest): step,
+        coordinates, optimizer class and parameter shapes, without reading
+        any tensor."""
+        self._join_logged()
+        if label is None:
+            steps = self.all_steps()
+            label = steps[-1] if steps else None
+        if label is None:
+            return None
+        try:
+            return json.loads((self._step_dir(label) / _META).read_text())
+        except Exception:
+            return None
+
+    def latest_metadata(self) -> Optional[dict]:
+        return self.metadata()

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -358,19 +358,30 @@ class Trainer:
 
     def train_epoch(self, state: TrainState, batches: Iterable,
                     epoch: int, steps_per_epoch: int,
-                    samples_per_step: Optional[Sequence[int]] = None
+                    samples_per_step: Optional[Sequence[int]] = None,
+                    start_step: int = 0,
+                    stop_fn: Optional[Callable[[], bool]] = None,
+                    fault_hook: Optional[Callable[[int], None]] = None
                     ) -> Tuple[TrainState, float, float, float, int]:
         """One epoch. Returns (state, mean loss, top-1 %, epoch wall
         seconds, steps executed). Prints the running loss, accuracy and
         samples/s every ``print_freq`` steps, the only host fetches inside
         the epoch. The metrics are global: every step sums them over
-        ranks."""
+        ranks. ``start_step`` labels a mid-epoch resume (the caller hands
+        an iterator that starts there; the augmentation draws follow
+        ``state.step``, so the resumed trajectory is the same).
+        ``fault_hook(i)`` runs before step ``i`` of this call executes
+        (the supervisor's step fence: a raise there means the optimizer
+        never applied the step); ``stop_fn()`` runs after every step, and
+        True ends the epoch there."""
         cfg = self.config
         epoch_metrics = zero_metrics(self.device)
         t_epoch = time.perf_counter()
         meter = ThroughputMeter()
         steps_done = 0
         for i, batch in enumerate(batches):
+            if fault_hook is not None:
+                fault_hook(i)
             metrics = self.train_step(state, batch)
             epoch_metrics = add_metrics(epoch_metrics, metrics)
             steps_done = i + 1
@@ -381,12 +392,14 @@ class Trainer:
                 avg_loss, avg_acc = summarize(epoch_metrics)
                 log_main(
                     f"Epoch [{epoch + 1}] "
-                    f"Step [{i + 1}/{steps_per_epoch}] "
+                    f"Step [{start_step + i + 1}/{steps_per_epoch}] "
                     f"Loss: {avg_loss:.4f}  "
                     f"Acc: {avg_acc:.2f}%  "
                     f"Throughput: {meter.rate():.2f} samples/s (global)"
                 )
                 meter.reset()
+            if stop_fn is not None and stop_fn():
+                break
         _sync(self.device)
         epoch_time = time.perf_counter() - t_epoch
         loss, acc = summarize(epoch_metrics)

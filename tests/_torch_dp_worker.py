@@ -23,7 +23,11 @@ wrote; ``OUT`` the pickle this rank writes. Jobs:
   mode, on this rank's rows of ``spec["x"]``, backward from its rows of
   ``spec["dy"]``; returns the output, the new statistics and the
   gradients of x, scale and bias;
-* ``("scalars", spec)``: ``reduce_scalar`` of ``rank + 1`` by each op.
+* ``("scalars", spec)``: ``reduce_scalar`` of ``rank + 1`` by each op;
+* ``("cli", spec)``: the port's entry, ``train.main(spec["argv"][rank])``
+  (each rank its own command line), which leaves the process group at
+  its end, so it is a process's last job; returns the final step and
+  every tensor of the state (``_torch_rig.flat_state``).
 """
 
 import os
@@ -167,8 +171,17 @@ def run_ranks(tmp_path: Path, world: int, jobs: dict, timeout=240) -> list:
     return results
 
 
+def run_cli(spec, rank, world):
+    from _torch_rig import flat_state
+    from distributed_pytorch_training_tpu_torch import train
+
+    state = train.main(spec["argv"][rank])
+    return {"step": state.step,
+            "state": {k: v.numpy() for k, v in flat_state(state).items()}}
+
+
 RUNNERS = {"reduce": run_reduce, "train": run_train, "bn": run_bn,
-           "scalars": run_scalars}
+           "scalars": run_scalars, "cli": run_cli}
 
 
 def main():

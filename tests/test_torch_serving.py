@@ -204,9 +204,9 @@ def test_smoke_cli_on_cpu(serve_dtype, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["bench"], ["serve"], ["fleet"], ["smoke", "--ckpt-dir", "x"],
+    ["bench"], ["serve"], ["fleet"], ["bench", "--ckpt-dir", "x"],
     ["smoke", "--mesh", "data=2"],
-], ids=["bench", "serve", "fleet", "ckpt-dir", "mesh"])
+], ids=["bench", "serve", "fleet", "bench-ckpt-dir", "mesh"])
 def test_smoke_cli_refuses_unported(argv):
     with pytest.raises(SystemExit, match="not ported to PyTorch yet"):
         main(argv + ["--device", "cpu"])

@@ -430,27 +430,36 @@ def test_entry_point_runs_as_a_module(tmp_path):
                .splitlines()) == 2
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--remat"], "remat"),
-    (["--mesh", "data=2"], "--mesh"),
-    (["--slices", "2"], "--slices"),
-    (["--zero1"], "--zero1"),
-    (["--fsdp-explicit"], "--fsdp-explicit"),
-    (["--checkpoint-dir", "ckpt"], "--checkpoint-dir"),
-    (["--resume"], "--resume"),
-    (["--max-restarts", "1"], "--max-restarts"),
-    (["--chaos", "crash@3"], "--chaos"),
-    (["--profile-dir", "prof"], "--profile-dir"),
-    (["--metrics-port", "9000"], "--metrics-port"),
-    (["--telemetry-all-ranks"], "--telemetry-all-ranks"),
-    (["--autopilot"], "--autopilot"),
-    (["--download"], "--download"),
-    (["--attention", "ring"], "ring"),
-    (["--attention", "ulysses"], "ulysses"),
-], ids=lambda x: x if isinstance(x, str) else "_".join(x))
-def test_unported_flags_raise(tmp_path, flags, match):
+ELASTIC = "comes with the elastic slice"
+REFUSED = [
+    (["--remat"], NotImplementedError, "remat"),
+    (["--mesh", "data=2"], NotImplementedError, "--mesh"),
+    (["--slices", "2"], NotImplementedError, "--slices"),
+    (["--zero1"], NotImplementedError, "--zero1"),
+    (["--fsdp-explicit"], NotImplementedError, "--fsdp-explicit"),
+    # the JAX entry's checks of the checkpoint flags, its messages
+    (["--resume"], ValueError, "--resume requires --checkpoint-dir"),
+    (["--max-restarts", "1"], ValueError,
+     "--max-restarts requires --checkpoint-dir"),
+    (["--max-restarts", "-1"], ValueError, "--max-restarts must be >= 0"),
+    (["--chaos", "replica_death@step=1"], NotImplementedError, ELASTIC),
+    (["--chaos", "capacity_return@step=1"], NotImplementedError, ELASTIC),
+    (["--profile-dir", "prof"], NotImplementedError, "--profile-dir"),
+    (["--metrics-port", "9000"], NotImplementedError, "--metrics-port"),
+    (["--telemetry-all-ranks"], NotImplementedError,
+     "--telemetry-all-ranks"),
+    (["--autopilot"], NotImplementedError, "--autopilot"),
+    (["--download"], NotImplementedError, "--download"),
+    (["--attention", "ring"], NotImplementedError, "ring"),
+    (["--attention", "ulysses"], NotImplementedError, "ulysses"),
+]
+
+
+@pytest.mark.parametrize("flags,error,match", REFUSED,
+                         ids=["_".join(f) + "-" + m for f, _, m in REFUSED])
+def test_unported_flags_raise(tmp_path, flags, error, match):
     # argparse keeps the last value of a repeated flag
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         train.main(TINY_CLI + flags + ["--output-dir", str(tmp_path)])
     assert not (tmp_path / "metrics_rank0.csv").exists()
 
