@@ -3,8 +3,10 @@ against its plain PyTorch version, serve GPT-2 124M in int8, fp32 and
 bf16, train it at full width in fp32 and bf16 (``--amp``) and on two
 ranks, train ResNet-18 at full width on one rank and data-parallel on
 two ranks that share the card, through the explicit reducer and through
-the reference's own command (fp32 and ``--amp``), and stop, resume,
-restart and serve those runs from their checkpoints.
+the reference's own command (fp32 and ``--amp``), stop, resume, restart
+and serve those runs from their checkpoints, and train both models
+through the sharded update (ZeRO-1, explicit FSDP) and ResNet-18 on four
+ranks through the two-tier ``int8_hier`` wire.
 
     python3 chip_smoke.py
 
@@ -101,10 +103,27 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     C's directory: prefill logits bitwise an engine built from run C's
     parameters in memory. Each run logs ``save_blocked_ms``,
     ``snapshot_ms``, the bytes written and the sha256 time;
+19. (run before phase 17's lines) the sharded update and the two-tier
+    wire through the port's entry: (a) ResNet-18 on 2 ranks sharing the
+    card under ``--zero1`` at fp32, int8 and int8_multihop, (b) under
+    ``--fsdp-explicit`` at fp32 and int8, then GPT-2 124M
+    ``--fsdp-explicit --amp`` at phase 15's shape; (c) ResNet-18 on 4
+    ranks, ``--slices 2 --wire-dtype int8_hier`` through the bucketed
+    reducer (cap 25) and with ``--zero1``: each run's K1, K2 (and K3-K5)
+    launches exact, the ranks' evaluated parameters and BatchNorm
+    statistics bitwise equal, the optimizer state (FSDP: the parameters
+    too) padded/N a leaf at rest, the loss falling in at least one run;
+    then the hier codecs on 4 spawned ranks on a seeded full-size
+    gradient, card (kernels) vs CPU (plain versions) bitwise; (d) K1 and
+    K2 at every shape those runs give them, bitwise and timed as phase 9
+    times them, summed a step beside phase 9's bucketed figures. Phases 7
+    and 14 log their step lines' samples/s as MFU (``experiments/
+    flops.py``: 3 x the forward's matmul FLOPs a sample against the
+    card's bf16 dense peak; ``check_mfu`` must accept it);
 17. print the ``{"kernels": [...]}`` line (K1 and K2 over their launches
-    on the phase 12 path, K3-K5 over phase 7's, with their bf16 fields
-    over phase 14's launches at phase 6's main bf16 shape), then the last
-    line ``{"ok": true, "device": {...}}``.
+    on the phase 12 and phase 19 paths, K3-K5 over phase 7's, with their
+    bf16 fields over phase 14's launches at phase 6's main bf16 shape),
+    then the last line ``{"ok": true, "device": {...}}``.
 
 Details go to chiprun_out/chip_smoke.json. Without a CUDA device, or run
 from a directory that lacks the port's package, it fails before printing
@@ -1099,6 +1118,7 @@ def dp_worker(argv) -> int:
         dequant_sum_rows,
         quantize_int8_rows,
     )
+    from distributed_pytorch_training_tpu_torch.training import Trainer
 
     fa = flash_module()
     kernels = {QUANTIZE: quantize_int8_rows, DEQUANT: dequant_sum_rows,
@@ -1106,18 +1126,46 @@ def dp_worker(argv) -> int:
     out_dir, train_argv = Path(argv[0]), argv[1:]
     rank = int(os.environ["RANK"])
     torch.backends.cudnn.deterministic = CUDNN_DETERMINISTIC
+    # the model-shaped state each rank evaluates with, digested after the
+    # last evaluation (every rank evaluates at every epoch's end): under
+    # explicit FSDP the parameters exist whole only inside the trainer's
+    # gather, and the process group is gone once train.main returns
+    evaluated = {}
+    evaluate = Trainer.evaluate
+
+    def digesting_evaluate(self, state, batches):
+        out = evaluate(self, state, batches)
+        with self.materialized(state):
+            evaluated.update({k: tensor_digest(v) for k, v in
+                              state.model.state_dict().items()})
+        return out
+
+    Trainer.evaluate = digesting_evaluate
     for fn in kernels.values():
         fn.launches = 0
-    state = train.main(train_argv + ["--output-dir", str(out_dir)])
+    try:
+        state = train.main(train_argv + ["--output-dir", str(out_dir)])
+    finally:
+        Trainer.evaluate = evaluate
     launches = {name: fn.launches for name, fn in kernels.items()}
-    digests = {k: tensor_digest(v)
-               for k, v in state.model.state_dict().items()}
-    # this rank's own error-feedback residual (int8 wires; differs across
-    # ranks, so kept apart from the digests the ranks must share)
-    ef_digests = {k: tensor_digest(v) for k, v in state.grad_sync.items()}
+    digests = evaluated or {k: tensor_digest(v)
+                            for k, v in state.model.state_dict().items()}
+    # this rank's own error-feedback residuals (int8 wires; they differ
+    # across ranks, so kept apart from the digests the ranks must share)
+    ef = state.grad_sync.get("ef")
+    ef = ef if isinstance(ef, dict) else ({"ef": ef} if ef is not None
+                                          else {})
+    ef_digests = {k: tensor_digest(v) for k, v in ef.items()}
+    # at rest: the parameters (FSDP: this rank's chunks) and every
+    # optimizer tensor of a leaf or chunk
+    at_rest = {"params": [p.numel() for p in state.params],
+               "param_bytes": sum(p.numel() * p.element_size()
+                                  for p in state.params),
+               "opt": [t.numel() for slots in state.optimizer.state.values()
+                       for t in slots.values() if t.dim() >= 1]}
     (out_dir / f"rank{rank}.json").write_text(json.dumps(
         {"launches": launches, "steps": state.step, "digests": digests,
-         "ef_digests": ef_digests}))
+         "ef_digests": ef_digests, "at_rest": at_rest}))
     return 0
 
 
@@ -1129,12 +1177,12 @@ def same_across_ranks(name: str, ranks: list) -> None:
             raise RuntimeError(f"{name}: {key} differs across ranks")
 
 
-def run_torchrun(args, timeout: float) -> str:
-    """``torchrun --standalone --nproc-per-node DP_RANKS chip_smoke.py
+def run_torchrun(args, timeout: float, nproc: int = DP_RANKS) -> str:
+    """``torchrun --standalone --nproc-per-node nproc chip_smoke.py
     --dp-worker ...`` in a session of its own, killed whole on a timeout;
     returns its output and fails unless it exited 0."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(DP_RANKS), str(Path(__file__).resolve()),
+           "--nproc-per-node", str(nproc), str(Path(__file__).resolve()),
            "--dp-worker", *args]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, cwd=ROOT,
@@ -1460,6 +1508,507 @@ def serve_checkpoint(torch, dev, state, ckpt_dir: Path) -> dict:
             "prompts": len(report.prompts)}
 
 
+# phase 19: the sharded update. ResNet-18 on 2 ranks, batch 128 a rank,
+# 2 epochs of 6 steps; on 4 ranks (2 slices x 2), 2 epochs of 3 steps
+SHARDED_SYNTHETIC = 1536
+ZERO1_RUNS = [("zero1 fp32", "fp32"), ("zero1 int8", "int8"),
+              ("zero1 int8_multihop", "int8_multihop")]
+FSDP_RUNS = [("fsdp fp32", "fp32"), ("fsdp int8", "int8")]
+HIER_RANKS, HIER_SLICES, HIER_CAP = 4, 2, 25.0
+HIER_RUNS = [("hier reducer", ["--bucket-cap-mb", str(HIER_CAP)]),
+             ("hier zero1", ["--zero1"])]
+# the flat codecs of the sharded update, timed beside the hier ones on the
+# same 4 ranks: {name: K1 and K2 launches a call}
+FLAT_CODECS = {"compressed_psum_scatter fp32": (0, 0),
+               "compressed_psum_scatter int8": (1, 1),
+               "all_gather": (0, 0),
+               "quantized_delta_all_gather": (1, 0)}
+GPT2_PARAMS = 124_439_808
+
+
+def resnet18_named(torch):
+    """ResNet-18's (name, parameter) pairs in flax order (shapes only)."""
+    from distributed_pytorch_training_tpu_torch.convert import flax_ordered
+    from distributed_pytorch_training_tpu_torch.models import get_model
+
+    return [(name, torch.empty(p.shape, device="meta")) for name, p in
+            flax_ordered(get_model("resnet18").named_parameters())]
+
+
+def sharded_launches(torch, mode: str, wire: str, n: int,
+                     slices: int = 1) -> dict:
+    """{(kernel, (rows, width)): launches} of one ResNet-18 step of the
+    sharded update (``zero1``, ``fsdp``) or of the int8_hier reducer
+    (``reducer``, buckets of HIER_CAP MB), as the code forms them: per
+    leaf (zero1) or layer group (fsdp) of P padded elements, the int8
+    scatter runs K1 on (1, P) and K2 on (n, P/n); int8_multihop adds K1
+    on (1, P/n) for the s8 gather; int8_hier scatters across the slices
+    on the fast tier's partial, K1 on (1, P/n_inner) and K2 on (n_slices,
+    P/n), and gathers with K1 on (1, P/n); its reducer runs the multihop
+    codec on each bucket's partial, K1 on (n_slices, c) and (1, c), K2
+    on (n_slices, c), c = S_padded / n."""
+    from distributed_pytorch_training_tpu_torch.parallel.grad_sync import (
+        build_bucket_plan, build_layer_plan, padded_bucket_bounds,
+    )
+
+    named = resnet18_named(torch)
+    n_inner = n // slices
+    counts: dict = {}
+
+    def add(kernel, shape):
+        counts[(kernel, shape)] = counts.get((kernel, shape), 0) + 1
+
+    if mode == "reducer":
+        plan = build_bucket_plan([p for _, p in named], HIER_CAP)
+        bounds = padded_bucket_bounds(plan, n)
+        for a, b in zip(bounds, bounds[1:]):
+            c = (b - a) // n
+            add(QUANTIZE, (slices, c))
+            add(DEQUANT, (slices, c))
+            add(QUANTIZE, (1, c))
+        return counts
+    if wire == "fp32":
+        return counts
+    for g in build_layer_plan(named, n, per_leaf=mode == "zero1").groups:
+        padded = n * g.row_size
+        if wire == "int8_hier":
+            add(QUANTIZE, (1, padded // n_inner))
+            add(DEQUANT, (slices, g.row_size))
+        else:
+            add(QUANTIZE, (1, padded))
+            add(DEQUANT, (n, g.row_size))
+        if wire in ("int8_multihop", "int8_hier"):
+            add(QUANTIZE, (1, g.row_size))
+    return counts
+
+
+def per_kernel(counts: dict, steps: int = 1) -> dict:
+    want = {QUANTIZE: 0, DEQUANT: 0}
+    for (kernel, _), count in counts.items():
+        want[kernel] += count * steps
+    return want
+
+
+def sharded_run(torch, name: str, flags: list, nproc: int,
+                synthetic: int, want: dict, steps: int) -> dict:
+    """One torchrun of the port's entry on ``nproc`` ranks sharing the
+    card: every rank's launches of the kernels in ``want`` exact, the
+    ranks' evaluated parameters and statistics bitwise equal."""
+    out_dir = ROOT / "chiprun_out" / ("dp_" + name.replace(" ", "_"))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "metrics_rank0.csv").unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    out = run_torchrun([str(out_dir), *flags, "--synthetic-size",
+                        str(synthetic)], timeout=600, nproc=nproc)
+    seconds = time.perf_counter() - t0
+    (out_dir / "stdout.txt").write_text(out)
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(nproc)]
+    for r, rep in enumerate(ranks):
+        got = {k: rep["launches"][k] for k in want}
+        if got != want or rep["steps"] != steps:
+            raise RuntimeError(f"{name} rank {r}: {rep['steps']} steps, "
+                               f"launches {got} (expected {steps}, {want})")
+    same_across_ranks(name, ranks)
+    rates = [float(ln.split("Throughput: ")[1].split()[0])
+             for ln in out.splitlines() if "Throughput: " in ln]
+    return {"ranks": ranks, "out_dir": out_dir, "wall_seconds": seconds,
+            "step_line_samples_per_s": rates, "launches_per_rank": want,
+            "steps": steps, "stdout": out}
+
+
+def check_at_rest(torch, name: str, ranks: list, mode: str, n: int) -> int:
+    """Each rank's optimizer tensors (and FSDP's parameters) hold padded/N
+    of every ResNet-18 leaf; returns rank 0's parameter bytes at rest."""
+    from distributed_pytorch_training_tpu_torch.parallel.sharding import (
+        flat_padded_size,
+    )
+
+    chunks = sorted(flat_padded_size(p.numel(), n) // n
+                    for _, p in resnet18_named(torch))
+    for r, rep in enumerate(ranks):
+        rest = rep["at_rest"]
+        if sorted(rest["opt"]) != chunks or (
+                mode == "fsdp" and sorted(rest["params"]) != chunks):
+            raise RuntimeError(f"{name} rank {r}: at-rest sizes "
+                               f"{rest} are not padded/{n} a leaf")
+    return ranks[0]["at_rest"]["param_bytes"]
+
+
+def sharded_two_ranks(torch) -> dict:
+    """Phase 19 (a) and (b): ResNet-18 on 2 ranks sharing the card under
+    ``--zero1`` (fp32, int8, int8_multihop) and ``--fsdp-explicit`` (fp32,
+    int8), then GPT-2 124M ``--fsdp-explicit --amp`` at phase 15's shape.
+    Launches exact, ranks bitwise equal, at-rest sizes 1/N; the loss falls
+    in at least one ResNet run; GPT-2's losses finite."""
+    steps = IMAGE_EPOCHS * -(-SHARDED_SYNTHETIC // (IMAGE_BATCH * DP_RANKS))
+    report, fell = {}, []
+    for mode, runs, flag in (("zero1", ZERO1_RUNS, "--zero1"),
+                             ("fsdp", FSDP_RUNS, "--fsdp-explicit")):
+        for name, wire in runs:
+            counts = sharded_launches(torch, mode, wire, DP_RANKS)
+            res = sharded_run(torch, name, IMAGE_FLAGS + [
+                flag, "--wire-dtype", wire], DP_RANKS, SHARDED_SYNTHETIC,
+                per_kernel(counts, steps), steps)
+            rows = [(float(c[1]), float(c[3]), float(c[5])) for c in (
+                ln.split(",") for ln in (res["out_dir"] / "metrics_rank0.csv")
+                .read_text().splitlines()[1:])]
+            if len(rows) != IMAGE_EPOCHS or not all(
+                    math.isfinite(x) for row in rows for x in row):
+                raise RuntimeError(f"{name}: CSV rows {rows}")
+            fell.append(rows[-1][0] < rows[0][0])
+            rest = check_at_rest(torch, name, res["ranks"], mode, DP_RANKS)
+            report[name] = {
+                "mode": mode, "wire": wire, "steps": steps,
+                "launches_per_rank": res["launches_per_rank"],
+                "per_step": {f"{k}{list(shape)}": c
+                             for (k, shape), c in counts.items()},
+                "losses": rows, "param_bytes_at_rest": rest,
+                "step_line_samples_per_s": res["step_line_samples_per_s"],
+                "wall_seconds": res["wall_seconds"]}
+            log(f"phase 19 {name}: {steps} steps on {DP_RANKS} ranks, "
+                f"launches per rank {res['launches_per_rank']}; evaluated "
+                "parameters and BatchNorm statistics bitwise equal across "
+                f"ranks; optimizer state padded/{DP_RANKS} a leaf"
+                + (", parameters too" if mode == "fsdp" else "")
+                + f" ({rest} parameter bytes at rest on rank 0); (train, "
+                f"val, epoch s) per epoch {rows}; step-line samples/s "
+                f"{res['step_line_samples_per_s']}")
+    if not any(fell):
+        raise RuntimeError("phase 19: the train loss fell in no run")
+    # (b) GPT-2 124M under --fsdp-explicit --amp, phase 15's shape
+    want = {FLASH[0]: DEPTH * (LM_DP_STEPS + LM_DP_EVAL),
+            FLASH[1]: DEPTH * LM_DP_STEPS, FLASH[2]: DEPTH * LM_DP_STEPS}
+    res = sharded_run(torch, "gpt2 fsdp amp", LM_FLAGS + [
+        "--batch-size", str(LM_DP_BATCH), "--epochs", "1",
+        "--print-freq", "2", "--fsdp-explicit", "--amp"], DP_RANKS,
+        LM_DP_SYNTHETIC, want, LM_DP_STEPS)
+    lines = (res["out_dir"] / "metrics_rank0.csv").read_text().splitlines()
+    losses = [(float(c[1]), float(c[3])) for c in
+              (ln.split(",") for ln in lines[1:])]
+    if len(losses) != 1 or not all(math.isfinite(x) for x in losses[0]):
+        raise RuntimeError(f"GPT-2 FSDP: CSV rows {lines}")
+    from distributed_pytorch_training_tpu_torch.models import get_model
+    from distributed_pytorch_training_tpu_torch.parallel.sharding import (
+        flat_padded_size,
+    )
+
+    rest = [rep["at_rest"]["param_bytes"] for rep in res["ranks"]]
+    half = GPT2_PARAMS * 4 / DP_RANKS
+    chunks = 4 * sum(flat_padded_size(p.numel(), DP_RANKS) // DP_RANKS
+                     for p in get_model(MODEL, device="meta").parameters())
+    if rest != [chunks] * DP_RANKS:
+        raise RuntimeError(f"GPT-2 FSDP: parameter bytes at rest {rest}, "
+                           f"expected {chunks} a rank")
+    report["gpt2 fsdp amp"] = {
+        "launches_per_rank": want, "losses": losses,
+        "param_bytes_at_rest": rest,
+        "step_line_samples_per_s": res["step_line_samples_per_s"],
+        "wall_seconds": res["wall_seconds"]}
+    log(f"phase 19 GPT-2 124M --fsdp-explicit --amp: launches per rank "
+        f"{want}; evaluated parameters bitwise equal across ranks; "
+        f"parameter bytes at rest per rank {rest} (124,439,808 x 4 / 2 = "
+        f"{half:.0f}); (train, val) loss {losses}; step-line samples/s "
+        f"{res['step_line_samples_per_s']}")
+    return report
+
+
+def hier_four_ranks(torch) -> dict:
+    """Phase 19 (c): ResNet-18 on HIER_RANKS ranks sharing the card,
+    ``--slices 2 --wire-dtype int8_hier`` through the bucketed reducer
+    (cap 25) and with ``--zero1``: launches exact, ranks bitwise equal."""
+    steps = IMAGE_EPOCHS * -(-SHARDED_SYNTHETIC // (IMAGE_BATCH
+                                                    * HIER_RANKS))
+    report = {}
+    for name, extra in HIER_RUNS:
+        mode = "zero1" if "--zero1" in extra else "reducer"
+        counts = sharded_launches(torch, mode, "int8_hier", HIER_RANKS,
+                                  HIER_SLICES)
+        res = sharded_run(torch, name, IMAGE_FLAGS + [
+            "--slices", str(HIER_SLICES), "--wire-dtype", "int8_hier",
+            "--print-freq", "3", *extra], HIER_RANKS, SHARDED_SYNTHETIC,
+            per_kernel(counts, steps), steps)
+        if "Two-tier wire (int8_hier): 2 slices x 2 replicas/slice" \
+                not in res["stdout"]:
+            raise RuntimeError(f"{name}: no two-tier banner")
+        if mode == "zero1":
+            check_at_rest(torch, name, res["ranks"], mode, HIER_RANKS)
+        report[name] = {
+            "steps": steps, "launches_per_rank": res["launches_per_rank"],
+            "per_step": {f"{k}{list(shape)}": c
+                         for (k, shape), c in counts.items()},
+            "step_line_samples_per_s": res["step_line_samples_per_s"],
+            "wall_seconds": res["wall_seconds"]}
+        log(f"phase 19 {name}: {steps} steps on {HIER_RANKS} ranks "
+            f"({HIER_SLICES} slices), launches per rank "
+            f"{res['launches_per_rank']}; evaluated parameters and "
+            "BatchNorm statistics bitwise equal across ranks; step-line "
+            f"samples/s {res['step_line_samples_per_s']}; "
+            f"{res['wall_seconds']:.1f} s")
+    return report
+
+
+def hier_codec_rank(rank: int, store: str, out_dir: str) -> None:
+    """Phase 19 (c), one of HIER_RANKS processes (gloo, all on cuda:0):
+    the hier codecs on a seeded 11,181,642-float gradient, twice on the
+    card and once on the CPU: ``reduce_flat(int8_hier)`` (cap 25),
+    ``hier_psum_scatter``, ``hier_delta_all_gather`` and
+    ``hier_shard_all_gather`` on it as one flat-padded vector, and the
+    flat codecs of the sharded update over all 4 ranks (FLAT_CODECS);
+    writes
+    whether the card's results are bitwise the CPU's, the digests of
+    the replicated ones, the launches and the card's ms a call (the
+    second call)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from distributed_pytorch_training_tpu_torch.ops.quantize import (
+        dequant_sum_rows,
+        quantize_int8_rows,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel import (
+        grad_sync as gs,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.collectives import (
+        all_gather,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.sharding import (
+        flatten_pad,
+    )
+
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=HIER_RANKS)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
+    spec = gs.build_hier_spec(HIER_RANKS, rank, HIER_SLICES)
+    n, n_inner = HIER_RANKS, spec.n_inner
+    g = torch.Generator().manual_seed(2000 + rank)
+    flat = torch.randn(RESNET18_PARAMS, generator=g) * (1 + rank)
+    plan = gs.build_bucket_plan([flat], HIER_CAP)
+    ef = torch.randn(gs.ef_state_bucketed([flat], n, HIER_CAP, "int8_hier",
+                                          n_slices=HIER_SLICES)["ef"].shape,
+                     generator=g) * 0.01
+    v = flatten_pad(flat, n)
+    vres = torch.randn(v.numel() // n_inner, generator=g) * 0.01
+    vres_full = torch.randn(v.numel(), generator=g) * 0.01
+    old = torch.randn(v.numel(), generator=torch.Generator().manual_seed(7))
+    old_shard = old.reshape(n, -1)[spec.owner]
+    new_shard = old_shard + torch.randn(old_shard.shape, generator=g) * 1e-3
+    ops = {
+        "reduce_flat": lambda d: gs.reduce_flat(
+            flat.to(d), plan, n, "int8_hier", ef.to(d), None, spec),
+        "hier_psum_scatter": lambda d: gs.hier_psum_scatter(
+            v.to(d), spec, vres.to(d)),
+        "hier_delta_all_gather": lambda d: (gs.hier_delta_all_gather(
+            new_shard.to(d), old_shard.to(d), old.to(d), spec),),
+        "hier_shard_all_gather": lambda d: (gs.hier_shard_all_gather(
+            new_shard.to(d), spec),),
+        "compressed_psum_scatter fp32": lambda d: gs.compressed_psum_scatter(
+            v.to(d), n, "fp32"),
+        "compressed_psum_scatter int8": lambda d: gs.compressed_psum_scatter(
+            v.to(d), n, "int8", vres_full.to(d)),
+        "all_gather": lambda d: (all_gather(new_shard.to(d)),),
+        "quantized_delta_all_gather": lambda d: (
+            gs.quantized_delta_all_gather(new_shard.to(d), old_shard.to(d),
+                                          old.to(d)),),
+    }
+    report = {"spawn_to_ready_s": time.perf_counter() - t_start}
+    for name, op in ops.items():
+        before = (quantize_int8_rows.launches, dequant_sum_rows.launches)
+        card = op(dev)
+        torch.cuda.synchronize()
+        launches = (quantize_int8_rows.launches - before[0],
+                    dequant_sum_rows.launches - before[1])
+        t0 = time.perf_counter()
+        op(dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cpu = op(torch.device("cpu"))
+        report[name] = {
+            "bitwise": all(torch.equal(a.cpu().view(torch.int32),
+                                       b.view(torch.int32))
+                           for a, b in zip(card, cpu) if a is not None),
+            "out_sha256": hashlib.sha256(
+                card[0].cpu().numpy().tobytes()).hexdigest(),
+            "launches": {QUANTIZE: launches[0], DEQUANT: launches[1]},
+            "card_ms_per_call": ms}
+    dist.destroy_process_group()
+    (Path(out_dir) / f"hier_rank{rank}.json").write_text(
+        json.dumps(report, indent=1))
+
+
+def hier_codec_card_vs_cpu(torch) -> dict:
+    """Phase 19 (c): HIER_RANKS codec processes on the one card; every
+    rank's card results bitwise its CPU's, the replicated outputs the
+    same on every rank, the launches the code's."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    out_dir = ROOT / "chiprun_out" / "hier_codec"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(hier_codec_rank,
+                           args=(f"{tmp}/store", str(out_dir)),
+                           nprocs=HIER_RANKS, start_method="spawn")
+    seconds = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"hier_rank{r}.json").read_text())
+             for r in range(HIER_RANKS)]
+    want = {"reduce_flat": per_kernel(sharded_launches(
+                torch, "reducer", "int8_hier", HIER_RANKS, HIER_SLICES)),
+            "hier_psum_scatter": {QUANTIZE: 1, DEQUANT: 1},
+            "hier_delta_all_gather": {QUANTIZE: 1, DEQUANT: 0},
+            "hier_shard_all_gather": {QUANTIZE: 1, DEQUANT: 0},
+            **{name: {QUANTIZE: k1, DEQUANT: k2}
+               for name, (k1, k2) in FLAT_CODECS.items()}}
+    for r, rep in enumerate(ranks):
+        for name, w in want.items():
+            if rep[name]["launches"] != w or not rep[name]["bitwise"]:
+                raise RuntimeError(
+                    f"hier codec {name} rank {r}: launches "
+                    f"{rep[name]['launches']} (expected {w}), card bitwise "
+                    f"the CPU's: {rep[name]['bitwise']}")
+    for name in ("reduce_flat", "hier_delta_all_gather",
+                 "hier_shard_all_gather", "all_gather",
+                 "quantized_delta_all_gather"):
+        if len({rep[name]["out_sha256"] for rep in ranks}) != 1:
+            raise RuntimeError(f"hier codec {name}: the ranks differ")
+    return {"wall_seconds": seconds, "rank0": ranks[0],
+            "spawn_to_ready_s": [rep["spawn_to_ready_s"] for rep in ranks]}
+
+
+def time_sharded_codec(torch, dev, flush, shapes) -> dict:
+    """Phase 19 (d): K1 and K2 at every (kernel, shape) of ``shapes``,
+    bitwise against the plain versions, timed as phase 9 times them
+    (kernel, plain, bound)."""
+    from distributed_pytorch_training_tpu_torch.ops.quantize import (
+        dequant_sum_rows,
+        dequant_sum_rows_ref,
+        quantize_int8_rows,
+        quantize_int8_rows_ref,
+    )
+
+    rows = {}
+    for seed, (kernel, shape) in enumerate(sorted(shapes)):
+        x = codec_rows(torch, dev, shape, 100 + seed)
+        n, w = shape
+        if kernel == QUANTIZE:
+            q, s = quantize_int8_rows(x)
+            qr, sr = quantize_int8_rows_ref(x)
+            same = torch.equal(q, qr) and torch.equal(
+                s.view(torch.int32), sr.view(torch.int32))
+            bound, by = bound_of(5 * n * w + 4 * n, 5 * n * w)
+            fn, ref = (lambda: quantize_int8_rows(x),
+                       lambda: quantize_int8_rows_ref(x))
+        else:
+            q, s = quantize_int8_rows_ref(x)
+            out, want = dequant_sum_rows(q, s), dequant_sum_rows_ref(q, s)
+            same = torch.equal(out.view(torch.int32), want.view(torch.int32))
+            bound, by = bound_of(n * w + 4 * n + 4 * w, 2 * n * w)
+            fn, ref = (lambda: dequant_sum_rows(q, s),
+                       lambda: dequant_sum_rows_ref(q, s))
+        if not same:
+            raise RuntimeError(f"{kernel} {shape}: kernel differs from "
+                               "its plain version")
+        rows[(kernel, shape)] = {
+            "kernel": kernel, "shape": f"{n}x{w}", "bitwise": True,
+            "max_abs_err": 0.0, "ms": timed_ms(torch, fn, flush),
+            "plain_ms": timed_ms(torch, ref, flush), "bound_ms": bound,
+            "bound_by": by}
+        if kernel == DEQUANT:
+            # phase 9's composite beside K2: a cast and a GEMV
+            rows[(kernel, shape)]["composite_ms"] = timed_ms(
+                torch, lambda: s @ q.float(), flush)
+    return rows
+
+
+def codec_per_step(counts: dict, rows: dict) -> dict:
+    """K1's and K2's ms a step (kernel, plain, bound) over ``counts``."""
+    out = {}
+    for kernel in (QUANTIZE, DEQUANT):
+        share = [(rows[key], c) for key, c in counts.items()
+                 if key[0] == kernel]
+        out[kernel] = {k: sum(r[k] * c for r, c in share)
+                       for k in ("ms", "plain_ms", "bound_ms")}
+        out[kernel]["launches"] = sum(c for _, c in share)
+    return out
+
+
+def codec_kernel_rows(torch, codec, codec19, counts19, dp_steps,
+                      steps19, quantize_checked, dequant_checked) -> list:
+    """The kernels line's rows of K1 and K2: their launches on the
+    data-parallel paths (rank 0 of every phase 12 run, DP_RUNS, and of
+    every phase 19 run, ``counts19`` a step), with the times, plain times
+    and bounds of each launch's shape (phase 9's ``codec``, phase 19's
+    ``codec19``) summed over them; errors over every shape checked."""
+    out = []
+    for kernel, line, source in ((QUANTIZE, 147, "quantize_int8_rows.cu"),
+                                 (DEQUANT, 191, "dequant_sum_rows.cu")):
+        shares = []
+        for name, wire, cap in DP_RUNS:
+            for (k, shape), count in wire_launches(torch, wire, cap).items():
+                if k == kernel:
+                    shares.append((codec[(k, shape)], count * dp_steps[name]))
+        for name, c19 in counts19.items():
+            shares += [(codec19[key], c * steps19[name])
+                       for key, c in c19.items() if key[0] == kernel]
+        checked = [r for r in (*codec.values(), *codec19.values())
+                   if r["kernel"] == kernel]
+        checked += dequant_checked if kernel == DEQUANT else quantize_checked
+        out.append({
+            "name": kernel, "route": "cuda",
+            "source": f"{PACKAGE}/csrc/{source}",
+            "replaces": f"distributed_pytorch_training_tpu/ops/quantize.py:"
+                        f"{line}",
+            "launches": sum(n for _, n in shares),
+            "bitwise": all(r["bitwise"] for r in checked),
+            "max_abs_err": max(r["max_abs_err"] for r in checked),
+            "ms": sum(r["ms"] * n for r, n in shares),
+            "plain_ms": sum(r["plain_ms"] * n for r, n in shares),
+            "bound_ms": sum(r["bound_ms"] * n for r, n in shares),
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                        for r, _ in shares)
+                         else "operations"),
+            # no single PyTorch call quantizes or takes int8 codes; K2's
+            # nearest composite, scales @ q.float(), a cast and a GEMV
+            "library_ms": None,
+            **({"composite_ms": sum(r["composite_ms"] * n
+                                    for r, n in shares)}
+               if kernel == DEQUANT else {}),
+        })
+    return out
+
+
+def lm_mfu(torch, rates: list, context: str):
+    """The step line's samples/s as MFU: 3 x the analytic forward matmul
+    FLOPs of one 1024-token GPT-2 124M sequence (counted on meta tensors,
+    plain attention) against the card's bf16 dense peak. Returns (MFU %
+    per rate, the forward FLOPs, the peak TFLOP/s); ``check_mfu`` raises
+    for an impossible one."""
+    from distributed_pytorch_training_tpu_torch.experiments import flops
+    from distributed_pytorch_training_tpu_torch.models import get_model
+
+    model = get_model(MODEL, device="meta")
+    fwd = flops.matmul_flops(model, torch.zeros((1, 1024), dtype=torch.long,
+                                                device="meta"))
+    peak = flops.chip_peak_tflops(0)
+    if peak is None:
+        raise RuntimeError("no bf16 peak for this card")
+    out = []
+    for rate in rates:
+        mfu = flops.mfu_pct(3.0 * fwd, rate, peak)
+        warning = flops.check_mfu(mfu, context)
+        out.append(mfu)
+        if warning:
+            log(f"{context}: {warning}")
+    return out, fwd, peak
+
+
 def main() -> int:
     import torch
 
@@ -1580,9 +2129,12 @@ def main() -> int:
     # phase 7: the training path through the port's own entry
     t0 = time.perf_counter()
     flash_launches, losses, lm_rates, _ = train_on_card(torch, fa)
+    lm_mfus, lm_fwd_flops, peak_tflops = lm_mfu(torch, lm_rates, "phase 7")
     log(f"phase 7 done in {time.perf_counter() - t0:.1f} s: launches "
         f"{flash_launches}; (train, val) loss per epoch {losses}; "
-        f"step-line samples/s {lm_rates}")
+        f"step-line samples/s {lm_rates}; MFU % {lm_mfus} (3 x "
+        f"{lm_fwd_flops:.6g} FLOPs a sequence against {peak_tflops} "
+        "TFLOP/s bf16 dense)")
 
     # phase 8: one loss-and-backward, card (kernels) against CPU (plain)
     t0 = time.perf_counter()
@@ -1651,8 +2203,10 @@ def main() -> int:
     if bf16_launches != want:
         raise RuntimeError(f"--amp training launched {bf16_launches}, "
                            f"expected {want}")
+    bf16_mfus, _, _ = lm_mfu(torch, bf16_rates, "phase 14")
     log(f"phase 14 --amp training: launches {bf16_launches}; (train, val) "
-        f"loss per epoch {bf16_losses}; step-line samples/s {bf16_rates}")
+        f"loss per epoch {bf16_losses}; step-line samples/s {bf16_rates}; "
+        f"MFU % {bf16_mfus}")
     torch.cuda.empty_cache()
     before = fa.flash_attention_bwd_dq.launches
     b_loss_err, b_grad_err, b_grad_leaf, b_loss_card, b_loss_cpu = \
@@ -1719,44 +2273,65 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 18 done in {time.perf_counter() - t0:.1f} s")
 
+    # phase 19: the sharded update (ZeRO-1, explicit FSDP) and the
+    # two-tier int8_hier wire, through the port's entry on ranks sharing
+    # the card; then the hier codecs card vs CPU; then K1 and K2 timed at
+    # the new shapes
+    t0 = time.perf_counter()
+    sharded = sharded_two_ranks(torch)
+    torch.cuda.empty_cache()
+    hier = hier_four_ranks(torch)
+    hier_codec = hier_codec_card_vs_cpu(torch)
+    log(f"phase 19 (c) hier codecs on {HIER_RANKS} ranks: card bitwise the "
+        f"CPU's, replicated outputs equal across ranks; card ms a call "
+        + ", ".join(f"{k} {v['card_ms_per_call']:.1f}"
+                    for k, v in hier_codec["rank0"].items()
+                    if isinstance(v, dict))
+        + f"; spawn to ready {hier_codec['spawn_to_ready_s']} s")
+    counts19 = {
+        **{name: sharded_launches(torch, "zero1", wire, DP_RANKS)
+           for name, wire in ZERO1_RUNS},
+        **{name: sharded_launches(torch, "fsdp", wire, DP_RANKS)
+           for name, wire in FSDP_RUNS},
+        "hier reducer": sharded_launches(torch, "reducer", "int8_hier",
+                                         HIER_RANKS, HIER_SLICES),
+        "hier zero1": sharded_launches(torch, "zero1", "int8_hier",
+                                       HIER_RANKS, HIER_SLICES)}
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    codec19 = time_sharded_codec(torch, dev, flush, {
+        key for c in counts19.values() for key in c})
+    del flush
+    torch.cuda.empty_cache()
+    bucketed = {name: codec_per_step(wire_launches(torch, wire, cap), codec)
+                for name, wire, cap in DP_RUNS}
+    per_step19 = {name: codec_per_step(c, codec19)
+                  for name, c in counts19.items() if c}
+    for name, ps in per_step19.items():
+        log(f"phase 19 (d) {name}: a step launches K1 "
+            f"{ps[QUANTIZE]['launches']}x, {ps[QUANTIZE]['ms']:.4f} ms "
+            f"(bound {ps[QUANTIZE]['bound_ms']:.4f}, plain "
+            f"{ps[QUANTIZE]['plain_ms']:.4f}), K2 {ps[DEQUANT]['launches']}x,"
+            f" {ps[DEQUANT]['ms']:.4f} ms (bound "
+            f"{ps[DEQUANT]['bound_ms']:.4f}, plain "
+            f"{ps[DEQUANT]['plain_ms']:.4f})")
+    for name, ps in bucketed.items():
+        log(f"phase 19 (d) beside phase 9's {name} (bucketed reducer): a "
+            f"step K1 {ps[QUANTIZE]['launches']}x {ps[QUANTIZE]['ms']:.4f}"
+            f" ms (bound {ps[QUANTIZE]['bound_ms']:.4f}), K2 "
+            f"{ps[DEQUANT]['launches']}x {ps[DEQUANT]['ms']:.4f} ms (bound "
+            f"{ps[DEQUANT]['bound_ms']:.4f})")
+    log(f"phase 19 done in {time.perf_counter() - t0:.1f} s")
+
     # phase 17: the kernels line; K1 and K2 summed over their launches on
-    # the data-parallel path (rank 0 of every phase 12 run), the serving
-    # path's K1 launches (phase 4) kept in chip_smoke.json
-    codec_kernels = []
-    for kernel, line, source in ((QUANTIZE, 147, "quantize_int8_rows.cu"),
-                                 (DEQUANT, 191, "dequant_sum_rows.cu")):
-        shares = []
-        for name, wire, cap in DP_RUNS:
-            steps = two_ranks[name]["steps"]
-            for (k, shape), count in wire_launches(torch, wire, cap).items():
-                if k == kernel:
-                    shares.append((codec[(k, shape)], count * steps))
-        checked = [r for r in codec.values() if r["kernel"] == kernel]
-        if kernel == DEQUANT:
-            checked += dequant_edges
-        else:
-            checked += rows + quantize_edges
-        codec_kernels.append({
-            "name": kernel, "route": "cuda",
-            "source": f"{PACKAGE}/csrc/{source}",
-            "replaces": f"distributed_pytorch_training_tpu/ops/quantize.py:"
-                        f"{line}",
-            "launches": sum(n for _, n in shares),
-            "bitwise": all(r["bitwise"] for r in checked),
-            "max_abs_err": max(r["max_abs_err"] for r in checked),
-            "ms": sum(r["ms"] * n for r, n in shares),
-            "plain_ms": sum(r["plain_ms"] * n for r, n in shares),
-            "bound_ms": sum(r["bound_ms"] * n for r, n in shares),
-            "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
-                                        for r, _ in shares)
-                         else "operations"),
-            # no single PyTorch call quantizes or takes int8 codes; K2's
-            # nearest composite, scales @ q.float(), a cast and a GEMV
-            "library_ms": None,
-            **({"composite_ms": sum(r["composite_ms"] * n
-                                    for r, n in shares)}
-               if kernel == DEQUANT else {}),
-        })
+    # the data-parallel paths (rank 0 of every phase 12 and phase 19
+    # run), the serving path's K1 launches (phase 4) kept in
+    # chip_smoke.json
+    codec_kernels = codec_kernel_rows(
+        torch, codec, codec19, counts19,
+        {name: two_ranks[name]["steps"] for name, _, _ in DP_RUNS},
+        {name: (hier if name.startswith("hier") else sharded)[name]["steps"]
+         for name in counts19},
+        rows + quantize_edges, dequant_edges)
     serving_k1 = {
         "launches": launches,
         "ms": sum(r["ms"] * r["main_path_launches"] for r in rows),
@@ -1799,6 +2374,13 @@ def main() -> int:
         "quantize_edges": quantize_edges, "dequant_edges": dequant_edges,
         "reducer_card_vs_cpu": reducer,
         "resnet_one_rank": one_rank, "resnet_two_ranks": two_ranks,
+        "train_mfu_pct": lm_mfus, "amp_train_mfu_pct": bf16_mfus,
+        "gpt2_fwd_flops_per_seq": lm_fwd_flops,
+        "peak_tflops_bf16": peak_tflops,
+        "sharded_update": sharded, "hier": hier, "hier_codec": hier_codec,
+        "sharded_codec_per_shape": list(codec19.values()),
+        "sharded_codec_per_step": per_step19,
+        "bucketed_codec_per_step": bucketed,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -18,11 +18,13 @@ def build_serving_engine(model_name: str,
                          model_overrides: Optional[dict] = None,
                          seed: int = 0, device: DeviceLike = None,
                          ckpt_dir: Optional[str] = None,
-                         optimizer: str = "auto"):
+                         optimizer: str = "auto",
+                         layout: str = "replicated"):
     """An `InferenceEngine` for a serving config on one device. With
     ``ckpt_dir`` it serves the newest manifest-verified checkpoint there
-    (``optimizer``, the training run's, rebuilds the restore template;
-    ``auto`` is adamw for the LMs, as in the JAX package); without, it
+    (``optimizer`` and ``layout``, the training run's optimizer and
+    update, must match the checkpoint's; ``auto`` is adamw for the LMs,
+    as in the JAX package); without, it
     has random-init weights drawn from ``seed`` (a smoke of the serving
     path, not a served model). The weights are drawn on the CPU and then
     copied to ``device``, so one seed gives the same weights on every
@@ -45,12 +47,10 @@ def build_serving_engine(model_name: str,
                       else torch.float32)
     model = get_model(model_name, **kwargs)
     if ckpt_dir:
-        from ..training.optim import make_optimizer, make_schedule
-
-        tx = make_optimizer("adamw" if optimizer == "auto" else optimizer,
-                            make_schedule("constant", 0.1))
-        return InferenceEngine.from_checkpoint(ckpt_dir, model, cfg, tx,
-                                               device=dev)
+        name = "adamw" if optimizer == "auto" else optimizer
+        return InferenceEngine.from_checkpoint(
+            ckpt_dir, model, cfg, device=dev, layout=layout,
+            optimizer={"adamw": "AdamW", "sgd": "SGD"}[name])
     model.reset_parameters(torch.Generator().manual_seed(seed))
     params = {name: p.detach() for name, p in model.named_parameters()}
     return InferenceEngine(model, cfg, params, device=dev)

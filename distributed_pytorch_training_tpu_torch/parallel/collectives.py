@@ -90,6 +90,27 @@ def all_to_all(x: torch.Tensor, group: Group = None) -> torch.Tensor:
     return out
 
 
+def psum_scatter(x: torch.Tensor, group: Group = None) -> torch.Tensor:
+    """Tiled SUM reduce-scatter along axis 0 (``lax.psum_scatter(...,
+    tiled=True)``): rank j gets the sum over ranks of every rank's chunk
+    j. Built from one `all_to_all` and a sum of the received chunks in
+    rank order, so the result does not depend on the backend's reduction
+    order (on 2 ranks it is bitwise the JAX package's); gloo runs it on
+    CUDA tensors. bf16 chunks travel as their bytes (gloo's all-to-all
+    takes no 16-bit type) and are summed in float32, rounded to bf16 once,
+    as XLA's CPU reduce-scatter sums them (bitwise on 4 ranks too)."""
+    n = world_size(group)
+    if n == 1:
+        return x
+    bf16 = x.dtype == torch.bfloat16
+    wire = x.contiguous().view(torch.int8) if bf16 else x
+    recv = all_to_all(wire, group).view(x.dtype).reshape(n, -1)
+    out = recv[0].float() if bf16 else recv[0]
+    for i in range(1, n):
+        out = out + recv[i]
+    return out.to(x.dtype)
+
+
 def reduce_scalar(x: Union[float, int, torch.Tensor], op: str = "sum",
                   group: Group = None) -> float:
     """Host-level scalar reduction across ranks (the reference's

@@ -24,7 +24,20 @@ HWIO). So bucket bounds, per-row scales, multihop destination chunks and
 the error-feedback residual cover the same elements as the reference's.
 ``Trainer`` passes the parameters in that order (``flax_ordered``).
 
-The ``int8_hier`` wire raises, naming its slice.
+* ``int8_hier``: the two-tier wire of a world factored into slices
+  (``HierSpec``): an exact fp32 reduce-scatter inside the slice, the
+  ``int8_multihop`` codec across slices on that 1/n_inner partial (the one
+  quantization, with error feedback), an exact all-gather back.
+
+The sharded update (``Trainer``'s ZeRO-1 and explicit-FSDP steps) reduces
+per leaf, or per layer group (``LayerPlan``), straight into this rank's
+chunk of the flat-padded layout (``parallel/sharding.py``):
+``compressed_psum_scatter`` at ``fp32``, ``bf16`` or ``int8`` (one scale a
+leaf or group, an s8 all-to-all, K2 over the n received rows), or
+``hier_psum_scatter``; the new parameters come back exactly
+(``all_gather``), as s8 update codes (``quantized_delta_all_gather``,
+``hier_delta_all_gather``) or, under FSDP, as s8 codes of the at-rest
+rows (``quantized_shard_all_gather``, ``hier_shard_all_gather``).
 """
 
 from __future__ import annotations
@@ -36,28 +49,128 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+import torch.distributed as dist
+
+from ..convert import name_to_flax_path
 from ..ops.quantize import dequant_sum_rows, fma_f32, quantize_int8_rows
-from ..runtime import not_ported
-from .collectives import Group, all_gather, all_to_all, psum
+from .collectives import (Group, all_gather, all_to_all, psum,
+                          psum_scatter)
+from .sharding import flat_padded_size
 
 WIRE_DTYPES = ("fp32", "bf16", "int8", "int8_multihop", "int8_hier")
 
 # Wire modes whose codec carries an error-feedback residual
 EF_WIRE_DTYPES = ("int8", "int8_multihop", "int8_hier")
 
-# the wires this port reduces; the others raise in reduce_flat
-PORTED_WIRES = ("fp32", "bf16", "int8", "int8_multihop")
-_WIRE_SLICE = {"int8_hier": "the multi-slice (--slices) slice"}
+# the batch axes of the JAX package's mesh, outermost first; the port's
+# ranks are laid out as (slice, data), fsdp of size 1
+BATCH_AXES = ("slice", "data", "fsdp")
 
 
-def refuse_unported_wire(wire_dtype: str) -> None:
-    """Raise for a wire of WIRE_DTYPES this port does not reduce yet."""
+def check_wire(wire_dtype: str) -> None:
+    """Raise for a wire dtype outside WIRE_DTYPES."""
     if wire_dtype not in WIRE_DTYPES:
         raise ValueError(f"unknown wire dtype {wire_dtype!r} "
                          f"(choose from {WIRE_DTYPES})")
-    if wire_dtype not in PORTED_WIRES:
-        raise not_ported(f"the {wire_dtype} gradient wire",
-                         _WIRE_SLICE[wire_dtype])
+
+
+# ---------------------------------------------------------------------------
+# Hierarchy spec (the int8_hier wire's topology)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HierSpec:
+    """The two tiers of the ``int8_hier`` wire, seen from one rank.
+
+    ``n_slices`` ranks share this rank's fast index across the slow tier
+    (``slice_group``), ``n_inner`` share its slice (``fast_group``, None
+    when n_inner is 1). Chunk ownership is FAST-MAJOR, as in the JAX
+    package: the fast reduce-scatter hands fast rank j chunk j, the slow
+    exchange hands slice s sub-chunk s of it, so this rank owns chunk
+    ``owner = fast * n_slices + slow``; every hier gather runs across the
+    slices first, then inside the slice."""
+
+    slice_axis: str
+    n_slices: int
+    n_inner: int
+    slow: int = 0
+    fast: int = 0
+    slice_group: Group = dataclasses.field(default=None, compare=False)
+    fast_group: Group = dataclasses.field(default=None, compare=False)
+
+    def __post_init__(self):
+        if self.n_slices < 2:
+            raise ValueError(
+                f"HierSpec needs >= 2 slices (got {self.n_slices}); a "
+                "1-slice mesh has no slow tier — the trainer resolves "
+                "int8_hier to the flat fp32 path there")
+        if self.n_inner < 1:
+            raise ValueError(f"n_inner must be >= 1, got {self.n_inner}")
+
+    @property
+    def owner(self) -> int:
+        """The chunk of a flat-padded leaf this rank owns."""
+        return self.fast * self.n_slices + self.slow
+
+
+def axis_sizes(world: int, slices: int) -> dict:
+    """The batch axes' sizes of ``world`` ranks in ``slices`` slices."""
+    return {"slice": slices, "data": world // slices, "fsdp": 1}
+
+
+def hier_coords(rank: int, world: int, slices: int,
+                slice_axis: str = "slice") -> Tuple[int, int]:
+    """(slow, fast) index of ``rank`` when the slow tier is
+    ``slice_axis`` of the (slice, data, fsdp) mesh of ``world`` ranks in
+    ``slices`` slices (slice outermost, as the JAX mesh lays it out): the
+    coordinate on that axis, and the linear index over the other batch
+    axes."""
+    sizes = axis_sizes(world, slices)
+    coords = {"slice": rank // sizes["data"], "data": rank % sizes["data"],
+              "fsdp": 0}
+    fast = 0
+    for axis in BATCH_AXES:
+        if axis != slice_axis:
+            fast = fast * sizes[axis] + coords[axis]
+    return coords[slice_axis], fast
+
+
+def hier_owner(rank: int, world: int, slices: int,
+               slice_axis: str = "slice") -> int:
+    """The chunk ``rank`` owns under the fast-major ownership:
+    fast * n_slices + slow."""
+    n_slices = axis_sizes(world, slices)[slice_axis]
+    slow, fast = hier_coords(rank, world, slices, slice_axis)
+    return fast * n_slices + slow
+
+
+def build_hier_spec(world: int, rank: int, slices: int,
+                    slice_axis: str = "slice") -> HierSpec:
+    """The HierSpec of ``rank`` with the slow tier on ``slice_axis``,
+    creating the fast and slice process groups (every rank creates every
+    group, in the same order: a collective over the default group). A
+    group's ranks are in ascending order, which is the order of the
+    coordinate it spans."""
+    n_slices = axis_sizes(world, slices)[slice_axis]
+    n_inner = world // n_slices
+    by_rank = [hier_coords(r, world, slices, slice_axis)
+               for r in range(world)]
+    slow, fast = by_rank[rank]
+    fast_group = slice_group = None
+    if n_inner > 1:
+        for s in range(n_slices):
+            g = dist.new_group([r for r in range(world)
+                                if by_rank[r][0] == s])
+            if s == slow:
+                fast_group = g
+    for j in range(n_inner):
+        g = dist.new_group([r for r in range(world) if by_rank[r][1] == j])
+        if j == fast:
+            slice_group = g
+    return HierSpec(slice_axis=slice_axis, n_slices=n_slices,
+                    n_inner=n_inner, slow=slow, fast=fast,
+                    slice_group=slice_group, fast_group=fast_group)
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +379,27 @@ def _int8_multihop_sum(v: torch.Tensor, residual: torch.Tensor,
     return out[:size], new_residual
 
 
+def _int8_hier_sum(v: torch.Tensor, residual: torch.Tensor,
+                   spec: HierSpec) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-tier SUM of one bucket (the ``int8_hier`` wire): ``v`` is this
+    rank's (S,) contribution, ``residual`` its (S_padded / n_inner,)
+    slow-tier error feedback (S padded to a multiple of the world). An
+    exact fp32 reduce-scatter inside the slice, `_int8_multihop_sum`
+    across the slices on that partial (the one quantization), an exact
+    all-gather inside the slice. Returns (the (S,) global sum, the new
+    residual)."""
+    size = v.shape[0]
+    padded = residual.shape[0] * spec.n_inner
+    carried = F.pad(v, (0, padded - size))
+    part = (psum_scatter(carried, spec.fast_group) if spec.n_inner > 1
+            else carried)
+    summed, new_residual = _int8_multihop_sum(part, residual, spec.n_slices,
+                                              spec.slice_group)
+    if spec.n_inner > 1:
+        summed = all_gather(summed, spec.fast_group)
+    return summed[:size], new_residual
+
+
 def _compressed_psum(v: torch.Tensor, n_shards: int, wire_dtype: str,
                      residual: Optional[torch.Tensor], group: Group = None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -289,23 +423,37 @@ def _compressed_psum(v: torch.Tensor, n_shards: int, wire_dtype: str,
 
 def reduce_flat(flat: torch.Tensor, plan: BucketPlan, n_shards: int,
                 wire_dtype: str, residual: Optional[torch.Tensor] = None,
-                group: Group = None
+                group: Group = None, hier: Optional[HierSpec] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Reduce this rank's (total_size,) float32 contribution bucket by
     bucket. Returns the globally summed vector and the updated residual
     (int8 wires; the flat layout for ``int8``, the `padded_bucket_bounds`
-    layout for ``int8_multihop``)."""
-    refuse_unported_wire(wire_dtype)
+    layout for ``int8_multihop``, that layout's 1/n_inner slow-tier view
+    for ``int8_hier``, which also needs the ``hier`` spec)."""
+    check_wire(wire_dtype)
     multihop = wire_dtype == "int8_multihop"
-    if multihop and residual is None:
+    if wire_dtype == "int8_hier":
+        if hier is None:
+            raise ValueError("int8_hier wire needs a HierSpec (the trainer "
+                             "builds it from the mesh's slice axis)")
+        if residual is None:
+            raise ValueError("int8_hier wire needs a slow-tier error-"
+                             "feedback residual (Trainer.init_state "
+                             "builds it)")
+    elif multihop and residual is None:
         raise ValueError("int8_multihop wire needs a hop-1 error-feedback "
                          "residual (Trainer.init_state builds it)")
-    pbounds = padded_bucket_bounds(plan, n_shards) if multihop else None
+    pbounds = (padded_bucket_bounds(plan, n_shards)
+               if multihop or wire_dtype == "int8_hier" else None)
     outs: List[torch.Tensor] = []
     res_outs: List[torch.Tensor] = []
     for k, (a, b) in enumerate(zip(plan.bounds, plan.bounds[1:])):
         v = flat[a:b]
-        if multihop:
+        if wire_dtype == "int8_hier":
+            r = residual[pbounds[k] // hier.n_inner:
+                         pbounds[k + 1] // hier.n_inner]
+            summed, new_r = _int8_hier_sum(v, r, hier)
+        elif multihop:
             r = residual[pbounds[k]:pbounds[k + 1]]
             summed, new_r = _int8_multihop_sum(v, r, n_shards, group)
         else:
@@ -323,15 +471,283 @@ def reduce_flat(flat: torch.Tensor, plan: BucketPlan, n_shards: int,
 
 def ef_state_bucketed(leaves: Sequence, n_shards: int,
                       bucket_cap_mb: float = 0.0, wire_dtype: str = "int8",
-                      device: torch.device = torch.device("cpu")) -> dict:
+                      device: torch.device = torch.device("cpu"),
+                      n_slices: int = 1) -> dict:
     """This rank's zero error-feedback residual for the bucketed reducer:
-    ``{"ef": (R,) float32}``, R the flat gradient size for ``int8`` and
-    the `padded_bucket_bounds` layout for ``int8_multihop`` (the JAX
-    package keeps one such row per replica in an (n, R) array)."""
-    refuse_unported_wire(wire_dtype)
+    ``{"ef": (R,) float32}``, R the flat gradient size for ``int8``, the
+    `padded_bucket_bounds` layout for ``int8_multihop`` and 1/n_inner of
+    it for ``int8_hier`` (the JAX package keeps one such row per replica
+    in an (n, R) array)."""
+    check_wire(wire_dtype)
     plan = build_bucket_plan(leaves, bucket_cap_mb)
     if wire_dtype == "int8_multihop":
         total = padded_total_size(plan, n_shards)
+    elif wire_dtype == "int8_hier":
+        if n_slices < 2 or n_shards % n_slices:
+            raise ValueError(
+                f"int8_hier EF state needs a feasible factorization; got "
+                f"{n_shards} shards over {n_slices} slices")
+        total = padded_total_size(plan, n_shards) // (n_shards // n_slices)
     else:
         total = plan.total_size
     return {"ef": torch.zeros((total,), dtype=torch.float32, device=device)}
+
+
+def ef_state_zero1(named: Sequence[Tuple[str, object]], n_shards: int,
+                   n_inner: int = 1,
+                   device: torch.device = torch.device("cpu")) -> dict:
+    """This rank's zero residuals for the zero1 int8 scatter: one
+    (flat_padded_size / n_inner,) float32 row per leaf, keyed by the
+    leaf's name (``named``: (name, leaf) pairs in flax order). Under
+    ``int8_hier`` the slow tier quantizes only the 1/n_inner partial."""
+    return {"ef": {
+        name: torch.zeros((flat_padded_size(_numel(leaf), n_shards)
+                           // max(1, n_inner),), dtype=torch.float32,
+                          device=device)
+        for name, leaf in named}}
+
+
+def ef_state_fsdp(named: Sequence[Tuple[str, object]], n_shards: int,
+                  n_inner: int = 1,
+                  device: torch.device = torch.device("cpu")) -> dict:
+    """This rank's zero residuals for the explicit-FSDP int8 scatter: one
+    (n_shards x row_size / n_inner,) float32 row per layer group
+    (`build_layer_plan`), keyed by the group's name: the residual covers
+    every destination chunk, not just the kept one."""
+    plan = build_layer_plan(named, n_shards)
+    return {"ef": {
+        g.name: torch.zeros((n_shards * g.row_size // max(1, n_inner),),
+                            dtype=torch.float32, device=device)
+        for g in plan.groups}}
+
+
+# ---------------------------------------------------------------------------
+# Layer plan (explicit FSDP): the per-layer cut of the parameter tree
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerGroup:
+    """One per-layer gather and scatter unit. ``leaf_slots`` index the
+    leaves in flax order; ``chunk_sizes[i]`` is leaf ``leaf_slots[i]``'s
+    chunk (flat-padded size / n_shards). The wire layout is
+    destination-major: row j is every member leaf's chunk j, so one
+    all-gather of this rank's row rebuilds every member leaf, and one
+    reduce-scatter of the row stack lands each leaf's chunk on its
+    owner."""
+
+    name: str
+    leaf_slots: Tuple[int, ...]
+    chunk_sizes: Tuple[int, ...]
+
+    @property
+    def row_size(self) -> int:
+        """Elements of this group on one rank (one gather/scatter row)."""
+        return int(sum(self.chunk_sizes))
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    """One group per top-level module (``wte``, ``block0``, ...,
+    ``ln_f``; ``stem_conv``, ``stage1_block0``, ..., ``fc``), built from
+    shapes only, the same on every rank."""
+
+    groups: Tuple[LayerGroup, ...]
+    n_shards: int
+
+    @property
+    def total_padded(self) -> int:
+        return self.n_shards * sum(g.row_size for g in self.groups)
+
+
+def _top_level_key(name: str) -> str:
+    return name_to_flax_path(name)[0]
+
+
+def build_layer_plan(named: Sequence[Tuple[str, object]], n_shards: int,
+                     per_leaf: bool = False) -> LayerPlan:
+    """Group ``named`` ((name, leaf) pairs in flax order) into per-layer
+    units by the flax path's top-level key, leaves in flax order inside a
+    group. ``per_leaf`` makes every leaf its own group, named after it
+    (zero1's per-leaf scatter)."""
+    by_key: dict = {}
+    order: List[str] = []
+    for slot, (name, leaf) in enumerate(named):
+        key = name if per_leaf else _top_level_key(name)
+        if key not in by_key:
+            by_key[key] = []
+            order.append(key)
+        by_key[key].append(
+            (slot, flat_padded_size(_numel(leaf), n_shards) // n_shards))
+    groups = tuple(
+        LayerGroup(name=k, leaf_slots=tuple(s for s, _ in by_key[k]),
+                   chunk_sizes=tuple(c for _, c in by_key[k]))
+        for k in order)
+    return LayerPlan(groups=groups, n_shards=n_shards)
+
+
+# ---------------------------------------------------------------------------
+# The sharded update's scatters and gathers
+# ---------------------------------------------------------------------------
+
+
+def compressed_psum_scatter(v: torch.Tensor, n_shards: int, wire_dtype: str,
+                            residual: Optional[torch.Tensor] = None,
+                            group: Group = None
+                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Reduce-scatter one flat-padded leaf (or layer-group row stack) at
+    the wire dtype: ``v`` is this rank's (padded,) float32 contribution,
+    padded divisible by ``n_shards``. Returns this rank's (padded/n,)
+    chunk of the sum over ranks and the new residual (int8 only, the full
+    padded size: it remembers what was dropped from every chunk). int8
+    quantizes the whole vector with one scale (K1), sends chunk j of the
+    s8 codes to rank j (all-to-all) beside a gather of the scales, and
+    sums the n received rows dequantized (K2)."""
+    if wire_dtype == "fp32":
+        return psum_scatter(v, group), residual
+    if wire_dtype == "bf16":
+        return psum_scatter(v.to(torch.bfloat16), group).float(), residual
+    if wire_dtype == "int8_multihop":
+        raise ValueError(
+            "the zero1 scatter half is ALREADY the n-independent s8 "
+            "all-to-all: the zero1 step maps wire_dtype='int8_multihop' "
+            "to the 'int8' scatter codec before calling here (what "
+            "multihop adds on zero1 is the compressed param gather — "
+            "quantized_delta_all_gather)")
+    if wire_dtype != "int8":
+        raise ValueError(f"unknown wire dtype {wire_dtype!r} "
+                         f"(choose from {WIRE_DTYPES})")
+    if residual is None:
+        raise ValueError("int8 wire needs an error-feedback residual "
+                         "(Trainer.init_state builds it)")
+    carried = v + residual
+    q, scale = _quantize_int8(carried)
+    new_residual = _residual(carried, q, scale)
+    received = all_to_all(q, group)
+    scales = all_gather(scale.reshape(1), group)
+    return (_dequant_sum_rows(received.reshape(n_shards, -1), scales),
+            new_residual)
+
+
+def quantized_delta_all_gather(new_shard: torch.Tensor,
+                               old_shard: torch.Tensor,
+                               old_flat: torch.Tensor,
+                               group: Group = None) -> torch.Tensor:
+    """The zero1 parameter gather of ``int8_multihop``: every rank's
+    UPDATE chunk (new - old) as s8 codes with one scale a chunk, added to
+    the replicated old flat-padded parameters. Every rank dequantizes the
+    same codes, so the result is replicated."""
+    return old_flat + _s8_all_gather_dequant(new_shard - old_shard, group)
+
+
+def quantized_shard_all_gather(shard: torch.Tensor,
+                               group: Group = None) -> torch.Tensor:
+    """The explicit-FSDP parameter gather of ``int8_multihop``: s8 codes
+    of every rank's at-rest row (one scale a row), dequantized the same on
+    every rank; the at-rest rows stay exact."""
+    return _s8_all_gather_dequant(shard, group)
+
+
+def hier_psum_scatter(v: torch.Tensor, spec: HierSpec,
+                      residual: Optional[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Two-tier reduce-scatter of one flat-padded leaf or row stack
+    (``v`` padded divisible by the world): an exact fp32 reduce-scatter
+    inside the slice, then the int8 scatter across the slices on that
+    1/n_inner partial, with error feedback (``residual`` spans the whole
+    partial). Returns chunk ``spec.owner`` of the sum and the new
+    residual."""
+    part = (psum_scatter(v, spec.fast_group) if spec.n_inner > 1 else v)
+    return compressed_psum_scatter(part, spec.n_slices, "int8", residual,
+                                   spec.slice_group)
+
+
+def hier_delta_all_gather(new_shard: torch.Tensor, old_shard: torch.Tensor,
+                          old_flat: torch.Tensor,
+                          spec: HierSpec) -> torch.Tensor:
+    """`quantized_delta_all_gather` on the two tiers: s8 update codes
+    across the slices, then an exact gather inside the slice (the
+    fast-major ownership's order)."""
+    part = _s8_all_gather_dequant(new_shard - old_shard, spec.slice_group)
+    if spec.n_inner > 1:
+        part = all_gather(part, spec.fast_group)
+    return old_flat + part
+
+
+def hier_shard_all_gather(shard: torch.Tensor,
+                          spec: HierSpec) -> torch.Tensor:
+    """`quantized_shard_all_gather` on the two tiers: s8 codes of the
+    at-rest rows across the slices, then an exact gather inside the
+    slice."""
+    part = _s8_all_gather_dequant(shard, spec.slice_group)
+    if spec.n_inner > 1:
+        part = all_gather(part, spec.fast_group)
+    return part
+
+
+# ---------------------------------------------------------------------------
+# Wire accounting of the sharded update
+# ---------------------------------------------------------------------------
+
+
+def _flat_padded_total(leaves: Sequence, n_shards: int) -> int:
+    """Sum of every leaf's flat-padded size: the elements on the FSDP
+    wire."""
+    return int(sum(flat_padded_size(_numel(leaf), n_shards)
+                   for leaf in leaves))
+
+
+def fsdp_gather_bytes(leaves: Sequence, wire_dtype: str, n_shards: int,
+                      n_slices: int = 1) -> int:
+    """Per-replica bytes of one full per-layer parameter gather pass under
+    explicit FSDP (payload only): 4 a padded element exactly on the
+    fp32, bf16 and int8 wires, 1 under ``int8_multihop`` (s8 codes);
+    ``int8_hier`` moves total/n_inner s8 bytes across the slices and 4 a
+    padded element inside the slice."""
+    check_wire(wire_dtype)
+    if n_shards <= 1:
+        return 0
+    total = _flat_padded_total(leaves, n_shards)
+    if wire_dtype == "int8_hier":
+        if n_slices <= 1:
+            return 4 * total
+        n_inner = n_shards // n_slices
+        return (4 * total if n_inner > 1 else 0) + total // n_inner
+    return total if wire_dtype == "int8_multihop" else 4 * total
+
+
+def wire_bytes_split_for_config(leaves: Sequence, cfg: Optional[dict],
+                                n_shards: int) -> dict:
+    """Per-replica wire bytes of one step's gradient sync from a
+    TrainConfig-style dict (``wire_dtype``, ``bucket_cap_mb``,
+    ``fsdp_explicit``, ``slices``), split by tier: ``{"ici": fast-tier
+    bytes, "dcn": slow-tier bytes}``. Every flat wire is all fast tier;
+    ``int8_hier`` puts the cross-slice s8 traffic in "dcn". Under
+    ``fsdp_explicit`` it is the gradient scatter plus the parameter
+    gather (`fsdp_gather_bytes`)."""
+    cfg = dict(cfg or {})
+    wire = cfg.get("wire_dtype", "fp32")
+    check_wire(wire)
+    n_slices = int(cfg.get("slices", 1))
+    if n_slices >= 1 and n_shards > 1 and n_shards % n_slices:
+        raise ValueError(
+            f"int8_hier: {n_shards} batch shards do not factor into "
+            f"{n_slices} slices (world % slices != 0)")
+    hier = wire == "int8_hier" and n_slices > 1 and n_shards > 1
+    if cfg.get("fsdp_explicit"):
+        if n_shards <= 1:
+            return {"ici": 0, "dcn": 0}
+        total = _flat_padded_total(leaves, n_shards)
+        if hier:
+            n_inner = n_shards // n_slices
+            fast = 8 * total if n_inner > 1 else 0
+            return {"ici": fast, "dcn": 2 * (total // n_inner)}
+        scatter = {"fp32": 4, "bf16": 2, "int8": 1, "int8_multihop": 1,
+                   "int8_hier": 4}[wire] * total
+        return {"ici": scatter + fsdp_gather_bytes(leaves, wire, n_shards),
+                "dcn": 0}
+    plan = build_bucket_plan(leaves, float(cfg.get("bucket_cap_mb", 0.0)))
+    if hier:
+        split = hier_wire_bytes(plan, n_shards, n_slices)
+        return {"ici": split["ici"], "dcn": split["dcn"]}
+    return {"ici": wire_bytes_per_replica(plan, wire, n_shards), "dcn": 0}

@@ -2,10 +2,11 @@
 batched inference engine on the GPU.
 
 Commands:
-  smoke [--ckpt-dir D] [--prompt 12,7,99 | --prompt-len N]
-        [--serve-dtype fp32|bf16|int8]
+  smoke [--ckpt-dir D [--zero1 | --fsdp-explicit]]
+        [--prompt 12,7,99 | --prompt-len N] [--serve-dtype fp32|bf16|int8]
       Build the engine (restoring the newest manifest-verified checkpoint
-      under --ckpt-dir, and logging its label and tree digest; random-init
+      under --ckpt-dir, written under the given update mode, and logging
+      its label and tree digest; random-init
       weights from --seed otherwise, a smoke of the serving PATH, never of
       a served model), serve a handful of synthetic prompts through the
       request queue and its worker thread, and print the generated tokens.
@@ -63,6 +64,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "sgd", "adamw"],
                    help="the training run's optimizer, for the restore "
                         "template (auto: adamw, the LMs' recipe)")
+    p.add_argument("--zero1", action="store_true",
+                   help="the checkpoint was written under --zero1")
+    p.add_argument("--fsdp-explicit", action="store_true",
+                   help="the checkpoint was written under --fsdp-explicit "
+                        "(its flat-padded parameters are unflattened)")
     p.add_argument("--serve-dtype", default="fp32",
                    choices=["fp32", "bf16", "int8"],
                    help="bf16 computes in bf16 beside float32 weights")
@@ -119,7 +125,9 @@ def smoke(args) -> SmokeReport:
         args.model, buckets=buckets, rows=args.rows,
         max_new_tokens=args.max_new_tokens, serve_dtype=args.serve_dtype,
         model_overrides=overrides, seed=args.seed, device=args.device,
-        ckpt_dir=args.ckpt_dir, optimizer=args.optimizer)
+        ckpt_dir=args.ckpt_dir, optimizer=args.optimizer,
+        layout=("fsdp" if args.fsdp_explicit else "zero1" if args.zero1
+                else "replicated"))
     if engine.checkpoint_info:
         info = engine.checkpoint_info
         log_main(f"serving: checkpoint label={info['label']} "

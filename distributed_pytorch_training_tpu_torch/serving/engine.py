@@ -154,24 +154,29 @@ class InferenceEngine:
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str, model, config: ServeConfig,
-                        tx, device: DeviceLike = None) -> "InferenceEngine":
-        """Restore the newest manifest-verified checkpoint into ``model``
-        and build an engine serving it. ``tx`` rebuilds the training run's
-        optimizer for the restore template (its state is read and
-        dropped). Torn checkpoints are skipped as a training resume skips
-        them. ``checkpoint_info`` names what is served: the directory,
-        the label, the step and the manifest's ``tree_digest``."""
+                        device: DeviceLike = None,
+                        layout: str = "replicated",
+                        optimizer: Optional[str] = None
+                        ) -> "InferenceEngine":
+        """Restore the newest manifest-verified checkpoint's parameters
+        into ``model`` and build an engine serving them. ``layout`` is the
+        training run's update (``replicated``, ``zero1`` or ``fsdp``); an
+        FSDP checkpoint's flat-padded parameters are unflattened to the
+        model's shapes, as the JAX engine unflattens them through the
+        trainer's template. ``optimizer`` (the class name) must be the
+        training run's, when given. Torn checkpoints are skipped as a training
+        resume skips them. ``checkpoint_info`` names what is served: the
+        directory, the label, the step and the manifest's
+        ``tree_digest``."""
         from ..training.checkpoint import CheckpointManager
-        from ..training.train_state import TrainState
 
         ckpt = CheckpointManager(ckpt_dir)
         try:
-            restored = ckpt.restore_latest(TrainState.create(model, tx))
-            if restored is None:
+            meta = ckpt.restore_params(model, layout, optimizer)
+            if meta is None:
                 raise FileNotFoundError(
                     f"no restorable checkpoint under {ckpt_dir} "
                     f"(skipped as torn: {ckpt.last_skipped or 'none'})")
-            state, _epoch, _step_in_epoch = restored
             label = ckpt.last_restored
             manifest = ckpt.manifest(label)
             engine = cls(model, config,
@@ -181,7 +186,7 @@ class InferenceEngine:
             engine.checkpoint_info = {
                 "dir": str(ckpt_dir),
                 "label": label,
-                "step": int(state.step),
+                "step": int(meta["step"]),
                 "tree_digest": (manifest or {}).get("tree_digest"),
                 "verified": manifest is not None,
             }

@@ -12,6 +12,14 @@ the image-classification path (ResNet) of the JAX package's ``train.py``.
         -m distributed_pytorch_training_tpu_torch.train --model resnet18 \\
         --synthetic --wire-dtype int8 --bucket-cap-mb 25
 
+    torchrun --standalone --nproc-per-node 2 \\
+        -m distributed_pytorch_training_tpu_torch.train --model resnet18 \\
+        --synthetic --zero1 --wire-dtype int8       # or --fsdp-explicit
+
+    torchrun --standalone --nproc-per-node 4 \\
+        -m distributed_pytorch_training_tpu_torch.train --model resnet18 \\
+        --synthetic --slices 2 --wire-dtype int8_hier --bucket-cap-mb 25
+
 Same flags, stdout lines and ``metrics_rank0.csv`` (rank 0) as the JAX
 entry. Under torchrun every rank trains its shard of each global batch of
 ``--batch-size x WORLD_SIZE`` rows, ResNet and GPT-2 alike: with the
@@ -19,9 +27,11 @@ defaults (``--wire-dtype fp32 --bucket-cap-mb 0``) on the implicit path
 (global-batch BatchNorm, one fp32 all-reduce of the gradient, as the JAX
 package's data-sharded jit), otherwise through the explicit bucketed
 reducer (``--bucket-cap-mb``, ``--wire-dtype fp32|bf16|int8|
-int8_multihop``, per-rank BatchNorm). ``--amp`` computes in bf16 beside
-float32 parameters and optimizer state (flax's ``dtype``, no loss
-scaling). The process group's backend follows ``runtime/dist.py``'s rule
+int8_multihop|int8_hier``, per-rank BatchNorm), or through the sharded
+update (``--zero1``, ``--fsdp-explicit``; per-rank BatchNorm).
+``--slices S`` factors the ranks into S slices for ``int8_hier``.
+``--amp`` computes in bf16 beside float32 parameters and optimizer state
+(flax's ``dtype``, no loss scaling). The process group's backend follows ``runtime/dist.py``'s rule
 and is printed in the banner. Checkpoints (``--checkpoint-dir``,
 ``--resume``, ``--checkpoint-every``), the restart supervisor
 (``--max-restarts``) and fault injection (``--chaos``) follow the JAX
@@ -54,7 +64,7 @@ from .ops.flash_attention import (
     flash_supports_length,
     make_flash_attention_fn,
 )
-from .parallel.grad_sync import refuse_unported_wire
+from .parallel.grad_sync import check_wire
 from .resilience.faults import ELASTIC_KINDS, FaultInjector, FaultPlan
 from .resilience.supervisor import RetryPolicy, Supervisor
 from .runtime import (
@@ -67,7 +77,7 @@ from .runtime import (
 )
 from .training import TrainConfig, Trainer, TrainState, make_optimizer, \
     make_schedule
-from .training.checkpoint import CheckpointManager, \
+from .training.checkpoint import LAYOUT_HINT, CheckpointManager, \
     CheckpointWorldSizeMismatch
 from .training.preemption import PreemptionGuard, RankAgreedStop
 from .training.tasks import ImageClassificationTask, LanguageModelingTask
@@ -76,15 +86,11 @@ from .utils.config import parse_model_overrides
 
 LM_MODELS = ("gpt2_124m", "gpt2_355m")
 IMAGE_MODELS = ("resnet18", "resnet50")
-SHARDED_UPDATE = "the sharded-update (ZeRO-1/FSDP) slice"
 ELASTIC = "the elastic slice"
 
 # flag -> (is the value unsupported?, the slice that brings it)
 _UNPORTED = {
     "--remat": (lambda a: a.remat, "the remat slice"),
-    "--slices": (lambda a: a.slices > 1, "the multi-slice (--slices) slice"),
-    "--zero1": (lambda a: a.zero1, SHARDED_UPDATE),
-    "--fsdp-explicit": (lambda a: a.fsdp_explicit, SHARDED_UPDATE),
     "--profile-dir": (lambda a: a.profile_dir is not None,
                       "the telemetry slice"),
     "--metrics-port": (lambda a: a.metrics_port is not None,
@@ -133,14 +139,21 @@ def refuse_unported(args: argparse.Namespace, world: int = 1) -> None:
     for flag, (unsupported, where) in _UNPORTED.items():
         if unsupported(args):
             raise not_ported(flag, where)
-    refuse_unported_wire(args.wire_dtype)
+    check_wire(args.wire_dtype)
     for fault in FaultPlan.parse(args.chaos).faults:
         if fault.kind in ELASTIC_KINDS:
             raise not_ported(f"--chaos {fault.kind}", ELASTIC)
 
 
-def check_flags(args: argparse.Namespace) -> None:
-    """The JAX entry's checks of the checkpoint flags, same messages."""
+def check_flags(args: argparse.Namespace, world: int = 1) -> None:
+    """The JAX entry's checks of the checkpoint flags and of ``--slices``
+    (the mesh's slice axis over the ranks), same messages."""
+    if args.slices < 1:
+        raise ValueError(f"axis sizes must be >= 1 (or -1 for 'all "
+                         f"remaining'), got {{'slice': {args.slices}}}")
+    if world % args.slices:
+        raise ValueError(f"{world} devices not divisible by fixed axes "
+                         f"product {args.slices}")
     if args.resume and not args.checkpoint_dir:
         raise ValueError("--resume requires --checkpoint-dir")
     if args.max_restarts > 0 and not args.checkpoint_dir:
@@ -172,8 +185,8 @@ def samples_per_step_list(n: int, global_batch: int, steps: int,
 def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     """Train as the command line says; returns the final state."""
     args = parse_args(argv)
-    check_flags(args)
     world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    check_flags(args, world)
     refuse_unported(args, world)
     # the guard first: a SIGTERM during data loading or the kernels' build
     # also stops gracefully
@@ -215,7 +228,9 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
     set_seed(args.seed, ctx.process_index)
     n = ctx.process_count
     global_batch = args.batch_size * n
-    log_main(f"Using device: {dev} (mesh {{'data': {n}}}), "
+    mesh = ({"data": n} if args.slices == 1
+            else {"slice": args.slices, "data": n // args.slices})
+    log_main(f"Using device: {dev} (mesh {mesh}), "
              f"world_size={n}, amp={args.amp}"
              + (f", backend={ctx.backend}" if ctx.backend else ""))
     if not args.no_telemetry:
@@ -302,15 +317,37 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
         per_device_batch=args.batch_size, print_freq=args.print_freq,
         seed=args.seed, bf16=args.amp, grad_accum=args.grad_accum,
         bucket_cap_mb=args.bucket_cap_mb, wire_dtype=args.wire_dtype,
+        zero1=args.zero1, fsdp_explicit=args.fsdp_explicit,
+        slices=args.slices, slice_axis=args.slice_axis,
         overlap_grad_sync=not args.no_overlap_grad_sync,
         fused_quantize={"auto": None, "on": True, "off": False}[
             args.fused_quantize]), device=dev)
-    if trainer._grad_sync:
+    wire_note = (f"; {args.wire_dtype} wire" if args.wire_dtype != "fp32"
+                 else "")
+    if trainer._fsdp:
+        log_main(f"FSDP (explicit): params + moments flat-sharded "
+                 f"{n}-way at rest; per-layer just-in-time param gathers, "
+                 "gradients reduce-scattered into the shard layout"
+                 + wire_note)
+    elif trainer._zero1:
+        log_main(f"ZeRO-1: weight update sharded {n}-way over the batch "
+                 "axes (reduce-scatter grads -> 1/N optimizer update -> "
+                 "all-gather params"
+                 + (f"; {args.wire_dtype} gradient wire"
+                    if args.wire_dtype != "fp32" else "") + ")")
+    elif trainer._grad_sync:
         log_main(f"Gradient sync: explicit bucketed reducer over "
                  f"{n} shards — bucket_cap_mb="
                  f"{args.bucket_cap_mb or 'inf (one bucket)'}, "
                  f"wire={args.wire_dtype}, overlap="
                  f"{'off' if args.no_overlap_grad_sync else 'on'}")
+    if trainer._hier is not None:
+        h = trainer._hier
+        log_main(f"Two-tier wire (int8_hier): {h.n_slices} slices x "
+                 f"{h.n_inner} replicas/slice — exact fp32 reduce-scatter "
+                 f"inside the slice, s8+EF exchange across "
+                 f"{h.slice_axis!r} (~2 B/element per slice on the slow "
+                 "tier, slice-count independent)")
 
     def state_factory() -> TrainState:
         """A fresh initial state: the weights drawn on the CPU, so one
@@ -325,6 +362,12 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
         plan = trainer._plan
         log_main(f"Gradient sync: {plan.n_buckets} bucket(s) over "
                  f"{plan.total_bytes / 2 ** 20:.1f} MB of fp32 gradient")
+    if trainer._fsdp:
+        lp = trainer._layers
+        mb = lp.total_padded * 4 / 2 ** 20
+        log_main(f"FSDP plan: {len(lp.groups)} layer gather group(s), "
+                 f"{mb:.1f} MB padded fp32 params "
+                 f"({mb / n:.1f} MB/replica at rest)")
 
     # step-granular checkpoints: labels are epoch * steps_per_epoch + step,
     # so a mid-epoch save sorts between the epoch boundaries
@@ -343,6 +386,11 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
                     f"--resume of checkpoint {e.label} (written at world "
                     f"size {e.world_size}) at world size {n}",
                     ELASTIC) from e
+            except Exception as e:
+                # the JAX entry's diagnosis: the layout follows --zero1
+                # and --fsdp-explicit
+                raise RuntimeError(f"checkpoint restore failed — "
+                                   f"{LAYOUT_HINT}: {e}") from e
             if restored is not None:
                 state, start_epoch, start_step = restored
                 if start_step >= steps_per_epoch:  # stale steps_per_epoch

@@ -32,7 +32,15 @@ the next ``save`` or ``wait`` (logged by the others).
 Several ranks (``torch.distributed``): the parameters, BatchNorm
 statistics and optimizer state are the same on every rank, so rank 0
 writes them; the error-feedback residual is per rank, so ``save``
-gathers every rank's row to rank 0 (a collective). Every rank calls
+gathers every rank's row to rank 0 (a collective). The sharded update
+(``TrainState.sharding``) is saved as the JAX package's global arrays:
+ZeRO-1's moments, and explicit FSDP's parameters and moments, as each
+leaf's whole flat-padded vector (the chunks gathered to rank 0 in chunk
+order), its residuals as ``{"ef": {leaf or layer group: (n, R)}}``;
+``meta.json`` records the ``layout`` (``replicated``, ``zero1`` or
+``fsdp``) and the parameters' model shapes. Each rank restores its own
+chunk. A checkpoint restores only into the layout and world size it was
+written for (resharding is the elastic slice's). Every rank calls
 ``save``, ``wait`` and the restores at the same points: ``save`` and
 ``wait`` agree on a failed write (one MAX reduction, so every rank
 raises), and a restore begins with a barrier, after rank 0's writer has
@@ -60,8 +68,16 @@ import torch.distributed as dist
 
 from ..convert import flax_ordered
 from ..parallel.collectives import all_gather, reduce_scalar, world_size
+from ..parallel.sharding import flatten_pad, unflatten_padded
 from ..utils.logging import log_main
 from .train_state import TrainState
+
+# the hint the JAX entry gives when a checkpoint's layout is not the run's
+LAYOUT_HINT = ("resume with the SAME --mesh, --zero1 and --fsdp-explicit "
+               "settings (vocab padding for TP follows the model axis; zero1 "
+               "stores optimizer state flat-sharded, fsdp-explicit stores "
+               "params flat-sharded too, the replicated path stores both "
+               "param-shaped)")
 
 _MANIFEST_DIRNAME = ".manifests"
 _MANIFEST_FORMAT = 1
@@ -71,7 +87,8 @@ _TENSOR_KEYS = ("params", "batch_stats", "opt_state", "grad_sync")
 
 class CheckpointWorldSizeMismatch(RuntimeError):
     """A checkpoint that carries error-feedback residuals (one row per
-    rank) restored at another world size. ``label`` and ``world_size``
+    rank) or a sharded update's flat-padded layout restored at another
+    world size. ``label`` and ``world_size``
     name the checkpoint and the world it was written at; resharding it is
     the elastic slice's work."""
 
@@ -330,23 +347,79 @@ class CheckpointManager:
 
     # -- save -----------------------------------------------------------------
 
+    @staticmethod
+    def _layout(state: TrainState) -> str:
+        return state.sharding.mode if state.sharding is not None \
+            else "replicated"
+
+    @staticmethod
+    def _gather_rows(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Every rank's copy of each float32 tensor, stacked in rank order
+        ((n, *shape) each), in ONE all-gather of their concatenation (a
+        collective)."""
+        if not tensors:
+            return []
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        rows = all_gather(flat[None])
+        out, offset = [], 0
+        for t in tensors:
+            out.append(rows[:, offset:offset + t.numel()]
+                       .reshape(rows.shape[0], *t.shape).to(t.dtype))
+            offset += t.numel()
+        return out
+
     def _snapshot(self, state: TrainState, epoch: int,
                   step_in_epoch: int) -> dict:
         """Host copies of what a checkpoint holds (the residual rows of
-        every rank gathered: a collective); only rank 0 copies the
-        replicated state, which only it writes."""
+        every rank, and the sharded update's chunks, gathered: a
+        collective); only rank 0 copies the replicated state, which only
+        it writes."""
+        model, sh = state.model, state.sharding
         ef = state.grad_sync.get("ef")
-        gathered = all_gather(ef.detach()[None]) if ef is not None else None
+        ef_keys = sorted(ef) if isinstance(ef, dict) else []
+        ef_list = ([ef[k] for k in ef_keys] if isinstance(ef, dict)
+                   else [ef] if ef is not None else [])
+        named = flax_ordered(model.named_parameters())
+        opt = state.optimizer.state_dict()
+        # the sharded update's chunks: FSDP's parameters, every optimizer
+        # tensor of a chunk (not the 0-d step counts)
+        chunked = []
+        if sh is not None:
+            if sh.mode == "fsdp":
+                chunked += [p for _, p in named]
+            chunked += [t for slots in opt["state"].values()
+                        for t in slots.values()
+                        if isinstance(t, torch.Tensor) and t.dim() >= 1]
+        gathered = self._gather_rows(ef_list + chunked)
+        ef_rows, chunk_rows = gathered[:len(ef_list)], gathered[len(ef_list):]
         if self._rank != 0:
             return {}
-        model = state.model
+        if sh is not None:
+            order = sorted(range(sh.n_shards), key=sh.owners.__getitem__)
+            # global arrays: the chunks in chunk order
+            chunk_rows = [r[order].reshape(-1) for r in chunk_rows]
+            it = iter(chunk_rows)
+            params = OrderedDict(
+                (name, next(it) if sh.mode == "fsdp" else p)
+                for name, p in named)
+            opt = {"state": {idx: {k: (next(it) if isinstance(
+                       t, torch.Tensor) and t.dim() >= 1 else t)
+                       for k, t in slots.items()}
+                       for idx, slots in opt["state"].items()},
+                   "param_groups": opt["param_groups"]}
+            shapes = dict(zip(sh.names, (list(s) for s in sh.shapes)))
+        else:
+            params = OrderedDict(named)
+            shapes = {name: list(p.shape) for name, p in named}
+        if isinstance(ef, dict):
+            grad_sync = {"ef": dict(zip(ef_keys, ef_rows))}
+        else:
+            grad_sync = {"ef": ef_rows[0]} if ef_rows else None
         snapshot = _to_host({
-            "params": OrderedDict(
-                (name, p) for name, p in
-                flax_ordered(model.named_parameters())),
+            "params": params,
             "batch_stats": OrderedDict(state.batch_stats),
-            "opt_state": state.optimizer.state_dict(),
-            **({"grad_sync": {"ef": gathered}} if ef is not None else {}),
+            "opt_state": opt,
+            **({"grad_sync": grad_sync} if grad_sync else {}),
         })
         device = next(model.parameters()).device
         if device.type == "cuda":
@@ -355,8 +428,8 @@ class CheckpointManager:
             "step": int(state.step), "epoch": int(epoch),
             "step_in_epoch": int(step_in_epoch),
             "optimizer": type(state.optimizer).__name__,
-            "param_shapes": {name: list(t.shape)
-                             for name, t in snapshot["params"].items()},
+            "layout": self._layout(state),
+            "param_shapes": shapes,
         }
         return snapshot
 
@@ -467,9 +540,9 @@ class CheckpointManager:
     def _mismatch(self, label: int, saved: int, here: int):
         err = CheckpointWorldSizeMismatch(
             f"checkpoint {label} was written at world size {saved}, but "
-            f"this run has {here} ranks: its error-feedback residuals hold "
-            f"one row per rank. Resume at world size {saved} (resharding "
-            "comes with the elastic slice)")
+            f"this run has {here} ranks: its error-feedback residuals and "
+            "flat-padded layouts hold one row or chunk per rank. Resume at "
+            f"world size {saved} (resharding comes with the elastic slice)")
         err.label, err.world_size = label, saved
         return err
 
@@ -480,10 +553,21 @@ class CheckpointManager:
         meta = json.loads((self._step_dir(label) / _META).read_text())
         has_ef = (self._step_dir(label) / "grad_sync.pt").exists()
         recorded = meta.get("world_size")
-        if (has_ef and template_world_size is not None
+        layout = meta.get("layout", "replicated")
+        want = self._layout(template)
+        if layout != want:
+            raise ValueError(
+                f"checkpoint {label} holds the {layout} update's layout, "
+                f"but the restore template is {want}: {LAYOUT_HINT}")
+        sh = template.sharding
+        if ((has_ef or sh is not None)
+                and template_world_size is not None
                 and recorded is not None
                 and recorded != template_world_size):
             raise self._mismatch(label, recorded, template_world_size)
+        if sh is not None and recorded is not None \
+                and recorded != sh.n_shards:
+            raise self._mismatch(label, recorded, sh.n_shards)
         want_opt = type(template.optimizer).__name__
         if meta["optimizer"] != want_opt:
             raise ValueError(
@@ -493,27 +577,92 @@ class CheckpointManager:
         ef = None
         if has_ef and "ef" in template.grad_sync:
             rows = self._load(label, "grad_sync")["ef"]
-            if rows.shape[0] != self._world:
-                raise self._mismatch(label, rows.shape[0], self._world)
-            ef = rows[self._rank]
+            first = next(iter(rows.values())) if isinstance(rows, dict) \
+                else rows
+            if first.shape[0] != self._world:
+                raise self._mismatch(label, first.shape[0], self._world)
+            ef = ({k: r[self._rank] for k, r in rows.items()}
+                  if isinstance(rows, dict) else rows[self._rank])
         params = self._load(label, "params")
         own = dict(template.model.named_parameters())
-        if set(params) != set(own) or any(
-                params[n].shape != own[n].shape for n in own):
+        shapes = ({n: list(s) for n, s in zip(sh.names, sh.shapes)}
+                  if sh is not None else
+                  {n: list(p.shape) for n, p in own.items()})
+        if set(params) != set(own) or meta["param_shapes"] != shapes:
             raise ValueError(
                 f"checkpoint {label}'s parameters do not match the restore "
                 "template's model: resume with the training run's --model "
                 "and --model-overrides")
+
+        def chunk(t):
+            return t.reshape(sh.n_shards, -1)[sh.owner]
+
         for name, p in own.items():
-            p.copy_(params[name])
+            p.copy_(chunk(params[name]) if layout == "fsdp"
+                    else params[name])
         template.set_batch_stats(self._load(label, "batch_stats"))
-        template.optimizer.load_state_dict(self._load(label, "opt_state"))
+        opt = self._load(label, "opt_state")
+        if sh is not None:
+            opt["state"] = {idx: {k: (chunk(t) if isinstance(
+                t, torch.Tensor) and t.dim() >= 1 else t)
+                for k, t in slots.items()}
+                for idx, slots in opt["state"].items()}
+        template.optimizer.load_state_dict(opt)
         if ef is not None:
-            template.grad_sync = {"ef": ef.to(
-                template.grad_sync["ef"].device)}
+            old = template.grad_sync["ef"]
+            template.grad_sync = {"ef": (
+                {k: r.to(old[k].device) for k, r in ef.items()}
+                if isinstance(ef, dict) else ef.to(old.device))}
+        if sh is not None and sh.shards is not None:
+            # ZeRO-1's chunk tensors follow the restored parameters
+            for t, (_, p) in zip(sh.shards, flax_ordered(
+                    template.model.named_parameters())):
+                t.copy_(chunk(flatten_pad(p, sh.n_shards)))
         template.step = int(meta["step"])
         self.last_restored = label
         return template, int(meta["epoch"]), int(meta["step_in_epoch"])
+
+    def restore_params(self, model: torch.nn.Module,
+                       layout: str = "replicated",
+                       optimizer: Optional[str] = None) -> Optional[dict]:
+        """Serving's restore: the newest checkpoint that passes
+        verification, parameters and BatchNorm statistics only, written
+        into ``model`` (an FSDP checkpoint's flat-padded parameters
+        unflattened to the model's shapes). ``layout`` is the update the
+        training run used (the serving CLI's ``--zero1`` /
+        ``--fsdp-explicit``); another layout raises, as does another
+        ``optimizer`` class than the run's, when given. Returns the
+        restored ``meta.json``, or None."""
+        for label in self._verified_labels():
+            meta = json.loads((self._step_dir(label) / _META).read_text())
+            if optimizer is not None and meta["optimizer"] != optimizer:
+                raise ValueError(
+                    f"checkpoint {label} holds {meta['optimizer']} state, "
+                    f"but the restore template's optimizer is {optimizer}: "
+                    "pass the training run's --optimizer")
+            saved = meta.get("layout", "replicated")
+            if saved != layout:
+                raise ValueError(
+                    f"checkpoint {label} holds the {saved} update's "
+                    f"layout, but the serving template is {layout}: pass "
+                    "the same --zero1/--fsdp-explicit flags as the "
+                    "training run")
+            params = self._load(label, "params")
+            own = dict(model.named_parameters())
+            if set(params) != set(own) or meta["param_shapes"] != {
+                    n: list(p.shape) for n, p in own.items()}:
+                raise ValueError(
+                    f"checkpoint {label}'s parameters do not match the "
+                    "serving model: pass the training run's --model and "
+                    "--model-overrides")
+            with torch.no_grad():
+                for name, p in own.items():
+                    p.copy_(unflatten_padded(params[name], p.shape))
+                for name, b in self._load(label, "batch_stats").items():
+                    dict(model.named_buffers())[name].copy_(b)
+            self.last_restored = label
+            return meta
+        return None
 
     def manifest(self, label: int) -> Optional[dict]:
         """The integrity manifest of one checkpoint (``tree_digest``, per

@@ -23,18 +23,31 @@ Three update paths are ported:
   ``all_reduce(w * stats) / W``. Each rank normalizes by its own batch
   (torch DDP's per-GPU BN, as the JAX reducer does per shard).
 
+* ``_sharded_step``, the sharded update (JAX ``_zero1_step`` and
+  ``_fsdp_step``): each rank's weight-scaled gradient is reduce-scattered
+  at the wire dtype straight into this rank's chunk of the flat-padded
+  layout (``parallel/sharding.py``), per leaf under ZeRO-1 and per layer
+  group under explicit FSDP, and the optimizer updates only that chunk.
+  ZeRO-1 keeps the parameters replicated and gathers them back after the
+  update; FSDP keeps parameters and moments 1/N at rest and gathers each
+  layer group's row before the step. BatchNorm as on the explicit
+  reducer (each rank's own batch, statistics ``psum(w * s) / W``).
+
 The engagement rules are the JAX Trainer's: the reducer runs when
-``bucket_cap_mb > 0`` or the wire is not fp32, on more than one rank; on
-one rank such a request is an identity passthrough (logged). ZeRO-1,
-explicit FSDP and the ``int8_hier`` wire raise, naming their slices.
-``bf16`` (``--amp``) is the model's compute dtype, chosen where the model
-is built; the step is the same. As in the JAX package, the metrics are
-weighted sums that stay on the device; the host fetches them only at
-print boundaries and at the end of an epoch.
+``bucket_cap_mb > 0`` or the wire is not fp32, on more than one rank, the
+sharded update under ``zero1`` or ``fsdp_explicit`` on more than one rank;
+on one rank either request is an identity passthrough (logged). The
+``int8_hier`` wire needs ``slices`` > 1 (with one slice it is the flat
+fp32 wire, logged). ``bf16`` (``--amp``) is the model's compute dtype,
+chosen where the model is built; the step is the same. As in the JAX
+package, the metrics are weighted sums that stay on the device; the host
+fetches them only at print boundaries and at the end of an epoch, where
+the step line also reports MFU once `Trainer.set_mfu_reference` is set.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
@@ -43,17 +56,24 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..parallel.collectives import Group, psum, world_size
+from ..convert import flax_ordered
+from ..parallel.collectives import Group, all_gather, psum, world_size
 from ..parallel.grad_sync import (
-    EF_WIRE_DTYPES, WIRE_DTYPES, BucketPlan, build_bucket_plan,
-    ef_state_bucketed, flatten_tree, padded_total_size, reduce_flat,
-    refuse_unported_wire, unflatten_tree,
+    BATCH_AXES, EF_WIRE_DTYPES, WIRE_DTYPES, BucketPlan, HierSpec,
+    LayerPlan, axis_sizes, build_bucket_plan, build_hier_spec,
+    build_layer_plan, compressed_psum_scatter, ef_state_bucketed, ef_state_fsdp,
+    ef_state_zero1, flatten_tree, hier_delta_all_gather, hier_owner,
+    hier_psum_scatter, hier_shard_all_gather, padded_total_size,
+    quantized_delta_all_gather, quantized_shard_all_gather, reduce_flat,
+    unflatten_tree,
 )
-from ..runtime import DeviceLike, not_ported, resolve_device
+from ..parallel.sharding import (chunk_of, flatten_pad, fsdp_flat_params,
+                                 unflatten_padded)
+from ..runtime import DeviceLike, resolve_device
 from ..utils.logging import log_main
 from ..utils.metrics import ThroughputMeter
 from .tasks import Metrics, Task, add_metrics, summarize, zero_metrics
-from .train_state import TrainState
+from .train_state import FlatSharding, TrainState
 from .optim import GradientTransformation
 
 METRIC_NAMES = ("loss_sum", "correct", "weight")
@@ -73,6 +93,9 @@ class TrainConfig:
     bucket_cap_mb: float = 0.0
     wire_dtype: str = "fp32"
     slice_axis: str = "slice"
+    # the slice factor of the ranks (the JAX mesh's ``slice`` axis,
+    # outermost): rank r is in slice r // (world / slices)
+    slices: int = 1
     fsdp_explicit: bool = False
     overlap_grad_sync: bool = True
     # the int8 codec kernels: None (auto) and True run them on CUDA (the
@@ -128,9 +151,24 @@ class Trainer:
         if config.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got "
                              f"{config.grad_accum}")
-        if config.zero1 or config.fsdp_explicit:
-            raise not_ported("ZeRO-1 / explicit FSDP",
-                             "the sharded-update (ZeRO-1/FSDP) slice")
+        if config.zero1 and config.bucket_cap_mb > 0:
+            raise ValueError(
+                "bucket_cap_mb is the bucketed reducer of the replicated "
+                "update path; zero1's per-leaf flat-shard layout IS its "
+                "optimizer-state (and checkpoint) format — use zero1 with "
+                "wire_dtype compression, or the bucketed reducer without "
+                "zero1, not both")
+        if config.fsdp_explicit and config.zero1:
+            raise ValueError(
+                "fsdp_explicit IS zero1 plus flat-sharded parameters (the "
+                "sharded update with per-layer just-in-time gathers) — "
+                "pick one update mode, not both")
+        if config.fsdp_explicit and config.bucket_cap_mb > 0:
+            raise ValueError(
+                "bucket_cap_mb cuts the replicated reducer's flat "
+                "gradient; fsdp_explicit's wire layout is the per-layer "
+                "cut of the parameter tree (grad_sync.build_layer_plan) — "
+                "use fsdp_explicit with wire_dtype compression instead")
         self.task = task
         self.config = config
         self.device = resolve_device(device)
@@ -138,24 +176,88 @@ class Trainer:
         self.n_shards = world_size(group)
         self.rank = (torch.distributed.get_rank(group)
                      if self.n_shards > 1 else 0)
+        # the MFU reference (set_mfu_reference): the step line reports MFU
+        # when both are set
+        self._flops_per_sample: Optional[float] = None
+        self._peak_flops_total: Optional[float] = None
         explicit_sync = (config.bucket_cap_mb > 0
                          or config.wire_dtype != "fp32")
-        if explicit_sync:
-            refuse_unported_wire(config.wire_dtype)
         if config.fused_quantize is False and self.device.type == "cuda":
             raise ValueError(
                 "--fused-quantize off selects the composed int8 codec, "
                 "which the port has only as the plain versions on the CPU; "
                 "on CUDA the codec is the kernels (auto or on)")
-        self._grad_sync = explicit_sync and self.n_shards > 1
-        self._implicit_dp = not explicit_sync and self.n_shards > 1
+        multi = self.n_shards > 1
+        self._fsdp = bool(config.fsdp_explicit) and multi
+        self._zero1 = bool(config.zero1) and multi
+        self._grad_sync = (explicit_sync and not config.zero1
+                           and not config.fsdp_explicit and multi)
+        self._implicit_dp = multi and not (
+            explicit_sync or self._zero1 or self._fsdp)
         self._wire = config.wire_dtype
+        self._hier: Optional[HierSpec] = None
+        if config.wire_dtype == "int8_hier":
+            self._resolve_hier()
         self._plan: Optional[BucketPlan] = None
-        if explicit_sync and not self._grad_sync:
+        # the sharded update's scatter units: one per leaf (zero1), one
+        # per layer group (fsdp); built by init_state
+        self._layers: Optional[LayerPlan] = None
+        self._materialized = False
+        if config.zero1 and not multi:
+            log_main("NOTE: zero1 requested on a single batch shard — "
+                     "running the replicated update (identity "
+                     "passthrough, like single-process DDP)")
+        if config.fsdp_explicit and not multi:
+            log_main("NOTE: fsdp_explicit requested on a single batch "
+                     "shard — nothing to shard; running the "
+                     "replicated update (identity passthrough)")
+        if (not config.zero1 and not config.fsdp_explicit
+                and explicit_sync and not self._grad_sync):
             log_main("NOTE: explicit gradient sync requested on a single "
                      "batch shard — nothing to synchronize; running the "
                      "implicit path (identity passthrough, like "
                      "single-process DDP)")
+
+    def _resolve_hier(self) -> None:
+        """The ``int8_hier`` wire's slice factorization (JAX: read off the
+        mesh): with more than one slice, the HierSpec and its process
+        groups; with one, the flat fp32 wire, bitwise (logged)."""
+        cfg, n = self.config, self.n_shards
+        if cfg.slice_axis not in BATCH_AXES:
+            raise ValueError(
+                f"int8_hier syncs over the batch axes {BATCH_AXES}; "
+                f"slice_axis={cfg.slice_axis!r} is not one of them — the "
+                "slow tier must be a data-parallel mesh axis "
+                "(mesh.SLICE by default, populated by --slices)")
+        if cfg.slices < 1 or n % cfg.slices:
+            raise ValueError(
+                f"int8_hier: {n} batch shards do not factor into "
+                f"{cfg.slices} slices (world % slices != 0)")
+        n_slices = axis_sizes(n, cfg.slices)[cfg.slice_axis]
+        if n_slices > 1:
+            self._hier = build_hier_spec(n, self.rank, cfg.slices,
+                                         cfg.slice_axis)
+        else:
+            self._wire = "fp32"
+            log_main("NOTE: int8_hier requested without a multi-slice "
+                     f"mesh (axis {cfg.slice_axis!r} size {n_slices}) — "
+                     "running the flat fp32 wire (bit-identical "
+                     "passthrough)")
+
+    @property
+    def sharded(self) -> bool:
+        """True when the update is sharded (ZeRO-1 or explicit FSDP over
+        several ranks)."""
+        return self._zero1 or self._fsdp
+
+    def set_mfu_reference(self, flops_per_sample: float,
+                          peak_flops_total: float) -> None:
+        """Enable MFU in the step line: ``flops_per_sample`` is one
+        sample's train-step cost (3x the forward's matmul FLOPs,
+        ``experiments/flops.py``), ``peak_flops_total`` the summed peak
+        FLOP/s of the devices."""
+        self._flops_per_sample = flops_per_sample
+        self._peak_flops_total = peak_flops_total
 
     def init_state(self, model: torch.nn.Module,
                    tx: GradientTransformation) -> TrainState:
@@ -163,8 +265,13 @@ class Trainer:
         rank) to the device, build its optimizer and, for an int8 wire,
         this rank's zero error-feedback residual. On the implicit path over
         several ranks, the model's BatchNorms normalize by the global
-        batch."""
-        state = TrainState.create(model.to(self.device), tx)
+        batch. Under the sharded update the optimizer is born on this
+        rank's chunks (ZeRO-1), and under explicit FSDP the parameters
+        become their chunks too."""
+        model = model.to(self.device)
+        if self.sharded:
+            return self._init_sharded(model, tx)
+        state = TrainState.create(model, tx)
         if self._implicit_dp:
             self._plan = build_bucket_plan(state.params, 0.0)
             set_stats_group = getattr(model, "set_stats_group", None)
@@ -175,9 +282,51 @@ class Trainer:
             self._plan = build_bucket_plan(state.params,
                                            self.config.bucket_cap_mb)
             if self._wire in EF_WIRE_DTYPES:
+                hier = self._hier
                 state.grad_sync = ef_state_bucketed(
                     state.params, self.n_shards, self.config.bucket_cap_mb,
-                    self._wire, self.device)
+                    self._wire, self.device,
+                    n_slices=hier.n_slices if hier is not None else 1)
+        return state
+
+    def _init_sharded(self, model: torch.nn.Module,
+                      tx: GradientTransformation) -> TrainState:
+        n = self.n_shards
+        named = flax_ordered(model.named_parameters())
+        # the chunk each rank holds: itself, or the fast-major index of
+        # the int8_hier wire
+        owners = tuple(r if self._hier is None else hier_owner(
+            r, n, self.config.slices, self.config.slice_axis)
+            for r in range(n))
+        own = owners[self.rank]
+        # the rank that holds each chunk, in chunk order
+        self._chunk_ranks = sorted(range(n), key=owners.__getitem__)
+        sharding = FlatSharding(
+            mode="fsdp" if self._fsdp else "zero1", n_shards=n,
+            rank=self.rank, owners=owners,
+            names=tuple(name for name, _ in named),
+            shapes=tuple(tuple(p.shape) for _, p in named))
+        self._layers = build_layer_plan(named, n, per_leaf=self._zero1)
+        with torch.no_grad():
+            if self._fsdp:
+                opt_params = [p for _, p in named]
+                for p, c in zip(opt_params,
+                                fsdp_flat_params(opt_params, n, own)):
+                    p.data = c
+            else:
+                sharding.shards = [chunk_of(p, n, own).requires_grad_()
+                                   for _, p in named]
+                opt_params = sharding.shards
+        state = TrainState(step=0, model=model,
+                           optimizer=tx.init(opt_params), tx=tx,
+                           sharding=sharding)
+        if self._wire in EF_WIRE_DTYPES:
+            n_inner = self._hier.n_inner if self._hier is not None else 1
+            make = ef_state_fsdp if self._fsdp else ef_state_zero1
+            state.grad_sync = make(
+                [(name, torch.empty(s, device="meta"))
+                 for name, s in zip(sharding.names, sharding.shapes)],
+                n, n_inner, self.device)
         return state
 
     def _generator(self, step: int, micro: int) -> torch.Generator:
@@ -194,6 +343,8 @@ class Trainer:
         """One optimizer step on ``batch`` (this rank's rows); returns its
         weighted-sum metrics, summed over ranks (on the device)."""
         state.model.train()
+        if self.sharded:
+            return self._sharded_step(state, batch)
         if self._grad_sync:
             return self._grad_sync_step(state, batch)
         return self._implicit_step(state, batch)
@@ -290,7 +441,8 @@ class Trainer:
                     f"wire_dtype={wire!r} needs error-feedback buffers — "
                     "build the state via Trainer.init_state")
             expect = (padded_total_size(plan, n) if wire == "int8_multihop"
-                      else plan.total_size)
+                      else padded_total_size(plan, n) // self._hier.n_inner
+                      if wire == "int8_hier" else plan.total_size)
             if ef.shape[-1] != expect:
                 raise ValueError(
                     f"error-feedback residual length {ef.shape[-1]} does "
@@ -308,7 +460,8 @@ class Trainer:
 
         if cfg.grad_accum <= 1:
             flat, m_local, s_sum = local_flat(batch, 0)
-            flat, ef = reduce_flat(flat, plan, n, wire, ef, group)
+            flat, ef = reduce_flat(flat, plan, n, wire, ef, group,
+                                   self._hier)
         else:
             micro = split_microbatches(batch, cfg.grad_accum,
                                        scope="per-shard batch")
@@ -320,13 +473,15 @@ class Trainer:
                 f_i, m, s = local_flat(
                     {k: x[i].contiguous() for k, x in micro.items()}, i)
                 if cfg.overlap_grad_sync:
-                    f_i, ef = reduce_flat(f_i, plan, n, wire, ef, group)
+                    f_i, ef = reduce_flat(f_i, plan, n, wire, ef, group,
+                                          self._hier)
                 flat = flat + f_i
                 for name, v in s.items():
                     s_sum[name] = s_sum.get(name, 0.0) + v
                 m_local = add_metrics(m_local, m)
             if not cfg.overlap_grad_sync:
-                flat, ef = reduce_flat(flat, plan, n, wire, ef, group)
+                flat, ef = reduce_flat(flat, plan, n, wire, ef, group,
+                                       self._hier)
 
         metrics = _psum_metrics(m_local, group)
         total_w = torch.clamp(metrics["weight"], min=1.0)
@@ -344,14 +499,192 @@ class Trainer:
             state.grad_sync = {"ef": ef}
         return metrics
 
+    def _sharded_step(self, state: TrainState,
+                      batch: Dict[str, torch.Tensor]) -> Metrics:
+        """The sharded update (JAX ``_zero1_step``, ``_fsdp_step``). Each
+        rank differentiates its local batch against the full parameters
+        (FSDP: gathered first, one collective per layer group at the
+        wire's gather: exact, s8 under ``int8_multihop``, two-tier under
+        ``int8_hier``), reduce-scatters each leaf (zero1) or layer group's
+        destination-major row stack (FSDP) of its weight-scaled gradient
+        at the wire dtype into this rank's chunk, and updates only that
+        chunk of the parameters and moments (the clip's norm summed over
+        the ranks). ZeRO-1 then gathers the new parameters: exactly, or
+        as s8 update codes (``int8_multihop``, ``int8_hier``); FSDP keeps
+        the new chunks. ``int8_multihop`` scatters with the ``int8``
+        codec. Under accumulation each microbatch is scattered as soon as
+        its gradient exists and the chunks accumulate."""
+        cfg, n, group = self.config, self.n_shards, self.group
+        wire, hier = self._wire, self._hier
+        sh, plan = state.sharding, self._layers
+        if sh is None or plan is None:
+            raise ValueError(
+                "fsdp_explicit needs the per-layer plan and unflatten "
+                "template — build the state via Trainer.init_state")
+        scatter_wire = "int8" if wire == "int8_multihop" else wire
+        use_ef = wire in EF_WIRE_DTYPES
+        ef = dict(state.grad_sync.get("ef") or {}) if use_ef else None
+        if use_ef:
+            if not ef:
+                raise ValueError(
+                    f"wire_dtype={wire!r} needs error-feedback buffers — "
+                    "build the state via Trainer.init_state")
+            n_inner = hier.n_inner if hier is not None else 1
+            for g in plan.groups:
+                got, expect = ef[g.name].numel(), n * g.row_size // n_inner
+                if got != expect:
+                    raise ValueError(
+                        f"error-feedback residual for "
+                        f"{'layer group' if self._fsdp else 'leaf'} "
+                        f"{g.name!r} has {got} elements, expected {expect} "
+                        "— the state was built for a different model/mesh; "
+                        "rebuild via Trainer.init_state")
+        model, params = state.model, state.params
+        if self._fsdp:
+            full = self._fsdp_gather(params, sh, self._fsdp_row_gather)
+            rest = [p.data for p in params]
+            for p, f in zip(params, full):
+                p.data = f
+
+        def scatter(grads, w, into):
+            for g in plan.groups:
+                parts = [flatten_pad((w * grads[s]).float(), n).reshape(n, -1)
+                         for s in g.leaf_slots]
+                v = (torch.cat(parts, dim=1) if len(parts) > 1
+                     else parts[0]).reshape(-1)
+                r = ef[g.name] if use_ef else None
+                if hier is not None:
+                    out, new_r = hier_psum_scatter(v, hier, r)
+                else:
+                    out, new_r = compressed_psum_scatter(v, n, scatter_wire,
+                                                         r, group)
+                for s, chunk in zip(g.leaf_slots,
+                                    out.split(list(g.chunk_sizes))):
+                    into[s] = chunk if into[s] is None else into[s] + chunk
+                if use_ef:
+                    ef[g.name] = new_r
+
+        micro = [batch]
+        if cfg.grad_accum > 1:
+            split = split_microbatches(batch, cfg.grad_accum,
+                                       scope="per-shard batch")
+            micro = [{k: x[i].contiguous() for k, x in split.items()}
+                     for i in range(cfg.grad_accum)]
+        g_sum: list = [None] * len(params)
+        s_sum: Dict[str, torch.Tensor] = {}
+        m_local = zero_metrics(self.device)
+        try:
+            for i, mb in enumerate(micro):
+                loss, m, stats = self.task.loss_and_metrics(
+                    model, mb, True, self._generator(state.step, i))
+                grads = torch.autograd.grad(loss, params)
+                w = m["weight"]
+                scatter(grads, w, g_sum)
+                for name, v in stats.items():
+                    s_sum[name] = s_sum.get(name, 0.0) + w * v
+                m_local = add_metrics(m_local, m)
+                del loss, grads
+        finally:
+            if self._fsdp:
+                for p, r in zip(params, rest):
+                    p.data = r
+        metrics = _psum_metrics(m_local, group)
+        total_w = torch.clamp(metrics["weight"], min=1.0)
+        own = sh.owner
+        if self._fsdp:
+            targets = params
+        else:
+            targets = sh.shards
+            with torch.no_grad():
+                for t, p in zip(targets, params):
+                    t.copy_(flatten_pad(p.detach(), n).reshape(n, -1)[own])
+            old = [t.detach().clone() for t in targets]
+        for t, g in zip(targets, g_sum):
+            t.grad = (g / total_w).to(t.dtype)
+        state.apply_gradients(group)
+        if self._zero1:
+            with torch.no_grad():
+                for p, t, o in zip(params, targets, old):
+                    if wire == "int8_multihop":
+                        flat = quantized_delta_all_gather(
+                            t, o, flatten_pad(p, n), group)
+                    elif hier is not None:
+                        flat = hier_delta_all_gather(t, o,
+                                                     flatten_pad(p, n), hier)
+                    else:
+                        flat = all_gather(t.detach(), group)
+                    p.copy_(unflatten_padded(flat, p.shape))
+        if s_sum:
+            names = list(s_sum)
+            summed = psum(torch.cat([s_sum[k].reshape(-1) for k in names]),
+                          group)
+            sizes = [s_sum[k].numel() for k in names]
+            self._write_stats(state, dict(zip(names, summed.split(sizes))),
+                              metrics["weight"], total_w)
+        if use_ef:
+            state.grad_sync = {"ef": ef}
+        return metrics
+
+    def _fsdp_row_gather(self, row: torch.Tensor) -> torch.Tensor:
+        """One layer group's gather at the wire (the step's prologue)."""
+        if self._wire == "int8_multihop":
+            return quantized_shard_all_gather(row, self.group)
+        if self._hier is not None:
+            return hier_shard_all_gather(row, self._hier)
+        return all_gather(row, self.group)
+
+    def _exact_row_gather(self, row: torch.Tensor) -> torch.Tensor:
+        """One layer group's exact gather, rows in chunk order (eval)."""
+        rows = all_gather(row, self.group).reshape(self.n_shards, -1)
+        return rows[self._chunk_ranks].reshape(-1)
+
+    @torch.no_grad()
+    def _fsdp_gather(self, chunks, sh: FlatSharding, gather
+                     ) -> List[torch.Tensor]:
+        """The model-shaped parameters from the at-rest chunks (flax
+        order), one ``gather`` of each layer group's row."""
+        n = self.n_shards
+        full: List[Optional[torch.Tensor]] = [None] * len(chunks)
+        for g in self._layers.groups:
+            row = torch.cat([chunks[s].float() for s in g.leaf_slots])
+            mat = gather(row).reshape(n, g.row_size)
+            for s, block in zip(g.leaf_slots,
+                                mat.split(list(g.chunk_sizes), dim=1)):
+                full[s] = unflatten_padded(block.reshape(-1),
+                                           sh.shapes[s]).to(chunks[s].dtype)
+        return full
+
+    @contextlib.contextmanager
+    def materialized(self, state: TrainState):
+        """Under explicit FSDP, the model holds its full parameters inside
+        this context (an exact gather, as the JAX package unflattens for
+        eval), its chunks again after; elsewhere a no-op."""
+        if not self._fsdp or self._materialized:
+            yield
+            return
+        params = state.params
+        rest = [p.data for p in params]
+        full = self._fsdp_gather(params, state.sharding,
+                                 self._exact_row_gather)
+        for p, f in zip(params, full):
+            p.data = f
+        self._materialized = True
+        try:
+            yield
+        finally:
+            self._materialized = False
+            for p, r in zip(params, rest):
+                p.data = r
+
     @torch.no_grad()
     def eval_step(self, state: TrainState,
                   batch: Dict[str, torch.Tensor]) -> Metrics:
         """This rank's weighted-sum metrics of ``batch`` (not summed over
         ranks: `evaluate` sums the totals once)."""
         state.model.eval()
-        _, metrics, _ = self.task.loss_and_metrics(state.model, batch,
-                                                   train=False)
+        with self.materialized(state):
+            _, metrics, _ = self.task.loss_and_metrics(state.model, batch,
+                                                       train=False)
         return metrics
 
     # -- epoch loops ----------------------------------------------------------
@@ -390,12 +723,18 @@ class Trainer:
                                                   - 1)])
             if (i + 1) % cfg.print_freq == 0:
                 avg_loss, avg_acc = summarize(epoch_metrics)
+                rate = meter.rate()
+                mfu = ""
+                if self._flops_per_sample and self._peak_flops_total:
+                    mfu_pct = (100.0 * rate * self._flops_per_sample
+                               / self._peak_flops_total)
+                    mfu = f"  MFU: {mfu_pct:.1f}%"
                 log_main(
                     f"Epoch [{epoch + 1}] "
                     f"Step [{start_step + i + 1}/{steps_per_epoch}] "
                     f"Loss: {avg_loss:.4f}  "
                     f"Acc: {avg_acc:.2f}%  "
-                    f"Throughput: {meter.rate():.2f} samples/s (global)"
+                    f"Throughput: {rate:.2f} samples/s (global)" + mfu
                 )
                 meter.reset()
             if stop_fn is not None and stop_fn():
@@ -410,6 +749,7 @@ class Trainer:
         """Sharded validation: each rank its rows, the totals summed over
         ranks once. (mean loss, top-1 %)."""
         totals = zero_metrics(self.device)
-        for batch in batches:
-            totals = add_metrics(totals, self.eval_step(state, batch))
+        with self.materialized(state):
+            for batch in batches:
+                totals = add_metrics(totals, self.eval_step(state, batch))
         return summarize(_psum_metrics(totals, self.group))

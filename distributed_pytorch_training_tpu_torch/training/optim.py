@@ -23,6 +23,8 @@ from typing import Callable, Iterable, Optional, Union
 
 import torch
 
+from ..parallel.collectives import Group, psum
+
 Schedule = Callable[[int], float]
 
 
@@ -61,11 +63,17 @@ def make_schedule(name: str, base_lr: float,
 
 
 def clip_by_global_norm_(grads: Iterable[torch.Tensor],
-                         max_norm: float) -> None:
+                         max_norm: float, group: Group = None,
+                         sharded: bool = False) -> None:
     """optax's ``clip_by_global_norm`` in place: when the global norm is
-    not below ``max_norm``, every gradient becomes g / norm * max_norm."""
+    not below ``max_norm``, every gradient becomes g / norm * max_norm.
+    ``sharded`` (the sharded update, whose gradients are this rank's
+    chunks): the squared norm is summed over the ranks of ``group``
+    first, the JAX package's ``clip_by_global_norm_dp``; the chunks'
+    zero padding adds nothing."""
     grads = [g for g in grads if g is not None]
-    norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    sq = sum(torch.sum(torch.square(g)) for g in grads)
+    norm = torch.sqrt(psum(sq, group) if sharded else sq)
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
 
@@ -83,13 +91,17 @@ class GradientTransformation:
              ) -> torch.optim.Optimizer:
         return self.make(list(params))
 
-    def apply(self, optimizer: torch.optim.Optimizer, count: int) -> None:
+    def apply(self, optimizer: torch.optim.Optimizer, count: int,
+              sharded_over: Optional[Group] = None,
+              sharded: bool = False) -> None:
         """One update from the parameters' ``.grad``; ``count`` is the
-        number of updates taken before this one."""
+        number of updates taken before this one. ``sharded``: the
+        parameters are this rank's chunks of the sharded update over the
+        ranks of ``sharded_over`` (the clip's norm sums over them)."""
         if self.grad_clip_norm:
             clip_by_global_norm_((p.grad for group in optimizer.param_groups
                                   for p in group["params"]),
-                                 self.grad_clip_norm)
+                                 self.grad_clip_norm, sharded_over, sharded)
         lr = float(self.schedule(count))
         for group in optimizer.param_groups:
             group["lr"] = lr

@@ -5,20 +5,49 @@ training/train_state.py, where it is an immutable pytree).
 ``batch_stats`` are the model's buffers (the BatchNorm means and
 variances; none for GPT-2), read and written through the state so the
 Trainer decides when they change. ``grad_sync`` holds this rank's
-error-feedback residual of an int8 gradient wire (``{"ef": tensor}``),
-``{}`` on every other wire.
+error-feedback residual of an int8 gradient wire: ``{"ef": tensor}`` on
+the bucketed reducer, ``{"ef": {leaf or layer group: tensor}}`` under
+ZeRO-1 or explicit FSDP, ``{}`` on every other wire.
+
+``sharding`` describes the sharded update's flat-padded layout on this
+rank (`FlatSharding`; None when the update is replicated). Under ZeRO-1
+the optimizer updates ``sharding.shards``, this rank's chunk of every
+leaf; under explicit FSDP the model's parameters themselves hold their
+chunks between steps (the Trainer gathers them for each step).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+import math
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..convert import flax_ordered
 from .optim import GradientTransformation
+
+
+@dataclasses.dataclass
+class FlatSharding:
+    """The sharded update's layout on this rank: ``mode`` is ``zero1`` or
+    ``fsdp``; every leaf (``names`` and model ``shapes``, flax order) is
+    flat-padded to a multiple of ``n_shards`` and this rank holds chunk
+    ``owners[rank]`` of it. ``shards`` are ZeRO-1's chunk tensors, which
+    the optimizer updates."""
+
+    mode: str
+    n_shards: int
+    rank: int
+    owners: Tuple[int, ...]
+    names: Tuple[str, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    shards: Optional[List[torch.Tensor]] = None
+
+    @property
+    def owner(self) -> int:
+        return self.owners[self.rank]
 
 
 @dataclasses.dataclass
@@ -29,6 +58,7 @@ class TrainState:
     tx: GradientTransformation
     grad_sync: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict)
+    sharding: Optional[FlatSharding] = None
 
     @classmethod
     def create(cls, model: nn.Module,
@@ -39,7 +69,8 @@ class TrainState:
     @property
     def params(self) -> List[nn.Parameter]:
         """The parameters in flax ``tree_leaves`` order (the flat gradient
-        layout of the bucketed reducer)."""
+        layout of the bucketed reducer); under explicit FSDP, this rank's
+        chunks between steps."""
         return [p for _, p in flax_ordered(self.model.named_parameters())]
 
     @property
@@ -54,11 +85,16 @@ class TrainState:
         for name, value in new.items():
             own[name].copy_(value)
 
-    def apply_gradients(self) -> None:
+    def apply_gradients(self, group=None) -> None:
         """optimizer.step() from the parameters' ``.grad``, with the lr the
-        schedule gives at the current count; then the count advances."""
-        self.tx.apply(self.optimizer, self.step)
+        schedule gives at the current count; then the count advances.
+        ``group``: the ranks a sharded update's chunks are spread over."""
+        self.tx.apply(self.optimizer, self.step, group,
+                      sharded=self.sharding is not None)
         self.step += 1
 
     def param_count(self) -> int:
+        """The model's parameter count (model-shaped, not padded)."""
+        if self.sharding is not None:
+            return sum(math.prod(s) for s in self.sharding.shapes)
         return sum(p.numel() for p in self.model.parameters())

@@ -55,7 +55,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         help="synthetic dataset size override")
     add("--mesh", default="data=-1", type=str,
         help="mesh spec; the port's mesh is one data axis over the ranks")
-    add("--slices", default=1, type=int, help="topology slices")
+    add("--slices", default=1, type=int,
+        help="factor the ranks into this many slices (the outermost "
+             "mesh axis, the slow tier of --wire-dtype int8_hier)")
     add("--slice-axis", default="slice", type=str,
         help="mesh axis int8_hier treats as the slow tier")
     add("--microbatches", default=4, type=int,
@@ -75,8 +77,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
              "bucket when a compressed wire engages the reducer)")
     add("--wire-dtype", default="fp32", type=str,
         choices=["fp32", "bf16", "int8", "int8_multihop", "int8_hier"],
-        help="gradient wire dtype (fp32, int8 and int8_multihop are "
-             "ported)")
+        help="gradient wire dtype; int8_hier compresses only across the "
+             "--slices slices")
     add("--fused-quantize", default="auto", type=str,
         choices=["auto", "on", "off"],
         help="int8 codec kernels for the int8 wires: auto and on run "
@@ -84,9 +86,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     add("--no-overlap-grad-sync", action="store_true",
         help="reduce buckets after the microbatch loop")
     add("--fsdp-explicit", action="store_true",
-        help="explicit full-parameter FSDP (not ported)")
+        help="explicit full-parameter FSDP: parameters and moments "
+             "flat-sharded 1/N at rest, per-layer gathers and scatters")
     add("--zero1", action="store_true",
-        help="ZeRO-1 weight-update sharding (not ported)")
+        help="ZeRO-1: reduce-scatter the gradient, update 1/N of the "
+             "parameters, gather them back")
     add("--remat", action="store_true",
         help="gradient checkpointing (not ported)")
     add("--schedule", default="constant", type=str,

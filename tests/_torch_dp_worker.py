@@ -19,6 +19,13 @@ wrote; ``OUT`` the pickle this rank writes. Jobs:
   with the image task, or with ``spec["lm"]`` a GPT-2 with the causal LM
   task; returns the per-step metrics and the final flax params,
   batch_stats and residual;
+  ``spec["optimizer"]`` is ``(name, kwargs)`` (default SGD, momentum
+  0.9); the state's per-rank at-rest sizes come back too;
+* ``("codec", spec)``: the sharded update's scatters and gathers
+  (``spec["ops"]``: (name, function of ``grad_sync``, arguments; arrays
+  stacked by rank, ``"HIER"`` for this rank's HierSpec over
+  ``spec["slices"]`` slices); returns each output and every K1
+  call's input and output;
 * ``("bn", spec)``: one BatchNorm over the ranks (``sync_group``), train
   mode, on this rank's rows of ``spec["x"]``, backward from its rows of
   ``spec["dy"]``; returns the output, the new statistics and the
@@ -104,22 +111,67 @@ def run_train(spec, rank, world):
     load_flax_params(model, spec["params"], spec.get("batch_stats"))
     trainer = Trainer(task, TrainConfig(seed=0, print_freq=1000,
                                         **spec["config"]), device="cpu")
-    state = trainer.init_state(model, make_optimizer(
-        "sgd", spec["lr"], momentum=0.9, weight_decay=5e-4))
+    name, kwargs = spec.get("optimizer", ("sgd", dict(momentum=0.9,
+                                                      weight_decay=5e-4)))
+    state = trainer.init_state(model, make_optimizer(name, spec["lr"],
+                                                     **kwargs))
     metrics = []
     for batch in spec["batches"]:
         local = {k: torch.from_numpy(np.ascontiguousarray(
             np.split(v, world)[rank])) for k, v in batch.items()}
         m = trainer.train_step(state, local)
         metrics.append({k: float(v) for k, v in m.items()})
-    return {"metrics": metrics, "step": state.step, **snapshot(state)}
+    at_rest = {
+        "params": [p.numel() for p in state.params],
+        "opt": [t.numel() for slots in state.optimizer.state.values()
+                for t in slots.values() if t.dim() >= 1]}
+    with trainer.materialized(state):
+        snap = snapshot(state)
+    return {"metrics": metrics, "step": state.step, "at_rest": at_rest,
+            **snap}
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.detach().numpy().copy()
 
 
 def snapshot(state):
     """Flax params, batch_stats and the residual of a TrainState."""
     return {"params": torch_to_flax(state.model),
             "batch_stats": batch_stats_to_flax(state.model),
-            "ef": {k: v.numpy().copy() for k, v in state.grad_sync.items()}}
+            "ef": _numpy(state.grad_sync)}
+
+
+def run_codec(spec, rank, world):
+    hier = (grad_sync.build_hier_spec(world, rank, spec["slices"])
+            if spec.get("slices", 1) > 1 else None)
+    k1 = []
+    real = grad_sync.quantize_int8_rows
+
+    def recording(rows):
+        q, s = real(rows)
+        k1.append((rows.numpy().copy(), q.numpy().copy(), s.numpy().copy()))
+        return q, s
+
+    grad_sync.quantize_int8_rows = recording
+    out = {}
+    try:
+        for name, fn, args in spec["ops"]:
+            k1.clear()
+            # arrays are stacked by rank; "HIER" stands for the spec
+            mine = [torch.from_numpy(np.ascontiguousarray(a[rank]))
+                    if isinstance(a, np.ndarray)
+                    else hier if isinstance(a, str) and a == "HIER" else a
+                    for a in args]
+            res = getattr(grad_sync, fn)(*mine)
+            res = res if isinstance(res, tuple) else (res,)
+            out[name] = {"out": [None if r is None else r.numpy().copy()
+                                 for r in res], "k1": list(k1)}
+    finally:
+        grad_sync.quantize_int8_rows = real
+    return out
 
 
 def run_bn(spec, rank, world):
@@ -181,7 +233,7 @@ def run_cli(spec, rank, world):
 
 
 RUNNERS = {"reduce": run_reduce, "train": run_train, "bn": run_bn,
-           "scalars": run_scalars, "cli": run_cli}
+           "scalars": run_scalars, "cli": run_cli, "codec": run_codec}
 
 
 def main():

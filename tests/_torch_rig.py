@@ -84,7 +84,10 @@ def flat_state(state) -> dict:
         for key, v in slots.items():
             out[f"opt/{idx}/{key}"] = v
     for key, v in state.grad_sync.items():
-        out[f"grad_sync/{key}"] = v
+        if isinstance(v, dict):      # per leaf or layer group
+            out.update({f"grad_sync/{key}/{k}": r for k, r in v.items()})
+        else:
+            out[f"grad_sync/{key}"] = v
     return {k: torch.as_tensor(v).detach().cpu().clone()
             for k, v in out.items()}
 

@@ -374,16 +374,25 @@ def test_one_rank_resnet_run_through_main(tmp_path, capsys):
                .splitlines()) == 3
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--wire-dtype", "int8_hier"], "--slices"),
-    (["--slices", "2"], "--slices"),
-    (["--zero1"], "ZeRO-1"),
-    (["--fsdp-explicit"], "ZeRO-1"),
-    (["--mesh", "data=1,model=2"], "--mesh"),
-    (["--model", "vit_base"], "vit_base"),
-    (["--download"], "fetches nothing"),
-], ids=lambda x: x if isinstance(x, str) else "_".join(x))
-def test_unported_image_flags_raise(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("flags,error,match", [
+    # the JAX Trainer's incompatible update modes, its messages
+    (["--zero1", "--bucket-cap-mb", "25"], ValueError,
+     "zero1's per-leaf flat-shard layout IS its optimizer-state"),
+    (["--fsdp-explicit", "--zero1"], ValueError,
+     "fsdp_explicit IS zero1 plus flat-sharded parameters"),
+    (["--fsdp-explicit", "--bucket-cap-mb", "25"], ValueError,
+     "use fsdp_explicit with wire_dtype compression instead"),
+    # --slices must divide the world (the JAX mesh's message)
+    (["--slices", "3", "--wire-dtype", "int8_hier"], ValueError,
+     "1 devices not divisible by fixed axes product 3"),
+    (["--wire-dtype", "int8_hier", "--slice-axis", "seq"], ValueError,
+     "int8_hier syncs over the batch axes"),
+    (["--mesh", "data=1,model=2"], NotImplementedError, "--mesh"),
+    (["--model", "vit_base"], NotImplementedError, "vit_base"),
+    (["--download"], NotImplementedError, "fetches nothing"),
+], ids=lambda x: (x if isinstance(x, str) else "_".join(x)
+                  if isinstance(x, list) else x.__name__))
+def test_unported_image_flags_raise(tmp_path, flags, error, match):
+    with pytest.raises(error, match=match):
         train.main(RESNET_CLI + flags + ["--output-dir", str(tmp_path)])
     assert not (tmp_path / "metrics_rank0.csv").exists()

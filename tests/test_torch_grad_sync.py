@@ -356,9 +356,13 @@ def test_reduce_scalar_over_gloo_ranks(ranks2, ranks3):
 
 def test_reduce_flat_refuses_unported_wires():
     plan = gs.build_bucket_plan([torch.zeros(10)], 0.0)
-    with pytest.raises(NotImplementedError, match="--slices"):
+    # int8_hier without its spec or its residual: JAX's ValueErrors
+    with pytest.raises(ValueError, match="int8_hier wire needs a HierSpec"):
         gs.reduce_flat(torch.zeros(10), plan, 2, "int8_hier",
                        torch.zeros(10))
+    spec = gs.HierSpec("slice", n_slices=2, n_inner=1)
+    with pytest.raises(ValueError, match="slow-tier error-feedback"):
+        gs.reduce_flat(torch.zeros(10), plan, 2, "int8_hier", hier=spec)
     with pytest.raises(ValueError, match="unknown wire"):
         gs.reduce_flat(torch.zeros(10), plan, 2, "fp8")
     with pytest.raises(ValueError, match="residual"):

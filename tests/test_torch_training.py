@@ -434,9 +434,13 @@ ELASTIC = "comes with the elastic slice"
 REFUSED = [
     (["--remat"], NotImplementedError, "remat"),
     (["--mesh", "data=2"], NotImplementedError, "--mesh"),
-    (["--slices", "2"], NotImplementedError, "--slices"),
-    (["--zero1"], NotImplementedError, "--zero1"),
-    (["--fsdp-explicit"], NotImplementedError, "--fsdp-explicit"),
+    # the JAX entry's mesh checks of --slices and --slice-axis, its
+    # messages (--slices folds the slice axis into the mesh)
+    (["--slices", "2"], ValueError,
+     "1 devices not divisible by fixed axes product 2"),
+    (["--slices", "0"], ValueError, "axis sizes must be >= 1"),
+    (["--wire-dtype", "int8_hier", "--slice-axis", "model"], ValueError,
+     "slice_axis='model' is not one of them"),
     # the JAX entry's checks of the checkpoint flags, its messages
     (["--resume"], ValueError, "--resume requires --checkpoint-dir"),
     (["--max-restarts", "1"], ValueError,
