@@ -6,7 +6,9 @@ two ranks that share the card, through the explicit reducer and through
 the reference's own command (fp32 and ``--amp``), stop, resume, restart
 and serve those runs from their checkpoints, and train both models
 through the sharded update (ZeRO-1, explicit FSDP) and ResNet-18 on four
-ranks through the two-tier ``int8_hier`` wire.
+ranks through the two-tier ``int8_hier`` wire, and profile the GPT-2
+``--amp`` step and the reference's command on the card through
+``--profile-dir`` and the live ``/metrics`` endpoint's ``POST /profile``.
 
     python3 chip_smoke.py
 
@@ -120,9 +122,28 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     and 14 log their step lines' samples/s as MFU (``experiments/
     flops.py``: 3 x the forward's matmul FLOPs a sample against the
     card's bf16 dense peak; ``check_mfu`` must accept it);
+20. (run before phase 17's lines) step profiling on the card through the
+    port's entry points (``torch.profiler``, CUPTI's kernel lanes): (a)
+    phase 14's command over one epoch of 12 steps with ``--profile-dir
+    --profile-steps 5,8``, the launch counts set to 0 just before and
+    read just after: the device split a step (window, compute, comm
+    hidden, comm exposed, host gap), the device idle share, the ten
+    device ops with the most time and each bf16 flash kernel's mean
+    device time from the trace beside phase 6's ``timed_ms``; the window
+    must hold each bf16 flash kernel 12 x 3 times, the split must sum to
+    the window, the stream a ``device_profile`` event of steps 5-8, and
+    the port's ``telemetry summary`` must read it; (b) phase 13's fp32
+    command (2 gloo ranks sharing the card) with ``--profile-dir``: rank
+    0's collective share and split, its gloo all-reduce spans beside
+    phase 10's timed all-reduces; (c) a GPT-2 ``--amp`` run with
+    ``--metrics-port``: ``/metrics``' step counter rises between two
+    scrapes, ``/healthz`` answers 200, ``POST /profile?steps=2`` leaves a
+    ``capture_*`` trace and a ``device_profile`` event. A CUDA window
+    with no kernel event fails the phase;
 17. print the ``{"kernels": [...]}`` line (K1 and K2 over their launches
     on the phase 12 and phase 19 paths, K3-K5 over phase 7's, with their
-    bf16 fields over phase 14's launches at phase 6's main bf16 shape),
+    bf16 fields over phase 14's launches at phase 6's main bf16 shape, and
+    ``bf16_trace_ms_per_launch``, phase 20's device time of a launch),
     then the last line ``{"ok": true, "device": {...}}``.
 
 Details go to chiprun_out/chip_smoke.json. Without a CUDA device, or run
@@ -259,6 +280,8 @@ BF16_GRAD_REL = 5e-2
 # of 4 steps over 32 synthetic sequences; 32 // 5 = 6 validation
 # sequences, one padded global batch of 8
 LM_DP_BATCH, LM_DP_SYNTHETIC, LM_DP_STEPS, LM_DP_EVAL = 4, 32, 4, 1
+# the serving smoke's telemetry stream (its --output-dir)
+SERVING_OUT = ["--output-dir", str(ROOT / "chiprun_out" / "serving")]
 LM_FLAGS = ["--model", MODEL, "--attention", "flash", "--optimizer",
             "adamw", "--lr", "6e-4", "--synthetic"]
 
@@ -742,11 +765,14 @@ def grads_card_vs_cpu(torch, dev, dtype=None):
     return abs(loss_c - loss_h), worst, worst_leaf, loss_c, loss_h
 
 
-def flash_kernel_rows(flash_rows, launches, bf16_launches) -> list:
+def flash_kernel_rows(flash_rows, launches, bf16_launches,
+                      bf16_trace_ms) -> list:
     """The kernels line's rows of K3, K4 and K5: times and bounds of the
     training path's shape (main fp32) summed over its launches; errors
     over every float32 shape checked; the ``bf16_`` fields the same at
-    the main bf16 shape over the ``--amp`` run's launches."""
+    the main bf16 shape over the ``--amp`` run's launches, with
+    ``bf16_trace_ms``, the mean device ms a launch that phase 20's trace
+    of the ``--amp`` step read (no host launch time in it)."""
     main, main_bf16 = flash_rows[0], flash_rows[1]
     if (main["dtype"], main_bf16["dtype"]) != ("float32", "bfloat16"):
         raise RuntimeError("FLASH_CASES must start with main fp32, bf16")
@@ -784,6 +810,7 @@ def flash_kernel_rows(flash_rows, launches, bf16_launches) -> list:
             "bf16_bound_ms": main_bf16["bound_ms"][name] * n16,
             "bf16_bound_by": main_bf16["bound_by"][name],
             "bf16_library_ms": lib16 * n16,
+            "bf16_trace_ms_per_launch": bf16_trace_ms[name],
         })
     return rows
 
@@ -1482,7 +1509,7 @@ def serve_checkpoint(torch, dev, state, ckpt_dir: Path) -> dict:
     from distributed_pytorch_training_tpu_torch.serving.__main__ import run
 
     report = run(["smoke", "--model", MODEL, "--ckpt-dir", str(ckpt_dir),
-                  "--model-overrides", "max_position=1024"])
+                  "--model-overrides", "max_position=1024", *SERVING_OUT])
     engine, info = report.engine, report.engine.checkpoint_info
     label = EPOCHS * TRAIN_STEPS
     manifest = json.loads(
@@ -1984,6 +2011,284 @@ def codec_kernel_rows(torch, codec, codec19, counts19, dp_steps,
     return out
 
 
+# phase 20: step profiling through the port's entry (--profile-dir and
+# --profile-steps). Steps 5, 6 and 7 of epoch 0 are traced; at 96
+# synthetic sequences and batch 8 an epoch has 12 steps, so the window
+# closes (at step 8's hook) before the epoch's evaluation runs
+PROFILE_FIRST, PROFILE_LAST = 5, 8
+PROFILED = PROFILE_LAST - PROFILE_FIRST
+PROFILE_SYNTHETIC = 96
+PROFILE_EVAL = -(-(PROFILE_SYNTHETIC // 5) // 8)   # 19 sequences, batch 8
+# the bf16 flash kernels' names in the card's trace (nvcc's, without
+# their template arguments)
+FLASH_BF16_TRACE = {FLASH[0]: "flash_fwd_bf16_kernel",
+                    FLASH[1]: "flash_bwd_dkv_bf16_kernel",
+                    FLASH[2]: "flash_bwd_dq_bf16_kernel"}
+# card ms of the four-way split must sum to the window within the
+# readers' rounding (each rounds to 0.1 us)
+SPLIT_ROUNDING_US = 0.3
+
+
+def profile_window(torch, prof_dir: Path, steps: int) -> dict:
+    """Read one profiled window of the card's trace: the device split a
+    step (window, compute, comm hidden, comm exposed, host gap, in ms),
+    the device idle share (host_gap / window), the collective share, the
+    ten device ops with the most time, and each kernel's launches and
+    mean device ms by name. Fails when the window holds no kernel event
+    (CUPTI recorded nothing on the card: no split is read, no fallback)
+    or when the split does not sum to the window."""
+    from distributed_pytorch_training_tpu_torch.experiments import (
+        trace_analysis as ta,
+    )
+
+    events = ta.load_trace(str(prof_dir))
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise RuntimeError(f"the CUDA window under {prof_dir} holds no "
+                           "kernel event: CUPTI recorded no device activity")
+    by_name, full_names = {}, {}
+    for e in kernels:
+        base = ta.kernel_base_name(e["name"])
+        full_names.setdefault(base, e["name"])
+        k = by_name.setdefault(base, [0, 0.0])
+        k[0] += 1
+        k[1] += float(e["dur"])
+    split = ta.device_time_split(str(prof_dir))
+    parts = ("compute_us", "comm_hidden_us", "comm_exposed_us",
+             "host_gap_us")
+    if abs(sum(split[k] for k in parts) - split["window_us"]) \
+            > SPLIT_ROUNDING_US:
+        raise RuntimeError(f"the device split {split} does not sum to its "
+                           "window")
+    per_step = {k.replace("_us", "_ms"): split[k] / steps / 1e3
+                for k in ("window_us",) + parts}
+    return {
+        "kernel_events": len(kernels), "steps": steps, "split": split,
+        "per_step_ms": per_step,
+        "idle_share": split["host_gap_us"] / split["window_us"],
+        "collective_share": ta.collective_share(str(prof_dir)),
+        "comm_overlap": ta.comm_overlap_split(str(prof_dir)),
+        "top_ops": ta.top_device_ops(str(prof_dir), 10),
+        "kernels": {name: {"launches": k, "mean_ms": us / k / 1e3,
+                           "trace_name": full_names[name]}
+                    for name, (k, us) in by_name.items()},
+        # the host's spans, not the card's view of them
+        # (gpu_user_annotation)
+        "gloo_spans_ms": sorted(
+            (float(e["dur"]) / 1e3 for e in events
+             if e["name"].startswith("gloo:")
+             and e.get("cat") == "user_annotation"), reverse=True),
+    }
+
+
+def log_window(card: str, tag: str, w: dict) -> None:
+    s = w["per_step_ms"]
+    log(f"{tag} [{card}]: {w['kernel_events']} kernel events over "
+        f"{w['steps']} steps; device split ms a step: window "
+        f"{s['window_ms']!r}, compute {s['compute_ms']!r}, comm hidden "
+        f"{s['comm_hidden_ms']!r}, comm exposed {s['comm_exposed_ms']!r}, "
+        f"host gap {s['host_gap_ms']!r}; device idle share (host_gap / "
+        f"window) {w['idle_share']!r}; collective share "
+        f"{w['collective_share']}")
+    for op in w["top_ops"]:
+        log(f"{tag} [{card}]: top device op {op['total_us'] / 1e3!r} ms in "
+            f"{op['launches']} launches ({op['mean_us']!r} us each): "
+            f"{op['name'][:120]}")
+
+
+def stream_events(path: Path) -> list:
+    return [json.loads(ln) for ln in path.read_text().splitlines()]
+
+
+def telemetry_summary_exits_0(stream: Path) -> None:
+    """The port's `telemetry summary` on a stream, in a process of its
+    own: it must exit 0."""
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PACKAGE}.telemetry", "summary",
+         str(stream)], capture_output=True, text=True, cwd=ROOT, timeout=120)
+    if proc.returncode != 0:
+        raise RuntimeError(f"telemetry summary {stream} exited "
+                           f"{proc.returncode}: {proc.stderr}")
+    print(proc.stdout, end="", flush=True)
+
+
+def profile_gpt2(torch, fa, card: str, flash_rows: list) -> dict:
+    """Phase 20 (a): phase 14's command (GPT-2 124M ``--amp`` at full
+    width) with ``--profile-dir --profile-steps 5,8`` over one epoch of 12
+    steps, the launch counts set to 0 just before and read just after.
+    The window must hold each bf16 flash kernel 12 layers x 3 steps
+    times, the stream a ``device_profile`` event of steps 5-8, and the
+    port's ``telemetry summary`` must read the stream."""
+    import shutil
+
+    out_dir = ROOT / "chiprun_out" / "prof_gpt2"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    prof_dir = out_dir / "prof"
+    kernels = [getattr(fa, name) for name in FLASH]
+    for fn in kernels:
+        fn.launches = 0
+    train_main(LM_FLAGS + [
+        "--synthetic-size", str(PROFILE_SYNTHETIC), "--batch-size", "8",
+        "--epochs", "1", "--print-freq", "4", "--amp", "--output-dir",
+        str(out_dir), "--profile-dir", str(prof_dir), "--profile-steps",
+        f"{PROFILE_FIRST},{PROFILE_LAST}"])
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    steps = PROFILE_SYNTHETIC // 8
+    want = {FLASH[0]: DEPTH * (steps + PROFILE_EVAL),
+            FLASH[1]: DEPTH * steps, FLASH[2]: DEPTH * steps}
+    if launches != want:
+        raise RuntimeError(f"phase 20 (a) launched {launches}, expected "
+                           f"{want}")
+    w = profile_window(torch, prof_dir, PROFILED)
+    log_window(card, "phase 20 (a) GPT-2 124M --amp", w)
+    main_bf16 = flash_rows[1]
+    trace_ms = {}
+    for name, traced in FLASH_BF16_TRACE.items():
+        k = w["kernels"].get(traced, {"launches": 0, "mean_ms": None})
+        if k["launches"] != DEPTH * PROFILED:
+            raise RuntimeError(f"phase 20 (a): {traced} ran {k['launches']} "
+                               f"times in the window, expected "
+                               f"{DEPTH} x {PROFILED}")
+        trace_ms[name] = k["mean_ms"]
+        log(f"phase 20 (a) [{card}]: {traced}: {k['launches']} launches in "
+            f"the window, device ms (trace) {k['mean_ms']!r} a launch; "
+            f"phase 6's timed_ms {main_bf16['ms'][name]!r}; named "
+            f"{k['trace_name']!r} in the trace")
+    stream = out_dir / "telemetry_rank0.jsonl"
+    profiles = [ev for ev in stream_events(stream)
+                if ev["kind"] == "device_profile"]
+    if [(ev["start_step"], ev["stop_step"]) for ev in profiles] != \
+            [(PROFILE_FIRST, PROFILE_LAST)]:
+        raise RuntimeError(f"phase 20 (a): device_profile events "
+                           f"{profiles}, expected one of steps "
+                           f"{PROFILE_FIRST}-{PROFILE_LAST}")
+    telemetry_summary_exits_0(stream)
+    for trace in prof_dir.glob("*.pt.trace.json"):
+        w.setdefault("trace_bytes", trace.stat().st_size)
+        trace.unlink()            # tens of MB; the split is kept
+    return {**w, "launches": launches, "bf16_trace_ms": trace_ms,
+            "device_profile": profiles[0]}
+
+
+def profile_reference(torch, card: str, reducer: dict) -> dict:
+    """Phase 20 (b): the reference's command (phase 13's fp32 run:
+    ResNet-18, 2 gloo ranks sharing the card, the implicit path) with
+    ``--profile-dir --profile-steps 5,8``; rank 0 alone profiles. Its
+    collective share and device split, and the gloo all-reduce spans of
+    the window beside phase 10's timed all-reduces of this run."""
+    import shutil
+
+    out_dir = ROOT / "chiprun_out" / "prof_reference"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    prof_dir = out_dir / "prof"
+    out = run_torchrun([str(out_dir), *IMAGE_FLAGS, "--synthetic-size",
+                        str(DP_SYNTHETIC), "--profile-dir", str(prof_dir),
+                        "--profile-steps", f"{PROFILE_FIRST},{PROFILE_LAST}"],
+                       timeout=600)
+    (out_dir / "stdout.txt").write_text(out)
+    steps = IMAGE_EPOCHS * -(-DP_SYNTHETIC // (IMAGE_BATCH * DP_RANKS))
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(DP_RANKS)]
+    if any(r["steps"] != steps or any(r["launches"].values())
+           for r in ranks):
+        raise RuntimeError(f"phase 20 (b): ranks {ranks}")
+    same_across_ranks("phase 20 (b)", ranks)
+    w = profile_window(torch, prof_dir, PROFILED)
+    log_window(card, "phase 20 (b) reference command, rank 0", w)
+    spans = w["gloo_spans_ms"]
+    timed = reducer["collectives_ms"]
+    w["gradient_allreduce_ms"] = spans[:PROFILED]
+    w["other_gloo_ms_a_step"] = sum(spans[PROFILED:]) / PROFILED
+    w["gloo_spans_a_step"] = len(spans) / PROFILED
+    log(f"phase 20 (b) [{card}]: {len(spans)} gloo spans in the window "
+        f"({w['gloo_spans_a_step']!r} a step); the longest a step (the "
+        f"gradient's all-reduce) {w['gradient_allreduce_ms']} ms beside "
+        f"phase 10's timed all_reduce fp32 {timed['all_reduce fp32']!r} "
+        f"ms; the rest {w['other_gloo_ms_a_step']!r} ms a step beside "
+        f"phase 10's all_reduce fp32 2x512 {timed['all_reduce fp32 2x512']!r}"
+        " ms a call; rank 1's kernels are not in rank 0's trace (2 ranks "
+        "share one card over gloo: not a scaling number)")
+    telemetry_summary_exits_0(out_dir / "telemetry_rank0.jsonl")
+    for trace in prof_dir.glob("*.pt.trace.json"):
+        w.setdefault("trace_bytes", trace.stat().st_size)
+        trace.unlink()
+    return w
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def live_endpoint(torch, card: str) -> dict:
+    """Phase 20 (c): a short GPT-2 124M ``--amp`` run with
+    ``--metrics-port``: mid-run (inside step 2, then step 9) GET /metrics
+    and /healthz, whose step counter must rise; POST /profile?steps=2 at
+    step 2, after which a capture_* directory and a device_profile event
+    of reason "http" must exist."""
+    import shutil
+    import urllib.request
+
+    from distributed_pytorch_training_tpu_torch.training import loop
+
+    out_dir = ROOT / "chiprun_out" / "live_gpt2"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    url = f"http://127.0.0.1:{free_port()}"
+    seen = {"calls": 0}
+    step = loop.Trainer.train_step
+
+    def scraping_step(self, state, batch):
+        n = seen["calls"]
+        seen["calls"] = n + 1
+        if n in (2, 9):
+            with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+                seen[f"steps_total_{n}"] = float(next(
+                    ln.split()[-1] for ln in r.read().decode().splitlines()
+                    if ln.startswith("dpt_steps_total")))
+            with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+                seen[f"healthz_{n}"] = r.status
+        if n == 2:
+            req = urllib.request.Request(url + "/profile?steps=2",
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=10) as r:
+                seen["post"] = r.status
+        return step(self, state, batch)
+
+    loop.Trainer.train_step = scraping_step
+    try:
+        train_main(LM_FLAGS + [
+            "--synthetic-size", str(PROFILE_SYNTHETIC), "--batch-size", "8",
+            "--epochs", "1", "--print-freq", "4", "--amp", "--metrics-port",
+            url.rsplit(":", 1)[1], "--output-dir", str(out_dir)])
+    finally:
+        loop.Trainer.train_step = step
+    if not (seen.get("healthz_2") == seen.get("healthz_9") == 200
+            and seen.get("post") == 202
+            and seen["steps_total_9"] > seen["steps_total_2"]):
+        raise RuntimeError(f"phase 20 (c): the live endpoint gave {seen}")
+    captures = sorted((out_dir / "profiles").glob("capture_*"))
+    profiles = [ev for ev in stream_events(out_dir / "telemetry_rank0.jsonl")
+                if ev["kind"] == "device_profile"]
+    if len(captures) != 1 or [ev["reason"] for ev in profiles] != ["http"]:
+        raise RuntimeError(f"phase 20 (c): captures {captures}, "
+                           f"device_profile events {profiles}")
+    w = profile_window(torch, captures[0], profiles[0]["steps"])
+    log(f"phase 20 (c) [{card}]: /metrics dpt_steps_total "
+        f"{seen['steps_total_2']!r} -> {seen['steps_total_9']!r}, /healthz "
+        f"200; POST /profile?steps=2 -> 202, {captures[0].name} with "
+        f"{w['kernel_events']} kernel events, device_profile steps "
+        f"{profiles[0]['start_step']}-{profiles[0]['stop_step']}, window "
+        f"{profiles[0]['window_ms']!r} ms")
+    for trace in captures[0].glob("*.pt.trace.json"):
+        trace.unlink()
+    return {"scrapes": seen, "device_profile": profiles[0],
+            "kernel_events": w["kernel_events"]}
+
+
 def lm_mfu(torch, rates: list, context: str):
     """The step line's samples/s as MFU: 3 x the analytic forward matmul
     FLOPs of one 1024-token GPT-2 124M sequence (counted on meta tensors,
@@ -2069,7 +2374,8 @@ def main() -> int:
     # phase 4: the main path, int8, through the serving CLI's smoke
     t0 = time.perf_counter()
     quantize_int8_rows.launches = 0
-    report = run(["smoke", "--model", MODEL, "--serve-dtype", "int8"])
+    report = run(["smoke", "--model", MODEL, "--serve-dtype", "int8",
+                  *SERVING_OUT])
     launches = quantize_int8_rows.launches
     torch.cuda.synchronize()
     served = report.engine._served
@@ -2110,7 +2416,8 @@ def main() -> int:
 
     # phase 5: fp32 on the card against the same weights on the CPU
     t0 = time.perf_counter()
-    gpu = run(["smoke", "--model", MODEL, "--serve-dtype", "fp32"])
+    gpu = run(["smoke", "--model", MODEL, "--serve-dtype", "fp32",
+               *SERVING_OUT])
     fp32_err = logits_vs_cpu(gpu, build_serving_engine(
         MODEL, max_new_tokens=MAX_NEW_TOKENS, device="cpu"))
     log(f"phase 5 done in {time.perf_counter() - t0:.1f} s: fp32 prefill "
@@ -2234,7 +2541,8 @@ def main() -> int:
 
     # phase 16 (D): bf16 serving on the card against the CPU
     t0 = time.perf_counter()
-    gpu16 = run(["smoke", "--model", MODEL, "--serve-dtype", "bf16"])
+    gpu16 = run(["smoke", "--model", MODEL, "--serve-dtype", "bf16",
+                 *SERVING_OUT])
     if gpu16.engine.model.dtype != torch.bfloat16:
         raise RuntimeError("bf16 serving did not build a bf16 model")
     bf16_err = logits_vs_cpu(gpu16, build_serving_engine(
@@ -2322,6 +2630,17 @@ def main() -> int:
             f"{ps[DEQUANT]['bound_ms']:.4f})")
     log(f"phase 19 done in {time.perf_counter() - t0:.1f} s")
 
+    # phase 20: step profiling on the card through the port's entry
+    # points: the GPT-2 --amp window, the reference's command on 2 ranks,
+    # and the live endpoint's /metrics and POST /profile
+    t0 = time.perf_counter()
+    profiled = profile_gpt2(torch, fa, card, flash_rows)
+    torch.cuda.empty_cache()
+    profiled_reference = profile_reference(torch, card, reducer)
+    live = live_endpoint(torch, card)
+    torch.cuda.empty_cache()
+    log(f"phase 20 done in {time.perf_counter() - t0:.1f} s")
+
     # phase 17: the kernels line; K1 and K2 summed over their launches on
     # the data-parallel paths (rank 0 of every phase 12 and phase 19
     # run), the serving path's K1 launches (phase 4) kept in
@@ -2381,12 +2700,15 @@ def main() -> int:
         "sharded_codec_per_shape": list(codec19.values()),
         "sharded_codec_per_step": per_step19,
         "bucketed_codec_per_step": bucketed,
+        "profile_gpt2_amp": profiled,
+        "profile_reference_command": profiled_reference,
+        "live_endpoint": live,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [*codec_kernels,
                *flash_kernel_rows(flash_rows, flash_launches,
-                                  bf16_launches)]
+                                  bf16_launches, profiled["bf16_trace_ms"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

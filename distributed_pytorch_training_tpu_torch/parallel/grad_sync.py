@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -751,3 +751,50 @@ def wire_bytes_split_for_config(leaves: Sequence, cfg: Optional[dict],
         split = hier_wire_bytes(plan, n_shards, n_slices)
         return {"ici": split["ici"], "dcn": split["dcn"]}
     return {"ici": wire_bytes_per_replica(plan, wire, n_shards), "dcn": 0}
+
+
+def emit_wire_accounting(leaves: Sequence, grad_sync_cfg: Optional[dict],
+                         n_shards: int, tier: str = "ici",
+                         **attrs: Any) -> dict:
+    """Record the configured sync mode's per-replica wire accounting as
+    telemetry counters (host-side, once at setup, from train.py) and
+    return the numbers: THE one emission site, the JAX package's rows.
+    ``leaves`` are the model-shaped parameters (anything with a
+    ``.shape``, flax order). Extra ``attrs`` ride every emitted counter.
+
+    One ``wire_bytes_per_replica`` row at ``tier``; ``int8_hier`` configs
+    (``cfg["slices"]`` > 1) emit TWO, one per interconnect tier —
+    (tier="ici", axis="data") for the exact intra-slice half and
+    (tier="dcn", axis="slice") for the compressed cross-slice half — and
+    ``fsdp_explicit`` adds the ``fsdp_gather_bytes`` row. The port has no
+    model axis, so no ``tp_psum_bytes_per_replica`` row."""
+    from .. import telemetry
+
+    cfg = dict(grad_sync_cfg or {})
+    wire = cfg.get("wire_dtype", "fp32")
+    n_slices = int(cfg.get("slices", 1))
+    hier = (wire == "int8_hier" and n_slices > 1 and n_shards > 1)
+    split = wire_bytes_split_for_config(leaves, cfg, n_shards)
+    out = {"tier": tier, "wire_dtype": wire, "n_shards": n_shards,
+           "wire_bytes_per_replica": split["ici"] + split["dcn"]}
+    if hier:
+        out["wire_bytes_ici"] = split["ici"]
+        out["wire_bytes_dcn"] = split["dcn"]
+        out["n_slices"] = n_slices
+        telemetry.counter("wire_bytes_per_replica", split["ici"],
+                          tier="ici", axis="data", wire_dtype=wire,
+                          n_shards=n_shards, n_slices=n_slices, **attrs)
+        telemetry.counter("wire_bytes_per_replica", split["dcn"],
+                          tier="dcn", axis="slice", wire_dtype=wire,
+                          n_shards=n_shards, n_slices=n_slices, **attrs)
+    else:
+        telemetry.counter("wire_bytes_per_replica",
+                          out["wire_bytes_per_replica"], tier=tier,
+                          wire_dtype=wire, n_shards=n_shards, **attrs)
+    if cfg.get("fsdp_explicit"):
+        out["fsdp_gather_bytes"] = fsdp_gather_bytes(leaves, wire, n_shards,
+                                                     n_slices)
+        telemetry.counter("fsdp_gather_bytes", out["fsdp_gather_bytes"],
+                          tier=tier, wire_dtype=wire, n_shards=n_shards,
+                          **attrs)
+    return out

@@ -27,6 +27,11 @@ fire on every rank at the same fence, saves and restores are collectives
 (``training/checkpoint.py``), and ``guard`` is a
 ``training.preemption.RankAgreedStop`` polled every ``stop_poll_every``
 steps.
+
+Every restart, torn-checkpoint skip, drained preemption and abort leaves
+a flight-recorder postmortem (``telemetry.flush_flight``; a no-op without
+a telemetry stream), and each restart counts on the stream's ``restarts``
+counter, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ import random
 import time
 from typing import Any, Callable, List, Optional, Tuple
 
+from ..telemetry import flush_flight
+from ..telemetry import recorder as _telemetry
 from ..utils.logging import log_main
 
 
@@ -199,8 +206,17 @@ class Supervisor:
         if self.ckpt is not None:
             # a torn checkpoint is skipped by every later restore: count
             # distinct labels, not skip events
+            fresh_skips = sorted(set(self.ckpt.last_skipped)
+                                 - self._skipped_labels)
             self._skipped_labels.update(self.ckpt.last_skipped)
             report.checkpoints_skipped = len(self._skipped_labels)
+            if fresh_skips:
+                # each newly found torn checkpoint leaves its own
+                # postmortem (the torn_ckpt chaos fault's flight artifact)
+                flush_flight(
+                    cause=f"torn_checkpoint: labels {fresh_skips} failed "
+                          "integrity verification",
+                    detail="supervisor restore skipped torn checkpoint(s)")
         if restored is None:
             if self.ckpt is not None:
                 log_main("supervisor: no valid checkpoint — "
@@ -263,6 +279,10 @@ class Supervisor:
                     report.failures.append(
                         f"{type(e).__name__}: {e} (during preemption drain"
                         " — not restarted)")
+                    flush_flight(
+                        cause=f"{type(e).__name__}: {e}",
+                        detail="failure during preemption (sigterm) drain "
+                               "— not restarted", rc=1)
                     log_main("supervisor: failure during preemption drain; "
                              "stopping (relaunch resumes from the last "
                              "checkpoint)")
@@ -270,11 +290,24 @@ class Supervisor:
                 report.restarts += 1
                 self._consecutive_failures += 1
                 report.failures.append(f"{type(e).__name__}: {e}")
+                # the per-failure postmortem: an injected fault's flight
+                # carries its label verbatim in the cause
+                flush_flight(
+                    cause=f"{type(e).__name__}: {e}",
+                    detail=f"supervisor restart {report.restarts} "
+                           f"(consecutive {self._consecutive_failures}/"
+                           f"{self.retry.max_restarts})")
+                _telemetry.counter("restarts", 1)
                 if self._consecutive_failures > self.retry.max_restarts:
                     report.final_step = -1
                     if self.injector is not None:
                         report.faults_fired = list(self.injector.fired)
                         report.faults_unfired = self.injector.unfired()
+                    flush_flight(
+                        cause=f"supervisor abort: retry budget "
+                              f"({self.retry.max_restarts}) exhausted; "
+                              f"last failure: {type(e).__name__}: {e}",
+                        detail="SupervisorError", rc=1)
                     err = SupervisorError(
                         f"giving up after {self.retry.max_restarts} "
                         f"consecutive restart(s); last failure: {e}")
@@ -305,6 +338,12 @@ class Supervisor:
             if (self.guard is not None and epoch < epochs
                     and self.guard.should_stop):
                 report.preemptions_drained += 1
+                flush_flight(
+                    cause=f"preemption (sigterm) drained at epoch {epoch} "
+                          f"step {step}/{spe}",
+                    detail="supervisor drain"
+                           + ("" if not self.resume_preempted
+                              else " + simulated relaunch"), rc=0)
                 if not self.resume_preempted:
                     report.preempted = True
                     log_main(f"supervisor: preempted — checkpointed epoch "

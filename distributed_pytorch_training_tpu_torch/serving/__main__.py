@@ -11,6 +11,13 @@ Commands:
       a served model), serve a handful of synthetic prompts through the
       request queue and its worker thread, and print the generated tokens.
 
+Telemetry as in the JAX package: ``--output-dir`` (default
+``./serving_out``) receives ``telemetry_rank0.jsonl`` (the requests'
+``queue_wait``, the engine's ``prefill`` and ``decode`` spans, the
+shutdown ``drain``) unless ``--no-telemetry``, and a ``flight_*.json`` on
+an abnormal exit; ``--metrics-port`` serves ``/metrics`` and
+``/healthz``.
+
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch versions of the
 kernels on the CPU and is meant for the tests. ``bench``, ``serve``,
 ``fleet`` and ``--mesh`` exist in the JAX package and are refused here
@@ -24,10 +31,12 @@ import dataclasses
 import signal
 import sys
 import threading
+from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 
+from .. import telemetry
 from ..runtime import not_ported
 
 # what the JAX package's serving CLI has and this port refuses, and the
@@ -85,6 +94,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="smoke: comma-separated token ids")
     p.add_argument("--prompt-len", type=int, default=12,
                    help="smoke: synthetic prompt length when no --prompt")
+    p.add_argument("--output-dir", default="./serving_out",
+                   help="telemetry stream + flight directory")
+    p.add_argument("--no-telemetry", action="store_true")
+    p.add_argument("--metrics-port", default=None, type=int,
+                   help="serve live /metrics + /healthz on this port; "
+                        "default DPT_METRICS_PORT env, else off (no "
+                        "thread)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="cuda (default) or cuda:N; 'cpu' runs the plain "
@@ -193,7 +209,47 @@ def run(argv: Optional[List[str]] = None) -> SmokeReport:
     refused = refusal(args)
     if refused:
         raise SystemExit(refused)
-    return smoke(args)
+    from ..utils.logging import log_main
+
+    tele_rank = telemetry.rank_identity(0)
+    if not args.no_telemetry and telemetry.should_stream(tele_rank):
+        Path(args.output_dir).mkdir(parents=True, exist_ok=True)
+        telemetry.configure(
+            str(Path(args.output_dir)
+                / telemetry.stream_filename(tele_rank)),
+            rank=tele_rank, gen=telemetry.generation_identity(),
+            meta={"entry": "serving", "model": args.model,
+                  "serve_dtype": args.serve_dtype,
+                  "buckets": list(_parse_buckets(args.buckets))})
+    # live /metrics + /healthz: the prefill/decode spans feed the phase
+    # metric and the healthz fence counts their progress; off (the
+    # default) starts no thread
+    metrics_port = telemetry.resolve_metrics_port(args.metrics_port,
+                                                  tele_rank)
+    if metrics_port and telemetry.is_configured():
+        # None on a bind failure (noted on stderr): the live surface never
+        # takes the serving process down
+        if telemetry.start_metrics_server(
+                metrics_port, telemetry.get(),
+                backend="cpu" if args.device == "cpu" else "cuda"
+        ) is not None:
+            log_main(f"serving: /metrics + /healthz on :{metrics_port}")
+    try:
+        return smoke(args)
+    except BaseException as e:
+        # every abnormal serving exit leaves a postmortem flight (the
+        # train.py contract); a clean SystemExit(0) is not abnormal
+        if not (isinstance(e, SystemExit) and e.code in (0, None)):
+            telemetry.flush_flight(
+                cause=f"{type(e).__name__}: {e}",
+                detail="serving abnormal exit",
+                rc=e.code if isinstance(e, SystemExit) else 1)
+        raise
+    finally:
+        # a run without --metrics-port never imported metrics_http
+        if f"{telemetry.__name__}.metrics_http" in sys.modules:
+            telemetry.stop_metrics_server()
+        telemetry.reset()
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -10,7 +10,13 @@
   never blocks a burst of short ones behind a shape it does not share.
 * ``serve_forever`` is the engine worker loop the CLI runs on a thread:
   pop a group, ``engine.serve_tokens`` it, fill results, repeat; on stop,
-  drain: finish everything already queued, refuse new work.
+  drain: finish everything already queued, refuse new work, under a
+  ``drain`` telemetry span.
+
+Per-request ``queue_wait`` (submit -> popped) is emitted as a telemetry
+span, as the engine emits ``prefill`` and ``decode``: queue_wait is the
+load share of latency, prefill/decode the compute share (``telemetry
+summary`` buckets all of them).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Deque, List, Optional, Sequence
 
 import numpy as np
 
+from .. import telemetry
 from ..data.pack import bucket_for
 
 
@@ -144,6 +151,10 @@ class RequestQueue:
                     keep.append(req)
             # non-matching requests keep their queue order at the FRONT
             self._q.extendleft(reversed(keep))
+        now = time.perf_counter()
+        for req in group:
+            telemetry.span_event("queue_wait", now - req.t_submit,
+                                 request=req.id, bucket=bucket)
         return group
 
 
@@ -183,7 +194,10 @@ def serve_forever(engine, queue: RequestQueue,
 
 
 def drain(engine, queue: RequestQueue, log=None) -> int:
-    """Serve everything still queued, then return (the SIGTERM path)."""
+    """Serve everything still queued, then return (the SIGTERM path),
+    inside the ``drain`` telemetry span, so shutdown latency is on the
+    record next to queue_wait/prefill/decode."""
     stop = threading.Event()
     stop.set()
-    return serve_forever(engine, queue, stop, log=log)
+    with telemetry.span("drain", pending=len(queue)):
+        return serve_forever(engine, queue, stop, log=log)

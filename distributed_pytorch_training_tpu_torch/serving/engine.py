@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from .. import telemetry
 from ..data.pack import bucket_for, pack_token_rows, unpack_token_rows
 from ..parallel.grad_sync import _quantize_int8_rows
 from ..runtime import DeviceLike, not_ported, resolve_device
@@ -247,6 +248,8 @@ class InferenceEngine:
                 bucket, ids_t, len_t)
             self._sync()  # prefill_s is the device's time, not enqueue
             prefill_s = time.perf_counter() - t0
+            telemetry.span_event("prefill", prefill_s, bucket=bucket,
+                                 rows=len(seqs))
             t0 = time.perf_counter()
             toks, cache = self.generate(cache, tok, positions, new_tokens)
             # ONE host fetch for the whole batch, after the last decode step
@@ -254,6 +257,9 @@ class InferenceEngine:
             last_h = last.cpu().numpy()
             logits_h = logits.cpu().numpy() if return_prompt_logits else None
             decode_s = time.perf_counter() - t0
+            telemetry.span_event("decode", decode_s, bucket=bucket,
+                                 steps=max(new_tokens - 1, 0),
+                                 rows=len(seqs))
         per_req = (unpack_token_rows(logits_h, lengths, len(seqs))
                    if return_prompt_logits else [None] * len(seqs))
         return [Result(tokens=toks_h[i, :new_tokens],

@@ -36,7 +36,14 @@ and is printed in the banner. Checkpoints (``--checkpoint-dir``,
 ``--resume``, ``--checkpoint-every``), the restart supervisor
 (``--max-restarts``) and fault injection (``--chaos``) follow the JAX
 entry; under torchrun a SIGTERM on any rank stops every rank at the next
-``--print-freq`` boundary, with a checkpoint. Every flag value this port
+``--print-freq`` boundary, with a checkpoint. Telemetry follows the JAX
+entry too: rank 0 writes ``telemetry_rank0.jsonl`` into ``--output-dir``
+unless ``--no-telemetry`` (every rank under ``--telemetry-all-ranks``),
+an abnormal exit leaves a ``flight_*.json``, ``--metrics-port`` serves
+``/metrics``, ``/healthz`` and ``POST /profile?steps=K``, and
+``--profile-dir`` with ``--profile-steps a,b`` traces steps a..b-1 with
+``torch.profiler`` (the card's kernels when on CUDA) into a
+``device_profile`` event. Every flag value this port
 does not implement raises ``NotImplementedError`` naming the slice that
 brings it. ``--device cpu``
 runs the kernels' plain PyTorch versions on the CPU and is for tests;
@@ -49,12 +56,15 @@ packages).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import sys
 from pathlib import Path
 from typing import List, Optional, Sequence
 
 import torch
 
+from . import telemetry
 from .data.datasets import IMAGE_STATS, get_dataset
 from .data.loader import ShardedLoader
 from .data.text import TokenLoader, get_token_dataset
@@ -64,7 +74,8 @@ from .ops.flash_attention import (
     flash_supports_length,
     make_flash_attention_fn,
 )
-from .parallel.grad_sync import check_wire
+from .experiments import flops as flops_mod
+from .parallel.grad_sync import check_wire, emit_wire_accounting
 from .resilience.faults import ELASTIC_KINDS, FaultInjector, FaultPlan
 from .resilience.supervisor import RetryPolicy, Supervisor
 from .runtime import (
@@ -81,8 +92,11 @@ from .training.checkpoint import LAYOUT_HINT, CheckpointManager, \
     CheckpointWorldSizeMismatch
 from .training.preemption import PreemptionGuard, RankAgreedStop
 from .training.tasks import ImageClassificationTask, LanguageModelingTask
+from .telemetry import device as tele_device
+from .telemetry.watchdog import kwargs_from_env
 from .utils import MetricsCSV, log_main, parse_args
 from .utils.config import parse_model_overrides
+from .utils.profiling import StepProfiler
 
 LM_MODELS = ("gpt2_124m", "gpt2_355m")
 IMAGE_MODELS = ("resnet18", "resnet50")
@@ -91,16 +105,8 @@ ELASTIC = "the elastic slice"
 # flag -> (is the value unsupported?, the slice that brings it)
 _UNPORTED = {
     "--remat": (lambda a: a.remat, "the remat slice"),
-    "--profile-dir": (lambda a: a.profile_dir is not None,
-                      "the telemetry slice"),
-    "--metrics-port": (lambda a: a.metrics_port is not None,
-                       "the telemetry slice"),
-    "--telemetry-all-ranks": (lambda a: a.telemetry_all_ranks,
-                              "the telemetry slice"),
-    "--telemetry-abort": (lambda a: a.telemetry_abort,
-                          "the telemetry slice"),
     "--autopilot": (lambda a: a.autopilot or a.autopilot_tune,
-                    "the telemetry slice"),
+                    "the autopilot slice"),
     "--download": (lambda a: a.download,
                    "no slice: the port fetches nothing; put the CIFAR-10 "
                    "python pickles under --data-dir"),
@@ -193,10 +199,26 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     guard = PreemptionGuard.install()
     try:
         return _run(args, guard)
+    except BaseException as e:
+        # the flight recorder's exit path: any abnormal exit (an unhandled
+        # exception, a sys.exit with a code) leaves flight_<ts>.json with
+        # the last events and the cause, written here, before the finally
+        # below tears telemetry down. A clean SystemExit(0) is not abnormal
+        if not (isinstance(e, SystemExit) and e.code in (0, None)):
+            telemetry.flush_flight(
+                cause=f"{type(e).__name__}: {e}",
+                detail="train.py abnormal exit",
+                rc=e.code if isinstance(e, SystemExit) else 1)
+        raise
     finally:
         # the hard-exit deadline must not outlive this call (an embedder
         # that catches a failure would be killed up to the grace later)
         guard.disarm()
+        # the endpoint down before the stream closes; a run without
+        # --metrics-port never imported metrics_http
+        if f"{telemetry.__name__}.metrics_http" in sys.modules:
+            telemetry.stop_metrics_server()
+        telemetry.reset()  # close the JSONL (fsync) and drop the global
 
 
 def _log_save_blocked(ckpt: CheckpointManager) -> None:
@@ -225,6 +247,27 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
         log_main(f"CHAOS: fault plan armed: {args.chaos}")
     ctx = setup_distributed(dev)
     dev = ctx.device
+    # the run's event stream: rank 0 always (telemetry_rank0.jsonl), the
+    # other ranks only under --telemetry-all-ranks / DPT_TELEMETRY_ALL_RANKS
+    tele_rank = telemetry.rank_identity(ctx.process_index)
+    if not args.no_telemetry and telemetry.should_stream(
+            tele_rank, args.telemetry_all_ranks):
+        telemetry.configure(
+            str(Path(args.output_dir) / telemetry.stream_filename(tele_rank)),
+            rank=tele_rank, gen=telemetry.generation_identity(),
+            meta={"entry": "train.py", "model": args.model,
+                  "mesh": args.mesh, "chaos": args.chaos or ""})
+    # the live endpoint: a background HTTP thread serving /metrics and
+    # /healthz, fed by an observer on the recorder; off starts no thread
+    metrics_port = telemetry.resolve_metrics_port(args.metrics_port,
+                                                  tele_rank)
+    if metrics_port and telemetry.is_configured():
+        # a bind failure returns None (noted on stderr): the live surface
+        # must never take the training run down
+        if telemetry.start_metrics_server(metrics_port, telemetry.get(),
+                                          backend=dev.type) is not None:
+            log_main(f"Telemetry: serving /metrics + /healthz on "
+                     f":{metrics_port}")
     set_seed(args.seed, ctx.process_index)
     n = ctx.process_count
     global_batch = args.batch_size * n
@@ -233,9 +276,7 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
     log_main(f"Using device: {dev} (mesh {mesh}), "
              f"world_size={n}, amp={args.amp}"
              + (f", backend={ctx.backend}" if ctx.backend else ""))
-    if not args.no_telemetry:
-        log_main("NOTE: the PyTorch port writes no telemetry stream yet "
-                 "(it comes with the telemetry slice)")
+    telemetry.gauge("world_size", n)
 
     compute_dtype = torch.bfloat16 if args.amp else torch.float32
     is_lm = args.model in LM_MODELS
@@ -282,6 +323,15 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
     if is_lm:
         make_model, task = _lm_model_and_task(
             args, overrides, dev, seq_len, train_ds, val_ds, compute_dtype)
+
+        def make_flops_model():
+            # the plain attention: FlopCounterMode does not see the flash
+            # kernels' ctypes calls
+            return get_model(args.model, device="meta", dtype=compute_dtype,
+                             **overrides)
+
+        flops_input = torch.zeros((1, seq_len), dtype=torch.long,
+                                  device="meta")
         train_loader = TokenLoader(train_ds, args.batch_size, shuffle=True,
                                    seed=args.seed, drop_last=args.drop_last,
                                    fault_hook=stall, **loader_kw)
@@ -302,6 +352,12 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
         def make_model():
             return get_model(args.model, **model_kwargs)
 
+        def make_flops_model():
+            with torch.device("meta"):
+                return make_model()
+
+        flops_input = torch.zeros((1, *train_ds.images.shape[1:]),
+                                  device="meta")
         mean, std = IMAGE_STATS[args.dataset.lower()]
         task = ImageClassificationTask(mean=mean, std=std,
                                        augment=not args.no_augment,
@@ -348,6 +404,13 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
                  f"inside the slice, s8+EF exchange across "
                  f"{h.slice_axis!r} (~2 B/element per slice on the slow "
                  "tier, slice-count independent)")
+    if not args.no_telemetry:
+        # the anomaly watchdog, fed by train_epoch's host timings and the
+        # print-boundary losses; its abort hook only under
+        # --telemetry-abort (under --max-restarts an abort is a
+        # restartable failure). DPT_WATCHDOG_* override its knobs
+        trainer.watchdog = telemetry.AnomalyWatchdog(
+            abort=args.telemetry_abort, **kwargs_from_env())
 
     def state_factory() -> TrainState:
         """A fresh initial state: the weights drawn on the CPU, so one
@@ -368,6 +431,23 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
         log_main(f"FSDP plan: {len(lp.groups)} layer gather group(s), "
                  f"{mb:.1f} MB padded fp32 params "
                  f"({mb / n:.1f} MB/replica at rest)")
+    if telemetry.is_configured() and n > 1 and not args.zero1:
+        # the setup-time wire accounting rows `telemetry summary` reports
+        # (ZeRO-1's split wire is outside their conventions, as in the
+        # JAX entry)
+        emit_wire_accounting(*trainer.wire_accounting_inputs(
+            state, dict(wire_dtype=args.wire_dtype,
+                        bucket_cap_mb=args.bucket_cap_mb,
+                        fsdp_explicit=args.fsdp_explicit)), n)
+    # MFU on the step line (a card with a known peak only): 3 x the
+    # forward's matmul and convolution FLOPs of one sample
+    peak = flops_mod.chip_peak_tflops(dev)
+    if peak:
+        try:
+            fwd = flops_mod.matmul_flops(make_flops_model(), flops_input)
+            trainer.set_mfu_reference(3.0 * fwd, peak * 1e12 * n)
+        except Exception as e:  # MFU is a log nicety, never a crash
+            log_main(f"NOTE: MFU logging disabled ({e})")
 
     # step-granular checkpoints: labels are epoch * steps_per_epoch + step,
     # so a mid-epoch save sorts between the epoch boundaries
@@ -419,8 +499,10 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
         # the restart supervisor: a checkpoint every epoch; on a step or
         # save failure it restores the newest valid checkpoint and
         # replays behind the step fence. It owns the save cadence
-        # (--checkpoint-every does not apply); a preemption drains as in
-        # the plain loop
+        # (--checkpoint-every and --profile-dir do not apply); a
+        # preemption drains as in the plain loop
+        if args.profile_dir:
+            log_main("NOTE: --profile-dir is ignored under --max-restarts")
         sup = Supervisor(trainer, ckpt, state_factory, train_loader,
                          retry=RetryPolicy(max_restarts=args.max_restarts),
                          guard=stop, injector=chaos,
@@ -449,55 +531,106 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
 
         return poll_stop
 
-    for epoch in range(start_epoch, args.epochs):
-        counts = samples_per_step_list(len(train_ds), global_batch,
-                                       steps_per_epoch, args.drop_last)
-        fault_hook = None
-        if chaos is not None:
-            # the absolute global step's fence for crash and sigterm
-            base = epoch * steps_per_epoch + start_step
-            fault_hook = (lambda i, _base=base: chaos.on_step(_base + i))
-        state, train_loss, train_acc, epoch_time, steps_done = \
-            trainer.train_epoch(
-                state, train_loader.epoch(epoch, start_step=start_step),
-                epoch, steps_per_epoch, samples_per_step=counts[start_step:],
-                start_step=start_step, stop_fn=stop_fn(),
-                fault_hook=fault_hook)
-        abs_step = start_step + steps_done
-        start_step = 0
+    # the device-time plane: a StepProfiler exists whenever --profile-dir
+    # names a static window or the live /metrics surface is up (captures
+    # then land under <output-dir>/profiles). Armed three ways: the static
+    # --profile-steps window, POST /profile?steps=K, and the watchdog's
+    # anomaly capture hook. Every closed window becomes a device_profile
+    # event (telemetry/device.py). With both off no profiler exists and
+    # the loop's step_hook stays None
+    profiler = None
+    profile_base = args.profile_dir
+    if profile_base is None and metrics_port and telemetry.is_configured():
+        profile_base = str(Path(args.output_dir) / "profiles")
+    if profile_base is not None:
+        first = last = None
+        if args.profile_dir:
+            first, last = (int(x) for x in args.profile_steps.split(","))
 
-        if abs_step < steps_per_epoch:
-            # only the agreed stop ends an epoch early: persist (epoch,
-            # step) now, so a resume replays nothing; no CSV row for the
-            # unfinished epoch
-            if ckpt:
-                ckpt.save(epoch * steps_per_epoch + abs_step, state,
-                          wait=True, epoch=epoch, step_in_epoch=abs_step,
-                          world_size=n)
-                log_main(f"Preempted: checkpointed epoch {epoch} step "
-                         f"{abs_step}/{steps_per_epoch}; relaunch with "
-                         "--resume to continue mid-epoch")
-            else:
-                log_main("Preempted: stopping (no --checkpoint-dir, "
-                         "nothing persisted beyond the metrics CSV)")
-            break
+        def _mfu_ref():
+            # read lazily, as the JAX entry does: the reference exists only
+            # on a card with a known peak
+            if trainer._flops_per_sample and trainer._peak_flops_total:
+                return (trainer._flops_per_sample * global_batch,
+                        trainer._peak_flops_total)
+            return None
 
-        epoch_end(epoch, state, train_loss, train_acc, epoch_time)
-        if ckpt and (epoch + 1) % args.checkpoint_every == 0:
-            ckpt.save((epoch + 1) * steps_per_epoch, state,
-                      epoch=epoch + 1, world_size=n)
-        if stop.should_stop:
-            if ckpt:
-                if (epoch + 1) % args.checkpoint_every != 0:
-                    ckpt.save((epoch + 1) * steps_per_epoch, state,
-                              epoch=epoch + 1, world_size=n)
-                ckpt.wait()
-                log_main(f"Preempted: checkpointed epoch {epoch + 1}; "
-                         "relaunch with --resume to continue")
-            else:
-                log_main("Preempted: stopping (no --checkpoint-dir, "
-                         "nothing persisted beyond the metrics CSV)")
-            break
+        profiler = StepProfiler(
+            profile_base, first, last,
+            on_capture=tele_device.make_ingestor(mfu_ref=_mfu_ref),
+            device=dev)
+        server = (telemetry.get_metrics_server()
+                  if metrics_port and telemetry.is_configured() else None)
+        if server is not None:
+            server.profile_handler = profiler.request_capture
+        if trainer.watchdog is not None:
+            trainer.watchdog.capture_hook = (
+                lambda name, step: profiler.request_capture(
+                    2, reason=f"anomaly:{name}", trigger_step=step))
+        log_main(f"Profiler: on-demand capture armed (traces under "
+                 f"{profile_base}"
+                 + (f"; static window steps {first}-{last}"
+                    if first is not None else "") + ")")
+
+    # context-managed: an exception mid-epoch must still stop an open
+    # profiler session (a leaked one fails every later capture)
+    with profiler if profiler is not None else contextlib.nullcontext():
+        for epoch in range(start_epoch, args.epochs):
+            counts = samples_per_step_list(len(train_ds), global_batch,
+                                           steps_per_epoch, args.drop_last)
+            fault_hook = None
+            if chaos is not None:
+                # the absolute global step's fence for crash and sigterm
+                base = epoch * steps_per_epoch + start_step
+                fault_hook = (lambda i, _base=base: chaos.on_step(_base + i))
+            state, train_loss, train_acc, epoch_time, steps_done = \
+                trainer.train_epoch(
+                    state, train_loader.epoch(epoch, start_step=start_step),
+                    epoch, steps_per_epoch,
+                    samples_per_step=counts[start_step:], step_hook=profiler,
+                    start_step=start_step, stop_fn=stop_fn(),
+                    fault_hook=fault_hook)
+            abs_step = start_step + steps_done
+            start_step = 0
+
+            if abs_step < steps_per_epoch:
+                # only the agreed stop ends an epoch early: persist (epoch,
+                # step) now, so a resume replays nothing; no CSV row for the
+                # unfinished epoch
+                telemetry.flush_flight(
+                    cause=f"preemption (sigterm) drained at epoch {epoch} "
+                          f"step {abs_step}", rc=0)
+                if ckpt:
+                    ckpt.save(epoch * steps_per_epoch + abs_step, state,
+                              wait=True, epoch=epoch, step_in_epoch=abs_step,
+                              world_size=n)
+                    log_main(f"Preempted: checkpointed epoch {epoch} step "
+                             f"{abs_step}/{steps_per_epoch}; relaunch with "
+                             "--resume to continue mid-epoch")
+                else:
+                    log_main("Preempted: stopping (no --checkpoint-dir, "
+                             "nothing persisted beyond the metrics CSV)")
+                break
+
+            epoch_end(epoch, state, train_loss, train_acc, epoch_time)
+            if ckpt and (epoch + 1) % args.checkpoint_every == 0:
+                ckpt.save((epoch + 1) * steps_per_epoch, state,
+                          epoch=epoch + 1, world_size=n)
+            if stop.should_stop:
+                telemetry.flush_flight(
+                    cause=f"preemption (sigterm) drained at epoch boundary "
+                          f"{epoch + 1}", rc=0)
+                if ckpt:
+                    if (epoch + 1) % args.checkpoint_every != 0:
+                        ckpt.save((epoch + 1) * steps_per_epoch, state,
+                                  epoch=epoch + 1, world_size=n)
+                    ckpt.wait()
+                    log_main(f"Preempted: checkpointed epoch {epoch + 1}; "
+                             "relaunch with --resume to continue")
+                else:
+                    log_main("Preempted: stopping (no --checkpoint-dir, "
+                             "nothing persisted beyond the metrics CSV)")
+                break
 
     if ckpt:
         ckpt.wait()  # finish the async write before exit

@@ -48,7 +48,11 @@ finished. Each rank restores its own residual row.
 
 Instruments: ``save_blocked_ms`` (caller-thread ms inside ``save`` and
 ``wait``), ``snapshot_ms`` (of which the host copy), ``saves_started``,
-``bytes_written`` and ``hash_ms`` (the writer's sha256 time).
+``bytes_written`` and ``hash_ms`` (the writer's sha256 time). On the
+telemetry stream, as in the JAX package: a ``save_blocked`` span for each
+``save`` and ``wait``, a ``restore`` span, and a
+``torn_checkpoint_skipped`` event for each torn checkpoint a restore
+skips.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
 from ..convert import flax_ordered
 from ..parallel.collectives import all_gather, reduce_scalar, world_size
 from ..parallel.sharding import flatten_pad, unflatten_padded
@@ -468,7 +473,12 @@ class CheckpointManager:
             self._writer.start()
         if wait:
             self._join_agreed()
-        self.save_blocked_ms += (time.perf_counter() - t0) * 1e3
+        blocked_s = time.perf_counter() - t0
+        self.save_blocked_ms += blocked_s * 1e3
+        # the save_blocked telemetry span: exactly the caller-thread stall
+        # this save cost the train loop
+        telemetry.span_event("save_blocked", blocked_s, label=label,
+                             phase="save", async_save=not wait)
 
     def wait(self) -> None:
         """Barrier: join the writer and raise a failed write (a shutdown
@@ -477,7 +487,9 @@ class CheckpointManager:
         try:
             self._join_agreed()
         finally:
-            self.save_blocked_ms += (time.perf_counter() - t0) * 1e3
+            blocked_s = time.perf_counter() - t0
+            self.save_blocked_ms += blocked_s * 1e3
+            telemetry.span_event("save_blocked", blocked_s, phase="wait")
 
     def close(self) -> None:
         self._join_logged()
@@ -509,6 +521,8 @@ class CheckpointManager:
                 log_main(f"CHECKPOINT INTEGRITY: checkpoint {label} is "
                          f"torn ({problem}) — skipping it and trying the "
                          "previous one")
+                telemetry.emit("event", "torn_checkpoint_skipped",
+                               label=label, problem=problem)
                 self.last_skipped.append(label)
                 continue
             yield label
@@ -546,10 +560,16 @@ class CheckpointManager:
         err.label, err.world_size = label, saved
         return err
 
-    @torch.no_grad()
     def _restore(self, label: int, template: TrainState,
                  template_world_size: Optional[int]
                  ) -> Tuple[TrainState, int, int]:
+        with telemetry.span("restore", label=label):
+            return self._restore_inner(label, template, template_world_size)
+
+    @torch.no_grad()
+    def _restore_inner(self, label: int, template: TrainState,
+                       template_world_size: Optional[int]
+                       ) -> Tuple[TrainState, int, int]:
         meta = json.loads((self._step_dir(label) / _META).read_text())
         has_ef = (self._step_dir(label) / "grad_sync.pt").exists()
         recorded = meta.get("world_size")

@@ -50,13 +50,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..convert import flax_ordered
+from .. import telemetry
 from ..parallel.collectives import Group, all_gather, psum, world_size
 from ..parallel.grad_sync import (
     BATCH_AXES, EF_WIRE_DTYPES, WIRE_DTYPES, BucketPlan, HierSpec,
@@ -180,6 +181,9 @@ class Trainer:
         # when both are set
         self._flops_per_sample: Optional[float] = None
         self._peak_flops_total: Optional[float] = None
+        # the anomaly watchdog (telemetry/watchdog.py), fed by train_epoch
+        # when the entry point sets one
+        self.watchdog = None
         explicit_sync = (config.bucket_cap_mb > 0
                          or config.wire_dtype != "fp32")
         if config.fused_quantize is False and self.device.type == "cuda":
@@ -249,6 +253,24 @@ class Trainer:
         """True when the update is sharded (ZeRO-1 or explicit FSDP over
         several ranks)."""
         return self._zero1 or self._fsdp
+
+    def wire_accounting_inputs(self, state: TrainState, base_cfg: dict
+                               ) -> Tuple[List, dict]:
+        """(leaves, cfg) for `grad_sync.emit_wire_accounting`: the
+        model-shaped parameters (under FSDP, meta tensors of the at-rest
+        chunks' model shapes) and ``base_cfg`` with the resolved slice
+        count (an ``int8_hier`` passthrough records the flat fp32 wire it
+        runs)."""
+        cfg = dict(base_cfg)
+        leaves = list(state.params)
+        if self._fsdp:
+            leaves = [torch.empty(shape, device="meta")
+                      for shape in state.sharding.shapes]
+        if self._hier is not None:
+            cfg["slices"] = self._hier.n_slices
+        elif cfg.get("wire_dtype") == "int8_hier":
+            cfg["wire_dtype"] = self._wire
+        return leaves, cfg
 
     def set_mfu_reference(self, flops_per_sample: float,
                           peak_flops_total: float) -> None:
@@ -692,6 +714,7 @@ class Trainer:
     def train_epoch(self, state: TrainState, batches: Iterable,
                     epoch: int, steps_per_epoch: int,
                     samples_per_step: Optional[Sequence[int]] = None,
+                    step_hook: Optional[Callable[[int], None]] = None,
                     start_step: int = 0,
                     stop_fn: Optional[Callable[[], bool]] = None,
                     fault_hook: Optional[Callable[[int], None]] = None
@@ -705,24 +728,62 @@ class Trainer:
         ``state.step``, so the resumed trajectory is the same).
         ``fault_hook(i)`` runs before step ``i`` of this call executes
         (the supervisor's step fence: a raise there means the optimizer
-        never applied the step); ``stop_fn()`` runs after every step, and
-        True ends the epoch there."""
+        never applied the step); ``step_hook(start_step + i)`` runs after
+        it, before the step (the profiler's windows); ``stop_fn()`` runs
+        after every step, and True ends the epoch there.
+
+        Telemetry (host clocks only; it adds no synchronization): per step
+        a ``data_wait`` span (blocked on the loader iterator) and a
+        ``step_dispatch`` span (the eager step's host time: on the card,
+        its launches plus every host wait the step already has — gloo's
+        collectives, the int8 codec's scale reads), a ``device_sync`` span
+        around the epoch's one synchronization, and the epoch counters
+        (``epoch_time_s``, ``steps``, ``samples``). ``self.watchdog`` (an
+        AnomalyWatchdog) is fed the same timings plus the print-boundary
+        losses; with its abort hook on, a detection raises AnomalyAbort —
+        under the Supervisor, a restartable step failure like any
+        other."""
         cfg = self.config
         epoch_metrics = zero_metrics(self.device)
         t_epoch = time.perf_counter()
         meter = ThroughputMeter()
         steps_done = 0
-        for i, batch in enumerate(batches):
+        epoch_samples = 0
+        watchdog = self.watchdog
+        it = iter(batches)
+        i = 0
+        while True:
+            t_wait = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            data_wait_s = time.perf_counter() - t_wait
+            telemetry.span_event("data_wait", data_wait_s,
+                                 step=start_step + i, epoch=epoch)
             if fault_hook is not None:
                 fault_hook(i)
+            if step_hook is not None:
+                step_hook(start_step + i)
+            t_disp = time.perf_counter()
             metrics = self.train_step(state, batch)
+            dispatch_s = time.perf_counter() - t_disp
+            telemetry.span_event("step_dispatch", dispatch_s,
+                                 step=start_step + i, epoch=epoch)
+            if watchdog is not None:
+                watchdog.observe_step(start_step + i,
+                                      data_wait_s + dispatch_s,
+                                      data_wait_s=data_wait_s)
             epoch_metrics = add_metrics(epoch_metrics, metrics)
             steps_done = i + 1
             if samples_per_step is not None:
-                meter.update(samples_per_step[min(i, len(samples_per_step)
-                                                  - 1)])
+                n = samples_per_step[min(i, len(samples_per_step) - 1)]
+                meter.update(n)
+                epoch_samples += n
             if (i + 1) % cfg.print_freq == 0:
                 avg_loss, avg_acc = summarize(epoch_metrics)
+                if watchdog is not None:
+                    watchdog.observe_loss(start_step + i, avg_loss)
                 rate = meter.rate()
                 mfu = ""
                 if self._flops_per_sample and self._peak_flops_total:
@@ -739,8 +800,14 @@ class Trainer:
                 meter.reset()
             if stop_fn is not None and stop_fn():
                 break
-        _sync(self.device)
+            i += 1
+        with telemetry.span("device_sync", epoch=epoch):
+            _sync(self.device)
         epoch_time = time.perf_counter() - t_epoch
+        telemetry.counter("epoch_time_s", epoch_time, epoch=epoch)
+        telemetry.counter("steps", steps_done, epoch=epoch)
+        if epoch_samples:
+            telemetry.counter("samples", epoch_samples, epoch=epoch)
         loss, acc = summarize(epoch_metrics)
         return state, loss, acc, epoch_time, steps_done
 
@@ -748,8 +815,10 @@ class Trainer:
                  batches: Iterable) -> Tuple[float, float]:
         """Sharded validation: each rank its rows, the totals summed over
         ranks once. (mean loss, top-1 %)."""
-        totals = zero_metrics(self.device)
-        with self.materialized(state):
-            for batch in batches:
-                totals = add_metrics(totals, self.eval_step(state, batch))
-        return summarize(_psum_metrics(totals, self.group))
+        with telemetry.span("eval"):
+            totals = zero_metrics(self.device)
+            with self.materialized(state):
+                for batch in batches:
+                    totals = add_metrics(totals,
+                                         self.eval_step(state, batch))
+            return summarize(_psum_metrics(totals, self.group))

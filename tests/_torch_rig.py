@@ -1,7 +1,9 @@
 """Tiny training rigs of the port for the checkpoint and resilience tests:
 a ResNet-18 of 4 filters (BatchNorm, SGD with momentum, augmentation on)
 and a 2-block GPT-2 (AdamW), each on the CPU over a synthetic dataset
-made from a seed, with the helpers that compare two states bitwise.
+made from a seed, with the helpers that compare two states bitwise; and
+``port_process_state``, the autouse fixture every test file that runs the
+port's ``train.main`` (or installs its preemption guard) imports by name.
 Imports no JAX."""
 
 import sys
@@ -10,6 +12,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import numpy as np  # noqa: E402
+import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from distributed_pytorch_training_tpu_torch.data.datasets import (  # noqa
@@ -30,6 +33,31 @@ from distributed_pytorch_training_tpu_torch.training.tasks import (  # noqa
 )
 
 RESNET = dict(num_classes=10, num_filters=4)
+
+
+def reset_port_process_state() -> None:
+    """Take down what the port's ``train.main`` leaves in the process, as
+    the JAX entry leaves it too: its preemption guard's SIGTERM and SIGINT
+    handlers (the handlers it replaced are put back, so a JAX guard
+    installed before it gets its signals again), the telemetry stream and
+    the metrics endpoint."""
+    from distributed_pytorch_training_tpu_torch import telemetry
+    from distributed_pytorch_training_tpu_torch.training.preemption import (
+        PreemptionGuard,
+    )
+
+    PreemptionGuard.uninstall()
+    telemetry.reset()
+    telemetry.stop_metrics_server()
+
+
+@pytest.fixture(autouse=True)
+def port_process_state():
+    """After each test, `reset_port_process_state`: a later test in the
+    same worker process, the JAX package's among them, starts with the
+    signal handlers and telemetry globals the port found."""
+    yield
+    reset_port_process_state()
 GPT2 = dict(vocab_size=97, hidden_dim=32, depth=2, num_heads=2,
             max_position=16)
 

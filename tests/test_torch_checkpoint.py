@@ -64,8 +64,8 @@ from distributed_pytorch_training_tpu_torch.training.tasks import (
 )
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from _torch_rig import (  # noqa: E402
-    GPT2, assert_bitwise_equal, control, flat_state, rig,
+from _torch_rig import (  # noqa: E402,F401
+    GPT2, assert_bitwise_equal, control, flat_state, port_process_state, rig,
 )
 
 @pytest.fixture(autouse=True, scope="module")
@@ -542,7 +542,7 @@ def test_serving_smoke_serves_the_checkpoint(tmp_path, capsys):
                   str(tmp_path / "ckpt"), "--model-overrides",
                   "vocab_size=50257,hidden_dim=32,depth=2,num_heads=2,"
                   "max_position=32", "--buckets", "8,16", "--prompt-len",
-                  "6"])
+                  "6", "--output-dir", str(tmp_path / "serving")])
     out = capsys.readouterr().out
     manifest = json.loads(
         (tmp_path / "ckpt" / ".manifests" / "8.json").read_text())

@@ -50,6 +50,7 @@ magnitude of each output, float32 reassociation of the per-rank partial
 sums.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -83,6 +84,7 @@ from distributed_pytorch_training_tpu_torch.models.resnet import BatchNorm
 from distributed_pytorch_training_tpu_torch.utils import MetricsCSV
 
 from _torch_dp_worker import run_ranks
+from _torch_rig import port_process_state  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 LOSS_RTOL = 1e-5
@@ -332,15 +334,24 @@ def jax_param_count(**kw):
 
 
 def test_torchrun_two_ranks_on_cpu(tmp_path):
+    """Two gloo ranks through torchrun, every rank streaming telemetry
+    (--telemetry-all-ranks): the banners, the CSV, and one stream a rank
+    that `telemetry aggregate` merges, each with the int8 wire's
+    accounting row."""
+    from distributed_pytorch_training_tpu_torch.telemetry.aggregate import (
+        aggregate_streams,
+    )
+
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         filter(None, [str(REPO), os.environ.get("PYTHONPATH")])),
         OMP_NUM_THREADS="1")
+    cli = [f for f in RESNET_CLI if f != "--no-telemetry"]
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m",
-         "distributed_pytorch_training_tpu_torch.train", *RESNET_CLI,
+         "distributed_pytorch_training_tpu_torch.train", *cli,
          "--wire-dtype", "int8", "--bucket-cap-mb", str(CAP),
-         "--output-dir", str(tmp_path)],
+         "--telemetry-all-ranks", "--output-dir", str(tmp_path)],
         capture_output=True, text=True, timeout=300, env=env, cwd=tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     out = proc.stdout
@@ -357,6 +368,17 @@ def test_torchrun_two_ranks_on_cpu(tmp_path):
     assert lines[0] == MetricsCSV.HEADER.strip()
     losses = [float(ln.split(",")[1]) for ln in lines[1:]]
     assert len(losses) == 2 and all(np.isfinite(losses))
+    streams = [tmp_path / f"telemetry_rank{r}.jsonl" for r in range(2)]
+    agg = aggregate_streams([str(p) for p in streams])
+    assert agg["n_streams"] == 2
+    for rank, path in enumerate(streams):
+        events = [json.loads(ln) for ln in path.read_text().splitlines()]
+        assert {ev["rank"] for ev in events} == {rank}
+        wire, = [ev for ev in events
+                 if ev["name"] == "wire_bytes_per_replica"]
+        assert (wire["tier"], wire["wire_dtype"], wire["n_shards"]) == \
+            ("ici", "int8", 2) and wire["value"] > 0
+        assert sum(ev["name"] == "step_dispatch" for ev in events) == 6
 
 
 def test_one_rank_resnet_run_through_main(tmp_path, capsys):

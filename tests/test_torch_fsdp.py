@@ -33,6 +33,7 @@ from distributed_pytorch_training_tpu_torch.training.checkpoint import (
 )
 
 from _torch_dp_worker import run_ranks
+from _torch_rig import port_process_state  # noqa: F401
 from _torch_sharded import (HOP, check_ef_rows, check_trajectory,
                             jax_codec, jax_run, port_job)
 
@@ -217,7 +218,7 @@ def test_two_ranks_preempted_resumed_and_served(tmp_path, capsys):
     capsys.readouterr()
     serve = ["smoke", "--device", "cpu", "--ckpt-dir", ck,
              "--model-overrides", GPT2, "--buckets", "8,16",
-             "--prompt-len", "6"]
+             "--prompt-len", "6", "--output-dir", str(tmp_path / "serving")]
     report = run(serve + ["--fsdp-explicit"])
     assert "serving: checkpoint label=16 step=16 verified=True" in \
         capsys.readouterr().out

@@ -35,6 +35,7 @@ from distributed_pytorch_training_tpu_torch.convert import iter_flax_leaves
 from distributed_pytorch_training_tpu_torch.parallel import grad_sync as gs
 
 from _torch_dp_worker import run_ranks
+from _torch_rig import port_process_state  # noqa: F401
 from _torch_sharded import (HOP, check_ef_rows, check_trajectory,
                             jax_codec, jax_run, port_job)
 

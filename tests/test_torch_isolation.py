@@ -36,9 +36,15 @@ def imported_roots(path):
 
 def test_scan_covers_the_port():
     names = {p.relative_to(REPO).as_posix() for p in port_sources()}
-    for must in ("chip_smoke.py",
-                 "distributed_pytorch_training_tpu_torch/ops/quantize.py",
-                 "distributed_pytorch_training_tpu_torch/serving/engine.py"):
+    port = "distributed_pytorch_training_tpu_torch/"
+    for must in ("chip_smoke.py", port + "ops/quantize.py",
+                 port + "serving/engine.py",
+                 # the telemetry slice's modules
+                 port + "utils/locktrace.py", port + "utils/profiling.py",
+                 port + "experiments/trace_analysis.py",
+                 *(port + f"telemetry/{m}.py" for m in (
+                     "__init__", "recorder", "flight", "watchdog",
+                     "aggregate", "metrics_http", "__main__", "device"))):
         assert must in names
 
 
@@ -116,5 +122,5 @@ def test_smoke_cli_without_device_raises(no_cuda):
     from distributed_pytorch_training_tpu_torch.serving.__main__ import main
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        main(["smoke", "--model-overrides",
+        main(["smoke", "--no-telemetry", "--model-overrides",
               "vocab_size=97,hidden_dim=32,depth=2,num_heads=2"])

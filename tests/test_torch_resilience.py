@@ -55,8 +55,9 @@ from distributed_pytorch_training_tpu_torch.training.preemption import (
 )
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from _torch_rig import (  # noqa: E402
-    assert_bitwise_equal, control, flat_state, rig,
+from _torch_rig import (  # noqa: E402,F401
+    assert_bitwise_equal, control, flat_state, port_process_state,
+    reset_port_process_state, rig,
 )
 from _torch_dp_worker import run_ranks  # noqa: E402
 
@@ -231,6 +232,30 @@ def test_uninstall_puts_back_the_previous_handlers():
     assert signal.getsignal(signal.SIGTERM) is prev
     assert PreemptionGuard.install() is not guard
     PreemptionGuard.uninstall()
+
+
+def test_sigterm_reaches_a_jax_guard_after_a_port_test():
+    """A port test that runs ``train.main`` leaves the port's guard
+    handling SIGTERM (as the JAX entry leaves its own). A JAX guard
+    installed earlier in the same worker process then never saw the
+    signal: ``install`` is idempotent and does not take the handler back,
+    so tests/test_preemption.py::test_sigterm_sets_stop_flag failed after
+    a port test file. The port's per-test teardown
+    (``reset_port_process_state``, the ``port_process_state`` fixture)
+    puts the JAX handler back."""
+    from distributed_pytorch_training_tpu.training.preemption import (
+        PreemptionGuard as JaxGuard,
+    )
+
+    jax_guard = JaxGuard.install()          # an earlier JAX test's guard
+    signal.signal(signal.SIGTERM, jax_guard._handler)
+    PreemptionGuard.install()               # a port test's train.main
+    assert signal.getsignal(signal.SIGTERM) != jax_guard._handler
+    reset_port_process_state()              # that test's teardown
+    assert JaxGuard.install() is jax_guard  # the JAX test's install
+    os.kill(os.getpid(), signal.SIGTERM)
+    assert jax_guard.should_stop
+    jax_guard.reset()
 
 
 # ---------------------------------------------------------------------------

@@ -195,12 +195,35 @@ def test_queue_groups_by_bucket():
 
 
 @pytest.mark.parametrize("serve_dtype", ["fp32", "int8", "bf16"])
-def test_smoke_cli_on_cpu(serve_dtype, capsys):
+def test_smoke_cli_on_cpu(serve_dtype, capsys, tmp_path):
     assert main(["smoke", "--device", "cpu", "--serve-dtype", serve_dtype,
-                 "--model-overrides", TINY_OVERRIDES]) == 0
+                 "--model-overrides", TINY_OVERRIDES, "--output-dir",
+                 str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert out.count("serving smoke: prompt[") == 3
     assert "serving smoke: ok (3 requests)" in out
+    # the JAX serving CLI's stream: each request's queue_wait, each
+    # batch's prefill and decode, the shutdown drain
+    from distributed_pytorch_training_tpu_torch.telemetry.__main__ import (
+        read_stream, summarize,
+    )
+
+    events, bad = read_stream(str(tmp_path / "telemetry_rank0.jsonl"))
+    spans = summarize(events)["spans"]
+    assert bad == 0 and events[0]["entry"] == "serving"
+    assert spans["queue_wait"]["count"] == 3 and spans["drain"]["count"] == 1
+    assert spans["prefill"]["count"] == spans["decode"]["count"] >= 1
+
+
+def test_smoke_cli_failure_leaves_a_flight(tmp_path):
+    """An abnormal serving exit (a prompt past the model's vocab) leaves a
+    flight_*.json naming the failure, as the JAX serving CLI does."""
+    with pytest.raises(Exception):
+        main(["smoke", "--device", "cpu", "--model-overrides",
+              TINY_OVERRIDES, "--prompt", "5,100000", "--output-dir",
+              str(tmp_path)])
+    flight, = tmp_path.glob("flight_*.json")
+    assert "serving abnormal exit" in flight.read_text()
 
 
 @pytest.mark.parametrize("argv", [

@@ -30,6 +30,8 @@ Tolerances:
   of it and fails.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -103,6 +105,7 @@ from distributed_pytorch_training_tpu_torch.training.tasks import (
     LanguageModelingTask,
 )
 from distributed_pytorch_training_tpu_torch.utils import MetricsCSV, parse_args
+from _torch_rig import port_process_state  # noqa: F401
 
 LOSS_RTOL = 1e-5
 PARAM_ATOL = 1e-5
@@ -396,7 +399,8 @@ def test_entry_point_trains_on_cpu(tmp_path, capsys):
     train.main(TINY_CLI + ["--output-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "NOTE: using synthetic data (gpt2-synthetic, n=32)" in out
-    assert "NOTE: the PyTorch port writes no telemetry stream" in out
+    # telemetry is on by default: rank 0's stream beside the CSV
+    assert (tmp_path / "telemetry_rank0.jsonl").is_file()
     # the JAX entry's banner counts the flax model's parameters
     shapes = jax.eval_shape(
         lambda: jax_get_model("gpt2_124m", vocab_size=50257, hidden_dim=32,
@@ -448,11 +452,7 @@ REFUSED = [
     (["--max-restarts", "-1"], ValueError, "--max-restarts must be >= 0"),
     (["--chaos", "replica_death@step=1"], NotImplementedError, ELASTIC),
     (["--chaos", "capacity_return@step=1"], NotImplementedError, ELASTIC),
-    (["--profile-dir", "prof"], NotImplementedError, "--profile-dir"),
-    (["--metrics-port", "9000"], NotImplementedError, "--metrics-port"),
-    (["--telemetry-all-ranks"], NotImplementedError,
-     "--telemetry-all-ranks"),
-    (["--autopilot"], NotImplementedError, "--autopilot"),
+    (["--autopilot"], NotImplementedError, "the autopilot slice"),
     (["--download"], NotImplementedError, "--download"),
     (["--attention", "ring"], NotImplementedError, "ring"),
     (["--attention", "ulysses"], NotImplementedError, "ulysses"),
@@ -466,6 +466,148 @@ def test_unported_flags_raise(tmp_path, flags, error, match):
     with pytest.raises(error, match=match):
         train.main(TINY_CLI + flags + ["--output-dir", str(tmp_path)])
     assert not (tmp_path / "metrics_rank0.csv").exists()
+
+
+# ---------------------------------------------------------------------------
+# telemetry: the event stream, the profiler, /metrics, the watchdog
+# ---------------------------------------------------------------------------
+
+# (kind, name) the JAX entry emits and the port's does not, with why
+JAX_ONLY_EVENTS = {
+    ("counter", "compile_cache_enabled"):
+        "XLA's persistent compilation cache; the port compiles nothing",
+    ("counter", "wire_bytes_per_replica"):
+        "emitted only when the batch is sharded over several replicas: "
+        "the JAX run shards it over the 8-device CPU mesh, the port's "
+        "run is one process (its rows are held to the JAX package's in "
+        "test_torch_telemetry.py and on 2 ranks in "
+        "test_torch_dp_training.py)",
+}
+PROFILE = ["--profile-dir", None, "--profile-steps", "1,3"]
+
+
+def _events_by_step(path):
+    import collections
+
+    out = collections.defaultdict(collections.Counter)
+    for line in path.read_text().splitlines():
+        ev = json.loads(line)
+        if (ev["kind"], ev["name"]) not in JAX_ONLY_EVENTS:
+            out[ev.get("step")][(ev["kind"], ev["name"])] += 1
+    return dict(out)
+
+
+def test_telemetry_events_per_step_equal_jax(tmp_path, mesh8):
+    """Telemetry on (the default), a --profile-dir window over steps 1-2:
+    the JAX entry (batch 1 on each of 8 CPU devices) and the port's (batch
+    8 in one process; the same 4 steps an epoch) emit the same multiset
+    of (kind, name) at every step and outside the steps, but for
+    JAX_ONLY_EVENTS; the port writes a trace and a device_profile event
+    for the window, and both packages' `telemetry summary` read its
+    stream."""
+    import importlib
+
+    from distributed_pytorch_training_tpu.telemetry import (
+        __main__ as jax_telemetry_cli,
+    )
+    from distributed_pytorch_training_tpu_torch.telemetry import (
+        __main__ as telemetry_cli,
+    )
+
+    flags = [f for f in TINY_CLI if f not in ("--device", "cpu")]
+    batch = flags.index("--batch-size") + 1
+    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
+    jax_train = importlib.import_module("train")
+    jax_flags = flags[:batch] + ["1"] + flags[batch + 1:]
+    jax_train.main(jax_flags + ["--output-dir", str(jax_dir)]
+                   + PROFILE[:1] + [str(jax_dir / "prof")] + PROFILE[2:])
+    port_flags = flags[:batch] + ["8"] + flags[batch + 1:]
+    train.main(["--device", "cpu"] + port_flags
+               + ["--output-dir", str(port_dir)]
+               + PROFILE[:1] + [str(port_dir / "prof")] + PROFILE[2:])
+    stream = port_dir / "telemetry_rank0.jsonl"
+    ours = _events_by_step(stream)
+    assert ours == _events_by_step(jax_dir / "telemetry_rank0.jsonl")
+    assert set(ours) == {None, 0, 1, 2, 3}
+    assert ours[0] == {("span", "data_wait"): 2, ("span", "step_dispatch"): 2}
+    assert len(list((port_dir / "prof").glob("*.pt.trace.json"))) == 1
+    prof, = [json.loads(ln) for ln in stream.read_text().splitlines()
+             if '"device_profile"' in ln]
+    assert (prof["start_step"], prof["stop_step"], prof["steps"]) == (1, 3, 2)
+    assert prof["window_ms"] > 0
+    assert telemetry_cli.main(["summary", str(stream)]) == 0
+    assert jax_telemetry_cli.main(["summary", str(stream)]) == 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_metrics_port_scrape_and_profile_on_cpu(tmp_path, monkeypatch):
+    """--metrics-port: mid-run, /metrics counts the steps, /healthz is
+    200, and POST /profile?steps=2 arms a capture that lands under
+    <output-dir>/profiles as a device_profile event."""
+    import urllib.request
+
+    from distributed_pytorch_training_tpu_torch.training import loop
+
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    seen = {}
+    step = loop.Trainer.train_step
+
+    def scraping_step(self, state, batch):
+        n = seen.setdefault("calls", 0)
+        seen["calls"] = n + 1
+        if n in (2, 6):
+            with urllib.request.urlopen(url + "/metrics", timeout=5) as r:
+                seen[f"metrics{n}"] = r.read().decode()
+            with urllib.request.urlopen(url + "/healthz", timeout=5) as r:
+                seen[f"healthz{n}"] = r.status
+        if n == 2:
+            req = urllib.request.Request(url + "/profile?steps=2",
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=5) as r:
+                seen["post"] = r.status
+        return step(self, state, batch)
+
+    monkeypatch.setattr(loop.Trainer, "train_step", scraping_step)
+    train.main(TINY_CLI + ["--epochs", "1", "--metrics-port", str(port),
+                           "--output-dir", str(tmp_path)])
+
+    def steps_total(text):
+        return float(next(ln.split()[-1] for ln in text.splitlines()
+                          if ln.startswith("dpt_steps_total")))
+
+    assert seen["healthz2"] == seen["healthz6"] == 200
+    assert steps_total(seen["metrics6"]) > steps_total(seen["metrics2"])
+    assert seen["post"] == 202
+    captures = list((tmp_path / "profiles").glob("capture_*"))
+    assert len(captures) == 1 and list(captures[0].glob("*.pt.trace.json"))
+    prof, = [json.loads(ln) for ln in
+             (tmp_path / "telemetry_rank0.jsonl").read_text().splitlines()
+             if '"device_profile"' in ln]
+    assert prof["reason"] == "http" and prof["steps"] == 2
+
+
+def test_telemetry_abort_leaves_a_flight(tmp_path, monkeypatch):
+    """--telemetry-abort: a detected anomaly (here any data wait, under an
+    absolute stall bound of 1 ns) raises AnomalyAbort out of train.main,
+    which leaves a flight_*.json naming it beside the stream."""
+    from distributed_pytorch_training_tpu_torch import telemetry
+
+    monkeypatch.setenv("DPT_WATCHDOG_STALL_ABS_S", "1e-9")
+    with pytest.raises(telemetry.AnomalyAbort, match="loader_stall"):
+        train.main(TINY_CLI + ["--telemetry-abort", "--output-dir",
+                               str(tmp_path)])
+    flight, = tmp_path.glob("flight_*.json")
+    body = json.loads(flight.read_text())
+    assert body["cause"].startswith("AnomalyAbort")
+    assert any(ev["kind"] == "anomaly" for ev in body["events"])
 
 
 def test_attention_auto_resolves_by_device():

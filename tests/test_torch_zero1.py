@@ -43,7 +43,7 @@ from distributed_pytorch_training_tpu_torch.training.train_state import (
 )
 
 from _torch_dp_worker import run_ranks
-from _torch_rig import rig
+from _torch_rig import port_process_state, rig  # noqa: F401
 from _torch_sharded import (HOP, check_ef_rows,
                             check_trajectory, jax_codec, jax_run, port_job)
 
