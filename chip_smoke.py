@@ -8,7 +8,10 @@ and serve those runs from their checkpoints, and train both models
 through the sharded update (ZeRO-1, explicit FSDP) and ResNet-18 on four
 ranks through the two-tier ``int8_hier`` wire, and profile the GPT-2
 ``--amp`` step and the reference's command on the card through
-``--profile-dir`` and the live ``/metrics`` endpoint's ``POST /profile``.
+``--profile-dir`` and the live ``/metrics`` endpoint's ``POST /profile``,
+and serve GPT-2 124M continuously over the paged (fp32 and int8) KV pool:
+the bench rows, speculative decoding, prefix skips, two replicas behind
+the router with one killed, and a ``serve`` process.
 
     python3 chip_smoke.py
 
@@ -140,8 +143,35 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     scrapes, ``/healthz`` answers 200, ``POST /profile?steps=2`` leaves a
     ``capture_*`` trace and a ``device_profile`` event. A CUDA window
     with no kernel event fails the phase;
+21. (run before phase 17's lines) continuous serving through the port's
+    entry points at GPT-2 124M full width (random weights from seed 0),
+    on one schedule of 24 prompts of 1-128 tokens (buckets 64 and 128)
+    at 16 requests/s, 32 new tokens each, 8 slots, pages of 16: (a)
+    ``measure_serving`` (``bench``) and ``measure_serving_continuous``
+    (``bench --continuous``), fp32 pages: every request completes, and the
+    greedy streams are equal or part first where the dense arm's top-2
+    logit gap is below ESCAPE_GAP (escapes counted and printed); (b)
+    ``bench --continuous --kv-dtype int8`` through the CLI with the counts
+    set to 0 just before and read just after: K1 launches once a page
+    write of k and once of v (2 a decode step at (12 x 8 x 12, 64), 2 a
+    prefill), its captured pages bitwise its plain version's on the same
+    rows, each shape timed beside its bound, and ``kv_bytes_ratio`` >= 3;
+    (c) ``--draft gpt2_124m`` (the draft random from seed 1): streams
+    equal (a)'s continuous arm under the same escape rule, accept ratio
+    printed; (c') the target as its own draft: the accept ratio at least
+    ORACLE_MIN and the streams as (a)'s; (d) ``--shared-frac 0.5``:
+    prefill skips > 0; (e) ``--replicas 2 --kill-replica``: the death
+    finds requests in flight, the router resubmits them, every request
+    completes, streams as (a)'s; (f) ``serving serve`` on an ephemeral
+    port in its own process: ``/generate`` (the first prompt's stream as
+    (a)'s, every answer 32 tokens; one sampled request asked twice gives
+    one stream), ``/healthz``, then SIGTERM drains and exits 0; the key
+    stream's bits on the card bitwise the CPU's; (g) the decode step with
+    every slot live: fp32, int8 weights (dequantized every call) and int8
+    pages, alternating, and its sampling and dequantization alone;
 17. print the ``{"kernels": [...]}`` line (K1 and K2 over their launches
-    on the phase 12 and phase 19 paths, K3-K5 over phase 7's, with their
+    on the phase 12 and phase 19 paths, K1 also over phase 21's int8
+    pages (``paged_kv_*`` apart), K3-K5 over phase 7's, with their
     bf16 fields over phase 14's launches at phase 6's main bf16 shape, and
     ``bf16_trace_ms_per_launch``, phase 20's device time of a launch),
     then the last line ``{"ok": true, "device": {...}}``.
@@ -1967,12 +1997,16 @@ def codec_per_step(counts: dict, rows: dict) -> dict:
 
 
 def codec_kernel_rows(torch, codec, codec19, counts19, dp_steps,
-                      steps19, quantize_checked, dequant_checked) -> list:
+                      steps19, quantize_checked, dequant_checked,
+                      paged_kv) -> list:
     """The kernels line's rows of K1 and K2: their launches on the
     data-parallel paths (rank 0 of every phase 12 run, DP_RUNS, and of
-    every phase 19 run, ``counts19`` a step), with the times, plain times
-    and bounds of each launch's shape (phase 9's ``codec``, phase 19's
-    ``codec19``) summed over them; errors over every shape checked."""
+    every phase 19 run, ``counts19`` a step) and, for K1, on phase 21's
+    int8 KV pages (``paged_kv``, each shape's launches), with the times,
+    plain times and bounds of each launch's shape (phase 9's ``codec``,
+    phase 19's ``codec19``, phase 21's rows) summed over them, K1's
+    paged-KV share also apart (``paged_kv_*``); errors over every shape
+    checked."""
     out = []
     for kernel, line, source in ((QUANTIZE, 147, "quantize_int8_rows.cu"),
                                  (DEQUANT, 191, "dequant_sum_rows.cu")):
@@ -1987,6 +2021,10 @@ def codec_kernel_rows(torch, codec, codec19, counts19, dp_steps,
         checked = [r for r in (*codec.values(), *codec19.values())
                    if r["kernel"] == kernel]
         checked += dequant_checked if kernel == DEQUANT else quantize_checked
+        paged = [(r, r["launches"]) for r in paged_kv
+                 if r["kernel"] == kernel]
+        shares += paged
+        checked += [r for r, _ in paged]
         out.append({
             "name": kernel, "route": "cuda",
             "source": f"{PACKAGE}/csrc/{source}",
@@ -2007,6 +2045,10 @@ def codec_kernel_rows(torch, codec, codec19, counts19, dp_steps,
             **({"composite_ms": sum(r["composite_ms"] * n
                                     for r, n in shares)}
                if kernel == DEQUANT else {}),
+            **({"paged_kv_" + key: sum(r[key] * n if key != "launches"
+                                       else n for r, n in paged)
+                for key in ("launches", "ms", "plain_ms", "bound_ms")}
+               if paged else {}),
         })
     return out
 
@@ -2287,6 +2329,504 @@ def live_endpoint(torch, card: str) -> dict:
         trace.unlink()
     return {"scrapes": seen, "device_profile": profiles[0],
             "kernel_events": w["kernel_events"]}
+
+
+# phase 21: continuous serving through the port's entry points at GPT-2
+# 124M full width: the bench rows (iteration and token granular) on one
+# schedule of SERVE21_REQUESTS prompts of 1-128 tokens in buckets 64 and
+# 128, 32 new tokens each, 8 slots, pages of 16 positions
+SERVE21_BUCKETS, SERVE21_NEW, SERVE21_ROWS, SERVE21_PAGE = (64, 128), 32, 8, 16
+SERVE21_REQUESTS, SERVE21_RPS = 24, 16.0
+SERVE21_FLAGS = ["--model", MODEL, "--buckets", "64,128", "--rows", "8",
+                 "--max-new-tokens", str(SERVE21_NEW), "--page-size",
+                 str(SERVE21_PAGE), "--requests", str(SERVE21_REQUESTS),
+                 "--offered-load", str(SERVE21_RPS)]
+# Two arms' greedy streams (dense vs paged decode, plain vs speculative,
+# one replica vs two) compute the same float32 logits in other shapes and
+# orders: measured card vs CPU prefill logits differ by 3.7e-6 (phase 5),
+# so two arms may part only where the top two logits lie that close. A
+# divergence where the dense arm's top-2 gap is below ESCAPE_GAP (~100x
+# that noise) is an escape, counted and printed; a wrong page, mask or
+# position parts streams at gaps of O(1).
+ESCAPE_GAP = 1e-3
+# (f)'s sampled request, asked twice: the same seed must give one stream
+SERVE21_SAMPLED = {"temperature": 0.7, "top_p": 0.9, "seed": 1234}
+# (c'): the oracle draft proposes SPEC21_K tokens a round. A request of
+# SERVE21_NEW tokens emits its first at prefill, then rounds of K + 1, the
+# last one clamped to the budget; the oracle would accept ORACLE_IDEAL of
+# its proposals (24 of 28 here) if window verify and token-at-a-time draft
+# agreed bitwise. A near tie between their float orders may reject one;
+# ORACLE_MIN is the floor a broken acceptance (a random draft: 0) falls
+# far below
+SPEC21_K = 4
+ORACLE_IDEAL = (((SERVE21_NEW - 1) // (SPEC21_K + 1)) * SPEC21_K
+                + max((SERVE21_NEW - 1) % (SPEC21_K + 1) - 1, 0)) / (
+    -(-(SERVE21_NEW - 1) // (SPEC21_K + 1)) * SPEC21_K)
+ORACLE_MIN = 0.5
+# int8 pages against the dense fp32 cache at this configuration: codes
+# (1 B) and one float32 scale a 64-wide row, 64 / (64 + 4) of 4x
+KV_RATIO_MIN = 3.0
+DECODE_TIMED_STEPS, DECODE_ROUNDS = 16, 3
+
+
+def top2_gap(torch, engine, tokens) -> float:
+    """The top-2 logit gap of the token after ``tokens`` under
+    ``engine``'s weights: one eval forward on the card."""
+    import numpy as np
+
+    from torch.func import functional_call
+
+    with torch.inference_mode():
+        ids = torch.tensor(np.asarray(tokens, np.int64),
+                           device=engine.device)[None]
+        logits = functional_call(engine.model, engine._params(), (ids,))
+        top = torch.topk(logits[0, -1, :engine.model.vocab_size], 2).values
+        return float(top[0] - top[1])
+
+
+def stream_escapes(torch, engine, prompts, ref, got, what: str) -> list:
+    """Hold ``got``'s token streams to ``ref``'s: equal, or parting first
+    where ``engine``'s top-2 logit gap after the common prefix is below
+    ESCAPE_GAP. Returns the escapes as (request, position, gap)."""
+    import numpy as np
+
+    escapes = []
+    for i, (p, a, b) in enumerate(zip(prompts, ref, got)):
+        a, b = np.asarray(a.tokens), np.asarray(b.tokens)
+        if len(a) != len(b):
+            raise RuntimeError(f"{what}: request {i} emitted {len(b)} "
+                               f"tokens against {len(a)}")
+        diff = np.nonzero(a != b)[0]
+        if not diff.size:
+            continue
+        j = int(diff[0])
+        gap = top2_gap(torch, engine, np.concatenate([p, a[:j]]))
+        if not gap < ESCAPE_GAP:
+            raise RuntimeError(
+                f"{what}: request {i} (prompt {len(p)} tokens) parts at "
+                f"token {j} ({a[j]} vs {b[j]}) where the top-2 logit gap "
+                f"is {gap!r} (>= {ESCAPE_GAP})")
+        escapes.append((i, j, gap))
+    return escapes
+
+
+def k1_paged_rows(torch, flush, captured: list, counts: dict) -> list:
+    """K1 at each paged-KV shape the int8 run gave it: the captured rows
+    (k and v of the first calls a shape) bitwise against the plain
+    version, each shape timed beside its bound and plain version."""
+    from distributed_pytorch_training_tpu_torch.ops.quantize import (
+        quantize_int8_rows,
+        quantize_int8_rows_ref,
+    )
+
+    rows = []
+    for shape, count in sorted(counts.items()):
+        mine = [c for c in captured if c[0] == shape]
+        err, same = 0.0, True
+        for _, x, q, s in mine:
+            qr, sr = quantize_int8_rows_ref(x)
+            same = same and torch.equal(q, qr) and torch.equal(
+                s.view(torch.int32), sr.view(torch.int32))
+            err = max(err, (q.int() - qr.int()).abs().max().item(),
+                      (s - sr).abs().max().item())
+        if not mine or not same:
+            raise RuntimeError(f"paged KV K1 at {shape}: pages differ from "
+                               f"the plain version's (max err {err}, "
+                               f"{len(mine)} calls captured)")
+        x = mine[0][1]
+        n, w = shape
+        bound, by = bound_of(5 * n * w + 4 * n, 5 * n * w)
+        rows.append({
+            "kernel": QUANTIZE, "shape": f"{n}x{w}", "launches": count,
+            "bitwise": same, "max_abs_err": err, "checked_calls": len(mine),
+            "ms": timed_ms(torch, lambda: quantize_int8_rows(x), flush),
+            "plain_ms": timed_ms(torch,
+                                 lambda: quantize_int8_rows_ref(x), flush),
+            "bound_ms": bound, "bound_by": by})
+    return rows
+
+
+def decode_step_ms(torch, engine, prompts) -> float:
+    """Mean card time of a decode step with every slot live: admit one
+    prompt a slot into leased pages, then time DECODE_TIMED_STEPS steps
+    between two synchronizations."""
+    from distributed_pytorch_training_tpu_torch.serving.paged import (
+        PagePool,
+    )
+
+    cfg = engine.config
+    engine.reset_state()
+    pool = PagePool(cfg.total_pages, cfg.page_size, cfg.pages_per_slot)
+    for slot, p in enumerate(prompts[:cfg.rows]):
+        lease = pool.alloc(p, len(p) + SERVE21_NEW)
+        engine.set_page_row(slot, lease.pages)
+        engine.admit(slot, p, SERVE21_NEW, 0.0, 1.0, slot)
+    engine.decode_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_TIMED_STEPS):
+        engine.decode_step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / DECODE_TIMED_STEPS
+
+
+def serve_process(torch, prompt, sampled_prompt, want) -> dict:
+    """Phase 21 (f): ``serving serve`` on an ephemeral port, in its own
+    process: POST /generate the schedule's first prompt (greedy), then
+    its second prompt sampled (SERVE21_SAMPLED) twice, GET /healthz, then
+    SIGTERM, which must drain and exit 0. Every answer carries ``want``
+    tokens; the two sampled answers are the same request's key stream
+    and must be equal."""
+    import queue
+    import threading
+    import urllib.request
+
+    out_dir = ROOT / "chiprun_out" / "serve21"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{PACKAGE}.serving", "serve", "--port", "0",
+         *SERVE21_FLAGS[:10], "--output-dir", str(out_dir)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(x) for x in proc.stdout], daemon=True)
+    reader.start()
+    seen = []
+    try:
+        t0 = time.perf_counter()
+        port = None
+        while port is None:
+            left = 300.0 - (time.perf_counter() - t0)
+            if left <= 0 or proc.poll() is not None:
+                raise RuntimeError(f"phase 21 (f): no port; output {seen}")
+            try:
+                line = lines.get(timeout=min(left, 5.0))
+            except queue.Empty:
+                continue
+            seen.append(line.rstrip())
+            if "POST /generate on :" in line:
+                port = int(line.split("POST /generate on :")[1].split()[0])
+        ready_s = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{port}"
+
+        def generate(tokens, **knobs):
+            body = json.dumps({"tokens": [int(t) for t in tokens],
+                               "max_new_tokens": want, **knobs}).encode()
+            req = urllib.request.Request(
+                url + "/generate", data=body, method="POST",
+                headers={"Content-Type": "application/json"})
+            t1 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                answer = json.loads(resp.read())["tokens"]
+            if len(answer) != want:
+                raise RuntimeError(f"phase 21 (f): /generate {knobs} gave "
+                                   f"{len(answer)} tokens, not {want}")
+            return answer, (time.perf_counter() - t1) * 1e3
+
+        answer, generate_ms = generate(prompt)
+        sampled = [generate(sampled_prompt, **SERVE21_SAMPLED)[0]
+                   for _ in range(2)]
+        if sampled[0] != sampled[1]:
+            raise RuntimeError(f"phase 21 (f): one sampled request asked "
+                               f"twice gave two streams: {sampled}")
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        if health != {"draining": False, "served": 3}:
+            raise RuntimeError(f"phase 21 (f): /healthz said {health}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=10)
+        while not lines.empty():
+            seen.append(lines.get_nowait().rstrip())
+        if rc != 0 or not any("replica drained (3 served)" in x
+                              for x in seen):
+            raise RuntimeError(f"phase 21 (f): rc {rc} after SIGTERM; "
+                               f"output {seen}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    return {"ready_s": ready_s, "generate_ms": generate_ms,
+            "tokens": answer, "sampled_tokens": sampled[0], "log": seen}
+
+
+def prng_card_vs_cpu(torch, dev) -> int:
+    """The sampling key stream on the card against the CPU: fold_in and
+    the raw bits of SERVE21_ROWS request keys at 32 positions, over a
+    GPT-2 vocabulary's width. Integer arithmetic, so bitwise; returns
+    the number of words compared."""
+    from distributed_pytorch_training_tpu_torch.utils.prng import (
+        fold_in,
+        prng_key,
+        random_bits,
+    )
+
+    def bits(device):
+        keys = torch.stack([prng_key(s, device) for s in
+                            range(SERVE21_ROWS)]).repeat_interleave(32, 0)
+        pos = torch.arange(32, device=device).repeat(SERVE21_ROWS)
+        folded = fold_in(keys, pos)
+        return folded.cpu(), random_bits(folded, VOCAB).cpu()
+
+    card, cpu = bits(dev), bits("cpu")
+    for a, b, what in zip(card, cpu, ("fold_in", "bits")):
+        if not torch.equal(a, b):
+            n = int((a != b).sum())
+            raise RuntimeError(f"phase 21 (f): {what} on the card differs "
+                               f"from the CPU in {n} of {a.numel()} words")
+    return sum(a.numel() for a in card)
+
+
+def oracle_draft(torch, prompts) -> tuple:
+    """Phase 21 (c'): speculative decoding whose draft is the target
+    itself (the same weights), so the accept and window-commit branches
+    run at full width. Serves ``prompts`` greedily through one replica;
+    returns (results, accepted, proposed)."""
+    from distributed_pytorch_training_tpu_torch.experiments.harness import (
+        build_slot_engine,
+    )
+    from distributed_pytorch_training_tpu_torch.serving.router import (
+        InProcessReplica,
+    )
+    from distributed_pytorch_training_tpu_torch.serving.speculative import (
+        SpeculativeEngine,
+    )
+
+    base = build_slot_engine(MODEL, buckets=SERVE21_BUCKETS,
+                             rows=SERVE21_ROWS, max_new_tokens=SERVE21_NEW,
+                             page_size=SERVE21_PAGE)
+    params = dict(base._params())
+    engine = SpeculativeEngine(base.model, base.config, params, base.model,
+                               params, spec_k=SPEC21_K, device=base.device)
+    del base
+    replica = InProcessReplica("oracle", engine)
+    try:
+        reqs = [replica.submit(p, max_new_tokens=SERVE21_NEW)
+                for p in prompts]
+        results = [r.result(timeout=600.0) for r in reqs]
+    finally:
+        replica.stop()
+    sched = replica.scheduler
+    return results, sched.spec_accepted, sched.spec_proposed
+
+
+def serving_continuous(torch, dev, flush) -> dict:
+    """Phase 21: continuous serving at GPT-2 124M full width through the
+    port's entry points (see the module's docstring). Returns the rows,
+    the escapes, K1's paged-KV rows ("(b) k1") and the decode-step
+    times."""
+    import numpy as np
+
+    from distributed_pytorch_training_tpu_torch.experiments.harness import (
+        build_serving_engine,
+        build_slot_engine,
+        load_schedule,
+        measure_serving,
+        measure_serving_continuous,
+    )
+    from distributed_pytorch_training_tpu_torch.models import layers
+    from distributed_pytorch_training_tpu_torch.ops.quantize import (
+        quantize_int8_rows,
+    )
+    from distributed_pytorch_training_tpu_torch.serving.__main__ import run
+
+    common = dict(model_name=MODEL, n_requests=SERVE21_REQUESTS,
+                  offered_rps=SERVE21_RPS, buckets=SERVE21_BUCKETS,
+                  rows=SERVE21_ROWS, max_new_tokens=SERVE21_NEW)
+    paged = dict(common, page_size=SERVE21_PAGE, return_results=True)
+    slot21 = dict(buckets=SERVE21_BUCKETS, rows=SERVE21_ROWS,
+                  max_new_tokens=SERVE21_NEW, page_size=SERVE21_PAGE)
+    prompts, _ = load_schedule(np.random.RandomState(0), SERVE21_REQUESTS,
+                               max(SERVE21_BUCKETS), VOCAB, SERVE21_NEW,
+                               False)
+    gap_engine = build_serving_engine(MODEL, buckets=SERVE21_BUCKETS,
+                                      rows=SERVE21_ROWS,
+                                      max_new_tokens=SERVE21_NEW)
+    out = {}
+
+    def completed(name, row):
+        done = row.get("completed", row["n_requests"])
+        if done != SERVE21_REQUESTS:
+            raise RuntimeError(f"phase 21 {name}: {done} of "
+                               f"{SERVE21_REQUESTS} requests completed")
+        out[name] = row
+
+    # (a) the iteration- and token-granular rows on one schedule
+    dense_row, dense = measure_serving(return_results=True, **common)
+    completed("(a) bench", dense_row)
+    cont_row, cont = measure_serving_continuous(**paged)
+    completed("(a) bench --continuous", cont_row)
+    out["(a) escapes"] = stream_escapes(torch, gap_engine, prompts, dense,
+                                        cont, "phase 21 (a)")
+    for name in ("(a) bench", "(a) bench --continuous"):
+        r = out[name]
+        log(f"phase 21 {name}: p50 {r['p50_ms']} ms, p99 {r['p99_ms']} ms, "
+            f"ttft p50 {r.get('ttft_p50_ms', 'n/a')} ms, "
+            f"{r['tokens_per_sec']} tok/s at {r['achieved_rps']}/"
+            f"{r['offered_rps']} req/s")
+    log(f"phase 21 (a): greedy streams equal but {len(out['(a) escapes'])} "
+        f"escapes (top-2 gap < {ESCAPE_GAP}): {out['(a) escapes']}")
+
+    # (b) int8 pages through the CLI, K1 counted and its pages checked
+    real, calls, captured = layers._quant_rows, {}, []
+
+    def spy(x):
+        q, s = real(x)
+        shape = (x.numel() // x.shape[-1], x.shape[-1])
+        calls[shape] = calls.get(shape, 0) + 1
+        if calls[shape] <= 2:
+            captured.append((shape, x.detach().float().reshape(shape)
+                             .clone(), q.reshape(shape).clone(),
+                             s.reshape(-1).clone()))
+        return q, s
+
+    layers._quant_rows = spy
+    try:
+        quantize_int8_rows.launches = 0
+        int8_row = run(["bench", "--continuous", "--kv-dtype", "int8",
+                        *SERVE21_FLAGS, *SERVING_OUT])
+        launches = quantize_int8_rows.launches
+    finally:
+        layers._quant_rows = real
+    completed("(b) bench --continuous --kv-dtype int8", int8_row)
+    if launches == 0 or launches != sum(calls.values()):
+        raise RuntimeError(f"phase 21 (b): K1 launched {launches} times for "
+                           f"{sum(calls.values())} page writes")
+    if not int8_row["kv_bytes_ratio"] >= KV_RATIO_MIN:
+        raise RuntimeError(f"phase 21 (b): kv_bytes_ratio "
+                           f"{int8_row['kv_bytes_ratio']} < {KV_RATIO_MIN}")
+    m = gap_engine.model
+    decode_shape = (m.depth * SERVE21_ROWS * m.num_heads,
+                    m.hidden_dim // m.num_heads)
+    if decode_shape not in calls:
+        raise RuntimeError(f"phase 21 (b): no decode-step page write "
+                           f"{decode_shape} among {calls}")
+    k1_rows = k1_paged_rows(torch, flush, captured, calls)
+    out["(b) k1"] = k1_rows
+    for r in k1_rows:
+        log(f"phase 21 (b) K1 paged KV {r['shape']}: {r['launches']} "
+            f"launches, bitwise on {r['checked_calls']} captured calls; "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+    log(f"phase 21 (b): {launches} K1 launches (2 a decode step, 2 a "
+        f"prefill); KV {int8_row['paged_kv_bytes']} B vs dense "
+        f"{int8_row['dense_kv_bytes']} B ({int8_row['kv_bytes_ratio']}x); "
+        f"p50 {int8_row['p50_ms']} ms, {int8_row['tokens_per_sec']} tok/s")
+
+    # (c) speculative decoding with a GPT-2 124M draft from seed + 1
+    spec_row, spec = measure_serving_continuous(draft_model=MODEL, **paged)
+    completed("(c) bench --continuous --draft", spec_row)
+    out["(c) escapes"] = stream_escapes(torch, gap_engine, prompts, cont,
+                                        spec, "phase 21 (c)")
+    log(f"phase 21 (c): accept_ratio {spec_row['accept_ratio']} "
+        f"({spec_row['accepted_per_verify']} tok/verify, "
+        f"{spec_row['spec_rounds']} rounds); streams equal (a)'s "
+        f"continuous arm but {len(out['(c) escapes'])} escapes; p50 "
+        f"{spec_row['p50_ms']} ms, {spec_row['tokens_per_sec']} tok/s")
+
+    # (c') the oracle draft: the target's own weights propose, so the
+    # accept and window-commit branches run at full width
+    oracle, accepted, proposed = oracle_draft(torch, prompts)
+    ratio = accepted / proposed if proposed else 0.0
+    if not ratio >= ORACLE_MIN:
+        raise RuntimeError(f"phase 21 (c'): the oracle draft accepted "
+                           f"{accepted} of {proposed} proposals")
+    out["(c') oracle"] = {"accepted": accepted, "proposed": proposed,
+                          "accept_ratio": ratio, "ideal": ORACLE_IDEAL}
+    esc = stream_escapes(torch, gap_engine, prompts, cont, oracle,
+                         "phase 21 (c')")
+    out["(c') escapes"] = esc
+    log(f"phase 21 (c'): the oracle draft accepted {accepted} of "
+        f"{proposed} proposals ({ratio:.4f}; {ORACLE_IDEAL:.4f} if verify "
+        f"and draft agree bitwise); streams equal (a)'s continuous arm but "
+        f"{len(esc)} escapes")
+
+    # (d) a shared prompt: admissions with no prefill
+    shared_row = run(["bench", "--continuous", "--shared-frac", "0.5",
+                      *SERVE21_FLAGS, *SERVING_OUT])
+    completed("(d) bench --continuous --shared-frac 0.5", shared_row)
+    if not shared_row["prefill_skips"] > 0:
+        raise RuntimeError("phase 21 (d): no admission skipped its prefill")
+    log(f"phase 21 (d): {shared_row['prefill_skips']} prefill skips, "
+        f"{shared_row['tail_resumes']} tail resumes; ttft warm "
+        f"{shared_row.get('ttft_warm_p50_ms')} ms vs cold "
+        f"{shared_row.get('ttft_cold_p50_ms')} ms")
+
+    # (e) two replicas behind the router, one killed mid-load
+    kill_row, killed = measure_serving_continuous(replicas=2,
+                                                  kill_replica=True, **paged)
+    completed("(e) bench --continuous --replicas 2 --kill-replica", kill_row)
+    if not kill_row["replica_deaths"] > 0:
+        # requests take ~0.5 s here and r0 takes every other one, so the
+        # death (after the ninth submission) finds work in flight
+        raise RuntimeError("phase 21 (e): the killed replica had no "
+                           "request in flight; nothing was resubmitted")
+    out["(e) escapes"] = stream_escapes(torch, gap_engine, prompts, cont,
+                                        killed, "phase 21 (e)")
+    log(f"phase 21 (e): {kill_row['completed']} completed, "
+        f"{kill_row['replica_deaths']} resubmitted after the death, "
+        f"per replica {kill_row['per_replica']}; streams equal (a)'s but "
+        f"{len(out['(e) escapes'])} escapes")
+
+    # (f) serve in its own process; the sampling key stream on the card
+    served = serve_process(torch, prompts[0], prompts[1], SERVE21_NEW)
+    out["(f) serve"] = {k: v for k, v in served.items() if k != "log"}
+    esc = stream_escapes(torch, gap_engine, prompts[:1], cont[:1],
+                         [type(cont[0])(tokens=np.asarray(served["tokens"]),
+                                        last_logits=None)], "phase 21 (f)")
+    words = prng_card_vs_cpu(torch, dev)
+    off = int(np.sum(np.asarray(served["sampled_tokens"])
+                     != np.asarray(cont[1].tokens)))
+    out["(f) prng_words_bitwise"] = words
+    log(f"phase 21 (f): serve ready in {served['ready_s']:.1f} s, "
+        f"/generate {served['generate_ms']:.1f} ms for {SERVE21_NEW} "
+        f"tokens (stream equals (a)'s but {len(esc)} escapes); the sampled "
+        f"request {SERVE21_SAMPLED} twice gave one stream ("
+        f"{off} of {SERVE21_NEW} tokens off the greedy one); /healthz, "
+        f"SIGTERM drained, exit 0; fold_in and bits bitwise the CPU's on "
+        f"{words} words")
+
+    # (g) the decode step with int8 weights (dequantized every call)
+    # against fp32 weights, and with int8 pages, every slot live; the
+    # step is host-bound, so the three alternate, DECODE_ROUNDS times
+    engines = {
+        "fp32": build_slot_engine(MODEL, **slot21),
+        "int8 weights": build_slot_engine(MODEL, serve_dtype="int8",
+                                          **slot21),
+        "int8 pages": build_slot_engine(MODEL, kv_dtype="int8", **slot21)}
+    step = {name: [] for name in engines}
+    for _ in range(DECODE_ROUNDS):
+        for name, eng in engines.items():
+            step[name].append(decode_step_ms(torch, eng, prompts))
+    def alone(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_TIMED_STEPS):
+            fn()
+        torch.cuda.synchronize()
+        return [(time.perf_counter() - t0) * 1e3 / DECODE_TIMED_STEPS]
+
+    deq, eng = engines["int8 weights"], engines["fp32"]
+    step["int8 weights' dequantization alone"] = alone(deq._params)
+    # a step's token choice: the key stream and sample_tokens over every
+    # slot (what the step runs), beside a bare argmax of the same logits
+    c = eng._control
+    logits = torch.randn((SERVE21_ROWS, eng.model.padded_vocab),
+                         generator=torch.Generator(dev).manual_seed(0),
+                         device=dev)
+    with torch.inference_mode():
+        step["sampling alone"] = alone(lambda: eng._sample(
+            logits, c["keys"], c["positions"] + 1, c["temps"],
+            c["top_ps"]))
+        step["argmax alone"] = alone(lambda: torch.argmax(logits, dim=-1))
+    del engines, deq, eng, c, logits
+    torch.cuda.empty_cache()
+    out["(g) decode_step_ms"] = step
+    log("phase 21 (g): decode step, 8 live slots, ms a step in "
+        f"{DECODE_ROUNDS} alternating rounds: "
+        + "; ".join(f"{k} {[round(v, 3) for v in vs]}"
+                    for k, vs in step.items()))
+    return out
 
 
 def lm_mfu(torch, rates: list, context: str):
@@ -2641,6 +3181,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 20 done in {time.perf_counter() - t0:.1f} s")
 
+    # phase 21: continuous serving through the port's entry points at
+    # GPT-2 124M, K1 on every int8 page write
+    t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    continuous = serving_continuous(torch, dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    log(f"phase 21 done in {time.perf_counter() - t0:.1f} s")
+
     # phase 17: the kernels line; K1 and K2 summed over their launches on
     # the data-parallel paths (rank 0 of every phase 12 and phase 19
     # run), the serving path's K1 launches (phase 4) kept in
@@ -2650,7 +3199,7 @@ def main() -> int:
         {name: two_ranks[name]["steps"] for name, _, _ in DP_RUNS},
         {name: (hier if name.startswith("hier") else sharded)[name]["steps"]
          for name in counts19},
-        rows + quantize_edges, dequant_edges)
+        rows + quantize_edges, dequant_edges, continuous["(b) k1"])
     serving_k1 = {
         "launches": launches,
         "ms": sum(r["ms"] * r["main_path_launches"] for r in rows),
@@ -2703,6 +3252,7 @@ def main() -> int:
         "profile_gpt2_amp": profiled,
         "profile_reference_command": profiled_reference,
         "live_endpoint": live,
+        "serving_continuous": continuous,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")

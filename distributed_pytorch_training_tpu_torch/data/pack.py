@@ -2,11 +2,13 @@
 (copied from the JAX package's data/pack.py; numpy only).
 
 The bucket ladder keeps the engine's shapes to a small static set, one per
-rung: a request pays padding at most to the next rung.
+rung: a request pays padding at most to the next rung. The paged KV pool's
+prefix sharing keys on ``prompt_page_hashes``.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -67,3 +69,17 @@ def unpack_token_rows(outputs: np.ndarray, lengths: np.ndarray,
     for i in range(int(n_real)):
         out.append(np.asarray(outputs[i][: int(lengths[i])]))
     return out
+
+
+def prompt_page_hashes(tokens: Sequence[int], page_size: int) -> List[str]:
+    """Content hashes of the KV pages a prompt covers fully: hash ``i``
+    digests ``tokens[0 : (i+1) * page_size]``, the cumulative prefix,
+    because a page's k/v depend on every earlier token. A partly filled tail
+    page also takes decode writes and gets no hash. Equal hashes mean
+    bitwise-equal k/v for those pages under the same weights, which is what
+    the page pool's prefix sharing (``serving/paged.py``) relies on."""
+    if page_size < 1:
+        raise ValueError(f"page_size must be >= 1, got {page_size}")
+    toks = np.asarray(tokens, np.int64)
+    return [hashlib.sha1(toks[:end].tobytes()).hexdigest()
+            for end in range(page_size, len(toks) + 1, page_size)]

@@ -8,8 +8,8 @@ blocks in ``blocks.<i>`` where flax has ``block<i>`` (``convert.py``).
 A kernel ``attention_fn`` (flash) owns the causal structure: the blocks
 then get only the padding mask. ``dtype`` is the compute dtype beside
 float32 parameters (``models/layers.py`` says where it rounds); the logits
-are float32. Not ported yet, and refused: tensor parallelism, remat,
-dropout and the paged KV pool.
+are float32. Not ported yet, and refused: tensor parallelism, remat and
+dropout.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from .layers import (
     TransformerBlock,
     causal_mask,
     dot_product_attention,
+    init_paged_kv,
     mask_vocab_padding,
     padded_vocab_size,
 )
@@ -142,9 +143,18 @@ class GPT2LMHead(nn.Module):
                      for _ in range(self.depth))
 
     def init_paged_pool(self, n_pages: int, page_size: int,
-                        quantized: bool = False):
-        raise not_ported("the paged KV pool",
-                         "the continuous-serving slice")
+                        quantized: bool = False, device=None):
+        """Zero-filled paged KV pool: one `layers.PagedKV` stacked over
+        all ``depth`` blocks, (depth, n_pages, page_size, heads, head_dim)
+        pages in the compute dtype, or int8 codes and per-row float32
+        scales when ``quantized``. The continuous engine
+        (``serving/continuous.py``) gathers a slot's pages into the dense
+        cache shape `init_cache` gives, so the decode forward runs
+        unchanged."""
+        return init_paged_kv(self.depth, n_pages, page_size, self.num_heads,
+                             self.hidden_dim // self.num_heads,
+                             dtype=self.dtype, quantized=quantized,
+                             device=device)
 
 
 @register_model("gpt2_355m")

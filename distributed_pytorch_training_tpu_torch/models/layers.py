@@ -26,12 +26,14 @@ softmax runs in float32 and its weights are cast back to ``dtype``. Not
 ``torch.autocast``, whose per-op lists round elsewhere (its layer_norm
 and softmax return float32). A kernel ``attention_fn`` (flash,
 ``ops/flash_attention.py``) serves the no-cache forward; the cache paths
-refuse it, as in the JAX package. Tensor parallelism, dropout and the paged
-KV substrate are not ported yet and raise ``NotImplementedError``.
+refuse it, as in the JAX package. The paged KV pool of continuous serving
+is here too. Tensor parallelism and dropout are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Optional, Sequence, Tuple, Union
 
@@ -90,6 +92,203 @@ def dot_product_attention(
 # full forward's; the port pins logits within a tolerance instead, so both
 # steps share one function.
 decode_dot_product_attention = dot_product_attention
+
+
+# ---------------------------------------------------------------------------
+# The paged KV pool (continuous serving, serving/continuous.py)
+#
+# k/v live in a pool of fixed-size pages (L, n_pages, page_size, H, D),
+# stacked over every block so that one gather and one scatter serve the
+# whole model; each serving slot owns a row of a page table that maps its
+# positions onto pool pages. The decode step gathers a slot's pages into
+# the dense (rows, T, H, D) view the decode attention reads, and scatters
+# the fresh rows back. int8 pages quantize each (position, head) row over
+# D on the gradient wire's grid (K1, ``ops/quantize.py``): codes and one
+# float32 scale a row.
+#
+# The pool is updated in place. JAX drops a masked write by pointing it at
+# page n_pages (``mode="drop"``) and clips an out-of-range page-table
+# lookup; torch indexing has neither. Here every lookup is clamped into
+# the table, then masked, and a masked write is redirected to the first
+# kept write of the same call (same location, same value), or, when the
+# call keeps none, writes back what its location already holds. Every
+# index is in range, the duplicates agree, no host sync is needed, and the
+# pool's bytes are JAX's.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PagedKV:
+    """The model's paged KV pool, stacked across all blocks: ``k``/``v``
+    (L, n_pages, page_size, H, D) in the model dtype, or int8 codes with
+    ``k_scale``/``v_scale`` (L, n_pages, page_size, H), one float32 scale a
+    (layer, page, position, head) row. Page 0 is the scratch page
+    (``serving/paged.py``): unallocated table entries point at it, so a
+    gather is always in range and masked positions stay finite."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(t for t in (self.k, self.v, self.k_scale, self.v_scale)
+                     if t is not None)
+
+
+def init_paged_kv(depth: int, n_pages: int, page_size: int, num_heads: int,
+                  head_dim: int, dtype: torch.dtype = torch.float32,
+                  quantized: bool = False, device=None) -> PagedKV:
+    """Zero-filled paged pool for all ``depth`` blocks (stacked axis 0)."""
+    shape = (depth, n_pages, page_size, num_heads, head_dim)
+    if quantized:
+        return PagedKV(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device))
+    return PagedKV(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _dequant_pages(codes: torch.Tensor, scales: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    return (codes.float() * scales[..., None]).to(dtype)
+
+
+def _quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8-quantize (..., D) on the gradient wire's grid, one scale a
+    leading row: K1 on a CUDA tensor, its plain version on the CPU (both
+    bitwise the JAX package's ``_quantize_int8_rows(fused=False)``)."""
+    from ..ops.quantize import quantize_int8_rows
+
+    lead = x.shape[:-1]
+    q, scales = quantize_int8_rows(
+        x.float().reshape(-1, x.shape[-1]).contiguous())
+    return q.reshape(x.shape), scales.reshape(lead)
+
+
+def gather_paged_kv(pkv: PagedKV, page_table: torch.Tensor,
+                    dtype: torch.dtype = torch.float32
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-slot dense view of the whole pool: ``page_table`` (rows, P) ->
+    (L, rows, P * page_size, H, D) k and v in ``dtype`` (dequantized when
+    the pool is int8), one gather covering every layer. Positions past a
+    slot's write frontier hold scratch or stale (finite) values that the
+    caller's mask zeroes."""
+    rows, pages = page_table.shape
+    depth, _, ps = pkv.k.shape[:3]
+    table = page_table.long()
+
+    def dense(codes, scales):
+        g = codes[:, table].reshape(depth, rows, pages * ps,
+                                    *codes.shape[3:])
+        if scales is not None:
+            s = scales[:, table].reshape(depth, rows, pages * ps, -1)
+            return _dequant_pages(g, s, dtype)
+        return g.to(dtype)
+
+    return dense(pkv.k, pkv.k_scale), dense(pkv.v, pkv.v_scale)
+
+
+def _put(store: torch.Tensor, page: torch.Tensor, off: torch.Tensor,
+         fresh: torch.Tensor, keep: torch.Tensor) -> None:
+    """``store[:, page[m], off[m]] = fresh[:, m]`` for every m with
+    ``keep[m]``, in place; JAX's ``mode="drop"`` for the rest (see the
+    section's note). ``page``/``off``/``keep`` are (M,), ``fresh``
+    (L, M, ...)."""
+    first = torch.argmax(keep.to(torch.int32))
+    held = store[:, page[first], off[first]]
+    fill = torch.where(keep.any(), fresh[:, first], held)
+    mask = keep.reshape(1, -1, *([1] * (fresh.dim() - 2)))
+    store[:, torch.where(keep, page, page[first]),
+          torch.where(keep, off, off[first])] = torch.where(
+              mask, fresh, fill.unsqueeze(1))
+
+
+def _put_kv(pkv: PagedKV, page: torch.Tensor, off: torch.Tensor,
+            k_rows: torch.Tensor, v_rows: torch.Tensor,
+            keep: torch.Tensor) -> PagedKV:
+    """Write (L, M, H, D) k and v rows at M (page, offset) locations,
+    quantizing first when the pool is int8 (two K1 calls: k, then v)."""
+    for store, scale_store, fresh in ((pkv.k, pkv.k_scale, k_rows),
+                                      (pkv.v, pkv.v_scale, v_rows)):
+        if scale_store is not None:
+            q, s = _quant_rows(fresh)
+            _put(store, page, off, q, keep)
+            _put(scale_store, page, off, s, keep)
+        else:
+            _put(store, page, off, fresh.to(store.dtype), keep)
+    return pkv
+
+
+def scatter_paged_rows(pkv: PagedKV, page_table: torch.Tensor,
+                       positions: torch.Tensor, k_rows: torch.Tensor,
+                       v_rows: torch.Tensor,
+                       active: torch.Tensor) -> PagedKV:
+    """Write one fresh (H, D) k/v row per slot per layer (``k_rows``/
+    ``v_rows`` (L, rows, H, D)) at that slot's position (``positions``
+    (rows,)): the paged decode step's write half, one scatter covering
+    every layer. Inactive rows (``active`` False) write nothing."""
+    return scatter_paged_window(pkv, page_table, positions[:, None],
+                                k_rows[:, :, None], v_rows[:, :, None],
+                                active[:, None])
+
+
+def scatter_paged_window(pkv: PagedKV, page_table: torch.Tensor,
+                         positions: torch.Tensor, k_rows: torch.Tensor,
+                         v_rows: torch.Tensor,
+                         active: torch.Tensor) -> PagedKV:
+    """`scatter_paged_rows` over an S-position window per slot:
+    ``positions``/``active`` (rows, S), ``k_rows``/``v_rows``
+    (L, rows, S, H, D). The speculative verify step's write half and the
+    draft's propose commit. A position past the slot's page span is looked
+    up at its last table entry (JAX's clipped gather), so the caller masks
+    it."""
+    ps = pkv.k.shape[2]
+    rows, s = positions.shape
+    pos = positions.long()
+    idx = torch.clamp(pos // ps, 0, page_table.shape[1] - 1)
+    page = page_table.long()[
+        torch.arange(rows, device=pos.device)[:, None], idx]
+    depth = k_rows.shape[0]
+    return _put_kv(pkv, page.reshape(-1), (pos % ps).reshape(-1),
+                   k_rows.reshape(depth, rows * s, *k_rows.shape[3:]),
+                   v_rows.reshape(depth, rows * s, *v_rows.shape[3:]),
+                   active.reshape(-1))
+
+
+def scatter_paged_prefill(pkv: PagedKV, page_row: torch.Tensor,
+                          k_seqs: torch.Tensor, v_seqs: torch.Tensor,
+                          length) -> PagedKV:
+    """Write one slot's prompt k/v (``k_seqs``/``v_seqs`` (L, S, H, D),
+    every layer at once) into its pages, positions [0, length) only:
+    bucket padding is dropped, so a shared prefix page is only ever
+    rewritten with its own bytes."""
+    ps = pkv.k.shape[2]
+    idx = torch.arange(k_seqs.shape[1], device=k_seqs.device)
+    page = page_row.long()[torch.clamp(idx // ps, 0,
+                                       page_row.shape[0] - 1)]
+    return _put_kv(pkv, page, idx % ps, k_seqs, v_seqs, idx < length)
+
+
+def paged_kv_bytes(pool: PagedKV) -> int:
+    """At-rest bytes of a paged pool (codes and scales for int8 pools),
+    compared against `dense_kv_bytes`."""
+    return int(sum(t.numel() * t.element_size() for t in pool.tensors()))
+
+
+def dense_kv_bytes(rows: int, cache_len: int, num_heads: int, head_dim: int,
+                   depth: int, itemsize: int = 4) -> int:
+    """The dense engine's at-rest KV bytes at the same configuration: the
+    baseline of the int8 pool's >= 3x cut."""
+    return 2 * depth * rows * cache_len * num_heads * head_dim * itemsize
 
 
 class DenseGeneral(nn.Module):

@@ -8,6 +8,8 @@
   queued request that fits the same rung rides along, up to the engine's
   row budget. A request never waits for a "full" batch, and a long prompt
   never blocks a burst of short ones behind a shape it does not share.
+* ``take`` pops requests FIFO and bucket-blind, for the continuous
+  engine, which admits each request into a slot on its own bucket.
 * ``serve_forever`` is the engine worker loop the CLI runs on a thread:
   pop a group, ``engine.serve_tokens`` it, fill results, repeat; on stop,
   drain: finish everything already queued, refuse new work, under a
@@ -54,17 +56,33 @@ class Request:
     _ids_lock = threading.Lock()
 
     def __init__(self, tokens: np.ndarray,
-                 return_prompt_logits: bool = False):
+                 return_prompt_logits: bool = False,
+                 max_new_tokens: Optional[int] = None,
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 seed: Optional[int] = None):
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim != 1 or tokens.size == 0:
             raise ValueError(
                 f"a request is a non-empty 1-D token array, got shape "
                 f"{tokens.shape}")
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if temperature < 0.0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
         with Request._ids_lock:
             self.id = next(Request._ids)
         self.tokens = tokens
         self.return_prompt_logits = return_prompt_logits
+        # per-request sampling knobs, threaded per slot by the continuous
+        # engine (temperature 0 is greedy); the seed defaults to the
+        # request id, so two unseeded requests never share a stream
+        self.max_new_tokens = max_new_tokens
+        self.temperature = float(temperature)
+        self.top_p = float(top_p)
+        self.seed = int(self.id if seed is None else seed)
         self.t_submit = time.perf_counter()
+        self.t_done: Optional[float] = None         # set at resolution
+        self.t_first_token: Optional[float] = None  # TTFT (continuous)
         # _result/_error are Event-synchronized: exactly one resolver
         # writes them, then _done.set() publishes
         self._done = threading.Event()
@@ -73,10 +91,12 @@ class Request:
 
     def set_result(self, result: Result) -> None:
         self._result = result
+        self.t_done = time.perf_counter()
         self._done.set()
 
     def set_error(self, err: BaseException) -> None:
         self._error = err
+        self.t_done = time.perf_counter()
         self._done.set()
 
     def result(self, timeout: Optional[float] = None) -> Result:
@@ -105,10 +125,13 @@ class RequestQueue:
             return len(self._q)
 
     def submit(self, tokens: np.ndarray,
-               return_prompt_logits: bool = False) -> Request:
-        """Enqueue one prompt. Raises on a closed (draining) queue and on
-        prompts no bucket fits."""
-        req = Request(tokens, return_prompt_logits=return_prompt_logits)
+               return_prompt_logits: bool = False, **kw) -> Request:
+        """Enqueue one prompt (``**kw``: the per-request knobs
+        max_new_tokens, temperature, top_p and seed, which `Request`
+        validates). Raises on a closed (draining) queue and on prompts no
+        bucket fits."""
+        req = Request(tokens, return_prompt_logits=return_prompt_logits,
+                      **kw)
         bucket_for(len(req.tokens), self.buckets)  # validate: raises if huge
         with self._cv:
             if self._closed:
@@ -155,6 +178,26 @@ class RequestQueue:
         for req in group:
             telemetry.span_event("queue_wait", now - req.t_submit,
                                  request=req.id, bucket=bucket)
+        return group
+
+    def take(self, max_n: int,
+             timeout: Optional[float] = 0.05) -> List[Request]:
+        """Pop up to ``max_n`` requests in FIFO order, bucket-blind: the
+        token-granular admission path (``serving/continuous.py``), where
+        each request prefills on its own bucket. Returns [] on timeout or
+        when closed and empty. ``queue_wait`` here is the queue's share
+        only; slot admission has its own ``slot_wait`` span."""
+        with self._cv:
+            if not self._q:
+                if self._closed:
+                    return []
+                self._cv.wait(timeout)
+            group = [self._q.popleft()
+                     for _ in range(min(max_n, len(self._q)))]
+        now = time.perf_counter()
+        for req in group:
+            telemetry.span_event("queue_wait", now - req.t_submit,
+                                 request=req.id)
         return group
 
 

@@ -39,6 +39,10 @@ def test_scan_covers_the_port():
     port = "distributed_pytorch_training_tpu_torch/"
     for must in ("chip_smoke.py", port + "ops/quantize.py",
                  port + "serving/engine.py",
+                 # the continuous-serving slice's modules
+                 *(port + f"serving/{m}.py" for m in (
+                     "continuous", "paged", "speculative", "router")),
+                 port + "utils/prng.py", port + "experiments/harness.py",
                  # the telemetry slice's modules
                  port + "utils/locktrace.py", port + "utils/profiling.py",
                  port + "experiments/trace_analysis.py",

@@ -226,8 +226,11 @@ def test_smoke_cli_failure_leaves_a_flight(tmp_path):
     assert "serving abnormal exit" in flight.read_text()
 
 
+# bench and serve are ported (tests/test_torch_continuous.py); what they
+# still refuse is a mesh, and fleet is refused whole
 @pytest.mark.parametrize("argv", [
-    ["bench"], ["serve"], ["fleet"], ["bench", "--ckpt-dir", "x"],
+    ["bench", "--mesh", "data=2"], ["serve", "--mesh", "data=2"],
+    ["fleet"], ["bench", "--ckpt-dir", "x", "--mesh", "data=2"],
     ["smoke", "--mesh", "data=2"],
 ], ids=["bench", "serve", "fleet", "bench-ckpt-dir", "mesh"])
 def test_smoke_cli_refuses_unported(argv):
