@@ -11,7 +11,9 @@ ranks through the two-tier ``int8_hier`` wire, and profile the GPT-2
 ``--profile-dir`` and the live ``/metrics`` endpoint's ``POST /profile``,
 and serve GPT-2 124M continuously over the paged (fp32 and int8) KV pool:
 the bench rows, speculative decoding, prefix skips, two replicas behind
-the router with one killed, and a ``serve`` process.
+the router with one killed, and a ``serve`` process, and train BERT-base
+(masked LM, bidirectional flash kernels at S 512, ``--remat``, its int8
+gradient wire on two ranks, profiled) and ViT-B/16 at full width.
 
     python3 chip_smoke.py
 
@@ -169,12 +171,32 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     stream's bits on the card bitwise the CPU's; (g) the decode step with
     every slot live: fp32, int8 weights (dequantized every call) and int8
     pages, alternating, and its sampling and dequantization alone;
+22. (run before phase 17's lines) BERT-base masked LM and ViT-B/16
+    through the port's entry at full width (random weights, synthetic
+    data): (a) BERT at S 512, batch 8, 8 steps, fp32 and ``--amp``: K3,
+    K4 and K5 bidirectional, each exactly 12 a step (K3 also 12 an eval
+    batch), finite losses, the step lines' samples/s and MFU; (b) one
+    BERT loss-and-backward at batch 2, card against CPU from the same
+    weights, the masks (jax.random's draws from the JAX step key) bitwise
+    equal on both, the loss and gradients within phase 8's rule; (c) (a)'s
+    fp32 command with ``--remat``: K3 twice a training step, the losses
+    and the final parameters and AdamW moments bitwise (a)'s, the peak of
+    allocated memory beside (a)'s; (d) ViT-B/16 ``--amp`` on synthetic
+    ImageNet at 224, batch 64, 8 steps: samples/s and MFU; one fp32
+    loss-and-backward at batch 2, card against CPU; (e) BERT's
+    "grad-sync profiling run": 2 gloo ranks sharing the card with
+    ``--wire-dtype int8`` and ``--profile-dir`` over steps 2-4: K1, K2
+    and K3-K5 launches exact per rank, the ranks' states bitwise equal,
+    the window's device split and collective share (2 ranks on one card:
+    not a scaling number);
 17. print the ``{"kernels": [...]}`` line (K1 and K2 over their launches
-    on the phase 12 and phase 19 paths, K1 also over phase 21's int8
-    pages (``paged_kv_*`` apart), K3-K5 over phase 7's, with their
-    bf16 fields over phase 14's launches at phase 6's main bf16 shape, and
-    ``bf16_trace_ms_per_launch``, phase 20's device time of a launch),
-    then the last line ``{"ok": true, "device": {...}}``.
+    on the phase 12, phase 19 and phase 22 (e) paths, K1 also over phase
+    21's int8 pages (``paged_kv_*`` apart), K3-K5 over phase 7's and
+    phase 22 (a)'s fp32 runs (BERT's share apart as ``bert_*``), with
+    their bf16 fields over phase 14's and phase 22 (a)'s ``--amp``
+    launches at the bf16 shapes, and ``bf16_trace_ms_per_launch``, phase
+    20's device time of a launch), then the last line ``{"ok": true,
+    "device": {...}}``.
 
 Details go to chiprun_out/chip_smoke.json. Without a CUDA device, or run
 from a directory that lacks the port's package, it fails before printing
@@ -246,6 +268,10 @@ FLASH_CASES = [
     ("Sq=Sk=1000 bf16", 8, 1000, 1000, 12, 64, True, False, "bfloat16"),
     ("Sq=256 Sk=512 bf16", 8, 256, 512, 12, 64, True, False, "bfloat16"),
     ("D=128 bf16", 8, 1024, 1024, 6, 128, True, False, "bfloat16"),
+    # BERT-base's bidirectional attention on phase 22's path
+    ("bert non-causal", 8, 512, 512, 12, 64, False, False, "float32"),
+    ("bert non-causal bf16", 8, 512, 512, 12, 64, False, False,
+     "bfloat16"),
 ]
 TRAIN_STEPS = 8            # 64 sequences / batch 8
 EVAL_STEPS = 2             # 64 // 5 = 12 sequences, 2 padded batches of 8
@@ -771,20 +797,31 @@ def grads_card_vs_cpu(torch, dev, dtype=None):
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, VOCAB, (CPU_BATCH, CPU_SEQ)).astype(np.int32))
     dtype = dtype or torch.float32
-    task = LanguageModelingTask(compute_dtype=dtype)
+    r = card_vs_cpu(
+        torch, dev, lambda: get_model(
+            MODEL, attention_fn=make_flash_attention_fn(True), dtype=dtype),
+        LanguageModelingTask(compute_dtype=dtype),
+        {"input_ids": ids, "weight": torch.ones(CPU_BATCH)})
+    return (r["loss_abs_diff"], r["grad_rel"], r["grad_rel_leaf"],
+            r["loss_card"], r["loss_cpu"])
+
+
+def card_vs_cpu(torch, dev, make_model, task, batch, key=None) -> dict:
+    """One loss-and-backward on ``batch`` from the same weights (seed 0),
+    on the card (kernels) and on the CPU (plain versions): both losses,
+    their |diff|, the worst leaf's max|g diff| / max|g| and that leaf."""
     results = []
     for device in (dev, torch.device("cpu")):
-        model = get_model(MODEL, attention_fn=make_flash_attention_fn(True),
-                          dtype=dtype)
+        model = make_model()
         model.reset_parameters(torch.Generator().manual_seed(0))
         model.to(device)
-        loss, _, _ = task.loss_and_metrics(model, {
-            "input_ids": ids.to(device),
-            "weight": torch.ones(CPU_BATCH, device=device)}, train=True)
+        loss, _, _ = task.loss_and_metrics(
+            model, {k: v.to(device) for k, v in batch.items()}, True,
+            None, key)
         loss.backward()
         results.append((loss.item(), {
             n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
-        del model
+        del model, loss
     (loss_c, g_c), (loss_h, g_h) = results
     worst, worst_leaf = 0.0, ""
     for name, ref in g_h.items():
@@ -792,70 +829,89 @@ def grads_card_vs_cpu(torch, dev, dtype=None):
                / ref.abs().max().clamp(min=1e-30)).item()
         if not math.isfinite(err) or err > worst:
             worst, worst_leaf = err, name
-    return abs(loss_c - loss_h), worst, worst_leaf, loss_c, loss_h
+    return {"loss_card": loss_c, "loss_cpu": loss_h,
+            "loss_abs_diff": abs(loss_c - loss_h), "grad_rel": worst,
+            "grad_rel_leaf": worst_leaf}
 
 
 def flash_kernel_rows(flash_rows, launches, bf16_launches,
-                      bf16_trace_ms) -> list:
-    """The kernels line's rows of K3, K4 and K5: times and bounds of the
-    training path's shape (main fp32) summed over its launches; errors
-    over every float32 shape checked; the ``bf16_`` fields the same at
-    the main bf16 shape over the ``--amp`` run's launches, with
-    ``bf16_trace_ms``, the mean device ms a launch that phase 20's trace
-    of the ``--amp`` step read (no host launch time in it)."""
+                      bf16_trace_ms, bert_launches, bert_bf16_launches
+                      ) -> list:
+    """The kernels line's rows of K3, K4 and K5 over their main paths:
+    GPT-2's causal training (phase 7, ``launches``, at the main fp32
+    shape) and BERT's bidirectional training (phase 22 (a),
+    ``bert_launches``, at the BERT shape): times, plain times, bounds and
+    SDPA's times of each launch's shape summed over its launches, BERT's
+    share also apart (``bert_*``); errors over every float32 shape
+    checked; the ``bf16_`` fields the same over the ``--amp`` runs
+    (phases 14 and 22 (a)) at the bf16 shapes, with ``bf16_trace_ms``,
+    the mean device ms a launch that phase 20's trace of the GPT-2
+    ``--amp`` step read (no host launch time in it)."""
     main, main_bf16 = flash_rows[0], flash_rows[1]
     if (main["dtype"], main_bf16["dtype"]) != ("float32", "bfloat16"):
         raise RuntimeError("FLASH_CASES must start with main fp32, bf16")
+    bert = {r["dtype"]: r for r in flash_rows
+            if r["shape"].startswith("bert")}
     replaces = {
         "flash_attention_fwd_lse": 199,   # _flash_fwd_lse (_fwd_kernel)
         "flash_attention_bwd_dkv": 360,   # _flash_bwd (_bwd_dkv_kernel)
         "flash_attention_bwd_dq": 360,    # _flash_bwd (_bwd_dq_kernel)
     }
+
+    def library(row, name):
+        # scaled_dot_product_attention's forward for K3; its backward (dq,
+        # dk and dv together) for K4 and K5 alike: it computes both
+        # kernels' function at once, so the unit compared with it is the
+        # pair K4 + K5, not either row alone
+        return row["sdpa_fwd_ms"] if name.endswith("fwd_lse") \
+            else row["sdpa_bwd_ms"]
+
+    def summed(name, shares, prefix=""):
+        return {prefix + "launches": sum(n for _, n in shares),
+                prefix + "ms": sum(r["ms"][name] * n for r, n in shares),
+                prefix + "plain_ms": sum(r["plain_ms"][name] * n
+                                         for r, n in shares),
+                prefix + "bound_ms": sum(r["bound_ms"][name] * n
+                                         for r, n in shares),
+                prefix + "library_ms": sum(library(r, name) * n
+                                           for r, n in shares)}
+
     rows = []
     for name, line in replaces.items():
-        n, n16 = launches[name], bf16_launches[name]
-        lib, lib16 = ((row["sdpa_fwd_ms"] if name.endswith("fwd_lse")
-                       else row["sdpa_bwd_ms"]) for row in (main, main_bf16))
+        fp32 = [(main, launches[name]), (bert["float32"], bert_launches[name])]
+        bf16 = [(main_bf16, bf16_launches[name]),
+                (bert["bfloat16"], bert_bf16_launches[name])]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"{PACKAGE}/csrc/flash_attention.cu",
             "replaces": "distributed_pytorch_training_tpu/ops/"
                         f"flash_attention.py:{line}",
-            "launches": n,
+            **summed(name, fp32),
             "max_abs_err": max(r["max_abs_err"][name] for r in flash_rows
                                if r["dtype"] == "float32"),
-            "ms": main["ms"][name] * n,
-            "plain_ms": main["plain_ms"][name] * n,
-            "bound_ms": main["bound_ms"][name] * n,
             "bound_by": main["bound_by"][name],
-            # scaled_dot_product_attention's forward for K3; its backward
-            # (dq, dk and dv together) for K4 and K5 alike: it computes
-            # both kernels' function at once, so the unit compared with it
-            # is the pair K4 + K5, not either row alone
-            "library_ms": lib * n,
-            "bf16_launches": n16,
-            "bf16_max_abs_err": main_bf16["max_abs_err"][name],
-            "bf16_ms": main_bf16["ms"][name] * n16,
-            "bf16_plain_ms": main_bf16["plain_ms"][name] * n16,
-            "bf16_bound_ms": main_bf16["bound_ms"][name] * n16,
+            **summed(name, fp32[1:], "bert_"),
+            **summed(name, bf16, "bf16_"),
+            "bf16_max_abs_err": max(r["max_abs_err"][name] for r, _ in bf16),
             "bf16_bound_by": main_bf16["bound_by"][name],
-            "bf16_library_ms": lib16 * n16,
+            **summed(name, bf16[1:], "bert_bf16_"),
             "bf16_trace_ms_per_launch": bf16_trace_ms[name],
         })
     return rows
 
 
-def wire_launches(torch, wire: str, cap: float, n: int = DP_RANKS) -> dict:
-    """{(kernel, (rows, width)): launches} of one reducer step on
-    ResNet-18's flat gradient: per bucket of S elements, ``int8`` runs K1
-    on (1, S) and K2 on (n, S); ``int8_multihop`` K1 on (n, S/n) and
-    (1, S/n) and K2 on (n, S/n), S padded to a multiple of n."""
+def wire_launches(torch, wire: str, cap: float, n: int = DP_RANKS,
+                  params: int = RESNET18_PARAMS) -> dict:
+    """{(kernel, (rows, width)): launches} of one reducer step on a flat
+    gradient of ``params`` floats (ResNet-18's by default): per bucket of
+    S elements, ``int8`` runs K1 on (1, S) and K2 on (n, S);
+    ``int8_multihop`` K1 on (n, S/n) and (1, S/n) and K2 on (n, S/n), S
+    padded to a multiple of n."""
     from distributed_pytorch_training_tpu_torch.parallel.grad_sync import (
         build_bucket_plan,
     )
 
-    plan = build_bucket_plan([torch.empty(RESNET18_PARAMS, device="meta")],
-                             cap)
+    plan = build_bucket_plan([torch.empty(params, device="meta")], cap)
     counts: dict = {}
     for size in plan.bucket_sizes():
         if wire == "int8":
@@ -888,7 +944,8 @@ def bound_of(nbytes: float, ops: float):
 
 def check_wire_codec(torch, dev, flush):
     """Phase 9: K1 and K2 at every shape the reducer gives them on 2 ranks
-    (DP_RUNS), then K1 and K2 at edge shapes: each BITWISE against its
+    (DP_RUNS, and BERT's one int8 bucket of phase 22 (e)), then K1 and K2
+    at edge shapes: each BITWISE against its
     plain version, timed beside its bound, the plain version and, for K2,
     the composite ``scales @ q.float()`` (a cast and a GEMV; no single
     PyTorch call takes int8 codes). Returns ({(kernel, shape): row}, K1
@@ -901,7 +958,9 @@ def check_wire_codec(torch, dev, flush):
     )
 
     keys = sorted({key for _, wire, cap in DP_RUNS
-                   for key in wire_launches(torch, wire, cap)})
+                   for key in wire_launches(torch, wire, cap)}
+                  | set(wire_launches(torch, "int8", 0.0,
+                                      params=BERT_PARAMS)))
     main_rows, edges = {}, []
 
     def dequant_row(label, q, s):
@@ -1998,10 +2057,12 @@ def codec_per_step(counts: dict, rows: dict) -> dict:
 
 def codec_kernel_rows(torch, codec, codec19, counts19, dp_steps,
                       steps19, quantize_checked, dequant_checked,
-                      paged_kv) -> list:
+                      paged_kv, bert_counts) -> list:
     """The kernels line's rows of K1 and K2: their launches on the
-    data-parallel paths (rank 0 of every phase 12 run, DP_RUNS, and of
-    every phase 19 run, ``counts19`` a step) and, for K1, on phase 21's
+    data-parallel paths (rank 0 of every phase 12 run, DP_RUNS, of every
+    phase 19 run, ``counts19`` a step, and of phase 22 (e)'s BERT run,
+    ``bert_counts`` in all, also apart as ``bert_*``) and, for K1, on
+    phase 21's
     int8 KV pages (``paged_kv``, each shape's launches), with the times,
     plain times and bounds of each launch's shape (phase 9's ``codec``,
     phase 19's ``codec19``, phase 21's rows) summed over them, K1's
@@ -2018,6 +2079,9 @@ def codec_kernel_rows(torch, codec, codec19, counts19, dp_steps,
         for name, c19 in counts19.items():
             shares += [(codec19[key], c * steps19[name])
                        for key, c in c19.items() if key[0] == kernel]
+        bert = [(codec[key], c) for key, c in bert_counts.items()
+                if key[0] == kernel]
+        shares += bert
         checked = [r for r in (*codec.values(), *codec19.values())
                    if r["kernel"] == kernel]
         checked += dequant_checked if kernel == DEQUANT else quantize_checked
@@ -2049,6 +2113,9 @@ def codec_kernel_rows(torch, codec, codec19, counts19, dp_steps,
                                        else n for r, n in paged)
                 for key in ("launches", "ms", "plain_ms", "bound_ms")}
                if paged else {}),
+            **{"bert_" + key: sum(r[key] * n if key != "launches" else n
+                                  for r, n in bert)
+               for key in ("launches", "ms", "plain_ms", "bound_ms")},
         })
     return out
 
@@ -2829,18 +2896,54 @@ def serving_continuous(torch, dev, flush) -> dict:
     return out
 
 
-def lm_mfu(torch, rates: list, context: str):
-    """The step line's samples/s as MFU: 3 x the analytic forward matmul
-    FLOPs of one 1024-token GPT-2 124M sequence (counted on meta tensors,
-    plain attention) against the card's bf16 dense peak. Returns (MFU %
-    per rate, the forward FLOPs, the peak TFLOP/s); ``check_mfu`` raises
-    for an impossible one."""
+# phase 22: BERT-base masked LM and ViT-B/16 through the port's entry at
+# full width (random weights from --seed, synthetic data): BERT at S 512,
+# batch 8, one epoch of 8 steps (64 sequences) and 64 // 5 = 12
+# validation sequences (2 padded batches); ViT-B/16 at 224x224, batch 64,
+# one epoch of 8 steps (512 images) and 102 validation images (2 batches)
+BERT, VIT = "bert_base", "vit_b16"
+BERT_PARAMS, VIT_PARAMS = 109_514_298, 86_567_656
+BERT_SEQ, BERT_SYNTHETIC, BERT_BATCH = 512, 64, 8
+BERT_STEPS = BERT_SYNTHETIC // BERT_BATCH
+BERT_EVAL = -(-(BERT_SYNTHETIC // 5) // BERT_BATCH)
+BERT_FLAGS = ["--model", BERT, "--attention", "flash", "--optimizer",
+              "adamw", "--lr", "1e-4", "--synthetic", "--epochs", "1"]
+VIT_SYNTHETIC, VIT_BATCH = 512, 64
+VIT_STEPS = VIT_SYNTHETIC // VIT_BATCH
+VIT_FLAGS = ["--model", VIT, "--dataset", "imagenet", "--synthetic",
+             "--synthetic-size", str(VIT_SYNTHETIC), "--batch-size",
+             str(VIT_BATCH), "--epochs", "1", "--optimizer", "adamw",
+             "--lr", "1e-4", "--print-freq", "4"]
+# (e) 2 ranks sharing the card: batch 4 a rank, 48 sequences, 6 steps;
+# 48 // 5 = 9 validation sequences, 2 padded global batches of 8; rank 0
+# traces steps 2-4
+BERT_DP_BATCH, BERT_DP_SYNTHETIC = 4, 48
+BERT_DP_STEPS = BERT_DP_SYNTHETIC // (BERT_DP_BATCH * DP_RANKS)
+BERT_DP_EVAL = -(-(BERT_DP_SYNTHETIC // 5) // (BERT_DP_BATCH * DP_RANKS))
+BERT_PROFILE = (2, 5)
+
+
+def step_line_rates(text: str) -> tuple:
+    """(samples/s, the step line's MFU % or None) of every step line."""
+    rates, mfus = [], []
+    for ln in text.splitlines():
+        if "Throughput: " in ln:
+            rates.append(float(ln.split("Throughput: ")[1].split()[0]))
+            mfus.append(float(ln.split("MFU: ")[1].rstrip("%"))
+                        if "MFU: " in ln else None)
+    return rates, mfus
+
+
+def model_mfu(torch, name: str, inputs, rates: list, context: str,
+              **kw) -> tuple:
+    """(MFU % per step-line rate, forward FLOPs a sample): 3 x the
+    analytic forward matmul and convolution FLOPs of one sample (meta
+    tensors, plain attention) against the card's bf16 dense peak;
+    ``check_mfu`` raises for an impossible one."""
     from distributed_pytorch_training_tpu_torch.experiments import flops
     from distributed_pytorch_training_tpu_torch.models import get_model
 
-    model = get_model(MODEL, device="meta")
-    fwd = flops.matmul_flops(model, torch.zeros((1, 1024), dtype=torch.long,
-                                                device="meta"))
+    fwd = flops.matmul_flops(get_model(name, device="meta", **kw), inputs)
     peak = flops.chip_peak_tflops(0)
     if peak is None:
         raise RuntimeError("no bf16 peak for this card")
@@ -2851,7 +2954,298 @@ def lm_mfu(torch, rates: list, context: str):
         out.append(mfu)
         if warning:
             log(f"{context}: {warning}")
-    return out, fwd, peak
+    return out, fwd
+
+
+def bert_train(torch, fa, tag: str, extra: list) -> dict:
+    """Phase 22 (a) and (c): BERT-base MLM through the port's entry,
+    ``BERT_FLAGS`` plus ``extra``, the K3-K5 counts set to 0 just before
+    and read just after, the peak of allocated memory over the run
+    above what was allocated before it. Returns the launches, the CSV's
+    (train, val) losses (finite), the step lines' samples/s and MFU, the
+    peak and the final state's digests."""
+    import contextlib
+    import io
+
+    out_dir = ROOT / "chiprun_out" / f"bert_{tag}"
+    (out_dir / "metrics_rank0.csv").unlink(missing_ok=True)
+    kernels = [getattr(fa, name) for name in FLASH]
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stdout = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(stdout):
+            state = train_main(BERT_FLAGS + [
+                "--synthetic-size", str(BERT_SYNTHETIC), "--batch-size",
+                str(BERT_BATCH), "--print-freq", "4", "--output-dir",
+                str(out_dir)] + extra)
+    finally:
+        print(stdout.getvalue(), end="", flush=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    if state.step != BERT_STEPS or state.model.max_position != BERT_SEQ:
+        raise RuntimeError(f"BERT {tag}: {state.step} steps")
+    digests = state_digests(state)
+    del state
+    lines = (out_dir / "metrics_rank0.csv").read_text().splitlines()[1:]
+    losses = [(float(ln.split(",")[1]), float(ln.split(",")[3]))
+              for ln in lines]
+    if len(losses) != 1 or not all(math.isfinite(x) for x in losses[0]):
+        raise RuntimeError(f"BERT {tag}: CSV rows {lines}")
+    rates, line_mfus = step_line_rates(stdout.getvalue())
+    return {"launches": launches, "losses": losses, "rates": rates,
+            "step_line_mfu_pct": line_mfus, "peak_bytes": peak,
+            "digests": digests}
+
+
+def flash_want(steps: int, evals: int, remat: bool = False) -> dict:
+    """K3-K5 launches of a run: 12 blocks, K3 once a forward (twice a
+    training step under remat), K4 and K5 once a backward."""
+    return {FLASH[0]: DEPTH * ((2 if remat else 1) * steps + evals),
+            FLASH[1]: DEPTH * steps, FLASH[2]: DEPTH * steps}
+
+
+def check_card_vs_cpu(what: str, r: dict) -> dict:
+    """Phase 8's rule: the loss within LOSS_ATOL, every gradient within
+    GRAD_REL of its leaf's largest."""
+    if not (r["loss_abs_diff"] <= LOSS_ATOL and r["grad_rel"] <= GRAD_REL):
+        raise RuntimeError(f"{what} card vs CPU: {r} (tolerances "
+                           f"{LOSS_ATOL}, {GRAD_REL})")
+    return r
+
+
+def bert_card_vs_cpu(torch, dev, fa) -> dict:
+    """Phase 22 (b): one BERT-base MLM loss-and-backward at full width,
+    batch 2 x 512, card against CPU; the masks, drawn from the JAX step
+    key on each device, bitwise equal; the card's backward runs K4 and
+    K5 once a block."""
+    import numpy as np
+
+    from distributed_pytorch_training_tpu_torch.models import get_model
+    from distributed_pytorch_training_tpu_torch.ops import (
+        make_flash_attention_fn,
+    )
+    from distributed_pytorch_training_tpu_torch.training.tasks import (
+        MaskedLMTask,
+        StepKey,
+    )
+    from distributed_pytorch_training_tpu_torch.utils import prng
+
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 30522, (2, BERT_SEQ)).astype(np.int32))
+    task = MaskedLMTask()
+    key = StepKey(prng.fold_in(prng.fold_in(prng.prng_key(0), 0), 0))
+    sel_c, in_c = task.mask(ids.to(dev).long(), key)
+    sel_h, in_h = task.mask(ids.long(), key)
+    if not (torch.equal(sel_c.cpu(), sel_h) and torch.equal(in_c.cpu(),
+                                                            in_h)):
+        raise RuntimeError("phase 22 (b): the card's masks differ from the "
+                           "CPU's")
+    before = fa.flash_attention_bwd_dq.launches
+    out = check_card_vs_cpu("phase 22 (b)", card_vs_cpu(
+        torch, dev, lambda: get_model(
+            BERT, attention_fn=make_flash_attention_fn(False)), task,
+        {"input_ids": ids, "weight": torch.ones(2)}, key))
+    if fa.flash_attention_bwd_dq.launches != before + DEPTH:
+        raise RuntimeError("phase 22 (b): the card's backward did not run "
+                           "the kernels")
+    out["masked_positions"] = int(sel_h.sum())
+    return out
+
+
+def vit_card_vs_cpu(torch, dev) -> dict:
+    """Phase 22 (d): one ViT-B/16 loss-and-backward at full width, batch
+    2 of 224x224 images (fp32, no augmentation), card against CPU."""
+    from distributed_pytorch_training_tpu_torch.data.datasets import (
+        IMAGE_STATS,
+    )
+    from distributed_pytorch_training_tpu_torch.models import get_model
+    from distributed_pytorch_training_tpu_torch.training.tasks import (
+        ImageClassificationTask,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    batch = {"image": torch.randint(0, 256, (2, 224, 224, 3), generator=g,
+                                    dtype=torch.uint8),
+             "label": torch.tensor([3, 917]), "weight": torch.ones(2)}
+    mean, std = IMAGE_STATS["imagenet"]
+    return check_card_vs_cpu("phase 22 (d)", card_vs_cpu(
+        torch, dev, lambda: get_model(VIT),
+        ImageClassificationTask(mean, std, augment=False), batch))
+
+
+def vit_train(torch) -> dict:
+    """Phase 22 (d): ViT-B/16 ``--amp`` on synthetic ImageNet at 224
+    through the port's entry: samples/s and MFU of the step lines."""
+    import contextlib
+    import io
+
+    out_dir = ROOT / "chiprun_out" / "vit_amp"
+    (out_dir / "metrics_rank0.csv").unlink(missing_ok=True)
+    stdout = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(stdout):
+            state = train_main(VIT_FLAGS + ["--amp", "--output-dir",
+                                            str(out_dir)])
+    finally:
+        print(stdout.getvalue(), end="", flush=True)
+    if state.step != VIT_STEPS or state.model.dtype != torch.bfloat16 \
+            or tuple(state.model.pos_embedding.shape) != (1, 197, 768):
+        raise RuntimeError(f"ViT: {state.step} steps, dtype "
+                           f"{state.model.dtype}")
+    n = sum(p.numel() for p in state.params)
+    del state
+    if n != VIT_PARAMS:
+        raise RuntimeError(f"ViT-B/16 has {n} parameters")
+    lines = (out_dir / "metrics_rank0.csv").read_text().splitlines()[1:]
+    losses = [(float(ln.split(",")[1]), float(ln.split(",")[3]))
+              for ln in lines]
+    if len(losses) != 1 or not all(math.isfinite(x) for x in losses[0]):
+        raise RuntimeError(f"ViT: CSV rows {lines}")
+    rates, line_mfus = step_line_rates(stdout.getvalue())
+    mfus, fwd = model_mfu(torch, VIT, torch.zeros((1, 224, 224, 3),
+                                                  device="meta"),
+                          rates, "phase 22 (d)", dtype=torch.bfloat16)
+    return {"losses": losses, "rates": rates, "mfu_pct": mfus,
+            "step_line_mfu_pct": line_mfus, "fwd_flops_per_image": fwd}
+
+
+def bert_grad_sync_profile(torch, card: str) -> dict:
+    """Phase 22 (e), BERT's "grad-sync profiling run": BERT-base on 2
+    ranks sharing the card (gloo) with ``--wire-dtype int8`` (one bucket
+    of the 109,514,298-float gradient) and ``--profile-dir`` over steps
+    2-4 (rank 0 traces): each rank's K1, K2 and K3-K5 launches exact, the
+    ranks' evaluated states bitwise equal, and the window's device split
+    and collective share (2 gloo ranks on one card: not a scaling
+    number)."""
+    import shutil
+
+    out_dir = ROOT / "chiprun_out" / "prof_bert_int8"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    prof_dir = out_dir / "prof"
+    t0 = time.perf_counter()
+    out = run_torchrun([
+        str(out_dir), *BERT_FLAGS, "--synthetic-size",
+        str(BERT_DP_SYNTHETIC), "--batch-size", str(BERT_DP_BATCH),
+        "--print-freq", "2", "--wire-dtype", "int8", "--profile-dir",
+        str(prof_dir), "--profile-steps",
+        ",".join(map(str, BERT_PROFILE))], timeout=900)
+    seconds = time.perf_counter() - t0
+    (out_dir / "stdout.txt").write_text(out)
+    per_step = wire_launches(torch, "int8", 0.0, params=BERT_PARAMS)
+    want = {**flash_want(BERT_DP_STEPS, BERT_DP_EVAL),
+            QUANTIZE: BERT_DP_STEPS, DEQUANT: BERT_DP_STEPS}
+    if sum(per_step.values()) != 2:
+        raise RuntimeError(f"BERT's int8 wire plan {per_step}: expected "
+                           "one bucket")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(DP_RANKS)]
+    for r, rep in enumerate(ranks):
+        if rep["launches"] != want or rep["steps"] != BERT_DP_STEPS:
+            raise RuntimeError(f"phase 22 (e) rank {r}: {rep['steps']} "
+                               f"steps, launches {rep['launches']} "
+                               f"(expected {want})")
+    same_across_ranks("phase 22 (e)", ranks)
+    steps = BERT_PROFILE[1] - BERT_PROFILE[0]
+    w = profile_window(torch, prof_dir, steps)
+    log_window(card, "phase 22 (e) BERT-base int8 wire, rank 0 of 2 gloo "
+               "ranks on one card", w)
+    telemetry_summary_exits_0(out_dir / "telemetry_rank0.jsonl")
+    for trace in prof_dir.glob("*.pt.trace.json"):
+        w.setdefault("trace_bytes", trace.stat().st_size)
+        trace.unlink()
+    rates, _ = step_line_rates(out)
+    return {**w, "launches_per_rank": want,
+            "step_line_samples_per_s": rates, "wall_seconds": seconds}
+
+
+def bert_and_vit(torch, dev, fa, card: str) -> dict:
+    """Phase 22 (a)-(e); see the module docstring."""
+    out = {}
+    t0 = time.perf_counter()
+    for tag, extra in (("fp32", []), ("amp", ["--amp"])):
+        run = bert_train(torch, fa, tag, extra)
+        want = flash_want(BERT_STEPS, BERT_EVAL)
+        if run["launches"] != want:
+            raise RuntimeError(f"phase 22 (a) {tag}: launched "
+                               f"{run['launches']}, expected {want}")
+        run["mfu_pct"], fwd = model_mfu(
+            torch, BERT, torch.zeros((1, BERT_SEQ), dtype=torch.long,
+                                     device="meta"), run["rates"],
+            f"phase 22 (a) {tag}")
+        out[f"(a) {tag}"] = run
+        log(f"phase 22 (a) BERT-base {tag} [{card}]: launches "
+            f"{run['launches']} (12 blocks x {BERT_STEPS} steps, + "
+            f"{BERT_EVAL} eval batches for K3); (train, val) loss "
+            f"{run['losses']}; step-line samples/s {run['rates']}, MFU % "
+            f"{run['mfu_pct']} (step line {run['step_line_mfu_pct']}; 3 x "
+            f"{fwd:.6g} FLOPs a sequence); peak allocated "
+            f"{run['peak_bytes']} B above the run's start")
+        torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    out["(b)"] = bert_card_vs_cpu(torch, dev, fa)
+    log(f"phase 22 (b) BERT-base 2x{BERT_SEQ} card vs CPU: masks bitwise "
+        f"({out['(b)']['masked_positions']} positions); {out['(b)']} "
+        f"(tolerances {LOSS_ATOL}, {GRAD_REL}) in "
+        f"{time.perf_counter() - t_b:.1f} s")
+    torch.cuda.empty_cache()
+    remat = bert_train(torch, fa, "remat", ["--remat"])
+    want = flash_want(BERT_STEPS, BERT_EVAL, remat=True)
+    if remat["launches"] != want:
+        raise RuntimeError(f"phase 22 (c): --remat launched "
+                           f"{remat['launches']}, expected {want}")
+    plain = out["(a) fp32"]
+    if remat["losses"] != plain["losses"] \
+            or remat["digests"] != plain["digests"]:
+        raise RuntimeError(f"phase 22 (c): --remat's losses "
+                           f"{remat['losses']} or final state differ from "
+                           f"(a)'s {plain['losses']}")
+    out["(c) remat"] = remat
+    log(f"phase 22 (c) --remat [{card}]: launches {remat['launches']}; "
+        f"losses and the final parameters and AdamW moments bitwise (a)'s "
+        f"fp32 run; step-line samples/s {remat['rates']} against "
+        f"{plain['rates']}; peak allocated {remat['peak_bytes']} B against "
+        f"{plain['peak_bytes']} B "
+        f"({remat['peak_bytes'] / plain['peak_bytes']:.4f}x)")
+    for run in (out["(a) fp32"], out["(a) amp"], remat):
+        run.pop("digests")
+    torch.cuda.empty_cache()
+    out["(d) amp"] = vit_train(torch)
+    d = out["(d) amp"]
+    log(f"phase 22 (d) ViT-B/16 --amp [{card}]: (train, val) loss "
+        f"{d['losses']}; step-line samples/s {d['rates']}, MFU % "
+        f"{d['mfu_pct']} (3 x {d['fwd_flops_per_image']:.6g} FLOPs an "
+        "image)")
+    torch.cuda.empty_cache()
+    out["(d) card vs cpu"] = vit_card_vs_cpu(torch, dev)
+    log(f"phase 22 (d) ViT-B/16 2x224x224 fp32 card vs CPU: "
+        f"{out['(d) card vs cpu']}")
+    torch.cuda.empty_cache()
+    out["(e)"] = bert_grad_sync_profile(torch, card)
+    e = out["(e)"]
+    log(f"phase 22 (e) [{card}]: launches per rank {e['launches_per_rank']};"
+        f" states bitwise equal across ranks; window collective share "
+        f"{e['collective_share']} (2 gloo ranks on one card, not a scaling "
+        f"number); step-line samples/s {e['step_line_samples_per_s']}; "
+        f"{e['wall_seconds']:.1f} s")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def lm_mfu(torch, rates: list, context: str):
+    """The step line's samples/s as MFU for a 1024-token GPT-2 124M
+    sequence (`model_mfu`). Returns (MFU % per rate, the forward FLOPs,
+    the peak TFLOP/s)."""
+    from distributed_pytorch_training_tpu_torch.experiments import flops
+
+    mfus, fwd = model_mfu(torch, MODEL, torch.zeros(
+        (1, 1024), dtype=torch.long, device="meta"), rates, context)
+    return mfus, fwd, flops.chip_peak_tflops(0)
 
 
 def main() -> int:
@@ -3190,16 +3584,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 21 done in {time.perf_counter() - t0:.1f} s")
 
+    # phase 22: BERT-base masked LM (K3-K5 bidirectional at S 512, and
+    # K1 and K2 on its int8 wire) and ViT-B/16 through the port's entry
+    t0 = time.perf_counter()
+    models22 = bert_and_vit(torch, dev, fa, card)
+    log(f"phase 22 done in {time.perf_counter() - t0:.1f} s")
+
     # phase 17: the kernels line; K1 and K2 summed over their launches on
-    # the data-parallel paths (rank 0 of every phase 12 and phase 19
-    # run), the serving path's K1 launches (phase 4) kept in
+    # the data-parallel paths (rank 0 of every phase 12, phase 19 and
+    # phase 22 (e) run), the serving path's K1 launches (phase 4) kept in
     # chip_smoke.json
+    bert_counts = {key: n * BERT_DP_STEPS for key, n in wire_launches(
+        torch, "int8", 0.0, params=BERT_PARAMS).items()}
     codec_kernels = codec_kernel_rows(
         torch, codec, codec19, counts19,
         {name: two_ranks[name]["steps"] for name, _, _ in DP_RUNS},
         {name: (hier if name.startswith("hier") else sharded)[name]["steps"]
          for name in counts19},
-        rows + quantize_edges, dequant_edges, continuous["(b) k1"])
+        rows + quantize_edges, dequant_edges, continuous["(b) k1"],
+        bert_counts)
     serving_k1 = {
         "launches": launches,
         "ms": sum(r["ms"] * r["main_path_launches"] for r in rows),
@@ -3253,12 +3656,15 @@ def main() -> int:
         "profile_reference_command": profiled_reference,
         "live_endpoint": live,
         "serving_continuous": continuous,
+        "bert_vit": models22,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [*codec_kernels,
                *flash_kernel_rows(flash_rows, flash_launches,
-                                  bf16_launches, profiled["bf16_trace_ms"])]
+                                  bf16_launches, profiled["bf16_trace_ms"],
+                                  models22["(a) fp32"]["launches"],
+                                  models22["(a) amp"]["launches"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

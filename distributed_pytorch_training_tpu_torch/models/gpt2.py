@@ -8,8 +8,9 @@ blocks in ``blocks.<i>`` where flax has ``block<i>`` (``convert.py``).
 A kernel ``attention_fn`` (flash) owns the causal structure: the blocks
 then get only the padding mask. ``dtype`` is the compute dtype beside
 float32 parameters (``models/layers.py`` says where it rounds); the logits
-are float32. Not ported yet, and refused: tensor parallelism, remat and
-dropout.
+are float32. ``remat`` recomputes each block in the backward
+(``layers.remat_call``, flax's ``nn.remat``). Not ported yet, and refused:
+tensor parallelism and dropout.
 """
 
 from __future__ import annotations
@@ -23,17 +24,17 @@ from .layers import (
     Embed,
     LayerNorm,
     TransformerBlock,
+    VocabPaddingMixin,
     causal_mask,
     dot_product_attention,
     init_paged_kv,
     mask_vocab_padding,
-    padded_vocab_size,
+    remat_call,
 )
 from .registry import register_model
-from ..runtime import not_ported
 
 
-class GPT2LMHead(nn.Module):
+class GPT2LMHead(VocabPaddingMixin, nn.Module):
 
     def __init__(self, vocab_size: int = 50257, hidden_dim: int = 1024,
                  depth: int = 24, num_heads: int = 16,
@@ -44,8 +45,7 @@ class GPT2LMHead(nn.Module):
                  pad_vocab_to_multiple_of: int = 0, tp_size: int = 1,
                  device=None):
         super().__init__()
-        if remat:
-            raise not_ported("remat", "the remat slice")
+        self.remat = remat
         self.vocab_size, self.hidden_dim = vocab_size, hidden_dim
         self.depth, self.num_heads = depth, num_heads
         self.max_position, self.dtype = max_position, dtype
@@ -60,11 +60,6 @@ class GPT2LMHead(nn.Module):
                              tp_size, dtype, device)
             for _ in range(depth))
         self.ln_f = LayerNorm(hidden_dim, layernorm_epsilon, device, dtype)
-
-    @property
-    def padded_vocab(self) -> int:
-        return padded_vocab_size(self.vocab_size,
-                                 self.pad_vocab_to_multiple_of)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -122,7 +117,8 @@ class GPT2LMHead(nn.Module):
         new_cache = []
         for i, block in enumerate(self.blocks):
             if cache is None:
-                x = block(x, mask=mask)
+                x = (remat_call(block, x, mask) if self.remat
+                     else block(x, mask=mask))
             else:
                 x, c = block(x, mask=mask, cache=cache[i],
                              cache_positions=cache_positions)

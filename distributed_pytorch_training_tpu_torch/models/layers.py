@@ -27,7 +27,8 @@ softmax runs in float32 and its weights are cast back to ``dtype``. Not
 and softmax return float32). A kernel ``attention_fn`` (flash,
 ``ops/flash_attention.py``) serves the no-cache forward; the cache paths
 refuse it, as in the JAX package. The paged KV pool of continuous serving
-is here too. Tensor parallelism and dropout are not ported yet and raise
+is here too. ``remat_call`` is flax's ``nn.remat`` of a block. Tensor
+parallelism and dropout are not ported yet and raise
 ``NotImplementedError``.
 """
 
@@ -39,6 +40,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..runtime import not_ported
@@ -351,6 +353,16 @@ class Embed(nn.Module):
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.dtype) @ self.embedding.to(self.dtype).T
 
+    def one_hot_lookup(self, ids: torch.Tensor) -> torch.Tensor:
+        """The lookup as a one-hot product: the same values (each output
+        is one row times 1), and a table gradient that is a GEMM, summed
+        in a fixed order. For a table of a few rows that each take
+        thousands of lookups, whose gradient CUDA's embedding backward
+        sums in an order that varies from run to run (an H100, a 2-row
+        table, 4096 lookups of one row)."""
+        hot = F.one_hot(ids.long(), self.embedding.shape[0])
+        return hot.to(self.dtype) @ self.embedding.to(self.dtype)
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.embedding.normal_(0.0, self.init_std, generator=generator)
@@ -499,12 +511,34 @@ class TransformerBlock(nn.Module):
         return x if cache is None else (x, new_cache)
 
 
+def remat_call(block: nn.Module, *args) -> torch.Tensor:
+    """``block(*args)`` under flax's ``nn.remat``: with gradients on, the
+    block keeps only its inputs and runs its forward again in the backward
+    (``torch.utils.checkpoint``, non-reentrant), trading the activations'
+    memory for a second forward; a kernel ``attention_fn`` launches its
+    forward kernel twice a step. Without gradients, a plain call."""
+    if not torch.is_grad_enabled():
+        return block(*args)
+    return torch.utils.checkpoint.checkpoint(block, *args,
+                                             use_reentrant=False)
+
+
 def padded_vocab_size(vocab_size: int, multiple: int) -> int:
     """Megatron-style vocab padding: the smallest multiple of `multiple`
     >= vocab_size. 0 or 1 disables padding."""
     if multiple <= 1:
         return vocab_size
     return -(-vocab_size // multiple) * multiple
+
+
+class VocabPaddingMixin:
+    """The padded vocab of a model with ``vocab_size`` and
+    ``pad_vocab_to_multiple_of`` attributes (the JAX package's mixin)."""
+
+    @property
+    def padded_vocab(self) -> int:
+        return padded_vocab_size(self.vocab_size,
+                                 self.pad_vocab_to_multiple_of)
 
 
 def mask_vocab_padding(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:

@@ -1,8 +1,15 @@
-"""Training entry point of the PyTorch port: the causal-LM path (GPT-2) and
-the image-classification path (ResNet) of the JAX package's ``train.py``.
+"""Training entry point of the PyTorch port: the LM path (GPT-2 causal LM,
+BERT masked LM) and the image-classification path (ResNet, ViT) of the
+JAX package's ``train.py``.
 
     python -m distributed_pytorch_training_tpu_torch.train --model resnet18 \\
         --synthetic --batch-size 128 --epochs 2
+
+    python -m distributed_pytorch_training_tpu_torch.train --model bert_base \\
+        --synthetic --batch-size 8 [--amp] [--remat]
+
+    python -m distributed_pytorch_training_tpu_torch.train --model vit_b16 \\
+        --dataset imagenet --synthetic --batch-size 64 --amp
 
     torchrun --standalone --nproc-per-node 2 \\
         -m distributed_pytorch_training_tpu_torch.train --model resnet18 \\
@@ -31,7 +38,11 @@ int8_multihop|int8_hier``, per-rank BatchNorm), or through the sharded
 update (``--zero1``, ``--fsdp-explicit``; per-rank BatchNorm).
 ``--slices S`` factors the ranks into S slices for ``int8_hier``.
 ``--amp`` computes in bf16 beside float32 parameters and optimizer state
-(flax's ``dtype``, no loss scaling). The process group's backend follows ``runtime/dist.py``'s rule
+(flax's ``dtype``, no loss scaling). ``--remat`` recomputes each
+transformer block in the backward (flax's ``nn.remat``). BERT's sequences
+default to 512 tokens, its attention is bidirectional (the flash kernels
+with ``causal=False`` on CUDA), and its masks are jax.random's draws from
+the JAX step key, bitwise. The process group's backend follows ``runtime/dist.py``'s rule
 and is printed in the banner. Checkpoints (``--checkpoint-dir``,
 ``--resume``, ``--checkpoint-every``), the restart supervisor
 (``--max-restarts``) and fault injection (``--chaos``) follow the JAX
@@ -91,20 +102,20 @@ from .training import TrainConfig, Trainer, TrainState, make_optimizer, \
 from .training.checkpoint import LAYOUT_HINT, CheckpointManager, \
     CheckpointWorldSizeMismatch
 from .training.preemption import PreemptionGuard, RankAgreedStop
-from .training.tasks import ImageClassificationTask, LanguageModelingTask
+from .training.tasks import (ImageClassificationTask, LanguageModelingTask,
+                             MaskedLMTask)
 from .telemetry import device as tele_device
 from .telemetry.watchdog import kwargs_from_env
 from .utils import MetricsCSV, log_main, parse_args
 from .utils.config import parse_model_overrides
 from .utils.profiling import StepProfiler
 
-LM_MODELS = ("gpt2_124m", "gpt2_355m")
-IMAGE_MODELS = ("resnet18", "resnet50")
+LM_MODELS = ("gpt2_124m", "gpt2_355m", "bert_base")
+IMAGE_MODELS = ("resnet18", "resnet50", "vit_b16")
 ELASTIC = "the elastic slice"
 
 # flag -> (is the value unsupported?, the slice that brings it)
 _UNPORTED = {
-    "--remat": (lambda a: a.remat, "the remat slice"),
     "--autopilot": (lambda a: a.autopilot or a.autopilot_tune,
                     "the autopilot slice"),
     "--download": (lambda a: a.download,
@@ -168,6 +179,9 @@ def check_flags(args: argparse.Namespace, world: int = 1) -> None:
     if args.max_restarts < 0:
         raise ValueError(f"--max-restarts must be >= 0, got "
                          f"{args.max_restarts}")
+    if args.remat and args.model.startswith("resnet"):
+        raise ValueError("--remat applies to transformer models "
+                         "(vit/bert/gpt2); ResNets are activation-light")
 
 
 def resolve_attention(requested: str, device_type: str,
@@ -280,14 +294,15 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
 
     compute_dtype = torch.bfloat16 if args.amp else torch.float32
     is_lm = args.model in LM_MODELS
-    seq_len = args.seq_len or 1024
+    family = "bert" if args.model.startswith("bert") else "gpt2"
+    seq_len = args.seq_len or (512 if family == "bert" else 1024)
     if is_lm:
         def load_datasets():
-            return (get_token_dataset("gpt2", seq_len, args.data_dir,
+            return (get_token_dataset(family, seq_len, args.data_dir,
                                       train=True,
                                       synthetic_size=args.synthetic_size,
                                       seed=args.seed),
-                    get_token_dataset("gpt2", seq_len, args.data_dir,
+                    get_token_dataset(family, seq_len, args.data_dir,
                                       train=False,
                                       synthetic_size=(args.synthetic_size
                                                       or 0) // 5 or None,
@@ -322,7 +337,8 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
     stall = chaos.on_loader_batch if chaos else None
     if is_lm:
         make_model, task = _lm_model_and_task(
-            args, overrides, dev, seq_len, train_ds, val_ds, compute_dtype)
+            args, family, overrides, dev, seq_len, train_ds, val_ds,
+            compute_dtype)
 
         def make_flops_model():
             # the plain attention: FlopCounterMode does not see the flash
@@ -345,9 +361,14 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
                                    seed=args.seed, **loader_kw)
         model_kwargs = dict(num_classes=train_ds.num_classes,
                             dtype=compute_dtype)
+        if args.model.startswith("vit"):
+            # flax sizes the position embeddings from the first input
+            model_kwargs.update(image_size=train_ds.images.shape[1:3],
+                                remat=args.remat)
         model_kwargs.update(overrides)
-        # an explicit --model-overrides wins over the dedicated flag
-        model_kwargs.setdefault("cifar_stem", args.cifar_stem)
+        if args.model.startswith("resnet"):
+            # an explicit --model-overrides wins over the dedicated flag
+            model_kwargs.setdefault("cifar_stem", args.cifar_stem)
 
         def make_model():
             return get_model(args.model, **model_kwargs)
@@ -640,15 +661,20 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
     return state
 
 
-def _lm_model_and_task(args, overrides, dev, seq_len, train_ds, val_ds,
-                       compute_dtype):
-    """A factory of the GPT-2 model (flash attention on CUDA), checked
-    once against the data's token ids, and the causal LM task, computing
-    in ``compute_dtype``."""
-    lm_kwargs = dict(dtype=compute_dtype)
+def _lm_model_and_task(args, family, overrides, dev, seq_len, train_ds,
+                       val_ds, compute_dtype):
+    """A factory of the GPT-2 or BERT model (the flash kernels on CUDA:
+    causal for GPT-2, bidirectional for BERT), checked once against the
+    data's token ids, and its task (causal LM, or masked LM over the ids
+    both the model and the data hold), computing in ``compute_dtype``.
+    The checks and their messages are the JAX entry's."""
+    lm_kwargs = dict(dtype=compute_dtype, remat=args.remat)
     lm_kwargs.update(overrides)
     if resolve_attention(args.attention, dev.type, seq_len) == "flash":
-        lm_kwargs["attention_fn"] = make_flash_attention_fn(causal=True)
+        # BERT is bidirectional: legal because the masked LM task feeds no
+        # padding mask (the kernel owns the attention's structure)
+        lm_kwargs["attention_fn"] = make_flash_attention_fn(
+            causal=family != "bert")
     vocab_size = get_model(args.model, device="meta", **lm_kwargs).vocab_size
     if vocab_size < train_ds.vocab_size:
         # ids past the embedding would index out of range: scan the ids
@@ -659,10 +685,25 @@ def _lm_model_and_task(args, overrides, dev, seq_len, train_ds, val_ds,
                 raise ValueError(
                     f"{split} dataset {split_ds.name} contains token id "
                     f"{max_id}, which exceeds the model's vocab_size "
-                    f"({vocab_size}); align --model-overrides "
-                    "vocab_size with the data")
-    return (lambda: get_model(args.model, **lm_kwargs),
-            LanguageModelingTask(compute_dtype=compute_dtype))
+                    f"({vocab_size}): such ids index past the "
+                    "embedding, which JAX fills with NaN. Align "
+                    "--model-overrides vocab_size with the data (byte "
+                    f"corpora: 256; full {family} tokens: "
+                    f"{train_ds.vocab_size}).")
+    if family == "bert":
+        # the recipe inserts [MASK] and draws replacement ids: both must
+        # stay inside the (possibly shrunk) embedding
+        bert_vocab = min(vocab_size, train_ds.vocab_size)
+        task = MaskedLMTask(vocab_size=bert_vocab,
+                            compute_dtype=compute_dtype)
+        if task.mask_token_id >= bert_vocab:
+            raise ValueError(
+                f"vocab_size {bert_vocab} does not contain the [MASK] "
+                f"token id {task.mask_token_id}; use a vocab of at "
+                f"least {task.mask_token_id + 1}")
+    else:
+        task = LanguageModelingTask(compute_dtype=compute_dtype)
+    return lambda: get_model(args.model, **lm_kwargs), task
 
 
 if __name__ == "__main__":

@@ -71,9 +71,11 @@ from ..parallel.grad_sync import (
 from ..parallel.sharding import (chunk_of, flatten_pad, fsdp_flat_params,
                                  unflatten_padded)
 from ..runtime import DeviceLike, resolve_device
+from ..utils import prng
 from ..utils.logging import log_main
 from ..utils.metrics import ThroughputMeter
-from .tasks import Metrics, Task, add_metrics, summarize, zero_metrics
+from .tasks import (Metrics, StepKey, Task, add_metrics, summarize,
+                    zero_metrics)
 from .train_state import FlatSharding, TrainState
 from .optim import GradientTransformation
 
@@ -123,6 +125,11 @@ def split_microbatches(batch: Dict[str, torch.Tensor], accum: int,
                          *x.shape[1:]).transpose(0, 1)
 
     return {name: split(x) for name, x in batch.items()}
+
+
+def _rows(batch: Dict[str, torch.Tensor]) -> int:
+    """This rank's rows in ``batch``."""
+    return int(batch["weight"].shape[0])
 
 
 def _sync(device: torch.device) -> None:
@@ -184,6 +191,8 @@ class Trainer:
         # the anomaly watchdog (telemetry/watchdog.py), fed by train_epoch
         # when the entry point sets one
         self.watchdog = None
+        # the epoch of the JAX step key (set by train_epoch)
+        self.epoch = 0
         explicit_sync = (config.bucket_cap_mb > 0
                          or config.wire_dtype != "fp32")
         if config.fused_quantize is False and self.device.type == "cuda":
@@ -358,6 +367,25 @@ class Trainer:
             [self.config.seed, step, self.rank, micro]).generate_state(1)[0]
         return torch.Generator().manual_seed(int(seed))
 
+    def _step_keys(self, step: int, rows: int, replica: bool
+                   ) -> List[Optional[StepKey]]:
+        """The JAX step's key for each microbatch of this rank's ``rows``
+        (None for a task that draws none): ``fold_in(fold_in(PRNGKey(seed),
+        epoch), step)``, split once per microbatch under accumulation. The
+        replicated step draws over the global (micro)batch, of which this
+        rank holds one block of rows; the explicit reducer and the sharded
+        update draw over each rank's own rows after ``fold_in(key,
+        rank)``, as the JAX package's per-replica bodies do."""
+        accum = max(self.config.grad_accum, 1)
+        if not self.task.needs_key:
+            return [None] * accum
+        rng = prng.fold_in(prng.fold_in(prng.prng_key(self.config.seed),
+                                        self.epoch), step)
+        keys = [rng] if accum == 1 else list(prng.split(rng, accum))
+        if replica:
+            return [StepKey(prng.fold_in(k, self.rank)) for k in keys]
+        return [StepKey(k, rows // accum * self.rank) for k in keys]
+
     # -- steps --------------------------------------------------------------
 
     def train_step(self, state: TrainState,
@@ -413,9 +441,10 @@ class Trainer:
         g_sum: Optional[list] = None
         s_sum: Dict[str, torch.Tensor] = {}
         metrics = zero_metrics(self.device)
+        keys = self._step_keys(state.step, _rows(batch), replica=False)
         for i, mb in enumerate(micro):
             loss, m, stats = self.task.loss_and_metrics(
-                model, mb, True, self._generator(state.step, i))
+                model, mb, True, self._generator(state.step, i), keys[i])
             m_global = _psum_metrics(m, group)
             w = m_global["weight"]
             grads = torch.autograd.grad(
@@ -472,9 +501,12 @@ class Trainer:
                     f"bucket_cap_mb={cfg.bucket_cap_mb} ({expect} "
                     "elements)")
 
+        keys = self._step_keys(state.step, _rows(batch), replica=True)
+
         def local_flat(mb, micro_index):
             loss, m, stats = self.task.loss_and_metrics(
-                model, mb, True, self._generator(state.step, micro_index))
+                model, mb, True, self._generator(state.step, micro_index),
+                keys[micro_index])
             grads = torch.autograd.grad(loss, params)
             w = m["weight"]
             return flatten_tree([w * g.float() for g in grads]), m, \
@@ -595,10 +627,12 @@ class Trainer:
         g_sum: list = [None] * len(params)
         s_sum: Dict[str, torch.Tensor] = {}
         m_local = zero_metrics(self.device)
+        keys = self._step_keys(state.step, _rows(batch), replica=True)
         try:
             for i, mb in enumerate(micro):
                 loss, m, stats = self.task.loss_and_metrics(
-                    model, mb, True, self._generator(state.step, i))
+                    model, mb, True, self._generator(state.step, i),
+                    keys[i])
                 grads = torch.autograd.grad(loss, params)
                 w = m["weight"]
                 scatter(grads, w, g_sum)
@@ -704,9 +738,14 @@ class Trainer:
         """This rank's weighted-sum metrics of ``batch`` (not summed over
         ranks: `evaluate` sums the totals once)."""
         state.model.eval()
+        key = None
+        if self.task.needs_key:
+            # the JAX eval step's PRNGKey(0), every batch, over the global
+            # batch: eval masks repeat from batch to batch
+            key = StepKey(prng.prng_key(0), _rows(batch) * self.rank)
         with self.materialized(state):
             _, metrics, _ = self.task.loss_and_metrics(state.model, batch,
-                                                       train=False)
+                                                       train=False, key=key)
         return metrics
 
     # -- epoch loops ----------------------------------------------------------
@@ -724,7 +763,8 @@ class Trainer:
         samples/s every ``print_freq`` steps, the only host fetches inside
         the epoch. The metrics are global: every step sums them over
         ranks. ``start_step`` labels a mid-epoch resume (the caller hands
-        an iterator that starts there; the augmentation draws follow
+        an iterator that starts there; the augmentation draws and the JAX
+        step key (of ``epoch``, held in ``self.epoch``) follow
         ``state.step``, so the resumed trajectory is the same).
         ``fault_hook(i)`` runs before step ``i`` of this call executes
         (the supervisor's step fence: a raise there means the optimizer
@@ -744,6 +784,7 @@ class Trainer:
         under the Supervisor, a restartable step failure like any
         other."""
         cfg = self.config
+        self.epoch = epoch
         epoch_metrics = zero_metrics(self.device)
         t_epoch = time.perf_counter()
         meter = ThroughputMeter()

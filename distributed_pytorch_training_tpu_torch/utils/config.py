@@ -14,9 +14,9 @@ from typing import Optional, Sequence
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
-        description="Distributed training, PyTorch port (ResNet image "
-                    "classification, data-parallel under torchrun; GPT-2 "
-                    "causal LM on one device)")
+        description="Distributed training, PyTorch port (ResNet and ViT "
+                    "image classification, GPT-2 causal LM and BERT masked "
+                    "LM, data-parallel under torchrun)")
     add = parser.add_argument
 
     # the reference's flags (same names and defaults)
@@ -64,7 +64,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         help="GPipe microbatches when the mesh has a pipe axis")
     add("--optimizer", default="sgd", type=str, help="sgd | adamw")
     add("--seq-len", default=None, type=int,
-        help="sequence length for LM configs (default 1024 for gpt2)")
+        help="sequence length for LM configs (default 1024 for gpt2, "
+             "512 for bert)")
     add("--attention", default="auto", type=str,
         choices=["auto", "xla", "flash", "ring", "ulysses"],
         help="attention for LM configs: auto (flash on CUDA, the einsum "
@@ -92,7 +93,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         help="ZeRO-1: reduce-scatter the gradient, update 1/N of the "
              "parameters, gather them back")
     add("--remat", action="store_true",
-        help="gradient checkpointing (not ported)")
+        help="gradient checkpointing: recompute each transformer block "
+             "in the backward (gpt2, bert, vit)")
     add("--schedule", default="constant", type=str,
         help="lr schedule: constant | cosine | linear_warmup")
     add("--warmup-steps", default=0, type=int)

@@ -14,10 +14,20 @@ and ``jax/_src/random.py``).
 * ``fold_in(key, data)`` hashes the counter pair ``(0, data)`` under the
   key: the two output words are the new key.
 * ``random_bits(key, n)`` hashes the counters ``(0, i)`` for i < n and
-  XORs the two output words (the partitionable layout).
+  XORs the two output words (the partitionable layout). The counter of
+  element i of a draw of any shape is its flat index i (high word, low
+  word), so ``offset`` draws a block of a larger draw without the rest:
+  a rank's rows of a draw over the global batch.
+* ``split(key, num)`` hashes the counters ``(0, i)`` for i < num and keeps
+  both words: key i is ``fold_in(key, i)``.
 * ``uniform`` keeps 23 bits as a float in [1, 2), subtracts 1, and clips
-  at ``minval``; ``gumbel`` is ``-log(-log(u))`` over ``[tiny, 1)``
-  (jax's ``mode="low"``); ``categorical`` is the Gumbel argmax.
+  at ``minval``; ``bernoulli`` is ``uniform < p`` in float32; ``gumbel``
+  is ``-log(-log(u))`` over ``[tiny, 1)`` (jax's ``mode="low"``);
+  ``categorical`` is the Gumbel argmax.
+* ``randint`` (int32) splits the key in two, draws a high and a low word
+  for each element and reduces them into ``[minval, maxval)`` modulo the
+  span, every product and sum wrapping at 32 bits as jax's uint32
+  arithmetic does.
 
 The bits are bitwise jax's. The Gumbel noise goes through two logs, whose
 last bit may differ between libraries; a token moves only where two
@@ -71,26 +81,70 @@ def fold_in(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return torch.stack((y1, y2), dim=-1)
 
 
-def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random.bits(key, (n,))`` (uint32) for each key of (..., 2):
-    (..., n) int64 words."""
-    counts = torch.arange(n, dtype=torch.int64, device=keys.device)
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: (num, 2) keys from one key (2,)."""
+    return fold_in(key, torch.arange(num, device=key.device))
+
+
+def random_bits(keys: torch.Tensor, n: int, offset: int = 0
+                ) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32) for each key of (..., 2),
+    elements ``offset .. offset + n - 1`` of the draw in flat (row-major)
+    order: (..., n) int64 words."""
+    counts = torch.arange(offset, offset + n, dtype=torch.int64,
+                          device=keys.device)
     y1, y2 = threefry2x32(keys[..., 0, None], keys[..., 1, None],
-                          torch.zeros_like(counts), counts)
+                          counts >> 32, counts & MASK32)
     return y1 ^ y2
 
 
-def uniform(keys: torch.Tensor, n: int, minval: float = 0.0
-            ) -> torch.Tensor:
-    """``jax.random.uniform(key, (n,), float32, minval, 1.0)`` for each key
-    of (..., 2). For ``minval`` below float32's resolution at 1 (jax's
-    Gumbel passes ``tiny``), ``maxval - minval`` rounds to 1 and the
-    result is ``max(minval, f + minval)``, f in [0, 1) on a 2**-23 grid."""
-    bits = (random_bits(keys, n) >> 9) | 0x3F800000
+def uniform(keys: torch.Tensor, n: int, minval: float = 0.0,
+            offset: int = 0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, 1.0)`` for each key
+    of (..., 2), elements ``offset ..`` as `random_bits` takes them. For
+    ``minval`` below float32's resolution at 1 (jax's Gumbel passes
+    ``tiny``), ``maxval - minval`` rounds to 1 and the result is
+    ``max(minval, f + minval)``, f in [0, 1) on a 2**-23 grid."""
+    bits = (random_bits(keys, n, offset) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
     span = torch.tensor(1.0, dtype=torch.float32, device=keys.device) - lo
     return torch.maximum(lo, floats * span + lo)
+
+
+def bernoulli(key: torch.Tensor, p: float, n: int, offset: int = 0
+              ) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (a float ``p``, float32):
+    ``uniform < p``, elements ``offset ..`` as `random_bits` takes them;
+    (n,) bool."""
+    return uniform(key, n, offset=offset) < torch.tensor(
+        p, dtype=torch.float32, device=key.device)
+
+
+def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a * b`` modulo 2**32 for 32-bit words, in int64 without overflow
+    (the 16-bit halves of ``b`` one at a time)."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK32
+
+
+def randint(key: torch.Tensor, n: int, minval: int, maxval: int,
+            offset: int = 0) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32, scalar
+    bounds inside int32), elements ``offset ..`` as `random_bits` takes
+    them; (n,) int64 values. The span's arithmetic is jax's in uint32,
+    wrapping: ``multiplier = (2**16 % span)**2 % span`` and
+    ``(hi % span * multiplier + lo % span) % span``."""
+    k1, k2 = split(key, 2)
+    higher, lower = random_bits(k1, n, offset), random_bits(k2, n, offset)
+    span = (maxval - minval) & MASK32 if maxval > minval else 1
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & MASK32) % span
+    span_t = torch.tensor(span, dtype=torch.int64, device=key.device)
+    mult_t = torch.tensor(mult, dtype=torch.int64, device=key.device)
+    off = (_mul32(higher % span_t, mult_t) + lower % span_t) & MASK32
+    return minval + off % span_t
 
 
 def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:

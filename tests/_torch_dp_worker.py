@@ -16,8 +16,9 @@ wrote; ``OUT`` the pickle this rank writes. Jobs:
   output (codes and scales on the wire);
 * ``("train", spec)``: the port's Trainer from the given flax weights over
   ``spec["batches"]`` (this rank's rows of each global batch): a ResNet
-  with the image task, or with ``spec["lm"]`` a GPT-2 with the causal LM
-  task; returns the per-step metrics and the final flax params,
+  with the image task, with ``spec["lm"]`` a GPT-2 with the causal LM
+  task, or with ``spec["mlm"]`` (the task's keywords) a BERT with the
+  masked LM task; returns the per-step metrics and the final flax params,
   batch_stats and residual;
   ``spec["optimizer"]`` is ``(name, kwargs)`` (default SGD, momentum
   0.9); the state's per-rank at-rest sizes come back too;
@@ -69,7 +70,7 @@ from distributed_pytorch_training_tpu_torch.training import (  # noqa: E402
     TrainConfig, Trainer, make_optimizer,
 )
 from distributed_pytorch_training_tpu_torch.training.tasks import (  # noqa
-    ImageClassificationTask, LanguageModelingTask,
+    ImageClassificationTask, LanguageModelingTask, MaskedLMTask,
 )
 
 
@@ -104,6 +105,9 @@ def run_train(spec, rank, world):
     if spec.get("lm"):
         model = get_model("gpt2_124m", **spec["model_kwargs"])
         task = LanguageModelingTask()
+    elif spec.get("mlm"):
+        model = get_model("bert_base", **spec["model_kwargs"])
+        task = MaskedLMTask(**spec["mlm"])
     else:
         model = get_model("resnet18", **spec["model_kwargs"])
         task = ImageClassificationTask(spec["mean"], spec["std"],

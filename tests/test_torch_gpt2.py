@@ -171,6 +171,15 @@ def test_registry_builds_published_widths():
                                     causal=True))],
                          ids=["tp", "remat", "dropout", "kernel-attention"])
 def test_unported_features_refuse(kw):
+    if "remat" in kw:
+        # remat is ported (models/layers.py::remat_call): the model builds
+        # and its forward is the plain model's, bitwise
+        plain, rematted = GPT2LMHead(**TINY), GPT2LMHead(**TINY, **kw)
+        plain.reset_parameters(torch.Generator().manual_seed(0))
+        rematted.load_state_dict(plain.state_dict())
+        ids = torch.from_numpy(ids_of((2, 8))).long()
+        assert rematted.remat and torch.equal(rematted(ids), plain(ids))
+        return
     if "attention_fn" in kw:
         # kernel attention serves the no-cache forward; the KV-cache paths
         # refuse it, as the JAX module does

@@ -43,6 +43,8 @@ def test_scan_covers_the_port():
                  *(port + f"serving/{m}.py" for m in (
                      "continuous", "paged", "speculative", "router")),
                  port + "utils/prng.py", port + "experiments/harness.py",
+                 # the BERT and ViT slice's models
+                 port + "models/bert.py", port + "models/vit.py",
                  # the telemetry slice's modules
                  port + "utils/locktrace.py", port + "utils/profiling.py",
                  port + "experiments/trace_analysis.py",

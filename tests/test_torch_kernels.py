@@ -223,7 +223,9 @@ FLASH_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # ragged tails, Sq != Sk both ways, D of 128, 48, 8 and 20 (not a multiple
 # of 8; in bfloat16 its rows are not whole 16-byte chunks), alone, with key
 # padding and with Sq > Sk, and causal lengths of 384 whose tiles lie below
-# the diagonal as well as on it, square and with key padding and Sq < Sk
+# the diagonal as well as on it, square and with key padding and Sq < Sk;
+# last, BERT-base's bidirectional attention at its full shape (S 512, 12
+# heads of 64, batch 8)
 FLASH_CASES = [
     (2, 128, 128, 3, 64, True, False),
     (2, 128, 128, 3, 64, False, False),
@@ -238,6 +240,7 @@ FLASH_CASES = [
     (2, 100, 100, 2, 20, False, True),
     (2, 130, 70, 2, 20, True, False),
     (2, 320, 384, 3, 64, True, True),
+    (8, 512, 512, 12, 64, False, False),
 ]
 
 

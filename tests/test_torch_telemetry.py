@@ -96,7 +96,11 @@ def test_summary_and_perfetto_equal_jax(partial):
     assert pcli.to_perfetto(evs) == jcli.to_perfetto(evs)
 
 
-def test_metrics_render_equal_jax():
+def test_metrics_render_equal_jax(monkeypatch):
+    # the render prints ages from time.monotonic(); one frozen clock for
+    # both states, so the two texts compare exactly, the age lines too
+    for mod in (phttp, jhttp):
+        monkeypatch.setattr(mod.time, "monotonic", lambda: 1000.0)
     ident = {"gen": 0, "rank": 0, "backend": "cuda"}
     ps, js = phttp._MetricsState(dict(ident)), jhttp._MetricsState(
         dict(ident))
@@ -106,6 +110,7 @@ def test_metrics_render_equal_jax():
     text = ps.render()
     assert text == js.render()
     assert "dpt_exposed_comm_ratio" in text and "dpt_steps_total" in text
+    assert "dpt_last_progress_age_seconds 0.000" in text
 
 
 def _rank_stream(path, rank, stall_at=None):
