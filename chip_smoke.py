@@ -13,7 +13,9 @@ and serve GPT-2 124M continuously over the paged (fp32 and int8) KV pool:
 the bench rows, speculative decoding, prefix skips, two replicas behind
 the router with one killed, and a ``serve`` process, and train BERT-base
 (masked LM, bidirectional flash kernels at S 512, ``--remat``, its int8
-gradient wire on two ranks, profiled) and ViT-B/16 at full width.
+gradient wire on two ranks, profiled) and ViT-B/16 at full width, and
+train GPT-2 124M sequence-parallel on two ranks (ring and Ulysses
+attention over the mesh's ``seq`` axis).
 
     python3 chip_smoke.py
 
@@ -189,14 +191,35 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     and K3-K5 launches exact per rank, the ranks' states bitwise equal,
     the window's device split and collective share (2 ranks on one card:
     not a scaling number);
+23. (run before phase 17's lines) sequence parallelism: (a) the ring
+    (K6: K3 on each ring step's block, causal on the diagonal and full on
+    past blocks, future blocks skipped; K4 and K5 against the global lse,
+    the dK/dV accumulators rotating home) and Ulysses (two all-to-alls
+    around the flash kernels on 6 heads of the whole sequence) on 2 gloo
+    ranks sharing the card at B 8, S 1024 (512 a rank), 12 heads of 64,
+    causal, fp32 and bf16: output, lse, dQ, dK and dV against the plain
+    versions (``_ring_body``, ``_local_attention``) and against
+    single-rank K3-K5 on the whole sequence, within FLASH_REL; a forward
+    and backward of each timed beside single-rank flash and SDPA on the
+    whole (B, S); (b) GPT-2 124M at full width through ``torchrun`` with
+    ``--mesh data=1,seq=2``, ``--attention ring`` and ``ulysses``, fp32
+    and ``--amp``, one epoch of 3 steps each, the counts set to 0 just
+    before and read just after each run: every rank's K3-K5 launches on
+    the schedule (the ring's rank r runs r + 1 blocks a layer, Ulysses
+    one), the ranks' final parameters bitwise equal, step 1's loss within
+    LOSS_ATOL (BF16_LOSS_ATOL under ``--amp``) of single-rank flash on the
+    same rows from the same weights; (c) each run's ms a step and
+    samples/s (2 ranks on one card: not a scaling number);
 17. print the ``{"kernels": [...]}`` line (K1 and K2 over their launches
     on the phase 12, phase 19 and phase 22 (e) paths, K1 also over phase
     21's int8 pages (``paged_kv_*`` apart), K3-K5 over phase 7's and
     phase 22 (a)'s fp32 runs (BERT's share apart as ``bert_*``), with
     their bf16 fields over phase 14's and phase 22 (a)'s ``--amp``
-    launches at the bf16 shapes, and ``bf16_trace_ms_per_launch``, phase
-    20's device time of a launch), then the last line ``{"ok": true,
-    "device": {...}}``.
+    launches at the bf16 shapes, ``bf16_trace_ms_per_launch``, phase
+    20's device time of a launch, and phase 23 (b)'s ring and Ulysses
+    launches apart as ``ring_*``, ``ring_bf16_*``, ``ulysses_*`` and
+    ``ulysses_bf16_*``), then the last line ``{"ok": true, "device":
+    {...}}``.
 
 Details go to chiprun_out/chip_smoke.json. Without a CUDA device, or run
 from a directory that lacks the port's package, it fails before printing
@@ -268,10 +291,17 @@ FLASH_CASES = [
     ("Sq=Sk=1000 bf16", 8, 1000, 1000, 12, 64, True, False, "bfloat16"),
     ("Sq=256 Sk=512 bf16", 8, 256, 512, 12, 64, True, False, "bfloat16"),
     ("D=128 bf16", 8, 1024, 1024, 6, 128, True, False, "bfloat16"),
-    # BERT-base's bidirectional attention on phase 22's path
+    # BERT-base's bidirectional attention on phase 22's path (also the
+    # ring's past blocks on phase 23's)
     ("bert non-causal", 8, 512, 512, 12, 64, False, False, "float32"),
     ("bert non-causal bf16", 8, 512, 512, 12, 64, False, False,
      "bfloat16"),
+    # phase 23's sequence-parallel GPT-2: the ring's diagonal block (half
+    # of S 1024 a rank) and Ulysses' 6 heads of the whole sequence
+    ("ring diagonal", 8, 512, 512, 12, 64, True, False, "float32"),
+    ("ring diagonal bf16", 8, 512, 512, 12, 64, True, False, "bfloat16"),
+    ("ulysses", 8, 1024, 1024, 6, 64, True, False, "float32"),
+    ("ulysses bf16", 8, 1024, 1024, 6, 64, True, False, "bfloat16"),
 ]
 TRAIN_STEPS = 8            # 64 sequences / batch 8
 EVAL_STEPS = 2             # 64 // 5 = 12 sequences, 2 padded batches of 8
@@ -834,9 +864,41 @@ def card_vs_cpu(torch, dev, make_model, task, batch, key=None) -> dict:
             "grad_rel_leaf": worst_leaf}
 
 
+def sp_kernel_fields(name: str, flash_rows, sp: dict) -> dict:
+    """The ring's and Ulysses' share of flash kernel ``name`` over phase 23
+    (b)'s runs, both ranks (``ring_*``, ``ring_bf16_*``, ``ulysses_*``,
+    ``ulysses_bf16_*``): launches, and time, plain time, bound and SDPA's
+    time of each launch's shape summed over them. Rank r of the ring runs
+    one diagonal block a pass (the ``ring diagonal`` shape) and r past
+    blocks (the full 512 x 512 block, ``bert non-causal``'s shape)."""
+    shape = {r["shape"]: r for r in flash_rows}
+    out = {}
+    for mode in ("ring", "ulysses"):
+        for tag, suffix, prefix in (("fp32", "", f"{mode}_"),
+                                    ("amp", " bf16", f"{mode}_bf16_")):
+            shares = []
+            for r, counts in enumerate(sp[f"{mode} {tag}"][
+                    "launches_per_rank"]):
+                n = counts[name]
+                if mode == "ring":
+                    diag = n // (r + 1)
+                    shares += [(shape["ring diagonal" + suffix], diag),
+                               (shape["bert non-causal" + suffix], n - diag)]
+                else:
+                    shares.append((shape["ulysses" + suffix], n))
+            out[prefix + "launches"] = sum(n for _, n in shares)
+            for key in ("ms", "plain_ms", "bound_ms"):
+                out[prefix + key] = sum(row[key][name] * n
+                                        for row, n in shares)
+            out[prefix + "library_ms"] = sum(
+                (row["sdpa_fwd_ms"] if name.endswith("fwd_lse")
+                 else row["sdpa_bwd_ms"]) * n for row, n in shares)
+    return out
+
+
 def flash_kernel_rows(flash_rows, launches, bf16_launches,
-                      bf16_trace_ms, bert_launches, bert_bf16_launches
-                      ) -> list:
+                      bf16_trace_ms, bert_launches, bert_bf16_launches,
+                      sp: dict) -> list:
     """The kernels line's rows of K3, K4 and K5 over their main paths:
     GPT-2's causal training (phase 7, ``launches``, at the main fp32
     shape) and BERT's bidirectional training (phase 22 (a),
@@ -846,7 +908,8 @@ def flash_kernel_rows(flash_rows, launches, bf16_launches,
     checked; the ``bf16_`` fields the same over the ``--amp`` runs
     (phases 14 and 22 (a)) at the bf16 shapes, with ``bf16_trace_ms``,
     the mean device ms a launch that phase 20's trace of the GPT-2
-    ``--amp`` step read (no host launch time in it)."""
+    ``--amp`` step read (no host launch time in it); the ring's and
+    Ulysses' launches of phase 23 (b) apart (``sp_kernel_fields``)."""
     main, main_bf16 = flash_rows[0], flash_rows[1]
     if (main["dtype"], main_bf16["dtype"]) != ("float32", "bfloat16"):
         raise RuntimeError("FLASH_CASES must start with main fp32, bf16")
@@ -896,6 +959,7 @@ def flash_kernel_rows(flash_rows, launches, bf16_launches,
             "bf16_bound_by": main_bf16["bound_by"][name],
             **summed(name, bf16[1:], "bert_bf16_"),
             "bf16_trace_ms_per_launch": bf16_trace_ms[name],
+            **sp_kernel_fields(name, flash_rows, sp),
         })
     return rows
 
@@ -1293,13 +1357,15 @@ def same_across_ranks(name: str, ranks: list) -> None:
             raise RuntimeError(f"{name}: {key} differs across ranks")
 
 
-def run_torchrun(args, timeout: float, nproc: int = DP_RANKS) -> str:
+def run_torchrun(args, timeout: float, nproc: int = DP_RANKS,
+                 mode: str = "--dp-worker") -> str:
     """``torchrun --standalone --nproc-per-node nproc chip_smoke.py
-    --dp-worker ...`` in a session of its own, killed whole on a timeout;
-    returns its output and fails unless it exited 0."""
+    --dp-worker ...`` (or another worker ``mode``) in a session of its
+    own, killed whole on a timeout; returns its output and fails unless it
+    exited 0."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(nproc), str(Path(__file__).resolve()),
-           "--dp-worker", *args]
+           mode, *args]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, cwd=ROOT,
                             start_new_session=True)
@@ -3237,6 +3303,355 @@ def bert_and_vit(torch, dev, fa, card: str) -> dict:
     return out
 
 
+# phase 23: sequence parallelism. (a) the ring (K6) and Ulysses on
+# SP_RANKS gloo ranks sharing the card at GPT-2 124M's attention, S 1024
+# split in two: B 8, S/N 512, 12 heads of 64
+SP_RANKS = 2
+SP_SHAPE = (8, 1024, 12, 64)
+SP_REPS = 3
+# (b) GPT-2 124M through the port's entry on SP_RANKS ranks, --mesh
+# data=1,seq=2: one epoch of SP_STEPS steps of batch 8 over SP_SYNTHETIC
+# sequences; SP_SYNTHETIC // 5 = 4 validation sequences, one padded batch
+SP_SYNTHETIC, SP_BATCH, SP_STEPS, SP_EVAL = 24, 8, 3, 1
+SP_RUNS = [("ring fp32", "ring", []), ("ring amp", "ring", ["--amp"]),
+           ("ulysses fp32", "ulysses", []),
+           ("ulysses amp", "ulysses", ["--amp"])]
+SP_NOTE = ("2 ranks sharing one card over gloo: correctness and the cost "
+           "of the rotation through host memory, not scaling")
+
+
+def sp_want(mode: str, rank: int, steps: int = SP_STEPS,
+            evals: int = SP_EVAL) -> dict:
+    """K3-K5 launches of rank ``rank`` over a run: the ring's rank r runs
+    the diagonal block and r past blocks (future blocks are skipped), a
+    block K3 in every forward and K4 and K5 in every backward; Ulysses
+    runs full-sequence attention on its heads, once a block."""
+    blocks = rank + 1 if mode == "ring" else 1
+    return {FLASH[0]: DEPTH * blocks * (steps + evals),
+            FLASH[1]: DEPTH * blocks * steps,
+            FLASH[2]: DEPTH * blocks * steps}
+
+
+def seq_attention_rank(rank: int, store: str, out_dir: str) -> None:
+    """Phase 23 (a), one of SP_RANKS processes (gloo, both on cuda:0): the
+    ring (``_RingFlash``, K3-K5 around the ring) and Ulysses (the flash
+    kernels on 6 heads of the full sequence) on this rank's half of a
+    seeded causal (B, S, H, D) problem, forward and backward, in float32
+    and bfloat16, held against their plain versions (``_ring_body``,
+    ``_local_attention``) and against single-rank K3-K5 on the whole
+    sequence; then the wall time of a forward and backward of each
+    (both ranks at once) beside single-rank flash and SDPA on the whole
+    (B, S) (rank 0 alone). Writes the errors and times."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    sys.path.insert(0, str(ROOT))
+    from distributed_pytorch_training_tpu_torch.parallel.collectives import (
+        AxisGroup,
+    )
+
+    ra = importlib.import_module(f"{PACKAGE}.ops.ring_attention")
+    ua = importlib.import_module(f"{PACKAGE}.ops.ulysses_attention")
+    fa = flash_module()
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=SP_RANKS)
+    axis = AxisGroup(None)
+    b, s, h, d = SP_SHAPE
+    w = s // SP_RANKS
+    sl = slice(rank * w, (rank + 1) * w)
+    scale = 1.0 / math.sqrt(d)
+    report = {}
+
+    def wall_ms(fn, ranks_together: bool) -> float:
+        fn()
+        torch.cuda.synchronize()
+        if ranks_together:
+            dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(SP_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / SP_REPS * 1e3
+
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator().manual_seed(3)     # the same on both ranks
+        q, k, v, do = (torch.randn((b, s, h, d), generator=g).to(dev, dtype)
+                       for _ in range(4))
+        # single-rank K3-K5 on the whole sequence, this rank's rows
+        out_f, lse_f = fa.flash_attention_fwd_lse(q, k, v, True)
+        dq_f, dk_f, dv_f = fa.flash_attention_bwd(q, k, v, out_f, lse_f, do,
+                                                  True)
+        whole = {"out": out_f[:, sl], "lse": lse_f[..., sl],
+                 "dq": dq_f[:, sl], "dk": dk_f[:, sl], "dv": dv_f[:, sl]}
+        do_l = do[:, sl].contiguous()
+
+        def leaves():
+            return [t[:, sl].detach().clone().requires_grad_()
+                    for t in (q, k, v)]
+
+        def grads(out, ins):
+            return dict(zip(("dq", "dk", "dv"),
+                            torch.autograd.grad(out, ins, do_l)))
+
+        for mode in ("ring", "ulysses"):
+            ins = leaves()
+            if mode == "ring":
+                got = {"out": ra.ring_attention_sharded(*ins, axis, True)}
+                got.update(grads(got["out"], ins))
+                got["lse"] = ra.ring_flash_fwd(
+                    *([t.detach()] for t in ins), axis, True, scale)[1][0]
+                pins = leaves()
+                outs, lses = ra._ring_body(*([t] for t in pins), axis, True,
+                                           scale)
+                plain = {"out": outs[0], "lse": lses[0].detach()}
+                plain.update(grads(outs[0], pins))
+            else:
+                got = {"out": ua.ulysses_attention_sharded(*ins, axis,
+                                                           True)}
+                got.update(grads(got["out"], ins))
+                pins = leaves()
+                out_p = ua.ulysses_attention_sharded(*pins, axis, True,
+                                                     use_kernels=False)
+                plain = {"out": out_p, **grads(out_p, pins)}
+            torch.cuda.synchronize()
+            errs = {}
+            for ref_name, ref in (("plain", plain), ("whole", whole)):
+                for key, want in ref.items():
+                    if key not in got:
+                        continue        # Ulysses has no global lse
+                    tol = FLASH_REL["float32" if key == "lse"
+                                    else dtype_name]
+                    err = rel_err(torch, got[key], want)
+                    errs[f"{key} vs {ref_name}"] = (err, tol)
+            ins = leaves()
+            fn = ((lambda: grads(ra.ring_attention_sharded(*ins, axis, True),
+                                 ins)) if mode == "ring" else
+                  (lambda: grads(ua.ulysses_attention_sharded(*ins, axis,
+                                                              True), ins)))
+            report[f"{mode} {dtype_name}"] = {
+                "errors": errs, "fwd_bwd_ms": wall_ms(fn, True)}
+            del got, plain, ins, pins
+        # the same function on one rank: K3-K5 and SDPA on the whole (B, S)
+        dist.barrier()
+        if rank == 0:
+            fq, fk, fv = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            lq, lk, lv = (t.detach().transpose(1, 2).requires_grad_()
+                          for t in (q, k, v))
+            ldo = do.transpose(1, 2)
+
+            def flash_fb():
+                out = fa.flash_attention(fq, fk, fv, True)
+                return torch.autograd.grad(out, (fq, fk, fv), do)
+
+            def sdpa_fb():
+                out = F.scaled_dot_product_attention(lq, lk, lv,
+                                                     is_causal=True)
+                return torch.autograd.grad(out, (lq, lk, lv), ldo)
+
+            report[f"single-rank {dtype_name}"] = {
+                "flash_fwd_bwd_ms": wall_ms(flash_fb, False),
+                "sdpa_fwd_bwd_ms": wall_ms(sdpa_fb, False)}
+        dist.barrier()
+        del q, k, v, do, out_f, dq_f, dk_f, dv_f, whole
+        torch.cuda.empty_cache()
+    Path(out_dir, f"sp_rank{rank}.json").write_text(json.dumps(report))
+    dist.destroy_process_group()
+
+
+def seq_attention_on_card(torch, card: str) -> dict:
+    """Phase 23 (a): SP_RANKS ``seq_attention_rank`` processes on the one
+    card; fails when any error is past its tolerance."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    out_dir = ROOT / "chiprun_out" / "seq_attention"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(seq_attention_rank,
+                           args=(f"{tmp}/store", str(out_dir)),
+                           nprocs=SP_RANKS, start_method="spawn")
+    ranks = [json.loads((out_dir / f"sp_rank{r}.json").read_text())
+             for r in range(SP_RANKS)]
+    bad = {}
+    for r, rep in enumerate(ranks):
+        for run, row in rep.items():
+            for name, (err, tol) in row.get("errors", {}).items():
+                if not err <= tol:
+                    bad[f"rank {r} {run} {name}"] = (err, tol)
+    for run, row in ranks[0].items():
+        if "errors" in row:
+            log(f"phase 23 (a) {run} [{card}]: rank 0 rel err "
+                + ", ".join(f"{k} {e:.2e} (tol {t})"
+                            for k, (e, t) in row["errors"].items())
+                + f"; forward + backward {row['fwd_bwd_ms']:.3f} ms a call, "
+                  f"ranks 0 and 1 at once ({SP_NOTE})")
+        else:
+            log(f"phase 23 (a) {run} [{card}]: forward + backward on the "
+                f"whole (B, S) = {SP_SHAPE[:2]}: flash "
+                f"{row['flash_fwd_bwd_ms']:.3f} ms, SDPA "
+                f"{row['sdpa_fwd_bwd_ms']:.3f} ms")
+    if bad:
+        raise RuntimeError(f"phase 23 (a): past tolerance: {bad}")
+    return {"rank0": ranks[0], "rank1": ranks[1]}
+
+
+def sp_worker(argv) -> int:
+    """One torchrun rank of phase 23 (b): ``train.main`` for each SP_RUNS
+    configuration in turn (``--mesh data=1,seq=2``; the process group
+    kept between the runs), the launch counts set to 0 just before and
+    read just after each; writes each run's launches, steps, step 1's
+    exact loss, every step's wall ms (synchronized) and the digests of
+    the final parameters."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from distributed_pytorch_training_tpu_torch import train
+    from distributed_pytorch_training_tpu_torch.training import Trainer
+
+    fa = flash_module()
+    kernels = {name: getattr(fa, name) for name in FLASH}
+    out_dir, base_argv = Path(argv[0]), argv[1:]
+    rank = int(os.environ["RANK"])
+    step = Trainer.train_step
+    record = {}
+
+    def timed_step(self, state, batch):
+        t0 = time.perf_counter()
+        m = step(self, state, batch)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+        record["ms"].append((time.perf_counter() - t0) * 1e3)
+        if "loss" not in record:
+            record["loss"] = float(m["loss_sum"]) / float(m["weight"])
+        return m
+
+    cleanup = train.cleanup_distributed
+    Trainer.train_step = timed_step
+    train.cleanup_distributed = lambda: None    # one group for every run
+    report = {}
+    try:
+        for name, mode, extra in SP_RUNS:
+            record.clear()
+            record["ms"] = []
+            for fn in kernels.values():
+                fn.launches = 0
+            run_dir = out_dir / name.replace(" ", "_")
+            state = train_main(base_argv + ["--attention", mode, "--mesh",
+                                            "data=1,seq=2", *extra,
+                                            "--output-dir", str(run_dir)])
+            report[name] = {
+                "launches": {k: fn.launches for k, fn in kernels.items()},
+                "steps": state.step, "step1_loss": record["loss"],
+                "step_ms": record["ms"],
+                "digests": {k: tensor_digest(v) for k, v in
+                            state.model.state_dict().items()}}
+            del state
+            torch.cuda.empty_cache()
+    finally:
+        Trainer.train_step = step
+        train.cleanup_distributed = cleanup
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(report))
+    dist.destroy_process_group()
+    return 0
+
+
+def sp_reference_loss(torch, amp: bool) -> float:
+    """Step 1's loss without sequence parallelism: the first batch of the
+    runs' loader through the model the entry builds from the same seed,
+    single-rank flash attention on the whole sequence."""
+    from distributed_pytorch_training_tpu_torch.data.text import (
+        TokenLoader,
+        get_token_dataset,
+    )
+    from distributed_pytorch_training_tpu_torch.models import get_model
+    from distributed_pytorch_training_tpu_torch.ops import (
+        make_flash_attention_fn,
+    )
+    from distributed_pytorch_training_tpu_torch.training.tasks import (
+        LanguageModelingTask,
+    )
+    from distributed_pytorch_training_tpu_torch.utils import parse_args
+
+    seed = parse_args([]).seed
+    dtype = torch.bfloat16 if amp else torch.float32
+    dev = torch.device("cuda", 0)
+    model = get_model(MODEL, dtype=dtype,
+                      attention_fn=make_flash_attention_fn(causal=True))
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(dev).train()
+    ds = get_token_dataset("gpt2", 1024, train=True,
+                           synthetic_size=SP_SYNTHETIC, seed=seed)
+    batch = next(iter(TokenLoader(ds, SP_BATCH, shuffle=True, seed=seed,
+                                  device=dev).epoch(0)))
+    with torch.no_grad():
+        _, m, _ = LanguageModelingTask(compute_dtype=dtype).loss_and_metrics(
+            model, batch, True)
+    return float(m["loss_sum"]) / float(m["weight"])
+
+
+def sp_train(torch, fa, card: str) -> dict:
+    """Phase 23 (b) and (c): GPT-2 124M through ``torchrun`` on SP_RANKS
+    ranks sharing the card, each SP_RUNS configuration; every rank's
+    launches on the schedule (``sp_want``), the ranks' final parameters
+    bitwise equal, step 1's loss within LOSS_ATOL (BF16_LOSS_ATOL under
+    ``--amp``) of ``sp_reference_loss``; ms a step and samples/s."""
+    out_dir = ROOT / "chiprun_out" / "seq_parallel"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    out = run_torchrun([str(out_dir), "--model", MODEL, "--optimizer",
+                        "adamw", "--lr", "6e-4", "--synthetic",
+                        "--synthetic-size", str(SP_SYNTHETIC),
+                        "--batch-size", str(SP_BATCH), "--epochs", "1",
+                        "--print-freq", "1"], timeout=900, nproc=SP_RANKS,
+                       mode="--sp-worker")
+    (out_dir / "stdout.txt").write_text(out)
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(SP_RANKS)]
+    refs = {amp: sp_reference_loss(torch, amp) for amp in (False, True)}
+    torch.cuda.empty_cache()
+    report = {"wall_seconds": time.perf_counter() - t0}
+    for name, mode, extra in SP_RUNS:
+        amp = "--amp" in extra
+        runs = [rep[name] for rep in ranks]
+        for r, run in enumerate(runs):
+            if run["launches"] != sp_want(mode, r) or run["steps"] \
+                    != SP_STEPS:
+                raise RuntimeError(
+                    f"phase 23 (b) {name} rank {r}: {run['steps']} steps, "
+                    f"launches {run['launches']} (expected {SP_STEPS}, "
+                    f"{sp_want(mode, r)})")
+        same_across_ranks(f"phase 23 (b) {name}", runs)
+        loss = runs[0]["step1_loss"]
+        tol = BF16_LOSS_ATOL if amp else LOSS_ATOL
+        diff = abs(loss - refs[amp])
+        ms = runs[0]["step_ms"][1:]
+        step_ms = sum(ms) / len(ms)
+        report[name] = {"launches_per_rank": [r["launches"] for r in runs],
+                        "step1_loss": loss, "reference_loss": refs[amp],
+                        "loss_abs_diff": diff, "tolerance": tol,
+                        "step_ms": runs[0]["step_ms"],
+                        "ms_per_step": step_ms,
+                        "samples_per_s": SP_BATCH * 1e3 / step_ms}
+        log(f"phase 23 (b) {name} [{card}]: launches per rank "
+            f"{report[name]['launches_per_rank']}; step 1 loss {loss!r} "
+            f"against single-rank flash {refs[amp]!r} (|diff| {diff!r}, "
+            f"tolerance {tol}); (c) {step_ms:.1f} ms a step after the "
+            f"first, {report[name]['samples_per_s']:.2f} samples/s "
+            f"({SP_NOTE})")
+        if not diff <= tol:
+            raise RuntimeError(f"phase 23 (b) {name}: step 1 loss {loss} "
+                               f"differs from {refs[amp]} by {diff}")
+    return report
+
+
 def lm_mfu(torch, rates: list, context: str):
     """The step line's samples/s as MFU for a 1024-token GPT-2 124M
     sequence (`model_mfu`). Returns (MFU % per rate, the forward FLOPs,
@@ -3590,6 +4005,16 @@ def main() -> int:
     models22 = bert_and_vit(torch, dev, fa, card)
     log(f"phase 22 done in {time.perf_counter() - t0:.1f} s")
 
+    # phase 23: sequence parallelism, the ring (K6: K3-K5 around the ring)
+    # and Ulysses, on 2 ranks sharing the card, then GPT-2 124M through
+    # the port's entry with --mesh data=1,seq=2
+    t0 = time.perf_counter()
+    seq_parallel = {"(a)": seq_attention_on_card(torch, card)}
+    torch.cuda.empty_cache()
+    seq_parallel["(b)"] = sp_train(torch, fa, card)
+    torch.cuda.empty_cache()
+    log(f"phase 23 done in {time.perf_counter() - t0:.1f} s")
+
     # phase 17: the kernels line; K1 and K2 summed over their launches on
     # the data-parallel paths (rank 0 of every phase 12, phase 19 and
     # phase 22 (e) run), the serving path's K1 launches (phase 4) kept in
@@ -3657,6 +4082,7 @@ def main() -> int:
         "live_endpoint": live,
         "serving_continuous": continuous,
         "bert_vit": models22,
+        "seq_parallel": seq_parallel,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3664,7 +4090,8 @@ def main() -> int:
                *flash_kernel_rows(flash_rows, flash_launches,
                                   bf16_launches, profiled["bf16_trace_ms"],
                                   models22["(a) fp32"]["launches"],
-                                  models22["(a) amp"]["launches"])]
+                                  models22["(a) amp"]["launches"],
+                                  seq_parallel["(b)"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -3674,4 +4101,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--sp-worker"]:
+        sys.exit(sp_worker(sys.argv[2:]))
     sys.exit(main())

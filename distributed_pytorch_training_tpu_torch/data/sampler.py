@@ -20,7 +20,10 @@ from .. import native
 @dataclasses.dataclass
 class ShardedSampler:
     """Deterministic epoch sharding of ``n`` samples into fixed-size global
-    batches, sliced per process."""
+    batches, sliced per batch shard: ``process_index`` and
+    ``process_count`` are a rank's position on the mesh's batch axes and
+    their size (the rank and the world on a data-only mesh; ranks that
+    differ only in ``seq`` take the same slice)."""
 
     n: int
     global_batch: int

@@ -93,7 +93,11 @@ class TokenLoader:
     float32} on ``device``, ``per_device_batch`` rows each: its contiguous
     slice of every global batch of ``per_device_batch * process_count``
     rows, with the sampler's padding and weights (``data/loader.py``'s
-    sharding). On a CUDA device each batch is copied from pinned host
+    sharding). The slices follow the batch coordinate, not the rank: on a
+    mesh with a ``seq`` axis the entry passes ``process_index`` = the
+    rank's position on the batch axes and ``process_count`` =
+    ``batch_shard_count`` (``parallel/mesh.py``), so every rank of a seq
+    line holds the same full rows (each runs its own positions). On a CUDA device each batch is copied from pinned host
     memory with ``non_blocking``; the caching host allocator keeps the
     pinned block until its copy has run."""
 

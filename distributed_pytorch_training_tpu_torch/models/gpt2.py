@@ -5,8 +5,17 @@ blocks (GELU MLP of 4x width), final LN, LM head tied to the token
 embedding. Parameters keep the flax layout and flax's names, with the
 blocks in ``blocks.<i>`` where flax has ``block<i>`` (``convert.py``).
 
-A kernel ``attention_fn`` (flash) owns the causal structure: the blocks
-then get only the padding mask. ``dtype`` is the compute dtype beside
+A kernel ``attention_fn`` (flash, ring, Ulysses) owns the causal
+structure: the blocks then get only the padding mask.
+
+Under sequence parallelism (``--mesh seq=N`` with ``--attention ring`` or
+``ulysses``) the activations are sequence-sharded end to end: a rank
+embeds and runs its own S/N positions of every row, adding ``wpe`` at
+their global positions (``pos_offset``), and only the attention function
+reaches across ranks (the ring's K/V rotation, Ulysses' all-to-alls). So
+every parameter gradient of a rank is a partial sum over its own tokens,
+and one sum over the data x seq ranks gives the whole batch's gradient
+(``training/tasks.py::LanguageModelingTask`` takes the shard's labels). ``dtype`` is the compute dtype beside
 float32 parameters (``models/layers.py`` says where it rounds); the logits
 are float32. ``remat`` recomputes each block in the backward
 (``layers.remat_call``, flax's ``nn.remat``). Not ported yet, and refused:
@@ -73,10 +82,13 @@ class GPT2LMHead(VocabPaddingMixin, nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                cache=None, cache_positions: Optional[torch.Tensor] = None):
+                cache=None, cache_positions: Optional[torch.Tensor] = None,
+                pos_offset: int = 0):
         """Causal LM forward; three modes, selected by ``cache``:
 
         * ``cache=None``: the eval forward, (B, S, vocab) float32 logits;
+          ``input_ids`` may be one shard of longer rows, positions
+          ``pos_offset`` onward (sequence parallelism);
         * prefill (``cache`` given, ``cache_positions=None``): the same
           causal forward over the padded prompt, also returning the
           per-block (k, v) caches filled at slots [0, S);
@@ -97,7 +109,7 @@ class GPT2LMHead(VocabPaddingMixin, nn.Module):
                 cache_positions[:, None] + torch.arange(s, device=dev)[None],
                 max=self.max_position - 1)
         else:
-            pos_ids = torch.arange(s, device=dev)[None, :]
+            pos_ids = pos_offset + torch.arange(s, device=dev)[None, :]
         x = x + self.wpe(pos_ids)
 
         if decoding:

@@ -6,14 +6,22 @@ Every function is the identity in one process (no process group, or a
 group of one), the reference's single-process passthrough. They use the
 list form of ``all_gather`` and ``all_to_all_single``, which gloo also
 runs on CUDA tensors (its list-form ``all_to_all`` refuses them), and
-never modify their input. ``all_sum`` is the one differentiable
-collective: the sum over ranks that XLA inserts when a jitted step reads
-a data-sharded batch (global-batch BatchNorm).
+never modify their input. ``all_sum`` is differentiable: the sum over
+ranks that XLA inserts when a jitted step reads a data-sharded batch
+(global-batch BatchNorm).
+
+Sequence parallelism moves blocks along one mesh axis: ``ppermute_ring``
+(ring attention's rotation) and the tiled ``all_to_all`` (Ulysses). An
+axis is an ``AxisGroup`` (this rank holds one shard; the collectives run
+over its process group, differentiably: the backward of a rotation is
+the reverse rotation, of an all-to-all the mirrored one) or an
+``AxisLoop`` (one process holds every shard, and a loop stands in for
+the collectives: the tests run a whole ring in one process that way).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -75,19 +83,39 @@ def all_gather(x: torch.Tensor, group: Group = None) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def all_to_all(x: torch.Tensor, group: Group = None) -> torch.Tensor:
-    """Tiled all-to-all along axis 0: chunk j of every rank goes to rank j,
-    which concatenates what it receives in sender order. The leading
-    dimension must divide by the world size."""
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes as a flat int8 tensor (gloo's
+    all-to-all takes no 16-bit type; bytes travel for every dtype)."""
+    return x.contiguous().view(-1).view(torch.int8)
+
+
+def all_to_all(x: torch.Tensor, group: Group = None, split_axis: int = 0,
+               concat_axis: int = 0) -> torch.Tensor:
+    """Tiled all-to-all (``lax.all_to_all(..., tiled=True)``): ``x`` splits
+    into n chunks along ``split_axis``, chunk j goes to rank j, which
+    concatenates what it receives along ``concat_axis`` in sender order.
+    ``split_axis`` must divide by the world size. 16-bit chunks travel as
+    their bytes."""
     n = world_size(group)
     if n == 1:
         return x
-    if x.shape[0] % n:
-        raise ValueError(f"all_to_all: leading dim {x.shape[0]} not "
-                         f"divisible by {n} ranks")
-    out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
-    return out
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of size "
+                         f"{x.shape[split_axis]} not divisible by {n} ranks")
+    send = torch.stack(x.chunk(n, split_axis)) if split_axis else x
+    if send.element_size() == 2:
+        wire = _as_bytes(send)
+        recv = torch.empty_like(wire)
+        dist.all_to_all_single(recv, wire, group=group)
+        recv = recv.view(x.dtype).view(send.shape)
+    else:
+        recv = torch.empty_like(send, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(recv, send.contiguous(), group=group)
+    if split_axis == 0 and concat_axis == 0:
+        return recv
+    if split_axis == 0:
+        recv = recv.reshape(n, -1, *x.shape[1:])
+    return torch.cat(recv.unbind(0), dim=concat_axis)
 
 
 def psum_scatter(x: torch.Tensor, group: Group = None) -> torch.Tensor:
@@ -130,3 +158,129 @@ def reduce_scalar(x: Union[float, int, torch.Tensor], op: str = "sum",
     if op == "mean":
         return float(gathered.mean())
     raise ValueError(f"unknown op {op!r}")
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: the ring rotation and the differentiable forms
+# ---------------------------------------------------------------------------
+
+
+def ppermute_ring(x: torch.Tensor, group: Group = None,
+                  shift: int = 1) -> torch.Tensor:
+    """Rotate ``x`` around the ring of ``group``: rank i's ``x`` goes to
+    rank (i + shift) % n, and the result is what rank (i - shift) % n
+    sent. One ``all_to_all_single`` on every backend, as `all_to_all`:
+    its splits send the whole block, as bytes, to one rank and nothing to
+    the others (gloo's send and receive take no CUDA tensors)."""
+    n = world_size(group)
+    if n == 1 or shift % n == 0:
+        return x
+    me = dist.get_rank(group)
+    dst, src = (me + shift) % n, (me - shift) % n
+    x = x.contiguous()
+    wire = _as_bytes(x)
+    recv = torch.empty_like(wire)
+    send_sizes, recv_sizes = [0] * n, [0] * n
+    send_sizes[dst] = recv_sizes[src] = wire.numel()
+    dist.all_to_all_single(recv, wire, recv_sizes, send_sizes, group=group)
+    return recv.view(x.dtype).view(x.shape)
+
+
+def ppermute_ring_many(xs: Sequence[torch.Tensor], group: Group = None,
+                       shift: int = 1) -> List[torch.Tensor]:
+    """`ppermute_ring` of several tensors (any dtypes) as one message:
+    their bytes packed into one buffer."""
+    if world_size(group) == 1 or len(xs) == 1:
+        return [ppermute_ring(x, group, shift) for x in xs]
+    parts = [_as_bytes(x) for x in xs]
+    recv = ppermute_ring(torch.cat(parts), group, shift)
+    out = []
+    for x, part in zip(xs, recv.split([p.numel() for p in parts])):
+        out.append(part.view(x.dtype).view(x.shape))
+    return out
+
+
+class _Rotate(torch.autograd.Function):
+    """`ppermute_ring_many` whose backward rotates the gradients back."""
+
+    @staticmethod
+    def forward(ctx, group, shift, *xs):
+        ctx.group, ctx.shift = group, shift
+        ctx.like = [(x.shape, x.dtype, x.device) for x in xs]
+        return tuple(ppermute_ring_many(xs, group, shift))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [torch.zeros(shape, dtype=dtype, device=device)
+                 if g is None else g
+                 for g, (shape, dtype, device) in zip(grads, ctx.like)]
+        return (None, None,
+                *ppermute_ring_many(grads, ctx.group, -ctx.shift))
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled `all_to_all`; its backward is the mirrored all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return all_to_all(g, ctx.group, concat_axis, split_axis), None, \
+            None, None
+
+
+class AxisGroup:
+    """A mesh axis over the ranks of ``group`` (the default group when
+    None), this rank holding one shard: ``index`` is that shard, as a
+    tuple of one. The collectives are differentiable."""
+
+    def __init__(self, group: Group = None):
+        self.group = group
+        self.size = world_size(group)
+        self.index = (dist.get_rank(group) if self.size > 1 else 0,)
+
+    def shift(self, blocks: Sequence[Sequence[torch.Tensor]],
+              shift: int = 1) -> List[Tuple[torch.Tensor, ...]]:
+        """``blocks[a]``, the tensors of held shard a, to shard
+        index + shift; returns what arrives, in the same structure. A
+        shard's tensors travel as one message (`ppermute_ring_many`)."""
+        if self.size == 1:
+            return [tuple(b) for b in blocks]
+        (mine,) = blocks
+        return [tuple(_Rotate.apply(self.group, shift, *mine))]
+
+    def all_to_all(self, xs: Sequence[torch.Tensor], split_axis: int,
+                   concat_axis: int) -> List[torch.Tensor]:
+        """The tiled `all_to_all` of each held shard's ``xs[a]``."""
+        return [_AllToAll.apply(x, self.group, split_axis, concat_axis)
+                if self.size > 1 else x for x in xs]
+
+
+class AxisLoop:
+    """Every shard of an ``n``-way mesh axis in this process: a list holds
+    one block per shard, and a loop stands in for the collectives."""
+
+    def __init__(self, n: int):
+        self.group = None
+        self.size = n
+        self.index = tuple(range(n))
+
+    def shift(self, blocks: Sequence[Sequence[torch.Tensor]],
+              shift: int = 1) -> List[Tuple[torch.Tensor, ...]]:
+        return [tuple(blocks[(i - shift) % self.size])
+                for i in range(self.size)]
+
+    def all_to_all(self, xs: Sequence[torch.Tensor], split_axis: int,
+                   concat_axis: int) -> List[torch.Tensor]:
+        n = self.size
+        if xs[0].shape[split_axis] % n:
+            raise ValueError(f"all_to_all: dim {split_axis} of size "
+                             f"{xs[0].shape[split_axis]} not divisible by "
+                             f"{n} ranks")
+        parts = [x.chunk(n, split_axis) for x in xs]
+        return [torch.cat([parts[src][dst] for src in range(n)], concat_axis)
+                for dst in range(n)]

@@ -55,16 +55,13 @@ from ..convert import name_to_flax_path
 from ..ops.quantize import dequant_sum_rows, fma_f32, quantize_int8_rows
 from .collectives import (Group, all_gather, all_to_all, psum,
                           psum_scatter)
+from .mesh import BATCH_AXES
 from .sharding import flat_padded_size
 
 WIRE_DTYPES = ("fp32", "bf16", "int8", "int8_multihop", "int8_hier")
 
 # Wire modes whose codec carries an error-feedback residual
 EF_WIRE_DTYPES = ("int8", "int8_multihop", "int8_hier")
-
-# the batch axes of the JAX package's mesh, outermost first; the port's
-# ranks are laid out as (slice, data), fsdp of size 1
-BATCH_AXES = ("slice", "data", "fsdp")
 
 
 def check_wire(wire_dtype: str) -> None:

@@ -27,10 +27,19 @@ JAX package's ``train.py``.
         -m distributed_pytorch_training_tpu_torch.train --model resnet18 \\
         --synthetic --slices 2 --wire-dtype int8_hier --bucket-cap-mb 25
 
+    torchrun --standalone --nproc-per-node 2 \\
+        -m distributed_pytorch_training_tpu_torch.train --model gpt2_124m \\
+        --synthetic --mesh data=1,seq=2 --attention ring   # or ulysses
+
 Same flags, stdout lines and ``metrics_rank0.csv`` (rank 0) as the JAX
 entry. Under torchrun every rank trains its shard of each global batch of
-``--batch-size x WORLD_SIZE`` rows, ResNet and GPT-2 alike: with the
-defaults (``--wire-dtype fp32 --bucket-cap-mb 0``) on the implicit path
+``--batch-size x`` (the batch axes' ranks) rows, ResNet and GPT-2 alike;
+``--mesh`` lays the ranks out on the ``data``, ``seq`` and ``slice`` axes
+(``parallel/mesh.py``; ``--slices`` folds into ``slice``). On a ``seq``
+axis GPT-2 trains sequence-parallel under ``--attention ring`` or
+``ulysses``: the ranks of a seq line hold the same rows and each runs its
+share of the positions (``models/gpt2.py``), on the implicit path. With
+the defaults (``--wire-dtype fp32 --bucket-cap-mb 0``) on the implicit path
 (global-batch BatchNorm, one fp32 all-reduce of the gradient, as the JAX
 package's data-sharded jit), otherwise through the explicit bucketed
 reducer (``--bucket-cap-mb``, ``--wire-dtype fp32|bf16|int8|
@@ -68,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import sys
 from pathlib import Path
@@ -85,8 +95,13 @@ from .ops.flash_attention import (
     flash_supports_length,
     make_flash_attention_fn,
 )
+from .ops.ring_attention import make_ring_attention_fn
+from .ops.ulysses_attention import make_ulysses_attention_fn
 from .experiments import flops as flops_mod
 from .parallel.grad_sync import check_wire, emit_wire_accounting
+from .parallel.mesh import (EXPERT, FSDP, MODEL, PIPE, SEQ, MeshSpec,
+                            batch_shard_count, build_mesh,
+                            validate_mesh_usage)
 from .resilience.faults import ELASTIC_KINDS, FaultInjector, FaultPlan
 from .resilience.supervisor import RetryPolicy, Supervisor
 from .runtime import (
@@ -121,38 +136,40 @@ _UNPORTED = {
     "--download": (lambda a: a.download,
                    "no slice: the port fetches nothing; put the CIFAR-10 "
                    "python pickles under --data-dir"),
-    "--attention ring/ulysses": (lambda a: a.attention in ("ring",
-                                                           "ulysses"),
-                                 "the sequence-parallel slice"),
+}
+
+# mesh axes the port does not lay out yet -> the slice that brings each
+_UNPORTED_AXES = {
+    MODEL: "the tensor-parallel slice",
+    FSDP: "the tensor-parallel slice (the fsdp mesh axis comes with TP x "
+          "FSDP; --fsdp-explicit shards over the data axis today)",
+    PIPE: "the pipeline slice (parallel/pipeline.py, models/gpt2_pipe.py)",
+    EXPERT: "the MoE slice (models/moe.py)",
 }
 
 
-def _data_only_mesh(mesh: str, world: int) -> bool:
-    """True for a mesh spec of one data axis over every rank ('data=-1'
-    or 'data=<world>', other axes 1)."""
-    for item in filter(None, (s.strip() for s in mesh.split(","))):
-        axis, _, size = item.partition("=")
-        try:
-            n = int(size)
-        except ValueError:
-            return False
-        if axis.strip() == "data":
-            if n not in (-1, world):
-                return False
-        elif n != 1:
-            return False
-    return True
+def mesh_spec(args: argparse.Namespace) -> MeshSpec:
+    """``--mesh`` with ``--slices`` folded into its slice axis (the JAX
+    entry's rule and message)."""
+    spec = MeshSpec.parse(args.mesh)
+    if args.slices > 1:
+        if spec.slice not in (1, args.slices):
+            raise ValueError(
+                f"--slices {args.slices} conflicts with --mesh "
+                f"{args.mesh!r} (slice={spec.slice}); set the slice "
+                "factor in one place")
+        spec = dataclasses.replace(spec, slice=args.slices)
+    return spec
 
 
-def refuse_unported(args: argparse.Namespace, world: int = 1) -> None:
+def refuse_unported(args: argparse.Namespace, spec: MeshSpec) -> None:
     """Raise ``NotImplementedError`` for the first flag value this port
-    does not implement."""
+    does not implement (``spec``: the run's `mesh_spec`)."""
     if args.model not in LM_MODELS + IMAGE_MODELS:
         raise not_ported(f"--model {args.model}", "a later slice")
-    if not _data_only_mesh(args.mesh, world):
-        raise not_ported(f"--mesh {args.mesh}",
-                         "the tensor-parallel and sequence-parallel slices "
-                         "(the port's mesh is one data axis over the ranks)")
+    for axis, where in _UNPORTED_AXES.items():
+        if getattr(spec, axis) != 1:
+            raise not_ported(f"--mesh {args.mesh} ({axis} axis)", where)
     for flag, (unsupported, where) in _UNPORTED.items():
         if unsupported(args):
             raise not_ported(flag, where)
@@ -162,9 +179,11 @@ def refuse_unported(args: argparse.Namespace, world: int = 1) -> None:
             raise not_ported(f"--chaos {fault.kind}", ELASTIC)
 
 
-def check_flags(args: argparse.Namespace, world: int = 1) -> None:
+def check_flags(args: argparse.Namespace, spec: MeshSpec,
+                world: int = 1) -> None:
     """The JAX entry's checks of the checkpoint flags and of ``--slices``
-    (the mesh's slice axis over the ranks), same messages."""
+    (the mesh's slice axis over the ranks), same messages (``spec``: the
+    run's `mesh_spec`)."""
     if args.slices < 1:
         raise ValueError(f"axis sizes must be >= 1 (or -1 for 'all "
                          f"remaining'), got {{'slice': {args.slices}}}")
@@ -182,11 +201,22 @@ def check_flags(args: argparse.Namespace, world: int = 1) -> None:
     if args.remat and args.model.startswith("resnet"):
         raise ValueError("--remat applies to transformer models "
                          "(vit/bert/gpt2); ResNets are activation-light")
+    if args.model.startswith("bert") and args.attention in ("ring",
+                                                            "ulysses"):
+        raise ValueError("--attention ring/ulysses is causal-only; "
+                         "bert_base uses the XLA or flash path")
+    if (spec.pipe != 1
+            and args.model.startswith("gpt2")
+            and args.attention not in ("auto", "xla")):
+        raise ValueError("--mesh pipe>1 uses the XLA attention path "
+                         "inside pipeline stages; drop --attention")
 
 
 def resolve_attention(requested: str, device_type: str,
                       seq_len: int) -> str:
-    """``auto`` is the flash kernels on CUDA and the einsum on the CPU."""
+    """``auto`` is the flash kernels on CUDA and the einsum on the CPU;
+    every other choice (``ring`` and ``ulysses`` run the flash kernels on
+    CUDA and their plain versions on the CPU) stands."""
     if requested != "auto":
         return requested
     return ("flash" if flash_backend_supported(device_type)
@@ -206,13 +236,15 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     """Train as the command line says; returns the final state."""
     args = parse_args(argv)
     world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    check_flags(args, world)
-    refuse_unported(args, world)
+    spec = mesh_spec(args)      # --mesh parses and agrees with --slices
+    check_flags(args, spec, world)
+    refuse_unported(args, spec)
+    spec.resolved(world)        # the JAX mesh's size checks
     # the guard first: a SIGTERM during data loading or the kernels' build
     # also stops gracefully
     guard = PreemptionGuard.install()
     try:
-        return _run(args, guard)
+        return _run(args, spec, guard)
     except BaseException as e:
         # the flight recorder's exit path: any abnormal exit (an unhandled
         # exception, a sys.exit with a code) leaves flight_<ts>.json with
@@ -245,7 +277,8 @@ def _log_save_blocked(ckpt: CheckpointManager) -> None:
              f"bytes, sha256 {ckpt.hash_ms:.1f}ms on the writer")
 
 
-def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
+def _run(args: argparse.Namespace, spec: MeshSpec,
+         guard: PreemptionGuard) -> TrainState:
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         # float32 means float32: cuDNN convolutions default to TF32 (under
@@ -284,10 +317,12 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
                      f":{metrics_port}")
     set_seed(args.seed, ctx.process_index)
     n = ctx.process_count
-    global_batch = args.batch_size * n
-    mesh = ({"data": n} if args.slices == 1
-            else {"slice": args.slices, "data": n // args.slices})
-    log_main(f"Using device: {dev} (mesh {mesh}), "
+    # the ranks on the mesh's axes (row-major, slice outermost); the batch
+    # is sharded over the batch axes, the sequence over seq
+    mesh = build_mesh(spec, n, ctx.process_index)
+    n_batch = batch_shard_count(mesh)
+    global_batch = args.batch_size * n_batch
+    log_main(f"Using device: {dev} (mesh {mesh.active()}), "
              f"world_size={n}, amp={args.amp}"
              + (f", backend={ctx.backend}" if ctx.backend else ""))
     telemetry.gauge("world_size", n)
@@ -296,6 +331,15 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
     is_lm = args.model in LM_MODELS
     family = "bert" if args.model.startswith("bert") else "gpt2"
     seq_len = args.seq_len or (512 if family == "bert" else 1024)
+    attention = (resolve_attention(args.attention, dev.type, seq_len)
+                 if is_lm else "xla")
+    # refuse axes the model and attention would not use (the JAX entry's
+    # check and message)
+    validate_mesh_usage(mesh, attention=attention)
+    if mesh.shape[SEQ] > 1:
+        log_main(f"Sequence parallel: {attention} attention over "
+                 f"seq={mesh.shape[SEQ]}, {seq_len // mesh.shape[SEQ]} "
+                 "positions a rank")
     if is_lm:
         def load_datasets():
             return (get_token_dataset(family, seq_len, args.data_dir,
@@ -332,13 +376,15 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
                  f"n={len(train_ds)})")
 
     overrides = parse_model_overrides(args.model_overrides)
-    loader_kw = dict(process_index=ctx.process_index, process_count=n,
+    # a rank's rows are those of its batch coordinate: the ranks of a seq
+    # line hold the same rows
+    loader_kw = dict(process_index=mesh.batch_index, process_count=n_batch,
                      device=dev)
     stall = chaos.on_loader_batch if chaos else None
     if is_lm:
         make_model, task = _lm_model_and_task(
-            args, family, overrides, dev, seq_len, train_ds, val_ds,
-            compute_dtype)
+            args, family, overrides, seq_len, train_ds, val_ds,
+            compute_dtype, mesh, attention)
 
         def make_flops_model():
             # the plain attention: FlopCounterMode does not see the flash
@@ -398,7 +444,7 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
         slices=args.slices, slice_axis=args.slice_axis,
         overlap_grad_sync=not args.no_overlap_grad_sync,
         fused_quantize={"auto": None, "on": True, "off": False}[
-            args.fused_quantize]), device=dev)
+            args.fused_quantize]), device=dev, mesh=mesh)
     wire_note = (f"; {args.wire_dtype} wire" if args.wire_dtype != "fp32"
                  else "")
     if trainer._fsdp:
@@ -476,7 +522,7 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
     start_epoch = start_step = 0
     if args.checkpoint_dir:
         ckpt = CheckpointManager(
-            args.checkpoint_dir,
+            args.checkpoint_dir, mesh=mesh.shape,
             post_save_hook=chaos.on_save if chaos else None,
             pre_finalize_hook=chaos.on_save_finalize if chaos else None)
         if args.resume:
@@ -661,20 +707,27 @@ def _run(args: argparse.Namespace, guard: PreemptionGuard) -> TrainState:
     return state
 
 
-def _lm_model_and_task(args, family, overrides, dev, seq_len, train_ds,
-                       val_ds, compute_dtype):
+def _lm_model_and_task(args, family, overrides, seq_len, train_ds,
+                       val_ds, compute_dtype, mesh, attention):
     """A factory of the GPT-2 or BERT model (the flash kernels on CUDA:
-    causal for GPT-2, bidirectional for BERT), checked once against the
-    data's token ids, and its task (causal LM, or masked LM over the ids
-    both the model and the data hold), computing in ``compute_dtype``.
-    The checks and their messages are the JAX entry's."""
+    causal for GPT-2, bidirectional for BERT; GPT-2's ring or Ulysses over
+    the mesh's seq line), checked once against the data's token ids, and
+    its task (causal LM over this rank's sequence shard, or masked LM over
+    the ids both the model and the data hold), computing in
+    ``compute_dtype``. The checks and their messages are the JAX
+    entry's."""
     lm_kwargs = dict(dtype=compute_dtype, remat=args.remat)
     lm_kwargs.update(overrides)
-    if resolve_attention(args.attention, dev.type, seq_len) == "flash":
+    if attention == "flash":
         # BERT is bidirectional: legal because the masked LM task feeds no
         # padding mask (the kernel owns the attention's structure)
         lm_kwargs["attention_fn"] = make_flash_attention_fn(
             causal=family != "bert")
+    elif attention == "ring":
+        lm_kwargs["attention_fn"] = make_ring_attention_fn(mesh, causal=True)
+    elif attention == "ulysses":
+        lm_kwargs["attention_fn"] = make_ulysses_attention_fn(mesh,
+                                                              causal=True)
     vocab_size = get_model(args.model, device="meta", **lm_kwargs).vocab_size
     if vocab_size < train_ds.vocab_size:
         # ids past the embedding would index out of range: scan the ids
@@ -702,7 +755,9 @@ def _lm_model_and_task(args, family, overrides, dev, seq_len, train_ds,
                 f"token id {task.mask_token_id}; use a vocab of at "
                 f"least {task.mask_token_id + 1}")
     else:
-        task = LanguageModelingTask(compute_dtype=compute_dtype)
+        task = LanguageModelingTask(compute_dtype=compute_dtype,
+                                    seq_index=mesh.coords()[SEQ],
+                                    seq_shards=mesh.shape[SEQ])
     return lambda: get_model(args.model, **lm_kwargs), task
 
 

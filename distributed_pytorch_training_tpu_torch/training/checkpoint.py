@@ -9,7 +9,8 @@ Layout under the checkpoint directory, the JAX package's protocol:
   ``exp_avg_sq`` and ``step``), ``grad_sync.pt`` (the int8 wires'
   error-feedback residuals, one row per rank, only when non-empty) and
   ``meta.json`` (``step``, ``epoch``, ``step_in_epoch``, the optimizer's
-  class and the parameters' shapes). It is written under a temporary name
+  class, the parameters' shapes and, when the manager was given one, the
+  run's mesh: every axis's size). It is written under a temporary name
   and renamed into place, so a label directory is a committed write.
   Files are read back with ``torch.load(weights_only=True)``.
 * ``.manifests/<label>.json``: ``step``, ``epoch``, ``step_in_epoch``,
@@ -157,13 +158,15 @@ class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3,
                  post_save_hook: Optional[Callable[[int, Path], None]]
                  = None,
-                 pre_finalize_hook: Optional[Callable[[int], None]] = None):
+                 pre_finalize_hook: Optional[Callable[[int], None]] = None,
+                 mesh: Optional[Dict[str, int]] = None):
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
         self._dir = Path(directory).resolve()
         self._max_to_keep = max_to_keep
         self._post_save_hook = post_save_hook
         self._pre_finalize_hook = pre_finalize_hook
+        self._mesh = dict(mesh) if mesh is not None else None
         self._world = world_size()
         self._rank = dist.get_rank() if self._world > 1 else 0
         if self._rank == 0:
@@ -459,6 +462,8 @@ class CheckpointManager:
             meta = snapshot.pop("meta")
             meta["world_size"] = (None if world_size is None
                                   else int(world_size))
+            if self._mesh is not None:
+                meta["mesh"] = self._mesh
             if label in self.all_steps():
                 # never mix a fresh save into a stale (maybe torn) one
                 shutil.rmtree(self._step_dir(label))

@@ -33,6 +33,14 @@ Three update paths are ported:
   layer group's row before the step. BatchNorm as on the explicit
   reducer (each rank's own batch, statistics ``psum(w * s) / W``).
 
+On a mesh with a ``seq`` axis (``parallel/mesh.py``; sequence
+parallelism, ``--attention ring|ulysses``) each rank runs its own
+positions of its batch shard's rows, so its gradient and its three sums
+are partial over its tokens: the implicit step sums them over the data x
+seq ranks (``group``), and the explicit reducer and the sharded update
+are refused with the JAX Trainer's message (their collectives run over
+the batch axes only).
+
 The engagement rules are the JAX Trainer's: the reducer runs when
 ``bucket_cap_mb > 0`` or the wire is not fp32, on more than one rank, the
 sharded update under ``zero1`` or ``fsdp_explicit`` on more than one rank;
@@ -60,7 +68,7 @@ from ..convert import flax_ordered
 from .. import telemetry
 from ..parallel.collectives import Group, all_gather, psum, world_size
 from ..parallel.grad_sync import (
-    BATCH_AXES, EF_WIRE_DTYPES, WIRE_DTYPES, BucketPlan, HierSpec,
+    EF_WIRE_DTYPES, WIRE_DTYPES, BucketPlan, HierSpec,
     LayerPlan, axis_sizes, build_bucket_plan, build_hier_spec,
     build_layer_plan, compressed_psum_scatter, ef_state_bucketed, ef_state_fsdp,
     ef_state_zero1, flatten_tree, hier_delta_all_gather, hier_owner,
@@ -68,6 +76,7 @@ from ..parallel.grad_sync import (
     quantized_delta_all_gather, quantized_shard_all_gather, reduce_flat,
     unflatten_tree,
 )
+from ..parallel.mesh import BATCH_AXES, MODEL, Mesh
 from ..parallel.sharding import (chunk_of, flatten_pad, fsdp_flat_params,
                                  unflatten_padded)
 from ..runtime import DeviceLike, resolve_device
@@ -145,11 +154,17 @@ def _psum_metrics(m: Metrics, group: Group) -> Metrics:
 
 class Trainer:
     """Owns the train and eval steps for one task on this rank's device;
-    ``group`` is the data-parallel process group (the default group when
-    None; one process without one)."""
+    ``group`` is the process group the gradient and the metrics are summed
+    over (the default group when None; one process without one).
+    ``mesh`` (``parallel/mesh.py``) lays the ranks out: on a mesh with an
+    axis outside the batch axes (``seq``), ``group`` spans the data x seq
+    ranks, only the implicit step runs (one fp32 sum of the gradient, as
+    the JAX Trainer), and the rows a rank holds are those of its batch
+    coordinate."""
 
     def __init__(self, task: Task, config: TrainConfig,
-                 device: DeviceLike = None, group: Group = None):
+                 device: DeviceLike = None, group: Group = None,
+                 mesh: Optional[Mesh] = None):
         if config.wire_dtype not in WIRE_DTYPES:
             raise ValueError(f"wire_dtype {config.wire_dtype!r} is not one "
                              f"of {WIRE_DTYPES}")
@@ -195,6 +210,27 @@ class Trainer:
         self.epoch = 0
         explicit_sync = (config.bucket_cap_mb > 0
                          or config.wire_dtype != "fp32")
+        self.mesh = mesh
+        if mesh is not None and (config.zero1 or config.fsdp_explicit
+                                 or explicit_sync):
+            # the JAX Trainer's rule and message: these modes sync over
+            # the batch axes alone
+            mode = ("fsdp_explicit" if config.fsdp_explicit
+                    else "zero1" if config.zero1
+                    else "grad_sync (bucket_cap_mb/wire_dtype)")
+            allowed = ({MODEL} if (config.zero1 or config.fsdp_explicit)
+                       else set())
+            bad = sorted(a for a, size in mesh.shape.items()
+                         if size > 1 and a not in BATCH_AXES
+                         and a not in allowed)
+            if bad:
+                raise ValueError(
+                    f"{mode} runs gradient sync over the data-parallel "
+                    f"axes {BATCH_AXES}; mesh axes {bad} > 1 need the "
+                    "implicit path (SP/PP/EP collectives are per-layer, "
+                    "not per-update; only zero1 and fsdp_explicit compose "
+                    "with a model axis — zero1 via the per-leaf GSPMD "
+                    "update, fsdp_explicit via explicit megatron TP)")
         if config.fused_quantize is False and self.device.type == "cuda":
             raise ValueError(
                 "--fused-quantize off selects the composed int8 codec, "
@@ -256,6 +292,12 @@ class Trainer:
                      f"mesh (axis {cfg.slice_axis!r} size {n_slices}) — "
                      "running the flat fp32 wire (bit-identical "
                      "passthrough)")
+
+    @property
+    def batch_index(self) -> int:
+        """The shard of the global batch this rank holds: its position on
+        the mesh's batch axes (its rank on a data-only mesh)."""
+        return self.mesh.batch_index if self.mesh is not None else self.rank
 
     @property
     def sharded(self) -> bool:
@@ -383,8 +425,9 @@ class Trainer:
                                         self.epoch), step)
         keys = [rng] if accum == 1 else list(prng.split(rng, accum))
         if replica:
-            return [StepKey(prng.fold_in(k, self.rank)) for k in keys]
-        return [StepKey(k, rows // accum * self.rank) for k in keys]
+            return [StepKey(prng.fold_in(k, self.batch_index))
+                    for k in keys]
+        return [StepKey(k, rows // accum * self.batch_index) for k in keys]
 
     # -- steps --------------------------------------------------------------
 
@@ -742,7 +785,7 @@ class Trainer:
         if self.task.needs_key:
             # the JAX eval step's PRNGKey(0), every batch, over the global
             # batch: eval masks repeat from batch to batch
-            key = StepKey(prng.prng_key(0), _rows(batch) * self.rank)
+            key = StepKey(prng.prng_key(0), _rows(batch) * self.batch_index)
         with self.materialized(state):
             _, metrics, _ = self.task.loss_and_metrics(state.model, batch,
                                                        train=False, key=key)

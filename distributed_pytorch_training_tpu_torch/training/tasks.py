@@ -111,10 +111,20 @@ class LanguageModelingTask(Task):
     t, in float32, averaged over the weighted positions (the row weight
     broadcasts over tokens); "correct" is next-token top-1. The model
     computes in its own dtype and the logits are cast to float32 here, as
-    in the JAX task, whose ``compute_dtype`` field this keeps."""
+    in the JAX task, whose ``compute_dtype`` field this keeps.
+
+    Sequence parallelism (``seq_shards`` > 1): every rank of a ``seq`` line
+    holds the same full rows, and rank ``seq_index`` runs the model on its
+    own S/N positions (``pos_offset``). The label of its last position is
+    the first token of the next shard, taken from the full row; the row's
+    final position has none. The loss and the three sums count this
+    rank's positions only, so their sums over the data x seq ranks count
+    each token once."""
 
     compute_dtype: torch.dtype = torch.float32
     aux_loss_weight: float = 0.0
+    seq_index: int = 0
+    seq_shards: int = 1
 
     def __post_init__(self):
         if self.aux_loss_weight:
@@ -123,9 +133,19 @@ class LanguageModelingTask(Task):
     def loss_and_metrics(self, model, batch, train, generator=None,
                          key=None):
         ids = batch["input_ids"].long()
-        logits = model(ids)
-        lg = logits[:, :-1].float()
-        tgt = ids[:, 1:]
+        if self.seq_shards > 1:
+            s = ids.shape[1]
+            if s % self.seq_shards:
+                raise ValueError(f"sequence length {s} not divisible by "
+                                 f"{self.seq_shards} 'seq' shards")
+            width = s // self.seq_shards
+            lo = self.seq_index * width
+            logits = model(ids[:, lo:lo + width], pos_offset=lo)
+        else:
+            lo, logits = 0, model(ids)
+        # predict ids[:, t + 1] from the logits at t
+        tgt = ids[:, lo + 1:lo + 1 + logits.shape[1]]
+        lg = logits[:, :tgt.shape[1]].float()
         per_tok = F.cross_entropy(lg.reshape(-1, lg.shape[-1]),
                                   tgt.reshape(-1), reduction="none"
                                   ).reshape(tgt.shape)

@@ -54,7 +54,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     add("--synthetic-size", default=None, type=int,
         help="synthetic dataset size override")
     add("--mesh", default="data=-1", type=str,
-        help="mesh spec; the port's mesh is one data axis over the ranks")
+        help="mesh spec over the ranks, e.g. 'data=2,seq=2' (data, seq "
+             "and slice are ported; model, fsdp, pipe and expert are "
+             "refused)")
     add("--slices", default=1, type=int,
         help="factor the ranks into this many slices (the outermost "
              "mesh axis, the slow tier of --wire-dtype int8_hier)")
@@ -70,7 +72,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         choices=["auto", "xla", "flash", "ring", "ulysses"],
         help="attention for LM configs: auto (flash on CUDA, the einsum "
              "on the CPU), xla (the einsum), flash (the hand-written "
-             "kernels); ring and ulysses are not ported")
+             "kernels); ring and ulysses shard the sequence over the "
+             "mesh's seq axis (GPT-2), on the same kernels")
     add("--grad-accum", default=1, type=int,
         help="gradient accumulation: microbatches per optimizer step")
     add("--bucket-cap-mb", default=0.0, type=float,

@@ -35,7 +35,22 @@ wrote; ``OUT`` the pickle this rank writes. Jobs:
 * ``("cli", spec)``: the port's entry, ``train.main(spec["argv"][rank])``
   (each rank its own command line), which leaves the process group at
   its end, so it is a process's last job; returns the final step and
-  every tensor of the state (``_torch_rig.flat_state``).
+  every tensor of the state (``_torch_rig.flat_state``);
+* ``("clis", spec)``: ``train.main`` once for each of ``spec["runs"]``
+  (a list of per-rank command lines) with the process group kept between
+  the runs; returns each run's final step and state, and the metrics of
+  every step (its own process, as ``cli``);
+* ``("lm_logits", spec)``: GPT-2 from ``spec["params"]`` (flax) with the
+  ``spec["attention"]`` ("ring" or "ulysses") attention over the mesh
+  ``spec["mesh"]`` (MeshSpec keywords) on this rank's rows and sequence
+  shard of ``spec["ids"]``; returns the logits of that block;
+* ``("seq_attention", spec)``: sequence-parallel attention over the
+  default group, one sequence shard a rank: for each case ``(label, op,
+  causal, use_kernels, dtype)`` of ``spec["cases"]``, ``op`` ("ring" or
+  "ulysses") on this rank's shard of ``spec["q"]``, ``["k"]``, ``["v"]``
+  (B, S, H, D), backward from its shard of ``spec["g"]``; returns the
+  output and dq, dk, dv shards as float32, and ``ppermute_ring`` and the
+  tiled ``all_to_all`` of small rank-stamped tensors (float32 and bf16).
 """
 
 import os
@@ -227,6 +242,97 @@ def run_ranks(tmp_path: Path, world: int, jobs: dict, timeout=240) -> list:
     return results
 
 
+def run_clis(spec, rank, world):
+    from _torch_rig import flat_state
+    from distributed_pytorch_training_tpu_torch import train
+    from distributed_pytorch_training_tpu_torch.training import (
+        Trainer as PortTrainer,
+    )
+
+    step = PortTrainer.train_step
+    cleanup = train.cleanup_distributed
+    metrics = []
+
+    def recording(self, state, batch):
+        m = step(self, state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        return m
+
+    PortTrainer.train_step = recording
+    train.cleanup_distributed = lambda: None
+    out = []
+    try:
+        for argv in spec["runs"]:
+            metrics.clear()
+            state = train.main(argv[rank])
+            out.append({"step": state.step, "metrics": list(metrics),
+                        "state": {k: v.numpy() for k, v in
+                                  flat_state(state).items()}})
+    finally:
+        PortTrainer.train_step = step
+        train.cleanup_distributed = cleanup
+    return out
+
+
+def run_lm_logits(spec, rank, world):
+    from distributed_pytorch_training_tpu_torch.ops import (
+        make_ring_attention_fn, make_ulysses_attention_fn,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.mesh import (
+        SEQ, MeshSpec, build_mesh,
+    )
+
+    mesh = build_mesh(MeshSpec(**spec["mesh"]))
+    make = (make_ring_attention_fn if spec["attention"] == "ring"
+            else make_ulysses_attention_fn)
+    model = get_model("gpt2_124m", attention_fn=make(mesh, causal=True),
+                      **spec["model_kwargs"])
+    load_flax_params(model, spec["params"])
+    ids = np.split(spec["ids"], mesh.shape["data"])[mesh.batch_index]
+    n, i = mesh.shape[SEQ], mesh.coords()[SEQ]
+    width = ids.shape[1] // n
+    with torch.no_grad():
+        logits = model(torch.from_numpy(ids[:, i * width:(i + 1) * width])
+                       .long(), pos_offset=i * width)
+    return logits.numpy()
+
+
+def run_seq_attention(spec, rank, world):
+    import importlib
+
+    from distributed_pytorch_training_tpu_torch.parallel.collectives import (
+        AxisGroup, all_to_all, ppermute_ring, ppermute_ring_many,
+    )
+
+    ops = "distributed_pytorch_training_tpu_torch.ops."
+    ra = importlib.import_module(ops + "ring_attention")
+    ua = importlib.import_module(ops + "ulysses_attention")
+    axis = AxisGroup(None)
+    out = {}
+    for label, op, causal, use_kernels, dtype in spec["cases"]:
+        dt = getattr(torch, dtype)
+        q, k, v, g = (torch.from_numpy(np.ascontiguousarray(
+            np.split(spec[n], world, axis=1)[rank])).to(dt)
+            for n in "qkvg")
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        fn = (ra.ring_attention_sharded if op == "ring"
+              else ua.ulysses_attention_sharded)
+        o = fn(q, k, v, axis, causal, use_kernels=use_kernels)
+        grads = torch.autograd.grad(o, (q, k, v), g)
+        out[label] = [t.detach().float().numpy()
+                      for t in (o, *grads)]
+    stamp = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * rank
+    out["rotate"] = {
+        shift: ppermute_ring(stamp, None, shift).numpy()
+        for shift in (1, -1, 2)}
+    many = ppermute_ring_many([stamp, stamp.to(torch.bfloat16)[:1]])
+    out["rotate_many"] = [t.float().numpy() for t in many]
+    blocks = (torch.arange(world * 4, dtype=torch.float32).reshape(
+        1, world * 2, 2) + 10 * rank).to(torch.bfloat16)
+    out["all_to_all"] = all_to_all(blocks, None, 1, 2).float().numpy()
+    return out
+
+
 def run_cli(spec, rank, world):
     from _torch_rig import flat_state
     from distributed_pytorch_training_tpu_torch import train
@@ -237,7 +343,9 @@ def run_cli(spec, rank, world):
 
 
 RUNNERS = {"reduce": run_reduce, "train": run_train, "bn": run_bn,
-           "scalars": run_scalars, "cli": run_cli, "codec": run_codec}
+           "scalars": run_scalars, "cli": run_cli, "codec": run_codec,
+           "clis": run_clis, "seq_attention": run_seq_attention,
+           "lm_logits": run_lm_logits}
 
 
 def main():

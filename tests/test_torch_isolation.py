@@ -45,6 +45,9 @@ def test_scan_covers_the_port():
                  port + "utils/prng.py", port + "experiments/harness.py",
                  # the BERT and ViT slice's models
                  port + "models/bert.py", port + "models/vit.py",
+                 # the sequence-parallel slice's modules
+                 port + "parallel/mesh.py", port + "ops/ring_attention.py",
+                 port + "ops/ulysses_attention.py",
                  # the telemetry slice's modules
                  port + "utils/locktrace.py", port + "utils/profiling.py",
                  port + "experiments/trace_analysis.py",

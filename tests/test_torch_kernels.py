@@ -406,3 +406,52 @@ def test_flash_backward_reads_strided_qkv_views(cuda_device, offset, dtype):
     torch.cuda.synchronize()
     for got, want in zip(views, dense):
         assert rel_err(got.grad, want.grad) <= FLASH_REL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# K6: the ring (K3-K5 around the ring) and Ulysses, every shard in one
+# process (an AxisLoop: a loop stands in for the rotation)
+# ---------------------------------------------------------------------------
+
+
+def seq_parallel_case(op, causal, dtype, device, use_kernels, n=2):
+    """(out, dq, dk, dv) of the ring or Ulysses over n shards of a seeded
+    (2, 256, 4, 64) problem, and the kernels' launches it made."""
+    import importlib
+
+    fa = importlib.import_module(
+        "distributed_pytorch_training_tpu_torch.ops.flash_attention")
+    module = importlib.import_module(
+        f"distributed_pytorch_training_tpu_torch.ops.{op}_attention")
+    fn = getattr(module, f"{op}_attention")
+    g = torch.Generator(device=device).manual_seed(5)
+    q, k, v, do = (torch.randn((2, 256, 4, 64), generator=g,
+                               device=device).to(dtype) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    kernels = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_bwd_dq)
+    before = [f.launches for f in kernels]
+    out = fn(q, k, v, {"seq": n}, causal, use_kernels=use_kernels)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    return [out, *grads], [f.launches - b for f, b in zip(kernels, before)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("op", ["ring", "ulysses"])
+def test_sequence_parallel_kernels_match_plain_versions(cuda_device, op,
+                                                        causal, dtype):
+    """The ring's ``_RingFlash`` against its plain ``_ring_body``, Ulysses'
+    flash kernels against its plain ``_local_attention``, within
+    FLASH_REL; the ring over 2 shards launches K3, K4 and K5 once a
+    block it does not skip (3 causal, 4 full), Ulysses once a shard."""
+    got, launches = seq_parallel_case(op, causal, dtype, cuda_device, True)
+    want, plain = seq_parallel_case(op, causal, dtype, cuda_device, False)
+    blocks = (3 if causal else 4) if op == "ring" else 2
+    assert launches == [blocks] * 3 and plain == [0, 0, 0]
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert rel_err(a, b) <= FLASH_REL[dtype]

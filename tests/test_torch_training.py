@@ -440,7 +440,8 @@ REFUSED = [
     # JAX entry's message
     (["--model", "resnet18", "--remat"], ValueError,
      "--remat applies to transformer models"),
-    (["--mesh", "data=2"], NotImplementedError, "--mesh"),
+    # a mesh the one rank cannot fill: the JAX mesh's message
+    (["--mesh", "data=2"], ValueError, "needs 2 devices but 1 are present"),
     # the JAX entry's mesh checks of --slices and --slice-axis, its
     # messages (--slices folds the slice axis into the mesh)
     (["--slices", "2"], ValueError,
@@ -457,15 +458,25 @@ REFUSED = [
     (["--chaos", "capacity_return@step=1"], NotImplementedError, ELASTIC),
     (["--autopilot"], NotImplementedError, "the autopilot slice"),
     (["--download"], NotImplementedError, "--download"),
-    (["--attention", "ring"], NotImplementedError, "ring"),
-    (["--attention", "ulysses"], NotImplementedError, "ulysses"),
+    # ring and Ulysses are ported for GPT-2; BERT refuses them with the
+    # JAX entry's message
+    (["--attention", "ring", "--model", "bert_base"], ValueError,
+     "ring/ulysses is causal-only"),
+    (["--attention", "ulysses", "--model", "bert_base"], ValueError,
+     "ring/ulysses is causal-only"),
 ]
 
 
 def _refusal_id(flags, match):
-    # the --remat case keeps the name it had while --remat was refused
-    return ("--remat-remat" if "--remat" in flags
-            else "_".join(flags) + "-" + match)
+    # the --remat, --mesh and --attention cases keep the names they had
+    # while those flags were refused outright
+    if "--remat" in flags:
+        return "--remat-remat"
+    if flags == ["--mesh", "data=2"]:
+        return "--mesh_data=2---mesh"
+    if flags[0] == "--attention":
+        return f"--attention_{flags[1]}-{flags[1]}"
+    return "_".join(flags) + "-" + match
 
 
 @pytest.mark.parametrize("flags,error,match", REFUSED,
