@@ -15,7 +15,9 @@ the router with one killed, and a ``serve`` process, and train BERT-base
 (masked LM, bidirectional flash kernels at S 512, ``--remat``, its int8
 gradient wire on two ranks, profiled) and ViT-B/16 at full width, and
 train GPT-2 124M sequence-parallel on two ranks (ring and Ulysses
-attention over the mesh's ``seq`` axis).
+attention over the mesh's ``seq`` axis), and tensor-parallel on two and
+four ranks (megatron blocks over the mesh's ``model`` axis, and TP x
+FSDP on the int8 wire).
 
     python3 chip_smoke.py
 
@@ -78,14 +80,16 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     epochs of 20 steps): the train loss must fall; then time the loader
     alone;
 12. train the same model on 2 ranks sharing the card (gloo) through
-    ``torchrun`` of this script's ``--dp-worker`` mode, which calls
+    one ``torchrun`` of this script's ``--dp-worker`` mode, which calls
     ``train.main`` with the counts set to 0 just before and read just
-    after, once per DP_RUNS wire (batch 128 a rank, 2 epochs of 12 steps):
+    after, once per DP_RUNS wire in one process group (batch 128 a rank,
+    2 epochs of 12 steps):
     each rank's K1 and K2 launches must be steps x the wire's count per
     step, both ranks must end with bitwise-equal parameters and BatchNorm
     statistics, and the loss must fall;
 13. (A) the reference's own command: the same model on 2 ranks through
-    ``torchrun`` with the default ``--wire-dtype fp32 --bucket-cap-mb 0``
+    one ``torchrun`` (both runs in one process group) with the default
+    ``--wire-dtype fp32 --bucket-cap-mb 0``
     (the implicit path: global-batch BatchNorm, one fp32 all-reduce; no
     kernel of the port), batch 128 a rank, 2 epochs of 12 steps, then the
     same with ``--amp``: the loss must fall, and the ranks must end with
@@ -118,7 +122,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     ``--fsdp-explicit`` at fp32 and int8, then GPT-2 124M
     ``--fsdp-explicit --amp`` at phase 15's shape; (c) ResNet-18 on 4
     ranks, ``--slices 2 --wire-dtype int8_hier`` through the bucketed
-    reducer (cap 25) and with ``--zero1``: each run's K1, K2 (and K3-K5)
+    reducer (cap 25) and with ``--zero1`` (one torchrun a world, the runs
+    in one process group, the counts set to 0 just before each run and
+    read just after): each run's K1, K2 (and K3-K5)
     launches exact, the ranks' evaluated parameters and BatchNorm
     statistics bitwise equal, the optimizer state (FSDP: the parameters
     too) padded/N a leaf at rest, the loss falling in at least one run;
@@ -210,6 +216,35 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     LOSS_ATOL (BF16_LOSS_ATOL under ``--amp``) of single-rank flash on the
     same rows from the same weights; (c) each run's ms a step and
     samples/s (2 ranks on one card: not a scaling number);
+24. (run before phase 17's lines) tensor parallelism, GPT-2 124M at full
+    width (the vocab padded to 50304, as the entry pads it at model=2),
+    S 1024, batch 8 a batch coordinate, weights from one seed: (a) on 2
+    gloo ranks sharing the card, ``--mesh data=1,model=2``'s model, one
+    loss-and-backward (K3-K5 on each rank's 6 heads) against model=1 on
+    one rank from the same global weights: the loss within LOSS_ATOL,
+    the gathered gradients within GRAD_REL of each leaf's max |g|, the
+    step's model-axis all-reduces 4 x 12 + 2, plus the cross-entropy's
+    2, and their payload exact; (b) ``train.main`` through ``torchrun
+    chip_smoke.py --tp-worker``, one epoch of 3 steps each:
+    ``--mesh data=1,model=2`` fp32 and ``--amp`` (2 ranks),
+    ``data=2,model=2`` fp32 and ``--fsdp-explicit --wire-dtype int8``
+    (4 ranks), the counts set to 0 just before and read just after each
+    run: every rank's K3-K5 launches 12 a forward and a backward, K1 and
+    K2 exact from the TP-local layer plan, the replicated leaves bitwise
+    equal on every rank and, without ``--fsdp-explicit``, the split
+    leaves across the data axis, finite losses, and the run held to
+    ``train.main`` at model=1 on one rank over the same rows from the same
+    draw: every step's loss within LOSS_ATOL (BF16_LOSS_ATOL under
+    ``--amp``; the int8 wire against the fp32 run within TP_WIRE_RTOL),
+    the loss falling every step, and the final parameters, gathered over
+    the model ranks, off the model=1 run's by at most TP_PARAM_REL of
+    that run's movement from the draw, leaf by leaf or over the whole
+    model (an update that did nothing is off by all of it); (c) each
+    run's ms a step and
+    samples/s (ranks sharing one card: not a scaling number), each rank's
+    parameter and moment bytes at rest and its peak allocated memory
+    beside model=1's; K1 and K2 at the TP x FSDP run's shapes, bitwise
+    their plain versions, timed as phase 9 times them;
 17. print the ``{"kernels": [...]}`` line (K1 and K2 over their launches
     on the phase 12, phase 19 and phase 22 (e) paths, K1 also over phase
     21's int8 pages (``paged_kv_*`` apart), K3-K5 over phase 7's and
@@ -218,8 +253,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     launches at the bf16 shapes, ``bf16_trace_ms_per_launch``, phase
     20's device time of a launch, and phase 23 (b)'s ring and Ulysses
     launches apart as ``ring_*``, ``ring_bf16_*``, ``ulysses_*`` and
-    ``ulysses_bf16_*``), then the last line ``{"ok": true, "device":
-    {...}}``.
+    ``ulysses_bf16_*``, and phase 24 (b)'s over every rank as ``tp_*``
+    and ``tp_bf16_*``; K1's and K2's ``tp_*`` over the TP x FSDP int8
+    run's ranks), then the last line ``{"ok": true, "device": {...}}``.
 
 Details go to chiprun_out/chip_smoke.json. Without a CUDA device, or run
 from a directory that lacks the port's package, it fails before printing
@@ -1284,13 +1320,22 @@ def resnet_one_rank(torch) -> dict:
             * 1e3}
 
 
+# dp_worker's arguments hold one run or several, separated by RUN_SEP;
+# rank 0 prints RUN_MARK and the run's output directory before each
+RUN_SEP, RUN_MARK = "--then", "chip_smoke: dp run "
+
+
 def dp_worker(argv) -> int:
-    """One torchrun rank of phases 12, 13 and 15: ``train.main`` with the
-    launch counts set to 0 just before and read just after; writes them,
-    the step count and a sha256 of each parameter and BatchNorm statistic
-    (the ranks' states are bitwise equal iff every digest is), and of its
+    """One torchrun rank of phases 12, 13, 15 and 19: ``train.main`` for
+    each run of ``argv`` (an output directory and the entry's flags; runs
+    separated by RUN_SEP, the process group kept between them) with the
+    launch counts set to 0 just before and read just after; writes, into
+    each run's directory, them, the step count, the run's wall seconds
+    and a sha256 of each parameter and BatchNorm statistic (the ranks'
+    states are bitwise equal iff every digest is), and of its
     error-feedback residual."""
     import torch
+    import torch.distributed as dist
 
     sys.path.insert(0, str(ROOT))
     from distributed_pytorch_training_tpu_torch import train
@@ -1303,13 +1348,18 @@ def dp_worker(argv) -> int:
     fa = flash_module()
     kernels = {QUANTIZE: quantize_int8_rows, DEQUANT: dequant_sum_rows,
                **{name: getattr(fa, name) for name in FLASH}}
-    out_dir, train_argv = Path(argv[0]), argv[1:]
+    runs = [[]]
+    for arg in argv:
+        if arg == RUN_SEP:
+            runs.append([])
+        else:
+            runs[-1].append(arg)
     rank = int(os.environ["RANK"])
     torch.backends.cudnn.deterministic = CUDNN_DETERMINISTIC
     # the model-shaped state each rank evaluates with, digested after the
     # last evaluation (every rank evaluates at every epoch's end): under
     # explicit FSDP the parameters exist whole only inside the trainer's
-    # gather, and the process group is gone once train.main returns
+    # gather
     evaluated = {}
     evaluate = Trainer.evaluate
 
@@ -1320,32 +1370,47 @@ def dp_worker(argv) -> int:
                               state.model.state_dict().items()})
         return out
 
+    cleanup = train.cleanup_distributed
     Trainer.evaluate = digesting_evaluate
-    for fn in kernels.values():
-        fn.launches = 0
+    train.cleanup_distributed = lambda: None    # one group for every run
     try:
-        state = train.main(train_argv + ["--output-dir", str(out_dir)])
+        for out_dir, *train_argv in runs:
+            if rank == 0:
+                print(RUN_MARK + out_dir, flush=True)
+            evaluated.clear()
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            state = train_main(train_argv + ["--output-dir", out_dir])
+            seconds = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in kernels.items()}
+            digests = evaluated or {k: tensor_digest(v) for k, v in
+                                    state.model.state_dict().items()}
+            # this rank's own error-feedback residuals (int8 wires; they
+            # differ across ranks, so kept apart from the digests the
+            # ranks must share)
+            ef = state.grad_sync.get("ef")
+            ef = ef if isinstance(ef, dict) else (
+                {"ef": ef} if ef is not None else {})
+            ef_digests = {k: tensor_digest(v) for k, v in ef.items()}
+            # at rest: the parameters (FSDP: this rank's chunks) and every
+            # optimizer tensor of a leaf or chunk
+            at_rest = {"params": [p.numel() for p in state.params],
+                       "param_bytes": sum(p.numel() * p.element_size()
+                                          for p in state.params),
+                       "opt": [t.numel() for slots in
+                               state.optimizer.state.values()
+                               for t in slots.values() if t.dim() >= 1]}
+            (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(
+                {"launches": launches, "steps": state.step,
+                 "digests": digests, "ef_digests": ef_digests,
+                 "at_rest": at_rest, "seconds": seconds}))
+            del state
     finally:
         Trainer.evaluate = evaluate
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    digests = evaluated or {k: tensor_digest(v)
-                            for k, v in state.model.state_dict().items()}
-    # this rank's own error-feedback residuals (int8 wires; they differ
-    # across ranks, so kept apart from the digests the ranks must share)
-    ef = state.grad_sync.get("ef")
-    ef = ef if isinstance(ef, dict) else ({"ef": ef} if ef is not None
-                                          else {})
-    ef_digests = {k: tensor_digest(v) for k, v in ef.items()}
-    # at rest: the parameters (FSDP: this rank's chunks) and every
-    # optimizer tensor of a leaf or chunk
-    at_rest = {"params": [p.numel() for p in state.params],
-               "param_bytes": sum(p.numel() * p.element_size()
-                                  for p in state.params),
-               "opt": [t.numel() for slots in state.optimizer.state.values()
-                       for t in slots.values() if t.dim() >= 1]}
-    (out_dir / f"rank{rank}.json").write_text(json.dumps(
-        {"launches": launches, "steps": state.step, "digests": digests,
-         "ef_digests": ef_digests, "at_rest": at_rest}))
+        train.cleanup_distributed = cleanup
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 
@@ -1380,6 +1445,55 @@ def run_torchrun(args, timeout: float, nproc: int = DP_RANKS,
     return out
 
 
+def dp_runs(torch, runs: list, nproc: int = DP_RANKS) -> dict:
+    """One torchrun of the port's entry on ``nproc`` ranks sharing the
+    card for every (name, flags, synthetic size, launches wanted, steps)
+    of ``runs``, in one process group (phases 12, 13 and 19): every
+    rank's launches of the kernels wanted exact, the ranks' evaluated
+    parameters and statistics bitwise equal. Returns {name: the run's
+    results}."""
+    dirs, args = {}, []
+    for name, flags, synthetic, _, _ in runs:
+        out_dir = ROOT / "chiprun_out" / ("dp_" + name.replace(" ", "_"))
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "metrics_rank0.csv").unlink(missing_ok=True)
+        dirs[name] = out_dir
+        args += ([RUN_SEP] if args else []) + [
+            str(out_dir), *flags, "--synthetic-size", str(synthetic)]
+    t0 = time.perf_counter()
+    out = run_torchrun(args, timeout=600 * len(runs), nproc=nproc)
+    seconds = time.perf_counter() - t0
+    # rank 0's lines of each run, from its mark to the next
+    pieces = {}
+    for line in out.splitlines():
+        if line.startswith(RUN_MARK):
+            current = pieces.setdefault(line[len(RUN_MARK):], [])
+        elif pieces:
+            current.append(line)
+    results = {}
+    for name, _, _, want, steps in runs:
+        out_dir = dirs[name]
+        text = "\n".join(pieces.get(str(out_dir), []))
+        (out_dir / "stdout.txt").write_text(text)
+        ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+                 for r in range(nproc)]
+        for r, rep in enumerate(ranks):
+            got = {k: rep["launches"][k] for k in want}
+            if got != want or rep["steps"] != steps:
+                raise RuntimeError(f"{name} rank {r}: {rep['steps']} "
+                                   f"steps, launches {got} (expected "
+                                   f"{steps}, {want})")
+        same_across_ranks(name, ranks)
+        rates = [float(ln.split("Throughput: ")[1].split()[0])
+                 for ln in text.splitlines() if "Throughput: " in ln]
+        results[name] = {
+            "ranks": ranks, "out_dir": out_dir,
+            "wall_seconds": ranks[0]["seconds"],
+            "torchrun_seconds": seconds, "step_line_samples_per_s": rates,
+            "launches_per_rank": want, "steps": steps, "stdout": text}
+    return results
+
+
 def resnet_two_ranks(torch) -> dict:
     """Phase 12: ResNet-18 at full width on DP_RANKS ranks sharing the
     card (gloo) through the port's entry, once per DP_RUNS configuration.
@@ -1387,36 +1501,23 @@ def resnet_two_ranks(torch) -> dict:
     per-step count, that the ranks end with bitwise-equal parameters and
     BatchNorm statistics, and that the loss fell."""
     steps = IMAGE_EPOCHS * -(-DP_SYNTHETIC // (IMAGE_BATCH * DP_RANKS))
-    report = {}
+    report, wants = {}, {}
     for name, wire, cap in DP_RUNS:
-        out_dir = ROOT / "chiprun_out" / ("dp_" + name.replace(" ", "_"))
-        out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / "metrics_rank0.csv").unlink(missing_ok=True)
-        t0 = time.perf_counter()
-        out = run_torchrun([str(out_dir), *IMAGE_FLAGS, "--synthetic-size",
-                            str(DP_SYNTHETIC), "--wire-dtype", wire,
-                            "--bucket-cap-mb", str(cap)], timeout=600)
-        seconds = time.perf_counter() - t0
-        (out_dir / "stdout.txt").write_text(out)
-        want = {QUANTIZE: 0, DEQUANT: 0}
+        wants[name] = {QUANTIZE: 0, DEQUANT: 0}
         for (kernel, _), count in wire_launches(torch, wire, cap).items():
-            want[kernel] += count * steps
-        ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
-                 for r in range(DP_RANKS)]
-        for r, rep in enumerate(ranks):
-            got = {k: rep["launches"][k] for k in want}
-            if got != want or rep["steps"] != steps:
-                raise RuntimeError(
-                    f"{name} rank {r}: {rep['steps']} steps, launches "
-                    f"{got} (expected {steps}, {want})")
-        same_across_ranks(name, ranks)
-        losses = image_csv_losses(out_dir)
-        rates = [float(ln.split("Throughput: ")[1].split()[0])
-                 for ln in out.splitlines() if "Throughput: " in ln]
+            wants[name][kernel] += count * steps
+    results = dp_runs(torch, [
+        (name, IMAGE_FLAGS + ["--wire-dtype", wire, "--bucket-cap-mb",
+                              str(cap)], DP_SYNTHETIC, wants[name], steps)
+        for name, wire, cap in DP_RUNS])
+    for name, wire, cap in DP_RUNS:
+        res, want = results[name], wants[name]
+        losses = image_csv_losses(res["out_dir"])
+        rates = res["step_line_samples_per_s"]
         report[name] = {"wire": wire, "bucket_cap_mb": cap, "steps": steps,
                         "launches_per_rank": want, "losses": losses,
                         "step_line_samples_per_s": rates,
-                        "wall_seconds": seconds}
+                        "wall_seconds": res["wall_seconds"]}
         log(f"phase 12 {name}: {steps} steps on {DP_RANKS} ranks, launches "
             f"per rank {want}; parameters and BatchNorm statistics bitwise "
             f"equal across ranks; (train, val, epoch s) per epoch {losses}; "
@@ -1434,34 +1535,22 @@ def resnet_reference_command(torch) -> dict:
     fall."""
     steps = IMAGE_EPOCHS * -(-DP_SYNTHETIC // (IMAGE_BATCH * DP_RANKS))
     report = {}
-    for name, extra in (("implicit fp32", []), ("implicit amp", ["--amp"])):
-        out_dir = ROOT / "chiprun_out" / ("dp_" + name.replace(" ", "_"))
-        out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / "metrics_rank0.csv").unlink(missing_ok=True)
-        t0 = time.perf_counter()
-        out = run_torchrun([str(out_dir), *IMAGE_FLAGS, "--synthetic-size",
-                            str(DP_SYNTHETIC), *extra], timeout=600)
-        seconds = time.perf_counter() - t0
-        (out_dir / "stdout.txt").write_text(out)
+    configs = (("implicit fp32", []), ("implicit amp", ["--amp"]))
+    none = {k: 0 for k in (QUANTIZE, DEQUANT, *FLASH)}
+    results = dp_runs(torch, [(name, IMAGE_FLAGS + extra, DP_SYNTHETIC,
+                               none, steps) for name, extra in configs])
+    for name, extra in configs:
+        res = results[name]
         banner = (f"world_size={DP_RANKS}, amp={bool(extra)}, "
                   "backend=gloo")
-        if banner not in out or "Gradient sync" in out:
+        if banner not in res["stdout"] or "Gradient sync" in res["stdout"]:
             raise RuntimeError(f"{name}: expected the implicit path's "
-                               f"banner ({banner}), got:\n{out}")
-        ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
-                 for r in range(DP_RANKS)]
-        for r, rep in enumerate(ranks):
-            if rep["steps"] != steps or any(rep["launches"].values()):
-                raise RuntimeError(f"{name} rank {r}: {rep['steps']} steps "
-                                   f"(expected {steps}), launches "
-                                   f"{rep['launches']} (expected none)")
-        same_across_ranks(name, ranks)
-        losses = image_csv_losses(out_dir)
-        rates = [float(ln.split("Throughput: ")[1].split()[0])
-                 for ln in out.splitlines() if "Throughput: " in ln]
+                               f"banner ({banner}), got:\n{res['stdout']}")
+        losses = image_csv_losses(res["out_dir"])
+        rates = res["step_line_samples_per_s"]
         report[name] = {"steps": steps, "losses": losses,
                         "step_line_samples_per_s": rates,
-                        "wall_seconds": seconds}
+                        "wall_seconds": res["wall_seconds"]}
         log(f"phase 13 {name}: {steps} steps on {DP_RANKS} ranks, no "
             "kernel launched; parameters and BatchNorm statistics bitwise "
             f"equal across ranks; (train, val, epoch s) per epoch {losses}; "
@@ -1771,34 +1860,6 @@ def per_kernel(counts: dict, steps: int = 1) -> dict:
     return want
 
 
-def sharded_run(torch, name: str, flags: list, nproc: int,
-                synthetic: int, want: dict, steps: int) -> dict:
-    """One torchrun of the port's entry on ``nproc`` ranks sharing the
-    card: every rank's launches of the kernels in ``want`` exact, the
-    ranks' evaluated parameters and statistics bitwise equal."""
-    out_dir = ROOT / "chiprun_out" / ("dp_" + name.replace(" ", "_"))
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "metrics_rank0.csv").unlink(missing_ok=True)
-    t0 = time.perf_counter()
-    out = run_torchrun([str(out_dir), *flags, "--synthetic-size",
-                        str(synthetic)], timeout=600, nproc=nproc)
-    seconds = time.perf_counter() - t0
-    (out_dir / "stdout.txt").write_text(out)
-    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
-             for r in range(nproc)]
-    for r, rep in enumerate(ranks):
-        got = {k: rep["launches"][k] for k in want}
-        if got != want or rep["steps"] != steps:
-            raise RuntimeError(f"{name} rank {r}: {rep['steps']} steps, "
-                               f"launches {got} (expected {steps}, {want})")
-    same_across_ranks(name, ranks)
-    rates = [float(ln.split("Throughput: ")[1].split()[0])
-             for ln in out.splitlines() if "Throughput: " in ln]
-    return {"ranks": ranks, "out_dir": out_dir, "wall_seconds": seconds,
-            "step_line_samples_per_s": rates, "launches_per_rank": want,
-            "steps": steps, "stdout": out}
-
-
 def check_at_rest(torch, name: str, ranks: list, mode: str, n: int) -> int:
     """Each rank's optimizer tensors (and FSDP's parameters) hold padded/N
     of every ResNet-18 leaf; returns rank 0's parameter bytes at rest."""
@@ -1824,47 +1885,54 @@ def sharded_two_ranks(torch) -> dict:
     Launches exact, ranks bitwise equal, at-rest sizes 1/N; the loss falls
     in at least one ResNet run; GPT-2's losses finite."""
     steps = IMAGE_EPOCHS * -(-SHARDED_SYNTHETIC // (IMAGE_BATCH * DP_RANKS))
-    report, fell = {}, []
-    for mode, runs, flag in (("zero1", ZERO1_RUNS, "--zero1"),
-                             ("fsdp", FSDP_RUNS, "--fsdp-explicit")):
-        for name, wire in runs:
-            counts = sharded_launches(torch, mode, wire, DP_RANKS)
-            res = sharded_run(torch, name, IMAGE_FLAGS + [
-                flag, "--wire-dtype", wire], DP_RANKS, SHARDED_SYNTHETIC,
-                per_kernel(counts, steps), steps)
-            rows = [(float(c[1]), float(c[3]), float(c[5])) for c in (
-                ln.split(",") for ln in (res["out_dir"] / "metrics_rank0.csv")
-                .read_text().splitlines()[1:])]
-            if len(rows) != IMAGE_EPOCHS or not all(
-                    math.isfinite(x) for row in rows for x in row):
-                raise RuntimeError(f"{name}: CSV rows {rows}")
-            fell.append(rows[-1][0] < rows[0][0])
-            rest = check_at_rest(torch, name, res["ranks"], mode, DP_RANKS)
-            report[name] = {
-                "mode": mode, "wire": wire, "steps": steps,
-                "launches_per_rank": res["launches_per_rank"],
-                "per_step": {f"{k}{list(shape)}": c
-                             for (k, shape), c in counts.items()},
-                "losses": rows, "param_bytes_at_rest": rest,
-                "step_line_samples_per_s": res["step_line_samples_per_s"],
-                "wall_seconds": res["wall_seconds"]}
-            log(f"phase 19 {name}: {steps} steps on {DP_RANKS} ranks, "
-                f"launches per rank {res['launches_per_rank']}; evaluated "
-                "parameters and BatchNorm statistics bitwise equal across "
-                f"ranks; optimizer state padded/{DP_RANKS} a leaf"
-                + (", parameters too" if mode == "fsdp" else "")
-                + f" ({rest} parameter bytes at rest on rank 0); (train, "
-                f"val, epoch s) per epoch {rows}; step-line samples/s "
-                f"{res['step_line_samples_per_s']}")
-    if not any(fell):
-        raise RuntimeError("phase 19: the train loss fell in no run")
+    report, fell, runs, counts = {}, [], [], {}
+    configs = [(mode, name, wire, flag)
+               for mode, named, flag in (
+                   ("zero1", ZERO1_RUNS, "--zero1"),
+                   ("fsdp", FSDP_RUNS, "--fsdp-explicit"))
+               for name, wire in named]
+    for mode, name, wire, flag in configs:
+        counts[name] = sharded_launches(torch, mode, wire, DP_RANKS)
+        runs.append((name, IMAGE_FLAGS + [flag, "--wire-dtype", wire],
+                     SHARDED_SYNTHETIC, per_kernel(counts[name], steps),
+                     steps))
     # (b) GPT-2 124M under --fsdp-explicit --amp, phase 15's shape
     want = {FLASH[0]: DEPTH * (LM_DP_STEPS + LM_DP_EVAL),
             FLASH[1]: DEPTH * LM_DP_STEPS, FLASH[2]: DEPTH * LM_DP_STEPS}
-    res = sharded_run(torch, "gpt2 fsdp amp", LM_FLAGS + [
+    runs.append(("gpt2 fsdp amp", LM_FLAGS + [
         "--batch-size", str(LM_DP_BATCH), "--epochs", "1",
-        "--print-freq", "2", "--fsdp-explicit", "--amp"], DP_RANKS,
-        LM_DP_SYNTHETIC, want, LM_DP_STEPS)
+        "--print-freq", "2", "--fsdp-explicit", "--amp"], LM_DP_SYNTHETIC,
+        want, LM_DP_STEPS))
+    results = dp_runs(torch, runs, DP_RANKS)
+    for mode, name, wire, flag in configs:
+        res = results[name]
+        rows = [(float(c[1]), float(c[3]), float(c[5])) for c in (
+            ln.split(",") for ln in (res["out_dir"] / "metrics_rank0.csv")
+            .read_text().splitlines()[1:])]
+        if len(rows) != IMAGE_EPOCHS or not all(
+                math.isfinite(x) for row in rows for x in row):
+            raise RuntimeError(f"{name}: CSV rows {rows}")
+        fell.append(rows[-1][0] < rows[0][0])
+        rest = check_at_rest(torch, name, res["ranks"], mode, DP_RANKS)
+        report[name] = {
+            "mode": mode, "wire": wire, "steps": steps,
+            "launches_per_rank": res["launches_per_rank"],
+            "per_step": {f"{k}{list(shape)}": c
+                         for (k, shape), c in counts[name].items()},
+            "losses": rows, "param_bytes_at_rest": rest,
+            "step_line_samples_per_s": res["step_line_samples_per_s"],
+            "wall_seconds": res["wall_seconds"]}
+        log(f"phase 19 {name}: {steps} steps on {DP_RANKS} ranks, "
+            f"launches per rank {res['launches_per_rank']}; evaluated "
+            "parameters and BatchNorm statistics bitwise equal across "
+            f"ranks; optimizer state padded/{DP_RANKS} a leaf"
+            + (", parameters too" if mode == "fsdp" else "")
+            + f" ({rest} parameter bytes at rest on rank 0); (train, "
+            f"val, epoch s) per epoch {rows}; step-line samples/s "
+            f"{res['step_line_samples_per_s']}")
+    if not any(fell):
+        raise RuntimeError("phase 19: the train loss fell in no run")
+    res = results["gpt2 fsdp amp"]
     lines = (res["out_dir"] / "metrics_rank0.csv").read_text().splitlines()
     losses = [(float(c[1]), float(c[3])) for c in
               (ln.split(",") for ln in lines[1:])]
@@ -1901,15 +1969,19 @@ def hier_four_ranks(torch) -> dict:
     (cap 25) and with ``--zero1``: launches exact, ranks bitwise equal."""
     steps = IMAGE_EPOCHS * -(-SHARDED_SYNTHETIC // (IMAGE_BATCH
                                                     * HIER_RANKS))
-    report = {}
+    report, counts = {}, {}
     for name, extra in HIER_RUNS:
         mode = "zero1" if "--zero1" in extra else "reducer"
-        counts = sharded_launches(torch, mode, "int8_hier", HIER_RANKS,
-                                  HIER_SLICES)
-        res = sharded_run(torch, name, IMAGE_FLAGS + [
-            "--slices", str(HIER_SLICES), "--wire-dtype", "int8_hier",
-            "--print-freq", "3", *extra], HIER_RANKS, SHARDED_SYNTHETIC,
-            per_kernel(counts, steps), steps)
+        counts[name] = sharded_launches(torch, mode, "int8_hier",
+                                        HIER_RANKS, HIER_SLICES)
+    results = dp_runs(torch, [
+        (name, IMAGE_FLAGS + ["--slices", str(HIER_SLICES), "--wire-dtype",
+                              "int8_hier", "--print-freq", "3", *extra],
+         SHARDED_SYNTHETIC, per_kernel(counts[name], steps), steps)
+        for name, extra in HIER_RUNS], HIER_RANKS)
+    for name, extra in HIER_RUNS:
+        mode = "zero1" if "--zero1" in extra else "reducer"
+        res = results[name]
         if "Two-tier wire (int8_hier): 2 slices x 2 replicas/slice" \
                 not in res["stdout"]:
             raise RuntimeError(f"{name}: no two-tier banner")
@@ -1918,7 +1990,7 @@ def hier_four_ranks(torch) -> dict:
         report[name] = {
             "steps": steps, "launches_per_rank": res["launches_per_rank"],
             "per_step": {f"{k}{list(shape)}": c
-                         for (k, shape), c in counts.items()},
+                         for (k, shape), c in counts[name].items()},
             "step_line_samples_per_s": res["step_line_samples_per_s"],
             "wall_seconds": res["wall_seconds"]}
         log(f"phase 19 {name}: {steps} steps on {HIER_RANKS} ranks "
@@ -3652,6 +3724,605 @@ def sp_train(torch, fa, card: str) -> dict:
     return report
 
 
+# phase 24: tensor parallelism over the mesh's model axis. GPT-2 124M at
+# full width, S 1024, batch TP_BATCH a batch coordinate, weights from one
+# seed (the vocab padded to lcm(128, 2) = 128, as the entry pads it at
+# model=2). (a) one loss-and-backward at model=2 on TP_RANKS ranks against
+# model=1 on one rank from the same global weights; (b) train.main through
+# torchrun, one epoch of TP_STEPS steps each run
+TP_RANKS = 2
+TP_PAD = 128
+TP_BATCH, TP_STEPS, TP_EVAL = 8, 3, 1
+# synthetic sequences by the batch axes' size: TP_STEPS global batches,
+# and // 5 of them give one padded validation batch
+TP_SYNTHETIC = {1: TP_BATCH * TP_STEPS, 2: 2 * TP_BATCH * TP_STEPS}
+TP_RUNS = {2: [("model=2 fp32", "data=1,model=2", []),
+               ("model=2 amp", "data=1,model=2", ["--amp"])],
+           4: [("data=2,model=2 fp32", "data=2,model=2", []),
+               ("data=2,model=2 fsdp int8", "data=2,model=2",
+                ["--fsdp-explicit", "--wire-dtype", "int8"])]}
+TP_NOTE = ("ranks sharing one card over gloo: correctness, and the cost of "
+           "the model axis's all-reduces through host memory, not scaling")
+# the int8 wire's losses after step 1 against the fp32 model=1 run's,
+# relative (a development run on the H100: 2.44e-2 at step 3)
+TP_WIRE_RTOL = 5e-2
+# the final parameters' distance from the model=1 run's, as a share of
+# that run's movement from the draw: (the worst leaf's, the whole
+# model's) bound, None where no bound applies. A development run on the
+# H100 read fp32 (0.0042, 2.6e-5); --amp (0.71, 0.030), bf16 compute
+# noise through Adam's normalized step in the biases; the int8 wire
+# (0.999, 0.66): its one scale a layer group rounds most of wte's tiny
+# gradients to 0, where fp32 AdamW moves every element by about lr. An
+# update that did nothing reads 1.
+TP_PARAM_REL = {"fp32": (0.02, 1e-3), "amp": (None, 0.1),
+                "int8": (None, 0.8)}
+
+
+def tp_first_batch(torch, data: int):
+    """The first global batch of the runs' loader at ``data`` batch
+    coordinates (the rows every model rank of a coordinate reads), on the
+    card."""
+    from distributed_pytorch_training_tpu_torch.data.text import (
+        TokenLoader,
+        get_token_dataset,
+    )
+    from distributed_pytorch_training_tpu_torch.utils import parse_args
+
+    seed = parse_args([]).seed
+    ds = get_token_dataset("gpt2", 1024, train=True,
+                           synthetic_size=TP_SYNTHETIC[data], seed=seed)
+    return next(iter(TokenLoader(ds, TP_BATCH * data, shuffle=True,
+                                 seed=seed, device=torch.device("cuda", 0)
+                                 ).epoch(0)))
+
+
+def tp_global_model(torch, dtype):
+    """The global GPT-2 124M the entry draws at model=2 (vocab padded to
+    TP_PAD), flash attention, on the CPU."""
+    from distributed_pytorch_training_tpu_torch.models import get_model
+    from distributed_pytorch_training_tpu_torch.ops import (
+        make_flash_attention_fn,
+    )
+    from distributed_pytorch_training_tpu_torch.utils import parse_args
+
+    model = get_model(MODEL, dtype=dtype, pad_vocab_to_multiple_of=TP_PAD,
+                      attention_fn=make_flash_attention_fn(causal=True))
+    model.reset_parameters(torch.Generator().manual_seed(parse_args([]).seed))
+    return model
+
+
+def tp_step_check(torch, dist, fa) -> dict:
+    """Phase 24 (a), inside the 2-rank worker: one loss-and-backward of
+    the TP-local model (6 heads a rank, K3-K5 on them) with the model
+    axis's all-reduces counted and their bytes summed; the gradients
+    gathered to rank 0, which runs the same step at model=1 on the global
+    model and compares (the loss within LOSS_ATOL, each gathered gradient
+    within GRAD_REL of its leaf's max |g|)."""
+    from distributed_pytorch_training_tpu_torch.convert import (
+        flax_ordered,
+        load_tp_params,
+        tp_global_params,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.grad_sync import (
+        tp_psum_bytes_per_step,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.sharding import (
+        tp_split_dims,
+    )
+    from distributed_pytorch_training_tpu_torch.training.tasks import (
+        LanguageModelingTask,
+    )
+
+    dev = torch.device("cuda", 0)
+    mesh = build_mesh(MeshSpec(data=1, model=TP_RANKS))
+    tp = mesh.tp()
+    full = tp_global_model(torch, torch.float32)
+    named = flax_ordered(full.named_parameters())
+    split = tp_split_dims([(n, tuple(p.shape)) for n, p in named],
+                          full.partition_rules(), tp.size)
+    local = full.clone(tp=tp, device="cpu")
+    load_tp_params(local, dict(named), split)
+    local.to(dev).train()
+    batch = tp_first_batch(torch, 1)
+    task = LanguageModelingTask()
+    kernels = [getattr(fa, name) for name in FLASH]
+    before = [k.launches for k in kernels]
+    calls = []
+    real = dist.all_reduce
+
+    def counting(t, *args, **kwargs):
+        if kwargs.get("group") is tp.group:
+            calls.append(t.numel() * t.element_size())
+        return real(t, *args, **kwargs)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    dist.all_reduce = counting
+    try:
+        loss, _, _ = task.loss_and_metrics(local, batch, True)
+        names = [n for n, _ in flax_ordered(local.named_parameters())]
+        params = dict(local.named_parameters())
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = real
+    tp_peak = torch.cuda.max_memory_allocated(dev) - base
+    launches = [k.launches - b for k, b in zip(kernels, before)]
+    # every rank's gradients to rank 0: one list-form gather a leaf
+    shards = [{} for _ in range(tp.size)]
+    for name, g in zip(names, grads):
+        parts = [torch.empty_like(g) for _ in range(tp.size)]
+        dist.all_gather(parts, g.contiguous())
+        for i, part in enumerate(parts):
+            shards[i][name] = part
+    del grads
+    local.cpu()
+    torch.cuda.empty_cache()
+    out = {"loss_tp": float(loss), "launches": launches,
+           "all_reduces": len(calls), "all_reduce_bytes": sum(calls),
+           "tp_peak_allocated": tp_peak}
+    if dist.get_rank() == 0:
+        b, s = batch["input_ids"].shape
+        act = b * s * full.hidden_dim
+        out["want_all_reduces"] = 4 * DEPTH + 2 + 2
+        # payload: 4 x 12 + 2 activation sums, the CE's 2 (B, S - 1, 2)
+        # float32 stats; tp_psum_bytes_per_step counts a ring's 2x of it
+        out["want_payload_bytes"] = 4 * act * (4 * DEPTH + 2) + \
+            2 * 8 * b * (s - 1)
+        out["tp_psum_bytes_per_step"] = tp_psum_bytes_per_step(
+            full.hidden_dim, DEPTH, b, s, tp.size, tp_vocab=True)
+        whole = tp_global_params(shards, split)
+        del shards
+        full.to(dev).train()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ref_loss, _, _ = task.loss_and_metrics(full, batch, True)
+        ref = dict(zip([n for n, _ in named], torch.autograd.grad(
+            ref_loss, [p for _, p in named])))
+        torch.cuda.synchronize()
+        out["one_rank_peak_allocated"] = torch.cuda.max_memory_allocated(
+            dev) - base
+        worst, leaf = 0.0, None
+        for name, g in ref.items():
+            err = float((whole[name] - g).abs().max()
+                        / g.abs().max().clamp(min=1e-30))
+            if err > worst:
+                worst, leaf = err, name
+        out.update({"loss_one_rank": float(ref_loss),
+                    "loss_abs_diff": abs(float(ref_loss) - float(loss)),
+                    "grad_rel": worst, "grad_rel_leaf": leaf})
+        del ref, whole
+        full.cpu()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def tp_worker(argv) -> int:
+    """One torchrun rank of phase 24: on 2 ranks the (a) step check
+    first; then ``train.main`` for each TP_RUNS configuration of this
+    world (the process group kept between the runs), the launch counts
+    set to 0 and the peak of allocated memory reset just before, read
+    just after; writes each run's launches, steps, every step's loss and
+    wall ms (synchronized), the at-rest parameter and moment bytes, the
+    peak, this rank's model and batch index, each parameter's split dim,
+    the digests of the evaluated (materialized) TP-local state, and each
+    parameter's squared distance from this rank's slice of the model=1
+    run's final parameters (``tp_reference_runs``, under ``ref_dir``)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from distributed_pytorch_training_tpu_torch import train
+    from distributed_pytorch_training_tpu_torch.ops.quantize import (
+        dequant_sum_rows,
+        quantize_int8_rows,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.sharding import (
+        tp_slice,
+    )
+    from distributed_pytorch_training_tpu_torch.runtime import (
+        setup_distributed,
+    )
+    from distributed_pytorch_training_tpu_torch.training import Trainer
+
+    fa = flash_module()
+    kernels = {QUANTIZE: quantize_int8_rows, DEQUANT: dequant_sum_rows,
+               **{name: getattr(fa, name) for name in FLASH}}
+    out_dir, ref_dir, base_argv = Path(argv[0]), Path(argv[1]), argv[2:]
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev = setup_distributed(torch.device("cuda")).device
+    report = {}
+    if world == TP_RANKS:
+        report["(a)"] = tp_step_check(torch, dist, fa)
+    step, evaluate = Trainer.train_step, Trainer.evaluate
+    record = {}
+
+    def timed_step(self, state, batch):
+        t0 = time.perf_counter()
+        m = step(self, state, batch)
+        torch.cuda.synchronize()
+        record["ms"].append((time.perf_counter() - t0) * 1e3)
+        record["losses"].append(float(m["loss_sum"]) / float(m["weight"]))
+        return m
+
+    def digesting_evaluate(self, state, batches):
+        out = evaluate(self, state, batches)
+        split = dict(zip(state.tp.names, state.tp.split_dims))
+        tp = state.tp.axis
+        ref = torch.load(record["ref"], mmap=True, weights_only=True)
+        with self.materialized(state):
+            record["digests"] = {k: tensor_digest(v) for k, v in
+                                 state.model.state_dict().items()}
+            record["sq_off"] = {
+                name: float(torch.sum(torch.square(
+                    p.detach().double() - tp_slice(
+                        ref[name], split[name], tp.size, tp.index
+                    ).to(p.device, torch.float64))))
+                for name, p in state.model.named_parameters()}
+        record["split"] = split
+        record["model_index"] = tp.index
+        record["batch_index"] = self.batch_index
+        return out
+
+    cleanup = train.cleanup_distributed
+    Trainer.train_step, Trainer.evaluate = timed_step, digesting_evaluate
+    train.cleanup_distributed = lambda: None    # one group for every run
+    try:
+        for name, mesh, extra in TP_RUNS[world]:
+            record.clear()
+            record.update(ms=[], losses=[], ref=tp_ref_path(
+                ref_dir, world // TP_RANKS, "--amp" in extra))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            for fn in kernels.values():
+                fn.launches = 0
+            run_dir = out_dir / name.replace(" ", "_").replace("=", "")
+            state = train_main(base_argv + ["--mesh", mesh, *extra,
+                                            "--output-dir", str(run_dir)])
+            torch.cuda.synchronize()
+            moments = [t for slots in state.optimizer.state.values()
+                       for t in slots.values() if t.dim() >= 1]
+            report[name] = {
+                "launches": {k: fn.launches for k, fn in kernels.items()},
+                "steps": state.step, "step_ms": record["ms"],
+                "losses": record["losses"],
+                "param_bytes": sum(p.numel() * p.element_size()
+                                   for p in state.params),
+                "moment_bytes": sum(t.numel() * t.element_size()
+                                    for t in moments),
+                "peak_allocated": torch.cuda.max_memory_allocated(dev),
+                **{k: record[k] for k in ("digests", "split", "sq_off",
+                                          "model_index", "batch_index")}}
+            del state, moments
+            torch.cuda.empty_cache()
+    finally:
+        Trainer.train_step, Trainer.evaluate = step, evaluate
+        train.cleanup_distributed = cleanup
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(report))
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_ref_path(ref_dir, data: int, amp: bool) -> Path:
+    """Where `tp_reference_runs` keeps the model=1 run's final
+    parameters for ``data`` batch coordinates, fp32 or ``--amp``."""
+    return Path(ref_dir) / f"model1_data{data}_{'amp' if amp else 'fp32'}.pt"
+
+
+def tp_reference_runs(torch, flags, ref_dir) -> dict:
+    """Phase 24's model=1 runs: for each (batch coordinates, ``--amp``)
+    of TP_RUNS, ``train.main`` on this one rank, no mesh, over the same
+    global batches (TP_BATCH x data rows a step) from the same draw as
+    the TP runs (the vocab padded to TP_PAD): {(data, amp): every step's
+    loss, and each leaf's distance from the draw}; the final parameters
+    go to `tp_ref_path`, for the TP ranks to hold their slices to."""
+    import tempfile
+
+    from distributed_pytorch_training_tpu_torch.training import Trainer
+
+    init = {n: p.detach() for n, p in
+            tp_global_model(torch, torch.float32).named_parameters()}
+    step = Trainer.train_step
+    losses = []
+
+    def recording(self, state, batch):
+        m = step(self, state, batch)
+        losses.append(float(m["loss_sum"]) / float(m["weight"]))
+        return m
+
+    refs = {}
+    Trainer.train_step = recording
+    try:
+        for world, runs in TP_RUNS.items():
+            data = world // TP_RANKS
+            for amp in sorted({"--amp" in extra for _, _, extra in runs}):
+                losses.clear()
+                with tempfile.TemporaryDirectory() as tmp:
+                    state = train_main(flags + [
+                        "--batch-size", str(TP_BATCH * data),
+                        "--synthetic-size", str(TP_SYNTHETIC[data]),
+                        "--model-overrides",
+                        f"pad_vocab_to_multiple_of={TP_PAD}",
+                        "--output-dir", tmp] + (["--amp"] if amp else []))
+                final = {n: p.detach().cpu() for n, p in
+                         state.model.named_parameters()}
+                del state
+                torch.cuda.empty_cache()
+                torch.save(final, tp_ref_path(ref_dir, data, amp))
+                refs[(data, amp)] = {"losses": list(losses), "moved": {
+                    n: float(torch.linalg.vector_norm(
+                        final[n].double() - init[n].double()))
+                    for n in final}}
+    finally:
+        Trainer.train_step = step
+    return refs
+
+
+def tp_update_check(name: str, runs: list, moved: dict) -> dict:
+    """Each leaf's distance from the model=1 run's final parameters,
+    over the ranks of batch coordinate 0 (a split leaf's slices summed
+    over the model ranks, a replicated leaf once), as a share of that
+    run's movement from the draw: {"worst", "leaf", "whole", "rel"
+    (every leaf's)}."""
+    sq = {}
+    for r in runs:
+        if r["batch_index"] != 0:
+            continue
+        for leaf, off in r["sq_off"].items():
+            if r["split"][leaf] is not None or r["model_index"] == 0:
+                sq[leaf] = sq.get(leaf, 0.0) + off
+    if set(sq) != set(moved):
+        raise RuntimeError(f"{name}: leaves {sorted(set(sq) ^ set(moved))}"
+                           " are not in both the run and model=1's")
+    rel = {leaf: math.sqrt(sq[leaf]) / moved[leaf] for leaf in sq}
+    leaf = max(rel, key=rel.get)
+    return {"worst": rel[leaf], "leaf": leaf, "whole": math.sqrt(
+        sum(sq.values()) / sum(m * m for m in moved.values())), "rel": rel}
+
+
+def tp_int8_launches(torch, n: int) -> dict:
+    """{(kernel, (rows, width)): launches} of one step of the TP x FSDP
+    int8 wire on ``n`` data ranks, from the TP-local layer plan the
+    Trainer builds (each model shard's slices; a block's replicated
+    leaves in a group of their own): K1 on (1, P) and K2 on (n, P/n) per
+    group of P padded elements."""
+    from distributed_pytorch_training_tpu_torch.convert import flax_ordered
+    from distributed_pytorch_training_tpu_torch.models import get_model
+    from distributed_pytorch_training_tpu_torch.parallel.grad_sync import (
+        build_layer_plan,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.sharding import (
+        tp_local_struct,
+        tp_split_dims,
+    )
+
+    model = get_model(MODEL, device="meta", pad_vocab_to_multiple_of=TP_PAD)
+    template = [(n_, tuple(p.shape)) for n_, p in
+                flax_ordered(model.named_parameters())]
+    split = tp_split_dims(template, model.partition_rules(), TP_RANKS)
+    local = tp_local_struct(template, split, TP_RANKS)
+    named = [(name, torch.empty(local[name], device="meta"))
+             for name, _ in template]
+    plan = build_layer_plan(named, n, replicated={
+        name for name, d in split.items() if d is None})
+    counts: dict = {}
+    for g in plan.groups:
+        for key in ((QUANTIZE, (1, n * g.row_size)),
+                    (DEQUANT, (n, g.row_size))):
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def tp_ranks_agree(name: str, ranks: list) -> None:
+    """Fail unless every replicated leaf has the same digest on every
+    rank, and every split leaf the same digest on the ranks of one model
+    index (across the data axis; under ``--fsdp-explicit`` the digests
+    are of the parameters gathered from the data ranks' chunks, the same
+    on every data rank by construction)."""
+    for key, digest in ranks[0]["digests"].items():
+        replicated = ranks[0]["split"].get(key) is None
+        for r in ranks:
+            peers = [o for o in ranks if replicated
+                     or o["model_index"] == r["model_index"]]
+            if any(o["digests"][key] != r["digests"][key] for o in peers):
+                raise RuntimeError(
+                    f"{name}: {key} differs across "
+                    + ("ranks" if replicated else "the data axis"))
+
+
+def tp_train(torch, card: str) -> dict:
+    """Phase 24: (a) from the 2-rank worker, (b) and (c) from both
+    workers' runs (see the module docstring)."""
+    out_dir = ROOT / "chiprun_out" / "tensor_parallel"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    import tempfile
+
+    flags = ["--model", MODEL, "--optimizer", "adamw", "--lr", "6e-4",
+             "--synthetic", "--epochs", "1", "--print-freq", "1"]
+    report, ranks = {}, {}
+    with tempfile.TemporaryDirectory() as ref_dir:
+        t0 = time.perf_counter()
+        refs = tp_reference_runs(torch, flags, ref_dir)
+        report["model1_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for world, data in ((2, 1), (4, 2)):
+            sub = out_dir / f"world{world}"
+            sub.mkdir(exist_ok=True)
+            out = run_torchrun([str(sub), ref_dir, *flags, "--batch-size",
+                                str(TP_BATCH), "--synthetic-size",
+                                str(TP_SYNTHETIC[data])], timeout=600,
+                               nproc=world, mode="--tp-worker")
+            (sub / "stdout.txt").write_text(out)
+            ranks[world] = [json.loads((sub / f"rank{r}.json").read_text())
+                            for r in range(world)]
+        report["torchrun_seconds"] = time.perf_counter() - t0
+    a = ranks[2][0]["(a)"]
+    for r, rep in enumerate(ranks[2]):
+        got = rep["(a)"]
+        if got["launches"] != [DEPTH, DEPTH, DEPTH] or got["all_reduces"] \
+                != a["want_all_reduces"] or got["all_reduce_bytes"] != \
+                a["want_payload_bytes"] or got["loss_tp"] != a["loss_tp"]:
+            raise RuntimeError(f"phase 24 (a) rank {r}: {got} (expected "
+                               f"{DEPTH} launches of each kernel, "
+                               f"{a['want_all_reduces']} all-reduces of "
+                               f"{a['want_payload_bytes']} B)")
+    log(f"phase 24 (a) [{card}]: model=2 loss {a['loss_tp']!r} against "
+        f"model=1 {a['loss_one_rank']!r} (|diff| {a['loss_abs_diff']!r}, "
+        f"tolerance {LOSS_ATOL}); worst gathered gradient max|diff|/max|g| "
+        f"{a['grad_rel']!r} in {a['grad_rel_leaf']} (tolerance {GRAD_REL});"
+        f" K3-K5 {DEPTH} launches each a rank on 6 heads; "
+        f"{a['all_reduces']} model-axis all-reduces a step (4 x {DEPTH} + "
+        f"2 + the CE's 2), {a['all_reduce_bytes']} B of payload a rank "
+        f"(tp_psum_bytes_per_step: {a['tp_psum_bytes_per_step']} B at a "
+        "ring's 2x); peak allocated for the loss and backward "
+        + ", ".join(f"rank {r} {rep['(a)']['tp_peak_allocated']} B"
+                    for r, rep in enumerate(ranks[2]))
+        + f" against model=1's {a['one_rank_peak_allocated']} B")
+    if not (a["loss_abs_diff"] <= LOSS_ATOL and a["grad_rel"] <= GRAD_REL):
+        raise RuntimeError(f"phase 24 (a): loss |diff| {a['loss_abs_diff']}"
+                           f", gradient {a['grad_rel']} in "
+                           f"{a['grad_rel_leaf']}")
+    report["(a)"] = {"rank0": a, "tp_peak_allocated_per_rank": [
+        rep["(a)"]["tp_peak_allocated"] for rep in ranks[2]]}
+    int8_counts = tp_int8_launches(torch, 2)
+    for world, runs in TP_RUNS.items():
+        data = world // TP_RANKS
+        for name, mesh, extra in runs:
+            amp = "--amp" in extra
+            ref = refs[(data, amp)]
+            runs_ = [rep[name] for rep in ranks[world]]
+            want = {FLASH[0]: DEPTH * (TP_STEPS + TP_EVAL),
+                    FLASH[1]: DEPTH * TP_STEPS, FLASH[2]: DEPTH * TP_STEPS,
+                    **{k: 0 for k in (QUANTIZE, DEQUANT)}}
+            if "int8" in extra:
+                want.update({k: n * TP_STEPS for k, n in
+                             per_kernel(int8_counts).items()})
+            for r, run in enumerate(runs_):
+                if run["launches"] != want or run["steps"] != TP_STEPS:
+                    raise RuntimeError(
+                        f"phase 24 (b) {name} rank {r}: {run['steps']} "
+                        f"steps, launches {run['launches']} (expected "
+                        f"{TP_STEPS}, {want})")
+                if not all(math.isfinite(x) for x in run["losses"]):
+                    raise RuntimeError(f"phase 24 (b) {name} rank {r}: "
+                                       f"losses {run['losses']}")
+            fsdp = "--fsdp-explicit" in extra
+            tp_ranks_agree(f"phase 24 (b) {name}", runs_)
+            losses = runs_[0]["losses"]
+            kind = "amp" if amp else "int8" if "int8" in extra else "fp32"
+            # each step's loss against model=1's: step 1 precedes any
+            # update, so the int8 wire's is held to LOSS_ATOL too
+            tol = BF16_LOSS_ATOL if amp else LOSS_ATOL
+            tols = [tol if i == 0 or kind != "int8"
+                    else TP_WIRE_RTOL * abs(x)
+                    for i, x in enumerate(ref["losses"])]
+            diffs = [abs(x - y) for x, y in zip(losses, ref["losses"])]
+            update = tp_update_check(f"phase 24 (b) {name}", runs_,
+                                     ref["moved"])
+            ms = runs_[0]["step_ms"][1:]
+            step_ms = sum(ms) / len(ms)
+            rep = {"launches_per_rank": want, "losses": losses,
+                   "reference_losses": ref["losses"],
+                   "loss_abs_diffs": diffs, "tolerances": tols,
+                   "update": update, "param_rel_bound": TP_PARAM_REL[kind],
+                   "step_ms": runs_[0]["step_ms"], "ms_per_step": step_ms,
+                   "samples_per_s": TP_BATCH * data * 1e3 / step_ms,
+                   "param_bytes_per_rank": [r["param_bytes"] for r in runs_],
+                   "moment_bytes_per_rank": [r["moment_bytes"]
+                                             for r in runs_],
+                   "peak_allocated_per_rank": [r["peak_allocated"]
+                                               for r in runs_]}
+            report[name] = rep
+            log(f"phase 24 (b) {name} [{card}]: launches a rank {want}; "
+                "replicated leaves bitwise equal on every rank, split leaves"
+                + (" gathered from the data ranks' chunks" if fsdp else
+                   " across the data axis")
+                + f"; losses {losses!r} against model=1's "
+                f"{ref['losses']!r} (|diff| {diffs!r}, tolerances {tols!r});"
+                " final parameters off model=1's by "
+                f"{update['worst']!r} of its movement at worst "
+                f"({update['leaf']}), {update['whole']!r} over the model "
+                f"(bounds {TP_PARAM_REL[kind]}); "
+                f"(c) {step_ms:.1f} ms a step after the first, "
+                f"{rep['samples_per_s']:.2f} samples/s ({world} {TP_NOTE}); "
+                f"at rest a rank: params {rep['param_bytes_per_rank']} B, "
+                f"AdamW moments {rep['moment_bytes_per_rank']} B; peak "
+                f"allocated {rep['peak_allocated_per_rank']} B")
+            if not (all(d <= t for d, t in zip(diffs, tols))
+                    and all(b < a for a, b in zip(losses, losses[1:]))):
+                raise RuntimeError(f"phase 24 (b) {name}: losses {losses} "
+                                   f"differ from model=1's {ref['losses']} "
+                                   f"by {diffs} (tolerances {tols}), or "
+                                   "did not fall every step")
+            worst, whole = TP_PARAM_REL[kind]
+            if not ((worst is None or update["worst"] <= worst)
+                    and update["whole"] <= whole):
+                raise RuntimeError(f"phase 24 (b) {name}: the parameters "
+                                   f"are off model=1's by {update['worst']}"
+                                   f" of its movement in {update['leaf']}, "
+                                   f"{update['whole']} over the model "
+                                   f"(bounds {TP_PARAM_REL[kind]})")
+    # model=1 at rest: the global model's float32 parameters and moments
+    n_params = sum(p.numel() for p in tp_global_model(
+        torch, torch.float32).parameters())
+    report["model1_param_bytes"] = 4 * n_params
+    report["model1_moment_bytes"] = 8 * n_params
+    report["int8_counts_per_step"] = {f"{k}@{s[0]}x{s[1]}": c for (k, s), c
+                                      in int8_counts.items()}
+    report["ranks"] = {w: [{k: v for k, v in rep.items()}
+                           for rep in rs] for w, rs in ranks.items()}
+    log(f"phase 24 (c) [{card}]: model=1 at rest {report['model1_param_bytes']}"
+        f" B of parameters, {report['model1_moment_bytes']} B of AdamW "
+        "moments (the global model, vocab padded to 128)")
+    return report
+
+
+def tp_kernel_fields(name: str, flash_rows, tp: dict, codec_rows=None,
+                     counts=None) -> dict:
+    """The tensor-parallel share of a kernel over phase 24 (b)'s runs,
+    every rank: K3-K5 (``tp_*`` over the float32 runs, ``tp_bf16_*``
+    over ``--amp``) at the 6-head shape (FLASH_CASES' ``ulysses`` rows:
+    B 8, S 1024, 6 heads of 64, causal), with SDPA's time; K1 and K2
+    (``tp_*``) over the TP x FSDP int8 run at its layer groups' shapes
+    (``codec_rows``, ``counts`` a step)."""
+    out = {}
+    if codec_rows is not None:
+        shares = []
+        for run, rep in tp.items():
+            if not (isinstance(rep, dict) and "launches_per_rank" in rep
+                    and "int8" in run):
+                continue
+            n_ranks = len(rep["peak_allocated_per_rank"])
+            shares += [(codec_rows[key], c * TP_STEPS * n_ranks)
+                       for key, c in counts.items() if key[0] == name]
+        out["tp_launches"] = sum(n for _, n in shares)
+        for key in ("ms", "plain_ms", "bound_ms"):
+            out["tp_" + key] = sum(r[key] * n for r, n in shares)
+        return out
+    shape = {r["shape"]: r for r in flash_rows}
+    for tag, suffix, prefix in (("fp32", "", "tp_"),
+                                ("amp", " bf16", "tp_bf16_")):
+        row = shape["ulysses" + suffix]
+        n = sum(rep["launches_per_rank"][name]
+                * len(rep["peak_allocated_per_rank"])
+                for run, rep in tp.items() if isinstance(rep, dict)
+                and "launches_per_rank" in rep
+                and run.endswith("amp") == (tag == "amp"))
+        out[prefix + "launches"] = n
+        for key in ("ms", "plain_ms", "bound_ms"):
+            out[prefix + key] = row[key][name] * n
+        out[prefix + "library_ms"] = (row["sdpa_fwd_ms"]
+                                      if name.endswith("fwd_lse")
+                                      else row["sdpa_bwd_ms"]) * n
+    return out
+
+
 def lm_mfu(torch, rates: list, context: str):
     """The step line's samples/s as MFU for a 1024-token GPT-2 124M
     sequence (`model_mfu`). Returns (MFU % per rate, the forward FLOPs,
@@ -4015,6 +4686,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 23 done in {time.perf_counter() - t0:.1f} s")
 
+    # phase 24: tensor parallelism over the mesh's model axis, GPT-2 124M
+    # on ranks sharing the card (K3-K5 on each rank's 6 heads; K1 and K2
+    # on the TP x FSDP int8 wire), then K1 and K2 at its layer groups'
+    # shapes, bitwise and timed
+    t0 = time.perf_counter()
+    tensor_parallel = tp_train(torch, card)
+    torch.cuda.empty_cache()
+    tp_counts = tp_int8_launches(torch, TP_RANKS)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    tp_codec = time_sharded_codec(torch, dev, flush, set(tp_counts))
+    del flush
+    torch.cuda.empty_cache()
+    ps = codec_per_step(tp_counts, tp_codec)
+    log(f"phase 24 (c) TP x FSDP int8 wire, a step a rank: K1 "
+        f"{ps[QUANTIZE]['launches']}x {ps[QUANTIZE]['ms']:.4f} ms (bound "
+        f"{ps[QUANTIZE]['bound_ms']:.4f}, plain "
+        f"{ps[QUANTIZE]['plain_ms']:.4f}), K2 {ps[DEQUANT]['launches']}x "
+        f"{ps[DEQUANT]['ms']:.4f} ms (bound {ps[DEQUANT]['bound_ms']:.4f}, "
+        f"plain {ps[DEQUANT]['plain_ms']:.4f}), bitwise their plain "
+        "versions at every shape")
+    tensor_parallel["codec_per_step"] = ps
+    log(f"phase 24 done in {time.perf_counter() - t0:.1f} s")
+
     # phase 17: the kernels line; K1 and K2 summed over their launches on
     # the data-parallel paths (rank 0 of every phase 12, phase 19 and
     # phase 22 (e) run), the serving path's K1 launches (phase 4) kept in
@@ -4083,6 +4777,8 @@ def main() -> int:
         "serving_continuous": continuous,
         "bert_vit": models22,
         "seq_parallel": seq_parallel,
+        "tensor_parallel": tensor_parallel,
+        "tp_codec_per_shape": list(tp_codec.values()),
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4092,6 +4788,13 @@ def main() -> int:
                                   models22["(a) fp32"]["launches"],
                                   models22["(a) amp"]["launches"],
                                   seq_parallel["(b)"])]
+    for row in kernels:
+        if row["name"] in (QUANTIZE, DEQUANT):
+            row.update(tp_kernel_fields(row["name"], None, tensor_parallel,
+                                        tp_codec, tp_counts))
+        else:
+            row.update(tp_kernel_fields(row["name"], flash_rows,
+                                        tensor_parallel))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -4103,4 +4806,6 @@ if __name__ == "__main__":
         sys.exit(dp_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--sp-worker"]:
         sys.exit(sp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(sys.argv[2:]))
     sys.exit(main())

@@ -13,6 +13,14 @@ compared with a flax tree leaf by leaf.
 
 ``flax_ordered`` lists a model's parameters in flax ``tree_leaves`` order
 (sorted keys at every level), the order of the JAX package's flat gradient.
+
+Tensor parallelism: ``tp_local_params`` cuts the global parameters (a
+flax tree, or ``{name: tensor}``) into model shard r's TP-local tensors
+(``parallel.sharding.tp_slice``: each split leaf's contiguous slice along
+its split dim, ``tp_split_dims``; replicated leaves whole),
+``load_tp_params`` writes them into a TP-local model, and
+``tp_global_params`` concatenates every shard's tensors back: the round
+trip is bitwise.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ from typing import (Any, Dict, Iterable, Iterator, List, Mapping,
 import numpy as np
 import torch
 from torch import nn
+
+from .parallel.sharding import tp_join, tp_slice
 
 _FLAX_BLOCK = re.compile(r"^block(\d+)$")
 _TORCH_BLOCK = re.compile(r"^blocks\.(\d+)\.")
@@ -116,3 +126,50 @@ def batch_stats_to_flax(model: nn.Module) -> Dict[str, Any]:
     """The flax ``batch_stats`` tree of ``model``'s buffers ({} for a model
     without BatchNorm)."""
     return _to_tree(model.named_buffers())
+
+
+def _named(params) -> Dict[str, torch.Tensor]:
+    """``{name: tensor}`` of a flax tree, or of a name-keyed mapping."""
+    if params and all(isinstance(v, torch.Tensor) for v in params.values()):
+        return dict(params)
+    return flax_to_torch(params)
+
+
+def tp_local_params(params, split_dims: Mapping[str, Optional[int]],
+                    model_n: int, index: int) -> Dict[str, torch.Tensor]:
+    """Model shard ``index``'s TP-local tensors (new, contiguous) of the
+    global ``params``: each split leaf's slice ``index`` of ``model_n``
+    along its split dim, replicated leaves whole."""
+    return {name: tp_slice(t, split_dims[name], model_n, index).detach()
+            .clone(memory_format=torch.contiguous_format)
+            for name, t in _named(params).items()}
+
+
+def load_tp_params(model: nn.Module, params,
+                   split_dims: Mapping[str, Optional[int]]) -> None:
+    """Write the TP-local slices of the global ``params`` into a TP-local
+    ``model`` (its ``tp`` says the shard; shapes checked)."""
+    tp = model.tp
+    local = tp_local_params(params, split_dims, tp.size, tp.index)
+    own = dict(model.named_parameters())
+    if set(local) != set(own):
+        raise ValueError(
+            f"params and TP-local model disagree: missing "
+            f"{sorted(set(own) - set(local))}, extra "
+            f"{sorted(set(local) - set(own))}")
+    with torch.no_grad():
+        for name, t in local.items():
+            if own[name].shape != t.shape:
+                raise ValueError(f"{name}: local shape {tuple(t.shape)} != "
+                                 f"TP-local model's {tuple(own[name].shape)}")
+            own[name].copy_(t)
+
+
+def tp_global_params(shards, split_dims: Mapping[str, Optional[int]]
+                     ) -> Dict[str, torch.Tensor]:
+    """The global tensors from every model shard's TP-local ``{name:
+    tensor}`` (in shard order): split leaves concatenated along their
+    split dim, replicated leaves shard 0's."""
+    shards = [_named(s) for s in shards]
+    return {name: tp_join([s[name] for s in shards], split_dims[name])
+            for name in shards[0]}

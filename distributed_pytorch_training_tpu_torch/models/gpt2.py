@@ -18,8 +18,23 @@ and one sum over the data x seq ranks gives the whole batch's gradient
 (``training/tasks.py::LanguageModelingTask`` takes the shard's labels). ``dtype`` is the compute dtype beside
 float32 parameters (``models/layers.py`` says where it rounds); the logits
 are float32. ``remat`` recomputes each block in the backward
-(``layers.remat_call``, flax's ``nn.remat``). Not ported yet, and refused:
-tensor parallelism and dropout.
+(``layers.remat_call``, flax's ``nn.remat``). Dropout is not ported yet,
+and refused.
+
+Under tensor parallelism (``tp``, the mesh's ``model`` axis of size M > 1;
+``--mesh data=D,model=M``) the blocks are megatron's column/row-split
+forms (``models/layers.py``). When the padded vocab divides by M
+(``tp_vocab``; the entry pads it to lcm(128, M)), the embedding is
+vocab-split too: shard r owns rows [r rows, (r+1) rows), a lookup gives
+exact zeros outside them and the partial rows are summed over the model
+axis (``reduce_from_tp``), and the tied head returns the shard's logit
+columns as a ``TpShardedLogits`` (padded columns masked by their global
+index), from which the task takes the parallel-vocab cross-entropy
+instead of gathering the logits. An indivisible vocab leaves the
+embedding model-replicated, with the JAX package's warning
+(``parallel.sharding.tp_split_dims``). A TP-local model is built by
+``clone(tp=...)`` and loaded with its slices of the global parameters
+(``convert.tp_local_params``); it draws no init of its own.
 """
 
 from __future__ import annotations
@@ -29,6 +44,9 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.collectives import (TpAxis, TpShardedLogits, copy_to_tp,
+                                    reduce_from_tp)
+from ..parallel.sharding import PartitionRules
 from .layers import (
     Embed,
     LayerNorm,
@@ -39,6 +57,7 @@ from .layers import (
     init_paged_kv,
     mask_vocab_padding,
     remat_call,
+    tp_fsdp_rules,
 )
 from .registry import register_model
 
@@ -51,31 +70,64 @@ class GPT2LMHead(VocabPaddingMixin, nn.Module):
                  dtype: torch.dtype = torch.float32,
                  layernorm_epsilon: float = 1e-5,
                  attention_fn=dot_product_attention, remat: bool = False,
-                 pad_vocab_to_multiple_of: int = 0, tp_size: int = 1,
-                 device=None):
+                 pad_vocab_to_multiple_of: int = 0,
+                 tp: Optional[TpAxis] = None, device=None):
         super().__init__()
+        self._config = dict(
+            vocab_size=vocab_size, hidden_dim=hidden_dim, depth=depth,
+            num_heads=num_heads, max_position=max_position,
+            dropout_rate=dropout_rate, dtype=dtype,
+            layernorm_epsilon=layernorm_epsilon, attention_fn=attention_fn,
+            remat=remat, pad_vocab_to_multiple_of=pad_vocab_to_multiple_of,
+            tp=tp)
         self.remat = remat
         self.vocab_size, self.hidden_dim = vocab_size, hidden_dim
         self.depth, self.num_heads = depth, num_heads
         self.max_position, self.dtype = max_position, dtype
         self.pad_vocab_to_multiple_of = pad_vocab_to_multiple_of
+        self.tp = tp if tp is not None else TpAxis(1)
         self.uses_kernel = attention_fn is not dot_product_attention
         head_dim = hidden_dim // num_heads
-        self.wte = Embed(self.padded_vocab, hidden_dim, 0.02, device, dtype)
+        rows = (self.padded_vocab // self.tp.size if self.tp_vocab
+                else self.padded_vocab)
+        self.wte = Embed(rows, hidden_dim, 0.02, device, dtype)
         self.wpe = Embed(max_position, hidden_dim, 0.01, device, dtype)
         self.blocks = nn.ModuleList(
             TransformerBlock(hidden_dim, num_heads, head_dim, 4 * hidden_dim,
                              dropout_rate, layernorm_epsilon, attention_fn,
-                             tp_size, dtype, device)
+                             tp, dtype, device)
             for _ in range(depth))
         self.ln_f = LayerNorm(hidden_dim, layernorm_epsilon, device, dtype)
+
+    @property
+    def tp_vocab(self) -> bool:
+        """Whether the tensor-parallel forward vocab-splits the
+        embedding."""
+        return self.tp.size > 1 and self.padded_vocab % self.tp.size == 0
+
+    def clone(self, **changes) -> "GPT2LMHead":
+        """A new model of this configuration with ``changes`` (flax's
+        ``Module.clone``), its parameters uninitialized."""
+        return type(self)(**{**self._config, **changes})
+
+    @staticmethod
+    def partition_rules() -> PartitionRules:
+        return tp_fsdp_rules()
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random init with flax's initializers (normal 0.02 / 0.01
         embeddings, lecun_normal kernels, zero biases, unit LayerNorm
         scales), drawn from ``generator``. Not the flax init's numbers:
-        the tests convert flax's parameters instead."""
+        the tests convert flax's parameters instead. A TP-local model
+        refuses: its shards would draw different numbers, so it takes
+        its slices of one global init instead."""
+        if self.tp.size > 1:
+            raise ValueError(
+                "a tensor-parallel model holds slices of the global "
+                "parameters: initialize the global model and load its "
+                "slices (convert.tp_local_params), so every model rank "
+                "starts from one draw")
         for module in self.modules():
             if module is not self and hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
@@ -101,7 +153,23 @@ class GPT2LMHead(VocabPaddingMixin, nn.Module):
         b, s = input_ids.shape
         dev = input_ids.device
         decoding = cache is not None and cache_positions is not None
-        x = self.wte(input_ids)
+        tp = self.tp
+        if tp.size > 1 and cache is not None:
+            raise ValueError(
+                "explicit TP has no KV-cache path — serve TP checkpoints "
+                "via the GSPMD rules (models/layers.py MultiHeadAttention "
+                "documents the restriction)")
+        rows = self.wte.embedding.shape[0]
+        if self.tp_vocab:
+            # vocab-parallel lookup: ids outside this shard's rows give
+            # exact zeros; the partial rows sum to the whole row
+            local_ids = input_ids - tp.index * rows
+            valid = (local_ids >= 0) & (local_ids < rows)
+            found = self.wte(local_ids.clamp(0, rows - 1))
+            x = reduce_from_tp(torch.where(valid[..., None], found,
+                                           torch.zeros_like(found)), tp)
+        else:
+            x = self.wte(input_ids)
         if decoding and s == 1:
             pos_ids = cache_positions[:, None]
         elif decoding:
@@ -137,6 +205,15 @@ class GPT2LMHead(VocabPaddingMixin, nn.Module):
                 new_cache.append(c)
 
         x = self.ln_f(x)
+        if self.tp_vocab:
+            # the vocab-parallel tied head: this shard's columns stay
+            # sharded (the task's parallel-vocab cross-entropy), padded
+            # columns masked by their global index
+            local = self.wte.attend(copy_to_tp(x, tp)).float()
+            cols = tp.index * rows + torch.arange(rows, device=dev)
+            local = torch.where(cols < self.vocab_size, local,
+                                torch.finfo(torch.float32).min)
+            return TpShardedLogits(local, tp, rows, self.vocab_size)
         logits = mask_vocab_padding(self.wte.attend(x).float(),
                                     self.vocab_size)
         return logits if cache is None else (logits, tuple(new_cache))

@@ -27,9 +27,20 @@ softmax runs in float32 and its weights are cast back to ``dtype``. Not
 and softmax return float32). A kernel ``attention_fn`` (flash,
 ``ops/flash_attention.py``) serves the no-cache forward; the cache paths
 refuse it, as in the JAX package. The paged KV pool of continuous serving
-is here too. ``remat_call`` is flax's ``nn.remat`` of a block. Tensor
-parallelism and dropout are not ported yet and raise
-``NotImplementedError``.
+is here too. ``remat_call`` is flax's ``nn.remat`` of a block. Dropout
+is not ported yet and raises ``NotImplementedError``.
+
+Tensor parallelism (megatron, over the mesh's ``model`` axis, ``tp`` a
+``parallel.collectives.TpAxis`` of size M > 1): the attention's qkv
+kernel is column-split by heads, ``(d, 3, H/M, D)`` holding heads
+[r H/M, (r+1) H/M) of each of q, k and v, its out projection row-split
+(``RowParallelDense``); the MLP's fc1 column-split with its bias slice,
+fc2 row-split. ``copy_to_tp`` at each region's input and one
+``reduce_from_tp`` at each residual join, the replicated bias added once
+after it. The parameter names are the unsplit modules', so a TP-local
+model holds slices of the same tree (``tp_fsdp_rules`` is the layout;
+``parallel/sharding.py`` reads it). The JAX package's refusals stay:
+heads or hidden width not divisible by M, dropout, and a KV cache.
 """
 
 from __future__ import annotations
@@ -43,6 +54,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..parallel.collectives import TpAxis, copy_to_tp, reduce_from_tp
+from ..parallel.mesh import FSDP, MODEL
+from ..parallel.sharding import PartitionRules
 from ..runtime import not_ported
 
 Shape = Union[int, Sequence[int]]
@@ -392,6 +406,44 @@ class LayerNorm(nn.Module):
         self.bias.zero_()
 
 
+class RowParallelDense(nn.Module):
+    """Megatron's row-parallel linear: the kernel's contracted (input)
+    dims hold this shard's slice, the partial product is summed over the
+    model axis (`reduce_from_tp`, the one forward all-reduce of a
+    residual join), and the model-replicated bias is added after the sum,
+    once. Its parameters are named as ``DenseGeneral``'s."""
+
+    def __init__(self, in_shape: Shape, features: int, tp: TpAxis,
+                 use_bias: bool = True, device=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.tp, self.dtype = tp, dtype
+        self.in_shape = _shape(in_shape)
+        self.kernel = nn.Parameter(
+            torch.empty(self.in_shape + (features,), device=device))
+        self.bias = (nn.Parameter(torch.empty(features, device=device))
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:x.dim() - len(self.in_shape)]
+        fan_in = math.prod(self.in_shape)
+        y = (x.to(self.dtype).reshape(*lead, fan_in)
+             @ self.kernel.to(self.dtype).reshape(fan_in, -1))
+        y = reduce_from_tp(y, self.tp)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+def _tp_of(tp: Optional[TpAxis]) -> TpAxis:
+    return tp if tp is not None else TpAxis(1)
+
+
+_TP_DROPOUT = ("explicit TP runs the dropout RNG stream replicated over "
+               "the model axis; per-shard {} slices would draw correlated "
+               "masks — train explicit TP with dropout 0")
+
+
 class MultiHeadAttention(nn.Module):
     """Self-attention with a fused qkv projection.
 
@@ -408,28 +460,47 @@ class MultiHeadAttention(nn.Module):
       the caller's per-row mask.
 
     The cache is returned as new tensors; the inputs are not modified.
+    Under tensor parallelism (``tp`` of size M > 1) the module holds H/M
+    heads and runs ``attention_fn`` on them alone (the flash kernels on
+    CUDA), and has no cache path.
     """
 
     def __init__(self, features: int, num_heads: int, head_dim: int,
                  dropout_rate: float = 0.0, use_bias: bool = True,
                  attention_fn: Callable = dot_product_attention,
-                 tp_size: int = 1, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 tp: Optional[TpAxis] = None,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        if tp_size > 1:
-            raise not_ported("explicit tensor parallelism",
-                             "the tensor-parallel slice")
+        self.tp = tp = _tp_of(tp)
+        if tp.size > 1:
+            if dropout_rate:
+                raise ValueError(_TP_DROPOUT.format("head"))
+            if num_heads % tp.size:
+                raise ValueError(f"num_heads={num_heads} not divisible by "
+                                 f"tp_size={tp.size}")
         if dropout_rate:
             raise not_ported("attention dropout (jax.random's dropout bits "
                              "cannot be reproduced)", "a later slice")
         self.attention_fn = attention_fn
         self.dtype = dtype
-        self.qkv = DenseGeneral(features, (3, num_heads, head_dim), use_bias,
+        heads = num_heads // tp.size
+        self.qkv = DenseGeneral(features, (3, heads, head_dim), use_bias,
                                 device, dtype)
-        self.out = DenseGeneral((num_heads, head_dim), features, use_bias,
-                                device, dtype)
+        if tp.size > 1:
+            self.out = RowParallelDense((heads, head_dim), features, tp,
+                                        use_bias, device, dtype)
+        else:
+            self.out = DenseGeneral((heads, head_dim), features, use_bias,
+                                    device, dtype)
 
     def forward(self, x, mask=None, cache=None, cache_positions=None):
+        if self.tp.size > 1:
+            if cache is not None:
+                raise ValueError(
+                    "explicit TP attention has no KV-cache path — serve TP "
+                    "checkpoints via the GSPMD rules (--mesh model=N "
+                    "without --fsdp-explicit on the serving side)")
+            x = copy_to_tp(x, self.tp)
         qkv = self.qkv(x)
         q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
         new_cache = None
@@ -463,22 +534,31 @@ class MultiHeadAttention(nn.Module):
 
 class MlpBlock(nn.Module):
     """Transformer MLP: fc1, GELU (tanh approximation, as flax's
-    ``nn.gelu``), fc2."""
+    ``nn.gelu``), fc2. Under tensor parallelism fc1 holds this shard's
+    ``hidden_dim / M`` neurons (with its bias slice) and fc2 is
+    row-parallel."""
 
     def __init__(self, features: int, hidden_dim: int,
-                 dropout_rate: float = 0.0, tp_size: int = 1, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dropout_rate: float = 0.0, tp: Optional[TpAxis] = None,
+                 device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if tp_size > 1:
-            raise not_ported("explicit tensor parallelism",
-                             "the tensor-parallel slice")
+        self.tp = tp = _tp_of(tp)
+        if tp.size > 1:
+            if dropout_rate:
+                raise ValueError(_TP_DROPOUT.format("neuron"))
+            if hidden_dim % tp.size:
+                raise ValueError(f"hidden_dim={hidden_dim} not divisible by "
+                                 f"tp_size={tp.size}")
         if dropout_rate:
             raise not_ported("MLP dropout", "a later slice")
-        self.fc1 = Dense(features, hidden_dim, device=device, dtype=dtype)
-        self.fc2 = Dense(hidden_dim, features, device=device, dtype=dtype)
+        local = hidden_dim // tp.size
+        self.fc1 = Dense(features, local, device=device, dtype=dtype)
+        self.fc2 = (RowParallelDense(local, features, tp, device=device,
+                                     dtype=dtype) if tp.size > 1
+                    else Dense(local, features, device=device, dtype=dtype))
 
     def forward(self, x):
-        return self.fc2(gelu(self.fc1(x)))
+        return self.fc2(gelu(self.fc1(copy_to_tp(x, self.tp))))
 
 
 class TransformerBlock(nn.Module):
@@ -488,16 +568,15 @@ class TransformerBlock(nn.Module):
                  mlp_dim: int, dropout_rate: float = 0.0,
                  layernorm_epsilon: float = 1e-5,
                  attention_fn: Callable = dot_product_attention,
-                 tp_size: int = 1, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 tp: Optional[TpAxis] = None,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.ln1 = LayerNorm(features, layernorm_epsilon, device, dtype)
         self.attn = MultiHeadAttention(
             features, num_heads, head_dim, dropout_rate,
-            attention_fn=attention_fn, tp_size=tp_size, dtype=dtype,
-            device=device)
+            attention_fn=attention_fn, tp=tp, dtype=dtype, device=device)
         self.ln2 = LayerNorm(features, layernorm_epsilon, device, dtype)
-        self.mlp = MlpBlock(features, mlp_dim, dropout_rate, tp_size, device,
+        self.mlp = MlpBlock(features, mlp_dim, dropout_rate, tp, device,
                             dtype)
 
     def forward(self, x, mask=None, cache=None, cache_positions=None):
@@ -560,3 +639,24 @@ def causal_mask(seq_len: int, device=None) -> torch.Tensor:
 def padding_mask(attention_mask: torch.Tensor) -> torch.Tensor:
     """(B, T) 1=real token -> (B, 1, 1, T) attend mask."""
     return attention_mask[:, None, None, :].bool()
+
+
+def tp_fsdp_rules() -> PartitionRules:
+    """The layout table every transformer ships (the JAX package's
+    ``tp_fsdp_rules``): megatron TP over ``model`` on the head and neuron
+    dims, FSDP over ``fsdp`` on the complementary d_model dim of the same
+    kernels. The port reads only its ``model`` entries
+    (``parallel.sharding.tp_split_dims``); the ``fsdp`` axis is not
+    ported yet."""
+    return PartitionRules([
+        (r"attn/qkv/kernel", (FSDP, None, MODEL, None)),
+        (r"attn/qkv/bias", (None, MODEL, None)),
+        (r"attn/out/kernel", (MODEL, None, FSDP)),
+        (r"mlp/fc1/kernel", (FSDP, MODEL)),
+        (r"mlp/fc1/bias", (MODEL,)),
+        (r"mlp/fc2/kernel", (MODEL, FSDP)),
+        (r"(token_embedding|wte)/embedding", (MODEL, FSDP)),
+        (r"(position_embedding|wpe)/embedding", (None, FSDP)),
+        (r"patch_embed/kernel", (None, None, None, FSDP)),
+        (r"(head|fc|mlm_dense)/kernel", (FSDP, None)),
+    ])

@@ -17,10 +17,19 @@ over its process group, differentiably: the backward of a rotation is
 the reverse rotation, of an all-to-all the mirrored one) or an
 ``AxisLoop`` (one process holds every shard, and a loop stands in for
 the collectives: the tests run a whole ring in one process that way).
+
+Tensor parallelism (megatron, over the mesh's ``model`` axis) has its
+region operators here: ``copy_to_tp`` (identity forward, SUM backward)
+and ``reduce_from_tp`` (SUM forward, identity backward), each an autograd
+Function over a `TpAxis`, and the parallel-vocab
+cross-entropy (``TpShardedLogits``, ``tp_parallel_cross_entropy``).
+``SOLO`` is the group of one rank: every collective over it is the
+identity, as over a mesh line of one rank.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -29,9 +38,21 @@ import torch.distributed as dist
 Group = Optional[dist.ProcessGroup]
 
 
+class _Solo:
+    """The group of this rank alone (a mesh line of one rank, beside other
+    ranks): ``world_size`` is 1, so every collective here is the
+    identity over it."""
+
+    def __repr__(self) -> str:
+        return "SOLO"
+
+
+SOLO = _Solo()
+
+
 def world_size(group: Group = None) -> int:
     """Ranks in ``group`` (the default group when None); 1 without one."""
-    if not (dist.is_available() and dist.is_initialized()):
+    if group is SOLO or not (dist.is_available() and dist.is_initialized()):
         return 1
     return dist.get_world_size(group)
 
@@ -284,3 +305,122 @@ class AxisLoop:
         parts = [x.chunk(n, split_axis) for x in xs]
         return [torch.cat([parts[src][dst] for src in range(n)], concat_axis)
                 for dst in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: megatron's region operators and the parallel-vocab
+# cross-entropy (the JAX package's custom_vjp forms)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TpAxis:
+    """The mesh's ``model`` axis as this rank sees it: ``size`` shards,
+    this rank's ``index`` among them, the ranks' process ``group``."""
+
+    size: int
+    index: int = 0
+    group: Group = None
+
+
+def _sum_over(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """SUM all-reduce into a new tensor. 16-bit values are summed in
+    float32 and rounded once (on 2 ranks bitwise a 16-bit add; gloo on
+    CUDA tensors takes no 16-bit sum), so every rank gets the same
+    bits."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        out = x.float()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out.to(x.dtype)
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _CopyToTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.group), None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_over(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(x: torch.Tensor, tp: TpAxis) -> torch.Tensor:
+    """Megatron's ``f``, at each parallel region's input (the qkv and fc1
+    projections' input, the tied head's): the identity forward, the SUM
+    over the model axis in the backward, so every upstream consumer gets
+    the whole cotangent instead of this shard's partial."""
+    if tp.size == 1:
+        return x
+    return _CopyToTp.apply(x, tp.group)
+
+
+def reduce_from_tp(x: torch.Tensor, tp: TpAxis) -> torch.Tensor:
+    """Megatron's ``g``: the SUM of the row-parallel partials over the
+    model axis in the forward (the one all-reduce of a residual join),
+    the identity in the backward."""
+    if tp.size == 1:
+        return x
+    return _ReduceFromTp.apply(x, tp.group)
+
+
+@dataclasses.dataclass
+class TpShardedLogits:
+    """This shard's logit COLUMNS, ``local`` = full[..., lo:lo + rows)
+    with ``lo = tp.index * vocab_rows``: what the vocab-parallel tied head
+    returns in place of the whole logits (``models/gpt2.py``). The task
+    branches on the type and takes `tp_parallel_cross_entropy`."""
+
+    local: torch.Tensor
+    tp: TpAxis
+    vocab_rows: int
+    vocab_size: int
+
+    def map_local(self, fn) -> "TpShardedLogits":
+        """The same shards, ``fn`` applied to the local columns (the
+        task's next-token shift)."""
+        return TpShardedLogits(fn(self.local), self.tp, self.vocab_rows,
+                               self.vocab_size)
+
+
+def tp_parallel_cross_entropy(logits: TpShardedLogits,
+                              targets: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(per-position CE, predicted-correct) from vocab-sharded logit
+    columns, equal to softmax CE over the gathered logits at float32
+    reassociation. Two model-axis collectives, both (targets.shape, 2)
+    float32: a MAX of the detached local max (the shift carries no
+    gradient), and one `reduce_from_tp` of [sum exp(l - m), the target
+    logit's partial], so the backward is softmax - onehot on the local
+    columns with no further collective. ``correct`` is target logit ==
+    global max (argmax up to ties)."""
+    local = logits.local.float()
+    tp, rows = logits.tp, logits.vocab_rows
+    local_max = local.detach().amax(dim=-1)
+    m = torch.stack([local_max, local_max], dim=-1)
+    if tp.size > 1:
+        m = m.contiguous()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.group)
+    m = m[..., 0]
+    sumexp = torch.exp(local - m[..., None]).sum(dim=-1)
+    local_ids = targets.long() - tp.index * rows
+    valid = (local_ids >= 0) & (local_ids < rows)
+    picked = local.gather(-1, local_ids.clamp(0, rows - 1)[..., None])[..., 0]
+    tgt_partial = torch.where(valid, picked, torch.zeros_like(picked))
+    stats = reduce_from_tp(torch.stack([sumexp, tgt_partial], dim=-1), tp)
+    total, tgt_logit = stats[..., 0], stats[..., 1]
+    ce = torch.log(total) + m - tgt_logit
+    return ce, tgt_logit >= m

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Set, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -506,12 +506,14 @@ def ef_state_zero1(named: Sequence[Tuple[str, object]], n_shards: int,
 
 def ef_state_fsdp(named: Sequence[Tuple[str, object]], n_shards: int,
                   n_inner: int = 1,
-                  device: torch.device = torch.device("cpu")) -> dict:
+                  device: torch.device = torch.device("cpu"),
+                  replicated: Optional[Set[str]] = None) -> dict:
     """This rank's zero residuals for the explicit-FSDP int8 scatter: one
     (n_shards x row_size / n_inner,) float32 row per layer group
-    (`build_layer_plan`), keyed by the group's name: the residual covers
-    every destination chunk, not just the kept one."""
-    plan = build_layer_plan(named, n_shards)
+    (`build_layer_plan`, with its ``replicated``), keyed by the group's
+    name: the residual covers every destination chunk, not just the kept
+    one."""
+    plan = build_layer_plan(named, n_shards, replicated=replicated)
     return {"ef": {
         g.name: torch.zeros((n_shards * g.row_size // max(1, n_inner),),
                             dtype=torch.float32, device=device)
@@ -562,15 +564,27 @@ def _top_level_key(name: str) -> str:
 
 
 def build_layer_plan(named: Sequence[Tuple[str, object]], n_shards: int,
-                     per_leaf: bool = False) -> LayerPlan:
+                     per_leaf: bool = False,
+                     replicated: Optional[Set[str]] = None) -> LayerPlan:
     """Group ``named`` ((name, leaf) pairs in flax order) into per-layer
     units by the flax path's top-level key, leaves in flax order inside a
     group. ``per_leaf`` makes every leaf its own group, named after it
-    (zero1's per-leaf scatter)."""
+    (zero1's per-leaf scatter). ``replicated`` (tensor parallelism: the
+    leaves every model rank holds whole) puts those leaves of a key that
+    also holds split leaves in a group of their own, ``<key>.replicated``:
+    the int8 codecs take one scale a group row, and a row mixing a rank's
+    own slices with the replicated leaves would quantize those on a
+    different grid on each model rank, so that their copies drift
+    apart."""
+    replicated = replicated or set()
+    mixed = {_top_level_key(n) for n, _ in named if n not in replicated} \
+        & {_top_level_key(n) for n, _ in named if n in replicated}
     by_key: dict = {}
     order: List[str] = []
     for slot, (name, leaf) in enumerate(named):
         key = name if per_leaf else _top_level_key(name)
+        if not per_leaf and key in mixed and name in replicated:
+            key += ".replicated"
         if key not in by_key:
             by_key[key] = []
             order.append(key)
@@ -713,6 +727,27 @@ def fsdp_gather_bytes(leaves: Sequence, wire_dtype: str, n_shards: int,
     return total if wire_dtype == "int8_multihop" else 4 * total
 
 
+def tp_psum_bytes_per_step(hidden: int, depth: int, local_batch: int,
+                           seq: int, model_n: int, tp_vocab: bool = False
+                           ) -> int:
+    """This rank's model-axis bytes of one tensor-parallel training step
+    (payload only, the JAX package's conventions): each megatron
+    all-reduce of a (local_batch, seq, hidden) float32 activation counts
+    ~8 bytes an element (a ring all-reduce); 4 a block (the forward sums
+    at the residual joins, their mirrors at the regions' inputs) and 2
+    more with the vocab-parallel embedding, which also adds the
+    parallel-vocab cross-entropy's two (local_batch, seq, 2) stat
+    collectives (32 bytes a position)."""
+    if model_n <= 1:
+        return 0
+    act = local_batch * seq * hidden
+    n_psums = 4 * depth + (2 if tp_vocab else 0)
+    total = 8 * act * n_psums
+    if tp_vocab:
+        total += 32 * local_batch * seq
+    return total
+
+
 def wire_bytes_split_for_config(leaves: Sequence, cfg: Optional[dict],
                                 n_shards: int) -> dict:
     """Per-replica wire bytes of one step's gradient sync from a
@@ -757,23 +792,30 @@ def emit_wire_accounting(leaves: Sequence, grad_sync_cfg: Optional[dict],
     telemetry counters (host-side, once at setup, from train.py) and
     return the numbers: THE one emission site, the JAX package's rows.
     ``leaves`` are the model-shaped parameters (anything with a
-    ``.shape``, flax order). Extra ``attrs`` ride every emitted counter.
+    ``.shape``, flax order; under tensor parallelism the TP-local ones).
+    Extra ``attrs`` ride every emitted counter.
 
     One ``wire_bytes_per_replica`` row at ``tier``; ``int8_hier`` configs
     (``cfg["slices"]`` > 1) emit TWO, one per interconnect tier —
     (tier="ici", axis="data") for the exact intra-slice half and
     (tier="dcn", axis="slice") for the compressed cross-slice half — and
-    ``fsdp_explicit`` adds the ``fsdp_gather_bytes`` row. The port has no
-    model axis, so no ``tp_psum_bytes_per_replica`` row."""
+    ``fsdp_explicit`` adds the ``fsdp_gather_bytes`` row. Tensor
+    parallelism (``cfg["model_shards"]`` > 1 with
+    ``cfg["tp_psum_bytes"]``, `tp_psum_bytes_per_step`): the model-axis
+    bytes get their own ``tp_psum_bytes_per_replica`` row (axis="model")
+    and the data-axis rows are tagged axis="data"."""
     from .. import telemetry
 
     cfg = dict(grad_sync_cfg or {})
     wire = cfg.get("wire_dtype", "fp32")
+    model_shards = int(cfg.get("model_shards", 1))
     n_slices = int(cfg.get("slices", 1))
+    tp_bytes = int(cfg.get("tp_psum_bytes", 0)) if model_shards > 1 else 0
     hier = (wire == "int8_hier" and n_slices > 1 and n_shards > 1)
     split = wire_bytes_split_for_config(leaves, cfg, n_shards)
     out = {"tier": tier, "wire_dtype": wire, "n_shards": n_shards,
            "wire_bytes_per_replica": split["ici"] + split["dcn"]}
+    axis_attr = {"axis": "data"} if model_shards > 1 else {}
     if hier:
         out["wire_bytes_ici"] = split["ici"]
         out["wire_bytes_dcn"] = split["dcn"]
@@ -787,11 +829,16 @@ def emit_wire_accounting(leaves: Sequence, grad_sync_cfg: Optional[dict],
     else:
         telemetry.counter("wire_bytes_per_replica",
                           out["wire_bytes_per_replica"], tier=tier,
-                          wire_dtype=wire, n_shards=n_shards, **attrs)
+                          wire_dtype=wire, n_shards=n_shards, **axis_attr,
+                          **attrs)
     if cfg.get("fsdp_explicit"):
         out["fsdp_gather_bytes"] = fsdp_gather_bytes(leaves, wire, n_shards,
                                                      n_slices)
         telemetry.counter("fsdp_gather_bytes", out["fsdp_gather_bytes"],
                           tier=tier, wire_dtype=wire, n_shards=n_shards,
-                          **attrs)
+                          **axis_attr, **attrs)
+    if tp_bytes:
+        out["tp_psum_bytes_per_replica"] = tp_bytes
+        telemetry.counter("tp_psum_bytes_per_replica", tp_bytes, tier=tier,
+                          axis="model", model_shards=model_shards, **attrs)
     return out

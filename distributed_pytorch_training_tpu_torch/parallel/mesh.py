@@ -32,7 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch.distributed as dist
 
-from .collectives import AxisGroup, AxisLoop
+from .collectives import SOLO, AxisGroup, AxisLoop, TpAxis
 
 # Canonical axis names.
 DATA = "data"
@@ -212,10 +212,14 @@ class Mesh:
         return self.line(axes).index(self.rank)
 
     def group(self, axes: Axes) -> Optional[dist.ProcessGroup]:
-        """The process group of this rank's line over ``axes``."""
+        """The process group of this rank's line over ``axes``: None for
+        the default group (a line of every rank), ``SOLO`` for a line of
+        this rank alone."""
         ln = tuple(self.line(axes))
-        if len(ln) == 1 or len(ln) == self.size:
+        if len(ln) == self.size:
             return None
+        if len(ln) == 1:
+            return SOLO
         if ln not in self.groups:
             raise ValueError(f"no process group for the line {list(ln)} "
                              f"over {_axes(axes)}: build the mesh with "
@@ -229,6 +233,12 @@ class Mesh:
         if len(self.line(axes)) == 1:
             return AxisLoop(1)
         return AxisGroup(self.group(axes))
+
+    def tp(self) -> TpAxis:
+        """The ``model`` axis as this rank sees it (megatron tensor
+        parallelism's region operators run over its group)."""
+        return TpAxis(self.shape[MODEL], self.coords()[MODEL],
+                      self.group(MODEL))
 
     @property
     def batch_index(self) -> int:

@@ -8,14 +8,101 @@ constrain divisibility and the update is elementwise work on (padded/N,)
 chunks. The padding carries zero gradient, so it stays zero through any
 elementwise optimizer. Rank r holds chunk ``owner`` (r itself, or the
 fast-major index of the ``int8_hier`` wire, ``grad_sync.HierSpec``).
+
+Tensor parallelism reads the partition rules (``PartitionRules``: an
+ordered table of (path regex, spec), a spec a tuple of mesh axis names or
+None a dim) as its layout contract: ``tp_split_dims`` gives each leaf the
+dim it splits on over the ``model`` axis, ``tp_local_struct`` the local
+shapes, ``tp_slice`` a model shard's contiguous slice of a leaf and
+``tp_join`` its inverse (the one slice rule of the weight carrier and the
+checkpoints), ``tp_unflatten_leaf`` the leaf from the model-major
+flat-padded layout of explicit TP x FSDP's checkpoints (each model
+shard's slice flat-padded over the data ranks, the shards concatenated; a
+rank holds `chunk_of` its shard's slice, ``fsdp_flat_params`` of the
+TP-local leaves), and ``tp_clip_weights`` the global-norm clip's weights.
+A template is a sequence of (parameter name, tensor or shape) pairs;
+rules match the leaf's flax path (``block0/attn/qkv/kernel``), as in the
+JAX package.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import logging
+import math
+import re
+from typing import (Dict, Iterable, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 import torch.nn.functional as F
+
+logger = logging.getLogger(__name__)
+
+Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
+Template = Iterable[Tuple[str, Union[torch.Tensor, Sequence[int]]]]
+
+# degraded layouts warned about already (one warning per unique
+# shape/spec)
+_degraded_warned: set = set()
+
+
+def reset_degradation_warnings() -> None:
+    """Clear the warn-once state, so a new model setup warns afresh."""
+    _degraded_warned.clear()
+
+
+class PartitionRules:
+    """Ordered (regex, spec) table; the first match on the '/'-joined
+    flax path wins; no match is fully replicated."""
+
+    def __init__(self, rules: Sequence[Tuple[str, Spec]] = ()):
+        self._rules = [(re.compile(pat), tuple(spec)) for pat, spec in rules]
+
+    def spec_for(self, path: str, ndim: Optional[int] = None) -> Spec:
+        for pat, spec in self._rules:
+            if pat.search(path):
+                if ndim is not None and len(spec) > ndim:
+                    raise ValueError(
+                        f"rule {pat.pattern!r} spec {spec} has more axes "
+                        f"than param {path!r} with ndim={ndim}")
+                return spec
+        return ()
+
+    def __add__(self, other: "PartitionRules") -> "PartitionRules":
+        out = PartitionRules()
+        out._rules = self._rules + other._rules
+        return out
+
+    def axes_used(self) -> set:
+        """Mesh axis names any rule can place a dim on (mesh validation:
+        an axis no rule mentions cannot shard a parameter)."""
+        axes = set()
+        for _, spec in self._rules:
+            for entry in spec:
+                if entry is None:
+                    continue
+                axes.update((entry,) if isinstance(entry, str)
+                            else tuple(entry))
+        return axes
+
+
+def spec_for_path(rules: Optional[PartitionRules], path: str,
+                  ndim: int) -> Spec:
+    if rules is None:
+        return ()
+    return rules.spec_for(path, ndim)
+
+
+def flax_path(name: str) -> str:
+    """'blocks.0.attn.qkv.kernel' -> 'block0/attn/qkv/kernel'."""
+    from ..convert import name_to_flax_path  # convert imports this module
+
+    return "/".join(name_to_flax_path(name))
+
+
+def _shape_of(leaf) -> Tuple[int, ...]:
+    return tuple(int(d) for d in (leaf.shape if hasattr(leaf, "shape")
+                                  else leaf))
 
 
 def flat_padded_size(size: int, n_shards: int) -> int:
@@ -54,3 +141,101 @@ def unflatten_padded(flat: torch.Tensor, shape: Sequence[int]
     for d in shape:
         size *= int(d)
     return flat[:size].reshape(tuple(shape))
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism's layout (the JAX package's tp_* helpers)
+# ---------------------------------------------------------------------------
+
+
+def tp_split_dims(template: Template, rules: Optional[PartitionRules],
+                  model_n: int) -> Dict[str, Optional[int]]:
+    """{name: the dim the leaf splits on over ``model``, or None}: the
+    first spec dim naming the ``model`` axis, if it divides by
+    ``model_n``; an indivisible dim leaves the leaf model-replicated, with
+    a warning once (GPT-2's vocab without Megatron padding)."""
+    from .mesh import MODEL
+
+    out: Dict[str, Optional[int]] = {}
+    for name, leaf in template:
+        shape = _shape_of(leaf)
+        path = flax_path(name)
+        spec = spec_for_path(rules, path, len(shape))
+        out[name] = None
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            names = (entry,) if isinstance(entry, str) else tuple(entry)
+            if MODEL not in names:
+                continue
+            if shape[dim] % model_n:
+                key = (("tp", spec), shape, model_n)
+                if key not in _degraded_warned:
+                    _degraded_warned.add(key)
+                    logger.warning(
+                        "explicit TP: %s dim %d (size %d) not divisible by "
+                        "model=%d — leaf stays model-replicated (Megatron "
+                        "vocab padding un-degrades embeddings)",
+                        path, dim, shape[dim], model_n)
+                break
+            out[name] = dim
+            break
+    return out
+
+
+def tp_local_struct(template: Template, split_dims: Dict[str, Optional[int]],
+                    model_n: int) -> Dict[str, Tuple[int, ...]]:
+    """{name: local shape}: split leaves shrink their split dim by 1/M,
+    replicated leaves keep their shape (each model shard holds a copy)."""
+    out = {}
+    for name, leaf in template:
+        shape = list(_shape_of(leaf))
+        dim = split_dims[name]
+        if dim is not None:
+            shape[dim] //= model_n
+        out[name] = tuple(shape)
+    return out
+
+
+def tp_slice(x: torch.Tensor, dim: Optional[int], model_n: int,
+             shard: int) -> torch.Tensor:
+    """Model shard ``shard``'s contiguous slice of one leaf (the whole
+    leaf when ``dim`` is None): a view."""
+    if dim is None:
+        return x
+    c = x.shape[dim] // model_n
+    return x.narrow(dim, shard * c, c)
+
+
+def tp_join(parts: Sequence[torch.Tensor],
+            dim: Optional[int]) -> torch.Tensor:
+    """The inverse of `tp_slice`: every model shard's slice in shard
+    order, concatenated along ``dim`` (shard 0's copy when ``dim`` is
+    None)."""
+    return parts[0] if dim is None else torch.cat(list(parts), dim=dim)
+
+
+def tp_unflatten_leaf(flat: torch.Tensor, full_shape: Sequence[int],
+                      dim: Optional[int], model_n: int) -> torch.Tensor:
+    """The model-shaped leaf from its model-major flat-padded vector:
+    split leaves join their M local slices along the split dim,
+    replicated leaves take copy 0."""
+    full_shape = tuple(int(d) for d in full_shape)
+    local_shape = list(full_shape)
+    if dim is not None:
+        local_shape[dim] //= model_n
+    size = math.prod(local_shape)
+    mat = flat.reshape(model_n, -1)[:, :size]
+    return tp_join([row.reshape(local_shape) for row in mat], dim)
+
+
+def tp_clip_weights(template: Template,
+                    split_dims: Dict[str, Optional[int]],
+                    model_n: int) -> Dict[str, float]:
+    """{'/'-joined flax path: squared-norm weight} of the TP-aware global
+    norm clip: the norm's squared sums are summed over the model ranks,
+    which each hold a copy of a model-replicated leaf, so those weigh
+    1/M and split leaves (disjoint slices) 1. Exact in float32 for a
+    power-of-two M."""
+    return {flax_path(name): 1.0 if split_dims[name] is not None
+            else 1.0 / model_n for name, _ in template}

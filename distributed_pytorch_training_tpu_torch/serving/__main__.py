@@ -67,7 +67,7 @@ from ..runtime import not_ported
 _LATER = {
     "fleet": "the operations slice (resilience/fleet.py and the "
              "Deathwatch)",
-    "--mesh": "the tensor-parallel slice",
+    "--mesh": "the serving --mesh slice (ROADMAP queue 1, after TP)",
 }
 
 

@@ -31,14 +31,24 @@ JAX package's ``train.py``.
         -m distributed_pytorch_training_tpu_torch.train --model gpt2_124m \\
         --synthetic --mesh data=1,seq=2 --attention ring   # or ulysses
 
+    torchrun --standalone --nproc-per-node 4 \\
+        -m distributed_pytorch_training_tpu_torch.train --model gpt2_124m \\
+        --synthetic --mesh data=2,model=2 [--fsdp-explicit --wire-dtype int8]
+
 Same flags, stdout lines and ``metrics_rank0.csv`` (rank 0) as the JAX
 entry. Under torchrun every rank trains its shard of each global batch of
 ``--batch-size x`` (the batch axes' ranks) rows, ResNet and GPT-2 alike;
-``--mesh`` lays the ranks out on the ``data``, ``seq`` and ``slice`` axes
-(``parallel/mesh.py``; ``--slices`` folds into ``slice``). On a ``seq``
-axis GPT-2 trains sequence-parallel under ``--attention ring`` or
-``ulysses``: the ranks of a seq line hold the same rows and each runs its
-share of the positions (``models/gpt2.py``), on the implicit path. With
+``--mesh`` lays the ranks out on the ``data``, ``seq``, ``model`` and
+``slice`` axes (``parallel/mesh.py``; ``--slices`` folds into ``slice``).
+On a ``seq`` axis GPT-2 trains sequence-parallel under ``--attention
+ring`` or ``ulysses``: the ranks of a seq line hold the same rows and
+each runs its share of the positions (``models/gpt2.py``), on the
+implicit path. On a ``model`` axis GPT-2 trains tensor-parallel
+(megatron column/row-split blocks, the vocab-parallel embedding and
+cross-entropy; the vocab padded to lcm(128, M)): the ranks of a model
+line hold the same rows, on the implicit path or, under
+``--fsdp-explicit``, the sharded update over the data ranks of each
+shard's slice (TP x FSDP). With
 the defaults (``--wire-dtype fp32 --bucket-cap-mb 0``) on the implicit path
 (global-batch BatchNorm, one fp32 all-reduce of the gradient, as the JAX
 package's data-sharded jit), otherwise through the explicit bucketed
@@ -78,6 +88,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import math
 import os
 import sys
 from pathlib import Path
@@ -99,8 +110,8 @@ from .ops.ring_attention import make_ring_attention_fn
 from .ops.ulysses_attention import make_ulysses_attention_fn
 from .experiments import flops as flops_mod
 from .parallel.grad_sync import check_wire, emit_wire_accounting
-from .parallel.mesh import (EXPERT, FSDP, MODEL, PIPE, SEQ, MeshSpec,
-                            batch_shard_count, build_mesh,
+from .parallel.mesh import (EXPERT, FSDP, MODEL, PIPE, SEQ,
+                            MeshSpec, batch_shard_count, build_mesh,
                             validate_mesh_usage)
 from .resilience.faults import ELASTIC_KINDS, FaultInjector, FaultPlan
 from .resilience.supervisor import RetryPolicy, Supervisor
@@ -116,6 +127,7 @@ from .training import TrainConfig, Trainer, TrainState, make_optimizer, \
     make_schedule
 from .training.checkpoint import LAYOUT_HINT, CheckpointManager, \
     CheckpointWorldSizeMismatch
+from .training.loop import ZERO1_TP
 from .training.preemption import PreemptionGuard, RankAgreedStop
 from .training.tasks import (ImageClassificationTask, LanguageModelingTask,
                              MaskedLMTask)
@@ -140,12 +152,16 @@ _UNPORTED = {
 
 # mesh axes the port does not lay out yet -> the slice that brings each
 _UNPORTED_AXES = {
-    MODEL: "the tensor-parallel slice",
-    FSDP: "the tensor-parallel slice (the fsdp mesh axis comes with TP x "
-          "FSDP; --fsdp-explicit shards over the data axis today)",
+    FSDP: "the fsdp mesh axis slice (GSPMD's d_model sharding; TP x FSDP "
+          "runs through --fsdp-explicit --mesh data=D,model=M, and "
+          "--fsdp-explicit shards over the data axis)",
     PIPE: "the pipeline slice (parallel/pipeline.py, models/gpt2_pipe.py)",
     EXPERT: "the MoE slice (models/moe.py)",
 }
+TP_MODELS = ("gpt2_124m", "gpt2_355m")
+TP_LATER = {"bert_base": "the BERT/ViT tensor-parallel slice",
+            "vit_b16": "the BERT/ViT tensor-parallel slice"}
+SP_TP = "the SP x TP slice"
 
 
 def mesh_spec(args: argparse.Namespace) -> MeshSpec:
@@ -170,6 +186,16 @@ def refuse_unported(args: argparse.Namespace, spec: MeshSpec) -> None:
     for axis, where in _UNPORTED_AXES.items():
         if getattr(spec, axis) != 1:
             raise not_ported(f"--mesh {args.mesh} ({axis} axis)", where)
+    if spec.model != 1:
+        if args.model in TP_LATER:
+            raise not_ported(f"--model {args.model} on --mesh {args.mesh} "
+                             "(model axis)", TP_LATER[args.model])
+        if spec.seq != 1:
+            raise not_ported(f"--mesh {args.mesh} (seq and model axes "
+                             "together)", SP_TP)
+        if args.zero1:
+            raise not_ported(f"--zero1 on --mesh {args.mesh} (model axis)",
+                             ZERO1_TP)
     for flag, (unsupported, where) in _UNPORTED.items():
         if unsupported(args):
             raise not_ported(flag, where)
@@ -335,7 +361,10 @@ def _run(args: argparse.Namespace, spec: MeshSpec,
                  if is_lm else "xla")
     # refuse axes the model and attention would not use (the JAX entry's
     # check and message)
-    validate_mesh_usage(mesh, attention=attention)
+    model_n = mesh.shape[MODEL]
+    rules = (get_model(args.model, device="meta").partition_rules()
+             if args.model in TP_MODELS else None)
+    validate_mesh_usage(mesh, rules=rules, attention=attention)
     if mesh.shape[SEQ] > 1:
         log_main(f"Sequence parallel: {attention} attention over "
                  f"seq={mesh.shape[SEQ]}, {seq_len // mesh.shape[SEQ]} "
@@ -387,10 +416,13 @@ def _run(args: argparse.Namespace, spec: MeshSpec,
             compute_dtype, mesh, attention)
 
         def make_flops_model():
-            # the plain attention: FlopCounterMode does not see the flash
-            # kernels' ctypes calls
+            # the global model with the padded head (not one rank's
+            # TP-local share), the plain attention: FlopCounterMode does
+            # not see the flash kernels' ctypes calls
+            pad = ({"pad_vocab_to_multiple_of": math.lcm(128, model_n)}
+                   if model_n > 1 else {})
             return get_model(args.model, device="meta", dtype=compute_dtype,
-                             **overrides)
+                             **{**pad, **overrides})
 
         flops_input = torch.zeros((1, seq_len), dtype=torch.long,
                                   device="meta")
@@ -447,7 +479,19 @@ def _run(args: argparse.Namespace, spec: MeshSpec,
             args.fused_quantize]), device=dev, mesh=mesh)
     wire_note = (f"; {args.wire_dtype} wire" if args.wire_dtype != "fp32"
                  else "")
-    if trainer._fsdp:
+    n_data = trainer.n_shards
+    if trainer._fsdp and model_n > 1:
+        log_main(f"TP x FSDP (explicit): megatron tensor parallelism over "
+                 f"model={model_n} (one all-reduce per residual join); "
+                 f"params + moments flat-sharded 1/{n_data * model_n} at "
+                 "rest for TP-split tensors; per-layer gathers/scatters "
+                 f"ride the data axes over each shard's 1/{model_n} slice"
+                 + wire_note)
+    elif model_n > 1:
+        log_main(f"Tensor parallel: megatron column/row-split blocks over "
+                 f"model={model_n} (one all-reduce per residual join); "
+                 f"the gradient summed over {n_data} data shard(s)")
+    elif trainer._fsdp:
         log_main(f"FSDP (explicit): params + moments flat-sharded "
                  f"{n}-way at rest; per-layer just-in-time param gathers, "
                  "gradients reduce-scattered into the shard layout"
@@ -497,15 +541,17 @@ def _run(args: argparse.Namespace, spec: MeshSpec,
         mb = lp.total_padded * 4 / 2 ** 20
         log_main(f"FSDP plan: {len(lp.groups)} layer gather group(s), "
                  f"{mb:.1f} MB padded fp32 params "
-                 f"({mb / n:.1f} MB/replica at rest)")
+                 + ("(this model shard's slices) " if model_n > 1 else "")
+                 + f"({mb / n_data:.1f} MB/replica at rest)")
     if telemetry.is_configured() and n > 1 and not args.zero1:
         # the setup-time wire accounting rows `telemetry summary` reports
         # (ZeRO-1's split wire is outside their conventions, as in the
-        # JAX entry)
+        # JAX entry); the model axis's bytes in their own row
         emit_wire_accounting(*trainer.wire_accounting_inputs(
             state, dict(wire_dtype=args.wire_dtype,
                         bucket_cap_mb=args.bucket_cap_mb,
-                        fsdp_explicit=args.fsdp_explicit)), n)
+                        fsdp_explicit=args.fsdp_explicit),
+            seq_len if is_lm else 0), n_data)
     # MFU on the step line (a card with a known peak only): 3 x the
     # forward's matmul and convolution FLOPs of one sample
     peak = flops_mod.chip_peak_tflops(dev)
@@ -717,6 +763,12 @@ def _lm_model_and_task(args, family, overrides, seq_len, train_ds,
     ``compute_dtype``. The checks and their messages are the JAX
     entry's."""
     lm_kwargs = dict(dtype=compute_dtype, remat=args.remat)
+    if mesh.shape[MODEL] > 1:
+        # Megatron's vocab padding (the JAX entry's): lcm(128, M) keeps the
+        # padded vocab aligned and divisible by the model degree, so the
+        # embedding splits instead of staying replicated
+        lm_kwargs["pad_vocab_to_multiple_of"] = math.lcm(
+            128, mesh.shape[MODEL])
     lm_kwargs.update(overrides)
     if attention == "flash":
         # BERT is bidirectional: legal because the masked LM task feeds no

@@ -40,7 +40,13 @@ leaf's whole flat-padded vector (the chunks gathered to rank 0 in chunk
 order), its residuals as ``{"ef": {leaf or layer group: (n, R)}}``;
 ``meta.json`` records the ``layout`` (``replicated``, ``zero1`` or
 ``fsdp``) and the parameters' model shapes. Each rank restores its own
-chunk. A checkpoint restores only into the layout and world size it was
+chunk. Under tensor parallelism (``TrainState.tp``) the checkpoint holds
+the global model too: on the implicit path each leaf and its moments
+gathered over the model ranks along the split dim (JAX's GSPMD arrays),
+under explicit FSDP the model-major flat layout (over the model shards,
+each shard's flat-padded slice in chunk order), the residual rows in the
+same order; ``meta.json`` records ``model_shards``, and a restore at
+another model degree raises with ``LAYOUT_HINT``. A checkpoint restores only into the layout and world size it was
 written for (resharding is the elastic slice's). Every rank calls
 ``save``, ``wait`` and the restores at the same points: ``save`` and
 ``wait`` agree on a failed write (one MAX reduction, so every rank
@@ -74,7 +80,9 @@ import torch.distributed as dist
 from .. import telemetry
 from ..convert import flax_ordered
 from ..parallel.collectives import all_gather, reduce_scalar, world_size
-from ..parallel.sharding import flatten_pad, unflatten_padded
+from ..parallel.sharding import (flatten_pad, tp_join, tp_slice,
+                                 tp_split_dims, tp_unflatten_leaf,
+                                 unflatten_padded)
 from ..utils.logging import log_main
 from .train_state import TrainState
 
@@ -361,14 +369,15 @@ class CheckpointManager:
             else "replicated"
 
     @staticmethod
-    def _gather_rows(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    def _gather_rows(tensors: List[torch.Tensor], group=None
+                     ) -> List[torch.Tensor]:
         """Every rank's copy of each float32 tensor, stacked in rank order
-        ((n, *shape) each), in ONE all-gather of their concatenation (a
-        collective)."""
+        ((n, *shape) each), in ONE all-gather of their concatenation over
+        ``group`` (the default group when None; a collective)."""
         if not tensors:
             return []
         flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-        rows = all_gather(flat[None])
+        rows = all_gather(flat[None], group)
         out, offset = [], 0
         for t in tensors:
             out.append(rows[:, offset:offset + t.numel()]
@@ -382,7 +391,9 @@ class CheckpointManager:
         every rank, and the sharded update's chunks, gathered: a
         collective); only rank 0 copies the replicated state, which only
         it writes."""
-        model, sh = state.model, state.sharding
+        model, sh, tp = state.model, state.sharding, state.tp
+        if tp is not None and sh is None:
+            return self._snapshot_tp(state, epoch, step_in_epoch)
         ef = state.grad_sync.get("ef")
         ef_keys = sorted(ef) if isinstance(ef, dict) else []
         ef_list = ([ef[k] for k in ef_keys] if isinstance(ef, dict)
@@ -403,9 +414,12 @@ class CheckpointManager:
         if self._rank != 0:
             return {}
         if sh is not None:
-            order = sorted(range(sh.n_shards), key=sh.owners.__getitem__)
-            # global arrays: the chunks in chunk order
+            order = self._chunk_order(state)
+            # global arrays: the chunks in chunk order (model-major under
+            # tensor parallelism)
             chunk_rows = [r[order].reshape(-1) for r in chunk_rows]
+            if tp is not None:
+                ef_rows = [r[order] for r in ef_rows]
             it = iter(chunk_rows)
             params = OrderedDict(
                 (name, next(it) if sh.mode == "fsdp" else p)
@@ -415,7 +429,8 @@ class CheckpointManager:
                        for k, t in slots.items()}
                        for idx, slots in opt["state"].items()},
                    "param_groups": opt["param_groups"]}
-            shapes = dict(zip(sh.names, (list(s) for s in sh.shapes)))
+            shapes = dict(zip(sh.names, (list(s) for s in (
+                tp.shapes if tp is not None else sh.shapes))))
         else:
             params = OrderedDict(named)
             shapes = {name: list(p.shape) for name, p in named}
@@ -423,13 +438,19 @@ class CheckpointManager:
             grad_sync = {"ef": dict(zip(ef_keys, ef_rows))}
         else:
             grad_sync = {"ef": ef_rows[0]} if ef_rows else None
+        return self._finish_snapshot(state, epoch, step_in_epoch, params,
+                                     opt, grad_sync, shapes)
+
+    def _finish_snapshot(self, state: TrainState, epoch: int,
+                         step_in_epoch: int, params, opt, grad_sync,
+                         shapes: dict) -> dict:
         snapshot = _to_host({
             "params": params,
             "batch_stats": OrderedDict(state.batch_stats),
             "opt_state": opt,
             **({"grad_sync": grad_sync} if grad_sync else {}),
         })
-        device = next(model.parameters()).device
+        device = next(state.model.parameters()).device
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # the non-blocking copies
         snapshot["meta"] = {
@@ -438,8 +459,66 @@ class CheckpointManager:
             "optimizer": type(state.optimizer).__name__,
             "layout": self._layout(state),
             "param_shapes": shapes,
+            "model_shards": (state.tp.axis.size if state.tp is not None
+                             else 1),
         }
         return snapshot
+
+    @staticmethod
+    def _chunk_order(state: TrainState) -> List[int]:
+        """The ranks in the global array's chunk order: chunk order over
+        the batch ranks, model shard after model shard under tensor
+        parallelism (the default group's ranks)."""
+        sh, tp = state.sharding, state.tp
+        chunks = sorted(range(sh.n_shards), key=sh.owners.__getitem__)
+        if tp is None:
+            return chunks
+        return [ranks[b] for ranks in tp.ranks for b in chunks]
+
+    @staticmethod
+    def _opt_dims(state: TrainState) -> Dict[int, Optional[int]]:
+        """{optimizer state index: its parameter's split dim}."""
+        by_id = {id(p): d for (_, p), d in zip(
+            flax_ordered(state.model.named_parameters()),
+            state.tp.split_dims)}
+        params = [p for g in state.optimizer.param_groups
+                  for p in g["params"]]
+        return {i: by_id[id(p)] for i, p in enumerate(params)}
+
+    def _snapshot_tp(self, state: TrainState, epoch: int,
+                     step_in_epoch: int) -> dict:
+        """`_snapshot` of the implicit path under tensor parallelism: the
+        split leaves and their moments gathered over the model ranks (one
+        all-gather), written by rank 0 as global arrays."""
+        tp = state.tp
+        named = flax_ordered(state.model.named_parameters())
+        opt = state.optimizer.state_dict()
+        # new slot dicts: state_dict() shares the live ones
+        opt["state"] = {idx: dict(slots)
+                        for idx, slots in opt["state"].items()}
+        opt_dims = self._opt_dims(state)
+        moments = [(idx, k, t) for idx, slots in opt["state"].items()
+                   for k, t in slots.items()
+                   if isinstance(t, torch.Tensor) and t.dim() >= 1
+                   and opt_dims[idx] is not None]
+        split = [(name, p) for (name, p), d in zip(named, tp.split_dims)
+                 if d is not None]
+        rows = self._gather_rows([p for _, p in split]
+                                 + [t for _, _, t in moments],
+                                 tp.axis.group)
+        if self._rank != 0:
+            return {}
+        dims = dict(zip(tp.names, tp.split_dims))
+        it = iter(rows)
+        full = {name: tp_join(next(it).unbind(0), dims[name])
+                for name, _ in split}
+        params = OrderedDict((name, full.get(name, p)) for name, p in named)
+        for idx, k, _ in moments:
+            opt["state"][idx][k] = tp_join(next(it).unbind(0),
+                                           opt_dims[idx])
+        shapes = dict(zip(tp.names, (list(s) for s in tp.shapes)))
+        return self._finish_snapshot(state, epoch, step_in_epoch, params,
+                                     opt, None, shapes)
 
     def save(self, label: int, state: TrainState, wait: bool = False,
              epoch: Optional[int] = None, step_in_epoch: int = 0,
@@ -584,15 +663,21 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint {label} holds the {layout} update's layout, "
                 f"but the restore template is {want}: {LAYOUT_HINT}")
-        sh = template.sharding
+        sh, tp = template.sharding, template.tp
+        model_n = tp.axis.size if tp is not None else 1
+        if meta.get("model_shards", 1) != model_n:
+            raise ValueError(
+                f"checkpoint {label} holds a model split "
+                f"{meta.get('model_shards', 1)} ways, but this run's mesh "
+                f"has model={model_n}: {LAYOUT_HINT}")
         if ((has_ef or sh is not None)
                 and template_world_size is not None
                 and recorded is not None
                 and recorded != template_world_size):
             raise self._mismatch(label, recorded, template_world_size)
         if sh is not None and recorded is not None \
-                and recorded != sh.n_shards:
-            raise self._mismatch(label, recorded, sh.n_shards)
+                and recorded != self._world:
+            raise self._mismatch(label, recorded, self._world)
         want_opt = type(template.optimizer).__name__
         if meta["optimizer"] != want_opt:
             raise ValueError(
@@ -606,11 +691,15 @@ class CheckpointManager:
                 else rows
             if first.shape[0] != self._world:
                 raise self._mismatch(label, first.shape[0], self._world)
-            ef = ({k: r[self._rank] for k, r in rows.items()}
-                  if isinstance(rows, dict) else rows[self._rank])
+            mine = (self._chunk_order(template).index(self._rank)
+                    if sh is not None and tp is not None else self._rank)
+            ef = ({k: r[mine] for k, r in rows.items()}
+                  if isinstance(rows, dict) else rows[mine])
         params = self._load(label, "params")
         own = dict(template.model.named_parameters())
-        shapes = ({n: list(s) for n, s in zip(sh.names, sh.shapes)}
+        shapes = ({n: list(s) for n, s in zip(tp.names, tp.shapes)}
+                  if tp is not None else
+                  {n: list(s) for n, s in zip(sh.names, sh.shapes)}
                   if sh is not None else
                   {n: list(p.shape) for n, p in own.items()})
         if set(params) != set(own) or meta["param_shapes"] != shapes:
@@ -620,16 +709,32 @@ class CheckpointManager:
                 "and --model-overrides")
 
         def chunk(t):
-            return t.reshape(sh.n_shards, -1)[sh.owner]
+            # this rank's chunk of a global flat array (model-major under
+            # tensor parallelism)
+            m = tp.axis.index if tp is not None else 0
+            return t.reshape(model_n * sh.n_shards, -1)[
+                m * sh.n_shards + sh.owner]
 
+        # this rank's model shard of a global leaf
+        shard = tp.axis.index if tp is not None else 0
+        dims = (dict(zip(tp.names, tp.split_dims)) if tp is not None
+                else {})
         for name, p in own.items():
             p.copy_(chunk(params[name]) if layout == "fsdp"
-                    else params[name])
+                    else tp_slice(params[name], dims.get(name), model_n,
+                                  shard))
         template.set_batch_stats(self._load(label, "batch_stats"))
         opt = self._load(label, "opt_state")
         if sh is not None:
             opt["state"] = {idx: {k: (chunk(t) if isinstance(
                 t, torch.Tensor) and t.dim() >= 1 else t)
+                for k, t in slots.items()}
+                for idx, slots in opt["state"].items()}
+        elif tp is not None:
+            opt_dims = self._opt_dims(template)
+            opt["state"] = {idx: {k: (
+                tp_slice(t, opt_dims[idx], model_n, shard)
+                if isinstance(t, torch.Tensor) and t.dim() >= 1 else t)
                 for k, t in slots.items()}
                 for idx, slots in opt["state"].items()}
         template.optimizer.load_state_dict(opt)
@@ -653,7 +758,9 @@ class CheckpointManager:
         """Serving's restore: the newest checkpoint that passes
         verification, parameters and BatchNorm statistics only, written
         into ``model`` (an FSDP checkpoint's flat-padded parameters
-        unflattened to the model's shapes). ``layout`` is the update the
+        unflattened to the model's shapes, model-major under tensor
+        parallelism: ``tp_unflatten_leaf`` along the model's split
+        dims). ``layout`` is the update the
         training run used (the serving CLI's ``--zero1`` /
         ``--fsdp-explicit``); another layout raises, as does another
         ``optimizer`` class than the run's, when given. Returns the
@@ -680,9 +787,17 @@ class CheckpointManager:
                     f"checkpoint {label}'s parameters do not match the "
                     "serving model: pass the training run's --model and "
                     "--model-overrides")
+            model_n = meta.get("model_shards", 1)
+            dims = (tp_split_dims([(n, tuple(p.shape)) for n, p in
+                                   own.items()],
+                                  type(model).partition_rules(), model_n)
+                    if model_n > 1 else {})
             with torch.no_grad():
                 for name, p in own.items():
-                    p.copy_(unflatten_padded(params[name], p.shape))
+                    p.copy_(tp_unflatten_leaf(params[name], p.shape,
+                                              dims[name], model_n)
+                            if layout == "fsdp" and model_n > 1 else
+                            unflatten_padded(params[name], p.shape))
                 for name, b in self._load(label, "batch_stats").items():
                     dict(model.named_buffers())[name].copy_(b)
             self.last_restored = label

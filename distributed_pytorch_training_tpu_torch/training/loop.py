@@ -41,6 +41,21 @@ seq ranks (``group``), and the explicit reducer and the sharded update
 are refused with the JAX Trainer's message (their collectives run over
 the batch axes only).
 
+Tensor parallelism (a mesh with a ``model`` axis of size M > 1; GPT-2):
+the Trainer builds the TP-local model once from the caller's global one
+(``clone(tp=...)``, its parameters the global init's slices, so the
+leaves every model rank holds whole start equal), ``group`` spans the
+batch (and seq) axes only, and the model's forward and backward run the
+megatron all-reduces over the ``model`` group. Each model rank computes
+the same loss, so the metrics and the gradient sums run over ``group``
+only, never over ``model``; the replicated leaves' gradients come out
+whole through ``copy_to_tp``. The global-norm clip weighs a replicated
+leaf's squared sum 1/M and sums over the model ranks (the implicit step)
+or the model x batch ranks (explicit FSDP, whose at-rest layout is the
+TP-local leaves' chunks: JAX's model-major flat layout;
+``parallel/sharding.py``). ZeRO-1 and ``int8_hier`` do not compose with
+it (the JAX Trainer's refusal for ``int8_hier``).
+
 The engagement rules are the JAX Trainer's: the reducer runs when
 ``bucket_cap_mb > 0`` or the wire is not fp32, on more than one rank, the
 sharded update under ``zero1`` or ``fsdp_explicit`` on more than one rank;
@@ -64,9 +79,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..convert import flax_ordered
+from ..convert import flax_ordered, load_tp_params, name_to_flax_path
 from .. import telemetry
-from ..parallel.collectives import Group, all_gather, psum, world_size
+from ..parallel.collectives import (Group, TpAxis, all_gather, psum,
+                                    world_size)
 from ..parallel.grad_sync import (
     EF_WIRE_DTYPES, WIRE_DTYPES, BucketPlan, HierSpec,
     LayerPlan, axis_sizes, build_bucket_plan, build_hier_spec,
@@ -76,19 +92,21 @@ from ..parallel.grad_sync import (
     quantized_delta_all_gather, quantized_shard_all_gather, reduce_flat,
     unflatten_tree,
 )
-from ..parallel.mesh import BATCH_AXES, MODEL, Mesh
+from ..parallel.mesh import AXIS_ORDER, BATCH_AXES, MODEL, Mesh
 from ..parallel.sharding import (chunk_of, flatten_pad, fsdp_flat_params,
+                                 tp_clip_weights, tp_split_dims,
                                  unflatten_padded)
-from ..runtime import DeviceLike, resolve_device
+from ..runtime import DeviceLike, not_ported, resolve_device
 from ..utils import prng
 from ..utils.logging import log_main
 from ..utils.metrics import ThroughputMeter
 from .tasks import (Metrics, StepKey, Task, add_metrics, summarize,
                     zero_metrics)
-from .train_state import FlatSharding, TrainState
+from .train_state import FlatSharding, TpLayout, TrainState
 from .optim import GradientTransformation
 
 METRIC_NAMES = ("loss_sum", "correct", "weight")
+ZERO1_TP = "the ZeRO-1 x TP slice (the JAX package's per-leaf GSPMD update)"
 
 
 @dataclasses.dataclass
@@ -195,6 +213,17 @@ class Trainer:
         self.task = task
         self.config = config
         self.device = resolve_device(device)
+        # tensor parallelism: the model axis; the gradient and metric sums
+        # run over the other axes' line
+        self.tp = TpAxis(1)
+        if mesh is not None and mesh.shape[MODEL] > 1:
+            if config.zero1:
+                raise not_ported("zero1 on a mesh with a model axis",
+                                 ZERO1_TP)
+            self.tp = mesh.tp()
+            if group is None:
+                group = mesh.group(tuple(a for a in AXIS_ORDER
+                                         if a != MODEL))
         self.group = group
         self.n_shards = world_size(group)
         self.rank = (torch.distributed.get_rank(group)
@@ -237,7 +266,8 @@ class Trainer:
                 "which the port has only as the plain versions on the CPU; "
                 "on CUDA the codec is the kernels (auto or on)")
         multi = self.n_shards > 1
-        self._fsdp = bool(config.fsdp_explicit) and multi
+        self._fsdp = bool(config.fsdp_explicit) and (
+            multi or self.tp.size > 1)
         self._zero1 = bool(config.zero1) and multi
         self._grad_sync = (explicit_sync and not config.zero1
                            and not config.fsdp_explicit and multi)
@@ -256,7 +286,7 @@ class Trainer:
             log_main("NOTE: zero1 requested on a single batch shard — "
                      "running the replicated update (identity "
                      "passthrough, like single-process DDP)")
-        if config.fsdp_explicit and not multi:
+        if config.fsdp_explicit and not self._fsdp:
             log_main("NOTE: fsdp_explicit requested on a single batch "
                      "shard — nothing to shard; running the "
                      "replicated update (identity passthrough)")
@@ -272,6 +302,13 @@ class Trainer:
         mesh): with more than one slice, the HierSpec and its process
         groups; with one, the flat fp32 wire, bitwise (logged)."""
         cfg, n = self.config, self.n_shards
+        if self._fsdp and self.tp.size > 1:
+            raise ValueError(
+                "int8_hier does not compose with explicit TP: the model "
+                "axis runs megatron psums with their own wire accounting, "
+                "and the hier codec's fast-tier reduce-scatter would have "
+                "to thread through them — use int8_multihop under "
+                "fsdp_explicit x TP, or int8_hier on a model-free mesh")
         if cfg.slice_axis not in BATCH_AXES:
             raise ValueError(
                 f"int8_hier syncs over the batch axes {BATCH_AXES}; "
@@ -305,23 +342,43 @@ class Trainer:
         several ranks)."""
         return self._zero1 or self._fsdp
 
-    def wire_accounting_inputs(self, state: TrainState, base_cfg: dict
-                               ) -> Tuple[List, dict]:
+    def wire_accounting_inputs(self, state: TrainState, base_cfg: dict,
+                               seq_len: int = 0) -> Tuple[List, dict]:
         """(leaves, cfg) for `grad_sync.emit_wire_accounting`: the
         model-shaped parameters (under FSDP, meta tensors of the at-rest
-        chunks' model shapes) and ``base_cfg`` with the resolved slice
-        count (an ``int8_hier`` passthrough records the flat fp32 wire it
-        runs)."""
+        chunks' model shapes; under tensor parallelism the TP-local ones,
+        each model shard gathering and scattering its slice only) and
+        ``base_cfg`` with the resolved slice count (an ``int8_hier``
+        passthrough records the flat fp32 wire it runs) and, under tensor
+        parallelism, the model axis's bytes of a step of ``seq_len``
+        tokens a row."""
         cfg = dict(base_cfg)
         leaves = list(state.params)
         if self._fsdp:
             leaves = [torch.empty(shape, device="meta")
                       for shape in state.sharding.shapes]
+        if self.tp.size > 1:
+            cfg["model_shards"] = self.tp.size
+            cfg["tp_psum_bytes"] = self.tp_wire_bytes(
+                state, self.config.per_device_batch, seq_len)
         if self._hier is not None:
             cfg["slices"] = self._hier.n_slices
         elif cfg.get("wire_dtype") == "int8_hier":
             cfg["wire_dtype"] = self._wire
         return leaves, cfg
+
+    def tp_wire_bytes(self, state: TrainState, local_batch: int,
+                      seq_len: int) -> int:
+        """This rank's model-axis bytes of one step
+        (`grad_sync.tp_psum_bytes_per_step` of the TP model)."""
+        from ..parallel.grad_sync import tp_psum_bytes_per_step
+
+        m = state.model
+        if self.tp.size <= 1 or getattr(m, "depth", None) is None:
+            return 0
+        return tp_psum_bytes_per_step(m.hidden_dim, m.depth, local_batch,
+                                      seq_len, self.tp.size,
+                                      tp_vocab=m.tp_vocab)
 
     def set_mfu_reference(self, flops_per_sample: float,
                           peak_flops_total: float) -> None:
@@ -341,10 +398,16 @@ class Trainer:
         batch. Under the sharded update the optimizer is born on this
         rank's chunks (ZeRO-1), and under explicit FSDP the parameters
         become their chunks too."""
+        layout = None
+        if self.tp.size > 1:
+            model, layout = self._tp_model(model)
         model = model.to(self.device)
         if self.sharded:
-            return self._init_sharded(model, tx)
+            state = self._init_sharded(model, tx, layout)
+            state.tp = layout
+            return state
         state = TrainState.create(model, tx)
+        state.tp = layout
         if self._implicit_dp:
             self._plan = build_bucket_plan(state.params, 0.0)
             set_stats_group = getattr(model, "set_stats_group", None)
@@ -362,10 +425,61 @@ class Trainer:
                     n_slices=hier.n_slices if hier is not None else 1)
         return state
 
+    def _tp_model(self, model: torch.nn.Module
+                  ) -> Tuple[torch.nn.Module, TpLayout]:
+        """(the TP-local clone of the global ``model`` with this rank's
+        slices of its parameters, the layout). The refusals are the JAX
+        Trainer's."""
+        tp = self.tp
+        if not (hasattr(model, "clone") and hasattr(model, "tp")
+                and hasattr(type(model), "partition_rules")):
+            mode = ("fsdp_explicit" if self.config.fsdp_explicit
+                    else "the implicit path")
+            raise ValueError(
+                f"mesh has model={tp.size} under {mode}, but "
+                f"{type(model).__name__} has no explicit-TP form "
+                "(tp_size/tp_axis fields) — gpt2_* models support "
+                "explicit TP; others need a 1-D mesh or the implicit "
+                "GSPMD path")
+        heads = getattr(model, "num_heads", None)
+        if heads is not None and heads % tp.size:
+            raise ValueError(
+                f"num_heads={heads} not divisible by the mesh's "
+                f"model={tp.size} — explicit TP splits attention by whole "
+                "heads")
+        named = flax_ordered(model.named_parameters())
+        template = [(n, tuple(p.shape)) for n, p in named]
+        split = tp_split_dims(template, type(model).partition_rules(),
+                              tp.size)
+        weights = tp_clip_weights(template, split, tp.size)
+        local = model.clone(tp=tp, device="cpu")
+        load_tp_params(local, {n: p for n, p in named}, split)
+        if self._fsdp:
+            # the sharded update's norm: every rank's chunk of its slice
+            clip_group = self.mesh.group((MODEL,) + BATCH_AXES)
+        else:
+            clip_group = tp.group
+        layout = TpLayout(
+            axis=tp, names=tuple(n for n, _ in named),
+            split_dims=tuple(split[n] for n, _ in named),
+            shapes=tuple(s for _, s in template),
+            clip_weights=tuple(weights[f] for f in (
+                "/".join(name_to_flax_path(n)) for n, _ in named)),
+            clip_group=clip_group,
+            ranks=tuple(tuple(self.mesh.line(BATCH_AXES, r))
+                        for r in self.mesh.line(MODEL)))
+        return local, layout
+
     def _init_sharded(self, model: torch.nn.Module,
-                      tx: GradientTransformation) -> TrainState:
+                      tx: GradientTransformation,
+                      layout: Optional[TpLayout] = None) -> TrainState:
         n = self.n_shards
         named = flax_ordered(model.named_parameters())
+        # tensor parallelism: the replicated leaves' own layer groups
+        replicated = (None if layout is None else
+                      {name for name, d in zip(layout.names,
+                                               layout.split_dims)
+                       if d is None})
         # the chunk each rank holds: itself, or the fast-major index of
         # the int8_hier wire
         owners = tuple(r if self._hier is None else hier_owner(
@@ -379,7 +493,8 @@ class Trainer:
             rank=self.rank, owners=owners,
             names=tuple(name for name, _ in named),
             shapes=tuple(tuple(p.shape) for _, p in named))
-        self._layers = build_layer_plan(named, n, per_leaf=self._zero1)
+        self._layers = build_layer_plan(named, n, per_leaf=self._zero1,
+                                        replicated=replicated)
         with torch.no_grad():
             if self._fsdp:
                 opt_params = [p for _, p in named]
@@ -395,11 +510,12 @@ class Trainer:
                            sharding=sharding)
         if self._wire in EF_WIRE_DTYPES:
             n_inner = self._hier.n_inner if self._hier is not None else 1
-            make = ef_state_fsdp if self._fsdp else ef_state_zero1
-            state.grad_sync = make(
-                [(name, torch.empty(s, device="meta"))
-                 for name, s in zip(sharding.names, sharding.shapes)],
-                n, n_inner, self.device)
+            metas = [(name, torch.empty(s, device="meta"))
+                     for name, s in zip(sharding.names, sharding.shapes)]
+            state.grad_sync = (
+                ef_state_fsdp(metas, n, n_inner, self.device, replicated)
+                if self._fsdp else
+                ef_state_zero1(metas, n, n_inner, self.device))
         return state
 
     def _generator(self, step: int, micro: int) -> torch.Generator:

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Iterable, Optional, Union
+from typing import Callable, Iterable, Optional, Sequence, Union
 
 import torch
 
@@ -64,15 +64,27 @@ def make_schedule(name: str, base_lr: float,
 
 def clip_by_global_norm_(grads: Iterable[torch.Tensor],
                          max_norm: float, group: Group = None,
-                         sharded: bool = False) -> None:
+                         sharded: bool = False,
+                         weights: Optional[Sequence[float]] = None) -> None:
     """optax's ``clip_by_global_norm`` in place: when the global norm is
     not below ``max_norm``, every gradient becomes g / norm * max_norm.
     ``sharded`` (the sharded update, whose gradients are this rank's
-    chunks): the squared norm is summed over the ranks of ``group``
-    first, the JAX package's ``clip_by_global_norm_dp``; the chunks'
-    zero padding adds nothing."""
+    chunks, or tensor parallelism, whose gradients are this rank's
+    slices): the squared norm is summed over the ranks of ``group``
+    first, the JAX package's ``clip_by_global_norm_dp``; the chunks' zero
+    padding adds nothing. ``weights`` (tensor parallelism,
+    ``parallel.sharding.tp_clip_weights``, one a gradient) multiply each
+    gradient's squared sum: 1/M for a leaf every model rank holds whole,
+    1 for a split one."""
     grads = [g for g in grads if g is not None]
-    sq = sum(torch.sum(torch.square(g)) for g in grads)
+    if weights is None:
+        sq = sum(torch.sum(torch.square(g)) for g in grads)
+    else:
+        if len(weights) != len(grads):
+            raise ValueError(f"{len(weights)} clip weights for "
+                             f"{len(grads)} gradients")
+        sq = sum(w * torch.sum(torch.square(g))
+                 for w, g in zip(weights, grads))
     norm = torch.sqrt(psum(sq, group) if sharded else sq)
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
@@ -93,15 +105,18 @@ class GradientTransformation:
 
     def apply(self, optimizer: torch.optim.Optimizer, count: int,
               sharded_over: Optional[Group] = None,
-              sharded: bool = False) -> None:
+              sharded: bool = False,
+              clip_weights: Optional[Sequence[float]] = None) -> None:
         """One update from the parameters' ``.grad``; ``count`` is the
         number of updates taken before this one. ``sharded``: the
-        parameters are this rank's chunks of the sharded update over the
-        ranks of ``sharded_over`` (the clip's norm sums over them)."""
+        parameters are this rank's chunks (or tensor-parallel slices)
+        over the ranks of ``sharded_over`` (the clip's norm sums over
+        them, each squared sum times its ``clip_weights`` entry)."""
         if self.grad_clip_norm:
             clip_by_global_norm_((p.grad for group in optimizer.param_groups
                                   for p in group["params"]),
-                                 self.grad_clip_norm, sharded_over, sharded)
+                                 self.grad_clip_norm, sharded_over, sharded,
+                                 clip_weights)
         lr = float(self.schedule(count))
         for group in optimizer.param_groups:
             group["lr"] = lr

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.augment import draw_crop_flip, normalize_images, random_crop_flip
+from ..parallel.collectives import TpShardedLogits, tp_parallel_cross_entropy
 from ..runtime import not_ported
 from ..utils import prng
 
@@ -144,13 +145,19 @@ class LanguageModelingTask(Task):
         else:
             lo, logits = 0, model(ids)
         # predict ids[:, t + 1] from the logits at t
-        tgt = ids[:, lo + 1:lo + 1 + logits.shape[1]]
-        lg = logits[:, :tgt.shape[1]].float()
-        per_tok = F.cross_entropy(lg.reshape(-1, lg.shape[-1]),
-                                  tgt.reshape(-1), reduction="none"
-                                  ).reshape(tgt.shape)
+        if isinstance(logits, TpShardedLogits):
+            tgt = ids[:, 1:]
+            per_tok, predicted = tp_parallel_cross_entropy(
+                logits.map_local(lambda x: x[:, :-1]), tgt)
+        else:
+            tgt = ids[:, lo + 1:lo + 1 + logits.shape[1]]
+            lg = logits[:, :tgt.shape[1]].float()
+            per_tok = F.cross_entropy(lg.reshape(-1, lg.shape[-1]),
+                                      tgt.reshape(-1), reduction="none"
+                                      ).reshape(tgt.shape)
+            predicted = lg.argmax(-1) == tgt
         w = batch["weight"][:, None] * torch.ones_like(per_tok)
-        loss, metrics = _weighted(per_tok, lg.argmax(-1) == tgt, w)
+        loss, metrics = _weighted(per_tok, predicted, w)
         return loss, metrics, {}
 
 

@@ -14,6 +14,11 @@ rank (`FlatSharding`; None when the update is replicated). Under ZeRO-1
 the optimizer updates ``sharding.shards``, this rank's chunk of every
 leaf; under explicit FSDP the model's parameters themselves hold their
 chunks between steps (the Trainer gathers them for each step).
+
+``tp`` describes tensor parallelism on this rank (`TpLayout`; None
+without a ``model`` axis): the model is TP-local, each split leaf a slice
+of the global one; the global-norm clip sums its weighted squares over
+``tp.clip_group``.
 """
 
 from __future__ import annotations
@@ -26,7 +31,27 @@ import torch
 from torch import nn
 
 from ..convert import flax_ordered
+from ..parallel.collectives import Group, TpAxis
 from .optim import GradientTransformation
+
+
+@dataclasses.dataclass
+class TpLayout:
+    """Tensor parallelism on this rank: the ``axis``, and for every
+    parameter (flax order: ``names``) its split dim (None: replicated
+    over the model ranks), its global shape and its weight in the
+    global-norm clip, whose squared sums are summed over
+    ``clip_group``."""
+
+    axis: TpAxis
+    names: Tuple[str, ...]
+    split_dims: Tuple[Optional[int], ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    clip_weights: Tuple[float, ...]
+    clip_group: Group = None
+    # ranks[m][b]: the rank at model index m and batch index b (the
+    # checkpoint's model-major order)
+    ranks: Tuple[Tuple[int, ...], ...] = ()
 
 
 @dataclasses.dataclass
@@ -59,6 +84,7 @@ class TrainState:
     grad_sync: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict)
     sharding: Optional[FlatSharding] = None
+    tp: Optional[TpLayout] = None
 
     @classmethod
     def create(cls, model: nn.Module,
@@ -88,13 +114,21 @@ class TrainState:
     def apply_gradients(self, group=None) -> None:
         """optimizer.step() from the parameters' ``.grad``, with the lr the
         schedule gives at the current count; then the count advances.
-        ``group``: the ranks a sharded update's chunks are spread over."""
-        self.tx.apply(self.optimizer, self.step, group,
-                      sharded=self.sharding is not None)
+        ``group``: the ranks a sharded update's chunks are spread over
+        (under tensor parallelism the clip's own group is used)."""
+        if self.tp is not None:
+            self.tx.apply(self.optimizer, self.step, self.tp.clip_group,
+                          sharded=True, clip_weights=self.tp.clip_weights)
+        else:
+            self.tx.apply(self.optimizer, self.step, group,
+                          sharded=self.sharding is not None)
         self.step += 1
 
     def param_count(self) -> int:
-        """The model's parameter count (model-shaped, not padded)."""
+        """The model's parameter count (model-shaped, not padded; the
+        global model's under tensor parallelism)."""
+        if self.tp is not None:
+            return sum(math.prod(s) for s in self.tp.shapes)
         if self.sharding is not None:
             return sum(math.prod(s) for s in self.sharding.shapes)
         return sum(p.numel() for p in self.model.parameters())

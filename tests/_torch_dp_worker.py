@@ -44,6 +44,25 @@ wrote; ``OUT`` the pickle this rank writes. Jobs:
   ``spec["attention"]`` ("ring" or "ulysses") attention over the mesh
   ``spec["mesh"]`` (MeshSpec keywords) on this rank's rows and sequence
   shard of ``spec["ids"]``; returns the logits of that block;
+* ``("tp_ops", spec)``: tensor parallelism's region operators and the
+  parallel-vocab cross-entropy over the model group of the mesh
+  ``spec["mesh"]`` (MeshSpec keywords): ``copy_to_tp`` and
+  ``reduce_from_tp`` of this model shard's ``spec["a"][m]`` with its
+  cotangent ``spec["g"][m]``, ``reduce_from_tp``
+  of its ``spec["a"][m]`` in bf16, and ``tp_parallel_cross_entropy`` of
+  its columns of ``spec["logits"]`` against ``spec["targets"]`` with the
+  gradient of the summed CE; returns the outputs and gradients;
+* ``("tp_model", spec)``: the GPT-2 of ``spec["params"]`` (flax, global)
+  cut to this rank's TP-local model on ``spec["mesh"]``: the logits (this
+  shard's columns when vocab-parallel), the causal LM loss of
+  ``spec["ids"]`` and its gradients (TP-local, flax paths), and the
+  all-reduces over the model group that one forward and backward made;
+* ``("tp_train", spec)``: the Trainer on ``spec["mesh"]`` from the global
+  flax ``spec["params"]`` over ``spec["batches"]`` (this rank's batch
+  coordinate's rows), ``spec["config"]`` and ``spec["optimizer"]``;
+  returns the per-step metrics, the final TP-local parameters (flax
+  paths; materialized under FSDP), the residuals' total and the at-rest
+  sizes;
 * ``("seq_attention", spec)``: sequence-parallel attention over the
   default group, one sequence shard a rank: for each case ``(label, op,
   causal, use_kernels, dtype)`` of ``spec["cases"]``, ``op`` ("ring" or
@@ -333,6 +352,131 @@ def run_seq_attention(spec, rank, world):
     return out
 
 
+def _tp_mesh(spec):
+    from distributed_pytorch_training_tpu_torch.parallel.mesh import (
+        MeshSpec, build_mesh,
+    )
+
+    return build_mesh(MeshSpec(**spec["mesh"]))
+
+
+def run_tp_ops(spec, rank, world):
+    from distributed_pytorch_training_tpu_torch.parallel.collectives import (
+        TpShardedLogits, copy_to_tp, reduce_from_tp,
+        tp_parallel_cross_entropy,
+    )
+
+    mesh = _tp_mesh(spec)
+    tp = mesh.tp()
+    m = tp.index
+    out = {"index": m, "batch_index": mesh.batch_index}
+    for name, op in (("copy", lambda a: copy_to_tp(a, tp)),
+                     ("reduce", lambda a: reduce_from_tp(a, tp))):
+        a = torch.from_numpy(spec["a"][m]).requires_grad_()
+        y = op(a)
+        g = torch.from_numpy(spec["g"][m])
+        (ga,) = torch.autograd.grad(y, a, g)
+        out[name] = (y.detach().numpy(), ga.numpy())
+    out["reduce bf16"] = reduce_from_tp(
+        torch.from_numpy(spec["a"][m]).to(torch.bfloat16), tp
+    ).float().numpy()
+    full = spec["logits"]
+    rows = full.shape[-1] // tp.size
+    local = torch.from_numpy(np.ascontiguousarray(
+        full[..., m * rows:(m + 1) * rows])).requires_grad_()
+    ce, correct = tp_parallel_cross_entropy(
+        TpShardedLogits(local, tp, rows, full.shape[-1]),
+        torch.from_numpy(spec["targets"]))
+    (gl,) = torch.autograd.grad(ce.sum(), local)
+    out["ce"] = (ce.detach().numpy(), correct.numpy(), gl.numpy())
+    return out
+
+
+def _named_flax(named):
+    from distributed_pytorch_training_tpu_torch.convert import (
+        name_to_flax_path,
+    )
+
+    return {"/".join(name_to_flax_path(n)): t.detach().float().numpy().copy()
+            for n, t in named}
+
+
+def run_tp_model(spec, rank, world):
+    from distributed_pytorch_training_tpu_torch.convert import (
+        load_tp_params,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.collectives import (
+        TpShardedLogits,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.sharding import (
+        tp_split_dims,
+    )
+
+    mesh = _tp_mesh(spec)
+    tp = mesh.tp()
+    full = get_model("gpt2_124m", **spec["model_kwargs"])
+    load_flax_params(full, spec["params"])
+    split = tp_split_dims(list(full.named_parameters()),
+                          full.partition_rules(), tp.size)
+    model = full.clone(tp=tp)
+    load_tp_params(model, spec["params"], split)
+    ids = torch.from_numpy(spec["ids"]).long()
+    calls = []
+    real = dist.all_reduce
+
+    def counting(t, *args, **kwargs):
+        calls.append(kwargs.get("group"))
+        return real(t, *args, **kwargs)
+
+    dist.all_reduce = counting
+    try:
+        loss, metrics, _ = LanguageModelingTask().loss_and_metrics(
+            model, {"input_ids": ids, "weight": torch.ones(ids.shape[0])},
+            True)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    finally:
+        dist.all_reduce = real
+    with torch.no_grad():
+        logits = model(ids)
+    local = (logits.local if isinstance(logits, TpShardedLogits)
+             else logits)
+    return {"index": tp.index, "batch_index": mesh.batch_index,
+            "logits": local.numpy(),
+            "loss": float(loss), "correct": float(metrics["correct"]),
+            "grads": _named_flax(zip((n for n, _ in
+                                      model.named_parameters()), grads)),
+            "all_reduces": sum(g is tp.group for g in calls),
+            "tp_vocab": model.tp_vocab}
+
+
+def run_tp_train(spec, rank, world):
+    mesh = _tp_mesh(spec)
+    model = get_model("gpt2_124m", **spec["model_kwargs"])
+    load_flax_params(model, spec["params"])
+    trainer = Trainer(LanguageModelingTask(), TrainConfig(
+        seed=0, print_freq=1000, **spec["config"]), device="cpu", mesh=mesh)
+    name, kwargs = spec["optimizer"]
+    state = trainer.init_state(model, make_optimizer(name, spec["lr"],
+                                                     **kwargs))
+    n_batch = len(mesh.line(("slice", "data", "fsdp")))
+    metrics = []
+    for batch in spec["batches"]:
+        local = {k: torch.from_numpy(np.ascontiguousarray(
+            np.split(v, n_batch)[mesh.batch_index])) for k, v in batch.items()}
+        m = trainer.train_step(state, local)
+        metrics.append({k: float(v) for k, v in m.items()})
+    at_rest = {"params": [p.numel() for p in state.params],
+               "opt": [t.numel() for slots in state.optimizer.state.values()
+                       for t in slots.values() if t.dim() >= 1]}
+    ef = state.grad_sync.get("ef") or {}
+    with trainer.materialized(state):
+        params = _named_flax(state.model.named_parameters())
+    return {"index": mesh.tp().index, "batch_index": mesh.batch_index,
+            "metrics": metrics, "params": params, "at_rest": at_rest,
+            "ef_abs_sum": float(sum(r.abs().sum() for r in ef.values())),
+            "ef_groups": sorted(ef)}
+
+
 def run_cli(spec, rank, world):
     from _torch_rig import flat_state
     from distributed_pytorch_training_tpu_torch import train
@@ -345,7 +489,8 @@ def run_cli(spec, rank, world):
 RUNNERS = {"reduce": run_reduce, "train": run_train, "bn": run_bn,
            "scalars": run_scalars, "cli": run_cli, "codec": run_codec,
            "clis": run_clis, "seq_attention": run_seq_attention,
-           "lm_logits": run_lm_logits}
+           "lm_logits": run_lm_logits, "tp_ops": run_tp_ops,
+           "tp_model": run_tp_model, "tp_train": run_tp_train}
 
 
 def main():

@@ -33,6 +33,9 @@ from distributed_pytorch_training_tpu_torch.convert import (
     load_flax_params,
 )
 from distributed_pytorch_training_tpu_torch.models import GPT2LMHead, get_model
+from distributed_pytorch_training_tpu_torch.parallel.collectives import (
+    TpAxis,
+)
 from distributed_pytorch_training_tpu_torch.ops.flash_attention import (
     make_flash_attention_fn,
 )
@@ -165,7 +168,7 @@ def test_registry_builds_published_widths():
     assert tuple(m.blocks[0].mlp.fc1.kernel.shape) == (768, 3072)
 
 
-@pytest.mark.parametrize("kw", [dict(tp_size=2), dict(remat=True),
+@pytest.mark.parametrize("kw", [dict(tp=TpAxis(2)), dict(remat=True),
                                 dict(dropout_rate=0.1),
                                 dict(attention_fn=make_flash_attention_fn(
                                     causal=True))],
@@ -179,6 +182,23 @@ def test_unported_features_refuse(kw):
         rematted.load_state_dict(plain.state_dict())
         ids = torch.from_numpy(ids_of((2, 8))).long()
         assert rematted.remat and torch.equal(rematted(ids), plain(ids))
+        return
+    if "tp" in kw:
+        # tensor parallelism is ported (tests/test_torch_tp.py): a TP-local
+        # model holds its slices (half the heads; a vocab of 97 does not
+        # split, so the embedding stays whole, as in the JAX module) and
+        # refuses an init of its own, and the KV-cache paths, as the JAX
+        # module does
+        m = GPT2LMHead(**TINY, **kw)
+        full = GPT2LMHead(**TINY)
+        assert not m.tp_vocab
+        assert m.wte.embedding.shape == full.wte.embedding.shape
+        assert m.blocks[0].attn.qkv.kernel.shape[2] * 2 == \
+            full.blocks[0].attn.qkv.kernel.shape[2]
+        with pytest.raises(ValueError, match="slices of the global"):
+            m.reset_parameters(torch.Generator().manual_seed(0))
+        with pytest.raises(ValueError, match="no KV-cache path"):
+            m(torch.zeros((1, 4), dtype=torch.long), cache=m.init_cache(1, 8))
         return
     if "attention_fn" in kw:
         # kernel attention serves the no-cache forward; the KV-cache paths

@@ -48,6 +48,11 @@ def test_scan_covers_the_port():
                  # the sequence-parallel slice's modules
                  port + "parallel/mesh.py", port + "ops/ring_attention.py",
                  port + "ops/ulysses_attention.py",
+                 # the tensor-parallel slice's modules
+                 port + "parallel/collectives.py",
+                 port + "parallel/sharding.py", port + "models/layers.py",
+                 port + "models/gpt2.py", port + "convert.py",
+                 port + "training/loop.py", port + "training/checkpoint.py",
                  # the telemetry slice's modules
                  port + "utils/locktrace.py", port + "utils/profiling.py",
                  port + "experiments/trace_analysis.py",

@@ -455,3 +455,52 @@ def test_sequence_parallel_kernels_match_plain_versions(cuda_device, op,
     for a, b in zip(got, want):
         assert a.dtype == dtype
         assert rel_err(a, b) <= FLASH_REL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_flash_kernels_on_a_tensor_parallel_ranks_heads(cuda_device, dtype):
+    """K3-K5 at the shape one of 2 tensor-parallel ranks gives them on
+    GPT-2 124M (B 8, S 1024, its 6 heads of 64), on the q, k and v views
+    of a TP-local attention's qkv projection (the same views as at 12
+    heads), against the plain attention within FLASH_REL; one launch
+    each."""
+    import importlib
+
+    from distributed_pytorch_training_tpu_torch.models.layers import (
+        MultiHeadAttention, causal_mask, dot_product_attention,
+    )
+    from distributed_pytorch_training_tpu_torch.ops import (
+        make_flash_attention_fn,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.collectives import (
+        TpAxis,
+    )
+
+    fa = importlib.import_module(
+        "distributed_pytorch_training_tpu_torch.ops.flash_attention")
+    attn = MultiHeadAttention(768, 12, 64, tp=TpAxis(2, 1), dtype=dtype,
+                              device=cuda_device)
+    attn.qkv.reset_parameters(torch.Generator(device=cuda_device)
+                              .manual_seed(0))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((8, 1024, 768), generator=g, device=cuda_device)
+    qkv = attn.qkv(x).detach()
+    assert qkv.shape == (8, 1024, 3, 6, 64)
+    q, k, v = (qkv[..., i, :, :].requires_grad_() for i in range(3))
+    do = torch.randn((8, 1024, 6, 64), generator=g,
+                     device=cuda_device).to(dtype)
+    kernels = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_bwd_dq)
+    before = [f.launches for f in kernels]
+    out = make_flash_attention_fn(causal=True)(q, k, v, dtype=dtype)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(kernels, before)] == [1, 1, 1]
+    ref = dot_product_attention(q, k, v, causal_mask(1024, cuda_device),
+                                dtype)
+    ref_grads = torch.autograd.grad(ref, (q, k, v), do)
+    for a, b in zip((out, *grads), (ref, *ref_grads)):
+        assert a.dtype == dtype
+        assert rel_err(a, b) <= FLASH_REL[dtype]

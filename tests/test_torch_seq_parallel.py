@@ -400,9 +400,9 @@ TINY = ["--device", "cpu", "--model", "gpt2_124m", "--model-overrides",
      "needs 2 devices but 1 are present"),
     (["--mesh", "seq=-1,data=2"], ValueError,
      "1 devices not divisible by fixed axes product 2"),
-    (["--mesh", "data=1,model=2"], NotImplementedError,
-     "the tensor-parallel slice"),
-    (["--mesh", "fsdp=2"], NotImplementedError, "the tensor-parallel slice"),
+    (["--mesh", "seq=2,model=2", "--attention", "ring"], NotImplementedError,
+     "the SP x TP slice"),
+    (["--mesh", "fsdp=2"], NotImplementedError, "the fsdp mesh axis slice"),
     (["--mesh", "pipe=2"], NotImplementedError, "the pipeline slice"),
     (["--mesh", "pipe=2", "--attention", "flash"], ValueError,
      "--mesh pipe>1 uses the XLA attention path"),
