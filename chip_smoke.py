@@ -27,7 +27,8 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    deterministic (CUDNN_DETERMINISTIC);
 2. build every CUDA kernel from csrc/ with nvcc for sm_90a, one nvcc per
    source, all started together, and log ptxas's registers and spills of
-   each flash kernel from the build's log;
+   each flash kernel from the build's log; a spill of the bf16 wgmma
+   kernels (flash_attention_sm90.cu) at D 64 fails;
 3. hold the int8 row quantizer against its plain version on the card,
    BITWISE (codes and scale bits), at the serving path's shapes and at
    edge shapes, timing both beside the memory bound;
@@ -42,7 +43,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    the prefill logits within ATOL;
 6. hold the flash-attention kernels (forward, dK/dV, dQ) against their
    plain versions at the training path's shape and at edge shapes, each
-   in fp32 and bf16, within FLASH_REL, timing each beside its bound
+   in fp32 and bf16 (and in bf16 what the wgmma kernels' TMA loads
+   zero-fill: D 32 and 96, ragged tails, all-masked rows straddling a
+   128-row tile), within FLASH_REL, timing each beside its bound
    (float32 products at a third of the TF32 tensor-core rate: the float32
    kernels run them as three TF32 products; bf16 at the bf16 rate) and
    beside torch's scaled_dot_product_attention; the forward is logged as
@@ -338,6 +341,16 @@ FLASH_CASES = [
     ("ring diagonal bf16", 8, 512, 512, 12, 64, True, False, "bfloat16"),
     ("ulysses", 8, 1024, 1024, 6, 64, True, False, "float32"),
     ("ulysses bf16", 8, 1024, 1024, 6, 64, True, False, "bfloat16"),
+    # what the bf16 forward's and dK/dV's TMA loads fill with zeros: D
+    # below and past a 64-column box, ragged tails of Sq and Sk (not a
+    # multiple of the 128-row tiles) on both sides, and all-masked rows
+    # (keys 0-99 of batch row 1) whose 128-row q tile also holds live rows
+    ("D=32 bf16", 4, 512, 512, 12, 32, True, False, "bfloat16"),
+    ("D=96 bf16", 4, 512, 512, 8, 96, True, False, "bfloat16"),
+    ("Sq=200 Sk=333 non-causal bf16", 8, 200, 333, 12, 64, False, False,
+     "bfloat16"),
+    ("kv_valid, all-masked rows straddling a tile bf16", 4, 200, 200, 12,
+     64, True, True, "bfloat16"),
 ]
 TRAIN_STEPS = 8            # 64 sequences / batch 8
 EVAL_STEPS = 2             # 64 // 5 = 12 sequences, 2 padded batches of 8
@@ -381,6 +394,9 @@ QUANTIZE, DEQUANT = "quantize_int8_rows", "dequant_sum_rows"
 CUDNN_DETERMINISTIC = True
 FLASH = ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
          "flash_attention_bwd_dq")
+# the bf16 kernels that read by TMA, and count the inputs they had to copy
+# first (an unaligned view, an odd D): no main path may make one
+STAGED = FLASH[:2]
 
 # bf16 (--amp) card vs CPU. Both sides round every product, LayerNorm and
 # GELU output to bf16 (8 significand bits, 2**-8 of a value), but sum in
@@ -565,6 +581,15 @@ def logits_vs_cpu(report, cpu_engine) -> float:
     return err
 
 
+def reset_staged(fa) -> None:
+    for name in STAGED:
+        getattr(fa, name).staged_copies = 0
+
+
+def staged_copies(fa) -> int:
+    return sum(getattr(fa, name).staged_copies for name in STAGED)
+
+
 def flash_module():
     """The port's ops/flash_attention.py (the ops package re-exports its
     function ``flash_attention`` under the module's name)."""
@@ -624,8 +649,9 @@ def ptxas_resources(log_path: Path) -> list:
     rows = []
     for line in log_path.read_text().splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq)(?:_bf16)?_kernel)"
-                          r"I(f|13__nv_bfloat16)?Li(\d+)E", line)
+            m = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq)(?:_bf16)?"
+                          r"(?:_sm90)?_kernel)I(f|13__nv_bfloat16)?Li(\d+)E",
+                          line)
             rows.append(m and {
                 "kernel": m[1], "DP": int(m[3]), "regs": None,
                 "dtype": "bfloat16" if "bf16" in m[1] or m[2] == (
@@ -801,6 +827,7 @@ def train_on_card(torch, fa, amp: bool = False):
                fa.flash_attention_bwd_dq)
     for fn in kernels:
         fn.launches = 0
+    reset_staged(fa)
     stdout = io.StringIO()
     try:
         with contextlib.redirect_stdout(stdout):
@@ -808,6 +835,11 @@ def train_on_card(torch, fa, amp: bool = False):
     finally:
         print(stdout.getvalue(), end="", flush=True)
     launches = {fn.__name__: fn.launches for fn in kernels}
+    if staged_copies(fa):
+        raise RuntimeError(f"GPT-2 training staged {staged_copies(fa)} "
+                           "copies of the flash inputs")
+    log(f"GPT-2 training{' --amp' if amp else ''}: 0 staged copies of the "
+        "flash inputs (TMA read the qkv views in place)")
     if amp and (state.model.dtype != torch.bfloat16 or any(
             p.dtype != torch.float32 for p in state.params)):
         raise RuntimeError("--amp did not build a bf16 model with float32 "
@@ -983,6 +1015,9 @@ def flash_kernel_rows(flash_rows, launches, bf16_launches,
         rows.append({
             "name": name, "route": "cuda",
             "source": f"{PACKAGE}/csrc/flash_attention.cu",
+            # the bf16 forward and dK/dV are the wgmma kernels
+            "bf16_source": f"{PACKAGE}/csrc/flash_attention"
+                           f"{'' if name.endswith('dq') else '_sm90'}.cu",
             "replaces": "distributed_pytorch_training_tpu/ops/"
                         f"flash_attention.py:{line}",
             **summed(name, fp32),
@@ -2268,8 +2303,8 @@ PROFILE_SYNTHETIC = 96
 PROFILE_EVAL = -(-(PROFILE_SYNTHETIC // 5) // 8)   # 19 sequences, batch 8
 # the bf16 flash kernels' names in the card's trace (nvcc's, without
 # their template arguments)
-FLASH_BF16_TRACE = {FLASH[0]: "flash_fwd_bf16_kernel",
-                    FLASH[1]: "flash_bwd_dkv_bf16_kernel",
+FLASH_BF16_TRACE = {FLASH[0]: "flash_fwd_bf16_sm90_kernel",
+                    FLASH[1]: "flash_bwd_dkv_bf16_sm90_kernel",
                     FLASH[2]: "flash_bwd_dq_bf16_kernel"}
 # card ms of the four-way split must sum to the window within the
 # readers' rounding (each rounds to 0.1 us)
@@ -3110,6 +3145,7 @@ def bert_train(torch, fa, tag: str, extra: list) -> dict:
     kernels = [getattr(fa, name) for name in FLASH]
     for fn in kernels:
         fn.launches = 0
+    reset_staged(fa)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3125,6 +3161,10 @@ def bert_train(torch, fa, tag: str, extra: list) -> dict:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     launches = {fn.__name__: fn.launches for fn in kernels}
+    if staged_copies(fa):
+        raise RuntimeError(f"BERT {tag}: staged {staged_copies(fa)} copies "
+                           "of the flash inputs")
+    log(f"BERT {tag}: 0 staged copies of the flash inputs")
     if state.step != BERT_STEPS or state.model.max_position != BERT_SEQ:
         raise RuntimeError(f"BERT {tag}: {state.step} steps")
     digests = state_digests(state)
@@ -3615,12 +3655,14 @@ def sp_worker(argv) -> int:
             record["ms"] = []
             for fn in kernels.values():
                 fn.launches = 0
+            reset_staged(fa)
             run_dir = out_dir / name.replace(" ", "_")
             state = train_main(base_argv + ["--attention", mode, "--mesh",
                                             "data=1,seq=2", *extra,
                                             "--output-dir", str(run_dir)])
             report[name] = {
                 "launches": {k: fn.launches for k, fn in kernels.items()},
+                "staged_copies": staged_copies(fa),
                 "steps": state.step, "step1_loss": record["loss"],
                 "step_ms": record["ms"],
                 "digests": {k: tensor_digest(v) for k, v in
@@ -3695,12 +3737,15 @@ def sp_train(torch, fa, card: str) -> dict:
         runs = [rep[name] for rep in ranks]
         for r, run in enumerate(runs):
             if run["launches"] != sp_want(mode, r) or run["steps"] \
-                    != SP_STEPS:
+                    != SP_STEPS or run["staged_copies"]:
                 raise RuntimeError(
                     f"phase 23 (b) {name} rank {r}: {run['steps']} steps, "
-                    f"launches {run['launches']} (expected {SP_STEPS}, "
-                    f"{sp_want(mode, r)})")
+                    f"launches {run['launches']}, {run['staged_copies']} "
+                    f"staged copies (expected {SP_STEPS}, "
+                    f"{sp_want(mode, r)}, 0)")
         same_across_ranks(f"phase 23 (b) {name}", runs)
+        log(f"phase 23 (b) {name}: 0 staged copies of the flash inputs on "
+            "every rank")
         loss = runs[0]["step1_loss"]
         tol = BF16_LOSS_ATOL if amp else LOSS_ATOL
         diff = abs(loss - refs[amp])
@@ -3982,6 +4027,7 @@ def tp_worker(argv) -> int:
             torch.cuda.reset_peak_memory_stats(dev)
             for fn in kernels.values():
                 fn.launches = 0
+            reset_staged(fa)
             run_dir = out_dir / name.replace(" ", "_").replace("=", "")
             state = train_main(base_argv + ["--mesh", mesh, *extra,
                                             "--output-dir", str(run_dir)])
@@ -3990,6 +4036,7 @@ def tp_worker(argv) -> int:
                        for t in slots.values() if t.dim() >= 1]
             report[name] = {
                 "launches": {k: fn.launches for k, fn in kernels.items()},
+                "staged_copies": staged_copies(fa),
                 "steps": state.step, "step_ms": record["ms"],
                 "losses": record["losses"],
                 "param_bytes": sum(p.numel() * p.element_size()
@@ -4204,15 +4251,19 @@ def tp_train(torch, card: str) -> dict:
                 want.update({k: n * TP_STEPS for k, n in
                              per_kernel(int8_counts).items()})
             for r, run in enumerate(runs_):
-                if run["launches"] != want or run["steps"] != TP_STEPS:
+                if run["launches"] != want or run["steps"] != TP_STEPS \
+                        or run["staged_copies"]:
                     raise RuntimeError(
                         f"phase 24 (b) {name} rank {r}: {run['steps']} "
-                        f"steps, launches {run['launches']} (expected "
-                        f"{TP_STEPS}, {want})")
+                        f"steps, launches {run['launches']}, "
+                        f"{run['staged_copies']} staged copies (expected "
+                        f"{TP_STEPS}, {want}, 0)")
                 if not all(math.isfinite(x) for x in run["losses"]):
                     raise RuntimeError(f"phase 24 (b) {name} rank {r}: "
                                        f"losses {run['losses']}")
             fsdp = "--fsdp-explicit" in extra
+            log(f"phase 24 (b) {name}: 0 staged copies of the flash inputs "
+                "on every rank")
             tp_ranks_agree(f"phase 24 (b) {name}", runs_)
             losses = runs_[0]["losses"]
             kind = "amp" if amp else "int8" if "int8" in extra else "fp32"
@@ -4380,11 +4431,17 @@ def main() -> int:
     # phase 2: build every kernel, one nvcc per source, all at once
     fa = flash_module()
     t0 = time.perf_counter()
-    libs = build.build_all([QUANTIZE, DEQUANT, fa.LIBRARY])
+    libs = build.build_all([QUANTIZE, DEQUANT, *fa.LIBRARIES])
     log(f"built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
-    ptxas_log = libs[fa.LIBRARY].with_suffix(".log")
-    flash_res = ptxas_resources(ptxas_log) if ptxas_log.exists() else []
+    flash_res = [r for name in fa.LIBRARIES
+                 if libs[name].with_suffix(".log").exists()
+                 for r in ptxas_resources(libs[name].with_suffix(".log"))]
+    spilled = [r for r in flash_res
+               if r["kernel"].endswith("_sm90_kernel") and r["DP"] == 64
+               and r["spill_bytes"]]
+    if spilled:
+        raise RuntimeError(f"the wgmma kernels spill at D 64: {spilled}")
 
     # phase 3: the quantizer against its plain version
     t0 = time.perf_counter()

@@ -1,5 +1,5 @@
-// FlashAttention-2 forward and backward for Hopper: three kernels, each
-// in a float32 and a bfloat16 version.
+// FlashAttention-2 forward and backward for Hopper: three kernels in
+// float32, and the dQ kernel in bfloat16.
 //
 // Replace the Pallas TPU kernels of
 //   distributed_pytorch_training_tpu/ops/flash_attention.py
@@ -7,9 +7,9 @@
 //   flash_fwd_kernel     <- _flash_fwd_lse (:199), body _fwd_kernel (:146)
 //   flash_bwd_dkv_kernel <- _flash_bwd (:360), body _bwd_dkv_kernel (:269)
 //   flash_bwd_dq_kernel  <- _flash_bwd (:360), body _bwd_dq_kernel (:317)
-// For bfloat16 inputs they launch flash_fwd_bf16_kernel,
-// flash_bwd_dkv_bf16_kernel and flash_bwd_dq_bf16_kernel (after the float32
-// kernels).
+// For bfloat16 inputs dQ launches flash_bwd_dq_bf16_kernel (after the
+// float32 kernels); the bfloat16 forward and dK/dV are the wgmma kernels of
+// flash_attention_sm90.cu, which keep the bf16 arithmetic described below.
 //
 // Semantics carried over from the JAX kernels:
 //   * masked logits are the float32 minimum (NEG_INF), not -inf: a row
@@ -94,7 +94,8 @@
 // Backward (K4 dK/dV, K5 dQ): six tiles of shared memory a block (105 KB at
 // D 64 in float32, so two blocks an SM).
 //
-// bfloat16 (K3, K4 and K5): the tiling, masks and staging above, with every
+// bfloat16 (K5 here; K3 and K4 in flash_attention_sm90.cu with the same
+// arithmetic): the tiling, masks and staging above, with every
 // product one mma.sync m16n8k16 bf16 x bf16 -> float32 per 16 of depth
 // (989 TFLOP/s dense, twice TF32's rate, against the four TF32 products
 // a split operand costs) and fragments read by ldmatrix (16 bytes a lane,
@@ -113,12 +114,11 @@
 // 1.3e-7, so no operand needs a second bf16 term. Bound on the card at
 // GPT-2 124M's shape: 12.9, 25.8 and 19.4 GFLOP at 989 TFLOP/s, 0.013,
 // 0.026 and 0.020 ms, against 0.015, 0.023 and 0.019 ms of bytes (K3
-// bound by bytes, K4 and K5 by operations). Each warp owns 16 rows (keys
-// in K4) and 4 blocks an SM fit at D 64: 128 registers a thread, Q's
-// fragments resident in K3 and Q's and dO's in K5, dK/dV's S^T and dP^T
-// formed 16 q rows at a time and dQ's S and dP 16 keys at a time. One
-// barrier a tile: a tile's copy is issued right after it, into the buffer
-// every warp has finished with.
+// bound by bytes, K4 and K5 by operations). In K5 each warp owns 16 q rows
+// and 4 blocks an SM fit at D 64: 128 registers a thread, Q's and dO's
+// fragments resident, S and dP formed 16 keys at a time. One barrier a
+// tile: a tile's copy is issued right after it, into the buffer every warp
+// has finished with.
 
 #include <cfloat>
 #include <cmath>
@@ -424,7 +424,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 // forms S = (scale Q) K^T (16 x 64), masks it where a mask bites, updates
 // the online softmax (m, l) of its rows in registers and feeds P straight
 // to O = alpha O + P V, accumulated in registers over the whole loop.
-// float32 only: bfloat16 inputs take flash_fwd_bf16_kernel.
+// float32 only: bfloat16 inputs take flash_attention_sm90.cu's forward.
 template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -602,7 +602,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 // tile a warp forms S^T = K Q^T and dP^T = V dO^T (16 x 64), turns them
 // into P^T and dS^T in registers and feeds those straight to dV += P^T dO
 // and dK += dS^T Q, accumulated in registers over the whole loop.
-// float32 only: bfloat16 inputs take flash_bwd_dkv_bf16_kernel.
+// float32 only: bfloat16 inputs take flash_attention_sm90.cu's dK/dV.
 template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -949,327 +949,11 @@ __device__ __forceinline__ float exp_bf16(float x) {
   return exp2f(x * kLog2e);
 }
 
-// Blocks an SM the bf16 kernels are built for: 16 warps at D <= 64 (128
+// Blocks an SM the bf16 dQ kernel is built for: 16 warps at D <= 64 (128
 // registers a thread), 8 at D 128 (shared memory allows no more)
 template <int DP>
 constexpr int bf16_blocks_per_sm() {
   return DP <= 64 ? 4 : 2;
-}
-
-// --------------------------------------------------------------------------
-// bfloat16 forward (K3)
-// --------------------------------------------------------------------------
-
-// flash_fwd_kernel's tiling and online softmax, on the bf16 tensor cores.
-// S = Q K^T from the bf16 inputs (exact products, float32 sums), times
-// scale in float32; P rounded once to bf16 and packed from the S
-// registers into P V's A operand; m, l (over the float32 P) and O = alpha
-// O + P V in float32. Q's A fragments stay in registers (4 a thread per 16
-// of D); K and V fragments come by ldmatrix, V's transposed. One barrier
-// a tile: the next tile's copy is issued after it, into the buffer every
-// warp has just finished with.
-template <int DP>
-__global__ void __launch_bounds__(kThreads, bf16_blocks_per_sm<DP>())
-    flash_fwd_bf16_kernel(const bf16_t* __restrict__ q,
-                          const bf16_t* __restrict__ k,
-                          const bf16_t* __restrict__ v,
-                          const float* __restrict__ kv_valid,
-                          bf16_t* __restrict__ out, float* __restrict__ lse,
-                          int H, int Sq, int Sk, int D, Strides qs,
-                          Strides ks, Strides vs, float scale, int causal,
-                          int vec) {
-  using L = Tile<bf16_t, DP>;
-  constexpr int LD = L::kLd;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16_t* sQ = reinterpret_cast<bf16_t*>(smem_raw);
-  bf16_t* sK = sQ + L::kElems;        // [2] buffers
-  bf16_t* sV = sK + 2 * L::kElems;    // [2]
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int qr0 = 16 * warp;
-  const bf16_t* kb = k + b * ks.b + h * ks.h;
-  const bf16_t* vb = v + b * vs.b + h * vs.h;
-  const float* kvm = kv_valid ? kv_valid + (long long)b * Sk : nullptr;
-
-  int n_kt = (Sk + kTile - 1) / kTile;
-  if (causal) n_kt = min(n_kt, (q0 + kTile - 1) / kTile + 1);
-  stage_tile<bf16_t, DP>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq, D, vec);
-  stage_tile<bf16_t, DP>(sK, kb, ks.s, 0, Sk, D, vec);
-  stage_tile<bf16_t, DP>(sV, vb, vs.s, 0, Sk, D, vec);
-  cp_async_commit();
-
-  // rows g and g + 8 of the warp's 16: running max (from NEG_INF, as the
-  // JAX kernel's m) and sum, and the output accumulator
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.0f, 0.0f};
-  float o_acc[DP / 8][4] = {};
-  uint32_t qa[DP / 16][4];
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int buf = kt & 1;
-    // this tile has landed, and every warp is done with the other buffer
-    cp_async_wait<0>();
-    __syncthreads();
-    if (kt + 1 < n_kt) {
-      const int next = (kt + 1) * kTile;
-      stage_tile<bf16_t, DP>(sK + (buf ^ 1) * L::kElems, kb, ks.s, next, Sk,
-                             D, vec);
-      stage_tile<bf16_t, DP>(sV + (buf ^ 1) * L::kElems, vb, vs.s, next, Sk,
-                             D, vec);
-      cp_async_commit();
-    }
-    const bf16_t* cK = sK + buf * L::kElems;
-    const bf16_t* cV = sV + buf * L::kElems;
-    const int k0 = kt * kTile;
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        ldsm_a<LD>(qa[kk], sQ, qr0, 16 * kk, lane);
-      }
-    }
-
-    // S = Q K^T (16 q rows x 64 keys per warp), then scale in float32
-    float s[kTile / 8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-#pragma unroll
-      for (int jj = 0; jj < kTile / 16; ++jj) {
-        uint32_t kf[4];
-        ldsm_bt<LD>(kf, cK, 16 * jj, 16 * kk, lane);
-        mma_bf16(s[2 * jj], qa[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * jj + 1], qa[kk], kf[2], kf[3]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] *= scale;
-    }
-    if (needs_mask(q0, k0, Sq, Sk, causal, kvm != nullptr)) {
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[j][c] = masked(s[j][c], q0 + qr0 + g + 8 * (c >> 1),
-                           k0 + 8 * j + 2 * t + (c & 1), Sk, causal, kvm);
-        }
-      }
-    }
-
-    // online softmax (JAX :183-:190), as flash_fwd_kernel's
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-    float alpha[2], sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      alpha[i] = exp_bf16(m[i] - mx[i]);
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[j][c] = exp_bf16(s[j][c] - m[c >> 1]);
-        sum[c >> 1] += s[j][c];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
-
-    // O = alpha O + P V (JAX :189), depth = the tile's 64 keys
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) o_acc[n][c] *= alpha[c >> 1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[4];
-      acc_pair_as_a(pa, s[2 * kk], s[2 * kk + 1]);
-      add_product_bf16<DP>(o_acc, pa, cV, 16 * kk, lane);
-    }
-  }
-
-  // out = O / l (as O times 1 / l, within a float32 rounding of it, before
-  // the bf16 one) and lse = m + log l, l floored at 1e-30 (JAX :194-:196)
-#pragma unroll
-  for (int i = 0; i < 2; ++i) l[i] = fmaxf(l[i], 1e-30f);
-  const float inv[2] = {1.0f / l[0], 1.0f / l[1]};
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o_acc[n][c] *= inv[c >> 1];
-  }
-  const long long row_stride = (long long)H * D;
-  store_acc<bf16_t, DP>(out + (long long)b * Sq * row_stride + (long long)h * D,
-                        row_stride, o_acc, q0 + qr0, Sq, D, g, t);
-  if (t == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + qr0 + g + 8 * i;
-      if (row < Sq) lse[(long long)bh * Sq + row] = m[i] + logf(l[i]);
-    }
-  }
-}
-
-// --------------------------------------------------------------------------
-// bfloat16 backward: dK and dV (K4)
-// --------------------------------------------------------------------------
-
-// q rows of a staged q tile that one pass of the bf16 dK/dV kernel holds
-// as S^T and dP^T accumulators (16 keys x 16 q rows each): with dK and dV
-// (64 registers at D 64) they fit 128 registers a thread without spilling
-constexpr int kDkvCols = 16;
-
-// flash_bwd_dkv_kernel's tiling, on the bf16 tensor cores. For each
-// 16-row slice of a staged q tile a warp forms S^T = K Q^T and dP^T = V
-// dO^T from the bf16 inputs (K and V fragments by ldmatrix, Q and dO as
-// B), turns them into P^T and dS^T in float32, rounds each once to bf16
-// into the A operand of dV += P^T dO and dK += dS^T Q (dO and Q read
-// transposed), accumulated in float32 registers over the whole loop. One
-// barrier a q tile, as the forward's.
-template <int DP>
-__global__ void __launch_bounds__(kThreads, bf16_blocks_per_sm<DP>())
-    flash_bwd_dkv_bf16_kernel(
-        const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
-        const bf16_t* __restrict__ v, const bf16_t* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ delta,
-        const float* __restrict__ kv_valid, bf16_t* __restrict__ dk,
-        bf16_t* __restrict__ dv, int H, int Sq, int Sk, int D, Strides qs,
-        Strides ks, Strides vs, float scale, int causal, int vec) {
-  using L = Tile<bf16_t, DP>;
-  constexpr int LD = L::kLd;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16_t* sK = reinterpret_cast<bf16_t*>(smem_raw);
-  bf16_t* sV = sK + L::kElems;
-  bf16_t* sQ = sV + L::kElems;        // [2] buffers
-  bf16_t* sdO = sQ + 2 * L::kElems;   // [2]
-  float* sRows = reinterpret_cast<float*>(sdO + 2 * L::kElems);  // [2][2][64]
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int k0 = blockIdx.y * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int kr0 = 16 * warp;
-  const long long row_stride = (long long)H * D;  // dout, dk, dv
-  const bf16_t* qb = q + b * qs.b + h * qs.h;
-  const bf16_t* dob = dout + (long long)b * Sq * row_stride + (long long)h * D;
-  const long long lse_base = (long long)bh * Sq;
-  const float* kvm = kv_valid ? kv_valid + (long long)b * Sk : nullptr;
-
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  // causal: q tiles whose last row is before this tile's first key are dead
-  const int qt0 = causal ? k0 / kTile : 0;
-  auto stage_q = [&](int buf, int qt) {
-    const int q0 = qt * kTile;
-    stage_tile<bf16_t, DP>(sQ + buf * L::kElems, qb, qs.s, q0, Sq, D, vec);
-    stage_tile<bf16_t, DP>(sdO + buf * L::kElems, dob, row_stride, q0, Sq, D,
-                           vec);
-    const int i = threadIdx.x;  // 128 threads: 64 lse, then 64 delta
-    const int row = q0 + (i & (kTile - 1));
-    const bool ok = row < Sq;
-    cp_async4(sRows + buf * 2 * kTile + i,
-              (i < kTile ? lse : delta) + lse_base + (ok ? row : 0), ok);
-  };
-
-  stage_tile<bf16_t, DP>(sK, k + b * ks.b + h * ks.h, ks.s, k0, Sk, D, vec);
-  stage_tile<bf16_t, DP>(sV, v + b * vs.b + h * vs.h, vs.s, k0, Sk, D, vec);
-  if (qt0 < n_qt) stage_q(0, qt0);
-  cp_async_commit();
-
-  float dk_acc[DP / 8][4] = {};
-  float dv_acc[DP / 8][4] = {};
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int buf = (qt - qt0) & 1;
-    // this tile has landed, and every warp is done with the other buffer
-    cp_async_wait<0>();
-    __syncthreads();
-    if (qt + 1 < n_qt) {
-      stage_q(buf ^ 1, qt + 1);  // overlaps this tile's products
-      cp_async_commit();
-    }
-    const bf16_t* cQ = sQ + buf * L::kElems;
-    const bf16_t* cdO = sdO + buf * L::kElems;
-    const float* cLse = sRows + buf * 2 * kTile;
-    const float* cDelta = cLse + kTile;
-    const int q0 = qt * kTile;
-    const bool mask = needs_mask(q0, k0, Sq, Sk, causal, kvm != nullptr);
-
-#pragma unroll 1
-    for (int c0 = 0; c0 < kTile; c0 += kDkvCols) {
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x kDkvCols q rows per warp
-      float st[kDkvCols / 8][4] = {};
-      float dpt[kDkvCols / 8][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        ldsm_a<LD>(ka, sK, kr0, 16 * kk, lane);
-        ldsm_a<LD>(va, sV, kr0, 16 * kk, lane);
-#pragma unroll
-        for (int jj = 0; jj < kDkvCols / 16; ++jj) {
-          uint32_t f[4];
-          ldsm_bt<LD>(f, cQ, c0 + 16 * jj, 16 * kk, lane);
-          mma_bf16(st[2 * jj], ka, f[0], f[1]);
-          mma_bf16(st[2 * jj + 1], ka, f[2], f[3]);
-          ldsm_bt<LD>(f, cdO, c0 + 16 * jj, 16 * kk, lane);
-          mma_bf16(dpt[2 * jj], va, f[0], f[1]);
-          mma_bf16(dpt[2 * jj + 1], va, f[2], f[3]);
-        }
-      }
-
-      // P^T and dS^T in float32: rows are keys, columns q rows
-      auto delta_of = [&](int, int col) { return cDelta[col]; };
-      if (mask) {
-        p_and_ds(st, dpt, scale,
-                 [&](int r, int col, float s) {
-                   return q0 + col < Sq
-                              ? exp_bf16(masked(s, q0 + col, k0 + kr0 + r, Sk,
-                                                causal, kvm) -
-                                         cLse[col])
-                              : 0.0f;
-                 },
-                 delta_of, g, t, c0);
-      } else {
-        p_and_ds(st, dpt, scale,
-                 [&](int, int col, float s) {
-                   return exp_bf16(s - cLse[col]);
-                 },
-                 delta_of, g, t, c0);
-      }
-
-      // dV += P^T dO and dK += dS^T Q, depth = these kDkvCols q rows
-#pragma unroll
-      for (int kk = 0; kk < kDkvCols / 16; ++kk) {
-        uint32_t a[4];
-        acc_pair_as_a(a, st[2 * kk], st[2 * kk + 1]);
-        add_product_bf16<DP>(dv_acc, a, cdO, c0 + 16 * kk, lane);
-        acc_pair_as_a(a, dpt[2 * kk], dpt[2 * kk + 1]);
-        add_product_bf16<DP>(dk_acc, a, cQ, c0 + 16 * kk, lane);
-      }
-    }
-  }
-  cp_async_wait<0>();  // no live q tile: K and V were staged for nothing
-
-  const long long out_base = (long long)b * Sk * row_stride + (long long)h * D;
-  store_acc<bf16_t, DP>(dk + out_base, row_stride, dk_acc, k0 + kr0, Sk, D, g,
-                        t);
-  store_acc<bf16_t, DP>(dv + out_base, row_stride, dv_acc, k0 + kr0, Sk, D, g,
-                        t);
 }
 
 // --------------------------------------------------------------------------
@@ -1458,7 +1142,7 @@ dim3 grid_of(const Problem& p, int n) {
 
 // Raise the kernel's dynamic shared-memory limit (above 48 KB it must be
 // asked for) and return the error, 0 when accepted. `max_carveout`: ask
-// for the SM's largest shared-memory share too, which the bf16 kernels'
+// for the SM's largest shared-memory share too, which the bf16 dQ kernel's
 // four blocks an SM at D 64 need.
 template <typename Kernel>
 int allow_smem(Kernel kernel, size_t bytes, bool max_carveout = false) {
@@ -1473,28 +1157,11 @@ int allow_smem(Kernel kernel, size_t bytes, bool max_carveout = false) {
   return static_cast<int>(err);
 }
 
-// bfloat16 inputs take the bf16 kernels (mma.sync m16n8k16 on the bf16
-// tensor cores), float32 inputs the 3xTF32 ones
+// bfloat16 inputs take the bf16 dQ kernel (mma.sync m16n8k16 on the bf16
+// tensor cores), float32 inputs the 3xTF32 ones; the bf16 forward and
+// dK/dV are flash_attention_sm90.cu's
 template <typename T>
 constexpr bool kBf16 = std::is_same<T, bf16_t>::value;
-
-template <typename T, int DP>
-auto fwd_kernel() {
-  if constexpr (kBf16<T>) {
-    return flash_fwd_bf16_kernel<DP>;
-  } else {
-    return flash_fwd_kernel<DP>;
-  }
-}
-
-template <typename T, int DP>
-auto dkv_kernel() {
-  if constexpr (kBf16<T>) {
-    return flash_bwd_dkv_bf16_kernel<DP>;
-  } else {
-    return flash_bwd_dkv_kernel<DP>;
-  }
-}
 
 template <typename T, int DP>
 auto dq_kernel() {
@@ -1520,33 +1187,35 @@ bool rows_aligned(const Problem& p, const void* q, const void* k,
          reinterpret_cast<uintptr_t>(dout) % 16 == 0;
 }
 
-template <typename T, int DP>
+// float32 only
+template <int DP>
 int fwd_t(const Problem& p, const void* q, const void* k, const void* v,
           const float* kv_valid, void* out, float* lse) {
-  const size_t smem = fwd_smem<T, DP>();
-  auto kernel = fwd_kernel<T, DP>();
-  if (int err = allow_smem(kernel, smem, kBf16<T>)) return err;
+  const size_t smem = fwd_smem<float, DP>();
+  auto kernel = flash_fwd_kernel<DP>;
+  if (int err = allow_smem(kernel, smem)) return err;
   kernel<<<grid_of(p, p.Sq), kThreads, smem, p.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_valid, static_cast<T*>(out), lse, p.H,
-      p.Sq, p.Sk, p.D, p.qs, p.ks, p.vs, p.scale, p.causal,
-      rows_aligned<T>(p, q, k, v));
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), kv_valid, static_cast<float*>(out), lse,
+      p.H, p.Sq, p.Sk, p.D, p.qs, p.ks, p.vs, p.scale, p.causal,
+      rows_aligned<float>(p, q, k, v));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DP>
+// float32 only
+template <int DP>
 int dkv_t(const Problem& p, const void* q, const void* k, const void* v,
           const void* dout, const float* lse, const float* delta,
           const float* kv_valid, void* dk, void* dv) {
-  const size_t smem = dkv_smem<T, DP>();
-  auto kernel = dkv_kernel<T, DP>();
-  if (int err = allow_smem(kernel, smem, kBf16<T>)) return err;
+  const size_t smem = dkv_smem<float, DP>();
+  auto kernel = flash_bwd_dkv_kernel<DP>;
+  if (int err = allow_smem(kernel, smem)) return err;
   kernel<<<grid_of(p, p.Sk), kThreads, smem, p.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      kv_valid, static_cast<T*>(dk), static_cast<T*>(dv), p.H, p.Sq, p.Sk,
-      p.D, p.qs, p.ks, p.vs, p.scale, p.causal,
-      rows_aligned<T>(p, q, k, v, dout));
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, kv_valid, static_cast<float*>(dk), static_cast<float*>(dv), p.H,
+      p.Sq, p.Sk, p.D, p.qs, p.ks, p.vs, p.scale, p.causal,
+      rows_aligned<float>(p, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1590,7 +1259,9 @@ extern "C" {
 
 // Each launcher enqueues one kernel on `stream` (a cudaStream_t passed as a
 // pointer) and returns cudaGetLastError() as an int: 0 when the launch was
-// accepted. `bf16` selects bfloat16 tensors, else float32.
+// accepted. `bf16` selects bfloat16 tensors, else float32; for bfloat16
+// the forward and dK/dV are flash_attention_sm90.cu's entry points of the
+// same names and signatures, and these refuse them.
 
 int dpt_flash_fwd(const void* q, const void* k, const void* v,
                   const float* kv_valid, void* out, float* lse, int B,
@@ -1601,11 +1272,10 @@ int dpt_flash_fwd(const void* q, const void* k, const void* v,
   if (bad_shape(B, H, Sq, Sk, D)) return static_cast<int>(cudaErrorInvalidValue);
   const Problem p = make_problem(B, H, Sq, Sk, D, qsb, qss, qsh, ksb, kss,
                                  ksh, vsb, vss, vsh, scale, causal, stream);
-#define FWD_F32(N) fwd_t<float, N>(p, q, k, v, kv_valid, out, lse)
-#define FWD_BF16(N) fwd_t<__nv_bfloat16, N>(p, q, k, v, kv_valid, out, lse)
-  return bf16 ? DP_DISPATCH(D, FWD_BF16) : DP_DISPATCH(D, FWD_F32);
+  if (bf16) return static_cast<int>(cudaErrorInvalidValue);
+#define FWD_F32(N) fwd_t<N>(p, q, k, v, kv_valid, out, lse)
+  return DP_DISPATCH(D, FWD_F32);
 #undef FWD_F32
-#undef FWD_BF16
 }
 
 int dpt_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1619,12 +1289,10 @@ int dpt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (bad_shape(B, H, Sq, Sk, D)) return static_cast<int>(cudaErrorInvalidValue);
   const Problem p = make_problem(B, H, Sq, Sk, D, qsb, qss, qsh, ksb, kss,
                                  ksh, vsb, vss, vsh, scale, causal, stream);
-#define DKV_F32(N) dkv_t<float, N>(p, q, k, v, dout, lse, delta, kv_valid, dk, dv)
-#define DKV_BF16(N) \
-  dkv_t<__nv_bfloat16, N>(p, q, k, v, dout, lse, delta, kv_valid, dk, dv)
-  return bf16 ? DP_DISPATCH(D, DKV_BF16) : DP_DISPATCH(D, DKV_F32);
+  if (bf16) return static_cast<int>(cudaErrorInvalidValue);
+#define DKV_F32(N) dkv_t<N>(p, q, k, v, dout, lse, delta, kv_valid, dk, dv)
+  return DP_DISPATCH(D, DKV_F32);
 #undef DKV_F32
-#undef DKV_BF16
 }
 
 int dpt_flash_bwd_dq(const void* q, const void* k, const void* v,

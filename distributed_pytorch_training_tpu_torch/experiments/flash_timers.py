@@ -1,9 +1,13 @@
 """Time the flash-attention kernels (K3-K5) and torch's
-``scaled_dot_product_attention`` at GPT-2 124M's shape (B 8, S 1024, H 12,
-D 64, causal), in bfloat16 and float32, under two timers:
+``scaled_dot_product_attention`` at the main paths' shapes, in bfloat16
+and float32, under three timers:
 
     python3 distributed_pytorch_training_tpu_torch/experiments/flash_timers.py \\
-        [--root DIR] [--out FILE]
+        [--root DIR] [--out FILE] [--shapes gpt2,bert,tp]
+
+Shapes (B, S, H, D): ``gpt2`` GPT-2 124M's (8, 1024, 12, 64) causal (the
+default), ``bert`` BERT-base's (8, 512, 12, 64) non-causal, ``tp`` one of
+two tensor-parallel ranks' (and Ulysses') (8, 1024, 6, 64) causal.
 
 ``--root`` names the checkout whose package is timed (default: the one
 this file is in), so two commits are compared on one card in one run:
@@ -22,8 +26,8 @@ mean of 10 calls after one warm-up:
 * ``host_ms``: the host's time to return from one call (queueing only,
   nothing waits for the card), mean of 50 calls.
 
-Prints one JSON object: the card, the root, and per dtype and function
-the three times.
+Prints one JSON object: the card, the root, and per shape, dtype and
+function the three times.
 """
 
 from __future__ import annotations
@@ -36,7 +40,9 @@ import sys
 import time
 from pathlib import Path
 
-SHAPE = (8, 1024, 12, 64)           # B, S, H, D
+# (B, S, H, D), causal
+SHAPES = {"gpt2": ((8, 1024, 12, 64), True), "bert": ((8, 512, 12, 64), False),
+          "tp": ((8, 1024, 6, 64), True)}
 GUARD_CYCLES = 2_000_000            # ~1 ms at the H100's clock
 REPS, HOST_REPS = 10, 50
 
@@ -69,12 +75,50 @@ def _host_ms(torch, fn) -> float:
     return seconds / HOST_REPS * 1e3
 
 
+def _time_shape(torch, F, fa, shape, causal, dtype, dev, flush) -> dict:
+    """{function: {launch_ms, device_ms, host_ms}} of K3-K5 and SDPA's
+    forward and backward on seeded (B, S, H, D) inputs of ``dtype``."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal)
+    delta = fa._delta(out, do)
+    lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    ldo = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+
+    lout = sdpa()
+    fns = {
+        "flash_attention_fwd_lse":
+            lambda: fa.flash_attention_fwd_lse(q, k, v, causal),
+        "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, causal),
+        "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, causal),
+        "sdpa_fwd": sdpa,
+        "sdpa_bwd": lambda: torch.autograd.grad(
+            lout, (lq, lk, lv), ldo, retain_graph=True),
+    }
+    return {name: {"launch_ms": _timed(torch, fn, flush, guard=False),
+                   "device_ms": _timed(torch, fn, flush, guard=True),
+                   "host_ms": _host_ms(torch, fn)}
+            for name, fn in fns.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parents[2])
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--shapes", default="gpt2",
+                    help=f"comma-separated names of {sorted(SHAPES)}")
     args = ap.parse_args(argv)
+    names = args.shapes.split(",")
+    if not set(names) <= set(SHAPES):
+        ap.error(f"--shapes names from {sorted(SHAPES)}")
     root = args.root.resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -92,40 +136,14 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    b, s, h, d = SHAPE
-    report = {"card": card, "root": str(root), "shape": SHAPE,
-              "causal": True, "times": {}}
-    for dtype in (torch.bfloat16, torch.float32):
-        g = torch.Generator(device=dev).manual_seed(1)
-        q, k, v, do = (torch.randn(SHAPE, generator=g, device=dev).to(dtype)
-                       for _ in range(4))
-        out, lse = fa.flash_attention_fwd_lse(q, k, v, True)
-        delta = fa._delta(out, do)
-        lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_(True)
-                      for t in (q, k, v))
-        ldo = do.transpose(1, 2)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
-
-        lout = sdpa()
-        fns = {
-            "flash_attention_fwd_lse":
-                lambda: fa.flash_attention_fwd_lse(q, k, v, True),
-            "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
-                q, k, v, do, lse, delta, True),
-            "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
-                q, k, v, do, lse, delta, True),
-            "sdpa_fwd": sdpa,
-            "sdpa_bwd": lambda: torch.autograd.grad(
-                lout, (lq, lk, lv), ldo, retain_graph=True),
-        }
-        report["times"][str(dtype)[6:]] = {
-            name: {"launch_ms": _timed(torch, fn, flush, guard=False),
-                   "device_ms": _timed(torch, fn, flush, guard=True),
-                   "host_ms": _host_ms(torch, fn)}
-            for name, fn in fns.items()}
-        del lout, out, lse, delta
+    report = {"card": card, "root": str(root), "shapes": {}}
+    for name in names:
+        shape, causal = SHAPES[name]
+        report["shapes"][name] = {"shape": shape, "causal": causal,
+                                  "times": {}}
+        for dtype in (torch.bfloat16, torch.float32):
+            report["shapes"][name]["times"][str(dtype)[6:]] = _time_shape(
+                torch, F, fa, shape, causal, dtype, dev, flush)
     line = json.dumps(report)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -161,10 +161,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from distributed_pytorch_training_tpu_torch.ops import build
     from distributed_pytorch_training_tpu_torch.ops.flash_attention import (
-        LIBRARY,
+        LIBRARIES,
     )
 
-    build.build_all([LIBRARY])
+    build.build_all(LIBRARIES)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,8 +1,10 @@
 """FlashAttention-2 forward and backward: three hand-written Hopper kernels
 and their plain PyTorch versions.
 
-The kernels (``csrc/flash_attention.cu``, built by ``ops/build.py``) replace
-the Pallas TPU kernels of the JAX package's ``ops/flash_attention.py``:
+The kernels (``csrc/flash_attention.cu``, and for bfloat16 inputs the
+forward and dK/dV of ``csrc/flash_attention_sm90.cu``, built by
+``ops/build.py``) replace the Pallas TPU kernels of the JAX package's
+``ops/flash_attention.py``:
 
 * ``flash_attention_fwd_lse`` (K3) <- ``_flash_fwd_lse`` / ``_fwd_kernel``;
 * ``flash_attention_bwd_dkv`` (K4) <- ``_flash_bwd`` / ``_bwd_dkv_kernel``;
@@ -11,6 +13,15 @@ the Pallas TPU kernels of the JAX package's ``ops/flash_attention.py``:
 A tensor on the CPU takes the plain version; a tensor on a CUDA device
 launches the kernel or raises. Each kernel wrapper counts its launches in
 ``<wrapper>.launches``; a CPU call does not count.
+
+The bf16 forward and dK/dV read their inputs by TMA, which needs each
+tensor 16-byte aligned with 16-byte strides and D a multiple of 8
+(``needs_staged_copy``). Their C launchers refuse, before launching, an
+input that is not, such as an unaligned view or an odd head width; the
+wrapper then copies the inputs the predicate names (D zero-padded to a
+multiple of 8, which is exact) and launches on the copies.
+``<wrapper>.staged_copies`` counts those copies. The model's fused qkv
+views never need one, and the check costs them no host time.
 
 Semantics kept from the JAX module (the tests pin each one): masked logits
 are the float32 minimum (``NEG_INF``), so a row whose keys are all masked
@@ -40,6 +51,11 @@ from . import build
 
 NEG_INF = float(np.finfo(np.float32).min)
 LIBRARY = "flash_attention"
+LIBRARY_SM90 = "flash_attention_sm90"     # the bf16 forward and dK/dV
+LIBRARIES = (LIBRARY, LIBRARY_SM90)
+# cudaErrorMisalignedAddress: LIBRARY_SM90's launchers return it, without
+# launching, for an input that TMA cannot read in place
+_NOT_TMA_READABLE = 716
 MAX_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -163,19 +179,62 @@ def flash_attention_bwd_ref(q, k, v, out, lse, g, causal: bool,
 
 @functools.lru_cache(maxsize=None)
 def _launchers():
-    """(library, {kernel: C launcher}), built and bound once."""
-    lib = build.load(LIBRARY)
+    """{(kernel, bf16): (library, C launcher)}, built and bound once: the
+    bf16 forward and dK/dV from LIBRARY_SM90, everything else from
+    LIBRARY (both export the same entry points)."""
+    build.build_all(LIBRARIES)
+    base, sm90 = build.load(LIBRARY), build.load(LIBRARY_SM90)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     shape = [i] * 5 + [ll] * 9 + [ctypes.c_float, i, i, p]
-    fns = {
-        "fwd": (lib.dpt_flash_fwd, [p] * 6),
-        "dkv": (lib.dpt_flash_bwd_dkv, [p] * 9),
-        "dq": (lib.dpt_flash_bwd_dq, [p] * 8),
-    }
-    for fn, ptrs in fns.values():
-        fn.argtypes = ptrs + shape
-        fn.restype = ctypes.c_int
-    return lib, {name: fn for name, (fn, _) in fns.items()}
+    entries = {"fwd": ("dpt_flash_fwd", 6), "dkv": ("dpt_flash_bwd_dkv", 9),
+               "dq": ("dpt_flash_bwd_dq", 8)}
+    out = {}
+    for name, (entry, n_ptrs) in entries.items():
+        for bf16 in (False, True):
+            lib = sm90 if bf16 and name != "dq" else base
+            fn = getattr(lib, entry)
+            fn.argtypes = [p] * n_ptrs + shape
+            fn.restype = ctypes.c_int
+            out[name, bf16] = (lib, fn)
+    return out
+
+
+def needs_staged_copy(shape, strides, offset16: int, dtype) -> bool:
+    """Whether a (B, S, H, D) tensor of ``shape`` and element ``strides``,
+    starting ``offset16`` bytes past a 16-byte boundary, must be copied
+    before the bf16 forward and dK/dV can read it by TMA: TMA needs a
+    16-byte aligned start, 16-byte strides on every axis longer than 1
+    and rows of whole 16-byte chunks (D a multiple of 8). float32 inputs
+    never are: their kernels stage rows themselves."""
+    if dtype is not torch.bfloat16:
+        return False
+    b, s, h, d = shape
+    sb, ss, sh = strides[:3]
+    # 16 bytes are 8 bf16 elements
+    return bool(offset16 % 16 or d % 8 or (b > 1 and sb % 8)
+                or (s > 1 and ss % 8) or (h > 1 and sh % 8))
+
+
+def _tma_operands(wrapper, tensors):
+    """The bf16 kernels' operands, once their launcher has refused one:
+    each tensor as it is when TMA reads it in place (``needs_staged_copy``),
+    else a contiguous copy, and when D is not a multiple of 8 every one
+    copied with D zero-padded to the next multiple (a zero column adds
+    nothing to any product). Counts the copies on
+    ``wrapper.staged_copies``."""
+    d = tensors[0].shape[-1]
+    dp = -(-d // 8) * 8
+    out = []
+    for t in tensors:
+        if needs_staged_copy(t.shape, t.stride(), t.data_ptr() % 16,
+                             t.dtype):
+            staged = t.new_zeros((*t.shape[:-1], dp))
+            staged[..., :d] = t
+            out.append(staged)
+            wrapper.staged_copies += 1
+        else:
+            out.append(t)
+    return out
 
 
 def _check(name: str, q, k, v, kv_valid) -> None:
@@ -225,13 +284,20 @@ def _kv_ptr(kv_valid: Optional[torch.Tensor]):
     return kvm, kvm.data_ptr()
 
 
+def _raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as an integer handle."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:       # the handle alone, without a Stream object
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _problem(q, k, v, scale: float, causal: bool):
     """The launchers' shape, stride, scale, flag and stream arguments."""
     b, sq, h, d = q.shape
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     return [b, h, sq, k.shape[1], d, *strides, scale, int(causal),
-            int(q.dtype == torch.bfloat16), stream]
+            int(q.dtype == torch.bfloat16), _raw_stream(q.device)]
 
 
 def flash_attention_fwd_lse(q, k, v, causal: bool,
@@ -245,16 +311,28 @@ def flash_attention_fwd_lse(q, k, v, causal: bool,
         return flash_attention_fwd_lse_ref(q, k, v, causal, sm_scale,
                                            kv_valid)
     b, sq, h, d = q.shape
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    scale = _scale_of(q, sm_scale)
     lse = torch.empty((b * h, 1, sq), dtype=torch.float32, device=q.device)
-    lib, fns = _launchers()
+    lib, fn = _launchers()["fwd", q.dtype == torch.bfloat16]
     kvm, kv_ptr = _kv_ptr(kv_valid)
-    with torch.cuda.device(q.device):
-        code = fns["fwd"](q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_ptr,
-                          out.data_ptr(), lse.data_ptr(),
-                          *_problem(q, k, v, _scale_of(q, sm_scale), causal))
+
+    def launch(q, k, v):
+        out = torch.empty((b, sq, h, q.shape[-1]), dtype=q.dtype,
+                          device=q.device)
+        with torch.cuda.device(q.device):
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_ptr,
+                      out.data_ptr(), lse.data_ptr(),
+                      *_problem(q, k, v, scale, causal))
+        return out, code
+
+    out, code = launch(q, k, v)
+    if code == _NOT_TMA_READABLE:
+        q, k, v = _tma_operands(flash_attention_fwd_lse, (q, k, v))
+        out, code = launch(q, k, v)
     build.check_launch(lib, "flash_attention_fwd_lse", code)
     flash_attention_fwd_lse.launches += 1
+    if out.shape[-1] != d:
+        out = out[..., :d].contiguous()
     return out, lse
 
 
@@ -280,18 +358,30 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal: bool,
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, g, lse, delta, causal,
                                            sm_scale, kv_valid)
-    g = g.contiguous()
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    lib, fns = _launchers()
+    d = q.shape[-1]
+    scale = _scale_of(q, sm_scale)
+    lib, fn = _launchers()["dkv", q.dtype == torch.bfloat16]
     kvm, kv_ptr = _kv_ptr(kv_valid)
-    with torch.cuda.device(q.device):
-        code = fns["dkv"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                          kv_ptr, dk.data_ptr(), dv.data_ptr(),
-                          *_problem(q, k, v, _scale_of(q, sm_scale), causal))
+
+    def launch(q, k, v, g):
+        dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+        dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        with torch.cuda.device(q.device):
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                      lse.data_ptr(), delta.data_ptr(), kv_ptr,
+                      dk.data_ptr(), dv.data_ptr(),
+                      *_problem(q, k, v, scale, causal))
+        return dk, dv, code
+
+    g = g.contiguous()
+    dk, dv, code = launch(q, k, v, g)
+    if code == _NOT_TMA_READABLE:
+        dk, dv, code = launch(*_tma_operands(flash_attention_bwd_dkv,
+                                             (q, k, v, g)))
     build.check_launch(lib, "flash_attention_bwd_dkv", code)
     flash_attention_bwd_dkv.launches += 1
+    if dk.shape[-1] != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 
@@ -306,13 +396,12 @@ def flash_attention_bwd_dq(q, k, v, g, lse, delta, causal: bool,
                                           sm_scale, kv_valid)
     g = g.contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lib, fns = _launchers()
+    lib, fn = _launchers()["dq", q.dtype == torch.bfloat16]
     kvm, kv_ptr = _kv_ptr(kv_valid)
     with torch.cuda.device(q.device):
-        code = fns["dq"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                         kv_ptr, dq.data_ptr(),
-                         *_problem(q, k, v, _scale_of(q, sm_scale), causal))
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), kv_ptr, dq.data_ptr(),
+                  *_problem(q, k, v, _scale_of(q, sm_scale), causal))
     build.check_launch(lib, "flash_attention_bwd_dq", code)
     flash_attention_bwd_dq.launches += 1
     return dq
@@ -321,6 +410,8 @@ def flash_attention_bwd_dq(q, k, v, g, lse, delta, causal: bool,
 flash_attention_fwd_lse.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_fwd_lse.staged_copies = 0
+flash_attention_bwd_dkv.staged_copies = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, causal: bool,

@@ -1,9 +1,10 @@
 """Why the bf16 flash kernels may round P and dS to bfloat16.
 
-For bfloat16 inputs the forward (K3), the dK/dV backward (K4) and the dQ
-backward (K5) of ``csrc/flash_attention.cu`` run their products on the
-tensor cores as ``mma.sync`` m16n8k16 bf16 x bf16 with float32
-accumulation:
+For bfloat16 inputs the forward (K3) and the dK/dV backward (K4) of
+``csrc/flash_attention_sm90.cu`` run their products on the tensor cores as
+``wgmma`` bf16 x bf16 with float32 accumulation, and the dQ backward (K5)
+of ``csrc/flash_attention.cu`` as ``mma.sync`` m16n8k16, all with the same
+arithmetic:
 
 * S = Q K^T (K4: S^T = K Q^T and dP^T = V dO^T; K5: S and dP = dO V^T)
   multiplies the bf16 inputs as they are; a product of two bf16 values is
@@ -18,9 +19,10 @@ accumulation:
 
 This test emulates that arithmetic on the CPU: inputs are seeded numpy
 arrays rounded to bf16, products of bf16 values are summed exactly in
-float64 and rounded to float32, and the forward walks 64-key tiles with
-the kernel's online softmax (running max m, alpha = exp(m_old - m_new),
-P = exp(s - m) rounded to bf16 per tile). Outputs are rounded to bf16 as
+float64 and rounded to float32, and the forward walks k tiles with the
+kernel's online softmax (running max m, alpha = exp(m_old - m_new), P =
+exp(s - m) rounded to bf16 per tile): 64 keys, the tile of the mma.sync
+forward that came before, and 128, the wgmma forward's (WGMMA_TILE). Outputs are rounded to bf16 as
 the kernels write them, and held against the plain versions on the same
 bf16 inputs within FLASH_REL_BF16 = 1e-2 (out, dq, dk, dv; the port's bf16
 tolerance for the flash kernels, ``chip_smoke.py`` and
@@ -28,13 +30,15 @@ tolerance for the flash kernels, ``chip_smoke.py`` and
 on both sides), as max|diff| / max|plain| over the rows with a live key.
 
 Measured (max|emulated - plain| / max|plain|; first in float32, before
-the outputs are rounded to bf16, then as written in bf16):
+the outputs are rounded to bf16, then as written in bf16; the forward at
+k tiles of 64 keys, and at 128, where it differs):
 
   case (B, S, H, D, causal, kv_valid)   out               lse      dq                dk                dv
   (2, 128, 2, 64, causal)               6.7e-4 / 2.3e-3   8.5e-8   1.8e-3 / 6.7e-3   2.1e-3 / 3.4e-3   1.8e-3 / 4.0e-3
   (2, 128, 2, 64, causal + kv_valid)    7.6e-4 / 2.3e-3   9.0e-8   1.6e-3 / 6.7e-3   1.9e-3 / 6.9e-3   1.9e-3 / 3.3e-3
   (2, 96, 2, 64, kv_valid)              1.4e-3 / 4.4e-3   8.9e-8   2.4e-3 / 6.5e-3   2.0e-3 / 6.1e-3   1.5e-3 / 6.3e-3
   (1, 1024, 2, 64, causal)              7.8e-4 / 3.2e-3   1.2e-7   2.1e-3 / 6.8e-3   2.3e-3 / 2.9e-3   1.4e-3 / 4.7e-3
+  forward at k tiles of 128 keys        the same to two digits in every case (the S 96 and 128 cases are one tile)
 
 (At 12 heads, (1, 1024) and (1, 1000) causal and (2, 512) with kv_valid,
 the float32 values stay at or under 2.2e-3.) Every float32 value is under
@@ -61,7 +65,8 @@ FLASH_REL_F32 = 1e-4
 # the design's bar: an operand whose rounding puts an output above this in
 # float32 would be split in two bf16 terms (hi + lo)
 SPLIT_BAR = 5e-3
-TILE = 64                      # keys a k tile of the forward kernel
+TILE = 64                      # keys a k tile of the mma.sync forward
+WGMMA_TILE = 128               # and of the wgmma forward
 
 
 def bf16(x: torch.Tensor) -> torch.Tensor:
@@ -77,25 +82,25 @@ def mm(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.double(), b.double()).float()
 
 
-def forward_bf16(q, k, v, causal, kv_valid):
-    """(out in float32, lse) of the K3 bf16 kernel's arithmetic: per 64-key
-    tile S = fp32(Q K^T) * scale, masked, online softmax in float32, P
-    rounded to bf16 into O = alpha O + P V."""
+def forward_bf16(q, k, v, causal, kv_valid, tile=TILE):
+    """(out in float32, lse) of the K3 bf16 kernel's arithmetic: per k tile
+    of ``tile`` keys S = fp32(Q K^T) * scale, masked, online softmax in
+    float32, P rounded to bf16 into O = alpha O + P V."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = np.float32(1.0 / np.sqrt(d))
     m = torch.full((b, h, sq, 1), fa.NEG_INF)
     l = torch.zeros((b, h, sq, 1))
     o = torch.zeros((b, h, sq, d))
-    for k0 in range(0, sk, TILE):
-        kt, vt = k[:, k0:k0 + TILE], v[:, k0:k0 + TILE]
+    for k0 in range(0, sk, tile):
+        kt, vt = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
         s = mm("bshd,bthd->bhst", q, kt) * scale
         if causal:
             rows = torch.arange(sq)[:, None]
             cols = torch.arange(k0, k0 + kt.shape[1])[None, :]
             s = torch.where(rows >= cols, s, fa.NEG_INF)
         if kv_valid is not None:
-            s = torch.where(kv_valid[:, None, None, k0:k0 + TILE] > 0, s,
+            s = torch.where(kv_valid[:, None, None, k0:k0 + tile] > 0, s,
                             fa.NEG_INF)
         mx = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - mx)
@@ -159,16 +164,17 @@ def lse_rows(lse, b, h, s, live):
     return lse.reshape(b, h, s).transpose(1, 2)[live]
 
 
-def fwd_errors(case):
-    """{out_f32, out, lse}: the emulated forward against the plain one, out
-    in float32 (before rounding) and in bf16 (as written)."""
+def fwd_errors(case, tile=TILE):
+    """{out_f32, out, lse}: the emulated forward at k tiles of ``tile`` keys
+    against the plain one, out in float32 (before rounding) and in bf16 (as
+    written)."""
     b, s, h, _, causal, _ = case
     q, k, v, _, kv, live = inputs(case)
     want32, want_lse = fa.flash_attention_fwd_lse_ref(q, k, v, causal, None,
                                                       kv)
     want16, _ = fa.flash_attention_fwd_lse_ref(
         q.bfloat16(), k.bfloat16(), v.bfloat16(), causal, None, kv)
-    out, lse = forward_bf16(q, k, v, causal, kv)
+    out, lse = forward_bf16(q, k, v, causal, kv, tile)
     return {"out_f32": rel_err(out[live], want32[live]),
             "out": rel_err(out.bfloat16()[live], want16[live]),
             "lse": rel_err(lse_rows(lse, b, h, s, live),
@@ -212,6 +218,16 @@ def test_bf16_rounding_is_round_to_nearest_even():
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_forward_bf16_mma_within_bf16_tolerance(case):
     errs = fwd_errors(case)
+    assert errs["out_f32"] <= SPLIT_BAR, errs
+    assert errs["out"] <= FLASH_REL_BF16, errs
+    assert errs["lse"] <= FLASH_REL_F32, errs
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_forward_bf16_wgmma_tile_within_bf16_tolerance(case):
+    """The forward's arithmetic at the wgmma kernel's k tile of 128 keys,
+    against the same tolerances."""
+    errs = fwd_errors(case, WGMMA_TILE)
     assert errs["out_f32"] <= SPLIT_BAR, errs
     assert errs["out"] <= FLASH_REL_BF16, errs
     assert errs["lse"] <= FLASH_REL_F32, errs

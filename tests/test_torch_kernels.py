@@ -275,23 +275,35 @@ def rel_err(got, want):
             ).item()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=str)
-@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
-def test_flash_kernels_match_plain_versions(cuda_device, case, dtype):
+def flash_module():
     import importlib
 
-    fa = importlib.import_module(
+    return importlib.import_module(
         "distributed_pytorch_training_tpu_torch.ops.flash_attention")
+
+
+def staged(fa):
+    """The bf16 forward's and dK/dV's staged copies so far."""
+    return (fa.flash_attention_fwd_lse.staged_copies,
+            fa.flash_attention_bwd_dkv.staged_copies)
+
+
+def check_flash_case(case, dtype, device, masked_prefix=0):
+    """K3-K5 against their plain versions on one case, within FLASH_REL;
+    ``masked_prefix``: also mask batch row 1's first keys. The bf16
+    forward and dK/dV read contiguous inputs by TMA in place, and copy
+    them first only when D is not a multiple of 8 (q, k, v; and dO)."""
+    fa = flash_module()
     b, sq, sk, h, d, causal, masked = case
-    q, k, v, do, kv = flash_inputs(b, sq, sk, h, d, masked, dtype,
-                                   cuda_device)
-    live = live_rows(sq, sk, causal, kv, b, cuda_device)     # (B, Sq)
+    q, k, v, do, kv = flash_inputs(b, sq, sk, h, d, masked, dtype, device)
+    if masked_prefix:
+        kv[1, :masked_prefix] = 0.0
+    live = live_rows(sq, sk, causal, kv, b, device)     # (B, Sq)
     do = do * live[:, :, None, None].to(dtype)   # dead rows: zero weight
     before = (fa.flash_attention_fwd_lse.launches,
               fa.flash_attention_bwd_dkv.launches,
               fa.flash_attention_bwd_dq.launches)
+    staged_before = staged(fa)
     out, lse = fa.flash_attention_fwd_lse(q, k, v, causal, None, kv)
     out_r, lse_r = fa.flash_attention_fwd_lse_ref(q, k, v, causal, None, kv)
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, causal,
@@ -303,6 +315,8 @@ def test_flash_kernels_match_plain_versions(cuda_device, case, dtype):
             fa.flash_attention_bwd_dkv.launches,
             fa.flash_attention_bwd_dq.launches) == tuple(
                 n + 1 for n in before)
+    copies = (3, 4) if dtype == torch.bfloat16 and d % 8 else (0, 0)
+    assert tuple(n - m for n, m in zip(staged(fa), staged_before)) == copies
     assert out.dtype == dtype and dq.dtype == dtype
     tol = FLASH_REL[dtype]
     assert rel_err(out[live], out_r[live]) <= tol
@@ -311,6 +325,36 @@ def test_flash_kernels_match_plain_versions(cuda_device, case, dtype):
     assert rel_err(lse_rows, lse_rows_r) <= FLASH_REL[torch.float32]
     for got, want in ((dq[live], dq_r[live]), (dk, dk_r), (dv, dv_r)):
         assert rel_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernels_match_plain_versions(cuda_device, case, dtype):
+    check_flash_case(case, dtype, cuda_device)
+
+
+# What the bf16 forward's and dK/dV's TMA loads fill with zeros, against
+# the plain versions within FLASH_REL: D below (32) and past (96) a
+# 64-column box, ragged tails of Sq and Sk on both sides of their 128-row
+# tiles (non-causal), and rows whose keys are all masked (batch row 0's,
+# and batch row 1's first 100 under causal) in a 128-row q tile that also
+# holds live rows (the live rows are compared; the others emit a
+# tile-dependent mean of V and carry no weight)
+TMA_CASES = [
+    (2, 512, 512, 4, 32, True, False),
+    (2, 512, 512, 4, 96, True, False),
+    (2, 200, 333, 3, 64, False, False),
+    (2, 200, 200, 3, 64, True, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TMA_CASES, ids=str)
+def test_flash_bf16_tma_edges_match_plain_versions(cuda_device, case):
+    check_flash_case(case, torch.bfloat16, cuda_device,
+                     masked_prefix=100 if case[-1] else 0)
 
 
 # An all-masked row against mean(V) over its real keys, absolute. float32:
@@ -351,7 +395,10 @@ def test_flash_reads_strided_qkv_views(cuda_device, dtype):
     qkv = torch.randn((2, 96, 3, 4, 64), device=cuda_device).to(dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     assert not q.is_contiguous()
+    fa = flash_module()
+    before = staged(fa)
     got = flash_attention(q, k, v, True)
+    assert staged(fa) == before          # read in place, as the model's
     want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            True)
     torch.cuda.synchronize()
@@ -372,7 +419,12 @@ def test_flash_reads_unaligned_qkv_views(cuda_device, dtype):
     qkv = flat[1:].view(b, s, 3, h, d)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     assert q.data_ptr() % 16 != 0
+    fa = flash_module()
+    before = staged(fa)
     got = flash_attention(q, k, v, True)
+    # bf16: the forward copies q, k and v before its TMA loads
+    copies = 3 if dtype == torch.bfloat16 else 0
+    assert staged(fa) == (before[0] + copies, before[1])
     want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            True)
     torch.cuda.synchronize()
@@ -400,7 +452,13 @@ def test_flash_backward_reads_strided_qkv_views(cuda_device, offset, dtype):
     views = [qkv[:, :, i].detach().requires_grad_(True) for i in range(3)]
     assert not views[0].is_contiguous()
     assert (views[0].data_ptr() % 16 != 0) == bool(offset)
+    fa = flash_module()
+    before = staged(fa)
     flash_attention(*views, True).backward(do)
+    # bf16 at offset 1: the forward and dK/dV each copy q, k and v (dO is
+    # aligned); aligned views are read in place
+    copies = 3 if dtype == torch.bfloat16 and offset else 0
+    assert staged(fa) == (before[0] + copies, before[1] + copies)
     dense = [t.detach().contiguous().requires_grad_(True) for t in views]
     flash_attention(*dense, True).backward(do)
     torch.cuda.synchronize()
@@ -494,10 +552,12 @@ def test_flash_kernels_on_a_tensor_parallel_ranks_heads(cuda_device, dtype):
     kernels = (fa.flash_attention_fwd_lse, fa.flash_attention_bwd_dkv,
                fa.flash_attention_bwd_dq)
     before = [f.launches for f in kernels]
+    staged_before = staged(fa)
     out = make_flash_attention_fn(causal=True)(q, k, v, dtype=dtype)
     grads = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(kernels, before)] == [1, 1, 1]
+    assert staged(fa) == staged_before   # the views go to TMA in place
     ref = dot_product_attention(q, k, v, causal_mask(1024, cuda_device),
                                 dtype)
     ref_grads = torch.autograd.grad(ref, (q, k, v), do)
