@@ -27,8 +27,8 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    deterministic (CUDNN_DETERMINISTIC);
 2. build every CUDA kernel from csrc/ with nvcc for sm_90a, one nvcc per
    source, all started together, and log ptxas's registers and spills of
-   each flash kernel from the build's log; a spill of the bf16 wgmma
-   kernels (flash_attention_sm90.cu) at D 64 fails;
+   each flash kernel from the build's log; a spill of the wgmma kernels
+   (flash_attention_sm90.cu, flash_attention_sm90_tf32.cu) at D 64 fails;
 3. hold the int8 row quantizer against its plain version on the card,
    BITWISE (codes and scale bits), at the serving path's shapes and at
    edge shapes, timing both beside the memory bound;
@@ -43,9 +43,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    the prefill logits within ATOL;
 6. hold the flash-attention kernels (forward, dK/dV, dQ) against their
    plain versions at the training path's shape and at edge shapes, each
-   in fp32 and bf16 (and in bf16 what the wgmma kernels' TMA loads
+   in fp32 and bf16 (and in both what the wgmma kernels' TMA loads
    zero-fill: D 32 and 96, ragged tails, all-masked rows straddling a
-   128-row tile), within FLASH_REL, timing each beside its bound
+   tile), within FLASH_REL, timing each beside its bound
    (float32 products at a third of the TF32 tensor-core rate: the float32
    kernels run them as three TF32 products; bf16 at the bf16 rate) and
    beside torch's scaled_dot_product_attention; the forward is logged as
@@ -351,6 +351,14 @@ FLASH_CASES = [
      "bfloat16"),
     ("kv_valid, all-masked rows straddling a tile bf16", 4, 200, 200, 12,
      64, True, True, "bfloat16"),
+    # the same for the float32 dK/dV, whose loads are TMA's too (32-column
+    # boxes; D 96 takes the D-128 tiles)
+    ("D=32", 4, 512, 512, 12, 32, True, False, "float32"),
+    ("D=96", 4, 512, 512, 8, 96, True, False, "float32"),
+    ("Sq=200 Sk=333 non-causal", 8, 200, 333, 12, 64, False, False,
+     "float32"),
+    ("kv_valid, all-masked rows straddling a tile", 4, 200, 200, 12, 64,
+     True, True, "float32"),
 ]
 TRAIN_STEPS = 8            # 64 sequences / batch 8
 EVAL_STEPS = 2             # 64 // 5 = 12 sequences, 2 padded batches of 8
@@ -394,9 +402,10 @@ QUANTIZE, DEQUANT = "quantize_int8_rows", "dequant_sum_rows"
 CUDNN_DETERMINISTIC = True
 FLASH = ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
          "flash_attention_bwd_dq")
-# the bf16 kernels that read by TMA, and count the inputs they had to copy
-# first (an unaligned view, an odd D): no main path may make one
-STAGED = FLASH[:2]
+# the wrappers whose TMA kernels (every bf16 one, float32 dK/dV) count the
+# inputs they had to copy first (an unaligned view, an odd D): no main
+# path may make one
+STAGED = FLASH
 
 # bf16 (--amp) card vs CPU. Both sides round every product, LayerNorm and
 # GELU output to bf16 (8 significand bits, 2**-8 of a value), but sum in
@@ -649,7 +658,7 @@ def ptxas_resources(log_path: Path) -> list:
     rows = []
     for line in log_path.read_text().splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq)(?:_bf16)?"
+            m = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq)(?:_bf16|_tf32)?"
                           r"(?:_sm90)?_kernel)I(f|13__nv_bfloat16)?Li(\d+)E",
                           line)
             rows.append(m and {
@@ -1014,10 +1023,10 @@ def flash_kernel_rows(flash_rows, launches, bf16_launches,
                 (bert["bfloat16"], bert_bf16_launches[name])]
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"{PACKAGE}/csrc/flash_attention.cu",
-            # the bf16 forward and dK/dV are the wgmma kernels
-            "bf16_source": f"{PACKAGE}/csrc/flash_attention"
-                           f"{'' if name.endswith('dq') else '_sm90'}.cu",
+            # float32 dK/dV and every bf16 kernel are wgmma kernels
+            "source": f"{PACKAGE}/csrc/flash_attention"
+                      f"{'_sm90_tf32' if name.endswith('dkv') else ''}.cu",
+            "bf16_source": f"{PACKAGE}/csrc/flash_attention_sm90.cu",
             "replaces": "distributed_pytorch_training_tpu/ops/"
                         f"flash_attention.py:{line}",
             **summed(name, fp32),
@@ -2305,7 +2314,7 @@ PROFILE_EVAL = -(-(PROFILE_SYNTHETIC // 5) // 8)   # 19 sequences, batch 8
 # their template arguments)
 FLASH_BF16_TRACE = {FLASH[0]: "flash_fwd_bf16_sm90_kernel",
                     FLASH[1]: "flash_bwd_dkv_bf16_sm90_kernel",
-                    FLASH[2]: "flash_bwd_dq_bf16_kernel"}
+                    FLASH[2]: "flash_bwd_dq_bf16_sm90_kernel"}
 # card ms of the four-way split must sum to the window within the
 # readers' rounding (each rounds to 0.1 us)
 SPLIT_ROUNDING_US = 0.3

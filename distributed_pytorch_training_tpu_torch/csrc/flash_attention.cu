@@ -1,15 +1,13 @@
-// FlashAttention-2 forward and backward for Hopper: three kernels in
-// float32, and the dQ kernel in bfloat16.
+// FlashAttention-2 forward and dQ for Hopper in float32, on mma.sync.
 //
 // Replace the Pallas TPU kernels of
 //   distributed_pytorch_training_tpu/ops/flash_attention.py
-// as follows:
+// for float32 inputs as follows:
 //   flash_fwd_kernel     <- _flash_fwd_lse (:199), body _fwd_kernel (:146)
-//   flash_bwd_dkv_kernel <- _flash_bwd (:360), body _bwd_dkv_kernel (:269)
 //   flash_bwd_dq_kernel  <- _flash_bwd (:360), body _bwd_dq_kernel (:317)
-// For bfloat16 inputs dQ launches flash_bwd_dq_bf16_kernel (after the
-// float32 kernels); the bfloat16 forward and dK/dV are the wgmma kernels of
-// flash_attention_sm90.cu, which keep the bf16 arithmetic described below.
+// float32 dK/dV (K4) is the wgmma kernel of flash_attention_sm90_tf32.cu;
+// bfloat16 K3, K4 and K5 are the wgmma kernels of flash_attention_sm90.cu,
+// which keep the semantics below and the bf16 arithmetic in its header.
 //
 // Semantics carried over from the JAX kernels:
 //   * masked logits are the float32 minimum (NEG_INF), not -inf: a row
@@ -26,13 +24,11 @@
 //     differ by float32 rounding only, and not at all at D 64 (scale 1/8);
 //   * the backward re-masks (causal and kv_valid), so no gradient reaches a
 //     masked key through a normal row.
-// Inputs are (B, S, H, D) in float32 or bfloat16, read through their batch,
-// sequence and head strides (the last axis is contiguous), so q, k and v can
-// be views of one fused qkv tensor. Arithmetic is float32 throughout,
-// except that the bf16 kernels round P (P^T and dS^T in dK/dV, dS in dQ)
-// once to bf16 as the next product's operand; out, dq, dk and dv are written
-// contiguous in the input dtype, lse as (B*H, Sq) float32. kv_valid, when
-// given, is (B, Sk) float32: a key attends iff > 0.
+// Inputs are (B, S, H, D), read through their batch, sequence and head
+// strides (the last axis is contiguous), so q, k and v can be views of one
+// fused qkv tensor. Arithmetic is float32 throughout; out, dq, dk and dv
+// are written contiguous in the input dtype, lse as (B*H, Sq) float32.
+// kv_valid, when given, is (B, Sk) float32: a key attends iff > 0.
 //
 // Bound on the card: operations. At GPT-2 124M's shape (B 8, S 1024, H 12,
 // D 64, causal) the forward does 4*D flops per live (q, k) pair, dK/dV 8*D
@@ -57,16 +53,14 @@
 //   backward (dq, dk, dv), one pass: (7.0e-4, 7.2e-4, 3.0e-4) at S 128 and
 //     (3.5e-4, 5.6e-4, 3.4e-4) at S 1024, causal; three passes: (6.4e-7,
 //     5.3e-7, 4.9e-7) and (3.4e-7, 1.0e-6, 1.0e-6).
-// These three kernels take float32 inputs alone: bfloat16 inputs have
-// kernels of their own (below).
+// These kernels take float32 inputs alone.
 // What the tiling does about the limits of a SIMT design:
 //   * products: a warp owns 16 rows of its block's 64-row tile and computes
 //     16 x 64 score tiles with mma.sync; P and dS go from the accumulators
 //     straight into the next product's A operand, with the depth order of
 //     the B operand permuted to match (no shuffle, no shared-memory trip);
 //     fragment reads are free of bank conflicts (row stride D + 16 bytes);
-//   * loads: the streamed side (K and V for K3 and K5, Q and dO for K4) is
-//     double-buffered with 16-byte cp.async, so the next tile's copy runs
+//   * loads: the streamed side (K and V) is double-buffered with 16-byte cp.async, so the next tile's copy runs
 //     under this tile's products; a row that is not 16-byte aligned is
 //     staged element by element instead;
 //   * masks: a tile wholly below the causal diagonal, inside both lengths
@@ -91,41 +85,13 @@
 // tiles' mma chains side by side, and is added to alpha O in IEEE float32,
 // so the running O never passes through the tensor cores' accumulation.
 //
-// Backward (K4 dK/dV, K5 dQ): six tiles of shared memory a block (105 KB at
-// D 64 in float32, so two blocks an SM).
-//
-// bfloat16 (K5 here; K3 and K4 in flash_attention_sm90.cu with the same
-// arithmetic): the tiling, masks and staging above, with every
-// product one mma.sync m16n8k16 bf16 x bf16 -> float32 per 16 of depth
-// (989 TFLOP/s dense, twice TF32's rate, against the four TF32 products
-// a split operand costs) and fragments read by ldmatrix (16 bytes a lane,
-// conflict-free at the row stride of D + 16 bytes), non-transposed along
-// D and transposed along the sequence. S (S^T, dP^T) multiplies the bf16
-// inputs as they are: a product of two bf16 values is exact in float32.
-// P (P^T and dS^T in K4, dS in K5) is formed in float32, l summed over the
-// float32 P, and rounded once to bf16 (to nearest even) into the next
-// product's A operand: m16n8k16's C layout of two neighbouring 8-column
-// tiles is its A layout, so a thread packs its own registers. m, l,
-// alpha, O, dQ, dK and dV stay float32 in registers, and O, dQ, dK and dV
-// accumulate on the tensor cores. Emulated on the CPU
-// (tests/test_torch_bf16_mma.py) against the float32 plain versions on the
-// same bf16 inputs, max error over max |plain| before the outputs' own
-// rounding to bf16: out <= 1.4e-3, dq, dk and dv <= 2.4e-3, lse <=
-// 1.3e-7, so no operand needs a second bf16 term. Bound on the card at
-// GPT-2 124M's shape: 12.9, 25.8 and 19.4 GFLOP at 989 TFLOP/s, 0.013,
-// 0.026 and 0.020 ms, against 0.015, 0.023 and 0.019 ms of bytes (K3
-// bound by bytes, K4 and K5 by operations). In K5 each warp owns 16 q rows
-// and 4 blocks an SM fit at D 64: 128 registers a thread, Q's and dO's
-// fragments resident, S and dP formed 16 keys at a time. One barrier a
-// tile: a tile's copy is issued right after it, into the buffer every warp
-// has finished with.
+// dQ (K5): six tiles of shared memory a block (105 KB at D 64, so two
+// blocks an SM).
 
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <type_traits>
 
 namespace {
 
@@ -139,9 +105,6 @@ struct Strides {  // element strides of a (B, S, H, D) tensor; D's is 1
 };
 
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // The logit after the JAX kernels' masks. `kvm` is this batch row of
 // kv_valid, or null.
@@ -593,132 +556,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 }
 
 // --------------------------------------------------------------------------
-// backward: dK and dV (K4)
-// --------------------------------------------------------------------------
-
-// One block per (batch * head, 64-key tile); warp w owns keys 16 w..16 w +
-// 15 of the tile. K and V stay in shared memory; the block walks the live
-// q tiles with Q, dO, lse and delta double-buffered by cp.async. Per q
-// tile a warp forms S^T = K Q^T and dP^T = V dO^T (16 x 64), turns them
-// into P^T and dS^T in registers and feeds those straight to dV += P^T dO
-// and dK += dS^T Q, accumulated in registers over the whole loop.
-// float32 only: bfloat16 inputs take flash_attention_sm90.cu's dK/dV.
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const float* __restrict__ kv_valid, float* __restrict__ dk,
-    float* __restrict__ dv, int H, int Sq, int Sk, int D, Strides qs,
-    Strides ks, Strides vs, float scale, int causal, int vec) {
-  using T = float;
-  using L = Tile<T, DP>;
-  constexpr int LD = L::kLd;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sK = reinterpret_cast<T*>(smem_raw);
-  T* sV = sK + L::kElems;
-  T* sQ = sV + L::kElems;        // [2] buffers
-  T* sdO = sQ + 2 * L::kElems;   // [2]
-  float* sRows = reinterpret_cast<float*>(sdO + 2 * L::kElems);  // [2][2][64]
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int k0 = blockIdx.y * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-  const int kr0 = 16 * warp;
-  const long long row_stride = (long long)H * D;  // dout, dk, dv
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* dob = dout + (long long)b * Sq * row_stride + (long long)h * D;
-  const long long lse_base = (long long)bh * Sq;
-  const float* kvm = kv_valid ? kv_valid + (long long)b * Sk : nullptr;
-
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  // causal: q tiles whose last row is before this tile's first key are dead
-  const int qt0 = causal ? k0 / kTile : 0;
-  auto stage_q = [&](int buf, int qt) {
-    const int q0 = qt * kTile;
-    stage_tile<T, DP>(sQ + buf * L::kElems, qb, qs.s, q0, Sq, D, vec);
-    stage_tile<T, DP>(sdO + buf * L::kElems, dob, row_stride, q0, Sq, D,
-                      vec);
-    const int i = threadIdx.x;  // 128 threads: 64 lse, then 64 delta
-    const int row = q0 + (i & (kTile - 1));
-    const bool ok = row < Sq;
-    cp_async4(sRows + buf * 2 * kTile + i,
-              (i < kTile ? lse : delta) + lse_base + (ok ? row : 0), ok);
-  };
-
-  stage_tile<T, DP>(sK, k + b * ks.b + h * ks.h, ks.s, k0, Sk, D, vec);
-  stage_tile<T, DP>(sV, v + b * vs.b + h * vs.h, vs.s, k0, Sk, D, vec);
-  if (qt0 < n_qt) stage_q(0, qt0);
-  cp_async_commit();
-
-  float dk_acc[DP / 8][4] = {};
-  float dv_acc[DP / 8][4] = {};
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int buf = (qt - qt0) & 1;
-    if (qt + 1 < n_qt) {
-      stage_q(buf ^ 1, qt + 1);  // overlaps this tile's products
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* cQ = sQ + buf * L::kElems;
-    const T* cdO = sdO + buf * L::kElems;
-    const float* cLse = sRows + buf * 2 * kTile;
-    const float* cDelta = cLse + kTile;
-    const int q0 = qt * kTile;
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 q rows per warp
-    float st[kTile / 8][4] = {};
-    float dpt[kTile / 8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 8) {
-      Frag<4> ka, va;
-      load_a<LD>(ka, sK, kr0, kk, g, t);
-      load_a<LD>(va, sV, kr0, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-        Frag<2> qf, of;
-        load_bt<LD>(qf, cQ, 8 * j, kk, g, t);
-        load_bt<LD>(of, cdO, 8 * j, kk, g, t);
-        mma3(st[j], ka, qf);
-        mma3(dpt[j], va, of);
-      }
-    }
-
-    // P^T and dS^T: rows are keys, columns q rows
-    auto delta_of = [&](int, int col) { return cDelta[col]; };
-    if (needs_mask(q0, k0, Sq, Sk, causal, kvm != nullptr)) {
-      p_and_ds(st, dpt, scale,
-               [&](int r, int col, float s) {
-                 return masked_p(s, q0 + col, k0 + kr0 + r, Sq, Sk, causal,
-                                 kvm, cLse[col]);
-               },
-               delta_of, g, t);
-    } else {
-      p_and_ds(st, dpt, scale,
-               [&](int, int col, float s) { return expf(s - cLse[col]); },
-               delta_of, g, t);
-    }
-
-    // dV += P^T dO and dK += dS^T Q, depth = the tile's 64 q rows
-    add_product<DP>(dv_acc, st, cdO, g, t);
-    add_product<DP>(dk_acc, dpt, cQ, g, t);
-    __syncthreads();  // this buffer is refilled two tiles on
-  }
-  cp_async_wait<0>();  // no live q tile: K and V were staged for nothing
-
-  const long long out_base = (long long)b * Sk * row_stride + (long long)h * D;
-  store_acc<T, DP>(dk + out_base, row_stride, dk_acc, k0 + kr0, Sk, D, g, t);
-  store_acc<T, DP>(dv + out_base, row_stride, dv_acc, k0 + kr0, Sk, D, g, t);
-}
-
-// --------------------------------------------------------------------------
 // backward: dQ (K5)
 // --------------------------------------------------------------------------
 
@@ -728,7 +565,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 // cp.async. Per k tile a warp forms S = Q K^T and dP = dO V^T (16 x 64),
 // turns them into dS in registers and feeds it straight to dQ += dS K,
 // accumulated in registers over the whole loop.
-// float32 only: bfloat16 inputs take flash_bwd_dq_bf16_kernel.
+// float32 only: bfloat16 inputs take flash_attention_sm90.cu's dQ.
 template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -839,273 +676,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 }
 
 // --------------------------------------------------------------------------
-// bfloat16 tensor-core helpers (mma.sync m16n8k16, ldmatrix)
-// --------------------------------------------------------------------------
-
-using bf16_t = __nv_bfloat16;
-
-// c += a b on the tensor cores: a 16 x 16 (row), b 16 x 8 (col), bf16
-// operands with float32 accumulation. The m16n8k16 fragments (PTX ISA,
-// mma.m16n8k16 .bf16), lane = 4 g + t, two bf16 a register, the lower
-// column (A) or depth (B) in the low half:
-//   A (16 x 16): a0 (g, 2t..2t + 1), a1 (g + 8, 2t..), a2 (g, 2t + 8..),
-//                a3 (g + 8, 2t + 8..)
-//   B (16 x 8):  b0 (2t..2t + 1, g), b1 (2t + 8..2t + 9, g)   as (k, n)
-//   C (16 x 8):  as m16n8k8's
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory into fragments: lane l gives
-// the address of row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned);
-// register i receives matrix i's (row g, columns 2t, 2t + 1), or with
-// .trans its (rows 2t, 2t + 1, column g).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16_t* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16_t* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// A of rows r0..r0 + 15 of a row-major tile, depth columns k0..k0 + 15
-template <int LD>
-__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const bf16_t* s,
-                                       int r0, int k0, int lane) {
-  ldsm_x4(a, s + (r0 + (lane & 15)) * LD + k0 + 8 * (lane >> 4));
-}
-
-// B = X^T for a product against the rows of X: two 8-column output tiles,
-// n = rows n0..n0 + 15, depth = columns k0..k0 + 15; b[0], b[1] are tile
-// n0's, b[2], b[3] tile n0 + 8's
-template <int LD>
-__device__ __forceinline__ void ldsm_bt(uint32_t (&b)[4], const bf16_t* s,
-                                        int n0, int k0, int lane) {
-  ldsm_x4(b, s + (n0 + (lane & 7) + 8 * (lane >> 4)) * LD + k0 +
-                 8 * ((lane >> 3) & 1));
-}
-
-// B = X for a product over the rows of X: depth = rows k0..k0 + 15, two
-// 8-column output tiles of columns n0..n0 + 15 (read transposed)
-template <int LD>
-__device__ __forceinline__ void ldsm_b(uint32_t (&b)[4], const bf16_t* s,
-                                       int k0, int n0, int lane) {
-  ldsm_x4_trans(b, s + (k0 + (lane & 15)) * LD + n0 + 8 * (lane >> 4));
-}
-
-// two floats rounded to nearest even into one bf16 pair, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __float22bfloat162_rn(make_float2(lo, hi));
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Two neighbouring 16 x 8 accumulator tiles (columns 0..15 of the next
-// product's depth) as that product's A operand: m16n8k16's C layout of the
-// pair is its A layout, so the thread packs its own registers.
-__device__ __forceinline__ void acc_pair_as_a(uint32_t (&a)[4],
-                                              const float (&c0)[4],
-                                              const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// acc (16 x DP) += A (16 x 16, depth rows k0.. of tile y) y, on every
-// pair of output tiles
-template <int DP>
-__device__ __forceinline__ void add_product_bf16(float (&acc)[DP / 8][4],
-                                                 const uint32_t (&a)[4],
-                                                 const bf16_t* y, int k0,
-                                                 int lane) {
-#pragma unroll
-  for (int nn = 0; nn < DP / 16; ++nn) {
-    uint32_t b[4];
-    ldsm_b<Tile<bf16_t, DP>::kLd>(b, y, k0, 16 * nn, lane);
-    mma_bf16(acc[2 * nn], a, b[0], b[1]);
-    mma_bf16(acc[2 * nn + 1], a, b[2], b[3]);
-  }
-}
-
-// exp(x) for the bf16 kernels as exp2f(x log2 e): ex2.approx without
-// flush-to-zero and without expf's extra-precise range reduction. P is
-// rounded to bf16 after it; l and lse move by ~1e-7 of themselves.
-constexpr float kLog2e = 1.4426950408889634f;
-__device__ __forceinline__ float exp_bf16(float x) {
-  return exp2f(x * kLog2e);
-}
-
-// Blocks an SM the bf16 dQ kernel is built for: 16 warps at D <= 64 (128
-// registers a thread), 8 at D 128 (shared memory allows no more)
-template <int DP>
-constexpr int bf16_blocks_per_sm() {
-  return DP <= 64 ? 4 : 2;
-}
-
-// --------------------------------------------------------------------------
-// bfloat16 backward: dQ (K5)
-// --------------------------------------------------------------------------
-
-// keys of a staged k tile that one pass of the bf16 dQ kernel holds as S
-// and dP accumulators (16 q rows x kDqCols keys each): with dQ and Q's and
-// dO's resident A fragments (32 + 32 registers at D 64) they fit 128
-// registers a thread without spilling
-constexpr int kDqCols = 16;
-
-// flash_bwd_dq_kernel's tiling, on the bf16 tensor cores. Q's and dO's A
-// fragments are read once by ldmatrix and stay in registers; for each
-// kDqCols-key slice of a staged k tile a warp forms S = Q K^T and dP = dO
-// V^T from the bf16 inputs (K and V as B by ldmatrix), turns them into dS
-// in float32, rounds it once to bf16 into the A operand of dQ += dS K (K
-// read transposed), accumulated in float32 registers over the whole loop.
-// One barrier a k tile, as the forward's.
-template <int DP>
-__global__ void __launch_bounds__(kThreads, bf16_blocks_per_sm<DP>())
-    flash_bwd_dq_bf16_kernel(
-        const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
-        const bf16_t* __restrict__ v, const bf16_t* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ delta,
-        const float* __restrict__ kv_valid, bf16_t* __restrict__ dq, int H,
-        int Sq, int Sk, int D, Strides qs, Strides ks, Strides vs,
-        float scale, int causal, int vec) {
-  using L = Tile<bf16_t, DP>;
-  constexpr int LD = L::kLd;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16_t* sQ = reinterpret_cast<bf16_t*>(smem_raw);
-  bf16_t* sdO = sQ + L::kElems;
-  bf16_t* sK = sdO + L::kElems;       // [2] buffers
-  bf16_t* sV = sK + 2 * L::kElems;    // [2]
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int qr0 = 16 * warp;
-  const long long row_stride = (long long)H * D;  // dout, dq
-  const bf16_t* kb = k + b * ks.b + h * ks.h;
-  const bf16_t* vb = v + b * vs.b + h * vs.h;
-  const float* kvm = kv_valid ? kv_valid + (long long)b * Sk : nullptr;
-
-  // this thread's two q rows (local g and g + 8)
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + qr0 + g + 8 * i;
-    row_lse[i] = row < Sq ? lse[(long long)bh * Sq + row] : 0.0f;
-    row_delta[i] = row < Sq ? delta[(long long)bh * Sq + row] : 0.0f;
-  }
-
-  int n_kt = (Sk + kTile - 1) / kTile;
-  if (causal) n_kt = min(n_kt, (q0 + kTile - 1) / kTile + 1);
-  stage_tile<bf16_t, DP>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq, D, vec);
-  stage_tile<bf16_t, DP>(sdO, dout + (long long)b * Sq * row_stride +
-                                  (long long)h * D,
-                         row_stride, q0, Sq, D, vec);
-  stage_tile<bf16_t, DP>(sK, kb, ks.s, 0, Sk, D, vec);
-  stage_tile<bf16_t, DP>(sV, vb, vs.s, 0, Sk, D, vec);
-  cp_async_commit();
-
-  float dq_acc[DP / 8][4] = {};
-  uint32_t qa[DP / 16][4], oa[DP / 16][4];
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int buf = kt & 1;
-    // this tile has landed, and every warp is done with the other buffer
-    cp_async_wait<0>();
-    __syncthreads();
-    if (kt + 1 < n_kt) {
-      const int next = (kt + 1) * kTile;
-      stage_tile<bf16_t, DP>(sK + (buf ^ 1) * L::kElems, kb, ks.s, next, Sk,
-                             D, vec);
-      stage_tile<bf16_t, DP>(sV + (buf ^ 1) * L::kElems, vb, vs.s, next, Sk,
-                             D, vec);
-      cp_async_commit();
-    }
-    const bf16_t* cK = sK + buf * L::kElems;
-    const bf16_t* cV = sV + buf * L::kElems;
-    const int k0 = kt * kTile;
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        ldsm_a<LD>(qa[kk], sQ, qr0, 16 * kk, lane);
-        ldsm_a<LD>(oa[kk], sdO, qr0, 16 * kk, lane);
-      }
-    }
-    const bool mask = needs_mask(q0, k0, Sq, Sk, causal, kvm != nullptr);
-
-#pragma unroll 1
-    for (int c0 = 0; c0 < kTile; c0 += kDqCols) {
-      // S = Q K^T and dP = dO V^T: 16 q rows x kDqCols keys per warp
-      float s[kDqCols / 8][4] = {};
-      float dp[kDqCols / 8][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-#pragma unroll
-        for (int jj = 0; jj < kDqCols / 16; ++jj) {
-          uint32_t f[4];
-          ldsm_bt<LD>(f, cK, c0 + 16 * jj, 16 * kk, lane);
-          mma_bf16(s[2 * jj], qa[kk], f[0], f[1]);
-          mma_bf16(s[2 * jj + 1], qa[kk], f[2], f[3]);
-          ldsm_bt<LD>(f, cV, c0 + 16 * jj, 16 * kk, lane);
-          mma_bf16(dp[2 * jj], oa[kk], f[0], f[1]);
-          mma_bf16(dp[2 * jj + 1], oa[kk], f[2], f[3]);
-        }
-      }
-
-      // P and dS in float32: rows are q rows, columns keys
-      auto delta_of = [&](int r, int) { return row_delta[r >> 3]; };
-      if (mask) {
-        p_and_ds(s, dp, scale,
-                 [&](int r, int col, float x) {
-                   const int row = q0 + qr0 + r;
-                   return row < Sq
-                              ? exp_bf16(masked(x, row, k0 + col, Sk, causal,
-                                                kvm) -
-                                         row_lse[r >> 3])
-                              : 0.0f;
-                 },
-                 delta_of, g, t, c0);
-      } else {
-        p_and_ds(s, dp, scale,
-                 [&](int r, int, float x) {
-                   return exp_bf16(x - row_lse[r >> 3]);
-                 },
-                 delta_of, g, t, c0);
-      }
-
-      // dQ += dS K, depth = these kDqCols keys
-#pragma unroll
-      for (int kk = 0; kk < kDqCols / 16; ++kk) {
-        uint32_t a[4];
-        acc_pair_as_a(a, dp[2 * kk], dp[2 * kk + 1]);
-        add_product_bf16<DP>(dq_acc, a, cK, c0 + 16 * kk, lane);
-      }
-    }
-  }
-
-  store_acc<bf16_t, DP>(dq + (long long)b * Sq * row_stride +
-                            (long long)h * D,
-                        row_stride, dq_acc, q0 + qr0, Sq, D, g, t);
-}
-
-// --------------------------------------------------------------------------
 // launchers
 // --------------------------------------------------------------------------
 
@@ -1115,12 +685,7 @@ size_t fwd_smem() {
   return 5 * Tile<T, DP>::kElems * sizeof(T);
 }
 
-// K4 and K5 both hold six tiles (two resident, two double-buffered); K4
-// adds lse and delta for its two q buffers
-template <typename T, int DP>
-size_t dkv_smem() {
-  return 6 * Tile<T, DP>::kElems * sizeof(T) + 4 * kTile * sizeof(float);
-}
+// K5 holds six tiles (two resident, two double-buffered)
 template <typename T, int DP>
 size_t dq_smem() {
   return 6 * Tile<T, DP>::kElems * sizeof(T);
@@ -1141,35 +706,12 @@ dim3 grid_of(const Problem& p, int n) {
 }
 
 // Raise the kernel's dynamic shared-memory limit (above 48 KB it must be
-// asked for) and return the error, 0 when accepted. `max_carveout`: ask
-// for the SM's largest shared-memory share too, which the bf16 dQ kernel's
-// four blocks an SM at D 64 need.
+// asked for) and return the error, 0 when accepted.
 template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes, bool max_carveout = false) {
-  cudaError_t err = cudaFuncSetAttribute(
+int allow_smem(Kernel kernel, size_t bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err == cudaSuccess && max_carveout) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               static_cast<int>(cudaSharedmemCarveoutMaxShared));
-  }
-  return static_cast<int>(err);
-}
-
-// bfloat16 inputs take the bf16 dQ kernel (mma.sync m16n8k16 on the bf16
-// tensor cores), float32 inputs the 3xTF32 ones; the bf16 forward and
-// dK/dV are flash_attention_sm90.cu's
-template <typename T>
-constexpr bool kBf16 = std::is_same<T, bf16_t>::value;
-
-template <typename T, int DP>
-auto dq_kernel() {
-  if constexpr (kBf16<T>) {
-    return flash_bwd_dq_bf16_kernel<DP>;
-  } else {
-    return flash_bwd_dq_kernel<DP>;
-  }
+      static_cast<int>(bytes)));
 }
 
 // Every row of a (B, S, H, D) tensor at `x` with these strides (and of the
@@ -1204,33 +746,18 @@ int fwd_t(const Problem& p, const void* q, const void* k, const void* v,
 
 // float32 only
 template <int DP>
-int dkv_t(const Problem& p, const void* q, const void* k, const void* v,
-          const void* dout, const float* lse, const float* delta,
-          const float* kv_valid, void* dk, void* dv) {
-  const size_t smem = dkv_smem<float, DP>();
-  auto kernel = flash_bwd_dkv_kernel<DP>;
-  if (int err = allow_smem(kernel, smem)) return err;
-  kernel<<<grid_of(p, p.Sk), kThreads, smem, p.stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, kv_valid, static_cast<float*>(dk), static_cast<float*>(dv), p.H,
-      p.Sq, p.Sk, p.D, p.qs, p.ks, p.vs, p.scale, p.causal,
-      rows_aligned<float>(p, q, k, v, dout));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int DP>
 int dq_t(const Problem& p, const void* q, const void* k, const void* v,
          const void* dout, const float* lse, const float* delta,
          const float* kv_valid, void* dq) {
-  const size_t smem = dq_smem<T, DP>();
-  auto kernel = dq_kernel<T, DP>();
-  if (int err = allow_smem(kernel, smem, kBf16<T>)) return err;
+  const size_t smem = dq_smem<float, DP>();
+  auto kernel = flash_bwd_dq_kernel<DP>;
+  if (int err = allow_smem(kernel, smem)) return err;
   kernel<<<grid_of(p, p.Sq), kThreads, smem, p.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      kv_valid, static_cast<T*>(dq), p.H, p.Sq, p.Sk, p.D, p.qs, p.ks, p.vs,
-      p.scale, p.causal, rows_aligned<T>(p, q, k, v, dout));
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, kv_valid, static_cast<float*>(dq), p.H, p.Sq, p.Sk, p.D, p.qs,
+      p.ks, p.vs, p.scale, p.causal,
+      rows_aligned<float>(p, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1259,9 +786,10 @@ extern "C" {
 
 // Each launcher enqueues one kernel on `stream` (a cudaStream_t passed as a
 // pointer) and returns cudaGetLastError() as an int: 0 when the launch was
-// accepted. `bf16` selects bfloat16 tensors, else float32; for bfloat16
-// the forward and dK/dV are flash_attention_sm90.cu's entry points of the
-// same names and signatures, and these refuse them.
+// accepted. Both take float32 alone (`bf16` must be 0): bfloat16 inputs
+// go to flash_attention_sm90.cu's entry points of the same names and
+// signatures, and float32 dK/dV to flash_attention_sm90_tf32.cu's
+// dpt_flash_bwd_dkv.
 
 int dpt_flash_fwd(const void* q, const void* k, const void* v,
                   const float* kv_valid, void* out, float* lse, int B,
@@ -1278,23 +806,6 @@ int dpt_flash_fwd(const void* q, const void* k, const void* v,
 #undef FWD_F32
 }
 
-int dpt_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      const float* kv_valid, void* dk, void* dv, int B,
-                      int H, int Sq, int Sk, int D, long long qsb,
-                      long long qss, long long qsh, long long ksb,
-                      long long kss, long long ksh, long long vsb,
-                      long long vss, long long vsh, float scale, int causal,
-                      int bf16, void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D)) return static_cast<int>(cudaErrorInvalidValue);
-  const Problem p = make_problem(B, H, Sq, Sk, D, qsb, qss, qsh, ksb, kss,
-                                 ksh, vsb, vss, vsh, scale, causal, stream);
-  if (bf16) return static_cast<int>(cudaErrorInvalidValue);
-#define DKV_F32(N) dkv_t<N>(p, q, k, v, dout, lse, delta, kv_valid, dk, dv)
-  return DP_DISPATCH(D, DKV_F32);
-#undef DKV_F32
-}
-
 int dpt_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      const float* kv_valid, void* dq, int B, int H, int Sq,
@@ -1306,11 +817,10 @@ int dpt_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (bad_shape(B, H, Sq, Sk, D)) return static_cast<int>(cudaErrorInvalidValue);
   const Problem p = make_problem(B, H, Sq, Sk, D, qsb, qss, qsh, ksb, kss,
                                  ksh, vsb, vss, vsh, scale, causal, stream);
-#define DQ_F32(N) dq_t<float, N>(p, q, k, v, dout, lse, delta, kv_valid, dq)
-#define DQ_BF16(N) dq_t<__nv_bfloat16, N>(p, q, k, v, dout, lse, delta, kv_valid, dq)
-  return bf16 ? DP_DISPATCH(D, DQ_BF16) : DP_DISPATCH(D, DQ_F32);
+  if (bf16) return static_cast<int>(cudaErrorInvalidValue);
+#define DQ_F32(N) dq_t<N>(p, q, k, v, dout, lse, delta, kv_valid, dq)
+  return DP_DISPATCH(D, DQ_F32);
 #undef DQ_F32
-#undef DQ_BF16
 }
 
 const char* dpt_cuda_error_string(int code) {

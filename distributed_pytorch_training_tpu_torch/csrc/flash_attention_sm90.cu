@@ -1,6 +1,6 @@
-// FlashAttention forward (K3) and dK/dV (K4) for bfloat16 inputs, written
-// for Hopper (sm_90a): two consumer warpgroups run every product as
-// wgmma, fed through rings of shared-memory tiles that TMA fills, with
+// FlashAttention forward (K3), dK/dV (K4) and dQ (K5) for bfloat16 inputs,
+// written for Hopper (sm_90a): two consumer warpgroups run every product
+// as wgmma, fed through rings of shared-memory tiles that TMA fills, with
 // full/empty mbarrier pairs between the copies and the products.
 //
 // Replace the Pallas TPU kernels of
@@ -10,21 +10,24 @@
 //                                     _fwd_kernel (:146), pallas_call :232
 //   flash_bwd_dkv_bf16_sm90_kernel <- _flash_bwd (:360), body
 //                                     _bwd_dkv_kernel (:269), pallas_call :400
-// float32 inputs, and dQ (K5) in both types, stay with
-// flash_attention.cu's mma.sync kernels. The C entry points dpt_flash_fwd
-// and dpt_flash_bwd_dkv have flash_attention.cu's signatures and take
-// bfloat16 (bf16 = 1) only.
+//   flash_bwd_dq_bf16_sm90_kernel  <- _flash_bwd (:360), body
+//                                     _bwd_dq_kernel (:317), pallas_call :440
+// float32 K3 and K5 stay with flash_attention.cu's mma.sync kernels, float32
+// K4 is flash_attention_sm90_tf32.cu's. The C entry points dpt_flash_fwd,
+// dpt_flash_bwd_dkv and dpt_flash_bwd_dq have flash_attention.cu's
+// signatures and take bfloat16 (bf16 = 1) only. flash_sm90.cuh holds what
+// the Hopper kernels share (masks, mbarriers, TMA, descriptors).
 //
-// Semantics and arithmetic are flash_attention.cu's bf16 kernels' (its
-// header): masked logits are NEG_INF (the float32 minimum), keys past Sk
-// are -inf, causal is top-left; S multiplies the bf16 inputs as they are
-// (exact products, float32 sums) and is scaled in float32 after the dot
-// (the backward scales the dot and dS as the JAX kernel does); a tile pair
-// that no mask bites (needs_mask) takes no mask test, and the masks are
-// selects, not branches; exp(x) is exp2f(x log2 e) with no flush-to-zero;
-// m and l are float32, l summed over the float32 P, floored at 1e-30; P
-// (K4: P^T and dS^T) is rounded once to bf16, to nearest even, into the
-// next product's A operand; O, dK and dV accumulate in float32; lse = m +
+// Semantics and arithmetic are flash_attention.cu's (its header): masked
+// logits are NEG_INF (the float32 minimum), keys past Sk are -inf, causal
+// is top-left; S multiplies the bf16 inputs as they are (exact products,
+// float32 sums) and is scaled in float32 after the dot (the backward scales
+// the dot and dS as the JAX kernel does); a tile pair that no mask bites
+// (needs_mask) takes no mask test, and the masks are selects, not
+// branches; exp(x) is exp2f(x log2 e) with no flush-to-zero; m and l are
+// float32, l summed over the float32 P, floored at 1e-30; P (K4: P^T and
+// dS^T; K5: dS) is rounded once to bf16, to nearest even, into the next
+// product's A operand; O, dK, dV and dQ accumulate in float32; lse = m +
 // log l; out = O (1 / l). An all-masked row (every key masked by kv_valid
 // or causality) averages V over the keys of the k tiles its q tile visits,
 // which depends on the tile sizes below: such a row has no weight in any
@@ -33,18 +36,19 @@
 // Bound on the card (NVIDIA H100 SXM, 989 TFLOP/s dense bf16, 3.35 TB/s,
 // NVIDIA's data sheet): at GPT-2 124M's shape (B 8, S 1024, H 12, D 64,
 // causal) the forward does 12.9 GFLOP (0.013 ms) against 0.015 ms of
-// bytes, dK/dV 25.8 GFLOP (0.026 ms) against 0.023 ms: K3 is bound by
-// bytes, K4 by operations, both by a hair. The exponentials are a third
-// limit: the SM's 16 ex2 a clock take as long as the forward's products
-// at D 64, and with the scale, the subtraction of the max, exp2f's
-// no-flush-to-zero range fix, the max and the sum, the softmax issues
-// about 9 instructions an element, which is what bounds this forward.
+// bytes, dK/dV 25.8 GFLOP (0.026 ms) against 0.023 ms, dQ 19.4 GFLOP
+// (0.020 ms) against 0.019 ms: K3 is bound by bytes, K4 and K5 by
+// operations, all by a hair. The exponentials are a third limit: the SM's
+// 16 ex2 a clock take as long as the forward's products at D 64, and with
+// the scale, the subtraction of the max, exp2f's no-flush-to-zero range
+// fix, the max and the sum, the softmax issues about 9 instructions an
+// element, which is what bounds this forward.
 //
-// Block (both kernels): 256 threads, two consumer warpgroups. Each owns 64
-// rows of the block's tile (one wgmma M slice); thread 0 also issues every
-// TMA copy. Registers: 8 warps, 2 on each SM sub-partition (16,384
-// registers each), so ptxas may give a thread 255, and the kernels use
-// 212 (K3) and 189 (K4) at D 64 with no spill. A producer warp or
+// Block (K3, K4): 256 threads, two consumer warpgroups. Each owns 64 rows
+// of the block's tile (one wgmma M slice); thread 0 also issues every TMA
+// copy. Registers: 8 warps, 2 on each SM sub-partition
+// (16,384 registers each), so ptxas may give a thread 255, and the kernels
+// use 212 (K3) and 189 (K4) at D 64 with no spill. A producer warp or
 // warpgroup of its own (FlashAttention-3's layout) puts 3 warps on a
 // sub-partition, which caps ptxas at 168 a thread: with setmaxnreg (240
 // consumer, 24 producer; CUDA 12.9) ptxas still compiled the consumers
@@ -88,70 +92,64 @@
 // once to bf16 into the register A operand, and accumulates dV += P^T dO
 // and dK += dS^T Q as m64nDk16 with dO and Q MN-major through the
 // transpose bit; the next q tile's S^T and dP^T are issued before the wait
-// for this tile's dV and dK. dQ stays with K5, as in the JAX package.
-// Registers a thread: S^T, dP^T, dK, dV 32 each and P^T, dS^T 16 each at
-// D 64 (64 each for dK and dV at D 128). Shared memory: K and V 32 KB (64
-// KB) + 4 stages x (Q + dO + lse + delta) 16.5 KB (32.5 KB) = 98 KB (194
-// KB).
+// for this tile's dV and dK. Registers a thread: S^T, dP^T, dK, dV 32 each
+// and P^T, dS^T 16 each at D 64 (64 each for dK and dV at D 128). Shared
+// memory: K and V 32 KB (64 KB) + 4 stages x (Q + dO + lse + delta) 16.5
+// KB (32.5 KB) = 98 KB (194 KB).
+//
+// dQ (K5): K3's layout with K4's arithmetic, one consumer warpgroup a
+// block. One block per (batch * head, 64-row q tile), heaviest causal
+// tiles first; Q and dO are loaded once by TMA and stay, each thread keeps
+// its two rows' lse and delta in registers; K and V ride a ring of 64-key
+// k tiles. Per k tile the warpgroup computes S = Q K^T and dP = dO V^T as
+// m64n64k16 (both K-major from shared memory), dS = exp(S scale - lse)
+// (dP - delta) scale in float32 registers, rounds it once to bf16 into the
+// register A operand and accumulates dQ += dS K as m64nDk16 with K
+// MN-major through the transpose bit. Overlap: each iteration issues this
+// tile's S and dP, then the previous tile's dQ, and runs this tile's
+// softmax while that dQ is on the tensor cores (K3's order). What sets
+// its speed is latency, not the tensor cores or the exponentials: on the
+// card at GPT-2's shape the loads and barriers alone took 0.045 ms, the
+// products without the softmax 0.059, and more resident warps paid better
+// than any order within a warpgroup (PERF.md §6). So a block is one
+// warpgroup and three blocks share an SM at D 64 (12 warps; a block of two
+// warpgroups with two register sets, S and dP of the next tile issued
+// before this tile's softmax, took 0.093 ms). Registers a thread: S, dP,
+// dQ 32 each (dQ 64 at D 128), dS 16; three blocks an SM leave ptxas 168,
+// and it uses 160 at D 64 (CUDA 12.8; 208 at D 128), no spill. Shared
+// memory: Q and dO 16 KB (32 KB at D 128) + 3 stages x (K + V) 48 KB = 64
+// KB, three blocks an SM; at D 128 2 stages x 64 KB, 96 KB, two blocks an
+// SM.
 
-#include <cfloat>
-#include <cstdint>
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "flash_sm90.cuh"
 
 namespace {
 
 using bf16_t = __nv_bfloat16;
 
-constexpr float kNegInf = -FLT_MAX;  // NEG_INF of the JAX module
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 constexpr int kConsumers = 2;                  // consumer warpgroups
 constexpr int kConsumerWarps = 4 * kConsumers;
 constexpr int kThreads = 128 * kConsumers;
-constexpr int kRows = 64;        // rows a consumer warpgroup owns (wgmma M)
 constexpr int kBoxCols = 64;     // bf16 columns of a TMA box: 128 bytes
-constexpr int kRowBytes = 128;   // shared-memory bytes of a box row
+constexpr int kBf16 = 2;         // bytes of an element
 constexpr int kFwdStages = 3;    // ring stages of K and V in the forward
 constexpr int kDkvStages = 4;    // of Q, dO, lse and delta in dK/dV
 constexpr int kFwdM = kConsumers * kRows;  // q rows of a forward block
 constexpr int kFwdN = 128;                 // keys of a forward k tile
 constexpr int kDkvN = kConsumers * kRows;  // keys of a dK/dV block
 constexpr int kDkvM = 64;                  // q rows of a dK/dV q tile
-// a barrier that has not completed after this many SM clocks (~8 s) traps:
-// a launch error instead of a hung card
-constexpr long long kSpinClocks = 1LL << 34;
+constexpr int kDqM = kRows;                // q rows of a dQ block
+constexpr int kDqThreads = 128;            // one consumer warpgroup
+constexpr int kDqN = 64;                   // keys of a dQ k tile
 
 // --------------------------------------------------------------------------
-// arithmetic kept from flash_attention.cu's bf16 kernels
+// bf16 arithmetic kept from flash_attention.cu's bf16 kernels
 // --------------------------------------------------------------------------
-
-// The logit after the JAX kernels' masks, with selects and no branch:
-// keys past Sk do not exist (-inf); a key after the row under causal, or
-// whose kv_valid `kv` is not > 0, is masked (NEG_INF).
-__device__ __forceinline__ float masked(float s, int row, int col, int Sk,
-                                        bool causal, float kv) {
-  const float m = (causal && col > row) || !(kv > 0.0f) ? kNegInf : s;
-  return col >= Sk ? -INFINITY : m;
-}
-
-// kv_valid of key `col` (1 without kv_valid; a key past Sk reads the last
-// one, which masked() overrides)
-__device__ __forceinline__ float kv_of(const float* kvm, int col, int Sk) {
-  return kvm != nullptr ? kvm[min(col, Sk - 1)] : 1.0f;
-}
-
-// Whether the tile pair (`rows` q rows from q0, `cols` keys from k0) needs
-// any mask: a tile wholly below the causal diagonal, inside both lengths
-// and without kv_valid, takes p = exp(s - m) directly.
-__device__ __forceinline__ bool needs_mask(int q0, int rows, int k0,
-                                           int cols, int Sq, int Sk,
-                                           bool causal, bool has_kvm) {
-  return has_kvm || q0 + rows > Sq || k0 + cols > Sk ||
-         (causal && k0 + cols - 1 > q0);
-}
 
 __device__ __forceinline__ float exp_bf16(float x) {
   return exp2f(x * kLog2e);
@@ -187,134 +185,8 @@ __device__ __forceinline__ void acc_pair_as_a(uint32_t (&a)[4],
 }
 
 // --------------------------------------------------------------------------
-// mbarriers, TMA
+// wgmma, bf16
 // --------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also expects `bytes` of TMA traffic before the phase
-// completes
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed (a fresh barrier
-// is in phase 0, so parity 1 passes at once).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  long long start = 0;
-  for (bool first = true;; first = false) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (first) {
-      start = clock64();
-    } else if (clock64() - start > kSpinClocks) {
-      __trap();
-    }
-  }
-}
-
-// A consumer warp is done with a stage: its lane 0 arrives for the warp.
-__device__ __forceinline__ void release(uint64_t* bar) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
-}
-
-// One TMA box of a 4-D tensor map at coordinates (c0, c1, c2, c3) into
-// shared memory at `dst`, counted on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// the first 1024-byte boundary at or after p: a SWIZZLE_128B box repeats
-// every 8 rows of 128 bytes
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 1023u) & ~1023u) - a);
-}
-
-// --------------------------------------------------------------------------
-// wgmma
-// --------------------------------------------------------------------------
-
-// Shared-memory matrix descriptor of a SWIZZLE_128B tile at `addr` (1024-
-// byte aligned rows of 128 bytes, 8-row groups 1024 bytes apart: the
-// stride byte offset). `lbo`: bytes to the next 64 columns of an MN-major
-// operand (its second box); unused by a K-major one, whose 16-deep slices
-// start 32 bytes apart inside a row.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
-         static_cast<uint64_t>(1024 >> 4) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pin registers that an asynchronous wgmma writes or reads: no access to
-// them moves across this point (placed after a wait, and around issues).
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) asm volatile("" : "+f"(d[j][c])::"memory");
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) asm volatile("" : "+r"(a[j][c])::"memory");
-  }
-}
 
 // d (64 x 64) = a b + (scale_d ? d : 0): a (64 x 16) and b (16 x 64),
 // both K-major in shared memory (descriptors da and db)
@@ -748,23 +620,6 @@ struct DkvSmem {
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kDkvStages) + 1024;
 };
 
-// 4 bytes from global to shared memory without the registers (zeros when
-// `valid` is false)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-// one arrival on `bar` once this thread's earlier cp.async copies land
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
 template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_bf16_sm90_kernel(
@@ -983,116 +838,258 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 }
+// --------------------------------------------------------------------------
+// backward: dQ (K5)
+// --------------------------------------------------------------------------
+
+// Shared memory of dQ at DP columns: Q, dO, then the ring of K tiles, the
+// ring of V tiles, then the barriers; and the blocks an SM it allows (the
+// header's arithmetic).
+template <int DP>
+struct DqSmem {
+  static constexpr int kStages = DP == 64 ? 3 : 2;  // ring stages of K, V
+  static constexpr int kBlocks = DP == 64 ? 3 : 2;  // blocks an SM
+  static constexpr int kBoxes = DP / kBoxCols;
+  static constexpr int kQBox = kDqM * kRowBytes;    // one box of Q or dO
+  static constexpr int kKBox = kDqN * kRowBytes;    // one box of K or V
+  static constexpr int kQ = kBoxes * kQBox;
+  static constexpr int kK = kBoxes * kKBox;         // one stage of K or V
+  static constexpr int kBars = 2 * kQ + 2 * kStages * kK;
+  // q_full, full, empty; and the alignment slack
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kDqThreads, DqSmem<DP>::kBlocks)
+    flash_bwd_dq_bf16_sm90_kernel(
+        const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv,
+        const __grid_constant__ CUtensorMap tdo,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        const float* __restrict__ kv_valid, bf16_t* __restrict__ dq, int H,
+        int Sq, int Sk, int D, float scale, int causal) {
+  using L = DqSmem<DP>;
+  constexpr int kSt = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align1024(smem_raw);
+  unsigned char* sdO = sQ + L::kQ;
+  unsigned char* sK = sdO + L::kQ;              // [kSt]
+  unsigned char* sV = sK + kSt * L::kK;         // [kSt]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sQ + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kSt;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqM;
+  int n_kt = (Sk + kDqN - 1) / kDqN;
+  if (causal) n_kt = min(n_kt, (q0 + kDqM - 1) / kDqN + 1);
+  const bool producer = threadIdx.x == 0;
+
+  // K and V of k tile kt into its stage, once every warp is done with
+  // the tile kSt before it (a fresh stage passes at once)
+  auto produce = [&](int kt) {
+    const int s = kt % kSt;
+    mbar_wait(empty + s, ((kt / kSt) & 1) ^ 1);
+    mbar_expect_tx(full + s, 2 * L::kK);
+    for (int x = 0; x < L::kBoxes; ++x) {
+      tma_load(sK + s * L::kK + x * L::kKBox, &tk, full + s, x * kBoxCols,
+               h, kt * kDqN, b);
+      tma_load(sV + s * L::kK + x * L::kKBox, &tv, full + s, x * kBoxCols,
+               h, kt * kDqN, b);
+    }
+  };
+
+  if (producer) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (producer) {
+    // Q and dO once, and the ring's first kSt k tiles
+    mbar_expect_tx(q_full, 2 * L::kQ);
+    for (int x = 0; x < L::kBoxes; ++x) {
+      tma_load(sQ + x * L::kQBox, &tq, q_full, x * kBoxCols, h, q0, b);
+      tma_load(sdO + x * L::kQBox, &tdo, q_full, x * kBoxCols, h, q0, b);
+    }
+    for (int kt = 0; kt < min(kSt, n_kt); ++kt) produce(kt);
+  }
+  __syncwarp();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = q0 + 16 * warp + g;      // this thread's rows r0, r0 + 8
+  const float* kvm = kv_valid ? kv_valid + (long long)b * Sk : nullptr;
+  const bool has_kvm = kvm != nullptr;
+  const uint32_t q_addr = smem_u32(sQ);
+  const uint32_t do_addr = smem_u32(sdO);
+  // lse and delta of rows r0 and r0 + 8 (0 past Sq, whose dS is 0)
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    row_lse[i] = row < Sq ? lse[(long long)bh * Sq + row] : 0.0f;
+    row_delta[i] = row < Sq ? delta[(long long)bh * Sq + row] : 0.0f;
+  }
+
+  // S = Q K^T and dP = dO V^T of the k tile in `stage`: DP / 16 slices of
+  // depth, 32 bytes apart in a box row, the second box past 64 columns
+  auto issue_sdp = [&](float (&s)[kDqN / 8][4], float (&dp)[kDqN / 8][4],
+                       int stage) {
+    const uint32_t k_addr = smem_u32(sK + stage * L::kK);
+    const uint32_t v_addr = smem_u32(sV + stage * L::kK);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::kQBox + (kk % 4) * 32;
+      const uint32_t koff = (kk / 4) * L::kKBox + (kk % 4) * 32;
+      wgmma_ss_n64(s, sw128_desc(q_addr + off, 16),
+                   sw128_desc(k_addr + koff, 16), kk > 0);
+      wgmma_ss_n64(dp, sw128_desc(do_addr + off, 16),
+                   sw128_desc(v_addr + koff, 16), kk > 0);
+    }
+  };
+  // dS = P (dP - delta) scale in dp, P = exp(S scale - lse) (JAX :341,
+  // :350, :352): rows are q rows, columns keys. A row past Sq needs no
+  // test: TMA filled its Q and dO with zeros and its lse and delta are 0,
+  // so its P is at most 1 and its dS is 0.
+  auto ds_of = [&](float (&s)[kDqN / 8][4], float (&dp)[kDqN / 8][4],
+                   int kt) {
+    const int k0 = kt * kDqN;
+    if (needs_mask(q0, kDqM, k0, kDqN, Sq, Sk, causal, has_kvm)) {
+#pragma unroll
+      for (int j = 0; j < kDqN / 8; ++j) {
+        const int col = k0 + 8 * j + 2 * t;
+        const float kv[2] = {kv_of(kvm, col, Sk), kv_of(kvm, col + 1, Sk)};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float x = masked(scale * s[j][c], r0 + 8 * (c >> 1),
+                                 col + (c & 1), Sk, causal, kv[c & 1]);
+          const float p = exp_bf16(x - row_lse[c >> 1]);
+          dp[j][c] = p * (dp[j][c] - row_delta[c >> 1]) * scale;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kDqN / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float p = exp_bf16(scale * s[j][c] - row_lse[c >> 1]);
+          dp[j][c] = p * (dp[j][c] - row_delta[c >> 1]) * scale;
+        }
+      }
+    }
+  };
+
+  float dq_acc[DP / 8][4] = {};
+  float s[kDqN / 8][4];                      // S
+  float dp[kDqN / 8][4];                     // dP, then dS
+  uint32_t da[kDqN / 16][4];                 // dS in bf16: dQ's A operand
+  // dQ += dS K of the k tile in `stage`, depth = its 64 keys (16-key
+  // slices 2048 bytes apart; K's second 64 columns one box on)
+  auto issue_dq = [&](int stage) {
+    const uint32_t k_addr = smem_u32(sK + stage * L::kK);
+#pragma unroll
+    for (int kk = 0; kk < kDqN / 16; ++kk) {
+      wgmma_rs<DP>(dq_acc, da[kk],
+                   sw128_desc(k_addr + kk * 16 * kRowBytes, L::kKBox));
+    }
+  };
+  // dS rounded once to bf16 into the register A operand
+  auto pack_ds = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kDqN / 16; ++kk) {
+      acc_pair_as_a(da[kk], dp[2 * kk], dp[2 * kk + 1]);
+    }
+  };
+
+  // the first k tile: S, dP and dS; then each later tile issues its S and
+  // dP and the previous tile's dQ, whose products run under this tile's
+  // softmax
+  mbar_wait(q_full, 0);
+  mbar_wait(full, 0);
+  wg_fence();
+  issue_sdp(s, dp, 0);
+  wg_commit();
+  wg_wait<0>();
+  reg_fence(s);
+  reg_fence(dp);
+  ds_of(s, dp, 0);
+  pack_ds();
+  for (int kt = 1; kt < n_kt; ++kt) {
+    const int stage = kt % kSt;
+    const int prev = (kt - 1) % kSt;
+    mbar_wait(full + stage, (kt / kSt) & 1);
+    wg_fence();
+    issue_sdp(s, dp, stage);
+    wg_commit();
+    issue_dq(prev);
+    wg_commit();
+    wg_wait<1>();
+    reg_fence(s);
+    reg_fence(dp);
+    ds_of(s, dp, kt);
+    wg_wait<0>();
+    reg_fence(dq_acc);
+    reg_fence(da);
+    // k tile kt - 1 is done with: its stage takes tile kt - 1 + kSt
+    release(empty + prev);
+    if (producer && kt - 1 + kSt < n_kt) produce(kt - 1 + kSt);
+    __syncwarp();
+    pack_ds();
+  }
+  // the last tile's dQ
+  wg_fence();
+  issue_dq((n_kt - 1) % kSt);
+  wg_commit();
+  wg_wait<0>();
+  reg_fence(dq_acc);
+  reg_fence(da);
+
+  // rows below Sq of dQ, contiguous (B, Sq, H, D), in bf16; D is even, so
+  // column pairs store whole
+  const long long row_stride = (long long)H * D;
+  bf16_t* qb = dq + (long long)b * Sq * row_stride + (long long)h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= Sq) continue;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (col < D) {
+        *reinterpret_cast<uint32_t*>(qb + row * row_stride + col) =
+            pack_bf16(dq_acc[n][2 * i], dq_acc[n][2 * i + 1]);
+      }
+    }
+  }
+}
 
 // --------------------------------------------------------------------------
 // launchers
 // --------------------------------------------------------------------------
 
-struct Strides {  // element strides of a (B, S, H, D) tensor; D's is 1
-  long long b, s, h;
-};
-
-// cuTensorMapEncodeTiled, a driver function, through the runtime's entry
-// point query: the library links the CUDA runtime alone
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// Whether TMA reads a (B, S, H, D) bf16 tensor at `x` in place: 16-byte
-// aligned, every stride of an axis longer than 1 a multiple of 16 bytes,
-// and D a multiple of 8 (ops/flash_attention.py's needs_staged_copy is the
-// same rule).
-bool tma_readable(const void* x, int B, int S, int H, int D,
-                  const Strides& st) {
-  auto ok = [](int n, long long stride) { return n == 1 || stride % 8 == 0; };
-  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && D % 8 == 0 &&
-         ok(B, st.b) && ok(S, st.s) && ok(H, st.h);
-}
-
-// A 4-D tensor map over (D, H, S, B) of a bf16 tensor: boxes of 64
-// columns, one head, `rows` rows and one batch row, SWIZZLE_128B, zeros
-// outside. An axis of length 1 gets a packed stride (it is never stepped).
-int make_map(CUtensorMap* map, const void* x, int B, int S, int H, int D,
-             const Strides& st, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t sh = H > 1 ? st.h * 2 : 2ull * D;
-  const cuuint64_t ss = S > 1 ? st.s * 2 : sh * H;
-  const cuuint64_t sb = B > 1 ? st.b * 2 : ss * S;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {sh, ss, sb};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBoxCols), 1,
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Raise the kernel's dynamic shared-memory limit (above 48 KB it must be
-// asked for) and its shared-memory carveout, once a device (`done`, one
-// flag a device, belongs to the kernel); 0 when accepted.
-constexpr int kMaxDevices = 64;
-
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes, bool (&done)[kMaxDevices]) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (device < kMaxDevices && done[device]) return 0;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-        static_cast<int>(cudaSharedmemCarveoutMaxShared));
-  }
-  if (err == cudaSuccess && device < kMaxDevices) done[device] = true;
-  return static_cast<int>(err);
-}
-
-struct Problem {
-  int B, H, Sq, Sk, D;
-  Strides qs, ks, vs;
-  float scale;
-  int causal;
-  cudaStream_t stream;
-};
-
 template <int DP>
 int fwd_sm90(const Problem& p, const void* q, const void* k, const void* v,
              const float* kv_valid, void* out, float* lse) {
   CUtensorMap tq, tk, tv;
-  if (int err = make_map(&tq, q, p.B, p.Sq, p.H, p.D, p.qs, kFwdM)) return err;
-  if (int err = make_map(&tk, k, p.B, p.Sk, p.H, p.D, p.ks, kFwdN)) return err;
-  if (int err = make_map(&tv, v, p.B, p.Sk, p.H, p.D, p.vs, kFwdN)) return err;
+  if (int err = make_map(&tq, q, p.B, p.Sq, p.H, p.D, p.qs, kFwdM, kBf16)) {
+    return err;
+  }
+  if (int err = make_map(&tk, k, p.B, p.Sk, p.H, p.D, p.ks, kFwdN, kBf16)) {
+    return err;
+  }
+  if (int err = make_map(&tv, v, p.B, p.Sk, p.H, p.D, p.vs, kFwdN, kBf16)) {
+    return err;
+  }
   auto kernel = flash_fwd_bf16_sm90_kernel<DP>;
   static bool smem_set[kMaxDevices] = {};
   if (int err = allow_smem(kernel, FwdSmem<DP>::kBytes, smem_set)) {
@@ -1106,17 +1103,31 @@ int fwd_sm90(const Problem& p, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Q, K, V and dO's maps with boxes of `q_rows` (Q, dO) and `k_rows` (K, V)
+// rows
+int bwd_maps(const Problem& p, const void* q, const void* k, const void* v,
+             const void* dout, int q_rows, int k_rows, CUtensorMap* tq,
+             CUtensorMap* tk, CUtensorMap* tv, CUtensorMap* tdo) {
+  if (int err = make_map(tq, q, p.B, p.Sq, p.H, p.D, p.qs, q_rows, kBf16)) {
+    return err;
+  }
+  if (int err = make_map(tk, k, p.B, p.Sk, p.H, p.D, p.ks, k_rows, kBf16)) {
+    return err;
+  }
+  if (int err = make_map(tv, v, p.B, p.Sk, p.H, p.D, p.vs, k_rows, kBf16)) {
+    return err;
+  }
+  return make_map(tdo, dout, p.B, p.Sq, p.H, p.D, dout_strides(p), q_rows,
+                  kBf16);
+}
+
 template <int DP>
 int dkv_sm90(const Problem& p, const void* q, const void* k, const void* v,
              const void* dout, const float* lse, const float* delta,
              const float* kv_valid, void* dk, void* dv) {
-  const long long hd = (long long)p.H * p.D;  // dO is contiguous
-  const Strides dos{(long long)p.Sq * hd, hd, p.D};
   CUtensorMap tq, tk, tv, tdo;
-  if (int err = make_map(&tq, q, p.B, p.Sq, p.H, p.D, p.qs, kDkvM)) return err;
-  if (int err = make_map(&tk, k, p.B, p.Sk, p.H, p.D, p.ks, kDkvN)) return err;
-  if (int err = make_map(&tv, v, p.B, p.Sk, p.H, p.D, p.vs, kDkvN)) return err;
-  if (int err = make_map(&tdo, dout, p.B, p.Sq, p.H, p.D, dos, kDkvM)) {
+  if (int err = bwd_maps(p, q, k, v, dout, kDkvM, kDkvN, &tq, &tk, &tv,
+                         &tdo)) {
     return err;
   }
   auto kernel = flash_bwd_dkv_bf16_sm90_kernel<DP>;
@@ -1132,29 +1143,32 @@ int dkv_sm90(const Problem& p, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DP>
+int dq_sm90(const Problem& p, const void* q, const void* k, const void* v,
+            const void* dout, const float* lse, const float* delta,
+            const float* kv_valid, void* dq) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (int err = bwd_maps(p, q, k, v, dout, kDqM, kDqN, &tq, &tk, &tv,
+                         &tdo)) {
+    return err;
+  }
+  auto kernel = flash_bwd_dq_bf16_sm90_kernel<DP>;
+  static bool smem_set[kMaxDevices] = {};
+  if (int err = allow_smem(kernel, DqSmem<DP>::kBytes, smem_set)) {
+    return err;
+  }
+  const dim3 grid(static_cast<unsigned>(p.B * p.H),
+                  static_cast<unsigned>((p.Sq + kDqM - 1) / kDqM));
+  kernel<<<grid, kDqThreads, DqSmem<DP>::kBytes, p.stream>>>(
+      tq, tk, tv, tdo, lse, delta, kv_valid, static_cast<bf16_t*>(dq), p.H,
+      p.Sq, p.Sk, p.D, p.scale, p.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // bfloat16 only, D at most 128
 int check(int B, int H, int Sq, int Sk, int D, int bf16) {
-  if (!bf16 || B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || D <= 0 || D > 128) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return 0;
-}
-
-Problem make_problem(int B, int H, int Sq, int Sk, int D, long long qsb,
-                     long long qss, long long qsh, long long ksb,
-                     long long kss, long long ksh, long long vsb,
-                     long long vss, long long vsh, float scale, int causal,
-                     void* stream) {
-  return Problem{B, H, Sq, Sk, D, Strides{qsb, qss, qsh},
-                 Strides{ksb, kss, ksh}, Strides{vsb, vss, vsh}, scale,
-                 causal, static_cast<cudaStream_t>(stream)};
-}
-
-bool inputs_readable(const Problem& p, const void* q, const void* k,
-                     const void* v) {
-  return tma_readable(q, p.B, p.Sq, p.H, p.D, p.qs) &&
-         tma_readable(k, p.B, p.Sk, p.H, p.D, p.ks) &&
-         tma_readable(v, p.B, p.Sk, p.H, p.D, p.vs);
+  if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
+  return check_shape(B, H, Sq, Sk, D);
 }
 
 }  // namespace
@@ -1175,7 +1189,7 @@ int dpt_flash_fwd(const void* q, const void* k, const void* v,
   if (int err = check(B, H, Sq, Sk, D, bf16)) return err;
   const Problem p = make_problem(B, H, Sq, Sk, D, qsb, qss, qsh, ksb, kss,
                                  ksh, vsb, vss, vsh, scale, causal, stream);
-  if (!inputs_readable(p, q, k, v)) {
+  if (!inputs_readable(p, q, k, v, nullptr, kBf16)) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   return D <= 64 ? fwd_sm90<64>(p, q, k, v, kv_valid, out, lse)
@@ -1193,15 +1207,32 @@ int dpt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (int err = check(B, H, Sq, Sk, D, bf16)) return err;
   const Problem p = make_problem(B, H, Sq, Sk, D, qsb, qss, qsh, ksb, kss,
                                  ksh, vsb, vss, vsh, scale, causal, stream);
-  const long long hd = (long long)H * D;
-  if (!inputs_readable(p, q, k, v) ||
-      !tma_readable(dout, B, Sq, H, D, Strides{(long long)Sq * hd, hd, D})) {
+  if (!inputs_readable(p, q, k, v, dout, kBf16)) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   return D <= 64 ? dkv_sm90<64>(p, q, k, v, dout, lse, delta, kv_valid, dk,
                                 dv)
                  : dkv_sm90<128>(p, q, k, v, dout, lse, delta, kv_valid, dk,
                                  dv);
+}
+
+int dpt_flash_bwd_dq(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     const float* kv_valid, void* dq, int B, int H, int Sq,
+                     int Sk, int D, long long qsb, long long qss,
+                     long long qsh, long long ksb, long long kss,
+                     long long ksh, long long vsb, long long vss,
+                     long long vsh, float scale, int causal, int bf16,
+                     void* stream) {
+  if (int err = check(B, H, Sq, Sk, D, bf16)) return err;
+  const Problem p = make_problem(B, H, Sq, Sk, D, qsb, qss, qsh, ksb, kss,
+                                 ksh, vsb, vss, vsh, scale, causal, stream);
+  if (!inputs_readable(p, q, k, v, dout, kBf16)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  return D <= 64
+             ? dq_sm90<64>(p, q, k, v, dout, lse, delta, kv_valid, dq)
+             : dq_sm90<128>(p, q, k, v, dout, lse, delta, kv_valid, dq);
 }
 
 const char* dpt_cuda_error_string(int code) {

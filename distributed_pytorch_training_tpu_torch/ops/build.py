@@ -2,8 +2,9 @@
 
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface. ``nvcc``
 compiles it for Hopper (``sm_90a``) into ``csrc/build/lib<name>-<hash>.so``
-at first use; the hash is of the source, so an edited source builds anew
-and a stale library is never loaded. nvcc's output, with ptxas's registers
+at first use; the hash is of the source and the shared headers
+(``csrc/*.cuh``), so an edited source builds anew and a stale library is
+never loaded. nvcc's output, with ptxas's registers
 and spills of every kernel (``-Xptxas -v``), is kept beside it as
 ``lib<name>-<hash>.log``. Nothing builds at import time: the
 CPU tests import every module on a machine with no ``nvcc``.
@@ -50,9 +51,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source and
+    of every shared header beside it (``csrc/*.cuh``)."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def nvcc_command(name: str, out: Path, nvcc: str = "nvcc") -> List[str]:

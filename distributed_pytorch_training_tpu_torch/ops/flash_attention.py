@@ -1,10 +1,11 @@
 """FlashAttention-2 forward and backward: three hand-written Hopper kernels
 and their plain PyTorch versions.
 
-The kernels (``csrc/flash_attention.cu``, and for bfloat16 inputs the
-forward and dK/dV of ``csrc/flash_attention_sm90.cu``, built by
-``ops/build.py``) replace the Pallas TPU kernels of the JAX package's
-``ops/flash_attention.py``:
+The kernels (built by ``ops/build.py``: for bfloat16 inputs all three in
+``csrc/flash_attention_sm90.cu``; for float32 the forward and dQ in
+``csrc/flash_attention.cu`` and dK/dV in
+``csrc/flash_attention_sm90_tf32.cu``) replace the Pallas TPU kernels of
+the JAX package's ``ops/flash_attention.py``:
 
 * ``flash_attention_fwd_lse`` (K3) <- ``_flash_fwd_lse`` / ``_fwd_kernel``;
 * ``flash_attention_bwd_dkv`` (K4) <- ``_flash_bwd`` / ``_bwd_dkv_kernel``;
@@ -14,12 +15,13 @@ A tensor on the CPU takes the plain version; a tensor on a CUDA device
 launches the kernel or raises. Each kernel wrapper counts its launches in
 ``<wrapper>.launches``; a CPU call does not count.
 
-The bf16 forward and dK/dV read their inputs by TMA, which needs each
-tensor 16-byte aligned with 16-byte strides and D a multiple of 8
+The Hopper kernels (bf16 K3-K5, float32 K4) read their inputs by TMA,
+which needs each tensor 16-byte aligned with 16-byte strides and rows of
+whole 16-byte chunks, D a multiple of 8 in bf16 and of 4 in float32
 (``needs_staged_copy``). Their C launchers refuse, before launching, an
 input that is not, such as an unaligned view or an odd head width; the
-wrapper then copies the inputs the predicate names (D zero-padded to a
-multiple of 8, which is exact) and launches on the copies.
+wrapper then copies the inputs the predicate names (D zero-padded to the
+multiple, which is exact) and launches on the copies.
 ``<wrapper>.staged_copies`` counts those copies. The model's fused qkv
 views never need one, and the check costs them no host time.
 
@@ -50,11 +52,12 @@ import torch
 from . import build
 
 NEG_INF = float(np.finfo(np.float32).min)
-LIBRARY = "flash_attention"
-LIBRARY_SM90 = "flash_attention_sm90"     # the bf16 forward and dK/dV
-LIBRARIES = (LIBRARY, LIBRARY_SM90)
-# cudaErrorMisalignedAddress: LIBRARY_SM90's launchers return it, without
-# launching, for an input that TMA cannot read in place
+LIBRARY = "flash_attention"               # float32 forward and dQ
+LIBRARY_SM90 = "flash_attention_sm90"     # bf16 forward, dK/dV and dQ
+LIBRARY_SM90_TF32 = "flash_attention_sm90_tf32"   # float32 dK/dV
+LIBRARIES = (LIBRARY, LIBRARY_SM90, LIBRARY_SM90_TF32)
+# cudaErrorMisalignedAddress: the Hopper libraries' launchers return it,
+# without launching, for an input that TMA cannot read in place
 _NOT_TMA_READABLE = 716
 MAX_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -177,13 +180,17 @@ def flash_attention_bwd_ref(q, k, v, out, lse, g, causal: bool,
 # ---------------------------------------------------------------------------
 
 
+# the library that holds each (kernel, bf16); they export the same entry
+# points, each taking its own dtype
+_HOME = {("fwd", False): LIBRARY, ("dkv", False): LIBRARY_SM90_TF32,
+         ("dq", False): LIBRARY, ("fwd", True): LIBRARY_SM90,
+         ("dkv", True): LIBRARY_SM90, ("dq", True): LIBRARY_SM90}
+
+
 @functools.lru_cache(maxsize=None)
 def _launchers():
-    """{(kernel, bf16): (library, C launcher)}, built and bound once: the
-    bf16 forward and dK/dV from LIBRARY_SM90, everything else from
-    LIBRARY (both export the same entry points)."""
+    """{(kernel, bf16): (library, C launcher)}, built and bound once."""
     build.build_all(LIBRARIES)
-    base, sm90 = build.load(LIBRARY), build.load(LIBRARY_SM90)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     shape = [i] * 5 + [ll] * 9 + [ctypes.c_float, i, i, p]
     entries = {"fwd": ("dpt_flash_fwd", 6), "dkv": ("dpt_flash_bwd_dkv", 9),
@@ -191,7 +198,7 @@ def _launchers():
     out = {}
     for name, (entry, n_ptrs) in entries.items():
         for bf16 in (False, True):
-            lib = sm90 if bf16 and name != "dq" else base
+            lib = build.load(_HOME[name, bf16])
             fn = getattr(lib, entry)
             fn.argtypes = [p] * n_ptrs + shape
             fn.restype = ctypes.c_int
@@ -199,35 +206,47 @@ def _launchers():
     return out
 
 
-def needs_staged_copy(shape, strides, offset16: int, dtype) -> bool:
+def _tma_elements(dtype, kernel: str) -> int:
+    """Elements in 16 bytes when ``kernel`` ("fwd", "dkv" or "dq") reads
+    ``dtype`` by TMA, else 0: every bf16 kernel and float32 dK/dV do;
+    float32 K3 and K5 stage rows themselves."""
+    if dtype is torch.bfloat16:
+        return 8
+    return 4 if dtype is torch.float32 and kernel == "dkv" else 0
+
+
+def needs_staged_copy(shape, strides, offset16: int, dtype,
+                      kernel: str = "fwd") -> bool:
     """Whether a (B, S, H, D) tensor of ``shape`` and element ``strides``,
     starting ``offset16`` bytes past a 16-byte boundary, must be copied
-    before the bf16 forward and dK/dV can read it by TMA: TMA needs a
-    16-byte aligned start, 16-byte strides on every axis longer than 1
-    and rows of whole 16-byte chunks (D a multiple of 8). float32 inputs
-    never are: their kernels stage rows themselves."""
-    if dtype is not torch.bfloat16:
+    before ``kernel`` ("fwd", "dkv" or "dq") can read it by TMA: TMA needs
+    a 16-byte aligned start, 16-byte strides on every axis longer than 1
+    and rows of whole 16-byte chunks (D a multiple of 8 in bf16, of 4 in
+    float32). float32 inputs of the forward and dQ never are: their
+    kernels stage rows themselves."""
+    n = _tma_elements(dtype, kernel)
+    if not n:
         return False
     b, s, h, d = shape
     sb, ss, sh = strides[:3]
-    # 16 bytes are 8 bf16 elements
-    return bool(offset16 % 16 or d % 8 or (b > 1 and sb % 8)
-                or (s > 1 and ss % 8) or (h > 1 and sh % 8))
+    return bool(offset16 % 16 or d % n or (b > 1 and sb % n)
+                or (s > 1 and ss % n) or (h > 1 and sh % n))
 
 
-def _tma_operands(wrapper, tensors):
-    """The bf16 kernels' operands, once their launcher has refused one:
-    each tensor as it is when TMA reads it in place (``needs_staged_copy``),
-    else a contiguous copy, and when D is not a multiple of 8 every one
-    copied with D zero-padded to the next multiple (a zero column adds
-    nothing to any product). Counts the copies on
+def _tma_operands(wrapper, tensors, kernel: str = "fwd"):
+    """A TMA kernel's operands, once its launcher has refused one: each
+    tensor as it is when TMA reads it in place (``needs_staged_copy``),
+    else a contiguous copy, and when D is not a whole number of 16-byte
+    chunks every one copied with D zero-padded to the next (a zero column
+    adds nothing to any product). Counts the copies on
     ``wrapper.staged_copies``."""
     d = tensors[0].shape[-1]
-    dp = -(-d // 8) * 8
+    n = _tma_elements(tensors[0].dtype, kernel)
+    dp = -(-d // n) * n
     out = []
     for t in tensors:
         if needs_staged_copy(t.shape, t.stride(), t.data_ptr() % 16,
-                             t.dtype):
+                             t.dtype, kernel):
             staged = t.new_zeros((*t.shape[:-1], dp))
             staged[..., :d] = t
             out.append(staged)
@@ -327,7 +346,7 @@ def flash_attention_fwd_lse(q, k, v, causal: bool,
 
     out, code = launch(q, k, v)
     if code == _NOT_TMA_READABLE:
-        q, k, v = _tma_operands(flash_attention_fwd_lse, (q, k, v))
+        q, k, v = _tma_operands(flash_attention_fwd_lse, (q, k, v), "fwd")
         out, code = launch(q, k, v)
     build.check_launch(lib, "flash_attention_fwd_lse", code)
     flash_attention_fwd_lse.launches += 1
@@ -377,7 +396,7 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal: bool,
     dk, dv, code = launch(q, k, v, g)
     if code == _NOT_TMA_READABLE:
         dk, dv, code = launch(*_tma_operands(flash_attention_bwd_dkv,
-                                             (q, k, v, g)))
+                                             (q, k, v, g), "dkv"))
     build.check_launch(lib, "flash_attention_bwd_dkv", code)
     flash_attention_bwd_dkv.launches += 1
     if dk.shape[-1] != d:
@@ -394,16 +413,28 @@ def flash_attention_bwd_dq(q, k, v, g, lse, delta, causal: bool,
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, g, lse, delta, causal,
                                           sm_scale, kv_valid)
-    g = g.contiguous()
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    d = q.shape[-1]
+    scale = _scale_of(q, sm_scale)
     lib, fn = _launchers()["dq", q.dtype == torch.bfloat16]
     kvm, kv_ptr = _kv_ptr(kv_valid)
-    with torch.cuda.device(q.device):
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr(), kv_ptr, dq.data_ptr(),
-                  *_problem(q, k, v, _scale_of(q, sm_scale), causal))
+
+    def launch(q, k, v, g):
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        with torch.cuda.device(q.device):
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                      lse.data_ptr(), delta.data_ptr(), kv_ptr,
+                      dq.data_ptr(), *_problem(q, k, v, scale, causal))
+        return dq, code
+
+    g = g.contiguous()
+    dq, code = launch(q, k, v, g)
+    if code == _NOT_TMA_READABLE:
+        dq, code = launch(*_tma_operands(flash_attention_bwd_dq,
+                                         (q, k, v, g), "dq"))
     build.check_launch(lib, "flash_attention_bwd_dq", code)
     flash_attention_bwd_dq.launches += 1
+    if dq.shape[-1] != d:
+        dq = dq[..., :d].contiguous()
     return dq
 
 
@@ -412,6 +443,7 @@ flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_fwd_lse.staged_copies = 0
 flash_attention_bwd_dkv.staged_copies = 0
+flash_attention_bwd_dq.staged_copies = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, causal: bool,

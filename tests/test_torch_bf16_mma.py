@@ -1,10 +1,9 @@
 """Why the bf16 flash kernels may round P and dS to bfloat16.
 
-For bfloat16 inputs the forward (K3) and the dK/dV backward (K4) of
-``csrc/flash_attention_sm90.cu`` run their products on the tensor cores as
-``wgmma`` bf16 x bf16 with float32 accumulation, and the dQ backward (K5)
-of ``csrc/flash_attention.cu`` as ``mma.sync`` m16n8k16, all with the same
-arithmetic:
+For bfloat16 inputs the forward (K3), the dK/dV backward (K4) and the dQ
+backward (K5) of ``csrc/flash_attention_sm90.cu`` run their products on the
+tensor cores as ``wgmma`` bf16 x bf16 with float32 accumulation, all with
+the same arithmetic:
 
 * S = Q K^T (K4: S^T = K Q^T and dP^T = V dO^T; K5: S and dP = dO V^T)
   multiplies the bf16 inputs as they are; a product of two bf16 values is
@@ -67,6 +66,7 @@ FLASH_REL_F32 = 1e-4
 SPLIT_BAR = 5e-3
 TILE = 64                      # keys a k tile of the mma.sync forward
 WGMMA_TILE = 128               # and of the wgmma forward
+DQ_TILE = 64                   # keys a k tile of the wgmma dQ
 
 
 def bf16(x: torch.Tensor) -> torch.Tensor:
@@ -127,6 +127,33 @@ def backward_bf16(q, k, v, g, lse, delta, causal, kv_valid):
     ds = bf16(p * (dp - delta.reshape(b, h, sq, 1)) * scale)
     return (mm("bhst,bthd->bshd", ds, k), mm("bhst,bshd->bthd", ds, q),
             mm("bhst,bshd->bthd", bf16(p), g))
+
+
+def dq_bf16_tiled(q, k, v, g, lse, delta, causal, kv_valid, tile=DQ_TILE):
+    """dQ in float32 of the K5 wgmma kernel's arithmetic, k tile by k
+    tile of ``tile`` keys: S and dP of the tile from exact products, dS in
+    float32 rounded once to bf16, the tile's dS K summed exactly and added
+    to the float32 dQ accumulator."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = np.float32(1.0 / np.sqrt(d))
+    dq = torch.zeros((b, sq, h, d))
+    for k0 in range(0, sk, tile):
+        kt, vt = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
+        s = scale * mm("bshd,bthd->bhst", q, kt)
+        rows = torch.arange(sq)[:, None]
+        cols = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        if causal:
+            s = torch.where(rows >= cols, s, fa.NEG_INF)
+        if kv_valid is not None:
+            s = torch.where(kv_valid[:, None, None, k0:k0 + tile] > 0, s,
+                            fa.NEG_INF)
+        p = torch.exp(s - lse.reshape(b, h, sq, 1))
+        dp = mm("bshd,bthd->bhst", g, vt)
+        ds = bf16(p * (dp - delta.reshape(b, h, sq, 1)) * scale)
+        dq = (dq.double() + torch.einsum("bhst,bthd->bshd", ds.double(),
+                                         kt.double())).float()
+    return dq
 
 
 def rel_err(got, want) -> float:
@@ -245,6 +272,25 @@ def test_dq_bf16_mma_within_bf16_tolerance(case):
     errs = bwd_errors(case)
     assert errs["dq_f32"] <= SPLIT_BAR, errs
     assert errs["dq"] <= FLASH_REL_BF16, errs
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_dq_bf16_wgmma_tile_within_bf16_tolerance(case):
+    """K5's arithmetic at the wgmma kernel's k tile of 64 keys (dS rounded
+    per tile, dQ summed in float32 across tiles), against the same
+    tolerances as the untiled dQ."""
+    _, _, _, _, causal, _ = case
+    q, k, v, g, kv, live = inputs(case)
+    g = bf16(g * live[:, :, None, None])       # dead rows: zero weight
+    out, lse = fa.flash_attention_fwd_lse_ref(q, k, v, causal, None, kv)
+    delta = fa._delta(bf16(out), g)
+    want = fa.flash_attention_bwd_dq_ref(q, k, v, g, lse, delta, causal,
+                                         None, kv)
+    want16 = fa.flash_attention_bwd_dq_ref(
+        *(t.bfloat16() for t in (q, k, v, g)), lse, delta, causal, None, kv)
+    got = dq_bf16_tiled(q, k, v, g, lse, delta, causal, kv)
+    assert rel_err(got, want) <= SPLIT_BAR
+    assert rel_err(got.bfloat16(), want16) <= FLASH_REL_BF16
 
 
 @pytest.mark.parametrize("which", ["forward", "dkv", "dq"])

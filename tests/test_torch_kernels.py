@@ -283,16 +283,18 @@ def flash_module():
 
 
 def staged(fa):
-    """The bf16 forward's and dK/dV's staged copies so far."""
+    """The TMA kernels' staged copies so far: forward, dK/dV, dQ."""
     return (fa.flash_attention_fwd_lse.staged_copies,
-            fa.flash_attention_bwd_dkv.staged_copies)
+            fa.flash_attention_bwd_dkv.staged_copies,
+            fa.flash_attention_bwd_dq.staged_copies)
 
 
 def check_flash_case(case, dtype, device, masked_prefix=0):
     """K3-K5 against their plain versions on one case, within FLASH_REL;
     ``masked_prefix``: also mask batch row 1's first keys. The bf16
-    forward and dK/dV read contiguous inputs by TMA in place, and copy
-    them first only when D is not a multiple of 8 (q, k, v; and dO)."""
+    kernels and float32 dK/dV read contiguous inputs by TMA in place, and
+    copy them first only when D is not a whole number of 16-byte chunks
+    (q, k, v; and dO in the backward)."""
     fa = flash_module()
     b, sq, sk, h, d, causal, masked = case
     q, k, v, do, kv = flash_inputs(b, sq, sk, h, d, masked, dtype, device)
@@ -315,7 +317,10 @@ def check_flash_case(case, dtype, device, masked_prefix=0):
             fa.flash_attention_bwd_dkv.launches,
             fa.flash_attention_bwd_dq.launches) == tuple(
                 n + 1 for n in before)
-    copies = (3, 4) if dtype == torch.bfloat16 and d % 8 else (0, 0)
+    if dtype == torch.bfloat16:
+        copies = (3, 4, 4) if d % 8 else (0, 0, 0)
+    else:
+        copies = (0, 4 if d % 4 else 0, 0)
     assert tuple(n - m for n, m in zip(staged(fa), staged_before)) == copies
     assert out.dtype == dtype and dq.dtype == dtype
     tol = FLASH_REL[dtype]
@@ -353,7 +358,19 @@ TMA_CASES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", TMA_CASES, ids=str)
 def test_flash_bf16_tma_edges_match_plain_versions(cuda_device, case):
+    """K3, K4 and K5 in bf16, all three read by TMA."""
     check_flash_case(case, torch.bfloat16, cuda_device,
+                     masked_prefix=100 if case[-1] else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TMA_CASES, ids=str)
+def test_flash_fp32_tma_edges_match_plain_versions(cuda_device, case):
+    """The same edges in float32, where dK/dV is the TMA kernel: D 32
+    (its second 32-column box all zero fill), D 96 (the D-128 tiles),
+    ragged Sq and Sk on both sides of the tiles, and all-masked rows
+    straddling a tile; no copy staged (D is a multiple of 4)."""
+    check_flash_case(case, torch.float32, cuda_device,
                      masked_prefix=100 if case[-1] else 0)
 
 
@@ -424,7 +441,7 @@ def test_flash_reads_unaligned_qkv_views(cuda_device, dtype):
     got = flash_attention(q, k, v, True)
     # bf16: the forward copies q, k and v before its TMA loads
     copies = 3 if dtype == torch.bfloat16 else 0
-    assert staged(fa) == (before[0] + copies, before[1])
+    assert staged(fa) == (before[0] + copies, before[1], before[2])
     want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            True)
     torch.cuda.synchronize()
@@ -455,10 +472,13 @@ def test_flash_backward_reads_strided_qkv_views(cuda_device, offset, dtype):
     fa = flash_module()
     before = staged(fa)
     flash_attention(*views, True).backward(do)
-    # bf16 at offset 1: the forward and dK/dV each copy q, k and v (dO is
-    # aligned); aligned views are read in place
-    copies = 3 if dtype == torch.bfloat16 and offset else 0
-    assert staged(fa) == (before[0] + copies, before[1] + copies)
+    # at offset 1 every TMA kernel copies q, k and v (dO is aligned): in
+    # bf16 all three, in float32 dK/dV alone; aligned views are read in
+    # place
+    copies = 3 if offset else 0
+    want = (copies, copies, copies) if dtype == torch.bfloat16 \
+        else (0, copies, 0)
+    assert staged(fa) == tuple(n + c for n, c in zip(before, want))
     dense = [t.detach().contiguous().requires_grad_(True) for t in views]
     flash_attention(*dense, True).backward(do)
     torch.cuda.synchronize()

@@ -1,11 +1,15 @@
 """Why the flash-attention kernels split every product in three.
 
-The flash kernels (K3 forward, K4 dK/dV, K5 dQ in
-``csrc/flash_attention.cu``) run their products on the tensor cores in
-TF32, which keeps 10 bits of mantissa. Each float32 operand x is split as
-x = big + small, big = x rounded to TF32 and small = (x - big) rounded to
-TF32, and a product is big*big + big*small + small*big (3xTF32;
-small*small is dropped).
+The float32 flash kernels (K3 forward and K5 dQ in
+``csrc/flash_attention.cu``, K4 dK/dV in
+``csrc/flash_attention_sm90_tf32.cu``) run their products on the tensor
+cores in TF32, which keeps 10 bits of mantissa. Each float32 operand x is
+split as x = big + small, and a product is big*big + big*small +
+small*big (3xTF32; small*small is dropped). K3 and K5 (``mma.sync``)
+round: big = x rounded to TF32, small = (x - big) rounded to TF32. K4
+(``wgmma``) lets the tensor core truncate: it reads a float32 as TF32 by
+ignoring the low 13 bits, so big is the raw float32 tile as TMA lands it
+and small = x - trunc(x), itself read truncated.
 
 This test emulates that arithmetic on the CPU. TF32 rounding is
 ``cvt.rna.tf32.f32``'s, to nearest with ties away from zero: add 0x1000 to
@@ -22,7 +26,10 @@ the rounded terms:
 For each:
 
 * the three-product split lands within FLASH_REL / 10 of the plain
-  version;
+  version; so does K4's, with truncation for big and small, each 8-deep
+  slice's three products (big small, small big, big big) added in that
+  order to a float32 accumulator that runs over the whole depth (dK and
+  dV over every q row), as ``wgmma`` accumulates;
 * one TF32 product does not land within FLASH_REL (for the forward, on
   ``out``), which is why the kernels pay for three.
 
@@ -63,6 +70,33 @@ def product(passes: int):
                    for x, y in terms).float()
 
     return mm
+
+
+def trunc(x: torch.Tensor) -> torch.Tensor:
+    """float32 as the tensor core reads it in TF32: low 13 bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def wgmma_tf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An einsum of two float32 operands as K4's ``wgmma .tf32`` forms it:
+    the contracted axis in slices of 8, each slice's big*small, small*big
+    and big*big (big = trunc(x), small = trunc(x - big)) summed exactly and
+    each added to a float32 accumulator in that order."""
+    ins, out = eq.split("->")
+    sa, sb = ins.split(",")
+    (axis,) = set(sa) & set(sb) - set(out)
+    ia, ib = sa.index(axis), sb.index(axis)
+    acc = None
+    for s0 in range(0, a.shape[ia], 8):
+        x = a.narrow(ia, s0, min(8, a.shape[ia] - s0))
+        y = b.narrow(ib, s0, min(8, b.shape[ib] - s0))
+        xb, yb = trunc(x), trunc(y)
+        xs, ys = trunc(x - xb), trunc(y - yb)
+        for u, w in ((xb, ys), (xs, yb), (xb, yb)):
+            term = torch.einsum(eq, u.double(), w.double())
+            acc = term.float() if acc is None else \
+                (acc.double() + term).float()
+    return acc
 
 
 def backward_with(mm, q, k, v, g, lse, delta, causal, kv_valid):
@@ -159,6 +193,34 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_three_tf32_products_match_float32(case):
     assert max(errors(case, passes=3)) <= FLASH_REL / 10
+
+
+def dkv_wgmma_errors(case):
+    """[dk, dv] of K4's wgmma split against the plain backward."""
+    _, _, _, _, causal, _ = case
+    q, k, v, g, kv, live = inputs(case)
+    g = g * live[:, :, None, None]             # dead rows: zero weight
+    out, lse = fa.flash_attention_fwd_lse_ref(q, k, v, causal, None, kv)
+    delta = fa._delta(out, g)
+    want = fa.flash_attention_bwd_dkv_ref(q, k, v, g, lse, delta, causal,
+                                          None, kv)
+    got = backward_with(wgmma_tf32, q, k, v, g, lse, delta, causal, kv)[1:]
+    return [rel_err(x, y) for x, y in zip(got, want)]
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_dkv_wgmma_truncated_split_matches_float32(case):
+    assert max(dkv_wgmma_errors(case)) <= FLASH_REL / 10
+
+
+def test_truncation_drops_the_low_13_bits():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -10, 3.0],
+                     dtype=torch.float32)
+    want = [1.0, 1.0 + 2.0 ** -10, -1.0, 1.0 + 2.0 ** -10, 3.0]
+    assert trunc(x).tolist() == want
+    small = x - trunc(x)
+    assert torch.equal(trunc(x) + small, x)    # the split is exact
 
 
 @pytest.mark.parametrize("case", CASES, ids=str)
