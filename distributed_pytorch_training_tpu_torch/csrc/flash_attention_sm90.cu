@@ -12,15 +12,14 @@
 //                                     _bwd_dkv_kernel (:269), pallas_call :400
 //   flash_bwd_dq_bf16_sm90_kernel  <- _flash_bwd (:360), body
 //                                     _bwd_dq_kernel (:317), pallas_call :440
-// float32 K3 and K5 stay with flash_attention.cu's mma.sync kernels, float32
-// K4 is flash_attention_sm90_tf32.cu's. The C entry points dpt_flash_fwd,
-// dpt_flash_bwd_dkv and dpt_flash_bwd_dq have flash_attention.cu's
-// signatures and take bfloat16 (bf16 = 1) only. flash_sm90.cuh holds what
-// the Hopper kernels share (masks, mbarriers, TMA, descriptors).
+// float32 K3-K5 are flash_attention_sm90_tf32.cu's. The C entry points
+// dpt_flash_fwd, dpt_flash_bwd_dkv and dpt_flash_bwd_dq take bfloat16
+// (bf16 = 1) only; the float32 library exports the same names and
+// signatures. flash_sm90.cuh holds what the Hopper kernels share (masks,
+// mbarriers, TMA, descriptors) and, in its header, the semantics every
+// flash kernel keeps.
 //
-// Semantics and arithmetic are flash_attention.cu's (its header): masked
-// logits are NEG_INF (the float32 minimum), keys past Sk are -inf, causal
-// is top-left; S multiplies the bf16 inputs as they are (exact products,
+// Arithmetic: S multiplies the bf16 inputs as they are (exact products,
 // float32 sums) and is scaled in float32 after the dot (the backward scales
 // the dot and dS as the JAX kernel does); a tile pair that no mask bites
 // (needs_mask) takes no mask test, and the masks are selects, not
@@ -130,7 +129,6 @@ namespace {
 using bf16_t = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFullMask = 0xffffffffu;
 
 constexpr int kConsumers = 2;                  // consumer warpgroups
 constexpr int kConsumerWarps = 4 * kConsumers;
@@ -148,21 +146,11 @@ constexpr int kDqThreads = 128;            // one consumer warpgroup
 constexpr int kDqN = 64;                   // keys of a dQ k tile
 
 // --------------------------------------------------------------------------
-// bf16 arithmetic kept from flash_attention.cu's bf16 kernels
+// bf16 arithmetic kept from the earlier mma.sync bf16 kernels
 // --------------------------------------------------------------------------
 
 __device__ __forceinline__ float exp_bf16(float x) {
   return exp2f(x * kLog2e);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(kFullMask, v, 1));
-  return fmaxf(v, __shfl_xor_sync(kFullMask, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(kFullMask, v, 1);
-  return v + __shfl_xor_sync(kFullMask, v, 2);
 }
 
 // two floats rounded to nearest even into one bf16 pair, lo in the low half
@@ -1175,7 +1163,7 @@ int check(int B, int H, int Sq, int Sk, int D, int bf16) {
 
 extern "C" {
 
-// flash_attention.cu's entry points for bfloat16 inputs (bf16 must be 1):
+// The entry points for bfloat16 inputs (bf16 must be 1):
 // each enqueues one kernel on `stream` and returns cudaGetLastError() as
 // an int, 0 when the launch was accepted; cudaErrorMisalignedAddress when
 // an input is not readable by TMA in place (the caller stages a copy).

@@ -2,9 +2,35 @@
 // masks, mbarriers, TMA loads through 4-D tensor maps built on the host,
 // and wgmma's shared-memory descriptors and fences. Included by
 // flash_attention_sm90.cu (bfloat16 K3, K4, K5) and
-// flash_attention_sm90_tf32.cu (float32 K4); everything is in an unnamed
-// namespace, so each library holds its own copy. ops/build.py hashes this
-// header into every library's name, so an edit here rebuilds both.
+// flash_attention_sm90_tf32.cu (float32 K3, K4, K5); everything is in an
+// unnamed namespace, so each library holds its own copy. ops/build.py
+// hashes this header into every library's name, so an edit here rebuilds
+// both.
+//
+// Semantics every flash kernel keeps from the JAX kernels
+// (distributed_pytorch_training_tpu/ops/flash_attention.py):
+//   * masked logits are the float32 minimum (NEG_INF), not -inf: a row
+//     whose keys are all masked gets p = 1 on every key of the k tiles it
+//     visits and emits their mean(V), with lse = NEG_INF;
+//   * keys past Sk (a ragged last tile) do not exist: their logit is -inf,
+//     so p = 0 even in an all-masked row;
+//   * causal alignment is top-left: row >= col on absolute indices from 0,
+//     also when Sq != Sk; a causal k tile is live when its first key is at
+//     or before the q tile's last row (the JAX `live` test);
+//   * a key attends iff its kv_valid, when given ((B, Sk) float32), is > 0;
+//   * the float32 forward scales q before the dot (:167); the bf16 forward
+//     multiplies the bf16 inputs as they are and scales the float32 dot
+//     (the two differ by float32 rounding only, and not at all at D 64,
+//     scale 1/8); the backward scales the dot (:294, :341) and dS (:308,
+//     :352);
+//   * the backward re-masks (causal and kv_valid), so no gradient reaches a
+//     masked key through a normal row;
+//   * no atomics: every out, lse, dQ, dK and dV element is written once, by
+//     the block that owns its row or key, so a run repeats bitwise.
+// Inputs are (B, S, H, D), read through their batch, sequence and head
+// strides (the last axis contiguous), so q, k and v can be views of one
+// fused qkv tensor; out, dq, dk and dv are written contiguous in the input
+// dtype, lse as (B*H, Sq) float32.
 
 #pragma once
 
@@ -21,6 +47,7 @@ constexpr int kRowBytes = 128;   // bytes of a TMA box row (SWIZZLE_128B)
 // a barrier that has not completed after this many SM clocks (~8 s) traps:
 // a launch error instead of a hung card
 constexpr long long kSpinClocks = 1LL << 34;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 // --------------------------------------------------------------------------
 // the JAX kernels' masks
@@ -49,6 +76,18 @@ __device__ __forceinline__ bool needs_mask(int q0, int rows, int k0,
                                            bool causal, bool has_kvm) {
   return has_kvm || q0 + rows > Sq || k0 + cols > Sk ||
          (causal && k0 + cols - 1 > q0);
+}
+
+// max / sum over the 4 lanes of a quad, which hold one row of an
+// accumulator tile
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(kFullMask, v, 1));
+  return fmaxf(v, __shfl_xor_sync(kFullMask, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFullMask, v, 1);
+  return v + __shfl_xor_sync(kFullMask, v, 2);
 }
 
 // --------------------------------------------------------------------------

@@ -1,9 +1,8 @@
 """FlashAttention-2 forward and backward: three hand-written Hopper kernels
 and their plain PyTorch versions.
 
-The kernels (built by ``ops/build.py``: for bfloat16 inputs all three in
-``csrc/flash_attention_sm90.cu``; for float32 the forward and dQ in
-``csrc/flash_attention.cu`` and dK/dV in
+The kernels (built by ``ops/build.py``: for bfloat16 inputs in
+``csrc/flash_attention_sm90.cu``, for float32 in
 ``csrc/flash_attention_sm90_tf32.cu``) replace the Pallas TPU kernels of
 the JAX package's ``ops/flash_attention.py``:
 
@@ -15,13 +14,13 @@ A tensor on the CPU takes the plain version; a tensor on a CUDA device
 launches the kernel or raises. Each kernel wrapper counts its launches in
 ``<wrapper>.launches``; a CPU call does not count.
 
-The Hopper kernels (bf16 K3-K5, float32 K4) read their inputs by TMA,
-which needs each tensor 16-byte aligned with 16-byte strides and rows of
-whole 16-byte chunks, D a multiple of 8 in bf16 and of 4 in float32
-(``needs_staged_copy``). Their C launchers refuse, before launching, an
-input that is not, such as an unaligned view or an odd head width; the
-wrapper then copies the inputs the predicate names (D zero-padded to the
-multiple, which is exact) and launches on the copies.
+Every kernel reads its inputs by TMA, which needs each tensor 16-byte
+aligned with 16-byte strides and rows of whole 16-byte chunks, D a
+multiple of 8 in bf16 and of 4 in float32 (``needs_staged_copy``). The C
+launchers refuse, before launching, an input that is not, such as an
+unaligned view or an odd head width; the wrapper then copies the inputs
+the predicate names (D zero-padded to the multiple, which is exact) and
+launches on the copies.
 ``<wrapper>.staged_copies`` counts those copies. The model's fused qkv
 views never need one, and the check costs them no host time.
 
@@ -52,11 +51,10 @@ import torch
 from . import build
 
 NEG_INF = float(np.finfo(np.float32).min)
-LIBRARY = "flash_attention"               # float32 forward and dQ
 LIBRARY_SM90 = "flash_attention_sm90"     # bf16 forward, dK/dV and dQ
-LIBRARY_SM90_TF32 = "flash_attention_sm90_tf32"   # float32 dK/dV
-LIBRARIES = (LIBRARY, LIBRARY_SM90, LIBRARY_SM90_TF32)
-# cudaErrorMisalignedAddress: the Hopper libraries' launchers return it,
+LIBRARY_SM90_TF32 = "flash_attention_sm90_tf32"   # float32 ones
+LIBRARIES = (LIBRARY_SM90, LIBRARY_SM90_TF32)
+# cudaErrorMisalignedAddress: the libraries' launchers return it,
 # without launching, for an input that TMA cannot read in place
 _NOT_TMA_READABLE = 716
 MAX_HEAD_DIM = 128
@@ -180,16 +178,10 @@ def flash_attention_bwd_ref(q, k, v, out, lse, g, causal: bool,
 # ---------------------------------------------------------------------------
 
 
-# the library that holds each (kernel, bf16); they export the same entry
-# points, each taking its own dtype
-_HOME = {("fwd", False): LIBRARY, ("dkv", False): LIBRARY_SM90_TF32,
-         ("dq", False): LIBRARY, ("fwd", True): LIBRARY_SM90,
-         ("dkv", True): LIBRARY_SM90, ("dq", True): LIBRARY_SM90}
-
-
 @functools.lru_cache(maxsize=None)
 def _launchers():
-    """{(kernel, bf16): (library, C launcher)}, built and bound once."""
+    """{(kernel, bf16): (library, C launcher)}, built and bound once. Each
+    library exports the three entry points for its own dtype."""
     build.build_all(LIBRARIES)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     shape = [i] * 5 + [ll] * 9 + [ctypes.c_float, i, i, p]
@@ -198,7 +190,7 @@ def _launchers():
     out = {}
     for name, (entry, n_ptrs) in entries.items():
         for bf16 in (False, True):
-            lib = build.load(_HOME[name, bf16])
+            lib = build.load(LIBRARY_SM90 if bf16 else LIBRARY_SM90_TF32)
             fn = getattr(lib, entry)
             fn.argtypes = [p] * n_ptrs + shape
             fn.restype = ctypes.c_int
@@ -206,47 +198,39 @@ def _launchers():
     return out
 
 
-def _tma_elements(dtype, kernel: str) -> int:
-    """Elements in 16 bytes when ``kernel`` ("fwd", "dkv" or "dq") reads
-    ``dtype`` by TMA, else 0: every bf16 kernel and float32 dK/dV do;
-    float32 K3 and K5 stage rows themselves."""
-    if dtype is torch.bfloat16:
-        return 8
-    return 4 if dtype is torch.float32 and kernel == "dkv" else 0
+def _tma_elements(dtype) -> int:
+    """Elements of ``dtype`` in 16 bytes, the unit of TMA's rules."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
 
 
-def needs_staged_copy(shape, strides, offset16: int, dtype,
-                      kernel: str = "fwd") -> bool:
+def needs_staged_copy(shape, strides, offset16: int, dtype) -> bool:
     """Whether a (B, S, H, D) tensor of ``shape`` and element ``strides``,
     starting ``offset16`` bytes past a 16-byte boundary, must be copied
-    before ``kernel`` ("fwd", "dkv" or "dq") can read it by TMA: TMA needs
-    a 16-byte aligned start, 16-byte strides on every axis longer than 1
-    and rows of whole 16-byte chunks (D a multiple of 8 in bf16, of 4 in
-    float32). float32 inputs of the forward and dQ never are: their
-    kernels stage rows themselves."""
-    n = _tma_elements(dtype, kernel)
-    if not n:
-        return False
+    before a kernel (any of the three, either dtype) can read it by TMA:
+    TMA needs a 16-byte aligned start, 16-byte strides on every axis longer
+    than 1 and rows of whole 16-byte chunks (D a multiple of 8 in bf16, of
+    4 in float32)."""
+    n = _tma_elements(dtype)
     b, s, h, d = shape
     sb, ss, sh = strides[:3]
     return bool(offset16 % 16 or d % n or (b > 1 and sb % n)
                 or (s > 1 and ss % n) or (h > 1 and sh % n))
 
 
-def _tma_operands(wrapper, tensors, kernel: str = "fwd"):
-    """A TMA kernel's operands, once its launcher has refused one: each
+def _tma_operands(wrapper, tensors):
+    """A kernel's operands, once its launcher has refused one: each
     tensor as it is when TMA reads it in place (``needs_staged_copy``),
     else a contiguous copy, and when D is not a whole number of 16-byte
     chunks every one copied with D zero-padded to the next (a zero column
     adds nothing to any product). Counts the copies on
     ``wrapper.staged_copies``."""
     d = tensors[0].shape[-1]
-    n = _tma_elements(tensors[0].dtype, kernel)
+    n = _tma_elements(tensors[0].dtype)
     dp = -(-d // n) * n
     out = []
     for t in tensors:
         if needs_staged_copy(t.shape, t.stride(), t.data_ptr() % 16,
-                             t.dtype, kernel):
+                             t.dtype):
             staged = t.new_zeros((*t.shape[:-1], dp))
             staged[..., :d] = t
             out.append(staged)
@@ -346,7 +330,7 @@ def flash_attention_fwd_lse(q, k, v, causal: bool,
 
     out, code = launch(q, k, v)
     if code == _NOT_TMA_READABLE:
-        q, k, v = _tma_operands(flash_attention_fwd_lse, (q, k, v), "fwd")
+        q, k, v = _tma_operands(flash_attention_fwd_lse, (q, k, v))
         out, code = launch(q, k, v)
     build.check_launch(lib, "flash_attention_fwd_lse", code)
     flash_attention_fwd_lse.launches += 1
@@ -396,7 +380,7 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal: bool,
     dk, dv, code = launch(q, k, v, g)
     if code == _NOT_TMA_READABLE:
         dk, dv, code = launch(*_tma_operands(flash_attention_bwd_dkv,
-                                             (q, k, v, g), "dkv"))
+                                             (q, k, v, g)))
     build.check_launch(lib, "flash_attention_bwd_dkv", code)
     flash_attention_bwd_dkv.launches += 1
     if dk.shape[-1] != d:
@@ -430,7 +414,7 @@ def flash_attention_bwd_dq(q, k, v, g, lse, delta, causal: bool,
     dq, code = launch(q, k, v, g)
     if code == _NOT_TMA_READABLE:
         dq, code = launch(*_tma_operands(flash_attention_bwd_dq,
-                                         (q, k, v, g), "dq"))
+                                         (q, k, v, g)))
     build.check_launch(lib, "flash_attention_bwd_dq", code)
     flash_attention_bwd_dq.launches += 1
     if dq.shape[-1] != d:

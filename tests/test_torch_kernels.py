@@ -291,10 +291,10 @@ def staged(fa):
 
 def check_flash_case(case, dtype, device, masked_prefix=0):
     """K3-K5 against their plain versions on one case, within FLASH_REL;
-    ``masked_prefix``: also mask batch row 1's first keys. The bf16
-    kernels and float32 dK/dV read contiguous inputs by TMA in place, and
-    copy them first only when D is not a whole number of 16-byte chunks
-    (q, k, v; and dO in the backward)."""
+    ``masked_prefix``: also mask batch row 1's first keys. Every kernel
+    reads contiguous inputs by TMA in place, and copies them first only
+    when D is not a whole number of 16-byte chunks (q, k, v; and dO in the
+    backward)."""
     fa = flash_module()
     b, sq, sk, h, d, causal, masked = case
     q, k, v, do, kv = flash_inputs(b, sq, sk, h, d, masked, dtype, device)
@@ -317,10 +317,8 @@ def check_flash_case(case, dtype, device, masked_prefix=0):
             fa.flash_attention_bwd_dkv.launches,
             fa.flash_attention_bwd_dq.launches) == tuple(
                 n + 1 for n in before)
-    if dtype == torch.bfloat16:
-        copies = (3, 4, 4) if d % 8 else (0, 0, 0)
-    else:
-        copies = (0, 4 if d % 4 else 0, 0)
+    step = 8 if dtype == torch.bfloat16 else 4    # elements in 16 bytes
+    copies = (3, 4, 4) if d % step else (0, 0, 0)
     assert tuple(n - m for n, m in zip(staged(fa), staged_before)) == copies
     assert out.dtype == dtype and dq.dtype == dtype
     tol = FLASH_REL[dtype]
@@ -366,8 +364,8 @@ def test_flash_bf16_tma_edges_match_plain_versions(cuda_device, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", TMA_CASES, ids=str)
 def test_flash_fp32_tma_edges_match_plain_versions(cuda_device, case):
-    """The same edges in float32, where dK/dV is the TMA kernel: D 32
-    (its second 32-column box all zero fill), D 96 (the D-128 tiles),
+    """The same edges in float32, whose three kernels read by TMA too: D
+    32 (its second 32-column box all zero fill), D 96 (the D-128 tiles),
     ragged Sq and Sk on both sides of the tiles, and all-masked rows
     straddling a tile; no copy staged (D is a multiple of 4)."""
     check_flash_case(case, torch.float32, cuda_device,
@@ -427,8 +425,8 @@ def test_flash_reads_strided_qkv_views(cuda_device, dtype):
                          ids=str)
 def test_flash_reads_unaligned_qkv_views(cuda_device, dtype):
     """The unaligned twin of the test above: every row of the fused qkv
-    starts one element off a 16-byte boundary, which the forward stages
-    element by element; same result as contiguous inputs."""
+    starts one element off a 16-byte boundary, so the forward copies q, k
+    and v before its TMA loads; same result as contiguous inputs."""
     from distributed_pytorch_training_tpu_torch.ops import flash_attention
 
     b, s, h, d = 2, 96, 4, 64
@@ -439,9 +437,7 @@ def test_flash_reads_unaligned_qkv_views(cuda_device, dtype):
     fa = flash_module()
     before = staged(fa)
     got = flash_attention(q, k, v, True)
-    # bf16: the forward copies q, k and v before its TMA loads
-    copies = 3 if dtype == torch.bfloat16 else 0
-    assert staged(fa) == (before[0] + copies, before[1], before[2])
+    assert staged(fa) == (before[0] + 3, before[1], before[2])
     want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            True)
     torch.cuda.synchronize()
@@ -456,7 +452,7 @@ def test_flash_backward_reads_strided_qkv_views(cuda_device, offset, dtype):
     """The backward through q, k, v as views of one fused (B, S, 3, H, D)
     tensor, as the model passes them, within FLASH_REL of contiguous
     inputs; ``offset`` 1 starts every row off a 16-byte boundary, which
-    the kernels stage element by element."""
+    every kernel copies before its TMA loads."""
     from distributed_pytorch_training_tpu_torch.ops import flash_attention
 
     b, s, h, d = 2, 160, 4, 64
@@ -472,13 +468,10 @@ def test_flash_backward_reads_strided_qkv_views(cuda_device, offset, dtype):
     fa = flash_module()
     before = staged(fa)
     flash_attention(*views, True).backward(do)
-    # at offset 1 every TMA kernel copies q, k and v (dO is aligned): in
-    # bf16 all three, in float32 dK/dV alone; aligned views are read in
-    # place
+    # at offset 1 every kernel copies q, k and v (dO is aligned); aligned
+    # views are read in place
     copies = 3 if offset else 0
-    want = (copies, copies, copies) if dtype == torch.bfloat16 \
-        else (0, copies, 0)
-    assert staged(fa) == tuple(n + c for n, c in zip(before, want))
+    assert staged(fa) == tuple(n + copies for n in before)
     dense = [t.detach().contiguous().requires_grad_(True) for t in views]
     flash_attention(*dense, True).backward(do)
     torch.cuda.synchronize()
