@@ -70,9 +70,10 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
    row for int8_multihop, each row split over many blocks; K2, the
    dequant-sum, on 2 rows), K1 at long edge rows (a width not a multiple
    of 4, an all-zero row) and K2 at edge shapes (1, 3 and 8 rows, width 1,
-   a width not a multiple of 4, zero scales), timing each beside its
-   bound, its plain version and, for K2, the composite
-   ``scales @ q.float()``;
+   a width not a multiple of 4, zero scales; 9 rows, the generic
+   variant), timing each beside its bound, its plain version and, for K2,
+   the composite ``scales @ q.float()``, the card's time alone
+   (``device_ms``) and the launch plan's variant (staged or generic);
 10. run ``reduce_flat`` on 2 gloo ranks (spawned processes, both on the
     card) for each DP_RUNS wire on a seeded full-size gradient and
     residual, twice, on the card (the kernels) and on the CPU (the plain
@@ -1100,13 +1101,18 @@ def check_wire_codec(torch, dev, flush):
     the composite ``scales @ q.float()`` (a cast and a GEMV; no single
     PyTorch call takes int8 codes). Returns ({(kernel, shape): row}, K1
     edge rows, K2 edge rows)."""
+    from distributed_pytorch_training_tpu_torch.experiments import (
+        flash_timers,
+    )
     from distributed_pytorch_training_tpu_torch.ops.quantize import (
+        dequant_plan,
         dequant_sum_rows,
         dequant_sum_rows_ref,
         quantize_int8_rows,
         quantize_int8_rows_ref,
     )
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     keys = sorted({key for _, wire, cap in DP_RUNS
                    for key in wire_launches(torch, wire, cap)}
                   | set(wire_launches(torch, "int8", 0.0,
@@ -1122,13 +1128,19 @@ def check_wire_codec(torch, dev, flush):
         bound, by = bound_of(n * w + 4 * n + 4 * w, 2 * n * w)
         row = {"kernel": DEQUANT, "shape": label, "bitwise": same,
                "max_abs_err": (out - ref).abs().max().item(),
+               "variant": ("staged" if dequant_plan(n, w, sms).staged
+                           else "generic"),
                "ms": timed_ms(torch, lambda: dequant_sum_rows(q, s), flush),
+               # the card's time alone: flash_timers' guarded timer
+               "device_ms": flash_timers._timed(
+                   torch, lambda: dequant_sum_rows(q, s), flush, guard=True),
                "plain_ms": timed_ms(
                    torch, lambda: dequant_sum_rows_ref(q, s), flush),
                "composite_ms": timed_ms(torch, lambda: s @ q.float(), flush),
                "bound_ms": bound, "bound_by": by}
-        log(f"{DEQUANT} {label}: bitwise={same} kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, composite scales @ q.float() "
+        log(f"{DEQUANT} {label}: bitwise={same} {row['variant']} kernel "
+            f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, composite scales @ q.float() "
             f"{row['composite_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
         if not same:
             raise RuntimeError(f"{DEQUANT} {label}: kernel differs from its "
@@ -1175,7 +1187,7 @@ def check_wire_codec(torch, dev, flush):
                      torch.zeros((1, 4_000_037), device=dev))]
     for label, shape in [("1x4097", (1, 4097)), ("3x100003", (3, 100_003)),
                          ("8x65536", (8, 65_536)), ("2x1", (2, 1)),
-                         ("2x4099", (2, 4099))]:
+                         ("2x4099", (2, 4099)), ("9x4099", (9, 4099))]:
         edges.append(dequant_row(label, *quantize_int8_rows_ref(
             codec_rows(torch, dev, shape, 7))))
     q, _ = quantize_int8_rows_ref(codec_rows(torch, dev, (2, 1000), 8))

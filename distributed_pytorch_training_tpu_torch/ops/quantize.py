@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -169,6 +169,75 @@ def dequant_sum_rows_ref(q: torch.Tensor, scales: torch.Tensor
     return acc
 
 
+# K2's launch plan (csrc/dequant_sum_rows.cu keeps the same constants):
+# the staged variant takes up to N_STAGED rows, in tiles of a multiple of
+# 16 columns, at most MAX_TILE (4 columns x 4 groups x 256 threads) and
+# about STAGE_BYTES of codes; a persistent grid of STAGED_BLOCKS_PER_SM
+# blocks an SM walks them through a ring of 4 stages. More rows take the
+# generic variant.
+N_STAGED = 8
+MAX_TILE = 4096
+STAGE_BYTES = 8192
+STAGED_BLOCKS_PER_SM = 4
+DEQUANT_THREADS = 256
+GENERIC_BLOCKS_PER_SM = 8
+
+
+class DequantPlan(NamedTuple):
+    """K2's launch: the staged variant (``tile`` columns a tile, ``blocks``
+    persistent blocks walking tiles b, b + blocks, ...) or the generic one
+    (``tile`` 0, ``blocks`` grid-striding over 4-column groups)."""
+    staged: bool
+    tile: int
+    blocks: int
+
+
+def dequant_plan(n: int, s: int, sms: int) -> DequantPlan:
+    """K2's variant, tile and grid for n rows of s columns on a card of
+    ``sms`` SMs. Staged (n <= N_STAGED): tiles of STAGE_BYTES // n
+    columns or fewer and, past one wave of blocks, as many tiles as blocks
+    times waves, so every block walks as many; the tile then shrunk to
+    split s evenly, a multiple of 16. A launch of one tile or less runs one
+    block."""
+    if n > N_STAGED:
+        groups = -(-s // 4)
+        return DequantPlan(False, 0, max(1, min(
+            -(-groups // DEQUANT_THREADS), GENERIC_BLOCKS_PER_SM * sms)))
+    widest = min(MAX_TILE, STAGE_BYTES // n // 16 * 16)
+    cap = STAGED_BLOCKS_PER_SM * sms
+    tiles = -(-s // widest)
+    if tiles > cap:
+        tiles = -(-tiles // cap) * cap
+    tile = (-(-s // tiles) + 15) // 16 * 16
+    return DequantPlan(True, tile, min(-(-s // tile), cap))
+
+
+def staged_span(p: int, w: int, lo: int, hi: int) -> Tuple[int, int, int]:
+    """(a, c_lo, c_hi): the staged variant's bulk copy of a row's w codes
+    at address p, q's storage being [lo, hi). [a, b) is the span widened
+    out to 16-byte boundaries; [c_lo, c_hi) is it clipped to the storage's
+    16-byte-aligned part, the bytes copied (none when c_lo >= c_hi), landing
+    at offset c_lo - a of the row's slot, so code p + j sits at slot offset
+    (p & 15) + j. The kernel's ``staged_span``."""
+    a = p & ~15
+    b = (p + w + 15) & ~15
+    return a, max(a, (lo + 15) & ~15), min(b, hi & ~15)
+
+
+def ragged_codes(p: int, w: int, span: Tuple[int, int, int]
+                 ) -> Tuple[range, range]:
+    """The addresses of a row's codes that its copy ``span`` does not
+    reach: a head at the storage's start and a tail at its end, at most 15
+    each, which the kernel's ``stage_ragged`` reads from global memory into
+    the row's slot (lanes 0-15 and 16-31 of the row's warp)."""
+    _, c_lo, c_hi = span
+    end = p + w
+    return range(p, min(c_lo, end)), range(max(c_hi, c_lo, p), end)
+
+
+_dequant_plan = functools.lru_cache(maxsize=4096)(dequant_plan)
+
+
 @functools.lru_cache(maxsize=None)
 def _dequant_launcher():
     """(library, C launcher) of K2, built and bound once."""
@@ -176,27 +245,29 @@ def _dequant_launcher():
     fn = lib.dpt_dequant_sum_rows
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 def _check_dequant(q: torch.Tensor, scales: torch.Tensor) -> None:
     name = DEQUANT_KERNEL
-    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+    if q.dtype is not torch.int8 or scales.dtype is not torch.float32:
         raise TypeError(f"{name} takes int8 codes and float32 scales, got "
                         f"{q.dtype} and {scales.dtype}")
-    if q.dim() != 2 or scales.shape != (q.shape[0],):
+    shape = q.shape
+    if len(shape) != 2 or scales.shape != shape[:1]:
         raise ValueError(f"{name} takes (n, s) codes and (n,) scales, got "
-                         f"{tuple(q.shape)} and {tuple(scales.shape)}")
+                         f"{tuple(shape)} and {tuple(scales.shape)}")
     if not (q.is_contiguous() and scales.is_contiguous()):
         raise ValueError(f"{name} takes contiguous tensors")
     if q.device != scales.device:
         raise ValueError(f"{name}: codes on {q.device}, scales on "
                          f"{scales.device}")
-    if q.shape[0] > MAX_DEQUANT_ROWS:
+    if shape[0] > MAX_DEQUANT_ROWS:
         raise ValueError(f"{name} takes at most {MAX_DEQUANT_ROWS} rows, "
-                         f"got {q.shape[0]}")
+                         f"got {shape[0]}")
 
 
 def dequant_sum_rows(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -204,23 +275,34 @@ def dequant_sum_rows(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     of the dequantized rows.
 
     ``dequant_sum_rows.launches`` counts the kernel's launches; a CPU call
-    runs the plain version and does not count."""
+    runs the plain version and does not count. The variant, tile and grid
+    come from ``dequant_plan``; the device is switched only when q is not
+    on the current one."""
     _check_dequant(q, scales)
-    if q.device.type == "cpu":
-        return dequant_sum_rows_ref(q, scales)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return dequant_sum_rows_ref(q, scales)
         raise ValueError(f"{DEQUANT_KERNEL}: no kernel for device "
                          f"{q.device}")
     n, s = q.shape
     if n == 0 or s == 0:
         return torch.zeros((s,), dtype=torch.float32, device=q.device)
-    out = torch.empty((s,), dtype=torch.float32, device=q.device)
+    out = q.new_empty((s,), dtype=torch.float32)
     lib, fn = _dequant_launcher()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        code = fn(q.data_ptr(), scales.data_ptr(), out.data_ptr(), n, s, sms,
-                  stream)
+    index = q.get_device()
+    plan = _dequant_plan(n, s, _sm_count(index))
+    # q's storage, which the staged variant's copies stay inside
+    lo = q.data_ptr() - q.storage_offset()
+    args = (q.data_ptr(), scales.data_ptr(), out.data_ptr(), n, s,
+            plan.staged, plan.tile, plan.blocks, lo,
+            lo + q.untyped_storage().nbytes())
+    # the device's current stream as a raw handle (no Stream object)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        code = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, stream)
     build.check_launch(lib, DEQUANT_KERNEL, code)
     dequant_sum_rows.launches += 1
     return out

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from distributed_pytorch_training_tpu_torch.ops.quantize import (
+    N_STAGED,
     dequant_sum_rows,
     dequant_sum_rows_ref,
     quantize_int8_rows,
@@ -158,9 +159,15 @@ def test_int8_engine_quantizes_through_the_kernel(cuda_device):
 # ---------------------------------------------------------------------------
 
 # the int8 wires' shapes at a short width (2 ranks; 3 and 8 rows), s = 1,
-# s not a multiple of 4, and one row
+# s not a multiple of 4, and one row; then the staged variant's tiles (4096
+# columns at 2 rows): every s mod 16 across a tile boundary, n at 4, 8 =
+# N_STAGED and N_STAGED + 1 (the generic variant), and ResNet-18's one
+# int8 bucket
 DEQUANT_SHAPES = [(2, 100_000), (2, 100_001), (3, 4099), (8, 777), (1, 5),
                   (2, 1), (2, 3)]
+DEQUANT_SHAPES += [(2, 2 * 4096 + m) for m in range(16)]
+DEQUANT_SHAPES += [(4, 3 * 2048 + 5), (N_STAGED, 3 * 1024 + 7),
+                   (N_STAGED + 1, 3 * 1024 + 7), (2, 11_181_642)]
 
 
 def codes_on(shape, device, seed=0):
@@ -168,24 +175,30 @@ def codes_on(shape, device, seed=0):
     return quantize_int8_rows(rows_on(shape, device, seed))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", DEQUANT_SHAPES, ids=str)
-def test_dequant_kernel_bitwise_equals_plain_version(cuda_device, shape):
-    q, s = codes_on(shape, cuda_device)
+def assert_dequant_bitwise(q, s):
+    """K2 on (q, s) is its plain version's bits, and counts one launch."""
     before = dequant_sum_rows.launches
     got = dequant_sum_rows(q, s)
     torch.cuda.synchronize()
     assert dequant_sum_rows.launches == before + 1
-    assert got.dtype == torch.float32 and got.shape == (shape[1],)
+    assert got.dtype == torch.float32 and got.shape == (q.shape[1],)
     want = dequant_sum_rows_ref(q, s)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DEQUANT_SHAPES, ids=str)
+def test_dequant_kernel_bitwise_equals_plain_version(cuda_device, shape):
+    q, s = codes_on(shape, cuda_device)
+    got = assert_dequant_bitwise(q, s)
     # and the card's plain version is the CPU's, bit for bit
     cpu = dequant_sum_rows(q.cpu(), s.cpu())
     assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
 
 
 @pytest.mark.cuda
-def test_dequant_kernel_zero_scales_and_unaligned_rows(cuda_device):
+def test_dequant_kernel_zero_scales(cuda_device):
     q, _ = codes_on((3, 1001), cuda_device)
     got = dequant_sum_rows(q, torch.zeros(3, device=cuda_device))
     torch.cuda.synchronize()
@@ -193,15 +206,30 @@ def test_dequant_kernel_zero_scales_and_unaligned_rows(cuda_device):
     assert torch.equal(got.view(torch.int32),
                        torch.zeros(1001, dtype=torch.int32,
                                    device=cuda_device))
-    # rows that start off a 4-byte boundary (a view past one byte) take
-    # the scalar path and agree all the same
-    big, s = codes_on((2, 1025), cuda_device, seed=1)
-    view = big.reshape(-1)[1:2049].reshape(2, 1024)
-    assert view.data_ptr() % 4
-    got = dequant_sum_rows(view, s)
-    want = dequant_sum_rows_ref(view, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_dequant_kernel_zero_scales_and_unaligned_rows(cuda_device, offset):
+    """Views at every byte offset past a 16-byte boundary, over several
+    tiles: the rows' heads sit off their copies' 16-byte boundaries, and
+    the view ends with its storage, so the last tile's ragged tail is read
+    from global memory, not copied past the storage."""
+    width = 2 * 4096 + 5
+    big, s = codes_on((2, width), cuda_device, seed=offset)
+    flat = torch.empty(offset + 2 * width, dtype=torch.int8,
+                       device=cuda_device)
+    flat[offset:] = big.reshape(-1)
+    view = flat[offset:].reshape(2, width)
+    assert view.data_ptr() % 16 == offset % 16
+    assert view.untyped_storage().nbytes() == offset + 2 * width
+    assert_dequant_bitwise(view, s)
+    # a view off a 4-byte boundary, with zero scales: every bit zero
+    got = dequant_sum_rows(view, torch.zeros(2, device=cuda_device))
     torch.cuda.synchronize()
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32),
+                       torch.zeros(width, dtype=torch.int32,
+                                   device=cuda_device))
 
 
 # ---------------------------------------------------------------------------
