@@ -17,7 +17,9 @@ gradient wire on two ranks, profiled) and ViT-B/16 at full width, and
 train GPT-2 124M sequence-parallel on two ranks (ring and Ulysses
 attention over the mesh's ``seq`` axis), and tensor-parallel on two and
 four ranks (megatron blocks over the mesh's ``model`` axis, and TP x
-FSDP on the int8 wire).
+FSDP on the int8 wire), and as a GPipe pipeline on two ranks (the mesh's
+``pipe`` axis), and train the MoE GPT-2 (``gpt2_moe``) on one rank and
+expert-parallel on two (the mesh's ``expert`` axis).
 
     python3 chip_smoke.py
 
@@ -212,7 +214,8 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     versions (``_ring_body``, ``_local_attention``) and against
     single-rank K3-K5 on the whole sequence, within FLASH_REL; a forward
     and backward of each timed beside single-rank flash and SDPA on the
-    whole (B, S); (b) GPT-2 124M at full width through ``torchrun`` with
+    whole (B, S); (b) GPT-2 124M at full width and SP_DEPTH (6) of its
+    12 blocks (the depth cut in PR 20) through ``torchrun`` with
     ``--mesh data=1,seq=2``, ``--attention ring`` and ``ulysses``, fp32
     and ``--amp``, one epoch of 3 steps each, the counts set to 0 just
     before and read just after each run: every rank's K3-K5 launches on
@@ -222,13 +225,14 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     same rows from the same weights; (c) each run's ms a step and
     samples/s (2 ranks on one card: not a scaling number);
 24. (run before phase 17's lines) tensor parallelism, GPT-2 124M at full
-    width (the vocab padded to 50304, as the entry pads it at model=2),
+    width and TP_DEPTH (6) of its 12 blocks (the depth cut in PR 20; the
+    vocab padded to 50304, as the entry pads it at model=2),
     S 1024, batch 8 a batch coordinate, weights from one seed: (a) on 2
     gloo ranks sharing the card, ``--mesh data=1,model=2``'s model, one
     loss-and-backward (K3-K5 on each rank's 6 heads) against model=1 on
     one rank from the same global weights: the loss within LOSS_ATOL,
     the gathered gradients within GRAD_REL of each leaf's max |g|, the
-    step's model-axis all-reduces 4 x 12 + 2, plus the cross-entropy's
+    step's model-axis all-reduces 4 x 6 + 2, plus the cross-entropy's
     2, and their payload exact; (b) ``train.main`` through ``torchrun
     chip_smoke.py --tp-worker``, one epoch of 3 steps each:
     ``--mesh data=1,model=2`` fp32 and ``--amp`` (2 ranks),
@@ -238,7 +242,7 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     same rows (TP_INT8_MODEL1; its launches, finite falling losses and
     gathered parameters equal on both ranks checked too), the counts set
     to 0 just before and read just after each
-    run: every rank's K3-K5 launches 12 a forward and a backward, K1 and
+    run: every rank's K3-K5 launches 6 a forward and a backward, K1 and
     K2 exact from the TP-local layer plan, the replicated leaves bitwise
     equal on every rank and, without ``--fsdp-explicit``, the split
     leaves across the data axis, finite losses, and the run held to
@@ -255,6 +259,33 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     parameter and moment bytes at rest and its peak allocated memory
     beside model=1's; K1 and K2 at the TP x FSDP run's shapes, bitwise
     their plain versions, timed as phase 9 times them;
+25. (run before phase 17's lines) the mesh's last two axes at full width,
+    S 1024, batch 8 a batch coordinate, one epoch of 3 steps each, weights
+    from one seed: (b) one loss-and-backward of gpt2_moe (the router loss
+    included) at batch 1 from one draw on the CPU and twice on the card
+    (K3-K5 in all 12 blocks), fp32, TF32 off: the loss within LOSS_ATOL,
+    the gradients within GRAD_REL of each leaf's max |g|, and whether the
+    card's two runs are bitwise equal; then, in this process, GPT-2 at
+    pipe=1 (``--attention xla``, the einsum the stages run) and gpt2_moe
+    on one rank (``--attention flash``), fp32 and ``--amp``: launches
+    exact (0 for GPT-2, 12 a forward and a backward for gpt2_moe),
+    finite losses that fall every step, the aux losses; then one
+    ``torchrun chip_smoke.py --pp-worker`` of 2 ranks for (a) ``--mesh
+    data=1,pipe=2 --microbatches 4`` and (c) ``--model gpt2_moe --mesh
+    data=1,expert=2``, fp32 and ``--amp``, the counts set to 0 just
+    before and read just after each run: every rank's K3-K5 launches
+    (none on the pipeline, 12 a forward and a backward on each expert
+    rank), the replicated leaves bitwise equal on both ranks, each expert
+    rank holding experts [4r, 4r+4), every step's loss within LOSS_ATOL
+    (BF16_LOSS_ATOL under ``--amp``) of its one-rank run over the same
+    rows from the same draw, the loss falling every step, and the final
+    parameters off the one-rank run's by at most PIPE_PARAM_REL
+    (EXPERT_PARAM_REL) of its movement from the draw, leaf by leaf and
+    over the model (the pipe=1 run's stacked by
+    ``convert.gpt2_to_pipe_params``), logged as bitwise or not; (d) each
+    run's ms a step and samples/s (ranks sharing one card: not a scaling
+    number), each rank's parameter and moment bytes at rest and its peak
+    allocated memory beside the one-rank run's;
 17. print the ``{"kernels": [...]}`` line (K1 and K2 over their launches
     on the phase 12, phase 19 and phase 22 (e) paths, K1 also over phase
     21's int8 pages (``paged_kv_*`` apart), K3-K5 over phase 7's and
@@ -265,7 +296,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     launches apart as ``ring_*``, ``ring_bf16_*``, ``ulysses_*`` and
     ``ulysses_bf16_*``, and phase 24 (b)'s over every rank as ``tp_*``
     and ``tp_bf16_*``; K1's and K2's ``tp_*`` over the TP x FSDP int8
-    run's ranks), then the last line ``{"ok": true, "device": {...}}``.
+    run's ranks; K3-K5's ``moe_*`` and ``moe_bf16_*`` over phase 25
+    (b)'s one-rank runs and (c)'s ranks, at the training shape), then the
+    last line ``{"ok": true, "device": {...}}``.
 
 Details go to chiprun_out/chip_smoke.json. Without a CUDA device, or run
 from a directory that lacks the port's package, it fails before printing
@@ -3452,6 +3485,11 @@ SP_REPS = 3
 # data=1,seq=2: one epoch of SP_STEPS steps of batch 8 over SP_SYNTHETIC
 # sequences; SP_SYNTHETIC // 5 = 4 validation sequences, one padded batch
 SP_SYNTHETIC, SP_BATCH, SP_STEPS, SP_EVAL = 24, 8, 3, 1
+# (b)'s depth: 6 of GPT-2 124M's 12 blocks at full width (cut from 12 in
+# PR 20 to keep the script under 1000 s with phase 25 added; a block's
+# launches and gloo trips are what the phase checks, and each block
+# repeats them)
+SP_DEPTH = 6
 SP_RUNS = [("ring fp32", "ring", []), ("ring amp", "ring", ["--amp"]),
            ("ulysses fp32", "ulysses", []),
            ("ulysses amp", "ulysses", ["--amp"])]
@@ -3466,9 +3504,9 @@ def sp_want(mode: str, rank: int, steps: int = SP_STEPS,
     block K3 in every forward and K4 and K5 in every backward; Ulysses
     runs full-sequence attention on its heads, once a block."""
     blocks = rank + 1 if mode == "ring" else 1
-    return {FLASH[0]: DEPTH * blocks * (steps + evals),
-            FLASH[1]: DEPTH * blocks * steps,
-            FLASH[2]: DEPTH * blocks * steps}
+    return {FLASH[0]: SP_DEPTH * blocks * (steps + evals),
+            FLASH[1]: SP_DEPTH * blocks * steps,
+            FLASH[2]: SP_DEPTH * blocks * steps}
 
 
 def seq_attention_rank(rank: int, store: str, out_dir: str) -> None:
@@ -3724,7 +3762,7 @@ def sp_reference_loss(torch, amp: bool) -> float:
     seed = parse_args([]).seed
     dtype = torch.bfloat16 if amp else torch.float32
     dev = torch.device("cuda", 0)
-    model = get_model(MODEL, dtype=dtype,
+    model = get_model(MODEL, dtype=dtype, depth=SP_DEPTH,
                       attention_fn=make_flash_attention_fn(causal=True))
     model.reset_parameters(torch.Generator().manual_seed(seed))
     model.to(dev).train()
@@ -3747,7 +3785,8 @@ def sp_train(torch, fa, card: str) -> dict:
     out_dir = ROOT / "chiprun_out" / "seq_parallel"
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    out = run_torchrun([str(out_dir), "--model", MODEL, "--optimizer",
+    out = run_torchrun([str(out_dir), "--model", MODEL, "--model-overrides",
+                        f"depth={SP_DEPTH}", "--optimizer",
                         "adamw", "--lr", "6e-4", "--synthetic",
                         "--synthetic-size", str(SP_SYNTHETIC),
                         "--batch-size", str(SP_BATCH), "--epochs", "1",
@@ -3804,6 +3843,12 @@ def sp_train(torch, fa, card: str) -> dict:
 # torchrun, one epoch of TP_STEPS steps each run
 TP_RANKS = 2
 TP_PAD = 128
+# 6 of GPT-2 124M's 12 blocks at full width (cut from 12 in PR 20, as
+# SP_DEPTH): every block makes the same 4 model-axis all-reduces and
+# launches; the vocab-parallel embedding and head are whole
+TP_DEPTH = 6
+TP_OVERRIDES = f"depth={TP_DEPTH}"
+TP_PAD_OVERRIDES = f"pad_vocab_to_multiple_of={TP_PAD},depth={TP_DEPTH}"
 TP_BATCH, TP_STEPS, TP_EVAL = 8, 3, 1
 # synthetic sequences by the batch axes' size: TP_STEPS global batches,
 # and // 5 of them give one padded validation batch
@@ -3821,7 +3866,7 @@ TP_RUNS = {2: [("model=2 fp32", "data=1,model=2", []),
 TP_INT8_MODEL1 = ("data=2,model=1 fsdp int8", "data=2",
                   ["--fsdp-explicit", "--wire-dtype", "int8",
                    "--synthetic-size", str(TP_SYNTHETIC[2]),
-                   "--model-overrides", f"pad_vocab_to_multiple_of={TP_PAD}"])
+                   "--model-overrides", TP_PAD_OVERRIDES])
 TP_NOTE = ("ranks sharing one card over gloo: correctness, and the cost of "
            "the model axis's all-reduces through host memory, not scaling")
 # the int8 wire's losses after step 1 against the fp32 model=1 run's,
@@ -3868,6 +3913,7 @@ def tp_global_model(torch, dtype):
     from distributed_pytorch_training_tpu_torch.utils import parse_args
 
     model = get_model(MODEL, dtype=dtype, pad_vocab_to_multiple_of=TP_PAD,
+                      depth=TP_DEPTH,
                       attention_fn=make_flash_attention_fn(causal=True))
     model.reset_parameters(torch.Generator().manual_seed(parse_args([]).seed))
     return model
@@ -3951,13 +3997,13 @@ def tp_step_check(torch, dist, fa) -> dict:
     if dist.get_rank() == 0:
         b, s = batch["input_ids"].shape
         act = b * s * full.hidden_dim
-        out["want_all_reduces"] = 4 * DEPTH + 2 + 2
+        out["want_all_reduces"] = 4 * TP_DEPTH + 2 + 2
         # payload: 4 x 12 + 2 activation sums, the CE's 2 (B, S - 1, 2)
         # float32 stats; tp_psum_bytes_per_step counts a ring's 2x of it
-        out["want_payload_bytes"] = 4 * act * (4 * DEPTH + 2) + \
+        out["want_payload_bytes"] = 4 * act * (4 * TP_DEPTH + 2) + \
             2 * 8 * b * (s - 1)
         out["tp_psum_bytes_per_step"] = tp_psum_bytes_per_step(
-            full.hidden_dim, DEPTH, b, s, tp.size, tp_vocab=True)
+            full.hidden_dim, TP_DEPTH, b, s, tp.size, tp_vocab=True)
         whole = tp_global_params(shards, split)
         del shards
         full.to(dev).train()
@@ -4151,8 +4197,7 @@ def tp_reference_runs(torch, flags, ref_dir) -> dict:
                     state = train_main(flags + [
                         "--batch-size", str(TP_BATCH * data),
                         "--synthetic-size", str(TP_SYNTHETIC[data]),
-                        "--model-overrides",
-                        f"pad_vocab_to_multiple_of={TP_PAD}",
+                        "--model-overrides", TP_PAD_OVERRIDES,
                         "--output-dir", tmp] + (["--amp"] if amp else []))
                 final = {n: p.detach().cpu() for n, p in
                          state.model.named_parameters()}
@@ -4207,7 +4252,8 @@ def tp_int8_launches(torch, n: int, tp: int = TP_RANKS) -> dict:
         tp_split_dims,
     )
 
-    model = get_model(MODEL, device="meta", pad_vocab_to_multiple_of=TP_PAD)
+    model = get_model(MODEL, device="meta", pad_vocab_to_multiple_of=TP_PAD,
+                      depth=TP_DEPTH)
     template = [(n_, tuple(p.shape)) for n_, p in
                 flax_ordered(model.named_parameters())]
     if tp > 1:
@@ -4251,8 +4297,9 @@ def tp_train(torch, card: str) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     import tempfile
 
-    flags = ["--model", MODEL, "--optimizer", "adamw", "--lr", "6e-4",
-             "--synthetic", "--epochs", "1", "--print-freq", "1"]
+    flags = ["--model", MODEL, "--model-overrides", TP_OVERRIDES,
+             "--optimizer", "adamw", "--lr", "6e-4", "--synthetic",
+             "--epochs", "1", "--print-freq", "1"]
     report, ranks = {}, {}
     with tempfile.TemporaryDirectory() as ref_dir:
         t0 = time.perf_counter()
@@ -4282,19 +4329,19 @@ def tp_train(torch, card: str) -> dict:
     a = ranks[2][0]["(a)"]
     for r, rep in enumerate(ranks[2]):
         got = rep["(a)"]
-        if got["launches"] != [DEPTH, DEPTH, DEPTH] or got["all_reduces"] \
+        if got["launches"] != [TP_DEPTH] * 3 or got["all_reduces"] \
                 != a["want_all_reduces"] or got["all_reduce_bytes"] != \
                 a["want_payload_bytes"] or got["loss_tp"] != a["loss_tp"]:
             raise RuntimeError(f"phase 24 (a) rank {r}: {got} (expected "
-                               f"{DEPTH} launches of each kernel, "
+                               f"{TP_DEPTH} launches of each kernel, "
                                f"{a['want_all_reduces']} all-reduces of "
                                f"{a['want_payload_bytes']} B)")
     log(f"phase 24 (a) [{card}]: model=2 loss {a['loss_tp']!r} against "
         f"model=1 {a['loss_one_rank']!r} (|diff| {a['loss_abs_diff']!r}, "
         f"tolerance {LOSS_ATOL}); worst gathered gradient max|diff|/max|g| "
         f"{a['grad_rel']!r} in {a['grad_rel_leaf']} (tolerance {GRAD_REL});"
-        f" K3-K5 {DEPTH} launches each a rank on 6 heads; "
-        f"{a['all_reduces']} model-axis all-reduces a step (4 x {DEPTH} + "
+        f" K3-K5 {TP_DEPTH} launches each a rank on 6 heads; "
+        f"{a['all_reduces']} model-axis all-reduces a step (4 x {TP_DEPTH} + "
         f"2 + the CE's 2), {a['all_reduce_bytes']} B of payload a rank "
         f"(tp_psum_bytes_per_step: {a['tp_psum_bytes_per_step']} B at a "
         "ring's 2x); peak allocated for the loss and backward "
@@ -4308,8 +4355,9 @@ def tp_train(torch, card: str) -> dict:
     report["(a)"] = {"rank0": a, "tp_peak_allocated_per_rank": [
         rep["(a)"]["tp_peak_allocated"] for rep in ranks[2]]}
     int8_counts = tp_int8_launches(torch, 2)
-    want_flash = {FLASH[0]: DEPTH * (TP_STEPS + TP_EVAL),
-                  FLASH[1]: DEPTH * TP_STEPS, FLASH[2]: DEPTH * TP_STEPS}
+    want_flash = {FLASH[0]: TP_DEPTH * (TP_STEPS + TP_EVAL),
+                  FLASH[1]: TP_DEPTH * TP_STEPS,
+                  FLASH[2]: TP_DEPTH * TP_STEPS}
     name = TP_INT8_MODEL1[0]
     runs_ = [rep[name] for rep in ranks[TP_RANKS]]
     want = {**want_flash, **{k: n * TP_STEPS for k, n in per_kernel(
@@ -4462,6 +4510,504 @@ def tp_kernel_fields(name: str, flash_rows, tp: dict, codec_rows=None,
                 for run, rep in tp.items() if isinstance(rep, dict)
                 and "launches_per_rank" in rep
                 and run.endswith("amp") == (tag == "amp"))
+        out[prefix + "launches"] = n
+        for key in ("ms", "plain_ms", "bound_ms"):
+            out[prefix + key] = row[key][name] * n
+        out[prefix + "library_ms"] = (row["sdpa_fwd_ms"]
+                                      if name.endswith("fwd_lse")
+                                      else row["sdpa_bwd_ms"]) * n
+    return out
+
+
+# phase 25: the mesh's last two axes, GPT-2 124M and gpt2_moe at full
+# width, S 1024, batch PP_BATCH a batch coordinate, one epoch of PP_STEPS
+# steps (PP_SYNTHETIC sequences; // 5 of them give one padded validation
+# batch), weights from one seed. (a) GPipe over data=1,pipe=2 with
+# PP_MICROBATCHES microbatches, held to GPT-2 at pipe=1 (the einsum
+# attention, as inside the stages); (b) gpt2_moe on one rank (K3-K5 in
+# all 12 blocks) and one loss-and-backward card vs CPU at batch 1; (c)
+# expert parallelism over data=1,expert=2, held to (b)'s runs
+PP_RANKS = 2
+PP_BATCH, PP_STEPS, PP_EVAL = 8, 3, 1
+PP_SYNTHETIC = PP_BATCH * PP_STEPS
+PP_MICROBATCHES = 4
+MOE = "gpt2_moe"
+MOE_EXPERTS = 8
+PP_FLAGS = ["--optimizer", "adamw", "--lr", "6e-4", "--synthetic",
+            "--epochs", "1", "--print-freq", "1", "--batch-size",
+            str(PP_BATCH), "--synthetic-size", str(PP_SYNTHETIC)]
+PIPE_FLAGS = ["--model", MODEL, "--attention", "xla"]
+MOE_FLAGS = ["--model", MOE, "--attention", "flash"]
+# (name, flags, the one-rank run it is held to)
+PP_RUNS = [("pipe=2 fp32", PIPE_FLAGS + ["--mesh", "data=1,pipe=2",
+                                         "--microbatches",
+                                         str(PP_MICROBATCHES)], "pipe=1 fp32"),
+           ("pipe=2 amp", PIPE_FLAGS + ["--mesh", "data=1,pipe=2",
+                                        "--microbatches",
+                                        str(PP_MICROBATCHES), "--amp"],
+            "pipe=1 amp"),
+           ("expert=2 fp32", MOE_FLAGS + ["--mesh", "data=1,expert=2"],
+            "moe fp32"),
+           ("expert=2 amp", MOE_FLAGS + ["--mesh", "data=1,expert=2",
+                                         "--amp"], "moe amp")]
+PP_ONE_RANK = [("pipe=1 fp32", PIPE_FLAGS), ("pipe=1 amp",
+                                             PIPE_FLAGS + ["--amp"]),
+               ("moe fp32", MOE_FLAGS), ("moe amp", MOE_FLAGS + ["--amp"])]
+PP_NOTE = ("2 ranks sharing one card over gloo: correctness, and the cost "
+           "of the rotations and the expert region's sums through host "
+           "memory, not scaling")
+# the final parameters' distance from the one-rank run's, as a share of
+# that run's movement from the draw: (the worst leaf's, the whole
+# model's) bound, set as TP_PARAM_REL was (an update that did nothing
+# reads 1). A development run on an NVIDIA H100 80GB HBM3 at 700 W read
+# pipe=2 fp32 (0.0017, 2.8e-5) and --amp (0.592, 0.039): the stages'
+# microbatches of 2 rows round and sum apart from the whole batch of 8,
+# and Adam's normalized step carries bf16 noise in the qkv biases, as
+# phase 24's TP runs do; expert=2 read (0.0, 0.0) in both, bitwise
+# expert=1 (the bounds stay the pipeline's, and the log says whether
+# the run was bitwise)
+PIPE_PARAM_REL = {"fp32": (0.02, 1e-3), "amp": (0.9, 0.1)}
+EXPERT_PARAM_REL = {"fp32": (0.02, 1e-3), "amp": (0.9, 0.1)}
+
+
+def pp_kind(name: str) -> str:
+    return "amp" if name.endswith("amp") else "fp32"
+
+
+def pp_global_draw(torch, moe: bool):
+    """The global model the entry draws (the pipelined GPT-2's stacks at
+    2 stages, or gpt2_moe), float32, on the CPU, from the entry's seed."""
+    from distributed_pytorch_training_tpu_torch.models import (
+        GPT2PipeLMHead,
+        get_model,
+    )
+    from distributed_pytorch_training_tpu_torch.utils import parse_args
+
+    if moe:
+        model = get_model(MOE)
+    else:
+        cfg = get_model(MODEL, device="meta")
+        model = GPT2PipeLMHead(num_stages=PP_RANKS,
+                               vocab_size=cfg.vocab_size,
+                               hidden_dim=cfg.hidden_dim, depth=cfg.depth,
+                               num_heads=cfg.num_heads,
+                               max_position=cfg.max_position)
+    model.reset_parameters(torch.Generator().manual_seed(parse_args([]).seed))
+    return model
+
+
+def pp_ref_path(ref_dir, name: str) -> Path:
+    return Path(ref_dir) / (name.replace(" ", "_").replace("=", "") + ".pt")
+
+
+def pp_recording(torch, record):
+    """Trainer.train_step wrapped to record each step's loss, its wall ms
+    (synchronized) and, for an MoE model, the mean of its aux losses."""
+    from distributed_pytorch_training_tpu_torch.training import Trainer
+
+    step = Trainer.train_step
+
+    def recording(self, state, batch):
+        t0 = time.perf_counter()
+        m = step(self, state, batch)
+        torch.cuda.synchronize()
+        record["ms"].append((time.perf_counter() - t0) * 1e3)
+        record["losses"].append(float(m["loss_sum"]) / float(m["weight"]))
+        aux = getattr(state.model, "aux_losses", None)
+        if aux:
+            record["aux"].append(float(sum(a.detach() for a in aux))
+                                 / len(aux))
+        return m
+
+    return step, recording
+
+
+def pp_one_rank(torch, fa, ref_dir) -> dict:
+    """Phase 25's one-rank runs in this process: GPT-2 at pipe=1 (fp32,
+    ``--amp``; its final parameters stacked into the pipelined layout,
+    ``convert.gpt2_to_pipe_params``) and gpt2_moe ((b): fp32, ``--amp``);
+    each run's launches, losses, ms a step, aux losses, at-rest bytes,
+    peak allocated and each leaf's movement from the draw; the final
+    parameters go to `pp_ref_path` for the 2-rank runs."""
+    import tempfile
+
+    from distributed_pytorch_training_tpu_torch.convert import (
+        gpt2_to_pipe_params,
+    )
+    from distributed_pytorch_training_tpu_torch.training import Trainer
+
+    dev = torch.device("cuda", 0)
+    kernels = {name: getattr(fa, name) for name in FLASH}
+    out = {}
+    for moe in (False, True):
+        init = {n: p.detach() for n, p in
+                pp_global_draw(torch, moe).named_parameters()}
+        for name, flags in PP_ONE_RANK:
+            if name.startswith("moe") != moe:
+                continue
+            record = {"ms": [], "losses": [], "aux": []}
+            step, recording = pp_recording(torch, record)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            for fn in kernels.values():
+                fn.launches = 0
+            reset_staged(fa)
+            Trainer.train_step = recording
+            try:
+                with tempfile.TemporaryDirectory() as tmp:
+                    state = train_main(PP_FLAGS + flags
+                                       + ["--output-dir", tmp])
+            finally:
+                Trainer.train_step = step
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            moments = [t for slots in state.optimizer.state.values()
+                       for t in slots.values() if t.dim() >= 1]
+            final = {n: p.detach().cpu() for n, p in
+                     state.model.named_parameters()}
+            rep = {"launches": launches, "staged_copies": staged_copies(fa),
+                   "steps": state.step, "losses": record["losses"],
+                   "aux": record["aux"], "step_ms": record["ms"],
+                   "param_bytes": sum(p.numel() * p.element_size()
+                                      for p in state.params),
+                   "moment_bytes": sum(t.numel() * t.element_size()
+                                       for t in moments),
+                   "peak_allocated": torch.cuda.max_memory_allocated(dev)}
+            del state, moments
+            torch.cuda.empty_cache()
+            if not moe:
+                final = gpt2_to_pipe_params(final, PP_RANKS)
+            torch.save(final, pp_ref_path(ref_dir, name))
+            rep["moved"] = {n: float(torch.linalg.vector_norm(
+                final[n].double() - init[n].double())) for n in final}
+            out[name] = rep
+        del init
+    return out
+
+
+def moe_card_vs_cpu(torch, dev, fa) -> dict:
+    """Phase 25 (b): one loss-and-backward of gpt2_moe (router loss
+    included) from one draw (seed 0) on the CPU (the plain versions),
+    then twice on the card (K3-K5), float32, TF32 off, at batch 1: both
+    losses, the worst leaf's max|g diff| / max|g| against the CPU's, and
+    whether the card's two runs gave bitwise-equal losses and
+    gradients."""
+    import numpy as np
+
+    from distributed_pytorch_training_tpu_torch.models import get_model
+    from distributed_pytorch_training_tpu_torch.ops import (
+        make_flash_attention_fn,
+    )
+    from distributed_pytorch_training_tpu_torch.training.tasks import (
+        MoeLanguageModelingTask,
+    )
+
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, VOCAB, (1, 1024)).astype(np.int32))
+    task = MoeLanguageModelingTask()
+    model = get_model(MOE, attention_fn=make_flash_attention_fn(True))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    runs = []
+    for device in (torch.device("cpu"), dev, dev):
+        model.to(device)
+        model.zero_grad(set_to_none=True)
+        before = fa.flash_attention_bwd_dq.launches
+        loss, _, _ = task.loss_and_metrics(
+            model, {"input_ids": ids.to(device),
+                    "weight": torch.ones(1, device=device)}, True)
+        loss.backward()
+        if device.type == "cuda" and \
+                fa.flash_attention_bwd_dq.launches != before + DEPTH:
+            raise RuntimeError("the card's MoE backward did not run the "
+                               "kernels")
+        runs.append((loss.detach().cpu(), {
+            n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
+        del loss
+    del model
+    torch.cuda.empty_cache()
+    (loss_h, g_h), (loss_c, g_c), (loss_c2, g_c2) = runs
+    worst, worst_leaf = 0.0, ""
+    for name, ref in g_h.items():
+        err = ((g_c[name] - ref).abs().max()
+               / ref.abs().max().clamp(min=1e-30)).item()
+        if not math.isfinite(err) or err > worst:
+            worst, worst_leaf = err, name
+    return {"loss_card": float(loss_c), "loss_cpu": float(loss_h),
+            "loss_abs_diff": abs(float(loss_c) - float(loss_h)),
+            "grad_rel": worst, "grad_rel_leaf": worst_leaf,
+            "card_deterministic": torch.equal(loss_c, loss_c2) and all(
+                torch.equal(g_c[n], g_c2[n]) for n in g_c)}
+
+
+def pp_worker(argv) -> int:
+    """One torchrun rank of phase 25 (a) and (c): ``train.main`` for each
+    PP_RUNS configuration (the process group kept between the runs), the
+    launch counts set to 0 and the peak of allocated memory reset just
+    before, read just after; writes each run's launches, steps, losses,
+    ms a step, aux losses, at-rest bytes, peak, this rank's index on the
+    split axis, each parameter's split dim and local shape, the digests
+    of the parameters, and each parameter's squared distance from this
+    rank's slice of its one-rank run's final parameters (under
+    ``ref_dir``)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from distributed_pytorch_training_tpu_torch import train
+    from distributed_pytorch_training_tpu_torch.parallel.sharding import (
+        tp_slice,
+    )
+    from distributed_pytorch_training_tpu_torch.runtime import (
+        setup_distributed,
+    )
+    from distributed_pytorch_training_tpu_torch.training import Trainer
+
+    fa = flash_module()
+    kernels = {name: getattr(fa, name) for name in FLASH}
+    out_dir, ref_dir = Path(argv[0]), Path(argv[1])
+    rank = int(os.environ["RANK"])
+    dev = setup_distributed(torch.device("cuda")).device
+    report = {}
+    cleanup = train.cleanup_distributed
+    train.cleanup_distributed = lambda: None    # one group for every run
+    try:
+        for name, flags, ref_name in PP_RUNS:
+            record = {"ms": [], "losses": [], "aux": []}
+            step, recording = pp_recording(torch, record)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            for fn in kernels.values():
+                fn.launches = 0
+            reset_staged(fa)
+            run_dir = out_dir / name.replace(" ", "_").replace("=", "")
+            Trainer.train_step = recording
+            try:
+                state = train_main(PP_FLAGS + flags
+                                   + ["--output-dir", str(run_dir)])
+            finally:
+                Trainer.train_step = step
+            torch.cuda.synchronize()
+            tp = state.tp
+            split = dict(zip(tp.names, tp.split_dims))
+            named = list(state.model.named_parameters())
+            ref = torch.load(pp_ref_path(ref_dir, ref_name), mmap=True,
+                             weights_only=True)
+            sq_off = {n: float(torch.sum(torch.square(
+                p.detach().double() - tp_slice(
+                    ref[n], split[n], tp.axis.size, tp.axis.index
+                ).to(p.device, torch.float64)))) for n, p in named}
+            moments = [t for slots in state.optimizer.state.values()
+                       for t in slots.values() if t.dim() >= 1]
+            report[name] = {
+                "launches": {k: fn.launches for k, fn in kernels.items()},
+                "staged_copies": staged_copies(fa),
+                "steps": state.step, "step_ms": record["ms"],
+                "losses": record["losses"], "aux": record["aux"],
+                "param_bytes": sum(p.numel() * p.element_size()
+                                   for p in state.params),
+                "moment_bytes": sum(t.numel() * t.element_size()
+                                    for t in moments),
+                "peak_allocated": torch.cuda.max_memory_allocated(dev),
+                "axis": tp.axis_name, "index": tp.axis.index,
+                "split": split,
+                "shapes": {n: list(p.shape) for n, p in named},
+                "digests": {n: tensor_digest(p) for n, p in named},
+                "sq_off": sq_off}
+            del state, moments, ref
+            torch.cuda.empty_cache()
+    finally:
+        train.cleanup_distributed = cleanup
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(report))
+    dist.destroy_process_group()
+    return 0
+
+
+def pp_update_check(name: str, ranks: list, moved: dict) -> dict:
+    """Each leaf's distance from the one-rank run's final parameters (a
+    split leaf's slices summed over the ranks, a replicated leaf once),
+    as a share of that run's movement from the draw: {"worst", "leaf",
+    "whole", "bitwise" (every distance 0)}."""
+    sq = {}
+    for r in ranks:
+        for leaf, off in r["sq_off"].items():
+            if r["split"][leaf] is not None or r["index"] == 0:
+                sq[leaf] = sq.get(leaf, 0.0) + off
+    if set(sq) != set(moved):
+        raise RuntimeError(f"{name}: leaves {sorted(set(sq) ^ set(moved))}"
+                           " are not in both the run and the one-rank run's")
+    rel = {leaf: math.sqrt(sq[leaf]) / moved[leaf] for leaf in sq}
+    leaf = max(rel, key=rel.get)
+    return {"worst": rel[leaf], "leaf": leaf, "whole": math.sqrt(
+        sum(sq.values()) / sum(m * m for m in moved.values())),
+        "bitwise": all(v == 0.0 for v in sq.values())}
+
+
+def pp_want(moe: bool) -> dict:
+    """K3-K5 launches of one rank over a run: gpt2_moe runs the kernels
+    in all 12 blocks (K3 in every forward, K4 and K5 in every backward);
+    the pipeline's stages run the einsum, no kernel."""
+    n = DEPTH if moe else 0
+    return {FLASH[0]: n * (PP_STEPS + PP_EVAL), FLASH[1]: n * PP_STEPS,
+            FLASH[2]: n * PP_STEPS}
+
+
+def pp_check_run(name: str, run: dict, moe: bool) -> None:
+    if run["launches"] != pp_want(moe) or run["steps"] != PP_STEPS \
+            or run["staged_copies"] or not all(
+                math.isfinite(x) for x in run["losses"] + run["aux"]):
+        raise RuntimeError(f"phase 25 {name}: {run['steps']} steps, "
+                           f"launches {run['launches']}, "
+                           f"{run['staged_copies']} staged copies, losses "
+                           f"{run['losses']}, aux {run['aux']} (expected "
+                           f"{PP_STEPS}, {pp_want(moe)}, 0, finite)")
+    if not all(b < a for a, b in zip(run["losses"], run["losses"][1:])):
+        raise RuntimeError(f"phase 25 {name}: losses {run['losses']} did "
+                           "not fall every step")
+    if moe and len(run["aux"]) != PP_STEPS:
+        raise RuntimeError(f"phase 25 {name}: aux losses {run['aux']}")
+
+
+def pp_train(torch, fa, card: str) -> dict:
+    """Phase 25 (see the module docstring): (b)'s card vs CPU step, the
+    one-rank runs in this process, then one torchrun of PP_RANKS ranks
+    for (a) and (c)."""
+    import tempfile
+
+    dev = torch.device("cuda", 0)
+    out_dir = ROOT / "chiprun_out" / "pipe_expert"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    report = {}
+    t0 = time.perf_counter()
+    b = moe_card_vs_cpu(torch, dev, fa)
+    torch.cuda.empty_cache()
+    report["(b) card vs cpu"] = b
+    log(f"phase 25 (b) [{card}]: gpt2_moe 1x1024 loss (router loss "
+        f"included) card {b['loss_card']!r} cpu {b['loss_cpu']!r} (|diff| "
+        f"{b['loss_abs_diff']!r}, tolerance {LOSS_ATOL}); worst gradient "
+        f"max|diff|/max|g| {b['grad_rel']!r} in {b['grad_rel_leaf']} "
+        f"(tolerance {GRAD_REL}); two card runs bitwise equal: "
+        f"{b['card_deterministic']}")
+    if not (b["loss_abs_diff"] <= LOSS_ATOL and b["grad_rel"] <= GRAD_REL):
+        raise RuntimeError(f"phase 25 (b) card vs CPU: loss |diff| "
+                           f"{b['loss_abs_diff']}, gradient {b['grad_rel']}"
+                           f" in {b['grad_rel_leaf']}")
+    with tempfile.TemporaryDirectory() as ref_dir:
+        one = pp_one_rank(torch, fa, ref_dir)
+        report["one_rank_seconds"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        out = run_torchrun([str(out_dir), ref_dir], timeout=900,
+                           nproc=PP_RANKS, mode="--pp-worker")
+        (out_dir / "stdout.txt").write_text(out)
+        ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+                 for r in range(PP_RANKS)]
+        report["torchrun_seconds"] = time.perf_counter() - t1
+    for name, rep in one.items():
+        moe = name.startswith("moe")
+        pp_check_run(name, rep, moe)
+        ms = rep["step_ms"][1:]
+        rep["ms_per_step"] = sum(ms) / len(ms)
+        rep["samples_per_s"] = PP_BATCH * 1e3 / rep["ms_per_step"]
+        log(f"phase 25 {'(b)' if moe else '(a) yardstick'} {name} [{card}]:"
+            f" launches {rep['launches']}; losses {rep['losses']!r}"
+            + (f"; aux losses {rep['aux']!r}" if moe else "")
+            + f"; (d) {rep['ms_per_step']:.1f} ms a step after the first, "
+            f"{rep['samples_per_s']:.2f} samples/s; at rest params "
+            f"{rep['param_bytes']} B, AdamW moments {rep['moment_bytes']} B;"
+            f" peak allocated {rep['peak_allocated']} B")
+        report[name] = {k: v for k, v in rep.items() if k != "moved"}
+    for name, flags, ref_name in PP_RUNS:
+        moe = name.startswith("expert")
+        runs = [r[name] for r in ranks]
+        ref = one[ref_name]
+        kind = pp_kind(name)
+        for r, run in enumerate(runs):
+            pp_check_run(f"{name} rank {r}", run, moe)
+            if run["index"] != r:
+                raise RuntimeError(f"phase 25 {name}: rank {r} sits at "
+                                   f"{run['axis']} index {run['index']}")
+            if moe:
+                lo = r * MOE_EXPERTS // PP_RANKS
+                for leaf, shape in run["shapes"].items():
+                    if leaf.endswith(("moe.wi", "moe.wo")) and \
+                            (shape[0] != MOE_EXPERTS // PP_RANKS
+                             or run["split"][leaf] != 0):
+                        raise RuntimeError(
+                            f"phase 25 {name} rank {r}: {leaf} {shape}, "
+                            f"not experts [{lo}, "
+                            f"{lo + MOE_EXPERTS // PP_RANKS})")
+        for leaf, digest in runs[0]["digests"].items():
+            if runs[0]["split"][leaf] is None and any(
+                    r["digests"][leaf] != digest for r in runs[1:]):
+                raise RuntimeError(f"phase 25 {name}: replicated {leaf} "
+                                   "differs across ranks")
+        if any(r["losses"] != runs[0]["losses"] for r in runs):
+            raise RuntimeError(f"phase 25 {name}: the ranks' losses differ")
+        losses = runs[0]["losses"]
+        tol = BF16_LOSS_ATOL if kind == "amp" else LOSS_ATOL
+        diffs = [abs(x - y) for x, y in zip(losses, ref["losses"])]
+        update = pp_update_check(f"phase 25 {name}", runs, ref["moved"])
+        bound = (EXPERT_PARAM_REL if moe else PIPE_PARAM_REL)[kind]
+        ms = runs[0]["step_ms"][1:]
+        step_ms = sum(ms) / len(ms)
+        rep = {"launches_per_rank": pp_want(moe), "losses": losses,
+               "aux": runs[0]["aux"], "reference_losses": ref["losses"],
+               "loss_abs_diffs": diffs, "tolerance": tol, "update": update,
+               "param_rel_bound": bound, "step_ms": runs[0]["step_ms"],
+               "ms_per_step": step_ms,
+               "samples_per_s": PP_BATCH * 1e3 / step_ms,
+               "param_bytes_per_rank": [r["param_bytes"] for r in runs],
+               "moment_bytes_per_rank": [r["moment_bytes"] for r in runs],
+               "peak_allocated_per_rank": [r["peak_allocated"]
+                                           for r in runs]}
+        report[name] = rep
+        tag = "(c)" if moe else "(a)"
+        log(f"phase 25 {tag} {name} [{card}]: launches a rank "
+            f"{pp_want(moe)}; replicated leaves bitwise equal on both ranks"
+            + (f", rank r holding experts [4r, 4r+4)" if moe else "")
+            + f"; losses {losses!r} against {ref_name}'s "
+            f"{ref['losses']!r} (|diff| {diffs!r}, tolerance {tol})"
+            + (f"; aux {runs[0]['aux']!r} against {ref['aux']!r}"
+               if moe else "")
+            + f"; final parameters off {ref_name}'s by {update['worst']!r} "
+            f"of its movement at worst ({update['leaf']}), "
+            f"{update['whole']!r} over the model (bounds {bound}); bitwise "
+            f"{ref_name}'s: {update['bitwise']}; (d) {step_ms:.1f} ms a "
+            f"step after the first, {rep['samples_per_s']:.2f} samples/s "
+            f"({PP_NOTE}); at rest a rank: params "
+            f"{rep['param_bytes_per_rank']} B, AdamW moments "
+            f"{rep['moment_bytes_per_rank']} B; peak allocated "
+            f"{rep['peak_allocated_per_rank']} B (one rank: "
+            f"{ref['param_bytes']}, {ref['moment_bytes']}, "
+            f"{ref['peak_allocated']} B)")
+        if not all(d <= tol for d in diffs):
+            raise RuntimeError(f"phase 25 {name}: losses {losses} differ "
+                               f"from {ref_name}'s {ref['losses']} by "
+                               f"{diffs} (tolerance {tol})")
+        worst, whole = bound
+        if not (update["worst"] <= worst and update["whole"] <= whole):
+            raise RuntimeError(f"phase 25 {name}: the parameters are off "
+                               f"{ref_name}'s by {update['worst']} of its "
+                               f"movement in {update['leaf']}, "
+                               f"{update['whole']} over the model (bounds "
+                               f"{bound})")
+    report["ranks"] = ranks
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+def moe_kernel_fields(name: str, flash_rows, pp: dict) -> dict:
+    """gpt2_moe's share of flash kernel ``name`` over phase 25's runs:
+    (b)'s one-rank runs and every rank of (c)'s (``moe_*`` over float32,
+    ``moe_bf16_*`` over ``--amp``): launches, and the time, plain time,
+    bound and SDPA's time at the training shape (FLASH_CASES' main rows:
+    B 8, S 1024, 12 heads of 64, causal) summed over them."""
+    shape = {r["shape"]: r for r in flash_rows}
+    out = {}
+    for tag, row_name, prefix in (("fp32", "main fp32", "moe_"),
+                                  ("amp", "main bf16", "moe_bf16_")):
+        row = shape[row_name]
+        n = pp[f"moe {tag}"]["launches"][name] + PP_RANKS * \
+            pp[f"expert=2 {tag}"]["launches_per_rank"][name]
         out[prefix + "launches"] = n
         for key in ("ms", "plain_ms", "bound_ms"):
             out[prefix + key] = row[key][name] * n
@@ -4863,6 +5409,14 @@ def main() -> int:
     tensor_parallel["codec_per_step"] = ps
     log(f"phase 24 done in {time.perf_counter() - t0:.1f} s")
 
+    # phase 25: GPipe over the mesh's pipe axis (GPT-2 124M, no kernel in
+    # the stages) and gpt2_moe on one rank and over the expert axis (K3-K5
+    # in all 12 blocks), on ranks sharing the card
+    t0 = time.perf_counter()
+    pipe_expert = pp_train(torch, fa, card)
+    torch.cuda.empty_cache()
+    log(f"phase 25 done in {time.perf_counter() - t0:.1f} s")
+
     # phase 17: the kernels line; K1 and K2 summed over their launches on
     # the data-parallel paths (rank 0 of every phase 12, phase 19 and
     # phase 22 (e) run), the serving path's K1 launches (phase 4) kept in
@@ -4933,6 +5487,7 @@ def main() -> int:
         "seq_parallel": seq_parallel,
         "tensor_parallel": tensor_parallel,
         "tp_codec_per_shape": list(tp_codec.values()),
+        "pipe_expert": pipe_expert,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4949,6 +5504,8 @@ def main() -> int:
         else:
             row.update(tp_kernel_fields(row["name"], flash_rows,
                                         tensor_parallel))
+            row.update(moe_kernel_fields(row["name"], flash_rows,
+                                         pipe_expert))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -4962,4 +5519,6 @@ if __name__ == "__main__":
         sys.exit(sp_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-worker"]:
         sys.exit(tp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--pp-worker"]:
+        sys.exit(pp_worker(sys.argv[2:]))
     sys.exit(main())

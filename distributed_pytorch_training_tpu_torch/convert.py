@@ -20,7 +20,13 @@ flax tree, or ``{name: tensor}``) into model shard r's TP-local tensors
 its split dim, ``tp_split_dims``; replicated leaves whole),
 ``load_tp_params`` writes them into a TP-local model, and
 ``tp_global_params`` concatenates every shard's tensors back: the round
-trip is bitwise.
+trip is bitwise. The same three carry the other split models, with the
+split dims of their own rules: a pipelined GPT-2's stage-stacked block
+leaves (P, L/P, ...) to stage p's (1, L/P, ...) slice over ``pipe``, a
+``gpt2_moe``'s ``wi`` and ``wo`` (E, ...) to an expert rank's E/ep
+experts over ``expert``. ``gpt2_to_pipe_params`` stacks a ``gpt2_*``
+model's ``block{i}`` leaves into the pipelined model's global stacks,
+``pipe_to_gpt2_params`` unstacks them; both round trips are bitwise.
 """
 
 from __future__ import annotations
@@ -146,10 +152,14 @@ def tp_local_params(params, split_dims: Mapping[str, Optional[int]],
 
 
 def load_tp_params(model: nn.Module, params,
-                   split_dims: Mapping[str, Optional[int]]) -> None:
-    """Write the TP-local slices of the global ``params`` into a TP-local
-    ``model`` (its ``tp`` says the shard; shapes checked)."""
-    tp = model.tp
+                   split_dims: Mapping[str, Optional[int]],
+                   axis=None) -> None:
+    """Write the local slices of the global ``params`` into a local
+    ``model``: its shard on ``axis`` (a ``TpAxis``; the model's ``tp``
+    when None), shapes checked. Tensor parallelism's shards, a pipeline
+    stage (``axis`` the ``pipe`` axis) and an expert rank's experts
+    (``expert``) load alike."""
+    tp = model.tp if axis is None else axis
     local = tp_local_params(params, split_dims, tp.size, tp.index)
     own = dict(model.named_parameters())
     if set(local) != set(own):
@@ -173,3 +183,38 @@ def tp_global_params(shards, split_dims: Mapping[str, Optional[int]]
     shards = [_named(s) for s in shards]
     return {name: tp_join([s[name] for s in shards], split_dims[name])
             for name in shards[0]}
+
+
+def gpt2_to_pipe_params(params, num_stages: int) -> Dict[str, torch.Tensor]:
+    """The pipelined GPT-2's global parameters (``models/gpt2_pipe.py``:
+    ``blocks.<path>`` of shape (P, L/P, ...), layer p L/P + j at [p, j])
+    from a ``gpt2_*`` model's (a flax tree, or ``{name: tensor}``): each
+    block leaf stacked over the layers, the embeddings and the final
+    LayerNorm as they are. A pipe=P run and its pipe=1 yardstick start
+    from the same weights so."""
+    layers: Dict[str, Dict[int, torch.Tensor]] = {}
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in _named(params).items():
+        m = _TORCH_BLOCK.match(name)
+        if m is None:
+            out[name] = t
+        else:
+            layers.setdefault(name[m.end():], {})[int(m.group(1))] = t
+    for leaf, by_layer in layers.items():
+        stack = torch.stack([by_layer[i] for i in range(len(by_layer))])
+        out[f"blocks.{leaf}"] = stack.reshape(
+            num_stages, -1, *stack.shape[1:]).clone()
+    return out
+
+
+def pipe_to_gpt2_params(params) -> Dict[str, torch.Tensor]:
+    """The inverse of `gpt2_to_pipe_params`: a ``gpt2_*`` model's
+    ``blocks.<i>.<path>`` leaves from the pipelined model's stacks."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in _named(params).items():
+        if not name.startswith("blocks."):
+            out[name] = t
+            continue
+        for i, layer in enumerate(t.reshape(-1, *t.shape[2:]).unbind(0)):
+            out[f"blocks.{i}.{name[len('blocks.'):]}"] = layer.clone()
+    return out

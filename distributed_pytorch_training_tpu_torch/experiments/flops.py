@@ -12,6 +12,16 @@ what runs through PyTorch's operators, so count the plain path (the
 flash kernels are ctypes calls, invisible to it); meta tensors count
 without computing. A train step costs ~3x the forward (the backward
 forms two products per forward product).
+
+An MoE model (``gpt2_moe``) counts its expert products over all E C
+capacity slots of every batch row, the work the card does, and its
+router's product; the count equals JAX's at the same configuration. A
+pipelined run (``--mesh pipe=P``) counts the sequential GPT-2 of the same
+configuration: the model's products once. JAX's ``jaxpr_matmul_flops``
+of its pipelined model walks the ``lax.scan`` of every stage's M + P - 1
+ticks, fill and drain included, so its count is (M + P - 1) / M times
+that per stage; the port's stages skip those ticks, and the MFU it
+reports is the sequential model's work over the cards' peak.
 """
 
 from __future__ import annotations

@@ -315,8 +315,11 @@ class AxisLoop:
 
 @dataclasses.dataclass(frozen=True)
 class TpAxis:
-    """The mesh's ``model`` axis as this rank sees it: ``size`` shards,
-    this rank's ``index`` among them, the ranks' process ``group``."""
+    """One mesh axis as this rank sees it: ``size`` shards, this rank's
+    ``index`` among them, the ranks' process ``group``. Named for the
+    ``model`` axis, its first use; the ``pipe`` axis (the pipeline's
+    stages) and the ``expert`` axis (the MoE layers' experts) use it too
+    (``Mesh.axis_shard``)."""
 
     size: int
     index: int = 0

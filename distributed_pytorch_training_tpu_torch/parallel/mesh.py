@@ -50,6 +50,10 @@ AXIS_NAMES: frozenset = frozenset(AXIS_ORDER)
 # Axes a batch dimension is sharded over.
 BATCH_AXES: Tuple[str, ...] = (SLICE, DATA, FSDP)
 
+# Axes whose ranks hold parts of one model (tensor parallelism's shards,
+# the pipeline's stages, the experts) and compute the same loss.
+SPLIT_AXES: Tuple[str, ...] = (MODEL, PIPE, EXPERT)
+
 Axes = Union[str, Sequence[str]]
 
 
@@ -234,11 +238,18 @@ class Mesh:
             return AxisLoop(1)
         return AxisGroup(self.group(axes))
 
+    def axis_shard(self, axis: str) -> TpAxis:
+        """The mesh axis ``axis`` as this rank sees it: its size, this
+        rank's index on it and the process group of its line (the
+        region operators of tensor parallelism, the pipeline's rotation
+        and the expert region run over it)."""
+        return TpAxis(self.shape[axis], self.coords()[axis],
+                      self.group(axis))
+
     def tp(self) -> TpAxis:
         """The ``model`` axis as this rank sees it (megatron tensor
         parallelism's region operators run over its group)."""
-        return TpAxis(self.shape[MODEL], self.coords()[MODEL],
-                      self.group(MODEL))
+        return self.axis_shard(MODEL)
 
     @property
     def batch_index(self) -> int:

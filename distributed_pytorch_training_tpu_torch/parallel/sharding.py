@@ -23,6 +23,15 @@ TP-local leaves), and ``tp_clip_weights`` the global-norm clip's weights.
 A template is a sequence of (parameter name, tensor or shape) pairs;
 rules match the leaf's flax path (``block0/attn/qkv/kernel``), as in the
 JAX package.
+
+The same helpers lay out the other two axes a model splits over, with
+``tp_split_dims(..., axis=...)``: the pipelined GPT-2's stage-stacked
+block leaves on ``pipe`` (``models/gpt2_pipe.py``'s rule ``blocks/`` ->
+``(PIPE,)``: dim 0 of a (P, L/P, ...) stack, stage p holding [p]) and
+gpt2_moe's experts on ``expert`` (``models/moe.py``'s ``moe_rules``:
+``moe/wi`` and ``moe/wo`` on dim 0 of (E, ...), an expert rank holding
+E/ep of them); ``tp_slice`` cuts a rank's part of a global leaf and
+``tp_join`` joins the parts back.
 """
 
 from __future__ import annotations
@@ -149,13 +158,17 @@ def unflatten_padded(flat: torch.Tensor, shape: Sequence[int]
 
 
 def tp_split_dims(template: Template, rules: Optional[PartitionRules],
-                  model_n: int) -> Dict[str, Optional[int]]:
-    """{name: the dim the leaf splits on over ``model``, or None}: the
-    first spec dim naming the ``model`` axis, if it divides by
-    ``model_n``; an indivisible dim leaves the leaf model-replicated, with
-    a warning once (GPT-2's vocab without Megatron padding)."""
+                  model_n: int, axis: Optional[str] = None
+                  ) -> Dict[str, Optional[int]]:
+    """{name: the dim the leaf splits on over ``axis`` (``model`` when
+    None), or None}: the first spec dim naming the axis, if it divides by
+    ``model_n``; an indivisible dim leaves the leaf replicated over the
+    axis, with a warning once (GPT-2's vocab without Megatron padding).
+    The ``pipe`` axis (a stage-stacked leaf's dim 0) and the ``expert``
+    axis (an expert-stacked leaf's dim 0) take the same rule."""
     from .mesh import MODEL
 
+    axis = MODEL if axis is None else axis
     out: Dict[str, Optional[int]] = {}
     for name, leaf in template:
         shape = _shape_of(leaf)
@@ -166,17 +179,17 @@ def tp_split_dims(template: Template, rules: Optional[PartitionRules],
             if entry is None:
                 continue
             names = (entry,) if isinstance(entry, str) else tuple(entry)
-            if MODEL not in names:
+            if axis not in names:
                 continue
             if shape[dim] % model_n:
-                key = (("tp", spec), shape, model_n)
+                key = (("tp", axis, spec), shape, model_n)
                 if key not in _degraded_warned:
                     _degraded_warned.add(key)
                     logger.warning(
                         "explicit TP: %s dim %d (size %d) not divisible by "
-                        "model=%d — leaf stays model-replicated (Megatron "
+                        "%s=%d — leaf stays %s-replicated (Megatron "
                         "vocab padding un-degrades embeddings)",
-                        path, dim, shape[dim], model_n)
+                        path, dim, shape[dim], axis, model_n, axis)
                 break
             out[name] = dim
             break

@@ -35,6 +35,14 @@ JAX package's ``train.py``.
         -m distributed_pytorch_training_tpu_torch.train --model gpt2_124m \\
         --synthetic --mesh data=2,model=2 [--fsdp-explicit --wire-dtype int8]
 
+    torchrun --standalone --nproc-per-node 2 \\
+        -m distributed_pytorch_training_tpu_torch.train --model gpt2_124m \\
+        --synthetic --mesh data=1,pipe=2 --microbatches 4
+
+    torchrun --standalone --nproc-per-node 2 \\
+        -m distributed_pytorch_training_tpu_torch.train --model gpt2_moe \\
+        --synthetic --mesh data=1,expert=2 [--amp]
+
 Same flags, stdout lines and ``metrics_rank0.csv`` (rank 0) as the JAX
 entry. Under torchrun every rank trains its shard of each global batch of
 ``--batch-size x`` (the batch axes' ranks) rows, ResNet and GPT-2 alike;
@@ -48,7 +56,13 @@ implicit path. On a ``model`` axis GPT-2 trains tensor-parallel
 cross-entropy; the vocab padded to lcm(128, M)): the ranks of a model
 line hold the same rows, on the implicit path or, under
 ``--fsdp-explicit``, the sharded update over the data ranks of each
-shard's slice (TP x FSDP). With
+shard's slice (TP x FSDP). On a ``pipe`` axis GPT-2 trains as a GPipe
+pipeline (``models/gpt2_pipe.py``: the blocks stage-stacked, one stage a
+rank, ``--microbatches`` a step, the einsum attention inside the
+stages), and on an ``expert`` axis ``gpt2_moe`` holds E/ep experts of
+every MoE layer a rank (``models/moe.py``; its router loss, weight 0.01,
+joins the task's); the ranks of a pipe or expert line hold the same
+rows, on the implicit path. With
 the defaults (``--wire-dtype fp32 --bucket-cap-mb 0``) on the implicit path
 (global-batch BatchNorm, one fp32 all-reduce of the gradient, as the JAX
 package's data-sharded jit), otherwise through the explicit bucketed
@@ -88,6 +102,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import inspect
 import math
 import os
 import sys
@@ -100,7 +115,7 @@ from . import telemetry
 from .data.datasets import IMAGE_STATS, get_dataset
 from .data.loader import ShardedLoader
 from .data.text import TokenLoader, get_token_dataset
-from .models import get_model
+from .models import GPT2PipeLMHead, get_model
 from .ops.flash_attention import (
     flash_backend_supported,
     flash_supports_length,
@@ -110,7 +125,7 @@ from .ops.ring_attention import make_ring_attention_fn
 from .ops.ulysses_attention import make_ulysses_attention_fn
 from .experiments import flops as flops_mod
 from .parallel.grad_sync import check_wire, emit_wire_accounting
-from .parallel.mesh import (EXPERT, FSDP, MODEL, PIPE, SEQ,
+from .parallel.mesh import (FSDP, MODEL, PIPE, SEQ,
                             MeshSpec, batch_shard_count, build_mesh,
                             validate_mesh_usage)
 from .resilience.faults import ELASTIC_KINDS, FaultInjector, FaultPlan
@@ -130,14 +145,14 @@ from .training.checkpoint import LAYOUT_HINT, CheckpointManager, \
 from .training.loop import ZERO1_TP
 from .training.preemption import PreemptionGuard, RankAgreedStop
 from .training.tasks import (ImageClassificationTask, LanguageModelingTask,
-                             MaskedLMTask)
+                             MaskedLMTask, MoeLanguageModelingTask)
 from .telemetry import device as tele_device
 from .telemetry.watchdog import kwargs_from_env
 from .utils import MetricsCSV, log_main, parse_args
 from .utils.config import parse_model_overrides
 from .utils.profiling import StepProfiler
 
-LM_MODELS = ("gpt2_124m", "gpt2_355m", "bert_base")
+LM_MODELS = ("gpt2_124m", "gpt2_355m", "gpt2_moe", "bert_base")
 IMAGE_MODELS = ("resnet18", "resnet50", "vit_b16")
 ELASTIC = "the elastic slice"
 
@@ -155,13 +170,13 @@ _UNPORTED_AXES = {
     FSDP: "the fsdp mesh axis slice (GSPMD's d_model sharding; TP x FSDP "
           "runs through --fsdp-explicit --mesh data=D,model=M, and "
           "--fsdp-explicit shards over the data axis)",
-    PIPE: "the pipeline slice (parallel/pipeline.py, models/gpt2_pipe.py)",
-    EXPERT: "the MoE slice (models/moe.py)",
 }
 TP_MODELS = ("gpt2_124m", "gpt2_355m")
 TP_LATER = {"bert_base": "the BERT/ViT tensor-parallel slice",
             "vit_b16": "the BERT/ViT tensor-parallel slice"}
 SP_TP = "the SP x TP slice"
+MOE_TP = "the MoE x TP slice (moe_rules + tp_fsdp_rules on the model axis)"
+MOE_SP = "the MoE x SP slice (gpt2_moe's positions sharded over seq)"
 
 
 def mesh_spec(args: argparse.Namespace) -> MeshSpec:
@@ -186,6 +201,13 @@ def refuse_unported(args: argparse.Namespace, spec: MeshSpec) -> None:
     for axis, where in _UNPORTED_AXES.items():
         if getattr(spec, axis) != 1:
             raise not_ported(f"--mesh {args.mesh} ({axis} axis)", where)
+    if "moe" in args.model:
+        if spec.model != 1:
+            raise not_ported(f"--model {args.model} on --mesh {args.mesh} "
+                             "(model axis)", MOE_TP)
+        if spec.seq != 1:
+            raise not_ported(f"--model {args.model} on --mesh {args.mesh} "
+                             "(seq axis)", MOE_SP)
     if spec.model != 1:
         if args.model in TP_LATER:
             raise not_ported(f"--model {args.model} on --mesh {args.mesh} "
@@ -239,14 +261,16 @@ def check_flags(args: argparse.Namespace, spec: MeshSpec,
 
 
 def resolve_attention(requested: str, device_type: str,
-                      seq_len: int) -> str:
-    """``auto`` is the flash kernels on CUDA and the einsum on the CPU;
-    every other choice (``ring`` and ``ulysses`` run the flash kernels on
-    CUDA and their plain versions on the CPU) stands."""
+                      seq_len: int, n_pipe: int = 1) -> str:
+    """``auto`` is the flash kernels on CUDA and the einsum on the CPU
+    and inside pipeline stages (``n_pipe`` > 1: attention is a per-stage
+    concern, as in the JAX entry); every other choice (``ring`` and
+    ``ulysses`` run the flash kernels on CUDA and their plain versions on
+    the CPU) stands."""
     if requested != "auto":
         return requested
     return ("flash" if flash_backend_supported(device_type)
-            and flash_supports_length(seq_len) else "xla")
+            and n_pipe == 1 and flash_supports_length(seq_len) else "xla")
 
 
 def samples_per_step_list(n: int, global_batch: int, steps: int,
@@ -357,14 +381,20 @@ def _run(args: argparse.Namespace, spec: MeshSpec,
     is_lm = args.model in LM_MODELS
     family = "bert" if args.model.startswith("bert") else "gpt2"
     seq_len = args.seq_len or (512 if family == "bert" else 1024)
-    attention = (resolve_attention(args.attention, dev.type, seq_len)
-                 if is_lm else "xla")
+    attention = (resolve_attention(args.attention, dev.type, seq_len,
+                                   mesh.shape[PIPE]) if is_lm else "xla")
+    # GPipe over the pipe axis: GPT-2's dense models (the JAX entry's
+    # rule); gpt2_moe and BERT there are refused below
+    pipelined = (mesh.shape[PIPE] > 1 and family == "gpt2"
+                 and "moe" not in args.model)
     # refuse axes the model and attention would not use (the JAX entry's
     # check and message)
     model_n = mesh.shape[MODEL]
-    rules = (get_model(args.model, device="meta").partition_rules()
-             if args.model in TP_MODELS else None)
-    validate_mesh_usage(mesh, rules=rules, attention=attention)
+    rules = (GPT2PipeLMHead.partition_rules() if pipelined
+             else get_model(args.model, device="meta").partition_rules()
+             if args.model in TP_MODELS + ("gpt2_moe",) else None)
+    validate_mesh_usage(mesh, rules=rules, attention=attention,
+                        is_moe="moe" in args.model, pipelined=pipelined)
     if mesh.shape[SEQ] > 1:
         log_main(f"Sequence parallel: {attention} attention over "
                  f"seq={mesh.shape[SEQ]}, {seq_len // mesh.shape[SEQ]} "
@@ -413,12 +443,14 @@ def _run(args: argparse.Namespace, spec: MeshSpec,
     if is_lm:
         make_model, task = _lm_model_and_task(
             args, family, overrides, seq_len, train_ds, val_ds,
-            compute_dtype, mesh, attention)
+            compute_dtype, mesh, attention, pipelined)
 
         def make_flops_model():
             # the global model with the padded head (not one rank's
             # TP-local share), the plain attention: FlopCounterMode does
-            # not see the flash kernels' ctypes calls
+            # not see the flash kernels' ctypes calls. Pipelined, the
+            # sequential GPT-2 of the same configuration
+            # (experiments/flops.py says what JAX's count holds)
             pad = ({"pad_vocab_to_multiple_of": math.lcm(128, model_n)}
                    if model_n > 1 else {})
             return get_model(args.model, device="meta", dtype=compute_dtype,
@@ -754,14 +786,16 @@ def _run(args: argparse.Namespace, spec: MeshSpec,
 
 
 def _lm_model_and_task(args, family, overrides, seq_len, train_ds,
-                       val_ds, compute_dtype, mesh, attention):
-    """A factory of the GPT-2 or BERT model (the flash kernels on CUDA:
-    causal for GPT-2, bidirectional for BERT; GPT-2's ring or Ulysses over
-    the mesh's seq line), checked once against the data's token ids, and
-    its task (causal LM over this rank's sequence shard, or masked LM over
-    the ids both the model and the data hold), computing in
-    ``compute_dtype``. The checks and their messages are the JAX
-    entry's."""
+                       val_ds, compute_dtype, mesh, attention,
+                       pipelined=False):
+    """A factory of the GPT-2, MoE GPT-2 or BERT model (the flash kernels
+    on CUDA: causal for GPT-2, bidirectional for BERT; GPT-2's ring or
+    Ulysses over the mesh's seq line; the pipelined GPT-2 over the pipe
+    axis when ``pipelined``), checked once against the data's token ids,
+    and its task (causal LM over this rank's sequence shard, with the
+    router loss for an MoE model, or masked LM over the ids both the
+    model and the data hold), computing in ``compute_dtype``. The checks
+    and their messages are the JAX entry's."""
     lm_kwargs = dict(dtype=compute_dtype, remat=args.remat)
     if mesh.shape[MODEL] > 1:
         # Megatron's vocab padding (the JAX entry's): lcm(128, M) keeps the
@@ -780,7 +814,26 @@ def _lm_model_and_task(args, family, overrides, seq_len, train_ds,
     elif attention == "ulysses":
         lm_kwargs["attention_fn"] = make_ulysses_attention_fn(mesh,
                                                               causal=True)
-    vocab_size = get_model(args.model, device="meta", **lm_kwargs).vocab_size
+    if pipelined:
+        # GPipe: the blocks stage-stacked over the pipe axis, the config
+        # of the named size (and the overrides) carried over, as the JAX
+        # entry builds GPT2PipeLMHead (check_flags refused a kernel
+        # attention, and auto is the einsum here)
+        cfg = get_model(args.model, device="meta", **overrides)
+        pipe_kwargs = dict(
+            num_stages=mesh.shape[PIPE], num_microbatches=args.microbatches,
+            vocab_size=cfg.vocab_size, hidden_dim=cfg.hidden_dim,
+            depth=cfg.depth, num_heads=cfg.num_heads,
+            max_position=max(cfg.max_position, seq_len),
+            dtype=compute_dtype, remat=args.remat)
+        # overrides of pipe-model fields beyond the list above (e.g.
+        # layernorm_epsilon) are not dropped
+        fields = inspect.signature(GPT2PipeLMHead).parameters
+        pipe_kwargs.update({k: v for k, v in overrides.items()
+                            if k in fields and k not in pipe_kwargs})
+        lm_kwargs = pipe_kwargs
+    vocab_size = (cfg.vocab_size if pipelined else
+                  get_model(args.model, device="meta", **lm_kwargs).vocab_size)
     if vocab_size < train_ds.vocab_size:
         # ids past the embedding would index out of range: scan the ids
         # actually present (a byte corpus under the gpt2 stamp is fine)
@@ -806,10 +859,15 @@ def _lm_model_and_task(args, family, overrides, seq_len, train_ds,
                 f"vocab_size {bert_vocab} does not contain the [MASK] "
                 f"token id {task.mask_token_id}; use a vocab of at "
                 f"least {task.mask_token_id + 1}")
+    elif "moe" in args.model:
+        # MoE models add the Switch router load-balancing loss
+        task = MoeLanguageModelingTask(compute_dtype=compute_dtype)
     else:
         task = LanguageModelingTask(compute_dtype=compute_dtype,
                                     seq_index=mesh.coords()[SEQ],
                                     seq_shards=mesh.shape[SEQ])
+    if pipelined:
+        return lambda: GPT2PipeLMHead(**lm_kwargs), task
     return lambda: get_model(args.model, **lm_kwargs), task
 
 

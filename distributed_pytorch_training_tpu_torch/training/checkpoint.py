@@ -46,7 +46,11 @@ gathered over the model ranks along the split dim (JAX's GSPMD arrays),
 under explicit FSDP the model-major flat layout (over the model shards,
 each shard's flat-padded slice in chunk order), the residual rows in the
 same order; ``meta.json`` records ``model_shards``, and a restore at
-another model degree raises with ``LAYOUT_HINT``. A checkpoint restores only into the layout and world size it was
+another model degree raises with ``LAYOUT_HINT``. A pipelined model
+(``pipe``) and an expert-parallel one (``expert``) are saved the same
+way, as the JAX global arrays: the stage-stacked (P, L/P, ...) blocks
+gathered over ``pipe``, ``wi`` and ``wo`` over ``expert``
+(``pipe_shards``, ``expert_shards``). A checkpoint restores only into the layout and world size it was
 written for (resharding is the elastic slice's). Every rank calls
 ``save``, ``wait`` and the restores at the same points: ``save`` and
 ``wait`` agree on a failed write (one MAX reduction, so every rank
@@ -80,6 +84,7 @@ import torch.distributed as dist
 from .. import telemetry
 from ..convert import flax_ordered
 from ..parallel.collectives import all_gather, reduce_scalar, world_size
+from ..parallel.mesh import SPLIT_AXES
 from ..parallel.sharding import (flatten_pad, tp_join, tp_slice,
                                  tp_split_dims, tp_unflatten_leaf,
                                  unflatten_padded)
@@ -459,10 +464,17 @@ class CheckpointManager:
             "optimizer": type(state.optimizer).__name__,
             "layout": self._layout(state),
             "param_shapes": shapes,
-            "model_shards": (state.tp.axis.size if state.tp is not None
-                             else 1),
+            **{f"{a}_shards": self._shards(state, a) for a in SPLIT_AXES},
         }
         return snapshot
+
+    @staticmethod
+    def _shards(state: TrainState, axis: str) -> int:
+        """The ways the state's model splits over the mesh axis ``axis``
+        (``model``, ``pipe`` or ``expert``)."""
+        tp = state.tp
+        return tp.axis.size if tp is not None and tp.axis_name == axis \
+            else 1
 
     @staticmethod
     def _chunk_order(state: TrainState) -> List[int]:
@@ -665,11 +677,14 @@ class CheckpointManager:
                 f"but the restore template is {want}: {LAYOUT_HINT}")
         sh, tp = template.sharding, template.tp
         model_n = tp.axis.size if tp is not None else 1
-        if meta.get("model_shards", 1) != model_n:
-            raise ValueError(
-                f"checkpoint {label} holds a model split "
-                f"{meta.get('model_shards', 1)} ways, but this run's mesh "
-                f"has model={model_n}: {LAYOUT_HINT}")
+        for axis in SPLIT_AXES:
+            saved, here = (meta.get(f"{axis}_shards", 1),
+                           self._shards(template, axis))
+            if saved != here:
+                raise ValueError(
+                    f"checkpoint {label} holds a model split {saved} ways "
+                    f"over {axis}, but this run's mesh has {axis}={here}: "
+                    f"{LAYOUT_HINT}")
         if ((has_ef or sh is not None)
                 and template_world_size is not None
                 and recorded is not None

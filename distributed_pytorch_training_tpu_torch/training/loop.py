@@ -56,6 +56,22 @@ TP-local leaves' chunks: JAX's model-major flat layout;
 ``parallel/sharding.py``). ZeRO-1 and ``int8_hier`` do not compose with
 it (the JAX Trainer's refusal for ``int8_hier``).
 
+The pipeline (a ``pipe`` axis, ``models/gpt2_pipe.py``) and expert
+parallelism (an ``expert`` axis, ``models/moe.py``) split the model the
+same way, over their own axis: ``init_state`` cuts the caller's global
+model (one draw) into this rank's stage or experts (``_split_model``,
+``clone(pipe=...)`` or ``clone(expert=...)`` and the carrier), ``group``
+is the batch (and seq) axes' line, and the loss, computed alike on every
+rank of the split axis, is summed over ``group`` only. The replicated
+leaves come out whole and equal on every rank without a sum after the
+step: the pipeline sums its input's gradient over ``pipe`` inside its
+backward (``parallel/pipeline.py``), the expert region its inputs' over
+``expert`` (``copy_to_tp``). The clip weighs a replicated leaf 1/P (1/E)
+and sums over the split axis, as under TP. Eval runs the same split
+forward; nothing is gathered (the checkpoint joins the global arrays).
+The explicit reducer and the sharded update refuse these axes with the
+JAX Trainer's message.
+
 The engagement rules are the JAX Trainer's: the reducer runs when
 ``bucket_cap_mb > 0`` or the wire is not fp32, on more than one rank, the
 sharded update under ``zero1`` or ``fsdp_explicit`` on more than one rank;
@@ -92,7 +108,8 @@ from ..parallel.grad_sync import (
     quantized_delta_all_gather, quantized_shard_all_gather, reduce_flat,
     unflatten_tree,
 )
-from ..parallel.mesh import AXIS_ORDER, BATCH_AXES, MODEL, Mesh
+from ..parallel.mesh import (AXIS_ORDER, BATCH_AXES, EXPERT, MODEL, PIPE,
+                             SPLIT_AXES, Mesh)
 from ..parallel.sharding import (chunk_of, flatten_pad, fsdp_flat_params,
                                  tp_clip_weights, tp_split_dims,
                                  unflatten_padded)
@@ -106,6 +123,9 @@ from .train_state import FlatSharding, TpLayout, TrainState
 from .optim import GradientTransformation
 
 METRIC_NAMES = ("loss_sum", "correct", "weight")
+# the model field that makes a model local to a split axis
+# (``clone(**{field: axis})``)
+SPLIT_FIELDS = {MODEL: "tp", PIPE: "pipe", EXPERT: "expert"}
 ZERO1_TP = "the ZeRO-1 x TP slice (the JAX package's per-leaf GSPMD update)"
 
 
@@ -213,17 +233,28 @@ class Trainer:
         self.task = task
         self.config = config
         self.device = resolve_device(device)
-        # tensor parallelism: the model axis; the gradient and metric sums
-        # run over the other axes' line
+        # tensor parallelism (model), the pipeline (pipe) or the experts
+        # (expert): the one axis whose ranks hold parts of the model and
+        # compute the same loss; the gradient and metric sums run over
+        # the other axes' line
         self.tp = TpAxis(1)
-        if mesh is not None and mesh.shape[MODEL] > 1:
+        self.split_axis: Optional[str] = None
+        if mesh is not None:
+            split = [a for a in SPLIT_AXES if mesh.shape[a] > 1]
+            if len(split) > 1:
+                raise ValueError(
+                    f"mesh axes {split} > 1 together: the Trainer splits "
+                    "the model over one of model, pipe and expert")
+            if split:
+                self.split_axis = split[0]
+                if group is None:
+                    group = mesh.group(tuple(a for a in AXIS_ORDER
+                                             if a not in SPLIT_AXES))
+        if self.split_axis == MODEL:
             if config.zero1:
                 raise not_ported("zero1 on a mesh with a model axis",
                                  ZERO1_TP)
             self.tp = mesh.tp()
-            if group is None:
-                group = mesh.group(tuple(a for a in AXIS_ORDER
-                                         if a != MODEL))
         self.group = group
         self.n_shards = world_size(group)
         self.rank = (torch.distributed.get_rank(group)
@@ -399,8 +430,8 @@ class Trainer:
         rank's chunks (ZeRO-1), and under explicit FSDP the parameters
         become their chunks too."""
         layout = None
-        if self.tp.size > 1:
-            model, layout = self._tp_model(model)
+        if self.split_axis is not None:
+            model, layout = self._split_model(model)
         model = model.to(self.device)
         if self.sharded:
             state = self._init_sharded(model, tx, layout)
@@ -425,49 +456,61 @@ class Trainer:
                     n_slices=hier.n_slices if hier is not None else 1)
         return state
 
-    def _tp_model(self, model: torch.nn.Module
-                  ) -> Tuple[torch.nn.Module, TpLayout]:
-        """(the TP-local clone of the global ``model`` with this rank's
-        slices of its parameters, the layout). The refusals are the JAX
-        Trainer's."""
-        tp = self.tp
-        if not (hasattr(model, "clone") and hasattr(model, "tp")
+    def _split_model(self, model: torch.nn.Module
+                     ) -> Tuple[torch.nn.Module, TpLayout]:
+        """(the local clone of the global ``model`` on ``split_axis``,
+        with this rank's slices of its parameters; the layout): TP's
+        column/row shards on ``model``, one stage of the stacked blocks
+        on ``pipe``, E/ep experts of every MoE layer on ``expert``. One
+        draw, sliced, so the leaves every rank holds whole start equal.
+        The refusals on ``model`` are the JAX Trainer's."""
+        axis_name = self.split_axis
+        axis = self.mesh.axis_shard(axis_name)
+        if axis_name == MODEL and not (
+                hasattr(model, "clone") and hasattr(model, "tp")
                 and hasattr(type(model), "partition_rules")):
             mode = ("fsdp_explicit" if self.config.fsdp_explicit
                     else "the implicit path")
             raise ValueError(
-                f"mesh has model={tp.size} under {mode}, but "
+                f"mesh has model={axis.size} under {mode}, but "
                 f"{type(model).__name__} has no explicit-TP form "
                 "(tp_size/tp_axis fields) — gpt2_* models support "
                 "explicit TP; others need a 1-D mesh or the implicit "
                 "GSPMD path")
+        if not (hasattr(model, "clone")
+                and hasattr(model, SPLIT_FIELDS[axis_name])):
+            raise ValueError(f"mesh has {axis_name}={axis.size}, but "
+                             f"{type(model).__name__} does not split over "
+                             f"the {axis_name} axis")
         heads = getattr(model, "num_heads", None)
-        if heads is not None and heads % tp.size:
+        if axis_name == MODEL and heads is not None and heads % axis.size:
             raise ValueError(
                 f"num_heads={heads} not divisible by the mesh's "
-                f"model={tp.size} — explicit TP splits attention by whole "
+                f"model={axis.size} — explicit TP splits attention by whole "
                 "heads")
         named = flax_ordered(model.named_parameters())
         template = [(n, tuple(p.shape)) for n, p in named]
         split = tp_split_dims(template, type(model).partition_rules(),
-                              tp.size)
-        weights = tp_clip_weights(template, split, tp.size)
-        local = model.clone(tp=tp, device="cpu")
-        load_tp_params(local, {n: p for n, p in named}, split)
+                              axis.size, axis_name)
+        weights = tp_clip_weights(template, split, axis.size)
+        local = model.clone(**{SPLIT_FIELDS[axis_name]: axis},
+                            device="cpu")
+        load_tp_params(local, {n: p for n, p in named}, split, axis)
         if self._fsdp:
             # the sharded update's norm: every rank's chunk of its slice
             clip_group = self.mesh.group((MODEL,) + BATCH_AXES)
         else:
-            clip_group = tp.group
+            clip_group = axis.group
         layout = TpLayout(
-            axis=tp, names=tuple(n for n, _ in named),
+            axis=axis, names=tuple(n for n, _ in named),
             split_dims=tuple(split[n] for n, _ in named),
             shapes=tuple(s for _, s in template),
             clip_weights=tuple(weights[f] for f in (
                 "/".join(name_to_flax_path(n)) for n, _ in named)),
             clip_group=clip_group,
             ranks=tuple(tuple(self.mesh.line(BATCH_AXES, r))
-                        for r in self.mesh.line(MODEL)))
+                        for r in self.mesh.line(axis_name)),
+            axis_name=axis_name)
         return local, layout
 
     def _init_sharded(self, model: torch.nn.Module,
@@ -873,7 +916,9 @@ class Trainer:
     def materialized(self, state: TrainState):
         """Under explicit FSDP, the model holds its full parameters inside
         this context (an exact gather, as the JAX package unflattens for
-        eval), its chunks again after; elsewhere a no-op."""
+        eval), its chunks again after; elsewhere a no-op (a model split
+        over ``model``, ``pipe`` or ``expert`` evaluates through its
+        split forward)."""
         if not self._fsdp or self._materialized:
             yield
             return

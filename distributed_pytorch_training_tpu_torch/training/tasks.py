@@ -1,6 +1,6 @@
 """Tasks: what a batch means and how loss and metrics are computed (the
-JAX package's training/tasks.py; the image classification, causal LM and
-masked LM tasks are ported).
+JAX package's training/tasks.py; the image classification, causal LM,
+MoE causal LM and masked LM tasks are ported).
 
 ``loss_and_metrics`` returns ``(loss, metrics, new_stats)``. The metrics
 are weighted SUMS, 0-d tensors that stay on the device until a print
@@ -23,7 +23,6 @@ from torch import nn
 
 from ..data.augment import draw_crop_flip, normalize_images, random_crop_flip
 from ..parallel.collectives import TpShardedLogits, tp_parallel_cross_entropy
-from ..runtime import not_ported
 from ..utils import prng
 
 Metrics = Dict[str, torch.Tensor]
@@ -110,7 +109,9 @@ class LanguageModelingTask(Task):
     """Causal next-token prediction. Batch: {"input_ids": (B, S) int,
     "weight": (B,)}. Loss = cross-entropy of token t+1 from the logits at
     t, in float32, averaged over the weighted positions (the row weight
-    broadcasts over tokens); "correct" is next-token top-1. The model
+    broadcasts over tokens), plus ``aux_loss_weight`` x the mean of the
+    auxiliary losses the model left in its ``aux_losses`` (an MoE
+    model's; none for a dense one); "correct" is next-token top-1. The model
     computes in its own dtype and the logits are cast to float32 here, as
     in the JAX task, whose ``compute_dtype`` field this keeps.
 
@@ -126,10 +127,6 @@ class LanguageModelingTask(Task):
     aux_loss_weight: float = 0.0
     seq_index: int = 0
     seq_shards: int = 1
-
-    def __post_init__(self):
-        if self.aux_loss_weight:
-            raise not_ported("auxiliary (MoE) losses", "a later slice")
 
     def loss_and_metrics(self, model, batch, train, generator=None,
                          key=None):
@@ -158,7 +155,23 @@ class LanguageModelingTask(Task):
             predicted = lg.argmax(-1) == tgt
         w = batch["weight"][:, None] * torch.ones_like(per_tok)
         loss, metrics = _weighted(per_tok, predicted, w)
+        aux = getattr(model, "aux_losses", None)
+        if self.aux_loss_weight and aux:
+            # the mean of the MoE layers' losses (each one scalar, its own
+            # mean), as the JAX task averages the sown leaves
+            loss = loss + self.aux_loss_weight * (
+                sum(a.mean() for a in aux) / len(aux))
         return loss, metrics, {}
+
+
+@dataclasses.dataclass
+class MoeLanguageModelingTask(LanguageModelingTask):
+    """Causal LM over an MoE model (``models/moe.py``): the cross-entropy
+    plus ``aux_loss_weight`` x the mean of the router load-balancing
+    losses the forward leaves in the model's ``aux_losses``. The metrics
+    are the cross-entropy's, as in the JAX task."""
+
+    aux_loss_weight: float = 0.01
 
 
 @dataclasses.dataclass

@@ -15,10 +15,11 @@ the optimizer updates ``sharding.shards``, this rank's chunk of every
 leaf; under explicit FSDP the model's parameters themselves hold their
 chunks between steps (the Trainer gathers them for each step).
 
-``tp`` describes tensor parallelism on this rank (`TpLayout`; None
-without a ``model`` axis): the model is TP-local, each split leaf a slice
-of the global one; the global-norm clip sums its weighted squares over
-``tp.clip_group``.
+``tp`` describes a model split over a mesh axis on this rank
+(`TpLayout`; None without one): tensor parallelism on ``model``, the
+pipeline's stages on ``pipe``, the experts on ``expert``. The model is
+local, each split leaf a slice of the global one; the global-norm clip
+sums its weighted squares over ``tp.clip_group``.
 """
 
 from __future__ import annotations
@@ -37,11 +38,12 @@ from .optim import GradientTransformation
 
 @dataclasses.dataclass
 class TpLayout:
-    """Tensor parallelism on this rank: the ``axis``, and for every
-    parameter (flax order: ``names``) its split dim (None: replicated
-    over the model ranks), its global shape and its weight in the
-    global-norm clip, whose squared sums are summed over
-    ``clip_group``."""
+    """A model split over one mesh axis on this rank (tensor parallelism
+    on ``model``, and in the same form the pipeline's stages on ``pipe``
+    and the experts on ``expert``): the ``axis``, and for every parameter
+    (flax order: ``names``) its split dim (None: replicated over the
+    axis's ranks), its global shape and its weight in the global-norm
+    clip, whose squared sums are summed over ``clip_group``."""
 
     axis: TpAxis
     names: Tuple[str, ...]
@@ -52,6 +54,10 @@ class TpLayout:
     # ranks[m][b]: the rank at model index m and batch index b (the
     # checkpoint's model-major order)
     ranks: Tuple[Tuple[int, ...], ...] = ()
+    # the mesh axis the split leaves split over: ``model`` (tensor
+    # parallelism), ``pipe`` (the stages' stacked blocks) or ``expert``
+    # (the MoE layers' experts)
+    axis_name: str = "model"
 
 
 @dataclasses.dataclass
@@ -117,8 +123,14 @@ class TrainState:
         ``group``: the ranks a sharded update's chunks are spread over
         (under tensor parallelism the clip's own group is used)."""
         if self.tp is not None:
+            # the clip's weights are in flax order; the optimizer holds
+            # its parameters in its own
+            weight = dict(zip(map(id, self.params), self.tp.clip_weights))
             self.tx.apply(self.optimizer, self.step, self.tp.clip_group,
-                          sharded=True, clip_weights=self.tp.clip_weights)
+                          sharded=True, clip_weights=[
+                              weight[id(p)]
+                              for g in self.optimizer.param_groups
+                              for p in g["params"]])
         else:
             self.tx.apply(self.optimizer, self.step, group,
                           sharded=self.sharding is not None)

@@ -63,6 +63,22 @@ wrote; ``OUT`` the pickle this rank writes. Jobs:
   returns the per-step metrics, the final TP-local parameters (flax
   paths; materialized under FSDP), the residuals' total and the at-rest
   sizes;
+* ``("pipe_ops", spec)``: ``pipeline_apply`` of a toy residual layer
+  (``h + gelu(h) @ kernel + bias``) over the ``pipe`` axis of
+  ``spec["mesh"]``: this stage's slice of ``spec["stacked"]`` ((L, ...)
+  leaves), ``spec["x"]``, ``spec["microbatches"]``, backward from the
+  cotangent ``spec["ct"]``, in float32 and bf16; returns the output and
+  the gradients of x and of this stage's leaves;
+* ``("split_model", spec)``: the pipelined GPT-2 (``spec["kind"]``
+  "pipe") or gpt2_moe ("moe") of the global flax ``spec["params"]`` cut
+  to this rank's part on ``spec["mesh"]`` (a pipe or an expert axis):
+  the causal LM loss of ``spec["ids"]`` (the router loss added for the
+  MoE), its gradients (local, flax paths), the aux losses and the
+  logits;
+* ``("split_train", spec)``: the Trainer on ``spec["mesh"]`` from the
+  global ``spec["params"]`` of that model over ``spec["batches"]``;
+  returns the per-step metrics, the final local parameters and each
+  leaf's split dim;
 * ``("seq_attention", spec)``: sequence-parallel attention over the
   default group, one sequence shard a rank: for each case ``(label, op,
   causal, use_kernels, dtype)`` of ``spec["cases"]``, ``op`` ("ring" or
@@ -477,6 +493,117 @@ def run_tp_train(spec, rank, world):
             "ef_groups": sorted(ef)}
 
 
+def _split_axis(spec):
+    """(mesh, the axis the model splits over, its TpAxis)."""
+    mesh = _tp_mesh(spec)
+    name = "pipe" if mesh.shape["pipe"] > 1 else "expert"
+    return mesh, name, mesh.axis_shard(name)
+
+
+def run_pipe_ops(spec, rank, world):
+    from distributed_pytorch_training_tpu_torch.models.layers import gelu
+    from distributed_pytorch_training_tpu_torch.parallel.pipeline import (
+        pipeline_apply, stack_to_stages,
+    )
+
+    mesh = _tp_mesh(spec)
+    ax = mesh.axis_shard("pipe")
+    stages = stack_to_stages(
+        {k: torch.from_numpy(v) for k, v in spec["stacked"].items()},
+        ax.size)
+    params = {k: v[ax.index:ax.index + 1].clone().requires_grad_()
+              for k, v in stages.items()}
+
+    def apply_layer(p, h):
+        return h + gelu(h) @ p["kernel"] + p["bias"]
+
+    out = {"index": ax.index}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(spec["x"]).to(dtype).requires_grad_()
+        y = pipeline_apply(apply_layer, {k: v.to(dtype)
+                                         for k, v in params.items()},
+                           x, ax, spec["microbatches"])
+        grads = torch.autograd.grad(
+            (y.float() * torch.from_numpy(spec["ct"])).sum(),
+            [x] + [params[k] for k in sorted(params)])
+        out[str(dtype)] = {
+            "y": y.detach().float().numpy(),
+            "g_x": grads[0].float().numpy(),
+            "g": {k: g.numpy() for k, g in zip(sorted(params), grads[1:])}}
+    return out
+
+
+def _split_global_model(spec):
+    from distributed_pytorch_training_tpu_torch.models import (
+        GPT2PipeLMHead,
+    )
+
+    if spec["kind"] == "pipe":
+        model = GPT2PipeLMHead(**spec["model_kwargs"])
+    else:
+        model = get_model("gpt2_moe", **spec["model_kwargs"])
+    load_flax_params(model, spec["params"])
+    return model
+
+
+def _split_local(spec, model):
+    from distributed_pytorch_training_tpu_torch.convert import (
+        load_tp_params,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.sharding import (
+        tp_split_dims,
+    )
+
+    mesh, name, ax = _split_axis(spec)
+    split = tp_split_dims(list(model.named_parameters()),
+                          model.partition_rules(), ax.size, name)
+    local = model.clone(**{"pipe" if name == "pipe" else "expert": ax})
+    load_tp_params(local, spec["params"], split, ax)
+    return mesh, ax, local
+
+
+def _split_task(spec):
+    from distributed_pytorch_training_tpu_torch.training.tasks import (
+        MoeLanguageModelingTask,
+    )
+
+    return (LanguageModelingTask() if spec["kind"] == "pipe"
+            else MoeLanguageModelingTask())
+
+
+def run_split_model(spec, rank, world):
+    mesh, ax, model = _split_local(spec, _split_global_model(spec))
+    ids = torch.from_numpy(spec["ids"]).long()
+    batch = {"input_ids": ids, "weight": torch.ones(ids.shape[0])}
+    loss, metrics, _ = _split_task(spec).loss_and_metrics(model, batch, True)
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    aux = [float(a) for a in getattr(model, "aux_losses", [])]
+    with torch.no_grad():
+        logits = model(ids)
+    return {"index": ax.index, "loss": float(loss),
+            "loss_sum": float(metrics["loss_sum"]), "aux": aux,
+            "logits": logits.numpy(), "grads": _named_flax(zip(names, grads))}
+
+
+def run_split_train(spec, rank, world):
+    mesh = _tp_mesh(spec)
+    model = _split_global_model(spec)
+    trainer = Trainer(_split_task(spec), TrainConfig(
+        seed=0, print_freq=1000), device="cpu", mesh=mesh)
+    name, kwargs = spec["optimizer"]
+    state = trainer.init_state(model, make_optimizer(name, spec["lr"],
+                                                     **kwargs))
+    metrics = []
+    for batch in spec["batches"]:
+        local = {k: torch.from_numpy(v) for k, v in batch.items()}
+        m = trainer.train_step(state, local)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"index": state.tp.axis.index, "metrics": metrics,
+            "params": _named_flax(state.model.named_parameters()),
+            "split": dict(zip(state.tp.names, state.tp.split_dims))}
+
+
 def run_cli(spec, rank, world):
     from _torch_rig import flat_state
     from distributed_pytorch_training_tpu_torch import train
@@ -490,7 +617,9 @@ RUNNERS = {"reduce": run_reduce, "train": run_train, "bn": run_bn,
            "scalars": run_scalars, "cli": run_cli, "codec": run_codec,
            "clis": run_clis, "seq_attention": run_seq_attention,
            "lm_logits": run_lm_logits, "tp_ops": run_tp_ops,
-           "tp_model": run_tp_model, "tp_train": run_tp_train}
+           "tp_model": run_tp_model, "tp_train": run_tp_train,
+           "pipe_ops": run_pipe_ops, "split_model": run_split_model,
+           "split_train": run_split_train}
 
 
 def main():

@@ -53,6 +53,9 @@ def test_scan_covers_the_port():
                  port + "parallel/sharding.py", port + "models/layers.py",
                  port + "models/gpt2.py", port + "convert.py",
                  port + "training/loop.py", port + "training/checkpoint.py",
+                 # the pipeline and MoE slice's modules
+                 port + "parallel/pipeline.py", port + "models/gpt2_pipe.py",
+                 port + "models/moe.py", port + "training/tasks.py",
                  # the telemetry slice's modules
                  port + "utils/locktrace.py", port + "utils/profiling.py",
                  port + "experiments/trace_analysis.py",

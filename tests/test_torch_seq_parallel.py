@@ -403,10 +403,12 @@ TINY = ["--device", "cpu", "--model", "gpt2_124m", "--model-overrides",
     (["--mesh", "seq=2,model=2", "--attention", "ring"], NotImplementedError,
      "the SP x TP slice"),
     (["--mesh", "fsdp=2"], NotImplementedError, "the fsdp mesh axis slice"),
-    (["--mesh", "pipe=2"], NotImplementedError, "the pipeline slice"),
+    (["--mesh", "pipe=2"], ValueError,
+     "1 devices not divisible by fixed axes product 2"),
     (["--mesh", "pipe=2", "--attention", "flash"], ValueError,
      "--mesh pipe>1 uses the XLA attention path"),
-    (["--mesh", "expert=2"], NotImplementedError, "the MoE slice"),
+    (["--mesh", "expert=2"], ValueError,
+     "1 devices not divisible by fixed axes product 2"),
     (["--slices", "2", "--mesh", "slice=3"], ValueError,
      "--slices 2 conflicts with --mesh"),
 ], ids=["one-rank-seq2", "wild-seq", "model", "fsdp", "pipe",
