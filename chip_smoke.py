@@ -19,7 +19,10 @@ attention over the mesh's ``seq`` axis), and tensor-parallel on two and
 four ranks (megatron blocks over the mesh's ``model`` axis, and TP x
 FSDP on the int8 wire), and as a GPipe pipeline on two ranks (the mesh's
 ``pipe`` axis), and train the MoE GPT-2 (``gpt2_moe``) on one rank and
-expert-parallel on two (the mesh's ``expert`` axis).
+expert-parallel on two (the mesh's ``expert`` axis), and serve ResNet-18
+and ViT-B/16 (the engine's image batch) and BERT-base (its token batch)
+in fp32 and int8, and train BERT-base and ViT-B/16 tensor-parallel on
+two ranks.
 
     python3 chip_smoke.py
 
@@ -214,8 +217,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     versions (``_ring_body``, ``_local_attention``) and against
     single-rank K3-K5 on the whole sequence, within FLASH_REL; a forward
     and backward of each timed beside single-rank flash and SDPA on the
-    whole (B, S); (b) GPT-2 124M at full width and SP_DEPTH (6) of its
-    12 blocks (the depth cut in PR 20) through ``torchrun`` with
+    whole (B, S); (b) GPT-2 124M at full width and SP_DEPTH (3) of its
+    12 blocks (the depth cut to pay for phases 25 and 26) through
+    ``torchrun`` with
     ``--mesh data=1,seq=2``, ``--attention ring`` and ``ulysses``, fp32
     and ``--amp``, one epoch of 3 steps each, the counts set to 0 just
     before and read just after each run: every rank's K3-K5 launches on
@@ -225,7 +229,7 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     same rows from the same weights; (c) each run's ms a step and
     samples/s (2 ranks on one card: not a scaling number);
 24. (run before phase 17's lines) tensor parallelism, GPT-2 124M at full
-    width and TP_DEPTH (6) of its 12 blocks (the depth cut in PR 20; the
+    width and TP_DEPTH (3) of its 12 blocks (cut as SP_DEPTH; the
     vocab padded to 50304, as the entry pads it at model=2),
     S 1024, batch 8 a batch coordinate, weights from one seed: (a) on 2
     gloo ranks sharing the card, ``--mesh data=1,model=2``'s model, one
@@ -286,6 +290,34 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     run's ms a step and samples/s (ranks sharing one card: not a scaling
     number), each rank's parameter and moment bytes at rest and its peak
     allocated memory beside the one-rank run's;
+26. (run before phase 17's lines) the models that are not causal LMs, at
+    full width, weights from one seed: (a) ``serving smoke`` for
+    ``resnet18``, ``vit_b16`` (two 32x32 images) and ``bert_base`` (three
+    prompts through the queue and its worker), fp32 and ``--serve-dtype
+    int8``, in this process, the counts set to 0 just before and read just
+    after: K1 launched once per int8 leaf and never in fp32, every int8
+    leaf's codes and scales bitwise the CPU's plain quantizer's on the same
+    weights, the logits within ATOL of a CPU engine's from the same
+    weights (the served model's own template), ms a call of the image and
+    token serves on the host clock; K1 bitwise its plain version at every
+    int8 leaf shape, timed beside its bound; one ``serving bench --model
+    bert_base`` row (p50/p99; no token rate); (b) one ``torchrun
+    chip_smoke.py --tp-worker --bert`` of 2 ranks: first (c), one fp32
+    loss-and-backward of ViT-B/16 (224x224, batch VIT_TP_BATCH, the
+    einsum attention) at model=2 against model=1 on rank 0 (the loss
+    within LOSS_ATOL, each gathered gradient within GRAD_REL of its
+    leaf's max |g|, 4 model-axis all-reduces a block); then BERT-base
+    (BERT_TP_DEPTH of its 12 blocks, full width, S 512, the vocab padded
+    to 128 as the entry pads it) through ``train.main --mesh
+    data=1,model=2 --attention flash``, fp32 and ``--amp``, one epoch of
+    BERT_TP_STEPS steps, the counts set to 0 just before and read just
+    after each run: K3-K5 exact on each rank's 6 heads, the replicated
+    leaves bitwise equal on both ranks, every step's loss within
+    LOSS_ATOL (BF16_LOSS_ATOL under ``--amp``) of ``train.main`` at
+    model=1 over the same rows from the same draw, and the final
+    parameters off that run's by at most TP_PARAM_REL of its movement
+    from the draw; ms a step and samples/s (2 ranks sharing one card:
+    not a scaling number);
 17. print the ``{"kernels": [...]}`` line (K1 and K2 over their launches
     on the phase 12, phase 19 and phase 22 (e) paths, K1 also over phase
     21's int8 pages (``paged_kv_*`` apart), K3-K5 over phase 7's and
@@ -297,8 +329,10 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     ``ulysses_bf16_*``, and phase 24 (b)'s over every rank as ``tp_*``
     and ``tp_bf16_*``; K1's and K2's ``tp_*`` over the TP x FSDP int8
     run's ranks; K3-K5's ``moe_*`` and ``moe_bf16_*`` over phase 25
-    (b)'s one-rank runs and (c)'s ranks, at the training shape), then the
-    last line ``{"ok": true, "device": {...}}``.
+    (b)'s one-rank runs and (c)'s ranks, at the training shape; K1's
+    ``serve_*`` over phase 26 (a)'s int8 weights, K3-K5's ``bert_tp_*``
+    and ``bert_tp_bf16_*`` over phase 26 (b)'s ranks at BERT's 6-head
+    shape), then the last line ``{"ok": true, "device": {...}}``.
 
 Details go to chiprun_out/chip_smoke.json. Without a CUDA device, or run
 from a directory that lacks the port's package, it fails before printing
@@ -307,6 +341,7 @@ any result.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import math
@@ -381,6 +416,9 @@ FLASH_CASES = [
     ("ring diagonal bf16", 8, 512, 512, 12, 64, True, False, "bfloat16"),
     ("ulysses", 8, 1024, 1024, 6, 64, True, False, "float32"),
     ("ulysses bf16", 8, 1024, 1024, 6, 64, True, False, "bfloat16"),
+    # phase 26's BERT at model=2: 6 of its 12 heads a rank, non-causal
+    ("bert tp", 8, 512, 512, 6, 64, False, False, "float32"),
+    ("bert tp bf16", 8, 512, 512, 6, 64, False, False, "bfloat16"),
     # what the bf16 forward's and dK/dV's TMA loads fill with zeros: D
     # below and past a 64-column box, ragged tails of Sq and Sk (not a
     # multiple of the 128-row tiles) on both sides, and all-masked rows
@@ -3485,11 +3523,11 @@ SP_REPS = 3
 # data=1,seq=2: one epoch of SP_STEPS steps of batch 8 over SP_SYNTHETIC
 # sequences; SP_SYNTHETIC // 5 = 4 validation sequences, one padded batch
 SP_SYNTHETIC, SP_BATCH, SP_STEPS, SP_EVAL = 24, 8, 3, 1
-# (b)'s depth: 6 of GPT-2 124M's 12 blocks at full width (cut from 12 in
-# PR 20 to keep the script under 1000 s with phase 25 added; a block's
-# launches and gloo trips are what the phase checks, and each block
-# repeats them)
-SP_DEPTH = 6
+# (b)'s depth: 3 of GPT-2 124M's 12 blocks at full width (cut from 12 to
+# 6 with phase 25 added, to 3 with phase 26, to keep the script near
+# 1000 s; a block's launches and gloo trips are what the phase checks,
+# and each block repeats them)
+SP_DEPTH = 3
 SP_RUNS = [("ring fp32", "ring", []), ("ring amp", "ring", ["--amp"]),
            ("ulysses fp32", "ulysses", []),
            ("ulysses amp", "ulysses", ["--amp"])]
@@ -3843,10 +3881,10 @@ def sp_train(torch, fa, card: str) -> dict:
 # torchrun, one epoch of TP_STEPS steps each run
 TP_RANKS = 2
 TP_PAD = 128
-# 6 of GPT-2 124M's 12 blocks at full width (cut from 12 in PR 20, as
-# SP_DEPTH): every block makes the same 4 model-axis all-reduces and
-# launches; the vocab-parallel embedding and head are whole
-TP_DEPTH = 6
+# 3 of GPT-2 124M's 12 blocks at full width (cut as SP_DEPTH): every
+# block makes the same 4 model-axis all-reduces and launches; the
+# vocab-parallel embedding and head are whole
+TP_DEPTH = 3
 TP_OVERRIDES = f"depth={TP_DEPTH}"
 TP_PAD_OVERRIDES = f"pad_vocab_to_multiple_of={TP_PAD},depth={TP_DEPTH}"
 TP_BATCH, TP_STEPS, TP_EVAL = 8, 3, 1
@@ -4034,7 +4072,9 @@ def tp_step_check(torch, dist, fa) -> dict:
 def tp_worker(argv) -> int:
     """One torchrun rank of phase 24: on 2 ranks the (a) step check
     first; then ``train.main`` for each TP_RUNS configuration of this
-    world (the process group kept between the runs), the launch counts
+    world (with ``--bert`` first in ``argv``, phase 26's: the ViT-B/16
+    step check, then BERT_TP_RUNS) (the process group kept between the
+    runs), the launch counts
     set to 0 and the peak of allocated memory reset just before, read
     just after; writes each run's launches, steps, every step's loss and
     wall ms (synchronized), the at-rest parameter and moment bytes, the
@@ -4062,11 +4102,15 @@ def tp_worker(argv) -> int:
     fa = flash_module()
     kernels = {QUANTIZE: quantize_int8_rows, DEQUANT: dequant_sum_rows,
                **{name: getattr(fa, name) for name in FLASH}}
+    bert = argv[:1] == ["--bert"]
+    argv = argv[1:] if bert else argv
     out_dir, ref_dir, base_argv = Path(argv[0]), Path(argv[1]), argv[2:]
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     dev = setup_distributed(torch.device("cuda")).device
     report = {}
-    if world == TP_RANKS:
+    if bert:
+        report["(c)"] = vit_tp_step_check(torch, dist, dev)
+    elif world == TP_RANKS:
         report["(a)"] = tp_step_check(torch, dist, fa)
     step, evaluate = Trainer.train_step, Trainer.evaluate
     record = {}
@@ -4109,7 +4153,8 @@ def tp_worker(argv) -> int:
     cleanup = train.cleanup_distributed
     Trainer.train_step, Trainer.evaluate = timed_step, digesting_evaluate
     train.cleanup_distributed = lambda: None    # one group for every run
-    runs = TP_RUNS[world] + ([TP_INT8_MODEL1] if world == TP_RANKS else [])
+    runs = (BERT_TP_RUNS if bert else TP_RUNS[world]
+            + ([TP_INT8_MODEL1] if world == TP_RANKS else []))
     try:
         for name, mesh, extra in runs:
             record.clear()
@@ -5017,6 +5062,459 @@ def moe_kernel_fields(name: str, flash_rows, pp: dict) -> dict:
     return out
 
 
+# phase 26: the models that are not causal LMs. (a) serving ResNet-18,
+# ViT-B/16 (the image batch: two 32x32 images, the ViT built for 32x32
+# as the JAX engine builds it) and BERT-base (the token batch) at full
+# width from --seed, fp32 and int8, through the serving CLI in this
+# process; (b) BERT-base on the model axis through train.main, S 512,
+# batch BERT_TP_BATCH, one epoch of BERT_TP_STEPS steps (BERT_TP_SYNTHETIC
+# sequences, // 5 of them one padded validation batch), fp32 and --amp,
+# held to model=1 over the same rows from the same draw; (c) one fp32
+# loss-and-backward of ViT-B/16 at model=2 against model=1
+SERVE26_MODELS = ("resnet18", "vit_b16", "bert_base")
+SERVE26_REPS = 5
+# 6 of BERT-base's 12 blocks at full width (as TP_DEPTH cuts GPT-2): every
+# block makes the same 4 model-axis all-reduces and K3-K5 launches. At 12
+# blocks (b) and (c) took 59.8-86.3 s against 6 blocks' 50.0-72.2 s, and
+# the --amp run's final parameters read (1.185, 0.230) against model=1,
+# past TP_PARAM_REL's (0.9, 0.1), in the deep blocks' qkv leaves (fp32:
+# losses bitwise, (0.008, 0.0002)); NVIDIA H100 80GB HBM3 at 700 W
+BERT_TP_DEPTH = 6
+BERT_TP_BATCH, BERT_TP_STEPS, BERT_TP_EVAL = 8, 3, 1
+BERT_TP_SYNTHETIC = BERT_TP_BATCH * BERT_TP_STEPS
+BERT_TP_OVERRIDES = f"pad_vocab_to_multiple_of={TP_PAD},depth={BERT_TP_DEPTH}"
+BERT_TP_FLAGS = ["--model", BERT, "--attention", "flash", "--optimizer",
+                 "adamw", "--lr", "1e-4", "--synthetic", "--epochs", "1",
+                 "--print-freq", "1", "--seq-len", str(BERT_SEQ),
+                 "--batch-size", str(BERT_TP_BATCH), "--synthetic-size",
+                 str(BERT_TP_SYNTHETIC)]
+BERT_TP_RUNS = [("bert model=2 fp32", "data=1,model=2", []),
+                ("bert model=2 amp", "data=1,model=2", ["--amp"])]
+VIT_TP_BATCH = 8
+
+
+def serve26_row(torch, report, cpu, images=None) -> dict:
+    """Phase 26 (a)'s readings of one smoke ``report``: max |diff| of its
+    logits against ``cpu`` (an engine of the same weights on the CPU) and
+    ms a call of the same serve on the card (host clock: each call
+    fetches its logits, so it ends synchronized)."""
+    import numpy as np
+
+    from distributed_pytorch_training_tpu_torch.serving.__main__ import (
+        SMOKE_IMAGE_MEAN,
+        SMOKE_IMAGE_STD,
+    )
+
+    engine = report.engine
+    if engine.is_token:
+        err = logits_vs_cpu(report, cpu)
+
+        def call():
+            engine.serve_tokens(report.prompts[:1])
+    else:
+        images = np.stack(report.prompts)
+        ref = cpu.serve_images(images, SMOKE_IMAGE_MEAN, SMOKE_IMAGE_STD)
+        err = float(np.abs(np.stack(report.results) - ref).max())
+
+        def call():
+            engine.serve_images(images, SMOKE_IMAGE_MEAN, SMOKE_IMAGE_STD)
+    call()
+    t0 = time.perf_counter()
+    for _ in range(SERVE26_REPS):
+        call()
+    return {"max_abs_err": err,
+            "ms_per_call": (time.perf_counter() - t0) * 1e3 / SERVE26_REPS}
+
+
+def serve_models(torch, dev, flush, card: str) -> dict:
+    """Phase 26 (a) (see the module docstring)."""
+    import numpy as np
+
+    from distributed_pytorch_training_tpu_torch.ops.quantize import (
+        quantize_int8_rows,
+        quantize_int8_rows_ref,
+    )
+    from distributed_pytorch_training_tpu_torch.serving import (
+        InferenceEngine,
+        QuantizedLeaf,
+    )
+    from distributed_pytorch_training_tpu_torch.serving.__main__ import run
+    from distributed_pytorch_training_tpu_torch.serving.engine import (
+        stats_kwargs,
+    )
+
+    out, shapes = {}, {}
+    for model in SERVE26_MODELS:
+        cpu = {}
+        for dtype in ("fp32", "int8"):
+            quantize_int8_rows.launches = 0
+            report = run(["smoke", "--model", model, "--serve-dtype", dtype,
+                          *SERVING_OUT])
+            launches = quantize_int8_rows.launches
+            torch.cuda.synchronize()
+            engine = report.engine
+            leaves = {n: leaf for n, leaf in engine._served.items()
+                      if isinstance(leaf, QuantizedLeaf)}
+            if launches != len(leaves) or (dtype == "int8") != bool(leaves):
+                raise RuntimeError(f"phase 26 (a) {model} {dtype}: K1 "
+                                   f"launched {launches} times for "
+                                   f"{len(leaves)} int8 leaves")
+            if not cpu:
+                # the served model's template holds the seed's weights on
+                # the CPU (the engine copied them to the card)
+                tmpl = engine.model
+                params = {n: p.detach() for n, p in tmpl.named_parameters()}
+                for d in ("fp32", "int8"):
+                    cpu[d] = InferenceEngine(
+                        tmpl, dataclasses.replace(engine.config,
+                                                  serve_dtype=d), params,
+                        device="cpu", **stats_kwargs(tmpl))
+            for name, leaf in leaves.items():
+                ref = cpu["int8"]._served[name]
+                if not (torch.equal(leaf.q.cpu(), ref.q) and torch.equal(
+                        leaf.scale.cpu().view(torch.int32),
+                        ref.scale.view(torch.int32))):
+                    raise RuntimeError(f"phase 26 (a) {model}: int8 leaf "
+                                       f"{name} differs from the CPU's")
+                shape = (leaf.q.numel() // leaf.q.shape[-1],
+                         leaf.q.shape[-1])
+                shapes[shape] = shapes.get(shape, 0) + 1
+            row = serve26_row(torch, report, cpu[dtype])
+            row.update(k1_launches=launches, int8_leaves=len(leaves),
+                       results=len(report.results))
+            if engine.is_token:
+                bad = [r.tokens.size for r in report.results
+                       if r.tokens.size or not np.isfinite(
+                           r.last_logits).all()]
+            else:
+                bad = [r.shape for r in report.results
+                       if r.shape != (engine.model.num_classes,)
+                       or not np.isfinite(r).all()]
+            if bad or not row["max_abs_err"] <= ATOL:
+                raise RuntimeError(f"phase 26 (a) {model} {dtype}: {row}, "
+                                   f"bad results {bad} (tolerance {ATOL})")
+            out[f"{model} {dtype}"] = row
+            log(f"phase 26 (a) {model} {dtype} [{card}]: "
+                f"{len(report.results)} "
+                + ("prompts" if engine.is_token else "images")
+                + f", K1 launches {launches} for {len(leaves)} int8 leaves "
+                f"(bitwise the CPU's); logits card vs CPU max |diff| "
+                f"{row['max_abs_err']!r} (tolerance {ATOL}); "
+                f"{row['ms_per_call']:.2f} ms a call (host clock)")
+            del report, engine, leaves
+        del cpu
+        torch.cuda.empty_cache()
+    # K1 at every int8 leaf shape the three served models quantize
+    k1 = []
+    g = torch.Generator(device=dev).manual_seed(0)
+    for (n, w), count in sorted(shapes.items()):
+        x = torch.randn((n, w), generator=g, device=dev) * 0.02
+        q, sc = quantize_int8_rows(x)
+        qr, sr = quantize_int8_rows_ref(x)
+        if not (torch.equal(q, qr) and torch.equal(
+                sc.view(torch.int32), sr.view(torch.int32))):
+            raise RuntimeError(f"phase 26 (a): K1 at {n}x{w} differs from "
+                               "its plain version")
+        # as phase 3 bounds it: 5 B an element and 4 a row moved, 5
+        # operations an element
+        bytes_ms = (5 * n * w + 4 * n) / BYTES_PER_S * 1e3
+        ops_ms = 5 * n * w / FP32_OPS_PER_S * 1e3
+        k1.append({"shape": f"{n}x{w}", "main_path_launches": count,
+                   "ms": timed_ms(torch, lambda: quantize_int8_rows(x),
+                                  flush),
+                   "plain_ms": timed_ms(
+                       torch, lambda: quantize_int8_rows_ref(x), flush),
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations"})
+    out["k1_per_shape"] = k1
+    quantize_int8_rows.launches = 0
+    bench = run(["bench", "--model", BERT, "--json", *SERVING_OUT])
+    if quantize_int8_rows.launches or "tokens_per_sec" in bench or \
+            bench["n_requests"] != 24:
+        raise RuntimeError(f"phase 26 (a) bench: {bench}")
+    out["bench bert_base"] = bench
+    log(f"phase 26 (a) serving bench bert_base fp32 [{card}]: p50 "
+        f"{bench['p50_ms']} ms, p99 {bench['p99_ms']} ms at "
+        f"{bench['achieved_rps']}/{bench['offered_rps']} req/s "
+        f"({bench['n_requests']} requests; no token rate: BERT generates "
+        "none); K1 at the int8 leaves' shapes bitwise its plain version, "
+        + ", ".join(f"{r['shape']} x{r['main_path_launches']} "
+                    f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+                    f"{r['bound_ms']:.4f})" for r in k1))
+    return out
+
+
+def vit_tp_step_check(torch, dist, dev) -> dict:
+    """Phase 26 (c), inside the 2-rank worker: one fp32 loss-and-backward
+    of ViT-B/16 (224x224 images of one seed, batch VIT_TP_BATCH, no
+    augmentation) at model=2 with the model axis's all-reduces counted;
+    the gradients gathered to rank 0, which runs the same step at
+    model=1 on the global model and compares (the loss within LOSS_ATOL,
+    each gathered gradient within GRAD_REL of its leaf's max |g|)."""
+    from distributed_pytorch_training_tpu_torch.convert import (
+        flax_ordered,
+        load_tp_params,
+        tp_global_params,
+    )
+    from distributed_pytorch_training_tpu_torch.data.datasets import (
+        IMAGE_STATS,
+    )
+    from distributed_pytorch_training_tpu_torch.models import get_model
+    from distributed_pytorch_training_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.sharding import (
+        tp_split_dims,
+    )
+    from distributed_pytorch_training_tpu_torch.training.tasks import (
+        ImageClassificationTask,
+    )
+    from distributed_pytorch_training_tpu_torch.utils import parse_args
+
+    mesh = build_mesh(MeshSpec(data=1, model=TP_RANKS))
+    tp = mesh.tp()
+    seed = parse_args([]).seed
+    full = get_model(VIT, image_size=224)
+    full.reset_parameters(torch.Generator().manual_seed(seed))
+    named = flax_ordered(full.named_parameters())
+    split = tp_split_dims([(n, tuple(p.shape)) for n, p in named],
+                          full.partition_rules(), tp.size)
+    local = full.clone(tp=tp, device="cpu")
+    load_tp_params(local, dict(named), split)
+    local.to(dev).train()
+    g = torch.Generator().manual_seed(seed)
+    batch = {"image": torch.randint(0, 256, (VIT_TP_BATCH, 224, 224, 3),
+                                    generator=g, dtype=torch.uint8),
+             "label": torch.randint(0, 1000, (VIT_TP_BATCH,), generator=g),
+             "weight": torch.ones(VIT_TP_BATCH)}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    task = ImageClassificationTask(*IMAGE_STATS["imagenet"], augment=False)
+    calls = []
+    real = dist.all_reduce
+
+    def counting(t, *args, **kwargs):
+        if kwargs.get("group") is tp.group:
+            calls.append(t.numel() * t.element_size())
+        return real(t, *args, **kwargs)
+
+    dist.all_reduce = counting
+    try:
+        loss, _, _ = task.loss_and_metrics(local, batch, True)
+        names = [n for n, _ in flax_ordered(local.named_parameters())]
+        params = dict(local.named_parameters())
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = real
+    shards = [{} for _ in range(tp.size)]
+    for name, grad in zip(names, grads):
+        parts = [torch.empty_like(grad) for _ in range(tp.size)]
+        dist.all_gather(parts, grad.contiguous())
+        for i, part in enumerate(parts):
+            shards[i][name] = part
+    del grads
+    local.cpu()
+    torch.cuda.empty_cache()
+    out = {"loss_tp": float(loss.detach()), "all_reduces": len(calls),
+           "all_reduce_bytes": sum(calls)}
+    if dist.get_rank() == 0:
+        whole = tp_global_params(shards, split)
+        del shards
+        full.to(dev).train()
+        ref_loss, _, _ = task.loss_and_metrics(full, batch, True)
+        ref = dict(zip([n for n, _ in named], torch.autograd.grad(
+            ref_loss, [p for _, p in named])))
+        worst, leaf = 0.0, None
+        for name, grad in ref.items():
+            err = float((whole[name] - grad).abs().max()
+                        / grad.abs().max().clamp(min=1e-30))
+            if err > worst:
+                worst, leaf = err, name
+        out.update({"loss_one_rank": float(ref_loss),
+                    "loss_abs_diff": abs(float(ref_loss) - float(loss)),
+                    "grad_rel": worst, "grad_rel_leaf": leaf,
+                    "want_all_reduces": 4 * len(full.blocks)})
+        del ref, whole
+        full.cpu()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def bert_tp_global(torch, dtype):
+    """The global BERT the entry draws at model=2 (vocab padded to
+    TP_PAD, BERT_TP_DEPTH blocks), on the CPU."""
+    from distributed_pytorch_training_tpu_torch.models import get_model
+    from distributed_pytorch_training_tpu_torch.utils import parse_args
+
+    model = get_model(BERT, dtype=dtype, pad_vocab_to_multiple_of=TP_PAD,
+                      depth=BERT_TP_DEPTH)
+    model.reset_parameters(torch.Generator().manual_seed(parse_args([]).seed))
+    return model
+
+
+def bert_tp_train(torch, card: str) -> dict:
+    """Phase 26 (b) and (c): the model=1 runs in this process, then one
+    2-rank torchrun (see the module docstring)."""
+    import tempfile
+
+    from distributed_pytorch_training_tpu_torch.training import Trainer
+
+    out_dir = ROOT / "chiprun_out" / "bert_tp"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    init = {n: p.detach().double() for n, p in
+            bert_tp_global(torch, torch.float32).named_parameters()}
+    step = Trainer.train_step
+    losses = []
+
+    def recording(self, state, batch):
+        m = step(self, state, batch)
+        losses.append(float(m["loss_sum"]) / float(m["weight"]))
+        return m
+
+    refs, report = {}, {}
+    with tempfile.TemporaryDirectory() as ref_dir:
+        t0 = time.perf_counter()
+        Trainer.train_step = recording
+        try:
+            for amp in (False, True):
+                losses.clear()
+                with tempfile.TemporaryDirectory() as tmp:
+                    state = train_main(BERT_TP_FLAGS + [
+                        "--model-overrides", BERT_TP_OVERRIDES,
+                        "--output-dir", tmp] + (["--amp"] if amp else []))
+                final = {n: p.detach().cpu() for n, p in
+                         state.model.named_parameters()}
+                del state
+                torch.cuda.empty_cache()
+                kind = "amp" if amp else "fp32"
+                torch.save(final, tp_ref_path(ref_dir, 1, kind))
+                refs[kind] = {"losses": list(losses), "moved": {
+                    n: float(torch.linalg.vector_norm(
+                        final[n].double() - init[n])) for n in final}}
+                del final
+        finally:
+            Trainer.train_step = step
+        report["model1_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stdout = run_torchrun(["--bert", str(out_dir), ref_dir,
+                               *BERT_TP_FLAGS, "--model-overrides",
+                               f"depth={BERT_TP_DEPTH}"], timeout=600,
+                              nproc=TP_RANKS, mode="--tp-worker")
+        (out_dir / "stdout.txt").write_text(stdout)
+        report["torchrun_seconds"] = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(TP_RANKS)]
+    c = ranks[0]["(c)"]
+    for r, rep in enumerate(ranks):
+        got = rep["(c)"]
+        if got["all_reduces"] != c["want_all_reduces"] \
+                or got["loss_tp"] != c["loss_tp"]:
+            raise RuntimeError(f"phase 26 (c) rank {r}: {got} (expected "
+                               f"{c['want_all_reduces']} all-reduces and "
+                               "rank 0's loss)")
+    log(f"phase 26 (c) ViT-B/16 {VIT_TP_BATCH}x224x224 [{card}]: model=2 "
+        f"loss {c['loss_tp']!r} against model=1 {c['loss_one_rank']!r} "
+        f"(|diff| {c['loss_abs_diff']!r}, tolerance {LOSS_ATOL}); worst "
+        f"gathered gradient max|diff|/max|g| {c['grad_rel']!r} in "
+        f"{c['grad_rel_leaf']} (tolerance {GRAD_REL}); {c['all_reduces']} "
+        f"model-axis all-reduces a step, {c['all_reduce_bytes']} B")
+    if not (c["loss_abs_diff"] <= LOSS_ATOL and c["grad_rel"] <= GRAD_REL):
+        raise RuntimeError(f"phase 26 (c): loss |diff| {c['loss_abs_diff']}"
+                           f", gradient {c['grad_rel']} in "
+                           f"{c['grad_rel_leaf']}")
+    report["(c)"] = c
+    want = {FLASH[0]: BERT_TP_DEPTH * (BERT_TP_STEPS + BERT_TP_EVAL),
+            FLASH[1]: BERT_TP_DEPTH * BERT_TP_STEPS,
+            FLASH[2]: BERT_TP_DEPTH * BERT_TP_STEPS, QUANTIZE: 0,
+            DEQUANT: 0}
+    for name, _, extra in BERT_TP_RUNS:
+        kind = tp_kind(extra)
+        ref = refs[kind]
+        runs = [rep[name] for rep in ranks]
+        for r, run in enumerate(runs):
+            if run["launches"] != want or run["steps"] != BERT_TP_STEPS \
+                    or run["staged_copies"] or not all(
+                        math.isfinite(x) for x in run["losses"]):
+                raise RuntimeError(
+                    f"phase 26 (b) {name} rank {r}: {run['steps']} steps, "
+                    f"launches {run['launches']}, {run['staged_copies']} "
+                    f"staged copies, losses {run['losses']} (expected "
+                    f"{BERT_TP_STEPS}, {want}, 0, finite)")
+        tp_ranks_agree(f"phase 26 (b) {name}", runs)
+        losses_ = runs[0]["losses"]
+        tol = BF16_LOSS_ATOL if kind == "amp" else LOSS_ATOL
+        diffs = [abs(x - y) for x, y in zip(losses_, ref["losses"])]
+        update = tp_update_check(f"phase 26 (b) {name}", runs, ref["moved"])
+        ms = runs[0]["step_ms"][1:]
+        step_ms = sum(ms) / len(ms)
+        rep = {"launches_per_rank": want, "losses": losses_,
+               "reference_losses": ref["losses"], "loss_abs_diffs": diffs,
+               "tolerance": tol, "update": update,
+               "param_rel_bound": TP_PARAM_REL[kind],
+               "step_ms": runs[0]["step_ms"], "ms_per_step": step_ms,
+               "samples_per_s": BERT_TP_BATCH * 1e3 / step_ms,
+               "param_bytes_per_rank": [r["param_bytes"] for r in runs],
+               "peak_allocated_per_rank": [r["peak_allocated"]
+                                           for r in runs]}
+        report[name] = rep
+        log(f"phase 26 (b) BERT-base ({BERT_TP_DEPTH} blocks) {name} "
+            f"[{card}]: launches a rank {want}, 0 staged copies; replicated "
+            f"leaves bitwise equal on both ranks; losses {losses_!r} "
+            f"against model=1's {ref['losses']!r} (|diff| {diffs!r}, "
+            f"tolerance {tol}); final parameters off model=1's by "
+            f"{update['worst']!r} of its movement at worst "
+            f"({update['leaf']}), {update['whole']!r} over the model "
+            f"(bounds {TP_PARAM_REL[kind]}); {step_ms:.1f} ms a step after "
+            f"the first, {rep['samples_per_s']:.2f} samples/s ({TP_RANKS} "
+            f"{TP_NOTE}); params {rep['param_bytes_per_rank']} B, peak "
+            f"allocated {rep['peak_allocated_per_rank']} B a rank")
+        worst, whole = TP_PARAM_REL[kind]
+        if not (all(d <= tol for d in diffs) and update["worst"] <= worst
+                and update["whole"] <= whole):
+            raise RuntimeError(f"phase 26 (b) {name}: loss |diff| {diffs} "
+                               f"(tolerance {tol}), parameters off by "
+                               f"{update['worst']} in {update['leaf']}, "
+                               f"{update['whole']} over the model (bounds "
+                               f"{TP_PARAM_REL[kind]})")
+    return report
+
+
+def serve_tp_kernel_fields(name: str, flash_rows, served: dict,
+                           bert_tp: dict) -> dict:
+    """Phase 26's share of a kernel: K1's ``serve_*`` over (a)'s int8
+    weights at their shapes; K3-K5's ``bert_tp_*`` (fp32) and
+    ``bert_tp_bf16_*`` (``--amp``) over (b)'s runs, both ranks, at BERT's
+    6-head shape, with SDPA's time."""
+    out = {}
+    if name == QUANTIZE:
+        rows = served["k1_per_shape"]
+        out["serve_launches"] = sum(r["main_path_launches"] for r in rows)
+        for key in ("ms", "plain_ms", "bound_ms"):
+            out["serve_" + key] = sum(r[key] * r["main_path_launches"]
+                                      for r in rows)
+        return out
+    if name not in FLASH:
+        return out
+    shape = {r["shape"]: r for r in flash_rows}
+    for run, (suffix, prefix) in (("bert model=2 fp32", ("", "bert_tp_")),
+                                  ("bert model=2 amp",
+                                   (" bf16", "bert_tp_bf16_"))):
+        row = shape["bert tp" + suffix]
+        rep = bert_tp[run]
+        n = rep["launches_per_rank"][name] * len(
+            rep["peak_allocated_per_rank"])
+        out[prefix + "launches"] = n
+        for key in ("ms", "plain_ms", "bound_ms"):
+            out[prefix + key] = row[key][name] * n
+        out[prefix + "library_ms"] = (row["sdpa_fwd_ms"]
+                                      if name.endswith("fwd_lse")
+                                      else row["sdpa_bwd_ms"]) * n
+    return out
+
+
 def lm_mfu(torch, rates: list, context: str):
     """The step line's samples/s as MFU for a 1024-token GPT-2 124M
     sequence (`model_mfu`). Returns (MFU % per rate, the forward FLOPs,
@@ -5417,6 +5915,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 25 done in {time.perf_counter() - t0:.1f} s")
 
+    # phase 26: serving the models that are not causal LMs (the image and
+    # token batches, fp32 and int8), then BERT-base and ViT-B/16 on the
+    # model axis on ranks sharing the card
+    t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    served26 = serve_models(torch, dev, flush, card)
+    del flush
+    torch.cuda.empty_cache()
+    log(f"phase 26 (a) done in {time.perf_counter() - t0:.1f} s")
+    bert_tp = bert_tp_train(torch, card)
+    torch.cuda.empty_cache()
+    log(f"phase 26 done in {time.perf_counter() - t0:.1f} s")
+
     # phase 17: the kernels line; K1 and K2 summed over their launches on
     # the data-parallel paths (rank 0 of every phase 12, phase 19 and
     # phase 22 (e) run), the serving path's K1 launches (phase 4) kept in
@@ -5488,6 +5999,7 @@ def main() -> int:
         "tensor_parallel": tensor_parallel,
         "tp_codec_per_shape": list(tp_codec.values()),
         "pipe_expert": pipe_expert,
+        "serve_non_lm": served26, "bert_vit_tp": bert_tp,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -5506,6 +6018,8 @@ def main() -> int:
                                         tensor_parallel))
             row.update(moe_kernel_fields(row["name"], flash_rows,
                                          pipe_expert))
+        row.update(serve_tp_kernel_fields(row["name"], flash_rows, served26,
+                                          bert_tp))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -33,42 +33,51 @@ def build_serving_engine(model_name: str,
     """An `InferenceEngine` for a serving config on one device. With
     ``ckpt_dir`` it serves the newest manifest-verified checkpoint there
     (``optimizer`` and ``layout``, the training run's optimizer and
-    update, must match the checkpoint's; ``auto`` is adamw for the LMs,
-    as in the JAX package); without, it
+    update, must match the checkpoint's; ``auto`` is adamw for the LMs
+    and sgd for the vision models, as in the JAX package); without, it
     has random-init weights drawn from ``seed`` (a smoke of the serving
     path, not a served model). The weights are drawn on the CPU and then
     copied to ``device``, so one seed gives the same weights on every
     device.
 
-    The model's position table holds ``max(512, top bucket +
+    An LM's position table holds ``max(512, top bucket +
     max_new_tokens, min_positions)`` rows unless ``model_overrides`` sets
-    it, and ``serve_dtype`` bf16 builds it to compute in bf16, as in the
-    JAX package. ``config``/``engine_cls`` swap in a richer pair
-    (`build_slot_engine` passes a PagedServeConfig and SlotEngine) through
-    this one path; ``min_positions`` widens the position table when a
-    paged engine's gathered view outgrows the top bucket + max_new."""
+    it; a vision model is built for the JAX engine's (1, 32, 32, 3)
+    sample (a ViT's position table for 32x32 images) and served with its
+    BatchNorm statistics, if it has any. ``serve_dtype`` bf16 builds the
+    model to compute in bf16, as in the JAX package. ``config``/
+    ``engine_cls`` swap in a richer pair (`build_slot_engine` passes a
+    PagedServeConfig and SlotEngine) through this one path;
+    ``min_positions`` widens the position table when a paged engine's
+    gathered view outgrows the top bucket + max_new."""
     from ..models import get_model
-    from ..serving.engine import InferenceEngine, ServeConfig
+    from ..serving.engine import InferenceEngine, ServeConfig, stats_kwargs
 
     dev = resolve_device(device)
     cfg = config if config is not None else ServeConfig(
         buckets=tuple(buckets), rows=rows, max_new_tokens=max_new_tokens,
         serve_dtype=serve_dtype)
+    lm = model_name.startswith(("gpt2", "bert"))   # JAX's is_lm_model
     kwargs = dict(model_overrides or {})
-    need = max(max(cfg.buckets) + cfg.max_new_tokens, min_positions)
-    kwargs.setdefault("max_position", max(512, need))
+    if lm:
+        need = max(max(cfg.buckets) + cfg.max_new_tokens, min_positions)
+        kwargs.setdefault("max_position", max(512, need))
+    elif model_name.startswith("vit"):
+        # flax sizes the position table from the (1, 32, 32, 3) sample
+        kwargs.setdefault("image_size", 32)
     kwargs.setdefault("dtype", torch.bfloat16 if cfg.serve_dtype == "bf16"
                       else torch.float32)
     model = get_model(model_name, **kwargs)
     cls = engine_cls if engine_cls is not None else InferenceEngine
     if ckpt_dir:
-        name = "adamw" if optimizer == "auto" else optimizer
+        name = optimizer if optimizer != "auto" else (
+            "adamw" if lm else "sgd")
         return cls.from_checkpoint(
             ckpt_dir, model, cfg, device=dev, layout=layout,
             optimizer={"adamw": "AdamW", "sgd": "SGD"}[name])
     model.reset_parameters(torch.Generator().manual_seed(seed))
     params = {name: p.detach() for name, p in model.named_parameters()}
-    return cls(model, cfg, params, device=dev)
+    return cls(model, cfg, params, device=dev, **stats_kwargs(model))
 
 
 def build_slot_engine(model_name: str, buckets: Sequence[int] = (8, 16),
@@ -128,7 +137,9 @@ def build_spec_engine(model_name: str, draft_model_name: str,
     dparams = {name: p.detach() for name, p in draft.named_parameters()}
 
     class _SpecEngine(SpeculativeEngine):
-        def __init__(self, model, config, params, device=None):
+        # batch_stats: a vision model's, which the slot engine refuses
+        def __init__(self, model, config, params, device=None,
+                     batch_stats=None):
             super().__init__(model, config, params, draft, dparams,
                              spec_k=draft_k, device=device)
 
@@ -179,11 +190,12 @@ def measure_serving(model_name: str = "gpt2_124m", n_requests: int = 24,
     decodes max_new for every batch member, so ``tokens_per_sec`` counts
     the wanted tokens only.
 
-    The JAX row's keys but its compile census and contract verdict. The
-    warm-up (one request a bucket, so CUDA's first-call costs stay out of
-    the window) draws its prompts after the schedule, so this row's
-    prompts are `measure_serving_continuous`'s. ``return_results`` also
-    returns the per-request `Result`s in submission order."""
+    The JAX row's keys but its compile census and contract verdict; a
+    token model that is not an LM (BERT) has no ``tokens_per_sec``, and an
+    image model raises the JAX row's ValueError. ``engine.warmup()`` runs
+    every bucket once before the window, so CUDA's first-call costs stay
+    out of it. ``return_results`` also returns the per-request `Result`s
+    in submission order."""
     from ..serving.batching import RequestQueue, serve_forever
 
     engine = build_serving_engine(
@@ -191,14 +203,17 @@ def measure_serving(model_name: str = "gpt2_124m", n_requests: int = 24,
         max_new_tokens=max_new_tokens, serve_dtype=serve_dtype,
         model_overrides=model_overrides, ckpt_dir=ckpt_dir, seed=seed,
         optimizer=optimizer, layout=layout, device=device)
+    if not engine.is_token:
+        # the load generator submits token prompts (the JAX row's check)
+        raise ValueError(
+            f"serving bench drives token models (gpt2/bert); {model_name} "
+            "serves images — use `serving smoke` or engine.serve_images")
     rng = np.random.RandomState(seed)
     vocab = int(engine.model.vocab_size)
     prompts, wants = load_schedule(rng, n_requests,
                                    max(engine.config.buckets), vocab,
                                    max_new_tokens, mixed_want)
-    for b in engine.config.buckets:
-        engine.serve_tokens([rng.randint(0, max(vocab, 2), b)
-                             .astype(np.int32)])
+    engine.warmup()
     queue = RequestQueue(engine.config.buckets)
     stop = threading.Event()
     worker = threading.Thread(target=serve_forever,
@@ -233,7 +248,9 @@ def measure_serving(model_name: str = "gpt2_124m", n_requests: int = 24,
         "p50_ms": _ms(lat_ms, 50),
         "p99_ms": _ms(lat_ms, 99),
         "mean_ms": round(float(lat_ms.mean()), 2),
-        "tokens_per_sec": round(sum(wants) / window_s, 1),
+        # only a causal LM generates tokens: a BERT row has no rate
+        **({"tokens_per_sec": round(sum(wants) / window_s, 1)}
+           if engine.is_lm else {}),
         "checkpoint": engine.checkpoint_info,
     }
     if serve_dtype == "int8":

@@ -44,12 +44,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..parallel.collectives import (TpAxis, TpShardedLogits, copy_to_tp,
-                                    reduce_from_tp)
-from ..parallel.sharding import PartitionRules
+from ..parallel.collectives import TpAxis
 from .layers import (
     Embed,
     LayerNorm,
+    TpModelMixin,
     TransformerBlock,
     VocabPaddingMixin,
     causal_mask,
@@ -57,12 +56,16 @@ from .layers import (
     init_paged_kv,
     mask_vocab_padding,
     remat_call,
-    tp_fsdp_rules,
+    vocab_parallel_embed,
+    vocab_parallel_logits,
 )
 from .registry import register_model
 
 
-class GPT2LMHead(VocabPaddingMixin, nn.Module):
+class GPT2LMHead(TpModelMixin, VocabPaddingMixin, nn.Module):
+
+    # the JAX package's explicit-TP form (tp_size/tp_axis fields)
+    fsdp_explicit_tp = True
 
     def __init__(self, vocab_size: int = 50257, hidden_dim: int = 1024,
                  depth: int = 24, num_heads: int = 16,
@@ -99,39 +102,6 @@ class GPT2LMHead(VocabPaddingMixin, nn.Module):
             for _ in range(depth))
         self.ln_f = LayerNorm(hidden_dim, layernorm_epsilon, device, dtype)
 
-    @property
-    def tp_vocab(self) -> bool:
-        """Whether the tensor-parallel forward vocab-splits the
-        embedding."""
-        return self.tp.size > 1 and self.padded_vocab % self.tp.size == 0
-
-    def clone(self, **changes) -> "GPT2LMHead":
-        """A new model of this configuration with ``changes`` (flax's
-        ``Module.clone``), its parameters uninitialized."""
-        return type(self)(**{**self._config, **changes})
-
-    @staticmethod
-    def partition_rules() -> PartitionRules:
-        return tp_fsdp_rules()
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """Random init with flax's initializers (normal 0.02 / 0.01
-        embeddings, lecun_normal kernels, zero biases, unit LayerNorm
-        scales), drawn from ``generator``. Not the flax init's numbers:
-        the tests convert flax's parameters instead. A TP-local model
-        refuses: its shards would draw different numbers, so it takes
-        its slices of one global init instead."""
-        if self.tp.size > 1:
-            raise ValueError(
-                "a tensor-parallel model holds slices of the global "
-                "parameters: initialize the global model and load its "
-                "slices (convert.tp_local_params), so every model rank "
-                "starts from one draw")
-        for module in self.modules():
-            if module is not self and hasattr(module, "reset_parameters"):
-                module.reset_parameters(generator)
-
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 cache=None, cache_positions: Optional[torch.Tensor] = None,
@@ -159,17 +129,8 @@ class GPT2LMHead(VocabPaddingMixin, nn.Module):
                 "explicit TP has no KV-cache path — serve TP checkpoints "
                 "via the GSPMD rules (models/layers.py MultiHeadAttention "
                 "documents the restriction)")
-        rows = self.wte.embedding.shape[0]
-        if self.tp_vocab:
-            # vocab-parallel lookup: ids outside this shard's rows give
-            # exact zeros; the partial rows sum to the whole row
-            local_ids = input_ids - tp.index * rows
-            valid = (local_ids >= 0) & (local_ids < rows)
-            found = self.wte(local_ids.clamp(0, rows - 1))
-            x = reduce_from_tp(torch.where(valid[..., None], found,
-                                           torch.zeros_like(found)), tp)
-        else:
-            x = self.wte(input_ids)
+        x = (vocab_parallel_embed(self.wte, input_ids, tp) if self.tp_vocab
+             else self.wte(input_ids))
         if decoding and s == 1:
             pos_ids = cache_positions[:, None]
         elif decoding:
@@ -206,14 +167,7 @@ class GPT2LMHead(VocabPaddingMixin, nn.Module):
 
         x = self.ln_f(x)
         if self.tp_vocab:
-            # the vocab-parallel tied head: this shard's columns stay
-            # sharded (the task's parallel-vocab cross-entropy), padded
-            # columns masked by their global index
-            local = self.wte.attend(copy_to_tp(x, tp)).float()
-            cols = tp.index * rows + torch.arange(rows, device=dev)
-            local = torch.where(cols < self.vocab_size, local,
-                                torch.finfo(torch.float32).min)
-            return TpShardedLogits(local, tp, rows, self.vocab_size)
+            return vocab_parallel_logits(self.wte, x, tp, self.vocab_size)
         logits = mask_vocab_padding(self.wte.attend(x).float(),
                                     self.vocab_size)
         return logits if cache is None else (logits, tuple(new_cache))

@@ -54,7 +54,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ..parallel.collectives import TpAxis, copy_to_tp, reduce_from_tp
+from ..parallel.collectives import (TpAxis, TpShardedLogits, copy_to_tp,
+                                    reduce_from_tp)
 from ..parallel.mesh import FSDP, MODEL
 from ..parallel.sharding import PartitionRules
 from ..runtime import not_ported
@@ -618,6 +619,91 @@ class VocabPaddingMixin:
     def padded_vocab(self) -> int:
         return padded_vocab_size(self.vocab_size,
                                  self.pad_vocab_to_multiple_of)
+
+    @property
+    def tp_vocab(self) -> bool:
+        """Whether the tensor-parallel forward vocab-splits the token
+        embedding: a ``tp`` model axis of size M > 1 that divides the
+        padded vocab."""
+        tp = getattr(self, "tp", None)
+        return (tp is not None and tp.size > 1
+                and self.padded_vocab % tp.size == 0)
+
+
+class TpModelMixin:
+    """The tensor-parallel model contract of GPT-2, BERT and ViT: a
+    ``clone`` over the constructor's keywords (``_config``; flax's
+    ``Module.clone``), the ``tp_fsdp_rules`` layout, and an init that a
+    TP-local model (``tp`` of size > 1) refuses, since it holds slices of
+    one global draw. ``fsdp_explicit_tp`` says whether the model also
+    takes the sharded update (``fsdp_explicit``) on a model axis: in the
+    JAX package only GPT-2 has that explicit-TP form, and its Trainer
+    refuses the others there."""
+
+    fsdp_explicit_tp = False
+
+    def clone(self, **changes):
+        """A new model of this configuration with ``changes``, its
+        parameters uninitialized."""
+        return type(self)(**{**self._config, **changes})
+
+    @staticmethod
+    def partition_rules() -> PartitionRules:
+        return tp_fsdp_rules()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Random init with flax's initializers, drawn from ``generator``:
+        each submodule's in registration order, then the model's own
+        leaves (``reset_own_parameters``)."""
+        if self.tp.size > 1:
+            raise ValueError(
+                "a tensor-parallel model holds slices of the global "
+                "parameters: initialize the global model and load its "
+                "slices (convert.tp_local_params), so every model rank "
+                "starts from one draw")
+        for module in self.modules():
+            if module is not self and hasattr(module, "reset_parameters"):
+                module.reset_parameters(generator)
+        self.reset_own_parameters(generator)
+
+    def reset_own_parameters(self, generator: torch.Generator) -> None:
+        """The init of the leaves the model holds outside its
+        submodules."""
+
+
+def vocab_parallel_embed(embed: Embed, ids: torch.Tensor,
+                         tp: TpAxis) -> torch.Tensor:
+    """The vocab-split lookup: shard r holds rows [r rows, (r+1) rows) of
+    the table, ids outside them give exact zeros, and the partial rows
+    are summed over the model axis into the whole row."""
+    rows = embed.embedding.shape[0]
+    local_ids = ids - tp.index * rows
+    valid = (local_ids >= 0) & (local_ids < rows)
+    found = embed(local_ids.clamp(0, rows - 1))
+    return reduce_from_tp(torch.where(valid[..., None], found,
+                                      torch.zeros_like(found)), tp)
+
+
+def vocab_parallel_logits(embed: Embed, h: torch.Tensor, tp: TpAxis,
+                          vocab_size: int,
+                          bias: Optional[torch.Tensor] = None
+                          ) -> TpShardedLogits:
+    """The vocab-split tied decoder: this shard's float32 logit columns,
+    kept sharded for the task's parallel-vocab cross-entropy. ``bias``, a
+    replicated ``(padded vocab,)`` vector, adds this shard's slice after
+    ``copy_to_tp`` (whose backward sums the slices' gradients over the
+    model axis). The padding columns are masked by their global index on
+    the shard that holds them."""
+    rows = embed.embedding.shape[0]
+    lo = tp.index * rows
+    local = embed.attend(copy_to_tp(h, tp)).float()
+    if bias is not None:
+        local = local + copy_to_tp(bias, tp)[lo:lo + rows]
+    cols = lo + torch.arange(rows, device=local.device)
+    local = torch.where(cols < vocab_size, local,
+                        torch.finfo(torch.float32).min)
+    return TpShardedLogits(local, tp, rows, vocab_size)
 
 
 def mask_vocab_padding(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:

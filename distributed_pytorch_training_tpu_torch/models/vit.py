@@ -12,20 +12,31 @@ patch grid). flax sizes ``pos_embedding`` from its first input; here
 package's image path. ``remat`` recomputes each block in the backward.
 Images are NHWC; ``forward(x, train=True)`` returns ``(logits, {})`` (no
 BatchNorm statistics), as the image task expects.
+
+Under tensor parallelism (``tp``, the mesh's ``model`` axis of size M >
+1), laid out by ``tp_fsdp_rules``: the blocks' attention and MLP are
+megatron's column/row-split forms (``models/layers.py``), and the patch
+embedding, CLS token, position embeddings, final LayerNorm and head,
+which the rules give FSDP dims only, are replicated over ``model``. The
+attention stays the plain einsum on each shard's heads, as on the JAX
+entry's image path. A TP-local model is ``clone(tp=...)`` loaded with
+its slices of the global parameters.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import TpAxis
 from .layers import (
     Dense,
     LayerNorm,
+    TpModelMixin,
     TransformerBlock,
     _TRUNC_STD,
     dot_product_attention,
@@ -66,7 +77,7 @@ class PatchEmbed(nn.Module):
         self.bias.zero_()
 
 
-class ViT(nn.Module):
+class ViT(TpModelMixin, nn.Module):
 
     def __init__(self, num_classes: int = 1000, patch_size: int = 16,
                  hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
@@ -75,12 +86,20 @@ class ViT(nn.Module):
                  layernorm_epsilon: float = 1e-6,
                  attention_fn=dot_product_attention, remat: bool = False,
                  image_size: Union[int, Sequence[int]] = 224,
-                 device=None):
+                 tp: Optional[TpAxis] = None, device=None):
         super().__init__()
+        self._config = dict(
+            num_classes=num_classes, patch_size=patch_size,
+            hidden_dim=hidden_dim, depth=depth, num_heads=num_heads,
+            mlp_dim=mlp_dim, dropout_rate=dropout_rate, dtype=dtype,
+            layernorm_epsilon=layernorm_epsilon, attention_fn=attention_fn,
+            remat=remat, image_size=image_size, tp=tp)
         h, w = ((image_size, image_size) if isinstance(image_size, int)
                 else tuple(image_size))
         self.num_classes, self.hidden_dim = num_classes, hidden_dim
+        self.num_heads = num_heads
         self.dtype, self.remat = dtype, remat
+        self.tp = tp if tp is not None else TpAxis(1)
         self.patch_embed = PatchEmbed(3, hidden_dim, patch_size, dtype,
                                       device)
         tokens = -(-h // patch_size) * -(-w // patch_size) + 1
@@ -91,20 +110,15 @@ class ViT(nn.Module):
         self.blocks = nn.ModuleList(
             TransformerBlock(hidden_dim, num_heads, hidden_dim // num_heads,
                              mlp_dim, dropout_rate, layernorm_epsilon,
-                             attention_fn, dtype=dtype, device=device)
+                             attention_fn, tp, dtype, device)
             for _ in range(depth))
         self.ln_final = LayerNorm(hidden_dim, layernorm_epsilon, device,
                                   dtype)
         self.head = Dense(hidden_dim, num_classes, device=device,
                           dtype=dtype)
 
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """Random init with flax's initializers (a zero CLS token, normal
-        0.02 position embeddings), drawn from ``generator``."""
-        for module in self.modules():
-            if module is not self and hasattr(module, "reset_parameters"):
-                module.reset_parameters(generator)
+    def reset_own_parameters(self, generator: torch.Generator) -> None:
+        """flax's: a zero CLS token, normal 0.02 position embeddings."""
         self.cls_token.zero_()
         self.pos_embedding.normal_(0.0, 0.02, generator=generator)
 

@@ -9,12 +9,17 @@ Commands:
       its label and tree digest; random-init
       weights from --seed otherwise, a smoke of the serving PATH, never of
       a served model), serve a handful of synthetic prompts through the
-      request queue and its worker thread, and print the generated tokens.
+      request queue and its worker thread, and print the generated tokens
+      (a token model that is not an LM, bert_base, generates none). An
+      image model (resnet18, resnet50, vit_b16) serves two uint8 32x32
+      images drawn from --seed, normalized with CIFAR-10's statistics,
+      and prints the logits' shape and top-1.
   bench [--requests N] [--offered-load RPS] [--mixed-want] [--json]
       Latency and throughput at fixed offered load: a seeded load
       generator submits mixed-length prompts on a 1/RPS cadence while the
       engine drains the queue; reports p50/p99 latency and the achieved
-      request and token rates (experiments/harness.py::measure_serving).
+      request and token rates (experiments/harness.py::measure_serving;
+      token models only, and no token rate for bert_base).
       --continuous runs the token-granular arm instead (slot engine over
       the paged KV pool, serving/continuous.py) on the same schedule:
       --kv-dtype int8 quantizes its pages (K1 on every page write),
@@ -25,7 +30,7 @@ Commands:
       requests one shared prompt (admitted with no prefill after the
       first); --no-prefix-skip turns that fast path off.
   serve [--port P] [--kv-dtype int8] [--page-size N]
-      One long-lived continuous replica: POST /generate ({"tokens": [...],
+      One long-lived continuous replica (causal LMs only): POST /generate ({"tokens": [...],
       "max_new_tokens"?, "temperature"?, "top_p"?, "seed"?,
       "want_logits"?}) answers when the tokens are out; GET /healthz on
       the same port; /metrics and /healthz on --metrics-port. --port 0
@@ -94,7 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", default="auto",
                    choices=["auto", "sgd", "adamw"],
                    help="the training run's optimizer, for the restore "
-                        "template (auto: adamw, the LMs' recipe)")
+                        "template (auto: adamw for the LMs, sgd for the "
+                        "vision models)")
     p.add_argument("--zero1", action="store_true",
                    help="the checkpoint was written under --zero1")
     p.add_argument("--fsdp-explicit", action="store_true",
@@ -177,9 +183,18 @@ def refusal(args) -> Optional[str]:
     return None
 
 
+# what an image model's smoke serves: two uint8 32x32 images from --seed,
+# normalized with CIFAR-10's mean and std as the JAX serving CLI rounds
+# them (data/datasets.py's CIFAR10_STD keeps four digits)
+SMOKE_IMAGES = (2, 32, 32, 3)
+SMOKE_IMAGE_MEAN = (0.4914, 0.4822, 0.4465)
+SMOKE_IMAGE_STD = (0.247, 0.243, 0.262)
+
+
 @dataclasses.dataclass
 class SmokeReport:
-    """What one smoke run served: the engine, the prompts, the results."""
+    """What one smoke run served: the engine, the prompts (an image
+    model's images) and the results (an image model's logits)."""
 
     engine: object
     prompts: List[np.ndarray]
@@ -219,6 +234,16 @@ def smoke(args) -> SmokeReport:
         log_main(f"serving: NOTE: random-init weights (seed {args.seed}) "
                  f"on {engine.device} — this smokes the serving path, not "
                  "a trained model")
+
+    if not engine.is_token:
+        rng = np.random.RandomState(args.seed)
+        images = rng.randint(0, 256, SMOKE_IMAGES).astype(np.uint8)
+        logits = engine.serve_images(images, mean=SMOKE_IMAGE_MEAN,
+                                     std=SMOKE_IMAGE_STD)
+        log_main(f"serving smoke: {logits.shape[0]} images -> logits "
+                 f"{logits.shape}, top-1 {logits.argmax(-1).tolist()}")
+        return SmokeReport(engine=engine, prompts=list(images),
+                           results=list(logits))
 
     if args.prompt:
         prompts = [np.asarray([int(t) for t in args.prompt.split(",")],
@@ -308,11 +333,12 @@ def bench(args) -> dict:
             f" {row['completed']}/{row['n_requests']} completed, "
             f"{row['replica_deaths']} replica deaths" + spec + skip)
     else:
+        toks = (f" ({row['tokens_per_sec']} tok/s)"
+                if "tokens_per_sec" in row else "")
         log_main(
             f"serving bench: {row['model']} [{row['serve_dtype']}] p50 "
             f"{row['p50_ms']}ms p99 {row['p99_ms']}ms at "
-            f"{row['achieved_rps']}/{row['offered_rps']} req/s "
-            f"({row['tokens_per_sec']} tok/s)")
+            f"{row['achieved_rps']}/{row['offered_rps']} req/s{toks}")
     return row
 
 

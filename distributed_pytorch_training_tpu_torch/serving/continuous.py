@@ -109,12 +109,15 @@ class SlotEngine(InferenceEngine):
     page table and the per-slot control tensors stay on the device."""
 
     def __init__(self, model, config: PagedServeConfig, params,
-                 device=None):
+                 device=None, batch_stats=None):
         if not isinstance(config, PagedServeConfig):
             raise ValueError(
                 "SlotEngine needs a PagedServeConfig (page_size/kv_dtype "
                 "knobs); a plain ServeConfig drives the dense engine")
-        super().__init__(model, config, params, device=device)
+        if not hasattr(model, "init_cache"):
+            raise ValueError("continuous batching decodes causal LMs only")
+        super().__init__(model, config, params, device=device,
+                         batch_stats=batch_stats)
         if self.padded_len > model.max_position:
             raise ValueError(
                 f"pages_per_slot * page_size = {self.padded_len} exceeds "

@@ -51,12 +51,14 @@ entry. Under torchrun every rank trains its shard of each global batch of
 On a ``seq`` axis GPT-2 trains sequence-parallel under ``--attention
 ring`` or ``ulysses``: the ranks of a seq line hold the same rows and
 each runs its share of the positions (``models/gpt2.py``), on the
-implicit path. On a ``model`` axis GPT-2 trains tensor-parallel
-(megatron column/row-split blocks, the vocab-parallel embedding and
-cross-entropy; the vocab padded to lcm(128, M)): the ranks of a model
+implicit path. On a ``model`` axis GPT-2, BERT-base and ViT-B/16 train
+tensor-parallel (megatron column/row-split blocks; the LMs' vocab-parallel
+embedding and cross-entropy, the vocab padded to lcm(128, M); BERT's
+heads under ``--attention flash`` run K3-K5 bidirectional, ViT's the
+einsum): the ranks of a model
 line hold the same rows, on the implicit path or, under
 ``--fsdp-explicit``, the sharded update over the data ranks of each
-shard's slice (TP x FSDP). On a ``pipe`` axis GPT-2 trains as a GPipe
+shard's slice (TP x FSDP; GPT-2 only, as in the JAX Trainer). On a ``pipe`` axis GPT-2 trains as a GPipe
 pipeline (``models/gpt2_pipe.py``: the blocks stage-stacked, one stage a
 rank, ``--microbatches`` a step, the einsum attention inside the
 stages), and on an ``expert`` axis ``gpt2_moe`` holds E/ep experts of
@@ -171,9 +173,7 @@ _UNPORTED_AXES = {
           "runs through --fsdp-explicit --mesh data=D,model=M, and "
           "--fsdp-explicit shards over the data axis)",
 }
-TP_MODELS = ("gpt2_124m", "gpt2_355m")
-TP_LATER = {"bert_base": "the BERT/ViT tensor-parallel slice",
-            "vit_b16": "the BERT/ViT tensor-parallel slice"}
+TP_MODELS = ("gpt2_124m", "gpt2_355m", "bert_base", "vit_b16")
 SP_TP = "the SP x TP slice"
 MOE_TP = "the MoE x TP slice (moe_rules + tp_fsdp_rules on the model axis)"
 MOE_SP = "the MoE x SP slice (gpt2_moe's positions sharded over seq)"
@@ -209,9 +209,6 @@ def refuse_unported(args: argparse.Namespace, spec: MeshSpec) -> None:
             raise not_ported(f"--model {args.model} on --mesh {args.mesh} "
                              "(seq axis)", MOE_SP)
     if spec.model != 1:
-        if args.model in TP_LATER:
-            raise not_ported(f"--model {args.model} on --mesh {args.mesh} "
-                             "(model axis)", TP_LATER[args.model])
         if spec.seq != 1:
             raise not_ported(f"--mesh {args.mesh} (seq and model axes "
                              "together)", SP_TP)

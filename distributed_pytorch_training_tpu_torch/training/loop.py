@@ -466,9 +466,13 @@ class Trainer:
         The refusals on ``model`` are the JAX Trainer's."""
         axis_name = self.split_axis
         axis = self.mesh.axis_shard(axis_name)
+        tp_form = (hasattr(model, "clone") and hasattr(model, "tp")
+                   and hasattr(type(model), "partition_rules"))
         if axis_name == MODEL and not (
-                hasattr(model, "clone") and hasattr(model, "tp")
-                and hasattr(type(model), "partition_rules")):
+                tp_form and (not self._fsdp
+                             or getattr(model, "fsdp_explicit_tp", False))):
+            # fsdp_explicit takes GPT-2 only: the JAX Trainer refuses
+            # every model without its tp_size/tp_axis fields there
             mode = ("fsdp_explicit" if self.config.fsdp_explicit
                     else "the implicit path")
             raise ValueError(

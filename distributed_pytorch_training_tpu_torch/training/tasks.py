@@ -182,7 +182,10 @@ class MaskedLMTask(Task):
     cross-entropy on the selected positions only, weighted by the row
     weight; "correct" is masked-token top-1. The three draws are the JAX
     task's (``split(key, 3)``: bernoulli, uniform, randint), bitwise
-    (``utils/prng.py``), over the rows ``key`` says this rank holds."""
+    (``utils/prng.py``), over the rows ``key`` says this rank holds: the
+    model ranks of a batch coordinate hold the same rows and key, so they
+    draw the same masks. A tensor-parallel BERT's vocab-split logits
+    (``TpShardedLogits``) take the parallel-vocab cross-entropy."""
 
     mask_token_id: int = 103   # BERT-base [MASK]
     vocab_size: int = 30522
@@ -214,12 +217,17 @@ class MaskedLMTask(Task):
                              "JAX step key: pass key")
         ids = batch["input_ids"].long()
         selected, inputs = self.mask(ids, key)
-        logits = model(inputs).float()
-        per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                                  ids.reshape(-1), reduction="none"
-                                  ).reshape(ids.shape)
+        logits = model(inputs)
+        if isinstance(logits, TpShardedLogits):
+            per_tok, predicted = tp_parallel_cross_entropy(logits, ids)
+        else:
+            logits = logits.float()
+            per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                      ids.reshape(-1), reduction="none"
+                                      ).reshape(ids.shape)
+            predicted = logits.argmax(-1) == ids
         w = selected.float() * batch["weight"][:, None]
-        loss, metrics = _weighted(per_tok, logits.argmax(-1) == ids, w)
+        loss, metrics = _weighted(per_tok, predicted, w)
         return loss, metrics, {}
 
 

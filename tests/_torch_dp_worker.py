@@ -57,9 +57,16 @@ wrote; ``OUT`` the pickle this rank writes. Jobs:
   shard's columns when vocab-parallel), the causal LM loss of
   ``spec["ids"]`` and its gradients (TP-local, flax paths), and the
   all-reduces over the model group that one forward and backward made;
+  with ``spec["model"]`` ``bert_base`` the masked LM loss of
+  ``spec["ids"]`` under the step key ``spec["key"]`` (its uint32 words),
+  with ``vit_b16`` the image task's loss of ``spec["images"]`` (uint8
+  NHWC, ``spec["labels"]``, ``spec["stats"]`` the mean and std, no
+  augmentation);
 * ``("tp_train", spec)``: the Trainer on ``spec["mesh"]`` from the global
   flax ``spec["params"]`` over ``spec["batches"]`` (this rank's batch
-  coordinate's rows), ``spec["config"]`` and ``spec["optimizer"]``;
+  coordinate's rows), ``spec["config"]`` and ``spec["optimizer"]``
+  (``spec["model"]`` and, for BERT, ``spec["mlm"]`` the masked LM task's
+  keywords);
   returns the per-step metrics, the final TP-local parameters (flax
   paths; materialized under FSDP), the residuals' total and the at-rest
   sizes;
@@ -102,6 +109,9 @@ import torch.distributed as dist  # noqa: E402
 
 from distributed_pytorch_training_tpu_torch.convert import (  # noqa: E402
     batch_stats_to_flax, load_flax_params, torch_to_flax,
+)
+from distributed_pytorch_training_tpu_torch.data.augment import (  # noqa
+    normalize_images,
 )
 from distributed_pytorch_training_tpu_torch.models import get_model  # noqa
 from distributed_pytorch_training_tpu_torch.models.resnet import (  # noqa
@@ -428,15 +438,34 @@ def run_tp_model(spec, rank, world):
         tp_split_dims,
     )
 
+    from distributed_pytorch_training_tpu_torch.training.tasks import (
+        StepKey,
+    )
+
     mesh = _tp_mesh(spec)
     tp = mesh.tp()
-    full = get_model("gpt2_124m", **spec["model_kwargs"])
+    name = spec.get("model", "gpt2_124m")
+    full = get_model(name, **spec["model_kwargs"])
     load_flax_params(full, spec["params"])
     split = tp_split_dims(list(full.named_parameters()),
                           full.partition_rules(), tp.size)
     model = full.clone(tp=tp)
     load_tp_params(model, spec["params"], split)
-    ids = torch.from_numpy(spec["ids"]).long()
+    key = None
+    if name == "vit_b16":
+        x = torch.from_numpy(spec["images"])
+        batch = {"image": x, "label": torch.from_numpy(spec["labels"]),
+                 "weight": torch.ones(x.shape[0])}
+        task = ImageClassificationTask(*spec["stats"], augment=False)
+        inputs = normalize_images(x, *spec["stats"])
+    else:
+        x = torch.from_numpy(spec["ids"]).long()
+        batch = {"input_ids": x, "weight": torch.ones(x.shape[0])}
+        task, inputs = LanguageModelingTask(), x
+        if name == "bert_base":
+            key = StepKey(torch.from_numpy(spec["key"]))
+            task = MaskedLMTask(vocab_size=spec["model_kwargs"]["vocab_size"])
+            inputs = task.mask(x, key)[1]
     calls = []
     real = dist.all_reduce
 
@@ -446,14 +475,12 @@ def run_tp_model(spec, rank, world):
 
     dist.all_reduce = counting
     try:
-        loss, metrics, _ = LanguageModelingTask().loss_and_metrics(
-            model, {"input_ids": ids, "weight": torch.ones(ids.shape[0])},
-            True)
+        loss, metrics, _ = task.loss_and_metrics(model, batch, True, key=key)
         grads = torch.autograd.grad(loss, list(model.parameters()))
     finally:
         dist.all_reduce = real
     with torch.no_grad():
-        logits = model(ids)
+        logits = model(inputs)
     local = (logits.local if isinstance(logits, TpShardedLogits)
              else logits)
     return {"index": tp.index, "batch_index": mesh.batch_index,
@@ -462,14 +489,16 @@ def run_tp_model(spec, rank, world):
             "grads": _named_flax(zip((n for n, _ in
                                       model.named_parameters()), grads)),
             "all_reduces": sum(g is tp.group for g in calls),
-            "tp_vocab": model.tp_vocab}
+            "tp_vocab": getattr(model, "tp_vocab", False)}
 
 
 def run_tp_train(spec, rank, world):
     mesh = _tp_mesh(spec)
-    model = get_model("gpt2_124m", **spec["model_kwargs"])
+    model = get_model(spec.get("model", "gpt2_124m"), **spec["model_kwargs"])
     load_flax_params(model, spec["params"])
-    trainer = Trainer(LanguageModelingTask(), TrainConfig(
+    task = (MaskedLMTask(**spec["mlm"]) if "mlm" in spec
+            else LanguageModelingTask())
+    trainer = Trainer(task, TrainConfig(
         seed=0, print_freq=1000, **spec["config"]), device="cpu", mesh=mesh)
     name, kwargs = spec["optimizer"]
     state = trainer.init_state(model, make_optimizer(name, spec["lr"],

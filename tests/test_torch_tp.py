@@ -205,6 +205,92 @@ CLI_RUNS = [("a", [], 2, None, False),
             ("b resumed", ["--fsdp-explicit"], 2, "b ckpt", True)]
 
 
+# BERT-base and ViT-B/16 on the model axis: tiny models (BERT's vocab
+# padded to 128 as the entry pads it at model=2, so its padding columns
+# 200..255 sit on the second shard), one loss and backward of each
+SPLIT_MODELS = {
+    "bert": ("bert_base", dict(vocab_size=200, hidden_dim=32, depth=2,
+                               num_heads=4, mlp_dim=64, max_position=SEQ,
+                               pad_vocab_to_multiple_of=128)),
+    "vit": ("vit_b16", dict(hidden_dim=32, depth=2, num_heads=4,
+                            mlp_dim=64, num_classes=10)),
+}
+IMAGE_MEAN_STD = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+# train.main at data=2,model=2 (4 ranks; 16 sequences or images, global
+# batch 4: 4 steps), each with a checkpoint: BERT, and ViT (SGD, no
+# augmentation: its draws are per batch coordinate); BERT keeps its
+# 30522 ids (the synthetic corpus's), padded to 30592. Neither takes
+# --fsdp-explicit on a model mesh: the JAX Trainer refuses it
+SPLIT_OVERRIDES = {
+    "bert": "hidden_dim=32,depth=2,num_heads=2,mlp_dim=64,max_position=32",
+    "vit": "hidden_dim=32,depth=2,num_heads=2,mlp_dim=64,patch_size=56"}
+SPLIT_CLI_RUNS = {
+    "bert": ("bert", []),
+    "vit": ("vit", []),
+}
+SPLIT_CKPT = ("bert", "vit")
+
+
+def split_cli(name, tmp, data_dir, mesh_free=False):
+    """The entry's command line of SPLIT_CLI_RUNS[name] (without its
+    --mesh); ``mesh_free`` drops the checkpoint too (the model=1
+    yardstick)."""
+    family, extra = SPLIT_CLI_RUNS[name]
+    tag = name.replace(" ", "_")
+    argv = ["--device", "cpu", "--model-overrides", SPLIT_OVERRIDES[family],
+            "--synthetic", "--synthetic-size", "16", "--data-dir",
+            str(data_dir), "--epochs", "1", "--batch-size", "2",
+            "--print-freq", "1000", "--no-telemetry", "--seed", str(SEED),
+            "--output-dir", str(tmp / f"split_{tag}"), *extra]
+    if family == "bert":
+        argv += ["--model", "bert_base", "--seq-len", "32", "--optimizer",
+                 "adamw", "--lr", str(LR)]
+    else:
+        argv += ["--model", "vit_b16", "--dataset", "imagenet",
+                 "--no-augment", "--optimizer", "sgd", "--lr", "0.05"]
+    if name in SPLIT_CKPT and not mesh_free:
+        argv += ["--checkpoint-dir", str(tmp / f"split_{tag}_ckpt")]
+    return argv
+
+
+def jax_split_params(model, kw):
+    from distributed_pytorch_training_tpu.models import (
+        get_model as jax_get_model,
+    )
+
+    sample = (jnp.zeros((1, 32, 32, 3)) if model == "vit_b16"
+              else jnp.zeros((2, SEQ), jnp.int32))
+    return jax.device_get(jax_get_model(model, **kw).init(
+        jax.random.PRNGKey(0), sample, train=False)["params"])
+
+
+def split_inputs(model):
+    """The tp_model job's batch: 3 rows of BERT ids and its step key, or
+    3 uint8 32x32 images and their labels."""
+    rng = np.random.RandomState(2)
+    if model == "vit_b16":
+        return dict(images=rng.randint(0, 256, (3, 32, 32, 3)).astype(
+                        np.uint8),
+                    labels=rng.randint(0, 10, 3).astype(np.int64),
+                    stats=IMAGE_MEAN_STD)
+    return dict(ids=rng.randint(0, 200, (3, SEQ)).astype(np.int64),
+                key=np.asarray(jax.random.PRNGKey(5), np.uint32))
+
+
+# the BERT Trainer test's AdamW rate: the attention's key bias has a zero
+# gradient up to float32 rounding (softmax is invariant to a per-query
+# shift), which Adam's normalized step turns into steps of up to lr a
+# side; at 1e-2 five of its 96 elements ended 3.7e-3 from JAX's, past
+# PARAM_ATOL, at 3e-3 that noise stays inside it
+BERT_CLIP_LR = 3e-3
+
+
+def bert_batches(steps=3, rows=8):
+    rng = np.random.RandomState(3)
+    return [{"input_ids": rng.randint(0, 200, (rows, SEQ)).astype(np.int32),
+             "weight": np.ones(rows, np.float32)} for _ in range(steps)]
+
+
 @pytest.fixture(scope="module")
 def data_dir(tmp_path_factory):
     return tmp_path_factory.mktemp("tp_data")
@@ -238,6 +324,20 @@ def pool(tmp_path_factory, data_dir):
             batches=tiny_batches(steps=1) * WIRE_STEPS,
             config=dict(fsdp_explicit=True, wire_dtype=wire),
             optimizer=clip_tx(), lr=1e-2))
+    bert, bert_kw = SPLIT_MODELS["bert"]
+    jobs["train bert"] = ("tp_train", dict(
+        mesh=MESH_A, model=bert, params=jax_split_params(bert, bert_kw),
+        model_kwargs=bert_kw, mlm=dict(vocab_size=bert_kw["vocab_size"]),
+        batches=bert_batches(), config={}, optimizer=clip_tx(),
+        lr=BERT_CLIP_LR))
+    split_params = {}
+    for name, (model, kw) in SPLIT_MODELS.items():
+        split_params[name] = jax_split_params(model, kw)
+        jobs[f"{name} 2"] = ("tp_model", dict(
+            mesh=MESH_A, model=model, params=split_params[name],
+            model_kwargs=dict(kw, **({"image_size": 32}
+                                     if model == "vit_b16" else {})),
+            **split_inputs(model)))
     runs = []
     for name, flags, epochs, ckpt, resume in CLI_RUNS:
         extra = list(flags)
@@ -247,9 +347,13 @@ def pool(tmp_path_factory, data_dir):
             extra.append("--resume")
         runs.append(cli(tmp / name.replace(" ", "_"), data_dir,
                         "data=2,model=2", epochs, *extra))
+    for name, argv in SPLIT_CLI_RUNS.items():
+        runs.append(split_cli(name, tmp, data_dir) + ["--mesh",
+                                                      "data=2,model=2"])
     jobs["clis"] = ("clis", dict(runs=[[argv] * 4 for argv in runs]))
     res = run_ranks(tmp, 4, jobs, timeout=600)
-    return {"ranks": res, "dir": tmp, "params": params, "indiv": indiv}
+    return {"ranks": res, "dir": tmp, "params": params, "indiv": indiv,
+            "split_params": split_params}
 
 
 def by_model_index(ranks, job, batch_index=0):
@@ -903,6 +1007,402 @@ def test_mfu_counts_the_global_model_with_its_padded_head():
 
 
 # ---------------------------------------------------------------------------
+# BERT-base and ViT-B/16 on the model axis
+# ---------------------------------------------------------------------------
+
+
+def split_template(model, kw):
+    m = get_model(model, device="meta", **kw,
+                  **({"image_size": 32} if model == "vit_b16" else {}))
+    return m, [(n, tuple(p.shape)) for n, p in m.named_parameters()]
+
+
+def jax_split_template(model, kw):
+    from distributed_pytorch_training_tpu.models import (
+        get_model as jax_get_model,
+    )
+
+    jm = jax_get_model(model, **kw)
+    sample = (jnp.zeros((1, 32, 32, 3)) if model == "vit_b16"
+              else jnp.zeros((2, SEQ), jnp.int32))
+    return jm, jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), sample, train=False))["params"]
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("name", list(SPLIT_MODELS))
+def test_bert_vit_split_dims_local_struct_and_clip_bitwise_jax(name, m):
+    """The layout of BERT's and ViT's leaves over ``model``: the split
+    dims, the local shapes and the clip's weights, bitwise the JAX
+    package's (BERT at its full 30522 vocab padded to lcm(128, M) too)."""
+    model, kw = SPLIT_MODELS[name]
+    cases = [kw] + ([dict(kw, vocab_size=30522,
+                          pad_vocab_to_multiple_of=math.lcm(128, m))]
+                    if model == "bert_base" else [])
+    for case in cases:
+        jm, jt = jax_split_template(model, case)
+        jsd = jax_sharding.tp_split_dims(jt, jm.partition_rules(), m)
+        want = jax_by_path(jsd, is_leaf=lambda x: x is None)
+        jlocal = jax_by_path(jax_sharding.tp_local_struct(jt, jsd, m))
+        pm, tmpl = split_template(model, case)
+        sd = tp_split_dims(tmpl, pm.partition_rules(), m)
+        assert {flax_path(n): d for n, d in sd.items()} == want
+        assert {flax_path(n): s for n, s in tp_local_struct(
+            tmpl, sd, m).items()} == {p: tuple(v.shape)
+                                      for p, v in jlocal.items()}
+        assert tp_clip_weights(tmpl, sd, m) == \
+            jax_sharding.tp_clip_weights(jt, jsd, m)
+        # what stays whole over model: BERT's position and type tables,
+        # LayerNorms, MLM dense and bias; ViT's patch embedding, CLS,
+        # positions, final LayerNorm and head
+        whole = {n for n, d in sd.items() if d is None}
+        if model == "bert_base":
+            assert sd["token_embedding.embedding"] == 0
+            assert case["pad_vocab_to_multiple_of"] * (
+                -(-case["vocab_size"]
+                  // case["pad_vocab_to_multiple_of"])) % m == 0
+            assert {"mlm_bias", "position_embedding.embedding",
+                    "type_embedding.embedding", "mlm_dense.kernel",
+                    "blocks.0.ln1.scale"} <= whole
+        else:
+            assert {"patch_embed.kernel", "cls_token", "pos_embedding",
+                    "ln_final.scale", "head.kernel"} <= whole
+        assert sd["blocks.1.attn.qkv.kernel"] == 2
+        assert sd["blocks.1.mlp.fc2.kernel"] == 0
+
+
+@pytest.mark.parametrize("name", list(SPLIT_MODELS))
+def test_bert_vit_carrier_round_trip_bitwise(name):
+    model, kw = SPLIT_MODELS[name]
+    params = jax_split_params(model, kw)
+    full, tmpl = split_template(model, kw)
+    sd = tp_split_dims(tmpl, full.partition_rules(), 2)
+    extra = {"image_size": 32} if model == "vit_b16" else {}
+    shards = []
+    for i in range(2):
+        local = get_model(model, tp=TpAxis(2, i), **kw, **extra)
+        load_tp_params(local, params, sd)
+        shards.append(dict(local.named_parameters()))
+    if model == "bert_base":
+        assert local.tp_vocab
+        assert shards[1]["token_embedding.embedding"].shape == (128, 32)
+        assert shards[1]["mlm_bias"].shape == (200,)
+    back = tp_global_params(shards, sd)
+    for leaf, want in flax_to_torch(params).items():
+        assert torch.equal(back[leaf], want), leaf
+    with pytest.raises(ValueError, match="slices of the global"):
+        local.reset_parameters(torch.Generator().manual_seed(0))
+
+
+def jax_split_loss_and_grads(model, kw, params, inputs):
+    """(loss, grads, logits) of the JAX model and task on the global
+    weights: BERT's masked LM under the step key (logits of its masked
+    inputs), ViT's image task without augmentation."""
+    from distributed_pytorch_training_tpu.data.augment import (
+        normalize_images as jax_normalize,
+    )
+    from distributed_pytorch_training_tpu.training.tasks import (
+        ImageClassificationTask as JaxImageTask, MaskedLMTask as JaxMLMTask,
+    )
+
+    jm, _ = jax_split_template(model, kw)
+
+    class _State:
+        apply_fn = staticmethod(jm.apply)
+        batch_stats = {}
+
+    if model == "vit_b16":
+        task = JaxImageTask(*IMAGE_MEAN_STD, augment=False)
+        x = inputs["images"]
+        batch = {"image": jnp.asarray(x),
+                 "label": jnp.asarray(inputs["labels"], jnp.int32),
+                 "weight": jnp.ones(x.shape[0])}
+        rng = jax.random.PRNGKey(0)
+        model_in = jax_normalize(jnp.asarray(x), *IMAGE_MEAN_STD)
+    else:
+        task = JaxMLMTask(vocab_size=kw["vocab_size"])
+        ids = jnp.asarray(inputs["ids"], jnp.int32)
+        batch = {"input_ids": ids, "weight": jnp.ones(ids.shape[0])}
+        rng = jax.random.PRNGKey(5)
+        k_sel, k_act, k_rand = jax.random.split(rng, 3)
+        selected = jax.random.bernoulli(k_sel, task.mask_prob, ids.shape)
+        action = jax.random.uniform(k_act, ids.shape)
+        masked = jnp.where(action < 0.8, task.mask_token_id, jnp.where(
+            action < 0.9, jax.random.randint(k_rand, ids.shape, 0,
+                                             task.vocab_size), ids))
+        model_in = jnp.where(selected, masked, ids)
+
+    def loss_fn(p):
+        loss, _ = task.loss_and_metrics(_State, p, batch, rng, train=True)
+        return loss
+
+    loss, grads = jax.value_and_grad(loss_fn)(params)
+    logits = jm.apply({"params": params}, model_in)
+    return float(loss), jax.device_get(grads), np.asarray(logits)
+
+
+@pytest.mark.parametrize("name", list(SPLIT_MODELS))
+def test_tiny_bert_vit_logits_and_grads_match_jax(pool, name):
+    """One loss and backward at model=2 against the JAX model and task on
+    the global weights: the logits (BERT's gathered from its two vocab
+    shards, the padding columns masked on the second), the loss (equal
+    on both ranks), the gathered gradients, and the model-axis
+    all-reduces of the step: 4 a block, and for BERT 2 for the
+    vocab-parallel embedding and tied decoder, 1 for the replicated
+    bias's slices and 2 for the cross-entropy's stats."""
+    model, kw = SPLIT_MODELS[name]
+    params = pool["split_params"][name]
+    loss_ref, g_ref, logits_ref = jax_split_loss_and_grads(
+        model, kw, params, split_inputs(model))
+    shards = by_model_index(pool["ranks"], f"{name} 2")
+    if model == "bert_base":
+        assert shards[0]["tp_vocab"]
+        logits = np.concatenate([sh["logits"] for sh in shards], -1)
+        # the padded columns, all on shard 1, hold the float32 minimum
+        pad = shards[1]["logits"][..., 200 - 128:]
+        assert (pad == np.finfo(np.float32).min).all()
+        want_reduces = 4 * kw["depth"] + 5
+    else:
+        logits = shards[0]["logits"]
+        np.testing.assert_array_equal(shards[1]["logits"], logits)
+        want_reduces = 4 * kw["depth"]
+    np.testing.assert_allclose(logits, logits_ref, rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)
+    for sh in shards:
+        assert sh["loss"] == shards[0]["loss"]
+        assert sh["all_reduces"] == want_reduces
+        np.testing.assert_allclose(sh["loss"], loss_ref, rtol=LOSS_RTOL)
+    full, tmpl = split_template(model, kw)
+    sd = {flax_path(n): d for n, d in tp_split_dims(
+        tmpl, full.partition_rules(), 2).items()}
+    for path, want_g in jax_by_path(g_ref).items():
+        dim = sd[path]
+        got = (shards[0]["grads"][path] if dim is None else
+               np.concatenate([sh["grads"][path] for sh in shards], dim))
+        if dim is None:      # a replicated leaf: the same bits
+            np.testing.assert_array_equal(shards[1]["grads"][path], got)
+        scale = float(np.abs(want_g).max())
+        assert float(np.abs(got - np.asarray(want_g)).max()) <= \
+            GRAD_REL * scale + 1e-12, path
+
+
+def test_trainer_adamw_clip_bert_matches_jax(devices, pool):
+    """The Trainer, AdamW with the global-norm clip on (its weights by
+    parameter, F5), 3 steps of BERT's masked LM on data=2,model=2 against
+    the JAX Trainer's GSPMD step from the same weights and step keys, at
+    BERT_CLIP_LR: the replicated leaves bitwise equal on every rank, the
+    split ones across the data axis; every step's loss within LOSS_RTOL,
+    the parameters within PARAM_RTOL, PARAM_ATOL."""
+    from distributed_pytorch_training_tpu.training.tasks import (
+        MaskedLMTask as JaxMLMTask,
+    )
+
+    model, kw = SPLIT_MODELS["bert"]
+    jm, _ = jax_split_template(model, kw)
+    mesh = jax_build_mesh(JaxMeshSpec(**MESH_A), devices=devices[:4])
+    t = JaxTrainer(JaxMLMTask(vocab_size=kw["vocab_size"]), mesh,
+                   JaxTrainConfig(seed=0), rules=jm.partition_rules())
+    params = pool["ranks"][0]["train bert"]
+    start = jax_split_params(model, kw)
+    s = t.init_state(jm, np.zeros((1, SEQ), np.int32),
+                     jax_adamw(BERT_CLIP_LR, grad_clip_norm=1.0,
+                               weight_decay=0.01), jax.random.PRNGKey(0))
+    s = s.replace(params=jax.tree_util.tree_map(
+        lambda new, old: jax.device_put(np.asarray(new), old.sharding),
+        start, s.params))
+    epoch_key = jax.random.fold_in(jax.random.PRNGKey(0), 0)
+    metrics = []
+    for b in bert_batches():
+        s, m = t._train_step(s, shard_batch(b, mesh), epoch_key)
+        metrics.append({k: float(v) for k, v in m.items()})
+    want = jax_by_path(jax.device_get(s.params))
+    full, tmpl = split_template(model, kw)
+    sd = {flax_path(n): d for n, d in tp_split_dims(
+        tmpl, full.partition_rules(), 2).items()}
+    runs = [r["train bert"] for r in pool["ranks"]]
+    for p, d in sd.items():
+        for r in runs:
+            for o in runs:
+                if d is None or o["index"] == r["index"]:
+                    np.testing.assert_array_equal(o["params"][p],
+                                                  r["params"][p], err_msg=p)
+    for ours, ref in zip(params["metrics"], metrics):
+        assert ours["weight"] == ref["weight"] > 0
+        np.testing.assert_allclose(ours["loss_sum"], ref["loss_sum"],
+                                   rtol=LOSS_RTOL)
+    shards = by_model_index(pool["ranks"], "train bert")
+    start = jax_by_path(start)
+    moved = 0.0
+    for p, w in want.items():
+        got = (shards[0]["params"][p] if sd[p] is None else np.concatenate(
+            [sh["params"][p] for sh in shards], sd[p]))
+        np.testing.assert_allclose(got, np.asarray(w), rtol=PARAM_RTOL,
+                                   atol=PARAM_ATOL, err_msg=p)
+        moved = max(moved, float(np.abs(np.asarray(w) - start[p]).max()))
+    # every step moved the weights: Adam's steps are about lr each
+    assert moved > 2 * BERT_CLIP_LR
+
+
+def split_run_index(name):
+    return len(CLI_RUNS) + list(SPLIT_CLI_RUNS).index(name)
+
+
+def split_global_params(ranks, name, fsdp, batch_index=0):
+    """The global flax params of a SPLIT_CLI_RUNS run from the states of
+    the ranks of one batch coordinate (rank = batch index x 2 + model
+    index); under FSDP each model shard's chunks joined over the data
+    ranks first."""
+    states = [r["clis"][split_run_index(name)]["state"] for r in ranks]
+    full = one_rank_model(SPLIT_CLI_RUNS[name][0])
+    tmpl = [(n, tuple(p.shape)) for n, p in full.named_parameters()]
+    sd = tp_split_dims(tmpl, full.partition_rules(), 2)
+    local = tp_local_struct(tmpl, sd, 2)
+    out = {}
+    for leaf, d in sd.items():
+        parts = []
+        for m in range(2):
+            if fsdp:
+                flat = np.concatenate([states[b * 2 + m][f"model/{leaf}"]
+                                       for b in range(2)])
+                parts.append(flat[:math.prod(local[leaf])]
+                             .reshape(local[leaf]))
+            else:
+                parts.append(states[batch_index * 2 + m][f"model/{leaf}"])
+        out[leaf] = parts[0] if d is None else np.concatenate(parts, d)
+    return out
+
+
+def one_rank_model(family):
+    """The global model the entry builds at model=2 (BERT's vocab padded
+    to 128), on the meta device."""
+    model = SPLIT_MODELS[family][0]
+    kw = dict(pair.split("=") for pair in SPLIT_OVERRIDES[family].split(","))
+    kw = {k: int(v) for k, v in kw.items()}
+    if model == "bert_base":
+        return get_model(model, device="meta", pad_vocab_to_multiple_of=128,
+                         **kw)
+    return get_model(model, device="meta", image_size=224,
+                     num_classes=1000, **kw)
+
+
+@pytest.fixture(scope="module")
+def split_model1(pool, data_dir, tmp_path_factory):
+    """The model=1 yardsticks: each SPLIT_CLI_RUNS family's command in
+    this process without a mesh, over the same global batches (batch 4,
+    BERT's vocab padded to 128 as at model=2): every step's metrics and
+    the final parameters."""
+    from distributed_pytorch_training_tpu_torch.training import (
+        Trainer as PortTrainer,
+    )
+
+    tmp = tmp_path_factory.mktemp("split_model1")
+    step = PortTrainer.train_step
+    out = {}
+    for family in ("bert", "vit"):
+        metrics = []
+
+        def recording(self, state, batch):
+            m = step(self, state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            return m
+
+        argv = split_cli(family, tmp, data_dir, mesh_free=True)
+        argv[argv.index("--batch-size") + 1] = "4"
+        if family == "bert":
+            i = argv.index("--model-overrides") + 1
+            argv[i] += ",pad_vocab_to_multiple_of=128"
+        PortTrainer.train_step = recording
+        try:
+            state = train.main(argv)
+        finally:
+            PortTrainer.train_step = step
+        out[family] = {"metrics": metrics, "params": {
+            n: p.detach().numpy().copy()
+            for n, p in state.model.named_parameters()}}
+    return out
+
+
+@pytest.mark.parametrize("name", ["bert", "vit"])
+def test_entry_trains_bert_and_vit_on_the_model_axis(pool, split_model1,
+                                                     name):
+    """``train.main --model bert_base|vit_b16 --mesh data=2,model=2`` on
+    4 gloo ranks: the replicated leaves bitwise equal on every rank and
+    the split ones across the data axis; every step's loss and the final
+    parameters against the model=1 run over the same global batches."""
+    ranks = pool["ranks"]
+    runs = [r["clis"][split_run_index(name)] for r in ranks]
+    ref = split_model1[name]
+    assert all(r["step"] == len(ref["metrics"]) == 4 for r in runs)
+    for ours, want in zip(runs[0]["metrics"], ref["metrics"]):
+        assert ours["weight"] == want["weight"]
+        np.testing.assert_allclose(ours["loss_sum"], want["loss_sum"],
+                                   rtol=LOSS_RTOL)
+    full = one_rank_model(name)
+    sd = tp_split_dims([(n, tuple(p.shape)) for n, p in
+                        full.named_parameters()], full.partition_rules(), 2)
+    for leaf, d in sd.items():
+        key = f"model/{leaf}"
+        for r, run in enumerate(runs):
+            peers = [o for i, o in enumerate(runs)
+                     if d is None or i % 2 == r % 2]
+            for o in peers:
+                np.testing.assert_array_equal(o["state"][key],
+                                              run["state"][key],
+                                              err_msg=key)
+    got = split_global_params(ranks, name, fsdp=False)
+    for leaf, want in ref["params"].items():
+        np.testing.assert_allclose(got[leaf], want, rtol=PARAM_RTOL,
+                                   atol=PARAM_ATOL, err_msg=leaf)
+
+
+@pytest.mark.parametrize("name", ["bert", "vit"])
+def test_serving_restores_a_bert_or_vit_tp_checkpoint(pool, name):
+    """A data=2,model=2 checkpoint of BERT or ViT is served on one device
+    as the global model, bitwise the run's final parameters."""
+    from distributed_pytorch_training_tpu_torch.experiments.harness import (
+        build_serving_engine,
+    )
+
+    family = SPLIT_CLI_RUNS[name][0]
+    ckpt = pool["dir"] / f"split_{name.replace(' ', '_')}_ckpt"
+    overrides = dict(pair.split("=")
+                     for pair in SPLIT_OVERRIDES[family].split(","))
+    overrides = {k: int(v) for k, v in overrides.items()}
+    if family == "bert":
+        overrides["pad_vocab_to_multiple_of"] = 128
+    else:
+        overrides.update(image_size=224, num_classes=1000)
+    engine = build_serving_engine(
+        SPLIT_MODELS[family][0], device="cpu", ckpt_dir=str(ckpt),
+        layout="replicated", model_overrides=overrides)
+    assert engine.checkpoint_info["step"] == 4
+    want = split_global_params(pool["ranks"], name, fsdp=False)
+    for leaf, t in engine._served.items():
+        np.testing.assert_array_equal(t.numpy(), want[leaf], err_msg=leaf)
+    if family == "bert":
+        res = engine.serve_tokens([np.arange(1, 9, dtype=np.int32)])
+        assert res[0].last_logits.shape == (30592,)
+        assert np.isfinite(res[0].last_logits[:30522]).all()
+    else:
+        logits = engine.serve_images(
+            np.zeros((2, 224, 224, 3), np.uint8), *IMAGE_MEAN_STD)
+        assert logits.shape == (2, 1000) and np.isfinite(logits).all()
+
+
+def test_mfu_counts_bert_with_its_padded_head():
+    from distributed_pytorch_training_tpu_torch.experiments import flops
+
+    ids = torch.zeros((1, SEQ), dtype=torch.long, device="meta")
+    kw = dict(hidden_dim=32, depth=2, num_heads=2, mlp_dim=64,
+              max_position=SEQ)
+    plain = flops.matmul_flops(get_model("bert_base", device="meta", **kw),
+                               ids)
+    padded = flops.matmul_flops(get_model(
+        "bert_base", device="meta", pad_vocab_to_multiple_of=128, **kw), ids)
+    assert padded - plain == 2 * SEQ * 32 * (30592 - 30522)
+
+
+# ---------------------------------------------------------------------------
 # refusals
 # ---------------------------------------------------------------------------
 
@@ -956,6 +1456,33 @@ def test_tp_needs_a_tp_capable_model_as_jax(devices):
     with pytest.raises(ValueError) as ours:
         t.init_state(get_model("resnet18", num_classes=10, num_filters=4),
                      make_optimizer("sgd", 0.1))
+    assert str(ours.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("name", list(SPLIT_MODELS))
+def test_fsdp_explicit_refuses_bert_and_vit_on_the_model_axis_as_jax(
+        devices, name):
+    """BERT and ViT split over ``model`` on the implicit path only: under
+    fsdp_explicit the JAX Trainer refuses every model without GPT-2's
+    explicit-TP fields, and the port refuses with its message."""
+    from distributed_pytorch_training_tpu.models import (
+        get_model as jax_get_model,
+    )
+    from distributed_pytorch_training_tpu.training.optim import sgd
+
+    model, kw = SPLIT_MODELS[name]
+    sample = (np.zeros((1, 32, 32, 3), np.float32) if model == "vit_b16"
+              else np.zeros((1, SEQ), np.int32))
+    jt = JaxTrainer(JaxLMTask(), jax_build_mesh(
+        JaxMeshSpec(data=1, model=2), devices=devices[:2]),
+        JaxTrainConfig(seed=0, fsdp_explicit=True))
+    with pytest.raises(ValueError) as ref:
+        jt.init_state(jax_get_model(model, **kw), sample, sgd(0.1),
+                      jax.random.PRNGKey(0))
+    t = Trainer(LanguageModelingTask(), TrainConfig(fsdp_explicit=True),
+                device="cpu", mesh=one_process_mesh(data=1, model=2))
+    with pytest.raises(ValueError) as ours:
+        t.init_state(get_model(model, **kw), make_optimizer("sgd", 0.1))
     assert str(ours.value) == str(ref.value)
 
 
@@ -1038,24 +1565,14 @@ ENTRY = ["--device", "cpu", "--model", "gpt2_124m", "--model-overrides",
          OVERRIDES, "--seq-len", str(ENTRY_SEQ), "--synthetic",
          "--synthetic-size", "8", "--batch-size", "2", "--epochs", "1",
          "--no-telemetry"]
-BERT = ["--device", "cpu", "--model", "bert_base", "--synthetic",
-        "--synthetic-size", "8", "--seq-len", "32", "--model-overrides",
-        "hidden_dim=32,depth=2,num_heads=2,mlp_dim=64,max_position=32",
-        "--batch-size", "2", "--epochs", "1", "--no-telemetry"]
-VIT = ["--device", "cpu", "--model", "vit_b16", "--dataset", "imagenet",
-       "--synthetic", "--synthetic-size", "8", "--batch-size", "2",
-       "--epochs", "1", "--no-telemetry"]
-
 
 @pytest.mark.parametrize("argv,match", [
-    (BERT + ["--mesh", "data=1,model=2"], "the BERT/ViT tensor-parallel"),
-    (VIT + ["--mesh", "data=1,model=2"], "the BERT/ViT tensor-parallel"),
     (ENTRY + ["--mesh", "data=1,model=2", "--zero1"], "ZeRO-1 x TP slice"),
     (ENTRY + ["--mesh", "seq=2,model=2", "--attention", "ring"],
      "the SP x TP slice"),
     (ENTRY + ["--mesh", "fsdp=2,model=2", "--fsdp-explicit"],
      "the fsdp mesh axis slice"),
-], ids=["bert", "vit", "zero1", "seq-x-model", "fsdp-axis"])
+], ids=["zero1", "seq-x-model", "fsdp-axis"])
 def test_entry_refuses_what_waits_naming_its_slice(tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):
         train.main(argv + ["--output-dir", str(tmp_path)])
