@@ -263,22 +263,23 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     parameter and moment bytes at rest and its peak allocated memory
     beside model=1's; K1 and K2 at the TP x FSDP run's shapes, bitwise
     their plain versions, timed as phase 9 times them;
-25. (run before phase 17's lines) the mesh's last two axes at full width,
-    S 1024, batch 8 a batch coordinate, one epoch of 3 steps each, weights
-    from one seed: (b) one loss-and-backward of gpt2_moe (the router loss
-    included) at batch 1 from one draw on the CPU and twice on the card
-    (K3-K5 in all 12 blocks), fp32, TF32 off: the loss within LOSS_ATOL,
+25. (run before phase 17's lines) the mesh's last two axes at full width
+    and PP_DEPTH (2) of 12 blocks, S 1024, batch 8 a batch coordinate,
+    one epoch of 3 steps each, weights from one seed: (b) one
+    loss-and-backward of gpt2_moe (the router loss included) at batch 1
+    from one draw on the CPU and twice on the card (K3-K5 in all its
+    blocks), fp32, TF32 off: the loss within LOSS_ATOL,
     the gradients within GRAD_REL of each leaf's max |g|, and whether the
     card's two runs are bitwise equal; then, in this process, GPT-2 at
     pipe=1 (``--attention xla``, the einsum the stages run) and gpt2_moe
     on one rank (``--attention flash``), fp32 and ``--amp``: launches
-    exact (0 for GPT-2, 12 a forward and a backward for gpt2_moe),
+    exact (0 for GPT-2, 2 a forward and a backward for gpt2_moe),
     finite losses that fall every step, the aux losses; then one
     ``torchrun chip_smoke.py --pp-worker`` of 2 ranks for (a) ``--mesh
     data=1,pipe=2 --microbatches 4`` and (c) ``--model gpt2_moe --mesh
     data=1,expert=2``, fp32 and ``--amp``, the counts set to 0 just
     before and read just after each run: every rank's K3-K5 launches
-    (none on the pipeline, 12 a forward and a backward on each expert
+    (none on the pipeline, 2 a forward and a backward on each expert
     rank), the replicated leaves bitwise equal on both ranks, each expert
     rank holding experts [4r, 4r+4), every step's loss within LOSS_ATOL
     (BF16_LOSS_ATOL under ``--amp``) of its one-rank run over the same
@@ -318,6 +319,33 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     parameters off that run's by at most TP_PARAM_REL of its movement
     from the draw; ms a step and samples/s (2 ranks sharing one card:
     not a scaling number);
+27. (run before phase 17's lines) the rest of the training mesh, GPT-2
+    124M and gpt2_moe at full width and TP_DEPTH (3) blocks, S 1024,
+    batch MESH_BATCH a batch coordinate, one epoch of MESH_STEPS steps,
+    weights from one seed, through ``train.main``: one ``torchrun
+    chip_smoke.py --mesh-worker`` of 4 ranks and one of 2 (the process
+    group kept between a torchrun's runs), the one-rank gpt2_moe runs in
+    this process, the counts set to 0 just before and read just after
+    each run, K3-K5 exact on every rank at its shape (`mesh_want`) and K1
+    and K2 0: (a) ``--mesh fsdp=2`` against ``data=2`` and
+    ``fsdp=2,model=2`` against ``data=2,model=2``, (b) ``--mesh
+    data=2,model=2 --zero1`` against the run without it, (d) gpt2_moe at
+    ``model=2`` against model=1 and at ``seq=2 --attention ring``
+    against seq=1: every step's loss within LOSS_ATOL, the final global
+    parameters (``checkpoint.global_params``) off the yardstick's by at
+    most TP_PARAM_REL of its movement from the draw (without the q, k or
+    v part of a qkv.bias whose gradient at the draw is zero up to
+    rounding, ZERO_GRAD_REL: the key bias, whose reading is logged on its
+    own), each rank's parameter and moment bytes
+    at rest beside the yardstick's (the fsdp axis's and ZeRO-1's moments
+    at most MESH_REST_SHARE of them), gpt2_moe's aux losses within
+    LOSS_ATOL and its dropped assignments equal; (c) ``--mesh
+    seq=2,model=2`` under ring and Ulysses, fp32 and ``--amp``: step 1's
+    loss within LOSS_ATOL (BF16_LOSS_ATOL) of single-rank flash's on the
+    same rows, K3-K5 on 6 heads of 512 rows (the ring) and 3 of 1024
+    (Ulysses), each checked against its plain version at that shape in
+    phase 6 (FLASH_CASES' ``sp tp`` rows); ms a step (ranks sharing one
+    card: not a scaling number);
 17. print the ``{"kernels": [...]}`` line (K1 and K2 over their launches
     on the phase 12, phase 19 and phase 22 (e) paths, K1 also over phase
     21's int8 pages (``paged_kv_*`` apart), K3-K5 over phase 7's and
@@ -332,7 +360,9 @@ Phases (any failure exits non-zero; no phase's error is swallowed):
     (b)'s one-rank runs and (c)'s ranks, at the training shape; K1's
     ``serve_*`` over phase 26 (a)'s int8 weights, K3-K5's ``bert_tp_*``
     and ``bert_tp_bf16_*`` over phase 26 (b)'s ranks at BERT's 6-head
-    shape), then the last line ``{"ok": true, "device": {...}}``.
+    shape, K3-K5's ``mesh_*`` and ``mesh_bf16_*`` over every rank of
+    phase 27's runs, each launch at its shape's row), then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Details go to chiprun_out/chip_smoke.json. Without a CUDA device, or run
 from a directory that lacks the port's package, it fails before printing
@@ -419,6 +449,13 @@ FLASH_CASES = [
     # phase 26's BERT at model=2: 6 of its 12 heads a rank, non-causal
     ("bert tp", 8, 512, 512, 6, 64, False, False, "float32"),
     ("bert tp bf16", 8, 512, 512, 6, 64, False, False, "bfloat16"),
+    # phase 27's seq=2,model=2: the ring's diagonal block on a model
+    # rank's 6 heads (its past block is "bert tp"'s shape), and Ulysses'
+    # 3 heads (6 local heads over 2 seq ranks) of the whole sequence
+    ("sp tp ring", 8, 512, 512, 6, 64, True, False, "float32"),
+    ("sp tp ring bf16", 8, 512, 512, 6, 64, True, False, "bfloat16"),
+    ("sp tp ulysses", 8, 1024, 1024, 3, 64, True, False, "float32"),
+    ("sp tp ulysses bf16", 8, 1024, 1024, 3, 64, True, False, "bfloat16"),
     # what the bf16 forward's and dK/dV's TMA loads fill with zeros: D
     # below and past a 64-column box, ragged tails of Sq and Sk (not a
     # multiple of the 128-row tiles) on both sides, and all-masked rows
@@ -4570,7 +4607,8 @@ def tp_kernel_fields(name: str, flash_rows, tp: dict, codec_rows=None,
 # batch), weights from one seed. (a) GPipe over data=1,pipe=2 with
 # PP_MICROBATCHES microbatches, held to GPT-2 at pipe=1 (the einsum
 # attention, as inside the stages); (b) gpt2_moe on one rank (K3-K5 in
-# all 12 blocks) and one loss-and-backward card vs CPU at batch 1; (c)
+# all PP_DEPTH blocks) and one loss-and-backward card vs CPU at batch 1;
+# (c)
 # expert parallelism over data=1,expert=2, held to (b)'s runs
 PP_RANKS = 2
 PP_BATCH, PP_STEPS, PP_EVAL = 8, 3, 1
@@ -4578,9 +4616,18 @@ PP_SYNTHETIC = PP_BATCH * PP_STEPS
 PP_MICROBATCHES = 4
 MOE = "gpt2_moe"
 MOE_EXPERTS = 8
+# 2 of GPT-2's and gpt2_moe's 12 blocks at full width (cut with phase 27
+# added, as SP_DEPTH and TP_DEPTH were cut before: every block repeats a
+# stage's rotations and a MoE layer's expert region). The whole script
+# read 1058.3 and 1157.1 s in two calls at 6 blocks, and 1179.0 s at 4,
+# where this phase took 78.7 s against 39.6-51.1 s at 2 (NVIDIA H100
+# 80GB HBM3, 700 W): one block a stage, and gpt2_moe's one MoE layer
+# (block 1)
+PP_DEPTH = 2
 PP_FLAGS = ["--optimizer", "adamw", "--lr", "6e-4", "--synthetic",
             "--epochs", "1", "--print-freq", "1", "--batch-size",
-            str(PP_BATCH), "--synthetic-size", str(PP_SYNTHETIC)]
+            str(PP_BATCH), "--synthetic-size", str(PP_SYNTHETIC),
+            "--model-overrides", f"depth={PP_DEPTH}"]
 PIPE_FLAGS = ["--model", MODEL, "--attention", "xla"]
 MOE_FLAGS = ["--model", MOE, "--attention", "flash"]
 # (name, flags, the one-rank run it is held to)
@@ -4629,9 +4676,9 @@ def pp_global_draw(torch, moe: bool):
     from distributed_pytorch_training_tpu_torch.utils import parse_args
 
     if moe:
-        model = get_model(MOE)
+        model = get_model(MOE, depth=PP_DEPTH)
     else:
-        cfg = get_model(MODEL, device="meta")
+        cfg = get_model(MODEL, device="meta", depth=PP_DEPTH)
         model = GPT2PipeLMHead(num_stages=PP_RANKS,
                                vocab_size=cfg.vocab_size,
                                hidden_dim=cfg.hidden_dim, depth=cfg.depth,
@@ -4750,7 +4797,8 @@ def moe_card_vs_cpu(torch, dev, fa) -> dict:
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, VOCAB, (1, 1024)).astype(np.int32))
     task = MoeLanguageModelingTask()
-    model = get_model(MOE, attention_fn=make_flash_attention_fn(True))
+    model = get_model(MOE, depth=PP_DEPTH,
+                      attention_fn=make_flash_attention_fn(True))
     model.reset_parameters(torch.Generator().manual_seed(0))
     runs = []
     for device in (torch.device("cpu"), dev, dev):
@@ -4762,7 +4810,7 @@ def moe_card_vs_cpu(torch, dev, fa) -> dict:
                     "weight": torch.ones(1, device=device)}, True)
         loss.backward()
         if device.type == "cuda" and \
-                fa.flash_attention_bwd_dq.launches != before + DEPTH:
+                fa.flash_attention_bwd_dq.launches != before + PP_DEPTH:
             raise RuntimeError("the card's MoE backward did not run the "
                                "kernels")
         runs.append((loss.detach().cpu(), {
@@ -4889,9 +4937,9 @@ def pp_update_check(name: str, ranks: list, moved: dict) -> dict:
 
 def pp_want(moe: bool) -> dict:
     """K3-K5 launches of one rank over a run: gpt2_moe runs the kernels
-    in all 12 blocks (K3 in every forward, K4 and K5 in every backward);
-    the pipeline's stages run the einsum, no kernel."""
-    n = DEPTH if moe else 0
+    in all PP_DEPTH blocks (K3 in every forward, K4 and K5 in every
+    backward); the pipeline's stages run the einsum, no kernel."""
+    n = PP_DEPTH if moe else 0
     return {FLASH[0]: n * (PP_STEPS + PP_EVAL), FLASH[1]: n * PP_STEPS,
             FLASH[2]: n * PP_STEPS}
 
@@ -5515,6 +5563,564 @@ def serve_tp_kernel_fields(name: str, flash_rows, served: dict,
     return out
 
 
+# phase 27: the rest of the training mesh, GPT-2 124M and gpt2_moe at
+# full width cut to TP_DEPTH blocks, S 1024, MESH_BATCH rows a batch
+# coordinate, one epoch of MESH_STEPS steps and one padded evaluation
+# batch, weights from one seed, through train.main. (a) the fsdp axis:
+# fsdp=2 against data=2, fsdp=2,model=2 against data=2,model=2 (the same
+# rows: fsdp is a batch axis); (b) --zero1 on data=2,model=2 against the
+# run without it; (c) seq=2,model=2 under ring and Ulysses, fp32 and
+# --amp, step 1's loss against single-rank flash; (d) gpt2_moe at
+# model=2 against model=1 (the vocab padded to TP_PAD in both) and at
+# seq=2 under ring against seq=1 (flash). The 4-rank runs share one
+# torchrun, the 2-rank runs another; the one-rank runs are this
+# process's
+MESH_BATCH, MESH_STEPS, MESH_EVAL = 8, 2, 1
+# synthetic sequences by the batch axes' size: MESH_STEPS global batches,
+# and // 5 of them give one padded validation batch
+MESH_SYNTHETIC = {1: MESH_BATCH * MESH_STEPS, 2: 2 * MESH_BATCH * MESH_STEPS}
+MESH_FLAGS = ["--optimizer", "adamw", "--lr", "6e-4", "--synthetic",
+              "--epochs", "1", "--print-freq", "1", "--batch-size",
+              str(MESH_BATCH)]
+
+
+def _mesh_flags(model: str, attention: str, mesh: str, pad: bool = False):
+    overrides = TP_PAD_OVERRIDES if pad else TP_OVERRIDES
+    return (["--model", model, "--model-overrides", overrides,
+             "--attention", attention]
+            + (["--mesh", mesh] if mesh else []))
+
+
+# world -> [(name, flags, batch coordinates)]
+MESH_RUNS = {
+    4: [("fsdp=2,model=2 fp32", _mesh_flags(MODEL, "flash",
+                                            "fsdp=2,model=2"), 2),
+        ("data=2,model=2 fp32", _mesh_flags(MODEL, "flash",
+                                            "data=2,model=2"), 2),
+        ("data=2,model=2 zero1 fp32", _mesh_flags(
+            MODEL, "flash", "data=2,model=2") + ["--zero1"], 2),
+        ("seq=2,model=2 ring fp32", _mesh_flags(MODEL, "ring",
+                                                "seq=2,model=2"), 1),
+        ("seq=2,model=2 ring amp", _mesh_flags(
+            MODEL, "ring", "seq=2,model=2") + ["--amp"], 1),
+        ("seq=2,model=2 ulysses fp32", _mesh_flags(
+            MODEL, "ulysses", "seq=2,model=2"), 1),
+        ("seq=2,model=2 ulysses amp", _mesh_flags(
+            MODEL, "ulysses", "seq=2,model=2") + ["--amp"], 1)],
+    2: [("data=2 fp32", _mesh_flags(MODEL, "flash", "data=2"), 2),
+        ("fsdp=2 fp32", _mesh_flags(MODEL, "flash", "fsdp=2"), 2),
+        ("moe model=2 fp32", _mesh_flags(MOE, "flash", "model=2"), 1),
+        ("moe seq=2 ring fp32", _mesh_flags(MOE, "ring", "seq=2"), 1)],
+    1: [("moe model=1 fp32", _mesh_flags(MOE, "flash", "", pad=True), 1),
+        ("moe seq=1 fp32", _mesh_flags(MOE, "flash", ""), 1)],
+}
+# a q, k or v part of an attention's qkv.bias whose gradient at the
+# yardstick's draw is at most this share of its leaf's is zero up to
+# rounding: the key bias, since softmax is invariant to a per-query
+# shift. Adam's normalized update turns such a gradient's rounding into
+# steps of up to lr that differ between any two runs that round apart (a
+# development run of the ring against flash on an NVIDIA H100 80GB HBM3
+# at 700 W read 0.0826 of its movement in blocks.1.attn.qkv.bias), so
+# the parameters' bound leaves those parts out, and their readings are
+# logged on their own
+ZERO_GRAD_REL = 1e-3
+QKV_PARTS = ("q", "k", "v")
+# (run, its yardstick, whose draw pads the vocab); every pair's final
+# parameters are held to TP_PARAM_REL["fp32"]
+MESH_PAIRS = [("fsdp=2 fp32", "data=2 fp32", False),
+              ("fsdp=2,model=2 fp32", "data=2,model=2 fp32", True),
+              ("data=2,model=2 zero1 fp32", "data=2,model=2 fp32", True),
+              ("moe model=2 fp32", "moe model=1 fp32", True),
+              ("moe seq=2 ring fp32", "moe seq=1 fp32", False)]
+MESH_NOTE = ("ranks sharing one card over gloo: correctness, and the cost "
+             "through host memory, not scaling")
+# the at-rest bytes of a sharded run against its yardstick's, a rank: the
+# fsdp axis's parameters and moments (every kernel and embedding on 2
+# ranks: half, but LayerNorms and biases whole), ZeRO-1's moments
+MESH_REST_SHARE = 0.55
+
+
+def mesh_case_launches(name: str, seq_index: int) -> dict:
+    """{FLASH_CASES shape: {kernel: launches}} of phase 27 run ``name`` on
+    a rank at ``seq_index``: a block's K3 in every forward, K4 and K5 in
+    every backward, at the shape each run gives them (the ring's rank s
+    runs the diagonal block and s past ones; Ulysses 3 heads of the
+    whole sequence)."""
+    fwd, bwd = TP_DEPTH * (MESH_STEPS + MESH_EVAL), TP_DEPTH * MESH_STEPS
+    amp = " bf16" if name.endswith("amp") else ""
+
+    def one(shape, blocks=1):
+        return {shape: {FLASH[0]: fwd * blocks, FLASH[1]: bwd * blocks,
+                        FLASH[2]: bwd * blocks}}
+
+    if "ring" in name and "model=2" in name:
+        out = one("sp tp ring" + amp)
+        if seq_index:
+            out.update(one("bert tp" + amp, seq_index))
+        return out
+    if "ulysses" in name:
+        return one("sp tp ulysses" + amp)
+    if "ring" in name:                      # gpt2_moe at seq=2: 12 heads
+        out = one("ring diagonal" + amp)
+        if seq_index:
+            out.update(one("bert non-causal" + amp, seq_index))
+        return out
+    if "model=2" in name:                   # 6 of the 12 heads a rank
+        return one("ulysses" + amp)
+    return one("main fp32" if not amp else "main bf16")
+
+
+def mesh_want(name: str, seq_index: int) -> dict:
+    """K3-K5 launches a rank of phase 27 run ``name`` (K1 and K2: none)."""
+    want = {QUANTIZE: 0, DEQUANT: 0, **{k: 0 for k in FLASH}}
+    for counts in mesh_case_launches(name, seq_index).values():
+        for k, n in counts.items():
+            want[k] += n
+    return want
+
+
+def mesh_run(torch, kernels, fa, argv, save=None) -> dict:
+    """One phase 27 run of ``train.main`` in this process, the launch
+    counts set to 0 just before and read just after: every step's loss,
+    wall ms (synchronized) and, for gpt2_moe, aux losses and dropped
+    assignments (those sent to the overflow bin, over this rank's rows);
+    the at-rest parameter and moment bytes; this rank's coordinates. The
+    final global parameters (``checkpoint.global_params``, a collective)
+    go to ``save`` from rank 0."""
+    import torch.distributed as dist
+
+    from distributed_pytorch_training_tpu_torch.models.moe import (
+        expert_capacity,
+    )
+    from distributed_pytorch_training_tpu_torch.training import Trainer
+    from distributed_pytorch_training_tpu_torch.training.checkpoint import (
+        global_params,
+    )
+
+    record = {"ms": [], "losses": [], "aux": [], "dropped": []}
+    step = Trainer.train_step
+
+    def recording(self, state, batch):
+        t0 = time.perf_counter()
+        m = step(self, state, batch)
+        torch.cuda.synchronize()
+        record["ms"].append((time.perf_counter() - t0) * 1e3)
+        record["losses"].append(float(m["loss_sum"]) / float(m["weight"]))
+        record["coords"] = self.mesh.coords()
+        model = state.model
+        if getattr(model, "aux_losses", None):
+            record["aux"].append([a.item() for a in model.aux_losses])
+            dropped = 0
+            for block in model.blocks:
+                moe = getattr(block, "moe", None)
+                if moe is None:
+                    continue
+                dest = moe.last_dispatch
+                cap = expert_capacity(dest.shape[1] // moe.top_k, moe.top_k,
+                                      moe.num_experts, moe.capacity_factor)
+                dropped += int((dest == moe.num_experts * cap).sum())
+            record["dropped"].append(dropped)
+        return m
+
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    reset_staged(fa)
+    Trainer.train_step = recording
+    t0 = time.perf_counter()
+    try:
+        state = train_main(argv)
+    finally:
+        Trainer.train_step = step
+    torch.cuda.synchronize()
+    run_seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    moments = [t for slots in state.optimizer.state.values()
+               for t in slots.values() if t.dim() >= 1]
+    rep = {"launches": launches, "staged_copies": staged_copies(fa),
+           "steps": state.step, "losses": record["losses"],
+           "step_ms": record["ms"], "aux": record["aux"],
+           "dropped": record["dropped"], "coords": record["coords"],
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in state.params),
+           "moment_bytes": sum(t.numel() * t.element_size()
+                               for t in moments)}
+    t0 = time.perf_counter()
+    full = global_params(state)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if save is not None and rank == 0:
+        torch.save({k: v.cpu() for k, v in full.items()}, save)
+    del state, moments, full
+    torch.cuda.empty_cache()
+    rep.update(run_seconds=run_seconds,
+               save_seconds=time.perf_counter() - t0)
+    return rep
+
+
+def mesh_worker(argv) -> int:
+    """One torchrun rank of phase 27: `mesh_run` for each run of the JSON
+    list ``argv[1]`` ([name, flags, output directory, save path or
+    null]), the process group kept between them; writes this rank's
+    reports to ``argv[0]``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from distributed_pytorch_training_tpu_torch import train
+    from distributed_pytorch_training_tpu_torch.runtime import (
+        setup_distributed,
+    )
+
+    from distributed_pytorch_training_tpu_torch.ops.quantize import (
+        dequant_sum_rows,
+        quantize_int8_rows,
+    )
+
+    fa = flash_module()
+    kernels = {QUANTIZE: quantize_int8_rows, DEQUANT: dequant_sum_rows,
+               **{name: getattr(fa, name) for name in FLASH}}
+    out_path, runs = Path(argv[0]), json.loads(Path(argv[1]).read_text())
+    rank = int(os.environ["RANK"])
+    setup_distributed(torch.device("cuda"))
+    cleanup = train.cleanup_distributed
+    train.cleanup_distributed = lambda: None    # one group for every run
+    report = {}
+    try:
+        for name, flags, run_dir, save in runs:
+            report[name] = mesh_run(torch, kernels, fa,
+                                    flags + ["--output-dir", run_dir], save)
+    finally:
+        train.cleanup_distributed = cleanup
+    (out_path.parent / f"{out_path.name}{rank}.json").write_text(
+        json.dumps(report))
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_first_loss(torch, amp: bool) -> float:
+    """Single-rank flash's loss on the first global batch of phase 27's
+    seq=2,model=2 runs (one batch coordinate), from the draw those runs
+    make (the vocab padded to TP_PAD), no update: (c)'s yardstick."""
+    from distributed_pytorch_training_tpu_torch.data.text import (
+        TokenLoader,
+        get_token_dataset,
+    )
+    from distributed_pytorch_training_tpu_torch.training.tasks import (
+        LanguageModelingTask,
+    )
+    from distributed_pytorch_training_tpu_torch.utils import parse_args
+
+    dtype = torch.bfloat16 if amp else torch.float32
+    model = tp_global_model(torch, dtype).cuda()
+    seed = parse_args([]).seed
+    ds = get_token_dataset("gpt2", 1024, train=True,
+                           synthetic_size=MESH_SYNTHETIC[1], seed=seed)
+    batch = next(iter(TokenLoader(ds, MESH_BATCH, shuffle=True, seed=seed,
+                                  device=torch.device("cuda", 0)).epoch(0)))
+    with torch.no_grad():
+        _, m, _ = LanguageModelingTask(compute_dtype=dtype).loss_and_metrics(
+            model, batch, True)
+    loss = float(m["loss_sum"]) / float(m["weight"])
+    del model
+    torch.cuda.empty_cache()
+    return loss
+
+
+def mesh_draw(torch, model: str, pad: bool) -> dict:
+    """The global draw phase 27's runs of ``model`` start from (the
+    vocab padded to TP_PAD when ``pad``), on the CPU."""
+    from distributed_pytorch_training_tpu_torch.models import get_model
+    from distributed_pytorch_training_tpu_torch.utils import parse_args
+
+    kw = {"pad_vocab_to_multiple_of": TP_PAD} if pad else {}
+    net = get_model(model, depth=TP_DEPTH, **kw)
+    net.reset_parameters(torch.Generator().manual_seed(parse_args([]).seed))
+    return {n: p.detach() for n, p in net.named_parameters()}
+
+
+def mesh_zero_grad_parts(torch, model: str, pad: bool, init: dict) -> dict:
+    """{qkv.bias leaf: the indices of its q, k, v parts whose gradient is
+    zero up to rounding} of the draw ``init`` of ``model``, and each
+    part's gradient norm as a share of its leaf's: one fp32
+    loss-and-backward under flash attention on the card, on the first
+    row of the one-rank runs' data (the yardstick's draw; which part is
+    zero does not depend on the rows)."""
+    from distributed_pytorch_training_tpu_torch.data.text import (
+        TokenLoader,
+        get_token_dataset,
+    )
+    from distributed_pytorch_training_tpu_torch.models import get_model
+    from distributed_pytorch_training_tpu_torch.ops import (
+        make_flash_attention_fn,
+    )
+    from distributed_pytorch_training_tpu_torch.training.tasks import (
+        LanguageModelingTask,
+        MoeLanguageModelingTask,
+    )
+    from distributed_pytorch_training_tpu_torch.utils import parse_args
+
+    kw = {"pad_vocab_to_multiple_of": TP_PAD} if pad else {}
+    net = get_model(model, depth=TP_DEPTH, **kw,
+                    attention_fn=make_flash_attention_fn(causal=True))
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            p.copy_(init[name])
+    net.cuda()
+    seed = parse_args([]).seed
+    ds = get_token_dataset("gpt2", 1024, train=True,
+                           synthetic_size=MESH_SYNTHETIC[1], seed=seed)
+    batch = next(iter(TokenLoader(ds, 1, shuffle=True, seed=seed,
+                                  device=torch.device("cuda", 0)).epoch(0)))
+    task = (MoeLanguageModelingTask() if model == MOE
+            else LanguageModelingTask())
+    loss, _, _ = task.loss_and_metrics(net, batch, True)
+    loss.backward()
+    out, shares = {}, {}
+    for name, p in net.named_parameters():
+        if not name.endswith("attn.qkv.bias"):
+            continue
+        g = p.grad.detach().float()
+        share = [float(torch.linalg.vector_norm(g[i])
+                       / torch.linalg.vector_norm(g))
+                 for i in range(len(QKV_PARTS))]
+        shares[name] = share
+        out[name] = [i for i, x in enumerate(share) if x <= ZERO_GRAD_REL]
+    del net
+    torch.cuda.empty_cache()
+    return {"parts": out, "grad_shares": shares}
+
+
+def mesh_update_check(torch, run_path, ref_path, init, left_out) -> dict:
+    """Each leaf's distance between two runs' final global parameters as
+    a share of the yardstick's movement from the draw, without the
+    ``left_out`` parts ({leaf: part indices along dim 0}): {"worst",
+    "leaf", "whole"} (an update that did nothing reads 1), and each
+    qkv.bias's q, k and v parts' readings ("qkv_parts"; the left-out
+    ones under "left_out")."""
+    got = torch.load(run_path, weights_only=True)
+    ref = torch.load(ref_path, weights_only=True)
+    if set(got) != set(ref) or set(ref) != set(init):
+        raise RuntimeError(f"phase 27: {run_path.name} and {ref_path.name} "
+                           "hold different leaves")
+
+    def norm(t):
+        return float(torch.linalg.vector_norm(t))
+
+    off, moved, parts, dropped = {}, {}, {}, {}
+    for n in ref:
+        d, m = got[n] - ref[n], ref[n] - init[n]
+        if n in left_out:
+            parts[n] = [norm(d[i]) / norm(m[i])
+                        for i in range(len(QKV_PARTS))]
+            for i in left_out[n]:
+                dropped[f"{n}[{QKV_PARTS[i]}]"] = parts[n][i]
+            keep = [i for i in range(d.shape[0]) if i not in left_out[n]]
+            d, m = d[keep], m[keep]
+        off[n], moved[n] = norm(d), norm(m)
+    rel = {n: off[n] / moved[n] for n in ref}
+    leaf = max(rel, key=rel.get)
+    return {"worst": rel[leaf], "leaf": leaf, "whole": math.sqrt(
+        sum(o * o for o in off.values())
+        / sum(m * m for m in moved.values())),
+        "qkv_parts": parts, "left_out": dropped}
+
+
+def mesh_train(torch, fa, card: str) -> dict:
+    """Phase 27 (see the comment above MESH_BATCH)."""
+    import tempfile
+
+    from distributed_pytorch_training_tpu_torch.ops.quantize import (
+        dequant_sum_rows,
+        quantize_int8_rows,
+    )
+
+    out_dir = ROOT / "chiprun_out" / "mesh"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    kernels = {QUANTIZE: quantize_int8_rows, DEQUANT: dequant_sum_rows,
+               **{name: getattr(fa, name) for name in FLASH}}
+    saved = {n for pair in MESH_PAIRS for n in pair[:2]}
+    report, runs = {}, {}
+    with tempfile.TemporaryDirectory() as ref_dir:
+        def plan(name, flags, coords):
+            tag = name.replace(" ", "_").replace("=", "").replace(",", "_")
+            return [name, MESH_FLAGS + flags + [
+                "--synthetic-size", str(MESH_SYNTHETIC[coords])],
+                str(out_dir / tag),
+                str(Path(ref_dir) / f"{tag}.pt") if name in saved else None]
+
+        t0 = time.perf_counter()
+        report["(c) reference losses"] = {
+            amp: mesh_first_loss(torch, amp) for amp in (False, True)}
+        for name, flags, coords in MESH_RUNS[1]:
+            run = plan(name, flags, coords)
+            runs[name] = {"ranks": [mesh_run(
+                torch, kernels, fa, run[1] + ["--output-dir", run[2]],
+                run[3])], "save": run[3]}
+        report["one_rank_seconds"] = time.perf_counter() - t0
+        for world in (4, 2):
+            t0 = time.perf_counter()
+            plans = [plan(*r) for r in MESH_RUNS[world]]
+            plan_path = out_dir / f"world{world}_runs.json"
+            plan_path.write_text(json.dumps(plans))
+            out = run_torchrun([str(out_dir / f"world{world}_rank"),
+                                str(plan_path)], timeout=900, nproc=world,
+                               mode="--mesh-worker")
+            (out_dir / f"world{world}_stdout.txt").write_text(out)
+            ranks = [json.loads((out_dir / f"world{world}_rank{r}.json")
+                                .read_text()) for r in range(world)]
+            for name, _, _, save in plans:
+                runs[name] = {"ranks": [rep[name] for rep in ranks],
+                              "save": save}
+            report[f"torchrun_{world}_seconds"] = time.perf_counter() - t0
+        # every run: its launches exact, no staged copy, finite losses
+        for name, run in runs.items():
+            for r, rep in enumerate(run["ranks"]):
+                want = mesh_want(name, rep["coords"]["seq"])
+                if rep["launches"] != want or rep["steps"] != MESH_STEPS \
+                        or rep["staged_copies"] or not all(
+                            math.isfinite(x) for x in rep["losses"]):
+                    raise RuntimeError(
+                        f"phase 27 {name} rank {r}: {rep['steps']} steps, "
+                        f"launches {rep['launches']}, {rep['staged_copies']}"
+                        f" staged copies, losses {rep['losses']} (expected "
+                        f"{MESH_STEPS}, {want}, 0, finite)")
+            rep0 = run["ranks"][0]
+            ms = rep0["step_ms"][1:]
+            report[name] = {
+                "launches_per_rank": [rep["launches"] for rep in run["ranks"]],
+                "losses": rep0["losses"], "aux": rep0["aux"],
+                "dropped": rep0["dropped"], "step_ms": rep0["step_ms"],
+                "run_seconds": rep0["run_seconds"],
+                "save_seconds": rep0["save_seconds"],
+                "ms_per_step": sum(ms) / len(ms),
+                "param_bytes_per_rank": [rep["param_bytes"]
+                                         for rep in run["ranks"]],
+                "moment_bytes_per_rank": [rep["moment_bytes"]
+                                          for rep in run["ranks"]]}
+        # (a), (b), (d): a run against its yardstick
+        t0 = time.perf_counter()
+        draws, zero = {}, {}
+        bound = TP_PARAM_REL["fp32"]
+        for name, ref_name, pad in MESH_PAIRS:
+            run, ref = report[name], report[ref_name]
+            moe = name.startswith("moe")
+            key = (moe, pad)
+            if key not in draws:
+                draws.clear()
+                draws[key] = mesh_draw(torch, MOE if moe else MODEL, pad)
+                zero = mesh_zero_grad_parts(torch, MOE if moe else MODEL,
+                                            pad, draws[key])
+            diffs = [abs(a - b) for a, b in zip(run["losses"],
+                                                ref["losses"])]
+            update = mesh_update_check(torch, Path(runs[name]["save"]),
+                                       Path(runs[ref_name]["save"]),
+                                       draws[key], zero["parts"])
+            update["qkv_bias_grad_shares"] = zero["grad_shares"]
+            run.update(yardstick=ref_name, loss_abs_diffs=diffs,
+                       update=update, param_rel_bound=bound)
+            rest = (max(run["param_bytes_per_rank"])
+                    / max(ref["param_bytes_per_rank"]),
+                    max(run["moment_bytes_per_rank"])
+                    / max(ref["moment_bytes_per_rank"]))
+            run["at_rest_share"] = rest
+            tag = ("(d)" if moe else "(b)" if "zero1" in name else "(a)")
+            aux_note = ""
+            if moe:
+                aux_diffs = [abs(a - b) for x, y in zip(run["aux"],
+                                                        ref["aux"])
+                             for a, b in zip(x, y)]
+                run["aux_abs_diffs"] = aux_diffs
+                aux_note = (f"; aux losses {run['aux']!r} against "
+                            f"{ref['aux']!r} (|diff| {aux_diffs!r}, "
+                            f"tolerance {LOSS_ATOL}); dropped "
+                            f"assignments {run['dropped']} against "
+                            f"{ref['dropped']}")
+                if not (all(d <= LOSS_ATOL for d in aux_diffs)
+                        and run["dropped"] == ref["dropped"]):
+                    raise RuntimeError(f"phase 27 {tag} {name}: aux "
+                                       f"{run['aux']} / dropped "
+                                       f"{run['dropped']} against "
+                                       f"{ref['aux']} / {ref['dropped']}")
+            log(f"phase 27 {tag} {name} [{card}]: launches a rank "
+                f"{run['launches_per_rank'][0]}; losses {run['losses']!r} "
+                f"against {ref_name}'s {ref['losses']!r} (|diff| {diffs!r},"
+                f" tolerance {LOSS_ATOL}); final parameters off it by "
+                f"{update['worst']!r} of its movement at worst "
+                f"({update['leaf']}), {update['whole']!r} over the model "
+                f"(bounds {bound}), leaving out the qkv.bias parts whose "
+                f"gradient at the draw is at most {ZERO_GRAD_REL} of their "
+                f"leaf's, which read {update['left_out']!r}; at rest a "
+                f"rank: params "
+                f"{run['param_bytes_per_rank']} B against "
+                f"{ref['param_bytes_per_rank']} B, AdamW moments "
+                f"{run['moment_bytes_per_rank']} B against "
+                f"{ref['moment_bytes_per_rank']} B{aux_note}; "
+                f"{run['ms_per_step']:.1f} ms a step after the first "
+                f"({MESH_NOTE})")
+            worst, whole = bound
+            if not (all(d <= LOSS_ATOL for d in diffs)
+                    and update["worst"] <= worst
+                    and update["whole"] <= whole):
+                raise RuntimeError(f"phase 27 {tag} {name}: losses |diff| "
+                                   f"{diffs}, parameters {update}")
+            fsdp = "fsdp" in name
+            if fsdp and not (rest[0] <= MESH_REST_SHARE
+                             and rest[1] <= MESH_REST_SHARE):
+                raise RuntimeError(f"phase 27 {tag} {name}: at rest "
+                                   f"{rest} of {ref_name}'s")
+            if "zero1" in name and not (rest[0] == 1.0
+                                        and rest[1] <= MESH_REST_SHARE):
+                raise RuntimeError(f"phase 27 {tag} {name}: at rest "
+                                   f"{rest} of {ref_name}'s")
+        draws.clear()
+        report["checks_seconds"] = time.perf_counter() - t0
+    # (c): step 1's loss against single-rank flash
+    for name, _, _ in MESH_RUNS[4]:
+        if not name.startswith("seq"):
+            continue
+        amp = name.endswith("amp")
+        want = report["(c) reference losses"][amp]
+        got = report[name]["losses"][0]
+        tol = BF16_LOSS_ATOL if amp else LOSS_ATOL
+        report[name].update(step1_reference=want, step1_abs_diff=abs(
+            got - want), tolerance=tol)
+        log(f"phase 27 (c) {name} [{card}]: K3-K5 launches a rank "
+            f"{report[name]['launches_per_rank']}; step 1 loss {got!r} "
+            f"against single-rank flash {want!r} (|diff| {abs(got - want)!r},"
+            f" tolerance {tol}); {report[name]['ms_per_step']:.1f} ms a "
+            f"step after the first ({MESH_NOTE})")
+        if not abs(got - want) <= tol:
+            raise RuntimeError(f"phase 27 (c) {name}: step 1 loss {got} "
+                               f"against {want}")
+    report["ranks"] = {name: run["ranks"] for name, run in runs.items()}
+    return report
+
+
+def mesh_kernel_fields(name: str, flash_rows, mesh: dict) -> dict:
+    """Phase 27's share of flash kernel ``name``, every rank of every
+    run: ``mesh_*`` over the float32 runs, ``mesh_bf16_*`` over
+    ``--amp``, each launch at the FLASH_CASES shape it ran
+    (`mesh_case_launches`), with SDPA's time."""
+    shape = {r["shape"]: r for r in flash_rows}
+    out = {}
+    for prefix in ("mesh_", "mesh_bf16_"):
+        for key in ("launches", "ms", "plain_ms", "bound_ms", "library_ms"):
+            out[prefix + key] = 0
+    for run, ranks in mesh["ranks"].items():
+        prefix = "mesh_bf16_" if run.endswith("amp") else "mesh_"
+        for rep in ranks:
+            for case, counts in mesh_case_launches(
+                    run, rep["coords"]["seq"]).items():
+                n, row = counts[name], shape[case]
+                out[prefix + "launches"] += n
+                for key in ("ms", "plain_ms", "bound_ms"):
+                    out[prefix + key] += row[key][name] * n
+                out[prefix + "library_ms"] += n * (
+                    row["sdpa_fwd_ms"] if name.endswith("fwd_lse")
+                    else row["sdpa_bwd_ms"])
+    return out
+
+
 def lm_mfu(torch, rates: list, context: str):
     """The step line's samples/s as MFU for a 1024-token GPT-2 124M
     sequence (`model_mfu`). Returns (MFU % per rate, the forward FLOPs,
@@ -5909,7 +6515,7 @@ def main() -> int:
 
     # phase 25: GPipe over the mesh's pipe axis (GPT-2 124M, no kernel in
     # the stages) and gpt2_moe on one rank and over the expert axis (K3-K5
-    # in all 12 blocks), on ranks sharing the card
+    # in all PP_DEPTH blocks), on ranks sharing the card
     t0 = time.perf_counter()
     pipe_expert = pp_train(torch, fa, card)
     torch.cuda.empty_cache()
@@ -5927,6 +6533,13 @@ def main() -> int:
     bert_tp = bert_tp_train(torch, card)
     torch.cuda.empty_cache()
     log(f"phase 26 done in {time.perf_counter() - t0:.1f} s")
+
+    # phase 27: the rest of the training mesh (the fsdp axis, ZeRO-1 x TP,
+    # SP x TP, gpt2_moe on model and on seq) on ranks sharing the card
+    t0 = time.perf_counter()
+    mesh27 = mesh_train(torch, fa, card)
+    torch.cuda.empty_cache()
+    log(f"phase 27 done in {time.perf_counter() - t0:.1f} s")
 
     # phase 17: the kernels line; K1 and K2 summed over their launches on
     # the data-parallel paths (rank 0 of every phase 12, phase 19 and
@@ -6000,6 +6613,7 @@ def main() -> int:
         "tp_codec_per_shape": list(tp_codec.values()),
         "pipe_expert": pipe_expert,
         "serve_non_lm": served26, "bert_vit_tp": bert_tp,
+        "mesh": mesh27,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -6018,6 +6632,7 @@ def main() -> int:
                                         tensor_parallel))
             row.update(moe_kernel_fields(row["name"], flash_rows,
                                          pipe_expert))
+            row.update(mesh_kernel_fields(row["name"], flash_rows, mesh27))
         row.update(serve_tp_kernel_fields(row["name"], flash_rows, served26,
                                           bert_tp))
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -6035,4 +6650,6 @@ if __name__ == "__main__":
         sys.exit(tp_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--pp-worker"]:
         sys.exit(pp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2:]))
     sys.exit(main())

@@ -41,6 +41,13 @@ after it. The parameter names are the unsplit modules', so a TP-local
 model holds slices of the same tree (``tp_fsdp_rules`` is the layout;
 ``parallel/sharding.py`` reads it). The JAX package's refusals stay:
 heads or hidden width not divisible by M, dropout, and a KV cache.
+
+The ``fsdp`` axis (GSPMD's d_model sharding): a leaf the rules place on
+``fsdp`` is held as its 1/F slice along that dim (marked with
+``collectives.FsdpShard``) and each module reads it through
+``collectives.gathered``, which gathers it whole for the product and
+reduce-scatters its gradient back (``training/loop.py`` makes the
+slices; a TP-local leaf's slice is cut again).
 """
 
 from __future__ import annotations
@@ -55,7 +62,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..parallel.collectives import (TpAxis, TpShardedLogits, copy_to_tp,
-                                    reduce_from_tp)
+                                    gathered, reduce_from_tp)
 from ..parallel.mesh import FSDP, MODEL
 from ..parallel.sharding import PartitionRules
 from ..runtime import not_ported
@@ -328,7 +335,7 @@ class DenseGeneral(nn.Module):
         lead = x.shape[:x.dim() - len(self.in_shape)]
         fan_in, fan_out = math.prod(self.in_shape), math.prod(self.out_shape)
         y = (x.to(self.dtype).reshape(*lead, fan_in)
-             @ self.kernel.to(self.dtype).reshape(fan_in, fan_out))
+             @ gathered(self.kernel).to(self.dtype).reshape(fan_in, fan_out))
         if self.bias is not None:
             y = y + self.bias.to(self.dtype).reshape(fan_out)
         return y.reshape(*lead, *self.out_shape)
@@ -363,10 +370,10 @@ class Embed(nn.Module):
             torch.empty(num_embeddings, features, device=device))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.embedding.to(self.dtype))
+        return F.embedding(ids, gathered(self.embedding).to(self.dtype))
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype) @ self.embedding.to(self.dtype).T
+        return x.to(self.dtype) @ gathered(self.embedding).to(self.dtype).T
 
     def one_hot_lookup(self, ids: torch.Tensor) -> torch.Tensor:
         """The lookup as a one-hot product: the same values (each output
@@ -376,7 +383,7 @@ class Embed(nn.Module):
         sums in an order that varies from run to run (an H100, a 2-row
         table, 4096 lookups of one row)."""
         hot = F.one_hot(ids.long(), self.embedding.shape[0])
-        return hot.to(self.dtype) @ self.embedding.to(self.dtype)
+        return hot.to(self.dtype) @ gathered(self.embedding).to(self.dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -429,7 +436,7 @@ class RowParallelDense(nn.Module):
         lead = x.shape[:x.dim() - len(self.in_shape)]
         fan_in = math.prod(self.in_shape)
         y = (x.to(self.dtype).reshape(*lead, fan_in)
-             @ self.kernel.to(self.dtype).reshape(fan_in, -1))
+             @ gathered(self.kernel).to(self.dtype).reshape(fan_in, -1))
         y = reduce_from_tp(y, self.tp)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
@@ -731,9 +738,8 @@ def tp_fsdp_rules() -> PartitionRules:
     """The layout table every transformer ships (the JAX package's
     ``tp_fsdp_rules``): megatron TP over ``model`` on the head and neuron
     dims, FSDP over ``fsdp`` on the complementary d_model dim of the same
-    kernels. The port reads only its ``model`` entries
-    (``parallel.sharding.tp_split_dims``); the ``fsdp`` axis is not
-    ported yet."""
+    kernels. ``parallel.sharding.tp_split_dims`` reads its ``model``
+    entries and ``fsdp_split_dims`` its ``fsdp`` ones."""
     return PartitionRules([
         (r"attn/qkv/kernel", (FSDP, None, MODEL, None)),
         (r"attn/qkv/bias", (None, MODEL, None)),

@@ -31,6 +31,27 @@ their share of each token, and ``reduce_from_tp`` sums the shares. A
 rank's view of the other experts' slots reads zeros, so the sum is the
 one-rank combine, term for term.
 
+Tensor parallelism (``tp``, the ``model`` axis, M > 1; ``moe_rules() +
+tp_fsdp_rules()``): attention and the dense blocks' MLPs take megatron's
+column/row-split forms and ``wte`` is vocab-split (the vocab padded to
+lcm(128, M) by the entry), as GPT-2's; the router and every MoE layer's
+experts stay whole on every model rank (the rules place ``wi`` and ``wo``
+on ``expert`` only), so each model rank routes and runs the experts
+alike and their gradients need no model-axis sum.
+
+Sequence parallelism (``seq``, M > 1): a rank embeds and runs its own S/N
+positions (``pos_offset``, as GPT-2). GShard's routing groups are whole
+rows, so each MoE layer gathers its input's row over ``seq``
+(``collectives.gather_on_use``: the backward sums over the seq ranks and
+keeps this rank's slice), routes and runs the experts on the whole row,
+bitwise the unsharded dispatch on the same row, and keeps its own
+positions of the output. ``frac_tokens`` and ``frac_probs`` are means
+over the global batch: over the ranks of the batch line (``batch``, the
+data x fsdp ranks) they are summed (``all_sum``, differentiable) and
+divided by its size, so the aux loss is JAX's global one on every rank.
+``last_dispatch`` keeps each assignment's destination slot of the last
+forward (the overflow bin, E C, for a dropped one).
+
 ``router_noise`` > 0 draws from flax's ``dropout`` stream, which the port
 does not reproduce: it is refused, as dropout is. ``remat`` recomputes
 the dense blocks only, as JAX's.
@@ -45,14 +66,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.collectives import TpAxis, copy_to_tp, reduce_from_tp
+from ..parallel.collectives import (TpAxis, all_sum, copy_to_tp,
+                                    gather_on_use, psum, reduce_from_tp)
 from ..parallel.mesh import EXPERT
 from ..parallel.sharding import PartitionRules
 from ..runtime import not_ported
 from .layers import (Dense, Embed, LayerNorm, MultiHeadAttention,
                      TransformerBlock, VocabPaddingMixin, _TRUNC_STD,
                      causal_mask, dot_product_attention, gelu,
-                     mask_vocab_padding, remat_call, tp_fsdp_rules)
+                     mask_vocab_padding, remat_call, tp_fsdp_rules,
+                     vocab_parallel_embed, vocab_parallel_logits)
 from .registry import register_model
 
 ROUTER_NOISE = "the dropout slice (flax's dropout stream for router noise)"
@@ -75,7 +98,9 @@ class MoeMlp(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  activation: Callable = gelu, router_noise: float = 0.0,
                  dispatch_mode: str = "sorted",
-                 expert: Optional[TpAxis] = None, device=None):
+                 expert: Optional[TpAxis] = None,
+                 seq: Optional[TpAxis] = None,
+                 batch: Optional[TpAxis] = None, device=None):
         super().__init__()
         if router_noise:
             raise not_ported("router_noise > 0", ROUTER_NOISE)
@@ -83,6 +108,8 @@ class MoeMlp(nn.Module):
             raise ValueError(f"dispatch_mode {dispatch_mode!r} is not "
                              "'sorted' or 'einsum'")
         self.expert = expert = expert if expert is not None else TpAxis(1)
+        self.seq = seq if seq is not None else TpAxis(1)
+        self.batch = batch if batch is not None else TpAxis(1)
         if num_experts % expert.size:
             raise ValueError(f"num_experts={num_experts} not divisible by "
                              f"the mesh's expert={expert.size}")
@@ -97,6 +124,7 @@ class MoeMlp(nn.Module):
         self.wo = nn.Parameter(torch.empty(local, hidden_dim, features,
                                            device=device))
         self.last_aux: Optional[torch.Tensor] = None
+        self.last_dispatch: Optional[torch.Tensor] = None
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -108,6 +136,9 @@ class MoeMlp(nn.Module):
                                   generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        seq, width = self.seq, x.shape[1]
+        # GShard's groups are whole rows: a sequence shard gathers its row
+        x = gather_on_use(x, 1, seq)
         b, s, d = x.shape
         e, k = self.num_experts, self.top_k
         cap = expert_capacity(s, k, e, self.capacity_factor)
@@ -117,6 +148,11 @@ class MoeMlp(nn.Module):
                     else self._dispatch_einsum)
         xin, combine_fn, frac_tokens = dispatch(x, probs, b, s, d, e, cap)
         frac_probs = probs.reshape(-1, e).mean(0)
+        batch = self.batch
+        if batch.size > 1:
+            # means over the global batch (every rank holds as many rows)
+            frac_probs = all_sum(frac_probs, batch.group) / batch.size
+            frac_tokens = psum(frac_tokens, batch.group) / batch.size
         self.last_aux = e * torch.sum(frac_tokens * frac_probs) / k
         # this rank's experts: slots [lo, lo + E/ep) of the buffer
         ep = self.expert
@@ -126,7 +162,9 @@ class MoeMlp(nn.Module):
         h = self.activation(torch.einsum(
             "becd,edh->bech", xin, self.wi.to(self.dtype)))
         out = torch.einsum("bech,ehd->becd", h, self.wo.to(self.dtype))
-        return reduce_from_tp(combine_fn(out, lo, n_local), ep)
+        y = reduce_from_tp(combine_fn(out, lo, n_local), ep)
+        return y[:, seq.index * width:(seq.index + 1) * width] \
+            if seq.size > 1 else y
 
     def _topk(self, probs, b, s):
         """(expert ids, gates) per assignment, flattened FIRST-CHOICE
@@ -159,6 +197,7 @@ class MoeMlp(nn.Module):
         # overflow assignments land in a sacrificial bin at E * cap
         dest = torch.where(kept, eids * cap + ranks,
                            torch.full_like(eids, e * cap))
+        self.last_dispatch = dest.detach()
         tok = torch.arange(n, device=dev) % s   # k-major: token of slot n
         x_gath = x.to(self.dtype)[:, tok]       # (B, N, d)
         xin_flat = torch.zeros(b, e * cap + 1, d, dtype=self.dtype,
@@ -238,18 +277,20 @@ class MoeTransformerBlock(nn.Module):
                  layernorm_epsilon: float = 1e-5,
                  attention_fn: Callable = dot_product_attention,
                  router_noise: float = 0.0, dispatch_mode: str = "sorted",
-                 expert: Optional[TpAxis] = None, device=None):
+                 expert: Optional[TpAxis] = None,
+                 tp: Optional[TpAxis] = None, seq: Optional[TpAxis] = None,
+                 batch: Optional[TpAxis] = None, device=None):
         super().__init__()
         self.ln1 = LayerNorm(features, layernorm_epsilon, device, dtype)
         self.attn = MultiHeadAttention(features, num_heads, head_dim,
-                                       attention_fn=attention_fn,
+                                       attention_fn=attention_fn, tp=tp,
                                        dtype=dtype, device=device)
         self.ln2 = LayerNorm(features, layernorm_epsilon, device, dtype)
         self.moe = MoeMlp(features, num_experts, mlp_dim, top_k,
                           capacity_factor, dtype,
                           router_noise=router_noise,
                           dispatch_mode=dispatch_mode, expert=expert,
-                          device=device)
+                          seq=seq, batch=batch, device=device)
 
     def forward(self, x, mask=None):
         x = x + self.attn(self.ln1(x), mask=mask)
@@ -259,7 +300,9 @@ class MoeTransformerBlock(nn.Module):
 class GPT2MoELMHead(VocabPaddingMixin, nn.Module):
     """GPT-2-style causal LM with MoE feed-forwards on alternating layers
     (layer i is MoE iff i % moe_every == moe_every - 1). ``expert``, when
-    given, makes the model expert-local (``clone``)."""
+    given, makes the model expert-local and ``tp`` model-local
+    (``clone``); ``seq`` and ``batch`` are the lines the MoE layers
+    gather a row and average the routing statistics over."""
 
     def __init__(self, vocab_size: int = 50257, hidden_dim: int = 768,
                  depth: int = 12, num_heads: int = 12,
@@ -271,7 +314,9 @@ class GPT2MoELMHead(VocabPaddingMixin, nn.Module):
                  attention_fn: Callable = dot_product_attention,
                  router_noise: float = 0.0, dispatch_mode: str = "sorted",
                  remat: bool = False, pad_vocab_to_multiple_of: int = 0,
-                 expert: Optional[TpAxis] = None, device=None):
+                 expert: Optional[TpAxis] = None,
+                 tp: Optional[TpAxis] = None, seq: Optional[TpAxis] = None,
+                 batch: Optional[TpAxis] = None, device=None):
         super().__init__()
         self._config = dict(
             vocab_size=vocab_size, hidden_dim=hidden_dim, depth=depth,
@@ -281,16 +326,19 @@ class GPT2MoELMHead(VocabPaddingMixin, nn.Module):
             layernorm_epsilon=layernorm_epsilon, attention_fn=attention_fn,
             router_noise=router_noise, dispatch_mode=dispatch_mode,
             remat=remat, pad_vocab_to_multiple_of=pad_vocab_to_multiple_of,
-            expert=expert)
+            expert=expert, tp=tp, seq=seq, batch=batch)
         self.vocab_size, self.hidden_dim = vocab_size, hidden_dim
         self.depth, self.num_heads = depth, num_heads
         self.num_experts, self.moe_every = num_experts, moe_every
         self.max_position, self.dtype, self.remat = max_position, dtype, remat
         self.pad_vocab_to_multiple_of = pad_vocab_to_multiple_of
         self.expert = expert if expert is not None else TpAxis(1)
+        self.tp = tp = tp if tp is not None else TpAxis(1)
         self.uses_kernel = attention_fn is not dot_product_attention
         head_dim = hidden_dim // num_heads
-        self.wte = Embed(self.padded_vocab, hidden_dim, 0.02, device, dtype)
+        rows = (self.padded_vocab // tp.size if self.tp_vocab
+                else self.padded_vocab)
+        self.wte = Embed(rows, hidden_dim, 0.02, device, dtype)
         self.wpe = Embed(max_position, hidden_dim, 0.01, device, dtype)
         blocks = []
         for i in range(depth):
@@ -299,11 +347,11 @@ class GPT2MoELMHead(VocabPaddingMixin, nn.Module):
                     hidden_dim, num_heads, head_dim, num_experts,
                     4 * hidden_dim, top_k, capacity_factor, dtype,
                     layernorm_epsilon, attention_fn, router_noise,
-                    dispatch_mode, expert, device))
+                    dispatch_mode, expert, tp, seq, batch, device))
             else:
                 blocks.append(TransformerBlock(
                     hidden_dim, num_heads, head_dim, 4 * hidden_dim, 0.0,
-                    layernorm_epsilon, attention_fn, dtype=dtype,
+                    layernorm_epsilon, attention_fn, tp, dtype=dtype,
                     device=device))
         self.blocks = nn.ModuleList(blocks)
         self.ln_f = LayerNorm(hidden_dim, layernorm_epsilon, device, dtype)
@@ -324,9 +372,9 @@ class GPT2MoELMHead(VocabPaddingMixin, nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random init with flax's initializers from ``generator`` (not
         the flax init's numbers: the tests carry flax's parameters
-        across). An expert-local model refuses: its experts are slices of
-        one global draw."""
-        if self.expert.size > 1:
+        across). An expert-local or model-local model refuses: its
+        experts or its split leaves are slices of one global draw."""
+        if self.expert.size > 1 or self.tp.size > 1:
             raise ValueError(
                 "an expert-parallel model holds a slice of the experts: "
                 "initialize the global model and load its slices "
@@ -337,14 +385,20 @@ class GPT2MoELMHead(VocabPaddingMixin, nn.Module):
                 module.reset_parameters(generator)
 
     def forward(self, input_ids: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        """(B, S, vocab) float32 logits; ``aux_losses`` holds this
-        forward's aux loss of every MoE layer, in layer order."""
+                attention_mask: Optional[torch.Tensor] = None,
+                pos_offset: int = 0):
+        """(B, S, vocab) float32 logits (this shard's columns as
+        ``TpShardedLogits`` when vocab-split); ``aux_losses`` holds this
+        forward's aux loss of every MoE layer, in layer order.
+        ``input_ids`` may be one sequence shard of longer rows, positions
+        ``pos_offset`` onward."""
         b, s = input_ids.shape
         dev = input_ids.device
+        tp = self.tp
         self.aux_losses = []
-        x = self.wte(input_ids) + self.wpe(torch.arange(s, device=dev)[None])
+        x = (vocab_parallel_embed(self.wte, input_ids, tp) if self.tp_vocab
+             else self.wte(input_ids))
+        x = x + self.wpe(pos_offset + torch.arange(s, device=dev)[None])
         if self.uses_kernel:
             # the kernel owns causality: only the padding mask, or none
             mask = (attention_mask[:, None, None, :].bool()
@@ -362,6 +416,8 @@ class GPT2MoELMHead(VocabPaddingMixin, nn.Module):
             else:
                 x = block(x, mask=mask)
         x = self.ln_f(x)
+        if self.tp_vocab:
+            return vocab_parallel_logits(self.wte, x, tp, self.vocab_size)
         return mask_vocab_padding(self.wte.attend(x).float(),
                                   self.vocab_size)
 

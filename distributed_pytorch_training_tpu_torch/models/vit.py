@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.collectives import TpAxis
+from ..parallel.collectives import TpAxis, gathered
 from .layers import (
     Dense,
     LayerNorm,
@@ -64,8 +64,8 @@ class PatchEmbed(nn.Module):
                           same_padding(x.shape[3], p, p))
         if t or b or l or r:
             x = F.pad(x, (l, r, t, b))
-        y = F.conv2d(x, self.kernel.to(self.dtype).permute(3, 2, 0, 1),
-                     stride=p)
+        kernel = gathered(self.kernel).to(self.dtype)
+        y = F.conv2d(x, kernel.permute(3, 2, 0, 1), stride=p)
         return y + self.bias.to(self.dtype)[:, None, None]
 
     @torch.no_grad()

@@ -100,22 +100,27 @@ def ulysses_attention_sharded(q: torch.Tensor, k: torch.Tensor,
                               causal: bool = False,
                               sm_scale: Optional[float] = None,
                               axis_name: str = SEQ,
-                              use_kernels: bool = True) -> torch.Tensor:
+                              use_kernels: bool = True,
+                              model_n: int = 1) -> torch.Tensor:
     """``ulysses_attention`` for a caller that holds one shard: this
     rank's (B, S_loc, H, D) blocks over ``axis`` (an ``AxisGroup``; None:
-    the default group's)."""
+    the default group's). Under tensor parallelism (``model_n`` > 1) the
+    blocks hold this model rank's H/M heads, and the heads' check is
+    JAX's on the global count."""
     axis = axis if axis is not None else AxisGroup()
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(
         q.shape[-1])
-    _check_heads(q.shape[2], axis.size, 1, axis_name)
+    _check_heads(q.shape[2] * model_n, axis.size, model_n, axis_name)
     return _ulysses([q], [k], [v], axis, causal, scale, use_kernels)[0]
 
 
 def make_ulysses_attention_fn(mesh, causal: bool, axis_name: str = SEQ):
     """Adapter matching models.layers' ``attention_fn(q, k, v, mask,
     dtype)`` over this rank's sequence shard, on ``mesh``'s
-    ``axis_name`` line, the local attention the flash kernels."""
+    ``axis_name`` line (at this rank's model index: its local heads on a
+    model mesh), the local attention the flash kernels."""
     axis = mesh.axis(axis_name)
+    model_n = mesh.shape[MODEL]
 
     def attention_fn(q, k, v, mask=None, dtype=torch.float32):
         if mask is not None:
@@ -123,6 +128,7 @@ def make_ulysses_attention_fn(mesh, causal: bool, axis_name: str = SEQ):
                 "ulysses attention handles causal masking internally; "
                 "explicit masks require the XLA attention path")
         return ulysses_attention_sharded(
-            q, k, v, axis, causal, axis_name=axis_name).to(dtype)
+            q, k, v, axis, causal, axis_name=axis_name,
+            model_n=model_n).to(dtype)
 
     return attention_fn

@@ -23,6 +23,11 @@ region operators here: ``copy_to_tp`` (identity forward, SUM backward)
 and ``reduce_from_tp`` (SUM forward, identity backward), each an autograd
 Function over a `TpAxis`, and the parallel-vocab
 cross-entropy (``TpShardedLogits``, ``tp_parallel_cross_entropy``).
+``gather_on_use`` is the ``fsdp`` axis's (and the MoE layer's sequence
+gather's) autograd form: an all-gather along one dim in the forward, a
+reduce-scatter back along it in the backward (each rank keeps the sum
+over the group of its own slice); ``FsdpShard`` marks a parameter held
+as its slice, which ``gathered`` reads whole.
 ``SOLO`` is the group of one rank: every collective over it is the
 identity, as over a mesh line of one rank.
 """
@@ -427,3 +432,71 @@ def tp_parallel_cross_entropy(logits: TpShardedLogits,
     total, tgt_logit = stats[..., 0], stats[..., 1]
     ce = torch.log(total) + m - tgt_logit
     return ce, tgt_logit >= m
+
+
+# ---------------------------------------------------------------------------
+# gather on use: the fsdp axis's parameters, the MoE layer's whole rows
+# ---------------------------------------------------------------------------
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+             for _ in range(world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _scatter_sum_dim(g: torch.Tensor, dim: int, group: Group) -> torch.Tensor:
+    """The tiled reduce-scatter along ``dim``: this rank's slice of the
+    SUM over ``group`` (`psum_scatter`, summed in rank order)."""
+    moved = g.movedim(dim, 0).contiguous()
+    n = world_size(group)
+    out = psum_scatter(moved, group)
+    return out.reshape(moved.shape[0] // n, *moved.shape[1:]).movedim(0, dim)
+
+
+class _GatherOnUse(torch.autograd.Function):
+    """All-gather along ``dim``; the backward reduce-scatters the
+    cotangent back along it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum_dim(g, ctx.dim, ctx.group), None, None
+
+
+def gather_on_use(x: torch.Tensor, dim: int, axis: "TpAxis") -> torch.Tensor:
+    """``x``, this rank's slice along ``dim`` of an ``axis``-split tensor,
+    made whole: the slices of ``axis``'s ranks concatenated in their
+    order. Differentiable: each rank's gradient is the SUM over the axis
+    of the whole tensor's gradients, cut to its own slice (the fsdp
+    axis's reduce-scatter of a parameter's gradient; the MoE layer's
+    gathered row over ``seq``). The identity on an axis of one rank."""
+    if axis.size == 1:
+        return x
+    return _GatherOnUse.apply(x, dim, axis.group)
+
+
+@dataclasses.dataclass(frozen=True)
+class FsdpShard:
+    """A parameter held as its slice along ``dim`` over ``axis`` (the
+    mesh's ``fsdp`` axis): set as the parameter's ``fsdp`` attribute,
+    read by `gathered`."""
+
+    dim: int
+    axis: TpAxis
+
+
+def gathered(p: torch.Tensor) -> torch.Tensor:
+    """A parameter as the forward uses it: whole (`gather_on_use` over
+    its ``fsdp`` axis) when it is held as an `FsdpShard` slice, else
+    itself."""
+    shard = getattr(p, "fsdp", None)
+    if shard is None:
+        return p
+    return gather_on_use(p, shard.dim, shard.axis)

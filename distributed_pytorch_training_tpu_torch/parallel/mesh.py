@@ -9,8 +9,9 @@ resolve rules and messages, ``dcn_factors``, ``validate_mesh_usage``
 ``build_mesh`` lays the ranks out row-major over ``AXIS_ORDER`` (``slice``
 outermost, ``model`` innermost, as the JAX mesh orders its devices): rank
 r sits at the coordinates whose row-major index is r. It makes one process
-group for each line of every axis above size 1 (the ranks that differ from
-each other only on that axis) and one for each line of the batch axes;
+group for each line over every set of axes above size 1 (the ranks that
+differ from each other only on those axes: one axis's line, the batch
+axes', the (data, fsdp) batch line beside seq and model, seq x model);
 a line that holds every rank is the default group. The batch is sharded
 over ``BATCH_AXES`` only: ranks that differ only in another coordinate
 (``seq``) hold the same rows.
@@ -246,6 +247,12 @@ class Mesh:
         return TpAxis(self.shape[axis], self.coords()[axis],
                       self.group(axis))
 
+    def line_shard(self, axes: Axes) -> TpAxis:
+        """This rank's line over ``axes`` (several at once) as a
+        `TpAxis`: its size, this rank's index in it and its group."""
+        return TpAxis(len(self.line(axes)), self.axis_index(axes),
+                      self.group(axes))
+
     def tp(self) -> TpAxis:
         """The ``model`` axis as this rank sees it (megatron tensor
         parallelism's region operators run over its group)."""
@@ -278,8 +285,9 @@ def build_mesh(spec: Optional[MeshSpec] = None, world: Optional[int] = None,
     mesh = Mesh(spec.resolved(world), rank)
     if not live or world == 1:
         return mesh
-    kinds = [(a,) for a in AXIS_ORDER if mesh.shape[a] > 1]
-    kinds.append(BATCH_AXES)
+    active = [a for a in AXIS_ORDER if mesh.shape[a] > 1]
+    kinds = [axes for k in range(1, len(active) + 1)
+             for axes in itertools.combinations(active, k)]
     for axes in kinds:
         for ln in mesh.lines(axes):
             key = tuple(ln)

@@ -19,7 +19,7 @@ checkpoints), ``tp_unflatten_leaf`` the leaf from the model-major
 flat-padded layout of explicit TP x FSDP's checkpoints (each model
 shard's slice flat-padded over the data ranks, the shards concatenated; a
 rank holds `chunk_of` its shard's slice, ``fsdp_flat_params`` of the
-TP-local leaves), and ``tp_clip_weights`` the global-norm clip's weights.
+TP-local leaves).
 A template is a sequence of (parameter name, tensor or shape) pairs;
 rules match the leaf's flax path (``block0/attn/qkv/kernel``), as in the
 JAX package.
@@ -32,6 +32,17 @@ gpt2_moe's experts on ``expert`` (``models/moe.py``'s ``moe_rules``:
 ``moe/wi`` and ``moe/wo`` on dim 0 of (E, ...), an expert rank holding
 E/ep of them); ``tp_slice`` cuts a rank's part of a global leaf and
 ``tp_join`` joins the parts back.
+
+The ``fsdp`` axis (GSPMD's d_model sharding) reads the rules' ``fsdp``
+entries: ``fsdp_split_dims`` gives each leaf its dim over ``fsdp`` (the
+complement of its model dim in ``tp_fsdp_rules``), degraded to
+replication as JAX's ``feasible_spec`` degrades an indivisible dim, with
+its warning; ``fsdp_slice`` cuts along it and ``tp_join`` joins the
+blocks back (the same contiguous rule as ``tp_slice``: rank f holds
+block f).
+``mesh_clip_weights`` weighs each leaf's squared sum for the global-norm
+clip of a model split over one or several of these axes: 1/n for each
+axis of n ranks a leaf is replicated over, 1 for one it is split on.
 """
 
 from __future__ import annotations
@@ -242,13 +253,85 @@ def tp_unflatten_leaf(flat: torch.Tensor, full_shape: Sequence[int],
     return tp_join([row.reshape(local_shape) for row in mat], dim)
 
 
-def tp_clip_weights(template: Template,
-                    split_dims: Dict[str, Optional[int]],
-                    model_n: int) -> Dict[str, float]:
-    """{'/'-joined flax path: squared-norm weight} of the TP-aware global
-    norm clip: the norm's squared sums are summed over the model ranks,
-    which each hold a copy of a model-replicated leaf, so those weigh
-    1/M and split leaves (disjoint slices) 1. Exact in float32 for a
-    power-of-two M."""
-    return {flax_path(name): 1.0 if split_dims[name] is not None
-            else 1.0 / model_n for name, _ in template}
+def feasible_spec(spec: Spec, shape: Sequence[int],
+                  mesh_shape: Dict[str, int]) -> Spec:
+    """The JAX package's ``feasible_spec``: spec entries whose mesh axes
+    (sizes in ``mesh_shape``, 1 when absent) do not divide their dim are
+    dropped to replication, per dim, with a warning once per unique
+    (spec, shape, mesh)."""
+    if not len(spec):
+        return spec
+    if len(spec) > len(shape):
+        raise ValueError(
+            f"PartitionSpec {spec} has more entries than tensor rank "
+            f"{len(shape)} (shape {tuple(shape)})")
+    entries = []
+    changed = False
+    for dim, entry in zip(shape, tuple(spec)
+                          + (None,) * (len(shape) - len(spec))):
+        if entry is None:
+            entries.append(None)
+            continue
+        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        if dim % math.prod(mesh_shape.get(a, 1) for a in names):
+            entries.append(None)
+            changed = True
+        else:
+            entries.append(entry)
+    if changed:
+        key = (tuple(spec), tuple(shape), tuple(sorted(mesh_shape.items())))
+        if key not in _degraded_warned:
+            _degraded_warned.add(key)
+            logger.warning(
+                "sharding %s infeasible for shape %s (indivisible dims) — "
+                "degraded to %s (replicating those dims)",
+                _spec_str(spec), tuple(shape), _spec_str(tuple(entries)))
+    return tuple(entries)
+
+
+def _spec_str(spec: Spec) -> str:
+    """A spec as jax's ``PartitionSpec`` prints it."""
+    return "PartitionSpec(" + ", ".join(repr(e) for e in spec) + ")"
+
+
+def fsdp_split_dims(template: Template, rules: Optional[PartitionRules],
+                    fsdp_n: int, model_n: int = 1
+                    ) -> Dict[str, Optional[int]]:
+    """{name: the dim the leaf splits on over ``fsdp``, or None}: the
+    spec's ``fsdp`` entry of its global shape after `feasible_spec` on a
+    mesh of ``fsdp_n`` x ``model_n``, so an indivisible dim stays
+    replicated with JAX's warning."""
+    from .mesh import FSDP, MODEL
+
+    mesh_shape = {FSDP: fsdp_n, MODEL: model_n}
+    out: Dict[str, Optional[int]] = {}
+    for name, leaf in template:
+        shape = _shape_of(leaf)
+        spec = feasible_spec(spec_for_path(rules, flax_path(name),
+                                           len(shape)), shape, mesh_shape)
+        out[name] = next(
+            (d for d, e in enumerate(spec) if e is not None
+             and FSDP in ((e,) if isinstance(e, str) else tuple(e))), None)
+    return out
+
+
+# the fsdp axis cuts as tensor parallelism does (``tp_join`` joins the
+# blocks back): rank f holds the contiguous block f of the leaf's dim
+fsdp_slice = tp_slice
+
+
+def mesh_clip_weights(split_dims: Sequence[Sequence[Optional[int]]],
+                      sizes: Sequence[int]) -> Tuple[float, ...]:
+    """Each leaf's squared-norm weight for a clip whose squared sums are
+    summed over several axes at once (``split_dims[a][i]``: leaf i's dim
+    over axis a of ``sizes[a]`` ranks, None when replicated over it): the
+    product of 1/n over the axes it is replicated on (exact in float32
+    for powers of two)."""
+    out = []
+    for dims in zip(*split_dims):
+        w = 1.0
+        for d, n in zip(dims, sizes):
+            if d is None:
+                w /= n
+        out.append(w)
+    return tuple(out)

@@ -39,6 +39,18 @@ JAX package's ``train.py``.
         -m distributed_pytorch_training_tpu_torch.train --model gpt2_124m \\
         --synthetic --mesh data=1,pipe=2 --microbatches 4
 
+    torchrun --standalone --nproc-per-node 4 \\
+        -m distributed_pytorch_training_tpu_torch.train --model gpt2_124m \\
+        --synthetic --mesh data=2,fsdp=2      # or fsdp=2,model=2
+
+    torchrun --standalone --nproc-per-node 4 \\
+        -m distributed_pytorch_training_tpu_torch.train --model gpt2_124m \\
+        --synthetic --mesh data=2,model=2 --zero1
+
+    torchrun --standalone --nproc-per-node 4 \\
+        -m distributed_pytorch_training_tpu_torch.train --model gpt2_124m \\
+        --synthetic --mesh seq=2,model=2 --attention ring   # or ulysses
+
     torchrun --standalone --nproc-per-node 2 \\
         -m distributed_pytorch_training_tpu_torch.train --model gpt2_moe \\
         --synthetic --mesh data=1,expert=2 [--amp]
@@ -46,8 +58,17 @@ JAX package's ``train.py``.
 Same flags, stdout lines and ``metrics_rank0.csv`` (rank 0) as the JAX
 entry. Under torchrun every rank trains its shard of each global batch of
 ``--batch-size x`` (the batch axes' ranks) rows, ResNet and GPT-2 alike;
-``--mesh`` lays the ranks out on the ``data``, ``seq``, ``model`` and
-``slice`` axes (``parallel/mesh.py``; ``--slices`` folds into ``slice``).
+``--mesh`` lays the ranks out on the mesh's axes (``parallel/mesh.py``;
+``--slices`` folds into ``slice``). On an ``fsdp`` axis the batch is
+split over (data, fsdp) jointly and every leaf the model's rules place
+on ``fsdp`` is held as its 1/F slice, gathered on use (GSPMD's d_model
+sharding; with ``model`` too, each TP slice cut again; a ResNet, whose
+rules never use the axis, runs it as data parallelism, with JAX's
+warning). ``--zero1`` on a ``model`` mesh shards each TP-local leaf's
+update over the batch ranks (JAX's per-leaf GSPMD update, fp32 wire
+only); ``seq`` and ``model`` compose (ring and Ulysses on each model
+rank's heads), and ``gpt2_moe`` trains on ``model`` (the experts whole
+on every model rank) and on ``seq`` (each MoE layer routing whole rows).
 On a ``seq`` axis GPT-2 trains sequence-parallel under ``--attention
 ring`` or ``ulysses``: the ranks of a seq line hold the same rows and
 each runs its share of the positions (``models/gpt2.py``), on the
@@ -127,7 +148,7 @@ from .ops.ring_attention import make_ring_attention_fn
 from .ops.ulysses_attention import make_ulysses_attention_fn
 from .experiments import flops as flops_mod
 from .parallel.grad_sync import check_wire, emit_wire_accounting
-from .parallel.mesh import (FSDP, MODEL, PIPE, SEQ,
+from .parallel.mesh import (BATCH_AXES, EXPERT, MODEL, PIPE, SEQ,
                             MeshSpec, batch_shard_count, build_mesh,
                             validate_mesh_usage)
 from .resilience.faults import ELASTIC_KINDS, FaultInjector, FaultPlan
@@ -144,7 +165,7 @@ from .training import TrainConfig, Trainer, TrainState, make_optimizer, \
     make_schedule
 from .training.checkpoint import LAYOUT_HINT, CheckpointManager, \
     CheckpointWorldSizeMismatch
-from .training.loop import ZERO1_TP
+from .training.loop import EXPERT_TP, FSDP_LATER
 from .training.preemption import PreemptionGuard, RankAgreedStop
 from .training.tasks import (ImageClassificationTask, LanguageModelingTask,
                              MaskedLMTask, MoeLanguageModelingTask)
@@ -167,16 +188,7 @@ _UNPORTED = {
                    "python pickles under --data-dir"),
 }
 
-# mesh axes the port does not lay out yet -> the slice that brings each
-_UNPORTED_AXES = {
-    FSDP: "the fsdp mesh axis slice (GSPMD's d_model sharding; TP x FSDP "
-          "runs through --fsdp-explicit --mesh data=D,model=M, and "
-          "--fsdp-explicit shards over the data axis)",
-}
 TP_MODELS = ("gpt2_124m", "gpt2_355m", "bert_base", "vit_b16")
-SP_TP = "the SP x TP slice"
-MOE_TP = "the MoE x TP slice (moe_rules + tp_fsdp_rules on the model axis)"
-MOE_SP = "the MoE x SP slice (gpt2_moe's positions sharded over seq)"
 
 
 def mesh_spec(args: argparse.Namespace) -> MeshSpec:
@@ -198,23 +210,14 @@ def refuse_unported(args: argparse.Namespace, spec: MeshSpec) -> None:
     does not implement (``spec``: the run's `mesh_spec`)."""
     if args.model not in LM_MODELS + IMAGE_MODELS:
         raise not_ported(f"--model {args.model}", "a later slice")
-    for axis, where in _UNPORTED_AXES.items():
-        if getattr(spec, axis) != 1:
-            raise not_ported(f"--mesh {args.mesh} ({axis} axis)", where)
-    if "moe" in args.model:
-        if spec.model != 1:
-            raise not_ported(f"--model {args.model} on --mesh {args.mesh} "
-                             "(model axis)", MOE_TP)
-        if spec.seq != 1:
-            raise not_ported(f"--model {args.model} on --mesh {args.mesh} "
-                             "(seq axis)", MOE_SP)
-    if spec.model != 1:
-        if spec.seq != 1:
-            raise not_ported(f"--mesh {args.mesh} (seq and model axes "
-                             "together)", SP_TP)
-        if args.zero1:
-            raise not_ported(f"--zero1 on --mesh {args.mesh} (model axis)",
-                             ZERO1_TP)
+    if spec.fsdp != 1:
+        for axis in (SEQ, PIPE, EXPERT):
+            if getattr(spec, axis) != 1:
+                raise not_ported(f"--mesh {args.mesh} (fsdp and {axis} "
+                                 "axes together)", FSDP_LATER)
+    if spec.model != 1 and spec.expert != 1:
+        raise not_ported(f"--mesh {args.mesh} (expert and model axes "
+                         "together)", EXPERT_TP)
     for flag, (unsupported, where) in _UNPORTED.items():
         if unsupported(args):
             raise not_ported(flag, where)
@@ -505,7 +508,7 @@ def _run(args: argparse.Namespace, spec: MeshSpec,
         slices=args.slices, slice_axis=args.slice_axis,
         overlap_grad_sync=not args.no_overlap_grad_sync,
         fused_quantize={"auto": None, "on": True, "off": False}[
-            args.fused_quantize]), device=dev, mesh=mesh)
+            args.fused_quantize]), device=dev, mesh=mesh, rules=rules)
     wire_note = (f"; {args.wire_dtype} wire" if args.wire_dtype != "fp32"
                  else "")
     n_data = trainer.n_shards
@@ -516,6 +519,9 @@ def _run(args: argparse.Namespace, spec: MeshSpec,
                  "rest for TP-split tensors; per-layer gathers/scatters "
                  f"ride the data axes over each shard's 1/{model_n} slice"
                  + wire_note)
+    elif trainer._zero1_tp:
+        log_main(f"ZeRO-1: weight update sharded {n_data}-way over the "
+                 "batch axes (per-leaf GSPMD update — model-axis mesh)")
     elif model_n > 1:
         log_main(f"Tensor parallel: megatron column/row-split blocks over "
                  f"model={model_n} (one all-reduce per residual join); "
@@ -800,6 +806,11 @@ def _lm_model_and_task(args, family, overrides, seq_len, train_ds,
         # embedding splits instead of staying replicated
         lm_kwargs["pad_vocab_to_multiple_of"] = math.lcm(
             128, mesh.shape[MODEL])
+    if "moe" in args.model:
+        # the MoE layers gather a whole row over seq and average the
+        # routing statistics over the batch line
+        lm_kwargs.update(seq=mesh.axis_shard(SEQ),
+                         batch=mesh.line_shard(BATCH_AXES))
     lm_kwargs.update(overrides)
     if attention == "flash":
         # BERT is bidirectional: legal because the masked LM task feeds no
@@ -858,7 +869,9 @@ def _lm_model_and_task(args, family, overrides, seq_len, train_ds,
                 f"least {task.mask_token_id + 1}")
     elif "moe" in args.model:
         # MoE models add the Switch router load-balancing loss
-        task = MoeLanguageModelingTask(compute_dtype=compute_dtype)
+        task = MoeLanguageModelingTask(compute_dtype=compute_dtype,
+                                       seq_index=mesh.coords()[SEQ],
+                                       seq_shards=mesh.shape[SEQ])
     else:
         task = LanguageModelingTask(compute_dtype=compute_dtype,
                                     seq_index=mesh.coords()[SEQ],

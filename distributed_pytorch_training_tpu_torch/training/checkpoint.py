@@ -85,8 +85,8 @@ from .. import telemetry
 from ..convert import flax_ordered
 from ..parallel.collectives import all_gather, reduce_scalar, world_size
 from ..parallel.mesh import SPLIT_AXES
-from ..parallel.sharding import (flatten_pad, tp_join, tp_slice,
-                                 tp_split_dims, tp_unflatten_leaf,
+from ..parallel.sharding import (chunk_of, flatten_pad, fsdp_slice, tp_join,
+                                 tp_slice, tp_split_dims, tp_unflatten_leaf,
                                  unflatten_padded)
 from ..utils.logging import log_main
 from .train_state import TrainState
@@ -397,7 +397,8 @@ class CheckpointManager:
         collective); only rank 0 copies the replicated state, which only
         it writes."""
         model, sh, tp = state.model, state.sharding, state.tp
-        if tp is not None and sh is None:
+        if (state.fsdp is not None or (tp is not None and sh is None)
+                or (tp is not None and sh.mode == "zero1")):
             return self._snapshot_tp(state, epoch, step_in_epoch)
         ef = state.grad_sync.get("ef")
         ef_keys = sorted(ef) if isinstance(ef, dict) else []
@@ -488,47 +489,97 @@ class CheckpointManager:
         return [ranks[b] for ranks in tp.ranks for b in chunks]
 
     @staticmethod
-    def _opt_dims(state: TrainState) -> Dict[int, Optional[int]]:
-        """{optimizer state index: its parameter's split dim}."""
+    def _leaf_dims(state: TrainState) -> List[Tuple[Optional[int],
+                                                   Optional[int]]]:
+        """(split dim over the model's split axis, dim over fsdp) of
+        every parameter, flax order."""
+        n = len(list(state.model.parameters()))
+        tp = state.tp.split_dims if state.tp is not None else (None,) * n
+        fsdp = state.fsdp.dims if state.fsdp is not None else (None,) * n
+        return list(zip(tp, fsdp))
+
+    def _opt_dims(self, state: TrainState
+                  ) -> Dict[int, Tuple[Optional[int], Optional[int]]]:
+        """{optimizer state index: its parameter's `_leaf_dims`}."""
         by_id = {id(p): d for (_, p), d in zip(
             flax_ordered(state.model.named_parameters()),
-            state.tp.split_dims)}
+            self._leaf_dims(state))}
         params = [p for g in state.optimizer.param_groups
                   for p in g["params"]]
         return {i: by_id[id(p)] for i, p in enumerate(params)}
 
+    @staticmethod
+    def _globalize(state: TrainState, items) -> List[torch.Tensor]:
+        """The global arrays of local tensors ``items`` ((tensor, split
+        dim, fsdp dim) each): the fsdp slices joined over the fsdp ranks,
+        then the split slices over the split axis (one all-gather each,
+        on every rank: collectives)."""
+        out = [t for t, _, _ in items]
+        for layout, k in ((state.fsdp, 2), (state.tp, 1)):
+            if layout is None:
+                continue
+            idx = [i for i, it in enumerate(items) if it[k] is not None]
+            rows = CheckpointManager._gather_rows([out[i] for i in idx],
+                                                  layout.axis.group)
+            for i, r in zip(idx, rows):
+                out[i] = tp_join(r.unbind(0), items[i][k])
+        return out
+
+    @staticmethod
+    def _localize(state: TrainState, t: torch.Tensor, dims) -> torch.Tensor:
+        """This rank's part of a global array (the inverse of
+        `_globalize`): its split slice, then its fsdp slice."""
+        tp_dim, fsdp_dim = dims
+        if state.tp is not None:
+            t = tp_slice(t, tp_dim, state.tp.axis.size, state.tp.axis.index)
+        if state.fsdp is not None:
+            ax = state.fsdp.axis
+            t = fsdp_slice(t, fsdp_dim, ax.size, ax.index)
+        return t
+
     def _snapshot_tp(self, state: TrainState, epoch: int,
                      step_in_epoch: int) -> dict:
-        """`_snapshot` of the implicit path under tensor parallelism: the
-        split leaves and their moments gathered over the model ranks (one
-        all-gather), written by rank 0 as global arrays."""
-        tp = state.tp
+        """`_snapshot` of the implicit path on a split model, the fsdp
+        axis, or ZeRO-1 on a model mesh: every parameter and moment
+        joined into its global array (collectives), written by rank 0.
+        ZeRO-1's moments are this rank's chunks of the TP-local leaves'
+        flat-padded vectors: gathered over the batch ranks first, and
+        written as JAX's layout, each global leaf flat-padded over
+        them."""
+        sh = state.sharding
         named = flax_ordered(state.model.named_parameters())
         opt = state.optimizer.state_dict()
         # new slot dicts: state_dict() shares the live ones
         opt["state"] = {idx: dict(slots)
                         for idx, slots in opt["state"].items()}
-        opt_dims = self._opt_dims(state)
+        leaf_dims = self._leaf_dims(state)
+        if sh is not None:
+            # ZeRO-1 x TP: the optimizer updates the chunks, flax order
+            opt_dims = dict(enumerate(leaf_dims))
+            local_shapes = dict(enumerate(sh.shapes))
+        else:
+            opt_dims = self._opt_dims(state)
         moments = [(idx, k, t) for idx, slots in opt["state"].items()
                    for k, t in slots.items()
-                   if isinstance(t, torch.Tensor) and t.dim() >= 1
-                   and opt_dims[idx] is not None]
-        split = [(name, p) for (name, p), d in zip(named, tp.split_dims)
-                 if d is not None]
-        rows = self._gather_rows([p for _, p in split]
-                                 + [t for _, _, t in moments],
-                                 tp.axis.group)
+                   if isinstance(t, torch.Tensor) and t.dim() >= 1]
+        tensors = [t for _, _, t in moments]
+        if sh is not None:
+            rows = self._gather_rows(tensors, sh.group)
+            tensors = [unflatten_padded(r.reshape(-1), local_shapes[idx])
+                       for r, (idx, _, _) in zip(rows, moments)]
+        full = self._globalize(
+            state, [(p, *d) for (_, p), d in zip(named, leaf_dims)]
+            + [(t, *opt_dims[idx]) for t, (idx, _, _) in zip(tensors,
+                                                              moments)])
         if self._rank != 0:
             return {}
-        dims = dict(zip(tp.names, tp.split_dims))
-        it = iter(rows)
-        full = {name: tp_join(next(it).unbind(0), dims[name])
-                for name, _ in split}
-        params = OrderedDict((name, full.get(name, p)) for name, p in named)
-        for idx, k, _ in moments:
-            opt["state"][idx][k] = tp_join(next(it).unbind(0),
-                                           opt_dims[idx])
-        shapes = dict(zip(tp.names, (list(s) for s in tp.shapes)))
+        params = OrderedDict((name, t) for (name, _), t in zip(named, full))
+        for (idx, k, _), t in zip(moments, full[len(named):]):
+            opt["state"][idx][k] = (flatten_pad(t, sh.n_shards)
+                                    if sh is not None else t)
+        shapes = dict(zip(state.tp.names if state.tp is not None
+                          else state.fsdp.names,
+                          (list(t.shape) for t in full[:len(named)])))
         return self._finish_snapshot(state, epoch, step_in_epoch, params,
                                      opt, None, shapes)
 
@@ -714,6 +765,9 @@ class CheckpointManager:
         own = dict(template.model.named_parameters())
         shapes = ({n: list(s) for n, s in zip(tp.names, tp.shapes)}
                   if tp is not None else
+                  {n: list(s) for n, s in zip(template.fsdp.names,
+                                              template.fsdp.shapes)}
+                  if template.fsdp is not None else
                   {n: list(s) for n, s in zip(sh.names, sh.shapes)}
                   if sh is not None else
                   {n: list(p.shape) for n, p in own.items()})
@@ -730,25 +784,35 @@ class CheckpointManager:
             return t.reshape(model_n * sh.n_shards, -1)[
                 m * sh.n_shards + sh.owner]
 
-        # this rank's model shard of a global leaf
-        shard = tp.axis.index if tp is not None else 0
-        dims = (dict(zip(tp.names, tp.split_dims)) if tp is not None
-                else {})
+        leaf_dims = dict(zip(
+            (n for n, _ in flax_ordered(own.items())),
+            self._leaf_dims(template)))
         for name, p in own.items():
             p.copy_(chunk(params[name]) if layout == "fsdp"
-                    else tp_slice(params[name], dims.get(name), model_n,
-                                  shard))
+                    else self._localize(template, params[name],
+                                        leaf_dims[name]))
         template.set_batch_stats(self._load(label, "batch_stats"))
         opt = self._load(label, "opt_state")
-        if sh is not None:
+        if sh is not None and tp is not None and sh.mode == "zero1":
+            # ZeRO-1 x TP: JAX's global flat leaves -> this rank's chunk
+            # of its TP-local leaf's flat-padded vector
+            gshapes = dict(enumerate(tp.shapes))
+            dims_of = dict(enumerate(self._leaf_dims(template)))
+            opt["state"] = {idx: {k: (chunk_of(self._localize(
+                template, unflatten_padded(t, gshapes[idx]), dims_of[idx]),
+                sh.n_shards, sh.owner) if isinstance(
+                t, torch.Tensor) and t.dim() >= 1 else t)
+                for k, t in slots.items()}
+                for idx, slots in opt["state"].items()}
+        elif sh is not None:
             opt["state"] = {idx: {k: (chunk(t) if isinstance(
                 t, torch.Tensor) and t.dim() >= 1 else t)
                 for k, t in slots.items()}
                 for idx, slots in opt["state"].items()}
-        elif tp is not None:
+        elif tp is not None or template.fsdp is not None:
             opt_dims = self._opt_dims(template)
             opt["state"] = {idx: {k: (
-                tp_slice(t, opt_dims[idx], model_n, shard)
+                self._localize(template, t, opt_dims[idx])
                 if isinstance(t, torch.Tensor) and t.dim() >= 1 else t)
                 for k, t in slots.items()}
                 for idx, slots in opt["state"].items()}
@@ -762,7 +826,8 @@ class CheckpointManager:
             # ZeRO-1's chunk tensors follow the restored parameters
             for t, (_, p) in zip(sh.shards, flax_ordered(
                     template.model.named_parameters())):
-                t.copy_(chunk(flatten_pad(p, sh.n_shards)))
+                t.copy_(chunk_of(p, sh.n_shards, sh.owner) if tp is not None
+                        else chunk(flatten_pad(p, sh.n_shards)))
         template.step = int(meta["step"])
         self.last_restored = label
         return template, int(meta["epoch"]), int(meta["step_in_epoch"])
@@ -848,3 +913,14 @@ class CheckpointManager:
 
     def latest_metadata(self) -> Optional[dict]:
         return self.metadata()
+
+
+def global_params(state: TrainState) -> Dict[str, torch.Tensor]:
+    """{name: the global array} of every parameter of a state on the
+    implicit path or ZeRO-1 (a split model's slices and the fsdp axis's
+    joined, as a checkpoint holds them): a collective, on every rank."""
+    named = flax_ordered(state.model.named_parameters())
+    full = CheckpointManager._globalize(
+        state, [(p.detach(), *d) for (_, p), d in zip(
+            named, CheckpointManager._leaf_dims(state))])
+    return OrderedDict((name, t) for (name, _), t in zip(named, full))

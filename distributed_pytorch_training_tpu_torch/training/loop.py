@@ -53,8 +53,29 @@ whole through ``copy_to_tp``. The global-norm clip weighs a replicated
 leaf's squared sum 1/M and sums over the model ranks (the implicit step)
 or the model x batch ranks (explicit FSDP, whose at-rest layout is the
 TP-local leaves' chunks: JAX's model-major flat layout;
-``parallel/sharding.py``). ZeRO-1 and ``int8_hier`` do not compose with
-it (the JAX Trainer's refusal for ``int8_hier``).
+``parallel/sharding.py``). ``int8_hier`` does not compose with it (the
+JAX Trainer's refusal). ZeRO-1 on a model mesh is JAX's
+``_zero1_gspmd_apply``: the implicit step's gradient, fully summed, then
+each TP-local leaf's update sharded elementwise over the batch ranks (its
+gradient, parameters and moments flat-padded, this rank's chunk updated,
+the moments born as chunks), the new chunks gathered back; the clip is
+the global norm over the model axis and the ranks the chunks are spread
+over (a replicated leaf weighs 1/M); a wire other than fp32 is refused
+with JAX's message. Every clip of a split model is one ``ClipSpec``
+(``Trainer._clip``), built with the layout.
+
+The ``fsdp`` mesh axis (GSPMD's d_model sharding, alone or with
+``model``): the batch is split over (data, fsdp) jointly, and every leaf
+the rules place on ``fsdp`` (``sharding.fsdp_split_dims``; a TP-local
+leaf is cut again) is held as its 1/F slice at rest, moments too, and
+gathered whole on use (``collectives.gathered``), whose backward
+reduce-scatters its gradient over the fsdp ranks. The implicit step sums
+those gradients over the rest of the batch line (data x seq) and every
+other leaf's over the whole line; the clip weighs a leaf replicated over
+fsdp 1/F and sums over model x fsdp. ZeRO-1, ``fsdp_explicit`` and the
+explicit reducer refuse a mesh whose rules shard parameters over a batch
+axis, with the JAX Trainer's messages; with rules that never use
+``fsdp`` (ResNet) the axis is plain data parallelism.
 
 The pipeline (a ``pipe`` axis, ``models/gpt2_pipe.py``) and expert
 parallelism (an ``expert`` axis, ``models/moe.py``) split the model the
@@ -95,10 +116,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..convert import flax_ordered, load_tp_params, name_to_flax_path
+from ..convert import flax_ordered, load_tp_params
 from .. import telemetry
-from ..parallel.collectives import (Group, TpAxis, all_gather, psum,
-                                    world_size)
+from ..parallel.collectives import (FsdpShard, Group, TpAxis, all_gather,
+                                    psum, world_size)
 from ..parallel.grad_sync import (
     EF_WIRE_DTYPES, WIRE_DTYPES, BucketPlan, HierSpec,
     LayerPlan, axis_sizes, build_bucket_plan, build_hier_spec,
@@ -108,25 +129,30 @@ from ..parallel.grad_sync import (
     quantized_delta_all_gather, quantized_shard_all_gather, reduce_flat,
     unflatten_tree,
 )
-from ..parallel.mesh import (AXIS_ORDER, BATCH_AXES, EXPERT, MODEL, PIPE,
-                             SPLIT_AXES, Mesh)
-from ..parallel.sharding import (chunk_of, flatten_pad, fsdp_flat_params,
-                                 tp_clip_weights, tp_split_dims,
-                                 unflatten_padded)
+from ..parallel.mesh import (AXIS_ORDER, BATCH_AXES, EXPERT, FSDP, MODEL,
+                             PIPE, SEQ, SPLIT_AXES, Mesh)
+from ..parallel.sharding import (PartitionRules, chunk_of, flatten_pad,
+                                 fsdp_flat_params, fsdp_slice,
+                                 fsdp_split_dims, mesh_clip_weights,
+                                 tp_split_dims, unflatten_padded)
 from ..runtime import DeviceLike, not_ported, resolve_device
 from ..utils import prng
 from ..utils.logging import log_main
 from ..utils.metrics import ThroughputMeter
 from .tasks import (Metrics, StepKey, Task, add_metrics, summarize,
                     zero_metrics)
-from .train_state import FlatSharding, TpLayout, TrainState
+from .train_state import ClipSpec, FlatSharding, FsdpLayout, TpLayout, \
+    TrainState
 from .optim import GradientTransformation
 
 METRIC_NAMES = ("loss_sum", "correct", "weight")
 # the model field that makes a model local to a split axis
 # (``clone(**{field: axis})``)
 SPLIT_FIELDS = {MODEL: "tp", PIPE: "pipe", EXPERT: "expert"}
-ZERO1_TP = "the ZeRO-1 x TP slice (the JAX package's per-leaf GSPMD update)"
+# what the fsdp axis does not compose with yet -> the slice that brings it
+FSDP_LATER = "a later slice of the fsdp axis (fsdp with seq, pipe or expert)"
+EXPERT_TP = ("the expert x model slice (a Trainer that splits the model "
+             "over two axes)")
 
 
 @dataclasses.dataclass
@@ -202,7 +228,8 @@ class Trainer:
 
     def __init__(self, task: Task, config: TrainConfig,
                  device: DeviceLike = None, group: Group = None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None,
+                 rules: Optional[PartitionRules] = None):
         if config.wire_dtype not in WIRE_DTYPES:
             raise ValueError(f"wire_dtype {config.wire_dtype!r} is not one "
                              f"of {WIRE_DTYPES}")
@@ -241,6 +268,9 @@ class Trainer:
         self.split_axis: Optional[str] = None
         if mesh is not None:
             split = [a for a in SPLIT_AXES if mesh.shape[a] > 1]
+            if set(split) == {MODEL, EXPERT}:
+                raise not_ported(f"mesh axes {split} > 1 together",
+                                 EXPERT_TP)
             if len(split) > 1:
                 raise ValueError(
                     f"mesh axes {split} > 1 together: the Trainer splits "
@@ -251,10 +281,11 @@ class Trainer:
                     group = mesh.group(tuple(a for a in AXIS_ORDER
                                              if a not in SPLIT_AXES))
         if self.split_axis == MODEL:
-            if config.zero1:
-                raise not_ported("zero1 on a mesh with a model axis",
-                                 ZERO1_TP)
             self.tp = mesh.tp()
+        # the fsdp axis's ranks (its leaves are laid out by init_state)
+        self.fsdp = (mesh.axis_shard(FSDP) if mesh is not None
+                     and mesh.shape[FSDP] > 1 else TpAxis(1))
+        self.rules = rules
         self.group = group
         self.n_shards = world_size(group)
         self.rank = (torch.distributed.get_rank(group)
@@ -299,7 +330,18 @@ class Trainer:
         multi = self.n_shards > 1
         self._fsdp = bool(config.fsdp_explicit) and (
             multi or self.tp.size > 1)
-        self._zero1 = bool(config.zero1) and multi
+        # ZeRO-1 on a model mesh: JAX's per-leaf GSPMD update
+        self._zero1_tp = bool(config.zero1) and multi and self.tp.size > 1
+        if self._zero1_tp and config.wire_dtype != "fp32":
+            raise ValueError(
+                "zero1 on a model-axis mesh runs the GSPMD sharded "
+                "update, where the scatter/gather are layout "
+                "constraints, not explicit collectives the codecs "
+                "could wrap — a compressed wire on a model-axis mesh "
+                "is --fsdp-explicit's job (explicit TP x FSDP owns "
+                "its wire layout end to end; PARITY.md records this "
+                "path as subsumed); use wire_dtype='fp32' here")
+        self._zero1 = bool(config.zero1) and multi and not self._zero1_tp
         self._grad_sync = (explicit_sync and not config.zero1
                            and not config.fsdp_explicit and multi)
         self._implicit_dp = multi and not (
@@ -313,6 +355,13 @@ class Trainer:
         # per layer group (fsdp); built by init_state
         self._layers: Optional[LayerPlan] = None
         self._materialized = False
+        # the fsdp axis's layout (init_state): the leaves split over it,
+        # and the group their gradients are summed over after the
+        # reduce-scatter (the batch line without fsdp)
+        self._fsdp_dims: Optional[Tuple[Optional[int], ...]] = None
+        self._fsdp_rest: Group = None
+        if rules is not None:
+            self._refuse_param_rules(rules)
         if config.zero1 and not multi:
             log_main("NOTE: zero1 requested on a single batch shard — "
                      "running the replicated update (identity "
@@ -327,6 +376,38 @@ class Trainer:
                      "batch shard — nothing to synchronize; running the "
                      "implicit path (identity passthrough, like "
                      "single-process DDP)")
+
+    def _refuse_param_rules(self, rules: PartitionRules) -> None:
+        """The JAX Trainer's refusal of ZeRO-1, ``fsdp_explicit`` and the
+        explicit reducer when ``rules`` shard parameters over a batch
+        axis of the mesh (the ``fsdp`` axis): those modes assume
+        replicated parameters, same messages."""
+        cfg = self.config
+        explicit_sync = cfg.bucket_cap_mb > 0 or cfg.wire_dtype != "fp32"
+        if self.mesh is None or not (cfg.zero1 or cfg.fsdp_explicit
+                                     or explicit_sync):
+            return
+        conflict = sorted(rules.axes_used()
+                          & {a for a in BATCH_AXES if self.mesh.shape[a] > 1})
+        if not conflict:
+            return
+        if cfg.fsdp_explicit:
+            raise ValueError(
+                "fsdp_explicit owns the parameter layout "
+                "(flat-sharded 1/N over the batch axes) and would "
+                f"silently drop the partition rules sharding "
+                f"params over {conflict} — use GSPMD rules with "
+                "the implicit path, or fsdp_explicit without "
+                "param-sharding rules, not both")
+        mode = "zero1" if cfg.zero1 else \
+            "grad_sync (bucket_cap_mb/wire_dtype)"
+        raise ValueError(
+            f"{mode} assumes replicated parameters, but the "
+            f"partition rules shard params over {conflict} — "
+            "explicitly sharded params + explicit sync is "
+            "fsdp_explicit's job (TrainConfig.fsdp_explicit / "
+            "--fsdp-explicit); GSPMD fsdp rules need the "
+            "implicit path")
 
     def _resolve_hier(self) -> None:
         """The ``int8_hier`` wire's slice factorization (JAX: read off the
@@ -429,16 +510,38 @@ class Trainer:
         batch. Under the sharded update the optimizer is born on this
         rank's chunks (ZeRO-1), and under explicit FSDP the parameters
         become their chunks too."""
+        rules = self.rules
+        if rules is None and hasattr(type(model), "partition_rules"):
+            rules = type(model).partition_rules()
+        # the fsdp axis's dims, read off the global shapes (JAX's
+        # feasible_spec)
+        fsdp_dims = None
+        if self.fsdp.size > 1 and rules is not None:
+            self._refuse_param_rules(rules)
+            template = [(n, tuple(p.shape))
+                        for n, p in flax_ordered(model.named_parameters())]
+            dims = fsdp_split_dims(template, rules, self.fsdp.size,
+                                   self.tp.size)
+            if any(d is not None for d in dims.values()):
+                fsdp_dims = dims
         layout = None
         if self.split_axis is not None:
             model, layout = self._split_model(model)
         model = model.to(self.device)
+        fsdp = (self._fsdp_split(model, fsdp_dims)
+                if fsdp_dims is not None else None)
         if self.sharded:
             state = self._init_sharded(model, tx, layout)
             state.tp = layout
+            if layout is not None:
+                state.clip = self._clip(layout, None, sharded=True)
             return state
+        if self._zero1_tp:
+            return self._init_zero1_tp(model, tx, layout)
         state = TrainState.create(model, tx)
-        state.tp = layout
+        state.tp, state.fsdp = layout, fsdp
+        if layout is not None or fsdp is not None:
+            state.clip = self._clip(layout, fsdp)
         if self._implicit_dp:
             self._plan = build_bucket_plan(state.params, 0.0)
             set_stats_group = getattr(model, "set_stats_group", None)
@@ -455,6 +558,119 @@ class Trainer:
                     self._wire, self.device,
                     n_slices=hier.n_slices if hier is not None else 1)
         return state
+
+    def _fsdp_split(self, model: torch.nn.Module,
+                    dims: Dict[str, Optional[int]]) -> FsdpLayout:
+        """Cut every leaf ``dims`` places on the fsdp axis to this rank's
+        1/F slice (of its TP-local leaf under tensor parallelism), marked
+        for gathering on use; the layout. Refuses the axes the fsdp axis
+        does not compose with yet."""
+        for axis in (SEQ, PIPE, EXPERT):
+            if self.mesh.shape[axis] > 1:
+                raise not_ported(f"the fsdp axis with {axis}="
+                                 f"{self.mesh.shape[axis]}", FSDP_LATER)
+        ax = self.fsdp
+        named = flax_ordered(model.named_parameters())
+        shapes = tuple(tuple(p.shape) for _, p in named)
+        with torch.no_grad():
+            for name, p in named:
+                d = dims[name]
+                if d is not None:
+                    p.data = fsdp_slice(p.data, d, ax.size, ax.index).clone()
+                    p.fsdp = FsdpShard(d, ax)
+        self._fsdp_dims = tuple(dims[n] for n, _ in named)
+        self._fsdp_rest = self.mesh.group(tuple(
+            a for a in AXIS_ORDER if a not in SPLIT_AXES and a != FSDP))
+        return FsdpLayout(axis=ax, names=tuple(n for n, _ in named),
+                          dims=self._fsdp_dims, shapes=shapes)
+
+    def _clip(self, layout: Optional[TpLayout],
+              fsdp: Optional[FsdpLayout], sharded: bool = False,
+              targets: Optional[List[torch.Tensor]] = None) -> ClipSpec:
+        """The global-norm clip of a model split over a mesh axis and/or
+        the fsdp axis: the squared sums are summed over the ranks of
+        every axis the parameters are split on and, when the update is
+        sharded (``sharded``: each rank of the batch line updates its
+        own chunk of every leaf), of the batch line's axes too; a leaf
+        weighs 1/n for each split axis of n ranks that holds copies of
+        it."""
+        parts = []
+        if layout is not None:
+            parts.append((self.split_axis, layout.split_dims,
+                          layout.axis.size))
+        if fsdp is not None:
+            parts.append((FSDP, fsdp.dims, fsdp.axis.size))
+        axes = tuple(a for a, _, _ in parts)
+        if sharded:
+            axes += tuple(a for a in AXIS_ORDER
+                          if a not in SPLIT_AXES and a not in axes)
+        return ClipSpec(mesh_clip_weights([d for _, d, _ in parts],
+                                          [n for _, _, n in parts]),
+                        self.mesh.group(axes), targets=targets)
+
+    def _init_zero1_tp(self, model: torch.nn.Module,
+                       tx: GradientTransformation,
+                       layout: TpLayout) -> TrainState:
+        """ZeRO-1 on a model mesh (JAX ``_zero1_gspmd_apply``): the
+        TP-local parameters stay whole; the optimizer is born on this
+        rank's chunk of every leaf's flat-padded vector over the batch
+        ranks, its moments 1/N; the clip sums over the model axis and
+        the ranks the chunks are spread over, a model-replicated leaf
+        weighing 1/M."""
+        n = self.n_shards
+        named = flax_ordered(model.named_parameters())
+        sharding = FlatSharding(
+            mode="zero1", n_shards=n, rank=self.rank,
+            owners=tuple(range(n)), names=tuple(n_ for n_, _ in named),
+            shapes=tuple(tuple(p.shape) for _, p in named),
+            group=self.group)
+        sharding.shards = [chunk_of(p.detach(), n, self.rank
+                                    ).requires_grad_() for _, p in named]
+        state = TrainState(step=0, model=model,
+                           optimizer=tx.init(sharding.shards), tx=tx,
+                           sharding=sharding, tp=layout)
+        state.clip = self._clip(layout, None, sharded=True,
+                                targets=sharding.shards)
+        self._plan = build_bucket_plan(state.params, 0.0)
+        return state
+
+    def _zero1_tp_apply(self, state: TrainState,
+                        grads: List[torch.Tensor]) -> None:
+        """The sharded update of ZeRO-1 on a model mesh: this rank's
+        chunk of each summed gradient updates its chunk of the
+        parameters and moments, and the batch ranks' new chunks are
+        gathered back into the TP-local leaves."""
+        sh, group = state.sharding, self.group
+        n, own = sh.n_shards, sh.owner
+        for t, g in zip(sh.shards, grads):
+            t.grad = flatten_pad(g.float(), n).reshape(n, -1)[own].clone()
+        state.apply_gradients()
+        with torch.no_grad():
+            for p, t in zip(state.params, sh.shards):
+                p.copy_(unflatten_padded(all_gather(t.detach(), group),
+                                         p.shape))
+
+    def _sum_grads(self, grads: List[torch.Tensor],
+                   params: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The implicit step's gradient sum over the ranks: one fp32
+        bucket over ``group``; under the fsdp axis the leaves split over
+        it (reduce-scattered in their backward already) are summed over
+        the rest of the batch line apart."""
+        if self._fsdp_dims is None:
+            flat, _ = reduce_flat(flatten_tree(grads), self._plan,
+                                  self.n_shards, "fp32", group=self.group)
+            return unflatten_tree(flat, params)
+        split = [i for i, d in enumerate(self._fsdp_dims) if d is not None]
+        rest = [i for i, d in enumerate(self._fsdp_dims) if d is None]
+        out = list(grads)
+        for idx, group in ((split, self._fsdp_rest), (rest, self.group)):
+            if not idx or world_size(group) == 1:
+                continue
+            like = [params[i] for i in idx]
+            flat = psum(flatten_tree([grads[i] for i in idx]), group)
+            for i, g in zip(idx, unflatten_tree(flat, like)):
+                out[i] = g
+        return out
 
     def _split_model(self, model: torch.nn.Module
                      ) -> Tuple[torch.nn.Module, TpLayout]:
@@ -496,22 +712,13 @@ class Trainer:
         template = [(n, tuple(p.shape)) for n, p in named]
         split = tp_split_dims(template, type(model).partition_rules(),
                               axis.size, axis_name)
-        weights = tp_clip_weights(template, split, axis.size)
         local = model.clone(**{SPLIT_FIELDS[axis_name]: axis},
                             device="cpu")
         load_tp_params(local, {n: p for n, p in named}, split, axis)
-        if self._fsdp:
-            # the sharded update's norm: every rank's chunk of its slice
-            clip_group = self.mesh.group((MODEL,) + BATCH_AXES)
-        else:
-            clip_group = axis.group
         layout = TpLayout(
             axis=axis, names=tuple(n for n, _ in named),
             split_dims=tuple(split[n] for n, _ in named),
             shapes=tuple(s for _, s in template),
-            clip_weights=tuple(weights[f] for f in (
-                "/".join(name_to_flax_path(n)) for n, _ in named)),
-            clip_group=clip_group,
             ranks=tuple(tuple(self.mesh.line(BATCH_AXES, r))
                         for r in self.mesh.line(axis_name)),
             axis_name=axis_name)
@@ -667,13 +874,16 @@ class Trainer:
                     s_sum[name] = s_sum.get(name, 0.0) + w * s
             metrics = add_metrics(metrics, m_global)
         if self.n_shards > 1:
-            flat, _ = reduce_flat(flatten_tree(g_sum), self._plan,
-                                  self.n_shards, "fp32", group=group)
-            g_sum = unflatten_tree(flat, params)
+            g_sum = self._sum_grads(g_sum, params)
         total_w = torch.clamp(metrics["weight"], min=1.0)
-        for p, g in zip(params, g_sum):
-            p.grad = g if accum <= 1 else (g / total_w).to(p.dtype)
-        state.apply_gradients()
+        if accum > 1:
+            g_sum = [(g / total_w).to(p.dtype) for p, g in zip(params, g_sum)]
+        if self._zero1_tp:
+            self._zero1_tp_apply(state, g_sum)
+        else:
+            for p, g in zip(params, g_sum):
+                p.grad = g
+            state.apply_gradients()
         if accum <= 1:
             state.set_batch_stats(s_sum)
         else:

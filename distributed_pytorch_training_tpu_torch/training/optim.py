@@ -72,10 +72,10 @@ def clip_by_global_norm_(grads: Iterable[torch.Tensor],
     chunks, or tensor parallelism, whose gradients are this rank's
     slices): the squared norm is summed over the ranks of ``group``
     first, the JAX package's ``clip_by_global_norm_dp``; the chunks' zero
-    padding adds nothing. ``weights`` (tensor parallelism,
-    ``parallel.sharding.tp_clip_weights``, one a gradient) multiply each
-    gradient's squared sum: 1/M for a leaf every model rank holds whole,
-    1 for a split one."""
+    padding adds nothing. ``weights`` (a split model,
+    ``parallel.sharding.mesh_clip_weights``, one a gradient) multiply
+    each gradient's squared sum: 1/M for a leaf every one of M ranks
+    holds whole, 1 for a split one."""
     grads = [g for g in grads if g is not None]
     if weights is None:
         sq = sum(torch.sum(torch.square(g)) for g in grads)

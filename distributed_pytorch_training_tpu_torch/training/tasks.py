@@ -142,12 +142,13 @@ class LanguageModelingTask(Task):
         else:
             lo, logits = 0, model(ids)
         # predict ids[:, t + 1] from the logits at t
-        if isinstance(logits, TpShardedLogits):
-            tgt = ids[:, 1:]
+        sharded = isinstance(logits, TpShardedLogits)
+        width = (logits.local if sharded else logits).shape[1]
+        tgt = ids[:, lo + 1:lo + 1 + width]
+        if sharded:
             per_tok, predicted = tp_parallel_cross_entropy(
-                logits.map_local(lambda x: x[:, :-1]), tgt)
+                logits.map_local(lambda x: x[:, :tgt.shape[1]]), tgt)
         else:
-            tgt = ids[:, lo + 1:lo + 1 + logits.shape[1]]
             lg = logits[:, :tgt.shape[1]].float()
             per_tok = F.cross_entropy(lg.reshape(-1, lg.shape[-1]),
                                       tgt.reshape(-1), reduction="none"

@@ -18,8 +18,14 @@ chunks between steps (the Trainer gathers them for each step).
 ``tp`` describes a model split over a mesh axis on this rank
 (`TpLayout`; None without one): tensor parallelism on ``model``, the
 pipeline's stages on ``pipe``, the experts on ``expert``. The model is
-local, each split leaf a slice of the global one; the global-norm clip
-sums its weighted squares over ``tp.clip_group``.
+local, each split leaf a slice of the global one.
+
+``fsdp`` describes the mesh's ``fsdp`` axis on this rank (`FsdpLayout`;
+None without one): the leaves held as their 1/F slice along a dim, which
+the modules gather on use. ``clip`` (`ClipSpec`) is set with either
+layout: the global-norm clip's weights and group over every axis the
+parameters or the update are split on (the split axis, fsdp, and the
+batch line under a sharded update).
 """
 
 from __future__ import annotations
@@ -42,15 +48,12 @@ class TpLayout:
     on ``model``, and in the same form the pipeline's stages on ``pipe``
     and the experts on ``expert``): the ``axis``, and for every parameter
     (flax order: ``names``) its split dim (None: replicated over the
-    axis's ranks), its global shape and its weight in the global-norm
-    clip, whose squared sums are summed over ``clip_group``."""
+    axis's ranks) and its global shape."""
 
     axis: TpAxis
     names: Tuple[str, ...]
     split_dims: Tuple[Optional[int], ...]
     shapes: Tuple[Tuple[int, ...], ...]
-    clip_weights: Tuple[float, ...]
-    clip_group: Group = None
     # ranks[m][b]: the rank at model index m and batch index b (the
     # checkpoint's model-major order)
     ranks: Tuple[Tuple[int, ...], ...] = ()
@@ -58,6 +61,30 @@ class TpLayout:
     # parallelism), ``pipe`` (the stages' stacked blocks) or ``expert``
     # (the MoE layers' experts)
     axis_name: str = "model"
+
+
+@dataclasses.dataclass
+class FsdpLayout:
+    """The ``fsdp`` axis on this rank: for every parameter (flax order,
+    ``names``) the dim it is sliced on over ``axis`` (None: whole on
+    every fsdp rank) and its shape before the cut (the TP-local one
+    under tensor parallelism)."""
+
+    axis: TpAxis
+    names: Tuple[str, ...]
+    dims: Tuple[Optional[int], ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+
+
+@dataclasses.dataclass
+class ClipSpec:
+    """The global-norm clip's squared-sum weights, one a leaf in flax
+    order (of ``targets``, the tensors the optimizer updates, when they
+    are not the model's parameters), summed over ``group``."""
+
+    weights: Tuple[float, ...]
+    group: Group = None
+    targets: Optional[List[torch.Tensor]] = None
 
 
 @dataclasses.dataclass
@@ -75,6 +102,9 @@ class FlatSharding:
     names: Tuple[str, ...]
     shapes: Tuple[Tuple[int, ...], ...]
     shards: Optional[List[torch.Tensor]] = None
+    # the ranks the chunks are spread over (ZeRO-1 on a model mesh: the
+    # batch line of this model index; None: the default group)
+    group: Group = None
 
     @property
     def owner(self) -> int:
@@ -91,6 +121,8 @@ class TrainState:
         default_factory=dict)
     sharding: Optional[FlatSharding] = None
     tp: Optional[TpLayout] = None
+    fsdp: Optional[FsdpLayout] = None
+    clip: Optional[ClipSpec] = None
 
     @classmethod
     def create(cls, model: nn.Module,
@@ -121,12 +153,15 @@ class TrainState:
         """optimizer.step() from the parameters' ``.grad``, with the lr the
         schedule gives at the current count; then the count advances.
         ``group``: the ranks a sharded update's chunks are spread over
-        (under tensor parallelism the clip's own group is used)."""
-        if self.tp is not None:
+        (a split model's clip has its own group)."""
+        clip = self.clip
+        if clip is not None:
             # the clip's weights are in flax order; the optimizer holds
             # its parameters in its own
-            weight = dict(zip(map(id, self.params), self.tp.clip_weights))
-            self.tx.apply(self.optimizer, self.step, self.tp.clip_group,
+            targets = clip.targets if clip.targets is not None \
+                else self.params
+            weight = dict(zip(map(id, targets), clip.weights))
+            self.tx.apply(self.optimizer, self.step, clip.group,
                           sharded=True, clip_weights=[
                               weight[id(p)]
                               for g in self.optimizer.param_groups
@@ -141,6 +176,8 @@ class TrainState:
         global model's under tensor parallelism)."""
         if self.tp is not None:
             return sum(math.prod(s) for s in self.tp.shapes)
+        if self.fsdp is not None:
+            return sum(math.prod(s) for s in self.fsdp.shapes)
         if self.sharding is not None:
             return sum(math.prod(s) for s in self.sharding.shapes)
         return sum(p.numel() for p in self.model.parameters())

@@ -86,6 +86,23 @@ wrote; ``OUT`` the pickle this rank writes. Jobs:
   global ``spec["params"]`` of that model over ``spec["batches"]``;
   returns the per-step metrics, the final local parameters and each
   leaf's split dim;
+* ``("mesh_train", spec)``: the Trainer on ``spec["mesh"]`` (any of the
+  fsdp axis, ZeRO-1 on a model mesh, seq x model, gpt2_moe on model or
+  seq) from the global flax ``spec["params"]`` of ``spec["model"]``
+  (``spec["attention"]`` "ring" or "ulysses" over seq) over
+  ``spec["batches"]`` (this rank's batch coordinate's rows; the causal
+  LM task over its sequence shard, with the router loss for the MoE);
+  returns the per-step metrics, aux losses and MoE dispatch slots, the
+  final global parameters (``checkpoint.global_params``), each
+  parameter's and moment's elements at rest, and the logits of
+  ``spec["ids"]`` from the initial weights (this rank's rows and
+  positions; its columns when vocab-split); with ``spec["error"]`` it
+  only builds the Trainer and returns the error's message;
+* ``("moe_seq_layer", spec)``: one ``MoeMlp`` (``spec["layer"]`` its
+  keywords, ``spec["params"]`` its tensors) over the seq line of
+  ``spec["mesh"]`` on this rank's sequence shard of ``spec["x"]``,
+  backward from its shard of ``spec["g"]``; returns the output, the
+  input's gradient, the dispatch slots and the aux loss;
 * ``("seq_attention", spec)``: sequence-parallel attention over the
   default group, one sequence shard a rank: for each case ``(label, op,
   causal, use_kernels, dtype)`` of ``spec["cases"]``, ``op`` ("ring" or
@@ -522,6 +539,122 @@ def run_tp_train(spec, rank, world):
             "ef_groups": sorted(ef)}
 
 
+def run_mesh_train(spec, rank, world):
+    from distributed_pytorch_training_tpu_torch.convert import (
+        flax_ordered, name_to_flax_path,
+    )
+    from distributed_pytorch_training_tpu_torch.ops import (
+        make_ring_attention_fn, make_ulysses_attention_fn,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.collectives import (
+        TpShardedLogits,
+    )
+    from distributed_pytorch_training_tpu_torch.parallel.mesh import (
+        BATCH_AXES, SEQ,
+    )
+    from distributed_pytorch_training_tpu_torch.training.checkpoint import (
+        global_params,
+    )
+    from distributed_pytorch_training_tpu_torch.training.tasks import (
+        MoeLanguageModelingTask,
+    )
+
+    mesh = _tp_mesh(spec)
+    name = spec.get("model", "gpt2_124m")
+    kw = dict(spec["model_kwargs"])
+    attention = spec.get("attention")
+    if attention:
+        make = (make_ring_attention_fn if attention == "ring"
+                else make_ulysses_attention_fn)
+        kw["attention_fn"] = make(mesh, causal=True)
+    moe = "moe" in name
+    if moe:
+        kw.update(seq=mesh.axis_shard(SEQ), batch=mesh.line_shard(BATCH_AXES))
+    model = get_model(name, **kw)
+    load_flax_params(model, spec["params"])
+    coords = mesh.coords()
+    task_kw = dict(seq_index=coords[SEQ], seq_shards=mesh.shape[SEQ])
+    task = (MoeLanguageModelingTask(**task_kw) if moe
+            else LanguageModelingTask(**task_kw))
+    config = TrainConfig(seed=0, print_freq=1000, **spec["config"])
+    rules = type(model).partition_rules()
+    if "error" in spec:
+        try:
+            trainer = Trainer(task, config, device="cpu", mesh=mesh,
+                              rules=rules)
+            opt_name, kwargs = spec["optimizer"]
+            trainer.init_state(model, make_optimizer(opt_name, spec["lr"],
+                                                     **kwargs))
+        except (ValueError, NotImplementedError) as e:
+            return {"error": f"{type(e).__name__}: {e}"}
+        return {"error": None}
+    trainer = Trainer(task, config, device="cpu", mesh=mesh, rules=rules)
+    opt_name, kwargs = spec["optimizer"]
+    state = trainer.init_state(model, make_optimizer(opt_name, spec["lr"],
+                                                     **kwargs))
+    local_model = state.model
+    n_batch = len(mesh.line(BATCH_AXES))
+    out = {"coords": coords, "batch_index": mesh.batch_index}
+    if "ids" in spec:
+        ids = np.split(spec["ids"], n_batch)[mesh.batch_index]
+        width = ids.shape[1] // mesh.shape[SEQ]
+        lo = coords[SEQ] * width
+        with torch.no_grad():
+            logits = local_model(torch.from_numpy(ids[:, lo:lo + width]),
+                                 pos_offset=lo)
+        out["logits"] = (logits.local if isinstance(logits, TpShardedLogits)
+                         else logits).numpy()
+    metrics, aux, dispatch = [], [], []
+    for batch in spec["batches"]:
+        local = {k: torch.from_numpy(np.ascontiguousarray(
+            np.split(v, n_batch)[mesh.batch_index])) for k, v in batch.items()}
+        m = trainer.train_step(state, local)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if moe:
+            aux.append([float(a) for a in local_model.aux_losses])
+            dispatch.append([b.moe.last_dispatch.numpy()
+                             for b in local_model.blocks
+                             if hasattr(b, "moe")])
+    targets = (state.sharding.shards if state.sharding is not None
+               else [p for _, p in flax_ordered(
+                   local_model.named_parameters())])
+    paths = ["/".join(name_to_flax_path(n)) for n, _ in flax_ordered(
+        local_model.named_parameters())]
+    by_id = {id(t): path for t, path in zip(targets, paths)}
+    at_rest = {"params": {path: p.numel() for path, (_, p) in zip(
+                   paths, flax_ordered(local_model.named_parameters()))},
+               "opt": {by_id[id(p)]: [t.numel() for t in
+                                      state.optimizer.state[p].values()
+                                      if t.dim() >= 1]
+                       for g in state.optimizer.param_groups
+                       for p in g["params"]}}
+    out.update(metrics=metrics, aux=aux, dispatch=dispatch, at_rest=at_rest,
+               params=_named_flax(global_params(state).items()),
+               fsdp=(dict(zip(paths, state.fsdp.dims))
+                     if state.fsdp is not None else None))
+    return out
+
+
+def run_moe_seq_layer(spec, rank, world):
+    from distributed_pytorch_training_tpu_torch.models.moe import MoeMlp
+    from distributed_pytorch_training_tpu_torch.parallel.mesh import SEQ
+
+    mesh = _tp_mesh(spec)
+    seq = mesh.axis_shard(SEQ)
+    layer = MoeMlp(**spec["layer"], seq=seq)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            p.copy_(torch.from_numpy(spec["params"][name]))
+    width = spec["x"].shape[1] // seq.size
+    part = slice(seq.index * width, (seq.index + 1) * width)
+    x = torch.from_numpy(spec["x"][:, part]).requires_grad_()
+    y = layer(x)
+    (y * torch.from_numpy(spec["g"][:, part])).sum().backward()
+    return {"index": seq.index, "y": y.detach().numpy(),
+            "dx": x.grad.numpy(), "dispatch": layer.last_dispatch.numpy(),
+            "aux": float(layer.last_aux)}
+
+
 def _split_axis(spec):
     """(mesh, the axis the model splits over, its TpAxis)."""
     mesh = _tp_mesh(spec)
@@ -648,7 +781,8 @@ RUNNERS = {"reduce": run_reduce, "train": run_train, "bn": run_bn,
            "lm_logits": run_lm_logits, "tp_ops": run_tp_ops,
            "tp_model": run_tp_model, "tp_train": run_tp_train,
            "pipe_ops": run_pipe_ops, "split_model": run_split_model,
-           "split_train": run_split_train}
+           "split_train": run_split_train, "mesh_train": run_mesh_train,
+           "moe_seq_layer": run_moe_seq_layer}
 
 
 def main():

@@ -586,10 +586,10 @@ def test_dense_model_on_expert_refused_as_jax(kw):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--mesh", "data=1,model=2"], NotImplementedError,
-     "the MoE x TP slice"),
-    (["--mesh", "data=1,seq=2", "--attention", "ring"], NotImplementedError,
-     "the MoE x SP slice"),
+    (["--mesh", "model=2,expert=2"], NotImplementedError,
+     "the expert x model slice"),
+    (["--mesh", "fsdp=2,seq=2", "--attention", "ring"], NotImplementedError,
+     "a later slice of the fsdp axis"),
     (["--model-overrides", OVERRIDES + ",router_noise=0.1"],
      NotImplementedError, "the dropout slice"),
 ], ids=["model", "seq", "router-noise"])

@@ -400,9 +400,10 @@ TINY = ["--device", "cpu", "--model", "gpt2_124m", "--model-overrides",
      "needs 2 devices but 1 are present"),
     (["--mesh", "seq=-1,data=2"], ValueError,
      "1 devices not divisible by fixed axes product 2"),
-    (["--mesh", "seq=2,model=2", "--attention", "ring"], NotImplementedError,
-     "the SP x TP slice"),
-    (["--mesh", "fsdp=2"], NotImplementedError, "the fsdp mesh axis slice"),
+    (["--mesh", "seq=2,model=2,expert=2", "--attention", "ring"],
+     NotImplementedError, "the expert x model slice"),
+    (["--mesh", "fsdp=2,seq=2", "--attention", "ring"], NotImplementedError,
+     "a later slice of the fsdp axis"),
     (["--mesh", "pipe=2"], ValueError,
      "1 devices not divisible by fixed axes product 2"),
     (["--mesh", "pipe=2", "--attention", "flash"], ValueError,

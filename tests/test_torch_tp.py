@@ -8,7 +8,8 @@ vocab-parallel embedding and cross-entropy, and TP x FSDP.
   under ``shard_map`` on as many CPU devices, and the cross-entropy
   against the CE of the gathered logits.
 * The layout helpers (``tp_split_dims``, ``tp_local_struct``,
-  ``tp_unflatten_leaf`` of JAX's ``tp_flat_leaf``, ``tp_clip_weights``,
+  ``tp_unflatten_leaf`` of JAX's ``tp_flat_leaf``, the clip's weights
+  (``mesh_clip_weights`` over ``model``, JAX's ``tp_clip_weights``),
   ``tp_psum_bytes_per_step``, the rules table, the wire accounting's TP
   row) bitwise against the JAX package's on GPT-2's template, the
   indivisible vocab included; ``convert.py``'s weight carrier's round
@@ -106,7 +107,7 @@ from distributed_pytorch_training_tpu_torch.parallel.mesh import (
     Mesh, MeshSpec, validate_mesh_usage,
 )
 from distributed_pytorch_training_tpu_torch.parallel.sharding import (
-    flax_path, tp_clip_weights, tp_join, tp_local_struct, tp_slice,
+    flax_path, mesh_clip_weights, tp_join, tp_local_struct, tp_slice,
     tp_split_dims, tp_unflatten_leaf,
 )
 from distributed_pytorch_training_tpu_torch.training import (
@@ -517,13 +518,21 @@ def test_split_dims_and_local_struct_bitwise_jax(name, kw, m):
                              tp=TpAxis(m), **kw).tp_vocab
 
 
+def clip_weights(tmpl, split_dims, m):
+    """{flax path: the clip's weight} of a model split over ``model``
+    alone, as the Trainer weighs it."""
+    names = [n for n, _ in tmpl]
+    return dict(zip(map(flax_path, names), mesh_clip_weights(
+        [[split_dims[n] for n in names]], [m])))
+
+
 @pytest.mark.parametrize("m", [2, 4])
 def test_clip_weights_bitwise_jax(m):
     jt = jax_template(TINY)
     want = jax_sharding.tp_clip_weights(
         jt, jax_sharding.tp_split_dims(jt, JaxGPT2.partition_rules(), m), m)
     tmpl = port_template(TINY)
-    got = tp_clip_weights(tmpl, tp_split_dims(
+    got = clip_weights(tmpl, tp_split_dims(
         tmpl, GPT2LMHead.partition_rules(), m), m)
     assert got == want
     assert got["wpe/embedding"] == 1.0 / m and got["wte/embedding"] == 1.0
@@ -1050,7 +1059,7 @@ def test_bert_vit_split_dims_local_struct_and_clip_bitwise_jax(name, m):
         assert {flax_path(n): s for n, s in tp_local_struct(
             tmpl, sd, m).items()} == {p: tuple(v.shape)
                                       for p, v in jlocal.items()}
-        assert tp_clip_weights(tmpl, sd, m) == \
+        assert clip_weights(tmpl, sd, m) == \
             jax_sharding.tp_clip_weights(jt, jsd, m)
         # what stays whole over model: BERT's position and type tables,
         # LayerNorms, MLM dense and bias; ViT's patch embedding, CLS,
@@ -1556,9 +1565,12 @@ def test_ruleless_model_on_a_model_axis_refused_as_jax(devices):
 
 
 def test_zero1_on_a_model_mesh_refused_naming_its_slice():
-    with pytest.raises(NotImplementedError, match="ZeRO-1 x TP slice"):
+    """ZeRO-1 on a model mesh runs (tests/test_torch_mesh_compose.py);
+    what still waits is a model split over model and expert at once."""
+    mesh = Mesh(MeshSpec(model=2, expert=2).resolved(4), 0)
+    with pytest.raises(NotImplementedError, match="the expert x model slice"):
         Trainer(LanguageModelingTask(), TrainConfig(zero1=True),
-                device="cpu", mesh=one_process_mesh(data=1, model=2))
+                device="cpu", mesh=mesh)
 
 
 ENTRY = ["--device", "cpu", "--model", "gpt2_124m", "--model-overrides",
@@ -1566,12 +1578,16 @@ ENTRY = ["--device", "cpu", "--model", "gpt2_124m", "--model-overrides",
          "--synthetic-size", "8", "--batch-size", "2", "--epochs", "1",
          "--no-telemetry"]
 
+# ZeRO-1, seq x model and the fsdp axis with model run now
+# (tests/test_torch_mesh_compose.py, test_torch_fsdp_axis.py); each case
+# is the refusal that still stands beside it
 @pytest.mark.parametrize("argv,match", [
-    (ENTRY + ["--mesh", "data=1,model=2", "--zero1"], "ZeRO-1 x TP slice"),
-    (ENTRY + ["--mesh", "seq=2,model=2", "--attention", "ring"],
-     "the SP x TP slice"),
-    (ENTRY + ["--mesh", "fsdp=2,model=2", "--fsdp-explicit"],
-     "the fsdp mesh axis slice"),
+    (ENTRY + ["--mesh", "model=2,expert=2", "--zero1"],
+     "the expert x model slice"),
+    (ENTRY + ["--mesh", "fsdp=2,seq=2,model=2", "--attention", "ring"],
+     "a later slice of the fsdp axis"),
+    (ENTRY + ["--mesh", "fsdp=2,pipe=2"],
+     "a later slice of the fsdp axis"),
 ], ids=["zero1", "seq-x-model", "fsdp-axis"])
 def test_entry_refuses_what_waits_naming_its_slice(tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):
